@@ -1,0 +1,133 @@
+"""Neural vocoder: latent frames -> waveform, the counterpart of
+``supertonic_tpu.models.vocoder`` ("coarse-timeline subpixel" design: conv
+upsample stages with depth-to-space, dilated residual chains at each
+timeline, one subpixel head, tanh). Layout [B, T, C]; returns the padded
+waveform [B, T * chunk_size] float32.
+
+Routing of the residual chains follows the JAX package's rule for its
+fused kernel: a chain with C <= 384 and a frame mask shared by the batch
+goes through the chain kernel's wrapper (ops/vocoder_fused.py); the others
+(the C=512 ``pre_res`` at the default config) stay plain torch convs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..config import TTSConfig
+from ..ops import vocoder_fused
+from . import layers as L
+
+
+def _resblock_init(rng, ch: int, kernel: int, dilations) -> L.Params:
+    return {
+        "convs": [
+            {
+                "a": L.conv1d_init(rng, ch, ch, kernel),
+                "b": L.conv1d_init(rng, ch, ch, kernel),
+            }
+            for _ in range(len(dilations))
+        ],
+    }
+
+
+def _resblock(p, x: torch.Tensor, dilations, mask=None) -> torch.Tensor:
+    for cp, d in zip(p["convs"], dilations):
+        h = L.conv1d(cp["a"], F.silu(x), dilation=d)
+        if mask is not None:
+            # re-zero pad frames after every conv: a conv bias makes padded
+            # positions nonzero, and the next conv would bleed them back
+            h = h * mask
+        h = L.conv1d(cp["b"], F.silu(h))
+        if mask is not None:
+            h = h * mask
+        x = x + h
+    return x
+
+
+def final_depth(cfg: TTSConfig) -> int:
+    """Samples emitted per finest-timeline step by the subpixel head."""
+    return cfg.chunk_size // math.prod(cfg.vocoder.upsample_factors)
+
+
+def receptive_field_frames(cfg: TTSConfig) -> int:
+    """One-sided receptive field of the whole conv stack, in latent frames
+    (ceil)."""
+    from fractions import Fraction
+
+    hp = cfg.vocoder
+
+    def half(k: int, d: int = 1) -> int:
+        return d * (k - 1) // 2
+
+    def res_reach() -> int:
+        return sum(half(hp.resblock_kernel, d) + half(hp.resblock_kernel)
+                   for d in hp.resblock_dilations)
+
+    r = Fraction(half(7) + res_reach())  # pre conv + pre_res at T
+    prod = 1
+    for f in hp.upsample_factors:
+        r += Fraction(half(hp.stage_kernel), prod)  # up conv (pre-d2s)
+        prod *= f
+        r += Fraction(res_reach(), prod)
+    r += Fraction(half(3), prod)  # subpixel head
+    return math.ceil(r)
+
+
+def init(rng, cfg: TTSConfig) -> L.Params:
+    hp = cfg.vocoder
+    c_lat = cfg.latent_channels
+    stages = []
+    cin = hp.dim
+    pre = L.conv1d_init(rng, c_lat, hp.dim, 7)
+    pre_res = _resblock_init(rng, hp.dim, hp.resblock_kernel,
+                             hp.resblock_dilations)
+    for factor, cout in zip(hp.upsample_factors, hp.channels):
+        stages.append({
+            "up": L.conv1d_init(rng, cin, cout * factor, hp.stage_kernel),
+            "res": _resblock_init(rng, cout, hp.resblock_kernel,
+                                  hp.resblock_dilations),
+        })
+        cin = cout
+    return {
+        "pre": pre,
+        "pre_res": pre_res,
+        "stages": stages,
+        "head": L.conv1d_init(rng, cin, final_depth(cfg), 3),
+    }
+
+
+def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
+          dtype=torch.float32) -> torch.Tensor:
+    """latent [B, T, C] -> wav [B, T * chunk_size] float32. ``frame_mask``
+    ([T] or [B, T], 1 = real frame) marks batch-max-valid frames; with it,
+    bucket-padded execution equals exact-length execution."""
+    hp = cfg.vocoder
+
+    def res(p, x, m):
+        if x.shape[-1] <= 384 and (m is None or m.shape[0] == 1):
+            return vocoder_fused.fused_resblock(p, x, hp.resblock_dilations, m)
+        return _resblock(p, x, hp.resblock_dilations, m)
+
+    m = None
+    if frame_mask is not None:
+        m = frame_mask.to(dtype)
+        m = m[None, :, None] if m.dim() == 1 else m[:, :, None]
+    x = L.conv1d(params["pre"], latent.to(dtype))
+    if m is not None:
+        x = x * m
+    x = res(params["pre_res"], x, m)
+    for sp, factor in zip(params["stages"], hp.upsample_factors):
+        h = L.conv1d(sp["up"], F.silu(x))               # [B, T, cout*factor]
+        b, t, cf = h.shape
+        x = h.reshape(b, t * factor, cf // factor)       # depth-to-space
+        if m is not None:
+            m = torch.repeat_interleave(m, factor, dim=1)
+            x = x * m
+        x = res(sp["res"], x, m)
+    wav = L.conv1d(params["head"], F.silu(x))           # [B, Tf, final_depth]
+    b, tf, d = wav.shape
+    return torch.tanh(wav.float().reshape(b, tf * d))

@@ -1,0 +1,107 @@
+"""The port stands alone: no module of supertonic_tpu_torch, nor
+chip_smoke.py, imports JAX or the JAX package; and its framework-free
+copies (config, frontend, buckets, stitch, wav) behave like the originals."""
+
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+
+import supertonic_tpu.config as jcfg
+import supertonic_tpu.engine.buckets as jbuckets
+import supertonic_tpu.frontend as jfront
+import supertonic_tpu.utils.wav as jwav
+import supertonic_tpu_torch.config as tcfg
+import supertonic_tpu_torch.engine.buckets as tbuckets
+import supertonic_tpu_torch.frontend as tfront
+import supertonic_tpu_torch.utils.wav as twav
+from supertonic_tpu.engine.stitch import stitch as j_stitch
+from supertonic_tpu_torch.engine.stitch import stitch as t_stitch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "supertonic_tpu")
+
+
+def _port_files():
+    pkg = ROOT / "supertonic_tpu_torch"
+    # build/ holds outputs made at run time, not the package's sources
+    files = sorted(p for p in pkg.rglob("*.py")
+                   if p.relative_to(pkg).parts[0] != "build")
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_forbidden_name_match():
+    assert _forbidden("supertonic_tpu.models") and _forbidden("jax.numpy")
+    assert not _forbidden("supertonic_tpu_torch") and not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("idim", [256, 384])
+def test_config_copy_round_trips_like_the_original(idim):
+    raw = jcfg.to_reference_dict(jcfg.TTSConfig())
+    raw["ttl"]["text_encoder"]["proj_out"]["idim"] = idim
+    a = jcfg.tts_config_from_reference_dict(raw)
+    b = tcfg.tts_config_from_reference_dict(raw)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert jcfg.to_reference_dict(a) == tcfg.to_reference_dict(b)
+
+
+def test_frontend_copy_matches_the_original():
+    texts = ["Hello, world!", "  spaced   out  text ", "Ça va? «Très» bien…",
+             "e.g., 3 @ 4 — ok", "안녕하세요", "¿Qué tal?"]
+    langs = ["en", "en", "fr", "en", "ko", "es"]
+    jp = jfront.UnicodeProcessor(jfront.build_default_indexer())
+    tp = tfront.UnicodeProcessor(tfront.build_default_indexer())
+    for t, lang in zip(texts, langs):
+        assert jfront.preprocess_text(t, lang) == tfront.preprocess_text(t, lang)
+    ji, jm = jp(texts, langs)
+    ti, tm = tp(texts, langs)
+    np.testing.assert_array_equal(ji, ti)
+    np.testing.assert_array_equal(jm, tm)
+    long = ("First sentence here. Second one, with a comma, follows! " * 12
+            + "\n\nA new paragraph. Dr. Who met Mr. Smith.")
+    for lang in ("en", "ko"):
+        n = jfront.max_len_for_lang(lang)
+        assert n == tfront.max_len_for_lang(lang)
+        assert jfront.chunk_text(long, max_len=n) == tfront.chunk_text(long, max_len=n)
+
+
+def test_buckets_stitch_and_wav_copies():
+    for v in (0, 1, 33, 700, 5000):
+        assert (jbuckets.pick_bucket(v, (64, 128, 640))
+                == tbuckets.pick_bucket(v, (64, 128, 640)))
+        assert (jbuckets.latent_len_for_duration(v / 100, 44100, 2048)
+                == tbuckets.latent_len_for_duration(v / 100, 44100, 2048))
+    rng = np.random.default_rng(0)
+    wavs = [rng.standard_normal(400).astype(np.float32) for _ in range(3)]
+    durs = [0.02, 0.015, 0.025]
+    for xf in (0.0, 0.002):
+        a, da = j_stitch(wavs, durs, 16000, crossfade_duration=xf)
+        b, db = t_stitch(wavs, durs, 16000, crossfade_duration=xf)
+        np.testing.assert_array_equal(a, b)
+        assert da == db
+    assert (jwav.wav_bytes(wavs[0] * 0.5, 16000)
+            == twav.wav_bytes(wavs[0] * 0.5, 16000))
