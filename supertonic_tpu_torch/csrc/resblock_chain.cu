@@ -29,8 +29,8 @@
 // it; the values those reads feed lie outside the exact region, whose
 // frontier moves inward by each conv's reach, so after the chain the
 // central TT frames are exact (the argument of the JAX kernel's docstring).
-// Only the central tile is written. W is chosen by the wrapper to fill
-// about 224 KB of dynamic shared memory.
+// Only the central tile is written. W is the largest multiple of 16 whose
+// buffers fit SMEM_BUDGET (chain_tiling, which holds the whole layout).
 #include <mma.h>
 #include <type_traits>
 
@@ -147,6 +147,37 @@ __device__ __forceinline__ void conv_wmma(const bf16* in, const bf16* __restrict
   }
 }
 
+// Dynamic shared memory of one block, in this order (chain_kernel carves it
+// up the same way): three [W + 2*pad, C] buffers of T (x, silu x, silu h),
+// the [W] f32 frame mask, 8 warps x 16x16 f32 epilogue scratch and, for the
+// tensor cores, a KC x C bf16 weight chunk.
+constexpr size_t SMEM_BUDGET = 224 * 1024;
+
+template <typename T, int C>
+constexpr size_t smem_bytes(int W, int pad) {
+  return 3 * (size_t)(W + 2 * pad) * C * sizeof(T) + (size_t)W * sizeof(float)
+         + (NT / 32) * 256 * sizeof(float)
+         + (std::is_same<T, bf16>::value ? (size_t)KC * C * sizeof(bf16) : 0);
+}
+
+// halo = the chain's one-sided reach, pad = one conv's reach, W = frames a
+// block holds (tile = W - 2*halo); in bf16 W also gives each of the 8 warps
+// at most two 16 x 128 tiles.
+struct Tiling { int halo, pad, W; };
+
+template <typename T, int C>
+Tiling chain_tiling(const Dil& dil, int P) {
+  constexpr int half = (K - 1) / 2;
+  Tiling t = {0, 0, 0};
+  for (int i = 0; i < P; ++i) {
+    t.halo += dil.d[i] * half + half;
+    t.pad = dil.d[i] * half > t.pad ? dil.d[i] * half : t.pad;
+  }
+  t.W = std::is_same<T, bf16>::value ? 16 * 16 * 128 / C : 1024;
+  while (t.W > 0 && smem_bytes<T, C>(t.W, t.pad) > SMEM_BUDGET) t.W -= 16;
+  return t;
+}
+
 template <typename T, int C>
 __global__ void __launch_bounds__(NT, 1)
 chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
@@ -221,15 +252,10 @@ chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
 template <typename T, int C>
 int launch(const void* x, const float* m, const void* wa, const float* ba,
            const void* wb, const float* bb, void* out, int B, int Tlen, int P,
-           Dil dil, int W, int halo, int pad, cudaStream_t st) {
-  constexpr bool tc = std::is_same<T, bf16>::value;
-  if (W % 16 || W <= 2 * halo) return (int)cudaErrorInvalidValue;
-  if (tc && (W / 16) * (C / 128) > 16) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < P; ++i)
-    if (dil.d[i] * (K - 1) / 2 > pad) return (int)cudaErrorInvalidValue;
-  size_t bytes = 3 * (size_t)(W + 2 * pad) * C * sizeof(T)
-                 + (size_t)W * sizeof(float) + (NT / 32) * 256 * sizeof(float)
-                 + (tc ? (size_t)KC * C * sizeof(bf16) : 0);
+           Dil dil, cudaStream_t st) {
+  const Tiling t = chain_tiling<T, C>(dil, P);
+  if (t.W <= 2 * t.halo) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes<T, C>(t.W, t.pad);
   static size_t configured = 0;
   if (bytes > configured) {
     int err = (int)cudaFuncSetAttribute(chain_kernel<T, C>,
@@ -238,39 +264,62 @@ int launch(const void* x, const float* m, const void* wa, const float* ba,
     if (err) return err;
     configured = bytes;
   }
-  const int TT = W - 2 * halo;
+  const int TT = t.W - 2 * t.halo;
   dim3 grid((Tlen + TT - 1) / TT, B);
   chain_kernel<T, C><<<grid, NT, bytes, st>>>((const T*)x, m, (const T*)wa, ba,
                                               (const T*)wb, bb, (T*)out, Tlen, P,
-                                              dil, W, halo, pad);
+                                              dil, t.W, t.halo, t.pad);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int tile_frames(Dil dil, int P) {
+  const Tiling t = chain_tiling<T, C>(dil, P);
+  return t.W - 2 * t.halo;
+}
+
+bool read_dils(const int* dils, int P, Dil* dil) {
+  if (P < 1 || P > MAX_P) return false;
+  for (int i = 0; i < P; ++i) {
+    if (dils[i] < 1) return false;
+    dil->d[i] = dils[i];
+  }
+  return true;
 }
 
 }  // namespace
 
 // x/out [B,T,C]; wa/wb [P,3,C,C] (HIO per conv) in the storage type (dtype
-// 0 float, 1 bf16); ba/bb [P,C] float; fmask [T] float or null; dils [P];
-// W = buffer frames per block (tile + 2*halo, a multiple of 16); pad = zero
-// rows on each side of a buffer (>= one conv's reach). All contiguous.
+// 0 float, 1 bf16); ba/bb [P,C] float; fmask [T] float or null; dils [P].
+// All contiguous. The kernel picks its own time tiling.
 extern "C" int stk_resblock_chain(const void* x, const void* fmask, const void* wa,
                                   const void* ba, const void* wb, const void* bb,
                                   void* out, int B, int Tlen, int C, int P,
-                                  const int* dils, int W, int halo, int pad,
-                                  int dtype, void* stream) {
-  if (P < 1 || P > MAX_P) return (int)cudaErrorInvalidValue;
+                                  const int* dils, int dtype, void* stream) {
   Dil dil = {};
-  for (int i = 0; i < P; ++i) dil.d[i] = dils[i];
+  if (!read_dils(dils, P, &dil)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* m = (const float*)fmask;
   const float* fa = (const float*)ba;
   const float* fb = (const float*)bb;
   if (dtype == 0 && C == 128)
-    return launch<float, 128>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, W, halo, pad, st);
+    return launch<float, 128>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
   if (dtype == 0 && C == 256)
-    return launch<float, 256>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, W, halo, pad, st);
+    return launch<float, 256>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
   if (dtype == 1 && C == 128)
-    return launch<bf16, 128>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, W, halo, pad, st);
+    return launch<bf16, 128>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
   if (dtype == 1 && C == 256)
-    return launch<bf16, 256>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, W, halo, pad, st);
+    return launch<bf16, 256>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Output frames per block the kernel uses for these arguments, or -1.
+extern "C" int stk_resblock_chain_tile(int C, int P, const int* dils, int dtype) {
+  Dil dil = {};
+  if (!read_dils(dils, P, &dil)) return -1;
+  if (dtype == 0 && C == 128) return tile_frames<float, 128>(dil, P);
+  if (dtype == 0 && C == 256) return tile_frames<float, 256>(dil, P);
+  if (dtype == 1 && C == 128) return tile_frames<bf16, 128>(dil, P);
+  if (dtype == 1 && C == 256) return tile_frames<bf16, 256>(dil, P);
+  return -1;
 }

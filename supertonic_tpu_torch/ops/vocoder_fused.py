@@ -15,8 +15,9 @@ edges, so positions outside [0, T) and masked frames are exactly zero
 after every conv.
 
 What bounds the kernel on the H100 and what its design does about it is in
-the header of ``csrc/resblock_chain.cu``. Its time tiling (``chain_tiling``)
-is chosen here: each block holds ``tile + 2*halo`` frames.
+the header of ``csrc/resblock_chain.cu``, which also chooses the kernel's
+time tiling (each block holds ``tile + 2*halo`` frames; ``chain_tile`` asks
+the kernel's library for ``tile``).
 
 ``resblock_chain`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.
@@ -34,12 +35,10 @@ from . import _build
 # kernel launches made by resblock_chain (a plain counter)
 launches = 0
 
-_SMEM_BUDGET = 224 * 1024  # dynamic shared memory a block may fill
-
-# x, frame_mask, wa, ba, wb, bb, out, B, T, C, P, dilations, W, halo, pad,
-# dtype code, stream
+# x, frame_mask, wa, ba, wb, bb, out, B, T, C, P, dilations, dtype code,
+# stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-             + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def chain_halo(kernel: int, dilations) -> int:
@@ -48,23 +47,22 @@ def chain_halo(kernel: int, dilations) -> int:
     return sum(d * half + half for d in dilations)
 
 
-def chain_tiling(channels: int, dtype: torch.dtype, dilations,
-                 kernel: int = 3) -> tuple[int, int, int, int]:
-    """(halo, pad, W, tile) of the kernel's blocks: each block holds three
-    [W + 2*pad, C] buffers (pad = one conv's reach), the frame mask, the
-    epilogue scratch and, in bf16, a 32 x C chunk of weights in shared
-    memory, and writes tile = W - 2*halo output frames; W is the largest
-    multiple of 16 that fits the budget (and, in bf16, gives each of the 8
-    warps at most two 16 x 128 tiles)."""
-    halo = chain_halo(kernel, dilations)
-    pad = max(dilations) * ((kernel - 1) // 2)
-    es = torch.empty((), dtype=dtype).element_size()
-    fixed = 8 * 256 * 4 + (32 * channels * 2 if dtype == torch.bfloat16 else 0)
-    w = (_SMEM_BUDGET - fixed) // (3 * channels * es + 4) - 2 * pad
-    w -= w % 16
-    if dtype == torch.bfloat16:
-        w = min(w, 16 * 16 * 128 // channels)
-    return halo, pad, w, w - 2 * halo
+def _dils(dilations):
+    dilations = tuple(int(d) for d in dilations)
+    return dilations, (ctypes.c_int * len(dilations))(*dilations)
+
+
+def chain_tile(channels: int, dtype: torch.dtype, dilations) -> int:
+    """Output frames per block that the CUDA kernel uses (builds it)."""
+    dilations, dils = _dils(dilations)
+    fn = _build.function("resblock_chain", "stk_resblock_chain_tile",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+    tile = fn(channels, len(dilations), ctypes.cast(dils, ctypes.c_void_p),
+              _build.dtype_code(dtype))
+    if tile <= 0:
+        raise ValueError(f"no chain tiling for C={channels}, {dtype}, "
+                         f"dilations {dilations}")
+    return tile
 
 
 def _silu_rounded(v: torch.Tensor) -> torch.Tensor:
@@ -100,7 +98,7 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
     global launches
     b, t_len, c = x.shape
     p, k = wa.shape[0], wa.shape[1]
-    dilations = tuple(int(d) for d in dilations)
+    dilations, dils = _dils(dilations)
     if (tuple(wa.shape) != (p, k, c, c) or wb.shape != wa.shape
             or tuple(ba.shape) != (p, c) or bb.shape != ba.shape
             or len(dilations) != p):
@@ -113,18 +111,15 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
         return resblock_chain_plain(x, frame_mask, wa, ba, wb, bb, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if k != 3 or c not in (128, 256) or p > 4:
+    if k != 3 or c not in (128, 256) or not 1 <= p <= 4 or min(dilations) < 1:
         raise ValueError(f"the chain kernel takes k=3, C in (128, 256) and up "
-                         f"to 4 conv pairs, got k={k}, C={c}, P={p}")
+                         f"to 4 conv pairs with dilations >= 1, got k={k}, "
+                         f"C={c}, P={p}, dilations {dilations}")
     if wa.dtype != x.dtype or wb.dtype != x.dtype:
         raise TypeError("wa and wb must be in x's dtype")
     for name, tns in (("x", x), ("wa", wa), ("wb", wb)):
         if not tns.is_contiguous() or tns.device != x.device:
             raise ValueError(f"{name} must be contiguous and on {x.device}")
-    halo, pad, w, tile = chain_tiling(c, x.dtype, dilations, k)
-    if tile <= 0:
-        raise ValueError(f"halo {halo} leaves no output frames in a "
-                         f"{w}-frame buffer")
 
     def f32(v):
         return None if v is None else v.to(device=x.device,
@@ -132,11 +127,10 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
 
     fm, baf, bbf = f32(frame_mask), f32(ba), f32(bb)
     out = torch.empty_like(x)
-    dils = (ctypes.c_int * p)(*dilations)
     fn = _build.function("resblock_chain", "stk_resblock_chain", _ARGTYPES)
     P = _build.ptr
     _build.check(fn(P(x), P(fm), P(wa), P(baf), P(wb), P(bbf), P(out), b, t_len,
-                    c, p, ctypes.cast(dils, ctypes.c_void_p), w, halo, pad,
+                    c, p, ctypes.cast(dils, ctypes.c_void_p),
                     _build.dtype_code(x.dtype), _build.stream_ptr(x)),
                  "stk_resblock_chain")
     launches += 1

@@ -148,27 +148,22 @@ def _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile):
 
 def test_resblock_chain_tiles_are_seam_free():
     """Multi-tile output equals single-tile output: the halo argument of
-    the kernel's design, at the tile sizes the kernel uses."""
+    the kernel's design, at tile widths from a few frames to most of the
+    sequence (the CUDA kernel picks its own width from its shared-memory
+    budget; chip_smoke.py checks that tiling on the card)."""
     rng = np.random.default_rng(1)
     c, dils = 128, (1, 3, 9)
+    assert vocoder_fused.chain_halo(3, dils) == 16
     mods = tL.tree_to_modules(_chain_params(rng, c, dils), device="cpu")
     wa, ba, wb, bb = vocoder_fused.stack_resblock(mods, torch.float32)
     t_len = 300
     x = _t(rng.standard_normal((1, t_len, c)))
     fm = torch.ones(t_len)
     fm[-20:] = 0.0
-    halo, pad, w, tile = vocoder_fused.chain_tiling(c, torch.float32, dils)
-    assert (halo, pad, w, tile) == (16, 9, 112, 80)
     one = vocoder_fused.resblock_chain_plain(x, fm, wa, ba, wb, bb, dils)
-    tiled = _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile)
-    np.testing.assert_allclose(tiled.numpy(), one.numpy(), rtol=2e-6, atol=2e-6)
-    # every tiling the kernel picks has output frames and fits its budget
-    for ch in (128, 256):
-        for dt in (torch.float32, torch.bfloat16):
-            halo, pad, w, tile = vocoder_fused.chain_tiling(ch, dt, dils)
-            smem = (3 * (w + 2 * pad) * ch * dt.itemsize + 4 * w + 8 * 256 * 4
-                    + (32 * ch * 2 if dt == torch.bfloat16 else 0))
-            assert tile > 0 and w % 16 == 0 and smem <= 224 * 1024
+    for tile in (7, 80, 224):
+        tiled = _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile)
+        np.testing.assert_allclose(tiled.numpy(), one.numpy(), rtol=2e-6, atol=2e-6)
 
 
 def test_launch_counters_do_not_move_on_cpu():
