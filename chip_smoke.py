@@ -12,16 +12,22 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. main    — TTS() at the default 66M config (bf16, random weights made
                from a seed, zero-init heads perturbed) answers the three
                protocol texts through ``synthesize`` and 16 texts through
-               ``synthesize_batch``; checks the audio and that every
-               kernel's launch counter rose; then times b64 batches and
-               records the shapes each kernel wrapper is given in one
-               b64/5-step batch (the cell's shapes)
-  4. kernels — each kernel against its plain PyTorch version on the card,
-               at the cell's shapes recorded in phase 3, at the smaller
-               shapes of a T=256 batch and at edge shapes, in f32 and bf16,
-               with kernel / plain / library times and bounds
-  5. f32     — one batch through the whole path in f32 on the card
-               (kernels) and on the CPU (plain versions), injected noise
+               ``synthesize_batch``; checks the audio and each kernel's
+               launch counter; then times b64 batches and records the
+               shapes each kernel wrapper is given in one b64/5-step batch
+               (the cell's shapes)
+  4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
+               VE block linears through the int8 kernel, no fused FFN
+  5. kernels — each kernel against its plain PyTorch version on the card,
+               at the cell's shapes recorded in phases 3 and 4, at the
+               smaller shapes of a T=256 batch and at edge shapes, in f32
+               and bf16 (the int8 product exactly), with kernel / plain /
+               library times and bounds
+  6. whole   — one batch through the whole path in f32 on the card
+               (kernels) and on the CPU (plain versions); the W8A8 linears
+               of one VE block, card vs CPU; int8 against bf16 on the
+               card; one b64 batch with fused projections against the
+               unfused one, in bf16 and int8; injected noise throughout
 The line before the last is a JSON object of per-kernel numbers, taken at
 the cell's shape that spends the most kernel time per batch; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -45,9 +51,10 @@ from supertonic_tpu_torch import TTS, TTSConfig, ops
 from supertonic_tpu_torch.assets import save_params
 from supertonic_tpu_torch.engine import SynthesisEngine
 from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexer
-from supertonic_tpu_torch.models import count_params, init_all
+from supertonic_tpu_torch.models import (count_params, fuse_projections, init_all,
+                                         quantize_params)
 from supertonic_tpu_torch.models import layers
-from supertonic_tpu_torch.ops import _build, attention, ffn, vocoder_fused
+from supertonic_tpu_torch.ops import _build, attention, ffn, int8_matmul, vocoder_fused
 
 # protocol texts of the JAX package's bench harness (59 / 152 / 266 chars)
 SHORT_TEXT = "The quick brown fox jumps over the lazy dog near the creek."
@@ -65,11 +72,28 @@ assert tuple(map(len, TEXTS)) == (59, 152, 266)
 
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
-            torch.float32: 67e12}          # f32 outside the tensor cores
+            torch.float32: 67e12,          # f32 outside the tensor cores
+            torch.int8: 1979e12}           # dense tensor-core int8
 TOL = {torch.float32: 1e-4,   # reduction-order noise of f32 sums
        torch.bfloat16: 2e-2}  # one bf16 rounding flip of an intermediate
 WHOLE_PATH_WAV_ATOL = 1e-5    # f32 through ~60 layers, card vs CPU sum order
 WHOLE_PATH_DUR_RTOL = 1e-5
+# int8 vs bf16 wav on the card, 2 steps: read 0.008661 on an H100; the bf16
+# vocoder's last roundings alone leave ~0.006 between two bf16 runs that
+# differ upstream, so phase 6's W8A8 linears check is the one that
+# separates a right quantization from none
+INT8_WAV_REL_L2 = (0.003, 0.03)
+FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
+# kernel launches per b64/5-step batch at the default config: attention 2 per
+# VE block and step + 20 in TE/DP, the fused FFN 1 per VE block and step,
+# int8 products 8 per VE block and step + 2 per block for the cross K/V
+PER_BATCH = {
+    "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0},
+    "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 252},
+}
+# with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
+# step, the cross kv once per block
+FUSED_INT8_MATMUL = 6 * (6 * 5 + 1)
 SOURCES = {
     "attention": ("supertonic_tpu_torch/csrc/attention.cu",
                   "supertonic_tpu/ops/attention.py:52"),
@@ -77,8 +101,11 @@ SOURCES = {
                   "supertonic_tpu/ops/ffn.py:31"),
     "resblock_chain": ("supertonic_tpu_torch/csrc/resblock_chain.cu",
                        "supertonic_tpu/ops/vocoder_fused.py:54"),
+    "int8_matmul": ("supertonic_tpu_torch/csrc/int8_matmul.cu",
+                    "tools/int8_microbench.py:43"),
 }
 DEV = torch.device("cuda")
+CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "supertonic_tpu_torch", "build", "smoke")
 
@@ -126,7 +153,7 @@ def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernels against their plain versions
+# phase 5: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
@@ -245,18 +272,51 @@ def check_chain(gen, cell, results):
                     nbytes, 12.0 * p * c * c * b * t_len, reps=3)
 
 
+def check_int8_matmul(gen, cell, results):
+    """Exact (max abs error 0) against the plain version, float64 sums cast
+    to int32, at the cell's shapes and at edge shapes; timed at the cell's
+    shapes and at the edge shapes with M = 40,960."""
+    cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
+             for n in (24, 512, 1536, 2048)}
+    cases.update(cell["int8_matmul"])  # (M, K, N): launches per cell batch
+    for (m, k, n), n_cell in sorted(cases.items()):
+        a, w = (torch.randint(-127, 128, shape, generator=gen, device=DEV).to(torch.int8)
+                for shape in ((m, k), (n, k)))
+        a[0], w[0] = 127, 127  # the largest sum, 127^2 * K
+        got = int8_matmul.int8_matmul(a, w)
+        ref = int8_matmul.int8_matmul_plain(a, w)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        log(f"  int8_matmul M{m} K{k} N{n}: max_abs_err={err} (exact required)")
+        if got.dtype != torch.int32 or err != 0:
+            raise AssertionError("int8_matmul disagrees with its plain version")
+        if not n_cell and m < CELL_ROWS:
+            continue
+        lib = None
+        if m <= 16 or k % 8 or n % 8:
+            log(f"  torch._int_mm refuses M{m} K{k} N{n} (it takes M > 16, K and N "
+                f"multiples of 8): library_ms None")
+        else:  # cuBLASLt's int8 product, the yardstick; the port never calls it
+            lib = lambda: torch._int_mm(a, w.t())
+        measure(results, "int8_matmul", f"M{m} K{k} N{n}", torch.int8, n_cell, err,
+                lambda: int8_matmul.int8_matmul(a, w),
+                lambda: int8_matmul.int8_matmul_plain(a, w),
+                m * k + n * k + 4 * m * n, 2.0 * m * n * k, lib=lib)
+
+
 def cell_summary(results) -> dict:
-    """Per kernel: the bf16 row of the cell's shape that spends the most
-    kernel time per batch, and the per-batch sums over the cell's shapes."""
+    """Per kernel: the row (in the path's own dtype: bf16, or int8 for the
+    int8 product) of the cell's shape that spends the most kernel time per
+    batch, and the per-batch sums over the cell's shapes."""
     line = {}
     for kernel, rows in results.items():
-        cell = [r for r in rows if r["n_cell"] and r["dtype"] == torch.bfloat16]
+        cell = [r for r in rows if r["n_cell"] and r["dtype"] != torch.float32]
         if not cell:
             raise AssertionError(f"{kernel}: no shape recorded on the cell's path")
         sums = {key: (None if any(r[key] is None for r in cell)
                       else f"{sum(r['n_cell'] * r[key] for r in cell):.4f}")
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        log(f"  {kernel} per b64/5-step batch at the cell's shapes (bf16, "
+        log(f"  {kernel} per b64/5-step batch at the cell's shapes ({cell[0]['dtype']}, "
             f"{sum(r['n_cell'] for r in cell)} launches): kernel {sums['ms']} ms, "
             f"plain {sums['plain_ms']} ms, library {sums['library_ms']} ms, "
             f"bound {sums['bound_ms']} ms")
@@ -265,7 +325,7 @@ def cell_summary(results) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 5: the main path
+# phases 3, 4 and 6: the main path
 # ---------------------------------------------------------------------------
 
 def smoke_params(cfg: TTSConfig, seed: int = 0):
@@ -306,6 +366,8 @@ class record_shapes:
                       lambda x, g, b, w1, *a: (*x.shape, w1.shape[0])),
         "resblock_chain": (vocoder_fused, "resblock_chain",
                            lambda x, *a: tuple(x.shape)),
+        "int8_matmul": (layers, "int8_matmul",
+                        lambda a, w: (a.shape[0], a.shape[1], w.shape[0])),
     }
 
     def __enter__(self):
@@ -328,16 +390,27 @@ class record_shapes:
             setattr(mod, attr, real)
 
 
-def main_path(params, launches, profile: bool) -> dict:
-    """Drive TTS() through the counted run and the b64 batches; return the
-    shapes each kernel wrapper was given in one b64/5-step batch."""
-    assets = os.path.join(OUT_DIR, "assets")
-    os.makedirs(assets, exist_ok=True)
-    save_params(os.path.join(assets, "params.npz"), params)
+def check_launches(counts, per_batch, n_batches, what) -> None:
+    """At least per_batch launches of each kernel per batch; exactly 0 of a
+    kernel the path must not reach."""
+    log(f"  launches over {what}: {counts} (per batch: {per_batch})")
+    for name, n in per_batch.items():
+        if (counts[name] != 0) if n == 0 else (counts[name] < n * n_batches):
+            raise AssertionError(f"{name}: {counts[name]} launches over {what}, "
+                                 f"expected {'0' if n == 0 else f'>= {n * n_batches}'}")
+
+
+def main_path(assets, precision, profile: bool, bf16_rates=None):
+    """Drive TTS(assets, precision=...) through the counted run and the b64
+    batches; return the shapes each kernel wrapper was given in one
+    b64/5-step batch, the b64 audio-sec/s by step count and the launch
+    counts of the counted run."""
     t0 = time.perf_counter()
-    tts = TTS(assets)  # device defaults to cuda; precision to bf16
+    tts = TTS(assets, precision=precision)  # device defaults to cuda
+    n_params = count_params(tts.assets.params)
     log(f"  TTS() on {tts.engine.device}, precision={tts.engine.precision}, "
-        f"{count_params(params) / 1e6:.2f}M params, load {time.perf_counter() - t0:.2f}s")
+        f"{n_params / 1e6:.2f}M params, load {time.perf_counter() - t0:.2f}s")
+    per_batch = PER_BATCH[precision]
     if tts.sample_rate != 44100:
         raise AssertionError(f"sample rate {tts.sample_rate}")
     style = tts.get_voice_style("M1")
@@ -363,31 +436,33 @@ def main_path(params, launches, profile: bool) -> dict:
     counts = ops.launch_counts()
     log(f"  synthesize_batch b16/5-step: {float(durs.sum()):.3f}s audio in {wall:.3f}s "
         f"= {float(durs.sum()) / wall:.2f} audio-sec/s")
-    expected = {"attention": 80 * n_batches, "adaln_ffn": 30 * n_batches,
-                "resblock_chain": 2 * n_batches}
-    log(f"  launches over {n_batches} batches: {counts} (at least {expected})")
-    for name, n in expected.items():
-        if counts[name] < n:
-            raise AssertionError(f"{name}: {counts[name]} launches < {n}")
-        launches[name] = counts[name]
+    # synthesize and the b16 batch ran at 5 steps, like the per-batch counts
+    check_launches(counts, per_batch, n_batches, f"{n_batches} batches")
     # throughput at b64, the system's metric (5 and 2 steps)
     texts = [TEXTS[i % 3] for i in range(64)]
+    rates = {}
     for steps in (5, 2):
         tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=steps)
         if steps == 5:  # the rate is learned: this batch runs at the cell's buckets
+            ops.reset_launch_counts()
             with record_shapes() as cell:
                 tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
             log(f"  shapes given to each kernel in one b64/5-step batch: {cell}")
+            check_launches(ops.launch_counts(), per_batch, 1, "one b64/5-step batch")
+        rates[steps] = []
         for rep in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _w, d = tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=steps)
             wall = time.perf_counter() - t0
-            log(f"  b64/{steps}-step rep {rep}: {float(d.sum()):.3f}s audio in {wall:.4f}s "
-                f"= {float(d.sum()) / wall:.2f} audio-sec/s")
+            rates[steps].append(float(d.sum()) / wall)
+            beside = "" if bf16_rates is None else (
+                f" (bf16, phase 3: {' / '.join(f'{r:.2f}' for r in bf16_rates[steps])})")
+            log(f"  {precision} b64/{steps}-step rep {rep}: {float(d.sum()):.3f}s audio in "
+                f"{wall:.4f}s = {rates[steps][-1]:.2f} audio-sec/s{beside}")
     if profile:
         profile_batch(tts, texts, style)
-    return cell
+    return cell, rates, counts
 
 
 def profile_batch(tts, texts, style) -> None:
@@ -395,6 +470,8 @@ def profile_batch(tts, texts, style) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # the tracer's first start-up, outside the window
+        torch.cuda.synchronize()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
@@ -418,20 +495,29 @@ def profile_batch(tts, texts, style) -> None:
         log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def whole_path_f32(params) -> None:
-    cfg = TTSConfig()
-    proc = UnicodeProcessor(build_default_indexer())
+def whole_path_inputs(n: int = 3):
+    """n texts (the protocol texts, cycled), voice F1 and injected noise."""
     from supertonic_tpu_torch.assets import synthesize_default_styles
 
-    style = synthesize_default_styles(cfg)["F1"].tile(3)
+    cfg = TTSConfig()
+    proc = UnicodeProcessor(build_default_indexer())
+    style = synthesize_default_styles(cfg)["F1"].tile(n)
     noise = np.random.default_rng(7).standard_normal(
-        (3, 640, cfg.latent_channels)).astype(np.float32)
+        (n, 640, cfg.latent_channels)).astype(np.float32)
+    return cfg, proc, [TEXTS[i % 3] for i in range(n)], style, noise
+
+
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def whole_path_f32(params) -> None:
+    cfg, proc, texts, style, noise = whole_path_inputs()
     out = {}
     for dev in ("cuda", "cpu"):
         eng = SynthesisEngine(params, cfg, proc, precision="f32", device=dev)
         t0 = time.perf_counter()
-        out[dev] = eng.infer_batch(list(TEXTS), ["en"] * 3, style, total_step=2,
-                                   noise=noise)
+        out[dev] = eng.infer_batch(texts, ["en"] * 3, style, total_step=2, noise=noise)
         log(f"  f32 whole path on {dev}: {time.perf_counter() - t0:.2f}s")
     (wg, dg), (wc, dc) = out["cuda"], out["cpu"]
     dur_rel = float(np.max(np.abs(dg - dc) / np.abs(dc)))
@@ -446,12 +532,97 @@ def whole_path_f32(params) -> None:
         raise AssertionError("f32 whole path: card and CPU disagree")
 
 
+def w8a8_linears(params) -> None:
+    """The W8A8 linears of VE block 0 (quantize, int8 kernel, rescale and
+    bias) on the card against the same code on the CPU (the plain int8
+    product), on the same activations, f32 and bf16: bit-equal, while the
+    unquantized linear is far off. This separates a right quantization from
+    none; the whole path cannot, since a flipped rounding of one activation
+    grows, layer by layer, to the size of the quantization itself."""
+    block = params["vector_estimator"]["blocks"][0]
+    q_block = quantize_params({"vector_estimator": {"blocks": [block]}})
+    q_block = q_block["vector_estimator"]["blocks"][0]
+    gen = np.random.default_rng(9)
+    for path in (("self", "q"), ("ffn", "in"), ("ffn", "out")):
+        tree, q_tree = block[path[0]][path[1]], q_block[path[0]][path[1]]
+        x = gen.standard_normal((4096, tree["w"].shape[0])).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = {}
+            for dev in ("cuda", "cpu"):
+                lin = layers.tree_to_modules(q_tree, device=dev)
+                got[dev] = layers.linear(lin, torch.as_tensor(x).to(dev, dtype)).float().cpu()
+            plain = layers.linear(layers.tree_to_modules(tree, device="cuda", dtype=dtype),
+                                  torch.as_tensor(x).to(DEV, dtype)).float().cpu()
+            err = float((got["cuda"] - got["cpu"]).abs().max())
+            quant = float((got["cuda"] - plain).norm() / plain.norm())
+            log(f"  W8A8 {'.'.join(path)} [4096, {x.shape[1]}] {dtype}: card vs CPU max "
+                f"abs err {err:g} (bit-equal required); unquantized linear {quant:.3e} "
+                f"away (relative L2)")
+            if err != 0.0 or not quant > 0.0:
+                raise AssertionError("W8A8 linear: card and CPU disagree, or no quantization")
+
+
+def whole_path_int8(params) -> None:
+    """int8 against bf16 on the card, same texts and noise, 2 steps: the
+    text stage is not quantized, so the durations are bit-equal; the wav
+    moves by the W8A8 rounding, within the band set from earlier runs."""
+    cfg, proc, texts, style, noise = whole_path_inputs()
+    out = {}
+    for precision in ("bf16", "int8"):
+        eng = SynthesisEngine(params, cfg, proc, precision=precision)
+        out[precision] = eng.infer_batch(texts, ["en"] * 3, style, total_step=2,
+                                         noise=noise)
+    (wb, db), (w8, d8) = out["bf16"], out["int8"]
+    if not np.array_equal(db, d8) or wb.shape != w8.shape:
+        raise AssertionError(f"int8 vs bf16: durations {d8} vs {db}, wav shapes "
+                             f"{w8.shape} vs {wb.shape}")
+    rel = rel_l2(w8, wb)
+    lo, hi = INT8_WAV_REL_L2
+    log(f"  int8 vs bf16 on the card: durations bit-equal {d8}, wav relative L2 "
+        f"{rel:.6f} (band [{lo:g}, {hi:g}])")
+    if not lo <= rel <= hi:
+        raise AssertionError("int8 whole path: wav outside the band around bf16")
+
+
+def fused_projections_path(params) -> None:
+    """One b64/5-step batch with fused projections (``fuse_projections``)
+    against the unfused tree, injected noise, in bf16 and in int8 (where the
+    fused tree is quantized at init); the fused batch's launches are
+    counted, and in int8 their number shows the fused route."""
+    cfg, proc, texts, style, noise = whole_path_inputs(64)
+    trees = (("unfused", params), ("fused", fuse_projections(params)))
+    for precision in ("bf16", "int8"):
+        out = {}
+        for tree_name, tree in trees:
+            eng = SynthesisEngine(tree, cfg, proc, precision=precision)
+            ops.reset_launch_counts()
+            out[tree_name] = eng.infer_batch(texts, ["en"] * 64, style, total_step=5,
+                                             noise=noise)
+            counts = ops.launch_counts()
+        per_batch = dict(PER_BATCH[precision])
+        if precision == "int8":
+            per_batch["int8_matmul"] = FUSED_INT8_MATMUL
+        check_launches(counts, per_batch, 1, f"one fused b64/5-step {precision} batch")
+        if precision == "int8" and counts["int8_matmul"] != FUSED_INT8_MATMUL:
+            raise AssertionError("fused int8 batch did not take the fused projections")
+        (w, d), (wf, df) = out["unfused"], out["fused"]
+        if wf.shape != w.shape or not np.isfinite(wf).all():
+            raise AssertionError(f"fused {precision}: wav shape {wf.shape} vs {w.shape}")
+        dur_rel = float(np.max(np.abs(df - d) / np.abs(d)))
+        rel = rel_l2(wf, w)
+        log(f"  fused vs unfused projections, b64/5-step {precision}: bit-equal "
+            f"{np.array_equal(wf, w) and np.array_equal(df, d)}, duration rel diff "
+            f"{dur_rel:.3e}, wav relative L2 {rel:.3e} (limit {FUSED_WAV_REL_L2_MAX:g})")
+        if dur_rel > 1e-2 or rel > FUSED_WAV_REL_L2_MAX:
+            raise AssertionError(f"fused {precision}: far from the unfused batch")
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one b64/5-step batch in phase 3")
+                    help="also profile one b64/5-step batch in phases 3 and 4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -473,21 +644,33 @@ def main() -> int:
         f"build/{next(iter(libs.values())).parent.name} (a hash of the sources)")
 
     params = smoke_params(TTSConfig())
-    launches = {}
+    assets = os.path.join(OUT_DIR, "assets")
+    os.makedirs(assets, exist_ok=True)
+    save_params(os.path.join(assets, "params.npz"), params)
     log("phase 3: main path, TTS() bf16 at the default 66M config")
-    cell = main_path(params, launches, args.profile)
+    cell, rates, counts = main_path(assets, "bf16", args.profile)
+    launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain")}
+    log("phase 4: int8 path, TTS(precision=\"int8\") at the default 66M config")
+    cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, bf16_rates=rates)
+    launches["int8_matmul"] = counts8["int8_matmul"]
+    cell["int8_matmul"] = cell8["int8_matmul"]
 
-    log("phase 4: kernels vs plain versions")
+    log("phase 5: kernels vs plain versions")
     results = {name: [] for name in SOURCES}
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     check_attention(gen, cell, results)
     check_ffn(gen, cell, results)
     check_chain(gen, cell, results)
+    check_int8_matmul(gen, cell, results)
     picked = cell_summary(results)
 
-    log("phase 5: whole path in f32, card vs CPU")
+    log("phase 6: whole path: f32 card vs CPU, W8A8 linears card vs CPU, int8 vs bf16 "
+        "on the card, fused projections")
     whole_path_f32(params)
+    w8a8_linears(params)
+    whole_path_int8(params)
+    fused_projections_path(params)
 
     line = []
     for name, (src, replaces) in SOURCES.items():

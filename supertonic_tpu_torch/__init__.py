@@ -29,7 +29,9 @@ class TTS:
                  precision: str | None = None, seed: int = 0, device=None,
                  cfg: TTSConfig | None = None):
         """``device`` defaults to ``cuda`` and raises when there is no card;
-        ``device="cpu"`` runs the plain PyTorch path. ``cfg`` applies when
+        ``device="cpu"`` runs the plain PyTorch path. ``precision``: "bf16"
+        (the config's default), "f32", or "int8" (W8A8 vector-estimator
+        block linears, bf16 elsewhere). ``cfg`` applies when
         ``assets_dir`` holds no config (default: the 66M ``TTSConfig()``)."""
         from .assets import load_assets
         from .engine import resolve_device

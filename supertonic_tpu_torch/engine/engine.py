@@ -40,6 +40,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _tree_has_key(tree, key: str) -> bool:
+    if isinstance(tree, dict):
+        return key in tree or any(_tree_has_key(v, key) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_tree_has_key(v, key) for v in tree)
+    return False
+
+
 def _check_batch(text_list, style) -> None:
     if len(text_list) != style.batch:
         raise ValueError(f"Number of texts ({len(text_list)}) must match number "
@@ -97,9 +105,12 @@ class SynthesisEngine(LongFormSynthesis):
                  precision: str | None = None, seed: int = 0, device=None):
         """``params``: the JAX-layout numpy param tree (loaded here onto
         ``device`` in the compute dtype) or modules from
-        ``models.load_params``. ``device`` defaults to ``cuda`` and raises
-        when there is no card; pass ``device="cpu"`` for the plain path."""
-        from ..models import load_params
+        ``models.load_params``. ``precision="int8"`` quantizes a numpy tree
+        that holds no ``w_q`` yet (``models.quantize_params``); the params
+        stay unfused, as in the JAX engine. ``device`` defaults to ``cuda``
+        and raises when there is no card; pass ``device="cpu"`` for the
+        plain path."""
+        from ..models import load_params, quantize_params
 
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -107,6 +118,8 @@ class SynthesisEngine(LongFormSynthesis):
         self.precision = precision or cfg.runtime.precision
         self.dtype = synthesis.dtype_of(self.precision)
         if not isinstance(params, torch.nn.Module):
+            if self.precision == "int8" and not _tree_has_key(params, "w_q"):
+                params = quantize_params(params)
             params = load_params(params, device=self.device, dtype=self.dtype)
         self.params = params
         self.generator = torch.Generator(device=self.device)

@@ -25,11 +25,14 @@ from ..models import duration_predictor, text_encoder, vector_estimator, vocoder
 
 
 def dtype_of(precision: str) -> torch.dtype:
+    """The compute dtype. "int8" quantizes the estimator-block linears
+    (params carry int8 ``w_q``, see models.quantize_params); everything else
+    in that mode computes in bf16."""
     if precision == "f32":
         return torch.float32
-    if precision == "bf16":
+    if precision in ("bf16", "int8"):
         return torch.bfloat16
-    raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    raise ValueError(f"precision must be 'f32', 'bf16' or 'int8', got {precision!r}")
 
 
 def text_stage(params, cfg: TTSConfig, text_ids, text_mask, style_dp, style_ttl,

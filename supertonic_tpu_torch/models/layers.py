@@ -18,6 +18,10 @@ Conventions:
     the f32 accumulator to bf16 before the bias add, ``layer_norm``
     normalizes in f32 and applies the affine in bf16, ``apply_rope`` does
     not upcast x.
+  * W8A8 linears (``QLinear``, from ``models.quantize_params``) keep int8
+    weights whatever the compute dtype; ``linear`` routes them through the
+    int8 product's wrapper (ops/int8_matmul.py) in the JAX
+    ``_linear_w8a8``'s order.
 
 The ``*_init`` helpers are verbatim numpy copies of the JAX package's, so
 that ``models.init_all`` draws the same numbers in the same order.
@@ -35,6 +39,7 @@ from torch import nn
 
 from ..ops.attention import fused_attention
 from ..ops.ffn import fused_adaln_ffn
+from ..ops.int8_matmul import int8_matmul
 
 Params = dict[str, Any]
 
@@ -56,6 +61,17 @@ def linear_init(rng, din: int, dout: int, *, zero: bool = False) -> Params:
     scale = 1.0 / math.sqrt(din)
     return {"w": _uniform_init(rng, (din, dout), scale),
             "b": np.zeros((dout,), np.float32)}
+
+
+def quantize_linear(p: Params) -> Params:
+    """Offline W8A8 quantization of one linear layer: symmetric per-output-
+    channel int8 weights + f32 scales. Applied by models.quantize_params for
+    the opt-in int8 serving path."""
+    w = np.asarray(p["w"], np.float32)
+    scale = np.maximum(np.max(np.abs(w), axis=0), 1e-12) / 127.0
+    w_q = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
+    return {"w_q": w_q, "w_scale": scale.astype(np.float32),
+            "b": np.asarray(p["b"], np.float32)}
 
 
 def embedding_init(rng, vocab: int, dim: int) -> Params:
@@ -121,6 +137,21 @@ class Linear(nn.Module):
         return {"w": _np(self.weight.t()), "b": _np(self.bias)}
 
 
+class QLinear(nn.Module):
+    """JAX ``{"w_q": int8 [din, dout], "w_scale": [dout], "b": [dout]}``;
+    held as int8 [dout, din], scales and bias in f32."""
+
+    def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.w_q = nn.Parameter(w_q, requires_grad=False)
+        self.w_scale = nn.Parameter(w_scale, requires_grad=False)
+        self.bias = nn.Parameter(b, requires_grad=False)
+
+    def to_tree(self) -> Params:
+        return {"w_q": self.w_q.detach().t().contiguous().cpu().numpy().copy(),
+                "w_scale": _np(self.w_scale), "b": _np(self.bias)}
+
+
 class Conv1d(nn.Module):
     """JAX ``{"w": [k, cin, cout] (HIO), "b": [cout]}``; held as [cout, cin, k]."""
 
@@ -158,8 +189,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def tree_to_modules(tree, *, device, dtype=torch.float32) -> nn.Module:
     """Build the module tree from a JAX-layout numpy param tree. Weight
-    matrices (linear, conv, embedding) go to ``dtype``; biases and norm
-    parameters stay float32."""
+    matrices (linear, conv, embedding) go to ``dtype``; biases, norm
+    parameters and W8A8 scales stay float32, W8A8 weights int8."""
 
     def mat(a, perm=None):
         t = torch.as_tensor(np.asarray(a, np.float32))
@@ -181,6 +212,10 @@ def tree_to_modules(tree, *, device, dtype=torch.float32) -> nn.Module:
             if w.ndim == 3:
                 return Conv1d(mat(w, (2, 1, 0)), vec(node["b"]))
             raise ValueError(f"unsupported weight rank {w.ndim}")
+        if keys == {"w_q", "w_scale", "b"}:
+            w_q = torch.as_tensor(np.asarray(node["w_q"], np.int8))
+            return QLinear(w_q.t().contiguous().to(device), vec(node["w_scale"]),
+                           vec(node["b"]))
         if keys == {"g", "b"}:
             return LayerNorm(vec(node["g"]), vec(node["b"]))
         if keys == {"table"}:
@@ -191,7 +226,8 @@ def tree_to_modules(tree, *, device, dtype=torch.float32) -> nn.Module:
 
 
 def modules_to_tree(mod: nn.Module):
-    """Inverse of ``tree_to_modules``: float32 numpy arrays in JAX layout."""
+    """Inverse of ``tree_to_modules``: numpy arrays in JAX layout, float32
+    except the int8 W8A8 weights."""
     if isinstance(mod, nn.ModuleList):
         return [modules_to_tree(m) for m in mod]
     if isinstance(mod, nn.ModuleDict):
@@ -208,11 +244,29 @@ def _weight(p, dtype) -> torch.Tensor:
 # layers
 # ---------------------------------------------------------------------------
 
-def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Linear | QLinear, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, QLinear):
+        return _linear_w8a8(p, x)
     y = F.linear(x, _weight(p, x.dtype))
     if x.dtype == torch.bfloat16:
         # accumulator rounded to bf16 BEFORE the bias add (JAX layers.py:55-62)
         return y + p.bias.to(torch.bfloat16)
+    return (y + p.bias).to(x.dtype)
+
+
+def _linear_w8a8(p: QLinear, x: torch.Tensor) -> torch.Tensor:
+    """Dynamic-activation int8 linear in the JAX ``_linear_w8a8``'s order:
+    per-token symmetric activation quant (round half to even, as
+    ``jnp.round``), int8 x int8 -> int32, rescale and bias in f32, one
+    rounding to x's dtype."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-12)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which can be an ulp off and flip a rounding below
+    sx = amax / amax.new_full((), 127.0)
+    xq = torch.round(xf / sx).to(torch.int8)  # |xf / sx| <= 127
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), p.w_q)
+    y = acc.reshape(*x.shape[:-1], -1).float() * sx * p.w_scale
     return (y + p.bias).to(x.dtype)
 
 
@@ -299,24 +353,38 @@ def attention_core(q, k, v, key_mask=None):
     return fused_attention(q, k, v, key_mask)
 
 
+def _split_fused(y: torch.Tensor, parts: int, n_heads: int):
+    """A fused projection's output split into head-split, contiguous parts
+    (the attention kernel takes contiguous tensors)."""
+    return [_split_heads(t.contiguous(), n_heads) for t in y.chunk(parts, dim=-1)]
+
+
 def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
         k_rope=None, kv_cache=None) -> torch.Tensor:
     """Multi-head attention; self-attention when memory is None.
-    ``kv_cache``: precomputed (k, v), head-split and rotated."""
-    q = _split_heads(linear(p["q"], x), n_heads)
+    ``kv_cache``: precomputed (k, v), head-split and rotated. Fused
+    projections (``models.fuse_projections``): "qkv" replaces q/k/v in
+    self-attention, "kv" replaces k/v in cross-attention."""
+    if memory is None and kv_cache is None and "qkv" in p:
+        q, k, v = _split_fused(linear(p["qkv"], x), 3, n_heads)
+        if k_rope is not None:
+            k = apply_rope(k, *k_rope)
+    else:
+        q = _split_heads(linear(p["q"], x), n_heads)
+        k, v = kv_cache if kv_cache is not None else kv_project(
+            p, x if memory is None else memory, n_heads, k_rope)
     if q_rope is not None:
         q = apply_rope(q, *q_rope)
-    if kv_cache is not None:
-        k, v = kv_cache
-    else:
-        k, v = kv_project(p, x if memory is None else memory, n_heads, k_rope)
     return linear(p["o"], _merge_heads(attention_core(q, k, v, key_mask)))
 
 
 def kv_project(p, mem, n_heads: int, k_rope=None):
     """Project memory into head-split (k, v) with optional rotation."""
-    k = _split_heads(linear(p["k"], mem), n_heads)
-    v = _split_heads(linear(p["v"], mem), n_heads)
+    if "kv" in p:
+        k, v = _split_fused(linear(p["kv"], mem), 2, n_heads)
+    else:
+        k = _split_heads(linear(p["k"], mem), n_heads)
+        v = _split_heads(linear(p["v"], mem), n_heads)
     if k_rope is not None:
         k = apply_rope(k, *k_rope)
     return k, v
@@ -339,7 +407,9 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
           cond=None, cross_kv=None) -> torch.Tensor:
     """Pre-LN transformer block: self-attn [+ cross-attn] + FFN, optionally
     AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. The AdaLN FFN sublayer
-    goes through the fused AdaLN-FFN kernel's wrapper (ops/ffn.py)."""
+    goes through the fused AdaLN-FFN kernel's wrapper (ops/ffn.py) when its
+    linears are plain; W8A8 linears take mod(LN) and ``ffn``, as the JAX
+    int8 path does."""
     has_cross = "cross" in p
     if cond is not None and "adaln" in p:
         n_sub = 3 if has_cross else 2
@@ -364,15 +434,16 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
                            key_mask=memory_mask, q_rope=q_rope_cross,
                            k_rope=k_rope_cross, kv_cache=cross_kv)
         i_sub += 1
-    if mods is not None:
+    f = p["ffn"]
+    if mods is not None and isinstance(f["in"], Linear) and isinstance(f["out"], Linear):
         shift, scale, gate = (mods[3 * i_sub], mods[3 * i_sub + 1],
                               mods[3 * i_sub + 2])
-        ln, f = p["ln3"], p["ffn"]
+        ln = p["ln3"]
         return fused_adaln_ffn(
             x, ln.g, ln.b, _weight(f["in"], x.dtype), f["in"].bias,
             _weight(f["out"], x.dtype), f["out"].bias, shift, scale, gate)
     h, gate = mod(i_sub, layer_norm(p["ln3"], x))
-    return x + gate * ffn(p["ffn"], h)
+    return x + gate * ffn(f, h)
 
 
 # ---------------------------------------------------------------------------

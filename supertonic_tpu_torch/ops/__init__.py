@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version: attention (``attention.fused_attention``), the AdaLN FFN
-(``ffn.fused_adaln_ffn``) and the vocoder resblock chain
-(``vocoder_fused.resblock_chain``). ``_build.build_all`` compiles them."""
+(``ffn.fused_adaln_ffn``), the vocoder resblock chain
+(``vocoder_fused.resblock_chain``) and the int8 product of the W8A8 linears
+(``int8_matmul.int8_matmul``). ``_build.build_all`` compiles them."""
 
-from . import attention, ffn, vocoder_fused
+from . import attention, ffn, int8_matmul, vocoder_fused
 
-KERNEL_MODULES = (attention, ffn, vocoder_fused)
+KERNEL_MODULES = (attention, ffn, vocoder_fused, int8_matmul)
 
 
 def reset_launch_counts() -> None:
@@ -15,4 +16,5 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {"attention": attention.launches, "adaln_ffn": ffn.launches,
-            "resblock_chain": vocoder_fused.launches}
+            "resblock_chain": vocoder_fused.launches,
+            "int8_matmul": int8_matmul.launches}

@@ -171,4 +171,4 @@ def test_launch_counters_do_not_move_on_cpu():
     q, k, v, mask = _qkv()
     attention.fused_attention(_t(q), _t(k), _t(v), _t(mask))
     assert ops.launch_counts() == {"attention": 0, "adaln_ffn": 0,
-                                   "resblock_chain": 0}
+                                   "resblock_chain": 0, "int8_matmul": 0}
