@@ -20,9 +20,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                VE block linears through the int8 kernel, no fused FFN
   5. kernels — each kernel against its plain PyTorch version on the card,
                at the cell's shapes recorded in phases 3 and 4, at the
-               smaller shapes of a T=256 batch and at edge shapes, in f32
-               and bf16 (the int8 product exactly), with kernel / plain /
-               library times and bounds
+               smaller shapes of a T=256 batch and at the tile edges of
+               the bf16 kernels, in f32 and bf16 (the int8 product
+               exactly), with kernel / plain / library times and bounds,
+               and the earlier kernels' times beside this run's at the
+               cell's shapes (EARLIER_MS)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -104,6 +106,19 @@ SOURCES = {
     "int8_matmul": ("supertonic_tpu_torch/csrc/int8_matmul.cu",
                     "tools/int8_microbench.py:43"),
 }
+# ms per launch at the cell's shapes (bf16; int8 for the int8 product) as the
+# kernels before the mma.sync redesign of attention and the chain took them:
+# chip_smoke.py phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W, kernel build
+# hash aeeea003992bb9c7 (PERF.md section 6). Printed beside this run's times;
+# keys are the shapes record_shapes tallies.
+EARLIER_MS = {
+    "attention": {(64, 8, 640, 640, True): 1.320, (64, 8, 640, 370, True): 0.882,
+                  (64, 4, 320, 320, True): 0.231, (64, 4, 320, 50, False): 0.099},
+    "adaln_ffn": {(64, 640, 512, 2048): 1.997},
+    "resblock_chain": {(64, 40960, 128): 38.59, (64, 5120, 256): 21.53},
+    "int8_matmul": {(40960, 512, 512): 0.0673, (40960, 512, 2048): 0.2094,
+                    (40960, 2048, 512): 0.1676, (23680, 512, 512): 0.0424},
+}
 DEV = torch.device("cuda")
 CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -157,29 +172,39 @@ def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
-            lib=None, reps=10):
+            lib=None, reps=10, shape=None):
     """Time kernel, plain version and library call; log and keep one row.
-    n_cell = launches at this shape per b64/5-step batch (0: not the cell's)."""
+    n_cell = launches at this shape per b64/5-step batch (0: not the cell's);
+    shape = the cell's shape key, under which the earlier time is looked up."""
     ms = time_ms(fn, reps)
     plain_ms = time_ms(plain, reps)
     lib_ms = None if lib is None else time_ms(lib, reps)
     bnd, by = bound(nbytes, nops, dtype)
     lib_txt = "None" if lib_ms is None else f"{lib_ms:.4f}"
-    log(f"  {kernel} {name} {dtype}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    earlier = EARLIER_MS[kernel].get(shape) if n_cell and dtype != torch.float32 else None
+    earlier_txt = "" if earlier is None else f" (earlier: {earlier} ms)"
+    log(f"  {kernel} {name} {dtype}: kernel_ms={ms:.4f}{earlier_txt} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_txt} bound_ms={bnd:.4f} ({by}) cell_launches={n_cell}")
     results[kernel].append(dict(name=name, dtype=dtype, n_cell=n_cell, max_abs_err=err,
                                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bnd, bound_by=by))
+                                bound_ms=bnd, bound_by=by, earlier_ms=earlier))
 
 
 def check_attention(gen, cell, results):
-    cases = [  # name, B, H, Tq, Tk, mask kind, launches per cell batch
+    cases = [  # name, B, H, Tq, Tk, mask kind, launches per cell batch (None:
+        #        checked, not timed)
         ("ve_self T256", 64, 8, 256, 256, "tail", 0),
         ("ve_cross Tk242", 64, 8, 256, 242, "tail", 0),
         ("te_self L192", 64, 4, 192, 192, "tail", 0),
         ("te_cross_nomask", 64, 4, 192, 50, None, 0),
-        ("fully_masked_row", 4, 8, 64, 96, "one_row_empty", 0),
+        ("fully_masked_row", 4, 8, 64, 96, "one_row_empty", None),
         ("long_1100", 2, 8, 1100, 1100, "tail", 0),
+        # the bf16 kernel's tile edges: 64 queries a block, 64 keys a stage
+        ("edge Tq65 Tk63", 3, 2, 65, 63, "tail", None),
+        ("edge Tq65 Tk63 no mask", 3, 2, 65, 63, None, None),
+        ("edge Tq1 Tk1", 2, 2, 1, 1, None, None),
+        ("edge Tq1 Tk1 masked", 2, 2, 1, 1, "tail", None),
+        ("edge B1 H1", 1, 1, 640, 640, "tail", None),
     ]
     cases += [(f"cell H{h} Tq{tq} Tk{tk}", b, h, tq, tk, "tail" if masked else None, n)
               for (b, h, tq, tk, masked), n in sorted(cell["attention"].items())]
@@ -201,6 +226,7 @@ def check_attention(gen, cell, results):
                 if not torch.allclose(got[0].float(), mean_v, atol=TOL[dtype] * 4,
                                       rtol=TOL[dtype]):
                     raise AssertionError("fully masked row is not the mean of v")
+            if n is None:
                 continue
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             bias = None if mask is None else (
@@ -212,7 +238,7 @@ def check_attention(gen, cell, results):
                     lambda: attention.attention_plain(q, k, v, mask),
                     nbytes, 4.0 * b * h * tq * tk * 64,
                     lib=lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=bias))
+                        qt, kt, vt, attn_mask=bias), shape=(b, h, tq, tk, mk is not None))
 
 
 def check_ffn(gen, cell, results):
@@ -238,19 +264,30 @@ def check_ffn(gen, cell, results):
             nbytes = es * (2 * b * t * d + 2 * d * f + 3 * b * d) + 4 * (3 * d + f)
             measure(results, "adaln_ffn", name, dtype, n, err,
                     lambda: ffn.fused_adaln_ffn(*args), lambda: ffn.adaln_ffn_plain(*args),
-                    nbytes, 4.0 * b * t * d * f, reps=5)
+                    nbytes, 4.0 * b * t * d * f, reps=5, shape=(b, t, d, f))
 
 
 def check_chain(gen, cell, results):
+    """Each case: name, B, T', C, launches per cell batch (None: checked, not
+    timed), frame mask ("tail": the last tenth masked, "zero": all masked)."""
     dils = (1, 3, 9)
-    cases = [("T'=8x256", 64, 8 * 256, 256, 0), ("T'=64x256", 64, 64 * 256, 128, 0)]
-    cases += [(f"cell T'={t_len}", b, t_len, c, n)
+    cases = [("T'=8x256", 64, 8 * 256, 256, 0, "tail"),
+             ("T'=64x256", 64, 64 * 256, 128, 0, "tail")]
+    cases += [(f"cell T'={t_len}", b, t_len, c, n, "tail")
               for (b, t_len, c), n in sorted(cell["resblock_chain"].items())]
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, t_len, c, n in cases:
+        edges = []  # the kernel's own tile width at each C and dtype
+        for c in (128, 256):
+            tile = vocoder_fused.chain_tile(c, dtype, dils)
+            edges += [(f"edge T'={tile // 2 + 1} < tile {tile}", 3, tile // 2 + 1, c, None, "tail"),
+                      (f"edge T'=tile+1={tile + 1}", 3, tile + 1, c, None, "tail"),
+                      (f"edge T'={2 * tile + 5}, all frames masked", 2, 2 * tile + 5, c, None,
+                       "zero")]
+        for name, b, t_len, c, n, mk in cases + edges:
             x = torch.randn((b, t_len, c), generator=gen, device=DEV).to(dtype)
-            fm = torch.ones(t_len, device=DEV)
-            fm[-(t_len // 10):] = 0.0  # masked tail
+            fm = torch.zeros(t_len, device=DEV)
+            if mk == "tail":
+                fm[:t_len - max(1, t_len // 10)] = 1.0
             s = (3 * c) ** -0.5
             wa, wb = ((torch.rand((3, 3, c, c), generator=gen, device=DEV) * 2 - 1)
                       .mul(s).to(dtype) for _ in range(2))
@@ -263,13 +300,17 @@ def check_chain(gen, cell, results):
                           f"{dtype}", got, ref, dtype)
             if not torch.equal(got[:, -1], x[:, -1]):
                 raise AssertionError("masked tail frame changed")
+            if mk == "zero" and not torch.equal(got, x):
+                raise AssertionError("a chain with every frame masked changed x")
+            if n is None:
+                continue
             es = x.element_size()
             p = len(dils)
             nbytes = es * (2 * b * t_len * c + 2 * p * 3 * c * c) + 4 * (t_len + 2 * p * c)
             measure(results, "resblock_chain", f"C={c} {name}", dtype, n, err,
                     lambda: vocoder_fused.resblock_chain(*args),
                     lambda: vocoder_fused.resblock_chain_plain(*args),
-                    nbytes, 12.0 * p * c * c * b * t_len, reps=3)
+                    nbytes, 12.0 * p * c * c * b * t_len, reps=3, shape=(b, t_len, c))
 
 
 def check_int8_matmul(gen, cell, results):
@@ -301,7 +342,7 @@ def check_int8_matmul(gen, cell, results):
         measure(results, "int8_matmul", f"M{m} K{k} N{n}", torch.int8, n_cell, err,
                 lambda: int8_matmul.int8_matmul(a, w),
                 lambda: int8_matmul.int8_matmul_plain(a, w),
-                m * k + n * k + 4 * m * n, 2.0 * m * n * k, lib=lib)
+                m * k + n * k + 4 * m * n, 2.0 * m * n * k, lib=lib, shape=(m, k, n))
 
 
 def cell_summary(results) -> dict:
@@ -315,11 +356,11 @@ def cell_summary(results) -> dict:
             raise AssertionError(f"{kernel}: no shape recorded on the cell's path")
         sums = {key: (None if any(r[key] is None for r in cell)
                       else f"{sum(r['n_cell'] * r[key] for r in cell):.4f}")
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "earlier_ms")}
         log(f"  {kernel} per b64/5-step batch at the cell's shapes ({cell[0]['dtype']}, "
-            f"{sum(r['n_cell'] for r in cell)} launches): kernel {sums['ms']} ms, "
-            f"plain {sums['plain_ms']} ms, library {sums['library_ms']} ms, "
-            f"bound {sums['bound_ms']} ms")
+            f"{sum(r['n_cell'] for r in cell)} launches): kernel {sums['ms']} ms "
+            f"(earlier: {sums['earlier_ms']} ms), plain {sums['plain_ms']} ms, library "
+            f"{sums['library_ms']} ms, bound {sums['bound_ms']} ms")
         line[kernel] = max(cell, key=lambda r: r["n_cell"] * r["ms"])
     return line
 

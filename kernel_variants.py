@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Time the bf16 attention and resblock-chain kernels of the PyTorch port
+against design variants on one CUDA card: the measurements behind the
+design choices stated in the headers of supertonic_tpu_torch/csrc/
+attention.cu and resblock_chain.cu.
+
+    python3 kernel_variants.py
+
+Each variant is the kernel's own source with design constants changed by
+text substitution in its bf16 section, built with the package's nvcc flags
+into supertonic_tpu_torch/build/variants/ (ptxas's register and spill
+report printed), checked against the plain PyTorch version and timed in
+turns with the kernel as committed (committed, variants, variants in
+reverse, committed), at the shapes one b64/5-step batch gives each kernel
+(chip_smoke.py records them):
+  attention  a 3-stage K/V ring; 8 warps and 128 queries a block
+  chain      the accurate silu (expf and IEEE division); 16 warps of
+             32 frames x 64 channels, with either silu
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+import chip_smoke as cs
+from supertonic_tpu_torch.ops import _build, attention, vocoder_fused
+
+BF16_SECTION = "// bf16 on the tensor cores"
+ATTN_8W = [("constexpr int MQ = 64;", "constexpr int MQ = 128;"),
+           ("__launch_bounds__(NW * 32, 4)", "__launch_bounds__(256, 2)"),
+           ("NW * 32", "256")]
+CHAIN_ACC = [("stk::silu_fast(", "stk::silu_f(")]
+CHAIN_16W = [("constexpr int MMA_NT = 256;", "constexpr int MMA_NT = 512;"),
+             ("constexpr int WM = 64, WN = 64;", "constexpr int WM = 32, WN = 64;")]
+VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...]}
+    "attention": {"3-stage ring": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+                  "8 warps, 128 queries": ATTN_8W},
+    "resblock_chain": {"accurate silu": CHAIN_ACC, "16 warps of 32x64": CHAIN_16W,
+                       "16 warps of 32x64, accurate silu": CHAIN_16W + CHAIN_ACC},
+}
+ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
+         "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES)}
+OUT = _build.BUILD_ROOT / "variants"
+
+
+def build_variants() -> dict:
+    """{(kernel, variant): C entry of the variant's library}."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for kernel, variants in VARIANTS.items():
+        head, bf16 = (_build.CSRC_DIR / f"{kernel}.cu").read_text().split(BF16_SECTION)
+        for i, (name, subs) in enumerate(variants.items()):
+            src = bf16
+            for old, new in subs:
+                if old not in src:
+                    raise RuntimeError(f"{kernel}: '{old}' not in the bf16 section")
+                src = src.replace(old, new)
+            path = OUT / f"{kernel}_v{i}.cu"
+            path.write_text(head + BF16_SECTION + src)
+            lib = path.with_suffix(".so")
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                   str(_build.CSRC_DIR), "-o", str(lib), str(path)]
+            procs[(kernel, name)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True),
+                                     lib)
+    fns = {}
+    for (kernel, name), (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {kernel} / {name}:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):  # the bf16 kernel's registers and spills
+            if "Function properties" in line and "_mma" in line:
+                cs.log(f"  {kernel} / {name}: {' '.join(x.strip() for x in lines[i + 1:i + 3])}")
+        entry, argtypes = ENTRY[kernel]
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[(kernel, name)] = fn
+    return fns
+
+
+def attention_call(fn, q, k, v, mask):
+    out = torch.empty_like(q)
+    b, tq, h, d = q.shape
+    P = _build.ptr
+    _build.check(fn(P(q), P(k), P(v), P(mask), P(out), b, tq, k.shape[1], h, d,
+                    _build.dtype_code(q.dtype), _build.stream_ptr(q)), "variant")
+    return out
+
+
+def chain_call(fn, x, fm, wa, ba, wb, bb, dils):
+    out = torch.empty_like(x)
+    b, t_len, c = x.shape
+    d = (ctypes.c_int * len(dils))(*dils)
+    P = _build.ptr
+    _build.check(fn(P(x), P(fm), P(wa), P(ba), P(wb), P(bb), P(out), b, t_len, c,
+                    len(dils), ctypes.cast(d, ctypes.c_void_p), _build.dtype_code(x.dtype),
+                    _build.stream_ptr(x)), "variant")
+    return out
+
+
+def in_turns(label: str, calls: dict, reps: int) -> None:
+    """Time each call in the order committed, variants, variants reversed,
+    committed; print both readings of each."""
+    names = list(calls)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(cs.time_ms(calls[name], reps))
+    for name in names:
+        cs.log(f"  {label} {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    cs.log(smi.stdout.strip() or torch.cuda.get_device_name(0))
+    _build.build_all()
+    cs.log("build (bf16 kernel of each variant: ptxas registers and spills)")
+    fns = build_variants()
+    gen = torch.Generator(device=cs.DEV)
+    gen.manual_seed(0)
+    dt = torch.bfloat16
+    cs.log("attention, ms per launch")
+    for b, h, tq, tk, masked in ((64, 8, 640, 640, True), (64, 8, 640, 370, True),
+                                 (64, 4, 320, 320, True), (64, 4, 320, 50, False)):
+        q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=cs.DEV).to(dt)
+                   for t in (tq, tk, tk))
+        mask = None
+        if masked:
+            lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen, device=cs.DEV)
+            mask = (torch.arange(tk, device=cs.DEV)[None] < lens[:, None]).float()
+        ref = attention.attention_plain(q, k, v, mask)
+        calls = {"committed": lambda: attention.fused_attention(q, k, v, mask)}
+        for name in VARIANTS["attention"]:
+            fn = fns[("attention", name)]
+            calls[name] = lambda fn=fn: attention_call(fn, q, k, v, mask)
+        label = f"B{b} H{h} Tq{tq} Tk{tk}"
+        for name, call in calls.items():
+            cs.compare(f"attention {label} {name}", call(), ref, dt)
+        in_turns(label, calls, 20)
+    cs.log("resblock chain, ms per launch")
+    dils = (1, 3, 9)
+    for b, t_len, c in ((64, 40960, 128), (64, 5120, 256)):
+        x = torch.randn((b, t_len, c), generator=gen, device=cs.DEV).to(dt)
+        fm = torch.ones(t_len, device=cs.DEV)
+        fm[-(t_len // 10):] = 0.0
+        wa, wb = ((torch.rand((3, 3, c, c), generator=gen, device=cs.DEV) * 2 - 1)
+                  .mul((3 * c) ** -0.5).to(dt) for _ in range(2))
+        ba, bb = (0.1 * torch.randn((3, c), generator=gen, device=cs.DEV) for _ in range(2))
+        args = (x, fm, wa, ba, wb, bb, dils)
+        ref = vocoder_fused.resblock_chain_plain(*args)
+        calls = {"committed": lambda: vocoder_fused.resblock_chain(*args)}
+        for name in VARIANTS["resblock_chain"]:
+            fn = fns[("resblock_chain", name)]
+            calls[name] = lambda fn=fn: chain_call(fn, *args)
+        label = f"C={c} B{b} x {t_len} frames"
+        for name, call in calls.items():
+            cs.compare(f"chain {label} {name}", call(), ref, dt)
+        in_turns(label, calls, 3)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,10 +20,16 @@
 // M or N are zero-filled on load and masked on store; K is a multiple of 32
 // (the zero fill covers the last half step). wgmma and TMA are later work.
 #include <climits>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
+
+using stk::cp_async16;
+using stk::cp_async_commit;
+using stk::cp_async_wait;
+using stk::ldmatrix_x4;
+using stk::smem_u32;
 
 constexpr int BM = 128, BN = 128, BK = 64;       // block tile; K step (bytes)
 constexpr int LDS = BK + 16;                      // shared row pitch (bytes)
@@ -35,28 +41,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;  // 61,440
 constexpr int CLD = WN + 8;                       // output staging pitch (int32)
 static_assert((NT / 32) * (WM / 2) * CLD * 4 <= SMEM_BYTES,
               "the output staging reuses the ring");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 // c += a (16x32, row) . b (32x8, col), int8 in, int32 accumulators
 __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {

@@ -10,28 +10,46 @@
 // reproduces SAME zero padding at the sequence edges: after every conv,
 // frames outside [0, T) and masked frames are exactly 0.
 //
-// Bound on the H100: 6 convs of 3*C*C multiply-adds per frame, about 309
-// GFLOP at C=256 over 131,072 frames and 618 GFLOP at C=128 over 1,048,576
-// frames, against two passes over the activation: compute-bound. In bf16
-// each conv is an implicit GEMM on the tensor cores through WMMA (16x16x16
-// bf16 fragments, f32 accumulators): a warp owns up to two tiles of 16
-// frames x 128 channels, A fragments come from the shifted shared buffer,
-// B fragments from the tap's [C, C] weights staged through shared memory
-// 32 input channels at a time. In f32 the convs run on the SIMT float
-// units (each thread 16 frames x 4 channels), exact to f32 rounding.
+// Tiling (both types): one block per (batch row, tile of TT output frames).
+// The block holds W = TT + 2*halo frames (halo = the chain's one-sided
+// reach, 16 for k=3 and dilations 1,3,9) in shared memory, zero outside
+// [0, T), and runs all six convs between three shared buffers (x, silu(x),
+// silu(h)) in the storage type. A buffer that a conv reads at shifted rows
+// has zero pad rows on both sides (that conv's reach), so the reads stay
+// inside it; the values they feed lie outside the exact region, whose
+// frontier moves inward by each conv's reach, so after the chain the central
+// TT frames are exact (the argument of the JAX kernel's docstring). Only the
+// central tile is written. chain_tiling holds the layout and chooses W.
 //
-// Design: one block of 256 threads per (batch row, tile of TT output
-// frames). The block loads W = TT + 2*halo frames (halo = the chain's
-// one-sided reach, 16 for k=3 and dilations 1,3,9) into shared memory, zero
-// outside [0, T), and runs all six convs between three shared buffers
-// (x, silu(x), silu(h)) in the storage type. Each buffer has `pad` zero
-// rows on both sides (one conv's reach, 9), so shifted reads stay inside
-// it; the values those reads feed lie outside the exact region, whose
-// frontier moves inward by each conv's reach, so after the chain the
-// central TT frames are exact (the argument of the JAX kernel's docstring).
-// Only the central tile is written. W is the largest multiple of 16 whose
-// buffers fit SMEM_BUDGET (chain_tiling, which holds the whole layout).
-#include <mma.h>
+// Bound on the H100: 6 convs of 3*C*C multiply-adds per frame, 1.55 TFLOP
+// at C=128 over 64 x 40,960 frames and 0.77 at C=256 over 64 x 5,120 (the
+// path's b64 shapes), against two passes over the activation:
+// compute-bound, on the tensor cores in bf16.
+//
+// bf16 design (chain_mma): each conv is an implicit GEMM [W frames, 3C] x
+// [3C, C] on mma.sync.m16n8k16 (bf16 -> f32). 8 warps (one block an SM,
+// up to 255 registers a thread) each own a 64-frame x 64-channel tile of
+// the output, so each B fragment serves four A fragments and each A
+// fragment eight B fragments; that sets W = 256 frames at C=128 and 128 at
+// C=256 (TT 224 and 96). A fragments come by ldmatrix.x4
+// straight from the input buffer at the tap's row offset (+-1, +-3, +-9
+// rows), B fragments by ldmatrix.x4.trans from the [ci, co] weight stage.
+// Every buffer and stage keeps rows of C bf16 with their 16-byte chunks
+// XOR-swizzled by the row, so the eight rows of an ldmatrix at any offset
+// hit eight distinct bank groups. Only the buffers read at shifted rows
+// carry pad rows (silu x: the largest dilation; silu h: 1). The weights of
+// the six convs stream as one sequence of KC-input-channel chunks (KC 32 at
+// C=128, 16 at C=256) through a 3-stage cp.async ring, one block barrier a
+// chunk; that barrier also orders each conv's epilogue before the next
+// conv's reads. The epilogue works on the accumulator registers: bias,
+// round, mask, silu, and bf16-pair stores into the swizzled buffers. silu
+// here takes the fast exponential and division (__expf, __fdividef, a few
+// f32 ulp before the bf16 rounding): with the accurate ones the kernel
+// takes ~1.5x as long at C=128, and 16 warps of 32 x 64 (128 registers a
+// thread) spill and run slower (kernel_variants.py).
+//
+// f32 (chain_kernel): SIMT, exact to f32 rounding, each thread 16 frames x 4
+// channels, W the largest multiple of 16 whose buffers fit SMEM_BUDGET.
 #include <type_traits>
 
 #include "common.cuh"
@@ -82,100 +100,17 @@ __device__ __forceinline__ void conv_simt(const T* in, const T* __restrict__ w,
   }
 }
 
-// Tensor-core conv (bf16). Tile t (16 frames x 128 channels) belongs to
-// warp t % 8, so a warp owns at most two tiles, both on the same channels
-// (8 % (C / 128) == 0). The tap's weights pass through shared memory in
-// chunks of KC input channels, loaded once per block and read by every
-// warp; scratch holds one 16x16 f32 fragment per warp for the epilogue.
-constexpr int KC = 32;
-
-template <int C, typename Epi>
-__device__ __forceinline__ void conv_wmma(const bf16* in, const bf16* __restrict__ w,
-                                          const float* __restrict__ bias, int d,
-                                          int W, float* scratch, bf16* wchunk,
-                                          Epi epi) {
-  using namespace nvcuda;
-  constexpr int NTILE = C / 128;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ntiles = (W / 16) * NTILE, n0 = (warp % NTILE) * 128;
-  const bool own[2] = {warp < ntiles, warp + 8 < ntiles};
-  const int f0[2] = {(warp / NTILE) * 16, ((warp + 8) / NTILE) * 16};
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  for (int tap = 0; tap < K; ++tap) {
-    const int off = (tap - (K - 1) / 2) * d;
-    for (int kc = 0; kc < C; kc += KC) {
-      __syncthreads();  // the previous chunk is consumed
-      const uint4* src = reinterpret_cast<const uint4*>(w + ((size_t)tap * C + kc) * C);
-      for (int e = threadIdx.x; e < KC * C / 8; e += NT)
-        reinterpret_cast<uint4*>(wchunk)[e] = src[e];
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (own[i]) wmma::load_matrix_sync(a[i], in + (ptrdiff_t)(f0[i] + off) * C + kc + kk, C);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, wchunk + kk * C + n0 + j * 16, C);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (own[i]) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-        }
-      }
-    }
-  }
-  float* cs = scratch + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!own[i]) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        int c = n0 + j * 16 + e % 16;
-        epi(f0[i] + e / 16, c, cs[e] + bias[c]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// Dynamic shared memory of one block, in this order (chain_kernel carves it
-// up the same way): three [W + 2*pad, C] buffers of T (x, silu x, silu h),
-// the [W] f32 frame mask, 8 warps x 16x16 f32 epilogue scratch and, for the
-// tensor cores, a KC x C bf16 weight chunk.
+// ---------------------------------------------------------------------------
+// f32 on the SIMT units
+// ---------------------------------------------------------------------------
+// Dynamic shared memory of one f32 block, in this order (chain_kernel carves
+// it up the same way): three [W + 2*pad, C] buffers (x, silu x, silu h) and
+// the [W] f32 frame mask.
 constexpr size_t SMEM_BUDGET = 224 * 1024;
 
-template <typename T, int C>
+template <int C>
 constexpr size_t smem_bytes(int W, int pad) {
-  return 3 * (size_t)(W + 2 * pad) * C * sizeof(T) + (size_t)W * sizeof(float)
-         + (NT / 32) * 256 * sizeof(float)
-         + (std::is_same<T, bf16>::value ? (size_t)KC * C * sizeof(bf16) : 0);
-}
-
-// halo = the chain's one-sided reach, pad = one conv's reach, W = frames a
-// block holds (tile = W - 2*halo); in bf16 W also gives each of the 8 warps
-// at most two 16 x 128 tiles.
-struct Tiling { int halo, pad, W; };
-
-template <typename T, int C>
-Tiling chain_tiling(const Dil& dil, int P) {
-  constexpr int half = (K - 1) / 2;
-  Tiling t = {0, 0, 0};
-  for (int i = 0; i < P; ++i) {
-    t.halo += dil.d[i] * half + half;
-    t.pad = dil.d[i] * half > t.pad ? dil.d[i] * half : t.pad;
-  }
-  t.W = std::is_same<T, bf16>::value ? 16 * 16 * 128 / C : 1024;
-  while (t.W > 0 && smem_bytes<T, C>(t.W, t.pad) > SMEM_BUDGET) t.W -= 16;
-  return t;
+  return 3 * (size_t)(W + 2 * pad) * C * sizeof(float) + (size_t)W * sizeof(float);
 }
 
 template <typename T, int C>
@@ -191,8 +126,6 @@ chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
   T* S = X + buf;   // silu(x)
   T* Hs = S + buf;  // silu(h)
   float* M = reinterpret_cast<float*>(reinterpret_cast<T*>(smem) + 3 * buf);
-  float* scratch = M + W;  // 8 warps x 16x16 f32 (tensor-core epilogue)
-  bf16* wchunk = reinterpret_cast<bf16*>(scratch + (NT / 32) * 256);  // KC x C
   const int TT = W - 2 * halo;
   const int b = blockIdx.y, t0 = blockIdx.x * TT - halo;
   const T* xb = x + (size_t)b * Tlen * C;
@@ -230,15 +163,9 @@ chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
   for (int p = 0; p < P; ++p) {
     const T* wpa = wa + (size_t)p * K * C * C;
     const T* wpb = wb + (size_t)p * K * C * C;
-    if constexpr (std::is_same<T, bf16>::value) {
-      conv_wmma<C>(S, wpa, ba + p * C, dil.d[p], W, scratch, wchunk, epi_a);
-      __syncthreads();
-      conv_wmma<C>(Hs, wpb, bb + p * C, 1, W, scratch, wchunk, epi_b);
-    } else {
-      conv_simt<T, C>(S, wpa, ba + p * C, dil.d[p], W, epi_a);
-      __syncthreads();
-      conv_simt<T, C>(Hs, wpb, bb + p * C, 1, W, epi_b);
-    }
+    conv_simt<T, C>(S, wpa, ba + p * C, dil.d[p], W, epi_a);
+    __syncthreads();
+    conv_simt<T, C>(Hs, wpb, bb + p * C, 1, W, epi_b);
     __syncthreads();
   }
 
@@ -249,33 +176,255 @@ chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int MMA_NT = 256;        // 8 warps
+constexpr int WM = 64, WN = 64;    // warp tile: frames x output channels
+constexpr int MI = WM / 16, NJ = WN / 8;  // m16 and n8 tiles of a warp tile
+constexpr int WSTAGES = 3;         // depth of the weight ring
+constexpr int HPAD = (K - 1) / 2;  // pad rows of silu(h): conv b's reach
+constexpr size_t MMA_SMEM_MAX = 232448;  // the most a block may have (227 KB)
+
+template <int C>
+struct MmaLayout {
+  static constexpr int W = (MMA_NT / 32) * WM * WN / C;  // frames a block holds
+  static constexpr int KC = C == 128 ? 32 : 16;          // input channels a stage
+  static constexpr int CH = C / 8;                        // 16-byte chunks a row
+  static constexpr int NK = K * C / KC;                   // weight stages a conv
+  static constexpr int STAGE = KC * C;                    // elements a stage
+  // weight ring | x [W] | silu x [W + 2 pad] | silu h [W + 2 HPAD] | mask [W] f32
+  static constexpr size_t bytes(int pad) {
+    return ((size_t)WSTAGES * STAGE + (size_t)(3 * W + 2 * pad + 2 * HPAD) * C) *
+               sizeof(bf16) + (size_t)W * sizeof(float);
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(MMA_NT, 1)
+chain_mma(const bf16* __restrict__ x, const float* __restrict__ fmask,
+          const bf16* __restrict__ wa, const float* __restrict__ ba,
+          const bf16* __restrict__ wb, const float* __restrict__ bb,
+          bf16* __restrict__ out, int Tlen, int P, Dil dil, int halo, int pad) {
+  using L = MmaLayout<C>;
+  constexpr int W = L::W, KC = L::KC, CH = L::CH, NK = L::NK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* X = ring + WSTAGES * L::STAGE;  // row f: frame f
+  bf16* S = X + W * C;                  // row f + pad: frame f
+  bf16* Hs = S + (W + 2 * pad) * C;     // row f + HPAD: frame f
+  float* M = reinterpret_cast<float*>(Hs + (W + 2 * HPAD) * C);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int TT = W - 2 * halo;
+  const int b = blockIdx.y, t0 = blockIdx.x * TT - halo;
+  const int f0 = (warp / (C / WN)) * WM, n0 = (warp % (C / WN)) * WN;
+  const int steps = 2 * P * NK;
+
+  // weight stage s: conv s / NK (a, b, a, b, ...), rows [r KC, r KC + KC) of
+  // its tap-major [K*C, C] weights, r = s % NK
+  auto load_w = [&](int s) {
+    const int conv = s / NK, r = s % NK;
+    const bf16* src = ((conv & 1) ? wb : wa) + (size_t)(conv >> 1) * K * C * C +
+                      (size_t)r * L::STAGE;
+    bf16* dst = ring + (s % WSTAGES) * L::STAGE;
+    for (int c = tid; c < KC * CH; c += MMA_NT) {
+      const int row = c / CH, ch = c % CH;
+      stk::cp_async16(stk::smem_u32(dst + stk::swz<C>(row, ch)), src + row * C + ch * 8,
+                      true);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < WSTAGES - 1; ++s) {  // in flight while the window loads
+    load_w(s);
+    stk::cp_async_commit();
+  }
+
+  // the window: x and silu(x), zero outside [0, T); zero pad rows; the mask
+  const bf16* xb = x + (size_t)b * Tlen * C;
+  for (int e = tid; e < W * CH; e += MMA_NT) {
+    const int f = e / CH, ch = e % CH, tg = t0 + f;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (tg >= 0 && tg < Tlen) v = *reinterpret_cast<const uint4*>(xb + (size_t)tg * C + ch * 8);
+    *reinterpret_cast<uint4*>(X + stk::swz<C>(f, ch)) = v;
+    uint32_t* pr = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&pr[i]));
+      pr[i] = stk::pack_bf16(stk::silu_fast(xf.x), stk::silu_fast(xf.y));
+    }
+    *reinterpret_cast<uint4*>(S + stk::swz<C>(f + pad, ch)) = v;
+  }
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int e = tid; e < pad * CH; e += MMA_NT) {
+    reinterpret_cast<uint4*>(S)[e] = zero;
+    reinterpret_cast<uint4*>(S + (size_t)(W + pad) * C)[e] = zero;
+  }
+  for (int e = tid; e < HPAD * CH; e += MMA_NT) {
+    reinterpret_cast<uint4*>(Hs)[e] = zero;
+    reinterpret_cast<uint4*>(Hs + (size_t)(W + HPAD) * C)[e] = zero;
+  }
+  for (int f = tid; f < W; f += MMA_NT) {
+    const int tg = t0 + f;
+    M[f] = (tg >= 0 && tg < Tlen) ? (fmask ? fmask[tg] : 1.0f) : 0.0f;
+  }
+
+  float acc[MI][NJ][4];  // [m16 tile][n8 tile][fragment]
+  auto clear = [&]() {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+  };
+  // conv a: h = mask * round(acc + ba), store silu(h); conv b: x = round(x +
+  // mask * round(acc + bb)), store x and silu(x). Rows g, g + 8 of each m16
+  // tile, channels 2t, 2t + 1 of each n8 tile, two channels a store.
+  auto epilogue = [&](int conv) {
+    const bool is_b = conv & 1;
+    const float* bias = (is_b ? bb : ba) + (conv >> 1) * C;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = n0 + j * 8 + 2 * t;
+      const float2 bv = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int f = f0 + i * 16 + g + 8 * hh;
+          const float mf = M[f];
+          const float v0 = stk::rnd<bf16>(acc[i][j][2 * hh] + bv.x) * mf;
+          const float v1 = stk::rnd<bf16>(acc[i][j][2 * hh + 1] + bv.y) * mf;
+          if (!is_b) {
+            *reinterpret_cast<uint32_t*>(Hs + stk::swz<C>(f + HPAD, c >> 3) + (c & 7)) =
+                stk::pack_bf16(stk::silu_fast(v0), stk::silu_fast(v1));
+          } else {
+            uint32_t* xp = reinterpret_cast<uint32_t*>(X + stk::swz<C>(f, c >> 3) + (c & 7));
+            const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));
+            const float x0 = stk::rnd<bf16>(xf.x + v0), x1 = stk::rnd<bf16>(xf.y + v1);
+            *xp = stk::pack_bf16(x0, x1);
+            *reinterpret_cast<uint32_t*>(S + stk::swz<C>(f + pad, c >> 3) + (c & 7)) =
+                stk::pack_bf16(stk::silu_fast(x0), stk::silu_fast(x1));
+          }
+        }
+    }
+  };
+
+  clear();
+  for (int s = 0; s < steps; ++s) {
+    // stage s has landed for every thread and stage s - 1 (with the epilogue
+    // of a finished conv) is done by every warp
+    stk::cp_async_wait<WSTAGES - 2>();
+    __syncthreads();
+    if (s + WSTAGES - 1 < steps) load_w(s + WSTAGES - 1);
+    stk::cp_async_commit();
+    const int conv = s / NK, r = s % NK, tap = r / (C / KC), kc = (r % (C / KC)) * KC;
+    const bool is_b = conv & 1;
+    const int off = (tap - (K - 1) / 2) * (is_b ? 1 : dil.d[conv >> 1]);
+    const bf16* in = is_b ? Hs : S;
+    const int row0 = (is_b ? HPAD : pad) + f0 + off;  // the warp's first input row
+    const bf16* ws = ring + (s % WSTAGES) * L::STAGE;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      // A: matrices frames (0-7 | 8-15) x channels (low | high 8 of the step)
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        stk::ldmatrix_x4(a[i], stk::smem_u32(in + stk::swz<C>(row0 + i * 16 + (lane & 15),
+                                                              (kc >> 3) + kk * 2 + (lane >> 4))));
+#pragma unroll
+      for (int jp = 0; jp < WN / 16; ++jp) {
+        // B: matrices input channels (0-7 | 8-15) x output channels 16jp + (0-7 | 8-15)
+        uint32_t bw[4];
+        const int row = kk * 16 + (((lane >> 3) & 1) << 3) + (lane & 7);
+        stk::ldmatrix_x4_trans(bw, stk::smem_u32(ws + stk::swz<C>(row, (n0 >> 3) + jp * 2 +
+                                                                       (lane >> 4))));
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          stk::mma_bf16(acc[i][2 * jp], a[i], bw[0], bw[1]);
+          stk::mma_bf16(acc[i][2 * jp + 1], a[i], bw[2], bw[3]);
+        }
+      }
+    }
+    if (r == NK - 1) {
+      epilogue(conv);
+      clear();
+    }
+  }
+  __syncthreads();
+
+  bf16* ob = out + (size_t)b * Tlen * C;
+  for (int e = tid; e < TT * CH; e += MMA_NT) {
+    const int f = halo + e / CH, ch = e % CH, tg = t0 + f;
+    if (tg < Tlen)
+      *reinterpret_cast<uint4*>(ob + (size_t)tg * C + ch * 8) =
+          *reinterpret_cast<const uint4*>(X + stk::swz<C>(f, ch));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiling and launch
+// ---------------------------------------------------------------------------
+// halo = the chain's one-sided reach, pad = the largest reach of one conv
+// a (the pad of silu x), W = frames a block holds (tile = W - 2*halo); W = 0
+// when no layout fits.
+struct Tiling { int halo, pad, W; };
+
+template <typename T, int C>
+Tiling chain_tiling(const Dil& dil, int P) {
+  constexpr int half = (K - 1) / 2;
+  Tiling t = {0, 0, 0};
+  for (int i = 0; i < P; ++i) {
+    t.halo += dil.d[i] * half + half;
+    t.pad = dil.d[i] * half > t.pad ? dil.d[i] * half : t.pad;
+  }
+  if constexpr (std::is_same<T, bf16>::value) {
+    t.W = MmaLayout<C>::bytes(t.pad) <= MMA_SMEM_MAX ? MmaLayout<C>::W : 0;
+  } else {
+    t.W = 1024;
+    while (t.W > 0 && smem_bytes<C>(t.W, t.pad) > SMEM_BUDGET) t.W -= 16;
+  }
+  return t;
+}
+
+// lets `kernel` take `bytes` of dynamic shared memory (once per size)
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, size_t* configured) {
+  if (bytes <= *configured) return 0;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)bytes);
+  if (!err) *configured = bytes;
+  return err;
+}
+
 template <typename T, int C>
 int launch(const void* x, const float* m, const void* wa, const float* ba,
            const void* wb, const float* bb, void* out, int B, int Tlen, int P,
            Dil dil, cudaStream_t st) {
   const Tiling t = chain_tiling<T, C>(dil, P);
   if (t.W <= 2 * t.halo) return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes<T, C>(t.W, t.pad);
-  static size_t configured = 0;
-  if (bytes > configured) {
-    int err = (int)cudaFuncSetAttribute(chain_kernel<T, C>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        (int)bytes);
-    if (err) return err;
-    configured = bytes;
-  }
   const int TT = t.W - 2 * t.halo;
   dim3 grid((Tlen + TT - 1) / TT, B);
-  chain_kernel<T, C><<<grid, NT, bytes, st>>>((const T*)x, m, (const T*)wa, ba,
-                                              (const T*)wb, bb, (T*)out, Tlen, P,
-                                              dil, t.W, t.halo, t.pad);
+  static size_t configured = 0;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t bytes = MmaLayout<C>::bytes(t.pad);
+    if (int err = allow_smem(chain_mma<C>, bytes, &configured)) return err;
+    chain_mma<C><<<grid, MMA_NT, bytes, st>>>((const bf16*)x, m, (const bf16*)wa, ba,
+                                              (const bf16*)wb, bb, (bf16*)out, Tlen, P,
+                                              dil, t.halo, t.pad);
+  } else {
+    const size_t bytes = smem_bytes<C>(t.W, t.pad);
+    if (int err = allow_smem(chain_kernel<T, C>, bytes, &configured)) return err;
+    chain_kernel<T, C><<<grid, NT, bytes, st>>>((const T*)x, m, (const T*)wa, ba,
+                                                (const T*)wb, bb, (T*)out, Tlen, P,
+                                                dil, t.W, t.halo, t.pad);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
 int tile_frames(Dil dil, int P) {
   const Tiling t = chain_tiling<T, C>(dil, P);
-  return t.W - 2 * t.halo;
+  return t.W > 2 * t.halo ? t.W - 2 * t.halo : -1;
 }
 
 bool read_dils(const int* dils, int P, Dil* dil) {
@@ -291,7 +440,7 @@ bool read_dils(const int* dils, int P, Dil* dil) {
 
 // x/out [B,T,C]; wa/wb [P,3,C,C] (HIO per conv) in the storage type (dtype
 // 0 float, 1 bf16); ba/bb [P,C] float; fmask [T] float or null; dils [P].
-// All contiguous. The kernel picks its own time tiling.
+// All contiguous and 16-byte aligned. The kernel picks its own time tiling.
 extern "C" int stk_resblock_chain(const void* x, const void* fmask, const void* wa,
                                   const void* ba, const void* wb, const void* bb,
                                   void* out, int B, int Tlen, int C, int P,

@@ -67,11 +67,13 @@ def fused_attention(q, k, v, key_mask=None):
         raise ValueError(f"unsupported device {q.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k and v must share one dtype")
-    if d != 64:
-        raise ValueError(f"the attention kernel takes Dh = 64, got {d}")
+    if d != 64 or tk < 1:
+        raise ValueError(f"the attention kernel takes Dh = 64 and Tk >= 1, got "
+                         f"Dh = {d}, Tk = {tk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name} must be contiguous and on {q.device}")
+        if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and on "
+                             f"{q.device}")
     mask = None
     if key_mask is not None:
         mask = key_mask.to(device=q.device, dtype=torch.float32).contiguous()

@@ -118,8 +118,9 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
     if wa.dtype != x.dtype or wb.dtype != x.dtype:
         raise TypeError("wa and wb must be in x's dtype")
     for name, tns in (("x", x), ("wa", wa), ("wb", wb)):
-        if not tns.is_contiguous() or tns.device != x.device:
-            raise ValueError(f"{name} must be contiguous and on {x.device}")
+        if not tns.is_contiguous() or tns.device != x.device or tns.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and on "
+                             f"{x.device}")
 
     def f32(v):
         return None if v is None else v.to(device=x.device,

@@ -1,5 +1,5 @@
 """The port stands alone: no module of supertonic_tpu_torch, nor
-chip_smoke.py, imports JAX or the JAX package; and its framework-free
+chip_smoke.py or kernel_variants.py, imports JAX or the JAX package; and its framework-free
 copies (config, frontend, buckets, stitch, wav) behave like the originals."""
 
 import ast
@@ -29,7 +29,7 @@ def _port_files():
     # build/ holds outputs made at run time, not the package's sources
     files = sorted(p for p in pkg.rglob("*.py")
                    if p.relative_to(pkg).parts[0] != "build")
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_variants.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -67,6 +67,32 @@ def test_attention_bf16_matches_pallas():
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("tq,tk,masked", [(65, 70, True), (320, 50, False), (1, 1, True),
+                                           (1, 1, False), (9, 1, True)])
+def test_attention_bf16_dh64_matches_pallas(tq, tk, masked):
+    """The port's plain version, which the card holds the kernel to, against
+    the Pallas kernel at Dh = 64 (the kernel's head width): a path shape
+    (Tq 320, Tk 50 unmasked, TE/DP cross) and the kernel's tile edges (Tq
+    and Tk not multiples of 64, a single key; with one key masked away the
+    row is the mean of v). 2e-2: bf16 in and out, probabilities rounded to
+    bf16 on both sides."""
+    rng = np.random.default_rng(tq * 1000 + tk)
+    q, k, v = (rng.standard_normal((2, t, 2, 64)).astype(np.float32) for t in (tq, tk, tk))
+    mask = None
+    if masked:
+        lens = rng.integers(max(1, tk // 2), tk + 1, (2, 1))
+        mask = (np.arange(tk)[None, :] < lens).astype(np.float32)
+        if tk == 1:
+            mask[0] = 0.0
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = fused_attention_interpret(qb, kb, vb, None if mask is None else jnp.asarray(mask))
+    got = attention.fused_attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                                    _t(v, torch.bfloat16), None if mask is None else _t(mask))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, tq, 2, 64)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
 def test_attention_wrapper_rejects_bad_shapes():
     q, k, v, mask = _qkv()
     with pytest.raises(ValueError):
@@ -146,13 +172,18 @@ def _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile):
     return out
 
 
-def test_resblock_chain_tiles_are_seam_free():
+# Tile widths (output frames per block) the CUDA kernel picks for dilations
+# (1, 3, 9), halo 16, from the layout in csrc/resblock_chain.cu: bf16 blocks
+# hold 16 warps x 32 frames x 64 channels, W = 256 frames at C=128 and 128 at
+# C=256 (tiles 224 and 96); f32 blocks hold the largest multiple of 16 frames
+# whose three padded f32 buffers fit 224 KB, W = 128 and 48 (tiles 96 and 16).
+@pytest.mark.parametrize("c,tiles", [(128, (7, 96, 224)), (256, (7, 16, 96))])
+def test_resblock_chain_tiles_are_seam_free(c, tiles):
     """Multi-tile output equals single-tile output: the halo argument of
-    the kernel's design, at tile widths from a few frames to most of the
-    sequence (the CUDA kernel picks its own width from its shared-memory
-    budget; chip_smoke.py checks that tiling on the card)."""
+    the kernel's design, at the kernel's own tile widths at this C and at a
+    few frames (chip_smoke.py checks the kernel's tiling on the card)."""
     rng = np.random.default_rng(1)
-    c, dils = 128, (1, 3, 9)
+    dils = (1, 3, 9)
     assert vocoder_fused.chain_halo(3, dils) == 16
     mods = tL.tree_to_modules(_chain_params(rng, c, dils), device="cpu")
     wa, ba, wb, bb = vocoder_fused.stack_resblock(mods, torch.float32)
@@ -161,7 +192,7 @@ def test_resblock_chain_tiles_are_seam_free():
     fm = torch.ones(t_len)
     fm[-20:] = 0.0
     one = vocoder_fused.resblock_chain_plain(x, fm, wa, ba, wb, bb, dils)
-    for tile in (7, 80, 224):
+    for tile in tiles:
         tiled = _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile)
         np.testing.assert_allclose(tiled.numpy(), one.numpy(), rtol=2e-6, atol=2e-6)
 
