@@ -17,14 +17,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                shapes each kernel wrapper is given in one b64/5-step batch
                (the cell's shapes)
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
-               VE block linears through the int8 kernel, no fused FFN
+               VE block linears through the quantize kernel and the int8
+               product with its rescale-and-bias epilogue, no fused FFN
   5. kernels — each kernel against its plain PyTorch version on the card,
                at the cell's shapes recorded in phases 3 and 4, at the
                smaller shapes of a T=256 batch and at the tile edges of
-               the bf16 kernels, in f32 and bf16 (the int8 product
-               exactly), with kernel / plain / library times and bounds,
-               and the earlier kernels' times beside this run's at the
-               cell's shapes (EARLIER_MS)
+               the bf16 kernels, in f32 and bf16 (the int8 product, the
+               quantize pass and the W8A8 product bit for bit), with
+               kernel / plain / library times and bounds, and the earlier
+               kernels' times beside this run's at the cell's shapes
+               (EARLIER_MS)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -56,7 +58,8 @@ from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexe
 from supertonic_tpu_torch.models import (count_params, fuse_projections, init_all,
                                          quantize_params)
 from supertonic_tpu_torch.models import layers
-from supertonic_tpu_torch.ops import _build, attention, ffn, int8_matmul, vocoder_fused
+from supertonic_tpu_torch.ops import (_build, attention, ffn, int8_matmul, quantize,
+                                      vocoder_fused, w8a8)
 
 # protocol texts of the JAX package's bench harness (59 / 152 / 266 chars)
 SHORT_TEXT = "The quick brown fox jumps over the lazy dog near the creek."
@@ -88,14 +91,20 @@ INT8_WAV_REL_L2 = (0.003, 0.03)
 FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
 # kernel launches per b64/5-step batch at the default config: attention 2 per
 # VE block and step + 20 in TE/DP, the fused FFN 1 per VE block and step,
-# int8 products 8 per VE block and step + 2 per block for the cross K/V
+# W8A8 linears (a quantize pass and a W8A8 product each) 8 per VE block and
+# step + 2 per block for the cross K/V; the int32 int8 product is off the path
 PER_BATCH = {
-    "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0},
-    "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 252},
+    "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
+             "w8a8_matmul": 0, "quantize": 0},
+    "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
+             "w8a8_matmul": 252, "quantize": 252},
 }
+W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
-FUSED_INT8_MATMUL = 6 * (6 * 5 + 1)
+FUSED_W8A8_LINEARS = 6 * (6 * 5 + 1)
+# a row of x.5 values whose amax is 127, so sx = 1 exactly: rounds half to even
+HALVES = (127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5)
 SOURCES = {
     "attention": ("supertonic_tpu_torch/csrc/attention.cu",
                   "supertonic_tpu/ops/attention.py:52"),
@@ -105,19 +114,29 @@ SOURCES = {
                        "supertonic_tpu/ops/vocoder_fused.py:54"),
     "int8_matmul": ("supertonic_tpu_torch/csrc/int8_matmul.cu",
                     "tools/int8_microbench.py:43"),
+    # the same kernel with the W8A8 linear's rescale-and-bias epilogue
+    "w8a8_matmul": ("supertonic_tpu_torch/csrc/int8_matmul.cu",
+                    "tools/int8_microbench.py:43"),
+    # the W8A8 linear's quantize prologue (XLA ops in the JAX package)
+    "quantize": ("supertonic_tpu_torch/csrc/quantize.cu",
+                 "supertonic_tpu/models/layers.py:84"),
 }
 # ms per launch at the cell's shapes (bf16; int8 for the int8 product) as the
-# kernels before the mma.sync redesign of attention and the chain took them:
+# kernels took them before the FFN's redesign and the W8A8 epilogue:
 # chip_smoke.py phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W, kernel build
-# hash aeeea003992bb9c7 (PERF.md section 6). Printed beside this run's times;
-# keys are the shapes record_shapes tallies.
+# hash fb4eb80f8363927d (PERF.md section 6); for w8a8_matmul, the int32
+# product it replaces on the path. Printed beside this run's times; keys are
+# the shapes record_shapes tallies.
+INT32_PRODUCT_MS = {(40960, 512, 512): 0.0679, (40960, 512, 2048): 0.2119,
+                    (40960, 2048, 512): 0.1699, (23680, 512, 512): 0.0414}
 EARLIER_MS = {
-    "attention": {(64, 8, 640, 640, True): 1.320, (64, 8, 640, 370, True): 0.882,
-                  (64, 4, 320, 320, True): 0.231, (64, 4, 320, 50, False): 0.099},
-    "adaln_ffn": {(64, 640, 512, 2048): 1.997},
-    "resblock_chain": {(64, 40960, 128): 38.59, (64, 5120, 256): 21.53},
-    "int8_matmul": {(40960, 512, 512): 0.0673, (40960, 512, 2048): 0.2094,
-                    (40960, 2048, 512): 0.1676, (23680, 512, 512): 0.0424},
+    "attention": {(64, 8, 640, 640, True): 0.3948, (64, 8, 640, 370, True): 0.2523,
+                  (64, 4, 320, 320, True): 0.0619, (64, 4, 320, 50, False): 0.0403},
+    "adaln_ffn": {(64, 640, 512, 2048): 1.982},
+    "resblock_chain": {(64, 40960, 128): 10.017, (64, 5120, 256): 6.072},
+    "int8_matmul": INT32_PRODUCT_MS,
+    "w8a8_matmul": INT32_PRODUCT_MS,
+    "quantize": {},
 }
 DEV = torch.device("cuda")
 CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
@@ -161,8 +180,8 @@ def compare(name: str, got, ref, dtype) -> float:
     return max_err
 
 
-def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, nops / PEAK_OPS[dtype]
+def bound(nbytes: float, nops: float, ops_dtype) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, nops / PEAK_OPS[ops_dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -172,14 +191,15 @@ def bound(nbytes: float, nops: float, dtype) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
-            lib=None, reps=10, shape=None):
+            lib=None, reps=10, shape=None, ops_dtype=None):
     """Time kernel, plain version and library call; log and keep one row.
     n_cell = launches at this shape per b64/5-step batch (0: not the cell's);
-    shape = the cell's shape key, under which the earlier time is looked up."""
+    shape = the cell's shape key, under which the earlier time is looked up;
+    ops_dtype = the type whose peak rate bounds the operations (dtype's)."""
     ms = time_ms(fn, reps)
     plain_ms = time_ms(plain, reps)
     lib_ms = None if lib is None else time_ms(lib, reps)
-    bnd, by = bound(nbytes, nops, dtype)
+    bnd, by = bound(nbytes, nops, ops_dtype or dtype)
     lib_txt = "None" if lib_ms is None else f"{lib_ms:.4f}"
     earlier = EARLIER_MS[kernel].get(shape) if n_cell and dtype != torch.float32 else None
     earlier_txt = "" if earlier is None else f" (earlier: {earlier} ms)"
@@ -242,7 +262,15 @@ def check_attention(gen, cell, results):
 
 
 def check_ffn(gen, cell, results):
-    cases = [("rows 64x256", 64, 256, 512, 2048, 0)]
+    """Each case: name, B, T, D, F, launches per cell batch (None: checked,
+    not timed). The edges leave the bf16 GEMMs' 128-row tiles ragged (B*T
+    not a multiple of 128) and the LayerNorm pass's chunks uneven across a
+    warp's lanes (D 384); ragged columns are the int8 product's edges, on
+    the same GEMM template."""
+    cases = [("rows 64x256", 64, 256, 512, 2048, 0),
+             ("edge B3 x T37", 3, 37, 512, 2048, None),
+             ("edge B1 x T1", 1, 1, 512, 2048, None),
+             ("edge B2 x T200, D384 F1152", 2, 200, 384, 1152, None)]
     cases += [(f"cell rows {b}x{t}", b, t, d, f, n)
               for (b, t, d, f), n in sorted(cell["adaln_ffn"].items())]
     for dtype in (torch.float32, torch.bfloat16):
@@ -260,6 +288,17 @@ def check_ffn(gen, cell, results):
             got = ffn.fused_adaln_ffn(*args)
             ref = ffn.adaln_ffn_plain(*args)
             err = compare(f"adaln_ffn {name} {dtype}", got, ref, dtype)
+            if n is None:
+                continue
+            if n and dtype == torch.bfloat16:  # a yardstick; the FFN has no one call
+                hb = torch.randn((b * t, d), generator=gen, device=DEV).to(dtype)
+                b1b, b2b = b1.to(dtype), b2.to(dtype)
+                pair = time_ms(lambda: torch.nn.functional.linear(
+                    torch.nn.functional.silu(torch.nn.functional.linear(hb, w1, b1b)), w2, b2b),
+                    5)
+                log(f"  adaln_ffn {name}: the cuBLAS pair F.linear -> silu -> F.linear on "
+                    f"the FFN's products takes {pair:.4f} ms (no LayerNorm, modulation or "
+                    f"residual; a yardstick, not library_ms)")
             es = x.element_size()
             nbytes = es * (2 * b * t * d + 2 * d * f + 3 * b * d) + 4 * (3 * d + f)
             measure(results, "adaln_ffn", name, dtype, n, err,
@@ -315,11 +354,12 @@ def check_chain(gen, cell, results):
 
 def check_int8_matmul(gen, cell, results):
     """Exact (max abs error 0) against the plain version, float64 sums cast
-    to int32, at the cell's shapes and at edge shapes; timed at the cell's
-    shapes and at the edge shapes with M = 40,960."""
+    to int32, at the W8A8 path's shapes and at edge shapes; timed at the
+    path's shapes (with the W8A8 product's launches per cell batch: the
+    int32 form is off the path) and at the edge shapes with M = 40,960."""
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 1536, 2048)}
-    cases.update(cell["int8_matmul"])  # (M, K, N): launches per cell batch
+    cases.update(cell["w8a8_matmul"])  # (M, K, N): launches per cell batch
     for (m, k, n), n_cell in sorted(cases.items()):
         a, w = (torch.randint(-127, 128, shape, generator=gen, device=DEV).to(torch.int8)
                 for shape in ((m, k), (n, k)))
@@ -345,10 +385,82 @@ def check_int8_matmul(gen, cell, results):
                 m * k + n * k + 4 * m * n, 2.0 * m * n * k, lib=lib, shape=(m, k, n))
 
 
-def cell_summary(results) -> dict:
+def check_quantize(gen, cell, results):
+    """xq and sx bit-equal to the plain version's, from f32 and bf16 x, at
+    the cell's shapes and at edge shapes, each with a zero row (the 1e-12
+    clamp) and a row of x.5 values (half to even), K up to 2048 (a row held
+    in registers) and past it; timed in bf16, the path's type, at the cell's
+    shapes and at the edge shapes with M = 40,960."""
+    cases = {(m, k): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)}
+    cases[(37, 4104)] = 0  # past 2048 the kernel reads a row twice
+    cases.update(cell["quantize"])  # (M, K): launches per cell batch
+    halves = torch.tensor(HALVES, device=DEV)
+    for (m, k), n_cell in sorted(cases.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn((m, k), generator=gen, device=DEV)).to(dtype)
+            x[0] = 0.0
+            if m > 1:
+                x[1, :len(HALVES)] = halves.to(dtype)
+            xq, sx = quantize.quantize_rows(x)
+            rq, rs = quantize.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            ok = torch.equal(xq, rq) and torch.equal(sx.view(torch.int32), rs.view(torch.int32))
+            log(f"  quantize M{m} K{k} {dtype}: xq and sx bit-equal {ok}")
+            if not ok:
+                raise AssertionError("quantize disagrees with its plain version")
+            if dtype == torch.float32 or not n_cell and m < CELL_ROWS:
+                continue
+            measure(results, "quantize", f"M{m} K{k}", dtype, n_cell, 0.0,
+                    lambda: quantize.quantize_rows(x), lambda: quantize.quantize_rows_plain(x),
+                    m * k * (x.element_size() + 1) + 4 * m, 3.0 * m * k, shape=(m, k),
+                    ops_dtype=torch.float32)
+
+
+def check_w8a8(gen, cell, results):
+    """The int8 product with its rescale-and-bias epilogue bit-equal to the
+    plain version (exact product, f32 rescale, one rounding), bf16 and f32
+    out, at the cell's shapes and at edge shapes; the operands come from the
+    quantize pass of a random x with a zero row, plus one row and one weight
+    row at 127 (the largest sum, 127^2 K, rounds when made float). Timed in
+    bf16, the path's type, at the cell's shapes and at the edge shapes with
+    M = 40,960."""
+    cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
+             for n in (24, 512, 2048)}
+    cases.update(cell["w8a8_matmul"])  # (M, K, N): launches per cell batch
+    for (m, k, n), n_cell in sorted(cases.items()):
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        x[0] = 0.0
+        xq, sx = quantize.quantize_rows_plain(x)
+        xq[-1] = 127
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=DEV).to(torch.int8)
+        w[0] = 127
+        ws = torch.rand(n, generator=gen, device=DEV) * 0.01
+        bias = 0.1 * torch.randn(n, generator=gen, device=DEV)
+        args = (xq, sx, w, ws, bias)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = w8a8.w8a8_matmul(*args, dtype)
+            ref = w8a8.w8a8_matmul_plain(*args, dtype)
+            torch.cuda.synchronize()
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            err = float((got.float() - ref.float()).abs().max())
+            ok = got.dtype == dtype and torch.equal(got.view(bits), ref.view(bits))
+            log(f"  w8a8_matmul M{m} K{k} N{n} {dtype}: bit-equal {ok} (max abs err {err:g})")
+            if not ok:
+                raise AssertionError("w8a8_matmul disagrees with its plain version")
+            if dtype == torch.float32 or not n_cell and m < CELL_ROWS:
+                continue
+            measure(results, "w8a8_matmul", f"M{m} K{k} N{n}", dtype, n_cell, err,
+                    lambda: w8a8.w8a8_matmul(*args, dtype),
+                    lambda: w8a8.w8a8_matmul_plain(*args, dtype),
+                    m * k + n * k + 4 * m + 8 * n + got.element_size() * m * n,
+                    2.0 * m * n * k, shape=(m, k, n), ops_dtype=torch.int8)
+
+
+def cell_summary(results, launches) -> dict:
     """Per kernel: the row (in the path's own dtype: bf16, or int8 for the
-    int8 product) of the cell's shape that spends the most kernel time per
-    batch, and the per-batch sums over the cell's shapes."""
+    int32 product) of the cell's shape that spends the most kernel time per
+    batch, and the per-batch sums over the cell's shapes (for a kernel the
+    path no longer launches, the sums it would take at the path's counts)."""
     line = {}
     for kernel, rows in results.items():
         cell = [r for r in rows if r["n_cell"] and r["dtype"] != torch.float32]
@@ -357,7 +469,8 @@ def cell_summary(results) -> dict:
         sums = {key: (None if any(r[key] is None for r in cell)
                       else f"{sum(r['n_cell'] * r[key] for r in cell):.4f}")
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "earlier_ms")}
-        log(f"  {kernel} per b64/5-step batch at the cell's shapes ({cell[0]['dtype']}, "
+        off = "" if launches[kernel] else " (off the path: at the W8A8 product's counts)"
+        log(f"  {kernel} per b64/5-step batch at the cell's shapes{off} ({cell[0]['dtype']}, "
             f"{sum(r['n_cell'] for r in cell)} launches): kernel {sums['ms']} ms "
             f"(earlier: {sums['earlier_ms']} ms), plain {sums['plain_ms']} ms, library "
             f"{sums['library_ms']} ms, bound {sums['bound_ms']} ms")
@@ -407,8 +520,9 @@ class record_shapes:
                       lambda x, g, b, w1, *a: (*x.shape, w1.shape[0])),
         "resblock_chain": (vocoder_fused, "resblock_chain",
                            lambda x, *a: tuple(x.shape)),
-        "int8_matmul": (layers, "int8_matmul",
-                        lambda a, w: (a.shape[0], a.shape[1], w.shape[0])),
+        "w8a8_matmul": (layers, "w8a8_matmul",
+                        lambda xq, sx, w, *a: (xq.shape[0], xq.shape[1], w.shape[0])),
+        "quantize": (layers, "quantize_rows", lambda x: tuple(x.shape)),
     }
 
     def __enter__(self):
@@ -574,9 +688,10 @@ def whole_path_f32(params) -> None:
 
 
 def w8a8_linears(params) -> None:
-    """The W8A8 linears of VE block 0 (quantize, int8 kernel, rescale and
-    bias) on the card against the same code on the CPU (the plain int8
-    product), on the same activations, f32 and bf16: bit-equal, while the
+    """The W8A8 linears of VE block 0 (the quantize kernel, then the int8
+    kernel with its rescale-and-bias epilogue) on the card against the same
+    code on the CPU (the plain versions), on the same activations, f32 and
+    bf16: bit-equal, while the
     unquantized linear is far off. This separates a right quantization from
     none; the whole path cannot, since a flipped rounding of one activation
     grows, layer by layer, to the size of the quantization itself."""
@@ -642,9 +757,9 @@ def fused_projections_path(params) -> None:
             counts = ops.launch_counts()
         per_batch = dict(PER_BATCH[precision])
         if precision == "int8":
-            per_batch["int8_matmul"] = FUSED_INT8_MATMUL
+            per_batch.update(dict.fromkeys(W8A8_KERNELS, FUSED_W8A8_LINEARS))
         check_launches(counts, per_batch, 1, f"one fused b64/5-step {precision} batch")
-        if precision == "int8" and counts["int8_matmul"] != FUSED_INT8_MATMUL:
+        if precision == "int8" and any(counts[k] != FUSED_W8A8_LINEARS for k in W8A8_KERNELS):
             raise AssertionError("fused int8 batch did not take the fused projections")
         (w, d), (wf, df) = out["unfused"], out["fused"]
         if wf.shape != w.shape or not np.isfinite(wf).all():
@@ -693,8 +808,10 @@ def main() -> int:
     launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain")}
     log("phase 4: int8 path, TTS(precision=\"int8\") at the default 66M config")
     cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, bf16_rates=rates)
-    launches["int8_matmul"] = counts8["int8_matmul"]
-    cell["int8_matmul"] = cell8["int8_matmul"]
+    launches["int8_matmul"] = counts8["int8_matmul"]  # 0: off the path
+    for name in W8A8_KERNELS:
+        launches[name] = counts8[name]
+        cell[name] = cell8[name]
 
     log("phase 5: kernels vs plain versions")
     results = {name: [] for name in SOURCES}
@@ -704,7 +821,9 @@ def main() -> int:
     check_ffn(gen, cell, results)
     check_chain(gen, cell, results)
     check_int8_matmul(gen, cell, results)
-    picked = cell_summary(results)
+    check_quantize(gen, cell, results)
+    check_w8a8(gen, cell, results)
+    picked = cell_summary(results, launches)
 
     log("phase 6: whole path: f32 card vs CPU, W8A8 linears card vs CPU, int8 vs bf16 "
         "on the card, fused projections")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the bf16 attention and resblock-chain kernels of the PyTorch port
-against design variants on one CUDA card: the measurements behind the
-design choices stated in the headers of supertonic_tpu_torch/csrc/
-attention.cu and resblock_chain.cu.
+"""Time the bf16 attention, resblock-chain and AdaLN FFN kernels of the
+PyTorch port against design variants on one CUDA card: the measurements
+behind the design choices stated in the headers of supertonic_tpu_torch/
+csrc/attention.cu, resblock_chain.cu and ffn.cu.
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py                 # every kernel
+    python3 kernel_variants.py ffn attention   # some of them
 
 Each variant is the kernel's own source with design constants changed by
 text substitution in its bf16 section, built with the package's nvcc flags
@@ -16,6 +17,11 @@ reverse, committed), at the shapes one b64/5-step batch gives each kernel
   attention  a 3-stage K/V ring; 8 warps and 128 queries a block
   chain      the accurate silu (expf and IEEE division); 16 warps of
              32 frames x 64 channels, with either silu
+  ffn        the intermediate kept on chip (the LayerNorm pass, then one
+             launch of 64-row blocks); GEMM warp tiles of 64 x 64 (8 warps
+             of a 128 x 256 tile, one block an SM, or 4 warps of a 128 x
+             128 tile, two blocks an SM); and a torch.profiler split of the
+             committed FFN's launches
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import sys
 import torch
 
 import chip_smoke as cs
-from supertonic_tpu_torch.ops import _build, attention, vocoder_fused
+from supertonic_tpu_torch.ops import _build, attention, ffn, vocoder_fused
 
 BF16_SECTION = "// bf16 on the tensor cores"
 ATTN_8W = [("constexpr int MQ = 64;", "constexpr int MQ = 128;"),
@@ -37,24 +43,37 @@ ATTN_8W = [("constexpr int MQ = 64;", "constexpr int MQ = 128;"),
 CHAIN_ACC = [("stk::silu_fast(", "stk::silu_f(")]
 CHAIN_16W = [("constexpr int MMA_NT = 256;", "constexpr int MMA_NT = 512;"),
              ("constexpr int WM = 64, WN = 64;", "constexpr int WM = 32, WN = 64;")]
+FFN_TILE = "stk::GemmShape<128, 128, 64, 32, 3, 2>"
 VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...]}
     "attention": {"3-stage ring": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
                   "8 warps, 128 queries": ATTN_8W},
     "resblock_chain": {"accurate silu": CHAIN_ACC, "16 warps of 32x64": CHAIN_16W,
                        "16 warps of 32x64, accurate silu": CHAIN_16W + CHAIN_ACC},
+    "ffn": {"intermediate on chip": [("constexpr bool MID_ON_CHIP = false;",
+                                      "constexpr bool MID_ON_CHIP = true;")],
+            "128 x 256 tiles of 8 warps of 64 x 64, 1 block an SM": [
+                (FFN_TILE, "stk::GemmShape<128, 256, 64, 64, 3, 1>")],
+            "128 x 128 tiles of 4 warps of 64 x 64, 2 blocks an SM": [
+                (FFN_TILE, "stk::GemmShape<128, 128, 64, 64, 3, 2>")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
-         "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES)}
+         "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES),
+         "ffn": ("stk_adaln_ffn", ffn._ARGTYPES)}
+# names (in ptxas's mangled names) of each kernel's bf16 device functions
+BF16_FUNCTIONS = {"attention": ("_mma",), "resblock_chain": ("_mma",),
+                  "ffn": ("mma_gemm", "ffn_fused", "ln_mod")}
 OUT = _build.BUILD_ROOT / "variants"
 
 
-def build_variants() -> dict:
+def build_variants(kernels) -> dict:
     """{(kernel, variant): C entry of the variant's library}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for kernel, variants in VARIANTS.items():
+    for kernel in kernels:
+        variants = VARIANTS[kernel]
         head, bf16 = (_build.CSRC_DIR / f"{kernel}.cu").read_text().split(BF16_SECTION)
-        for i, (name, subs) in enumerate(variants.items()):
+        # the committed source too, for its ptxas report beside the variants'
+        for i, (name, subs) in enumerate([("committed", [])] + list(variants.items())):
             src = bf16
             for old, new in subs:
                 if old not in src:
@@ -74,8 +93,8 @@ def build_variants() -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {kernel} / {name}:\n{log}")
         lines = log.splitlines()
-        for i, line in enumerate(lines):  # the bf16 kernel's registers and spills
-            if "Function properties" in line and "_mma" in line:
+        for i, line in enumerate(lines):  # the bf16 kernels' registers and spills
+            if "Function properties" in line and any(f in line for f in BF16_FUNCTIONS[kernel]):
                 cs.log(f"  {kernel} / {name}: {' '.join(x.strip() for x in lines[i + 1:i + 3])}")
         entry, argtypes = ENTRY[kernel]
         fn = getattr(ctypes.CDLL(str(lib)), entry)
@@ -104,6 +123,36 @@ def chain_call(fn, x, fm, wa, ba, wb, bb, dils):
     return out
 
 
+def ffn_call(fn, x, g, bl, w1, b1, w2, b2, shift, scale, gate):
+    """The wrapper's launch with a variant's library; the f32 vectors as the
+    wrapper makes them ([B, D] for shift/scale/gate)."""
+    b, t, d = x.shape
+    f = w1.shape[0]
+    h = torch.empty((b * t, d), device=x.device, dtype=x.dtype)
+    mid = torch.empty((b * t, f), device=x.device, dtype=x.dtype)
+    out = torch.empty_like(x)
+    P = _build.ptr
+    _build.check(fn(P(x), P(g), P(bl), P(w1), P(b1), P(w2), P(b2), P(shift), P(scale),
+                    P(gate), P(h), P(mid), P(out), b, t, d, f, 1e-5,
+                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "variant")
+    return out
+
+
+def ffn_split(args) -> None:
+    """Device time of each launch of the committed bf16 FFN (torch.profiler,
+    mean of 20 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            ffn.fused_adaln_ffn(*args)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.count:
+            cs.log(f"  committed, per launch: {e.self_device_time_total / e.count / 1e3:.4f} ms "
+                   f"x{e.count} {e.key[:100]}")
+
+
 def in_turns(label: str, calls: dict, reps: int) -> None:
     """Time each call in the order committed, variants, variants reversed,
     committed; print both readings of each."""
@@ -122,12 +171,51 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     cs.log(smi.stdout.strip() or torch.cuda.get_device_name(0))
+    kernels = sys.argv[1:] or list(VARIANTS)
+    if any(k not in VARIANTS for k in kernels):
+        raise SystemExit(f"kernels: {', '.join(VARIANTS)}")
     _build.build_all()
-    cs.log("build (bf16 kernel of each variant: ptxas registers and spills)")
-    fns = build_variants()
+    cs.log("build (bf16 kernels of each variant: ptxas registers and spills)")
+    fns = build_variants(kernels)
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(0)
     dt = torch.bfloat16
+    if "attention" in kernels:
+        variants_attention(fns, gen, dt)
+    if "resblock_chain" in kernels:
+        variants_chain(fns, gen, dt)
+    if "ffn" in kernels:
+        variants_ffn(fns, gen, dt)
+    return 0
+
+
+def variants_ffn(fns, gen, dt) -> None:
+    cs.log("AdaLN FFN, ms per call (all its launches)")
+    b, t, d, f = 64, 640, 512, 2048
+    x = torch.randn((b, t, d), generator=gen, device=cs.DEV).to(dt)
+    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
+    bl = 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
+    w1 = (torch.rand((f, d), generator=gen, device=cs.DEV) * 2 - 1).div(d ** 0.5).to(dt)
+    w2 = (torch.rand((d, f), generator=gen, device=cs.DEV) * 2 - 1).div(f ** 0.5).to(dt)
+    b1 = 0.1 * torch.randn(f, generator=gen, device=cs.DEV)
+    b2 = 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
+    shift, scale, gate = ((0.5 * torch.randn((b, 1, d), generator=gen, device=cs.DEV)).to(dt)
+                          for _ in range(3))
+    args = (x, g, bl, w1, b1, w2, b2, shift, scale, gate)
+    ref = ffn.adaln_ffn_plain(*args)
+    flat = [v.float().reshape(b, d) for v in (shift, scale, gate)]
+    calls = {"committed": lambda: ffn.fused_adaln_ffn(*args)}
+    for name in VARIANTS["ffn"]:
+        fn = fns[("ffn", name)]
+        calls[name] = lambda fn=fn: ffn_call(fn, x, g, bl, w1, b1, w2, b2, *flat)
+    label = f"B{b} T{t} D{d} F{f}"
+    for name, call in calls.items():
+        cs.compare(f"ffn {label} {name}", call(), ref, dt)
+    in_turns(label, calls, 10)
+    ffn_split(args)
+
+
+def variants_attention(fns, gen, dt) -> None:
     cs.log("attention, ms per launch")
     for b, h, tq, tk, masked in ((64, 8, 640, 640, True), (64, 8, 640, 370, True),
                                  (64, 4, 320, 320, True), (64, 4, 320, 50, False)):
@@ -146,6 +234,9 @@ def main() -> int:
         for name, call in calls.items():
             cs.compare(f"attention {label} {name}", call(), ref, dt)
         in_turns(label, calls, 20)
+
+
+def variants_chain(fns, gen, dt) -> None:
     cs.log("resblock chain, ms per launch")
     dils = (1, 3, 9)
     for b, t_len, c in ((64, 40960, 128), (64, 5120, 256)):
@@ -165,7 +256,6 @@ def main() -> int:
         for name, call in calls.items():
             cs.compare(f"chain {label} {name}", call(), ref, dt)
         in_turns(label, calls, 3)
-    return 0
 
 
 if __name__ == "__main__":

@@ -20,8 +20,9 @@ Conventions:
     not upcast x.
   * W8A8 linears (``QLinear``, from ``models.quantize_params``) keep int8
     weights whatever the compute dtype; ``linear`` routes them through the
-    int8 product's wrapper (ops/int8_matmul.py) in the JAX
-    ``_linear_w8a8``'s order.
+    quantize pass (ops/quantize.py) and the int8 product with its
+    rescale-and-bias epilogue (ops/w8a8.py), in the JAX ``_linear_w8a8``'s
+    order.
 
 The ``*_init`` helpers are verbatim numpy copies of the JAX package's, so
 that ``models.init_all`` draws the same numbers in the same order.
@@ -39,7 +40,8 @@ from torch import nn
 
 from ..ops.attention import fused_attention
 from ..ops.ffn import fused_adaln_ffn
-from ..ops.int8_matmul import int8_matmul
+from ..ops.quantize import quantize_rows
+from ..ops.w8a8 import w8a8_matmul
 
 Params = dict[str, Any]
 
@@ -255,19 +257,13 @@ def linear(p: Linear | QLinear, x: torch.Tensor) -> torch.Tensor:
 
 
 def _linear_w8a8(p: QLinear, x: torch.Tensor) -> torch.Tensor:
-    """Dynamic-activation int8 linear in the JAX ``_linear_w8a8``'s order:
-    per-token symmetric activation quant (round half to even, as
-    ``jnp.round``), int8 x int8 -> int32, rescale and bias in f32, one
-    rounding to x's dtype."""
-    xf = x.float()
-    amax = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-12)
-    # a tensor divisor: CUDA divides by a Python scalar as a product with
-    # its reciprocal, which can be an ulp off and flip a rounding below
-    sx = amax / amax.new_full((), 127.0)
-    xq = torch.round(xf / sx).to(torch.int8)  # |xf / sx| <= 127
-    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), p.w_q)
-    y = acc.reshape(*x.shape[:-1], -1).float() * sx * p.w_scale
-    return (y + p.bias).to(x.dtype)
+    """Dynamic-activation int8 linear in the JAX ``_linear_w8a8``'s order,
+    as two kernels: per-token symmetric activation quant (round half to
+    even, as ``jnp.round``), then int8 x int8 with the rescale and bias in
+    f32 and one rounding to x's dtype in the product's epilogue."""
+    xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype)
+    return y.reshape(*x.shape[:-1], -1)
 
 
 def embedding(p: Embedding, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

@@ -14,8 +14,11 @@ Weights come in torch's linear layout: ``w1`` [F, D] and ``w2`` [D, F]
 ``shift``/``scale``/``gate`` [B, 1, D] in any float dtype.
 
 What bounds the kernel on the H100 and what its design does about it is in
-the header of ``csrc/ffn.cu``; the [B*T, F] intermediate passes through
-device memory between its two launches in this version.
+the header of ``csrc/ffn.cu``: in bf16, a LayerNorm-and-modulation pass
+writes the modulated h once, then two tensor-core GEMMs with their
+epilogues (b1 and silu; b2, gate and residual) pass the [B*T, F]
+intermediate through device memory, which measured faster than keeping it
+on chip (PERF.md).
 
 ``fused_adaln_ffn`` is the wrapper: plain version for CPU tensors only;
 CUDA tensors go to the kernel, or it raises.
@@ -32,9 +35,12 @@ from . import _build
 # calls of fused_adaln_ffn that launched the kernel (a plain counter)
 launches = 0
 
-# x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate, mid, out, B, T, D, F,
-# eps, dtype code, stream
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+MAX_D_BF16 = 1024  # the bf16 LayerNorm pass holds a row in one warp's registers
+_F32_NAMES = ("ln_g", "ln_b", "b1", "b2", "shift", "scale", "gate")
+
+# x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate, h, mid, out, B, T, D,
+# F, eps, dtype code, stream
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -74,25 +80,28 @@ def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
         raise ValueError(f"unsupported device {x.device}")
     if w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise TypeError("w1 and w2 must be in x's dtype")
-    if d % 128 or f % 128:
-        raise ValueError(f"the FFN kernel takes D and F in multiples of 128, "
-                         f"got D={d}, F={f}")
-    for name, p in (("x", x), ("w1", w1), ("w2", w2)):
-        if not p.is_contiguous() or p.device != x.device:
-            raise ValueError(f"{name} must be contiguous and on {x.device}")
+    if d % 128 or f % 128 or (x.dtype == torch.bfloat16 and d > MAX_D_BF16):
+        raise ValueError(f"the FFN kernel takes D and F in multiples of 128 (bf16: "
+                         f"D <= {MAX_D_BF16}), got D={d}, F={f}")
 
     def f32(v):
         v = v.to(device=x.device, dtype=torch.float32).contiguous()
         return v.reshape(b, d) if v.dim() == 3 else v
 
     args = [f32(v) for v in (ln_g, ln_b, b1, b2, shift, scale, gate)]
+    for name, p in (("x", x), ("w1", w1), ("w2", w2), *zip(_F32_NAMES, args)):
+        if not p.is_contiguous() or p.device != x.device or p.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {x.device}")
     mid = torch.empty((b * t, f), device=x.device, dtype=x.dtype)
+    # bf16: the modulated h, written by the kernel's LayerNorm pass
+    h = (torch.empty((b * t, d), device=x.device, dtype=x.dtype)
+         if x.dtype == torch.bfloat16 else None)
     out = torch.empty_like(x)
     fn = _build.function("ffn", "stk_adaln_ffn", _ARGTYPES)
     g, bl, b1f, b2f, sh, sc, ga = args
     P = _build.ptr
     _build.check(fn(P(x), P(g), P(bl), P(w1), P(b1f), P(w2), P(b2f), P(sh),
-                    P(sc), P(ga), P(mid), P(out), b, t, d, f, eps,
+                    P(sc), P(ga), P(h), P(mid), P(out), b, t, d, f, eps,
                     _build.dtype_code(x.dtype), _build.stream_ptr(x)),
                  "stk_adaln_ffn")
     launches += 1

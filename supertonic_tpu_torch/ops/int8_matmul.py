@@ -9,6 +9,9 @@ linear layout (``QLinear.w_q`` is [dout, din]):
     int8_matmul(a [M, K] int8, w [N, K] int8) -> a . w^T  [M, N] int32
 
 exact integer sums, any M >= 1 and N >= 1, K a multiple of 32 on the card.
+The W8A8 path takes the same kernel with its rescale-and-bias epilogue
+(``ops/w8a8.py``), which writes the linear's output instead of the int32
+sums; this int32 form is the direct port of the Pallas kernel.
 
 What bounds the kernel on the H100 and what its design does about it is in
 the header of ``csrc/int8_matmul.cu``.

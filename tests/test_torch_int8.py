@@ -1,9 +1,11 @@
 """The port's W8A8 int8 path (``precision="int8"``) against the JAX package's,
 on the CPU: the int8 product against the Pallas kernel (TPU interpret mode)
-and against ``dot_general``, quantization and the weight round trip bit for
-bit, the W8A8 ``linear``, the vector-estimator step and the engine end to
-end. On CPU tensors the wrapper runs the product's plain version; the CUDA
-kernel is held against that plain version on the card by chip_smoke.py."""
+and against ``dot_general``, the per-token quantize pass and the weight
+quantization and round trip bit for bit, the W8A8 ``linear`` (quantize pass,
+then the product with its rescale-and-bias epilogue), the vector-estimator
+step and the engine end to end. On CPU tensors the wrappers run their plain
+versions; the CUDA kernels are held against those plain versions on the card
+by chip_smoke.py."""
 
 import importlib.util
 import pathlib
@@ -32,6 +34,8 @@ from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexe
 from supertonic_tpu_torch.models import layers as tL
 from supertonic_tpu_torch.models import vector_estimator as tve
 from supertonic_tpu_torch.ops import int8_matmul as i8
+from supertonic_tpu_torch.ops import quantize as qz
+from supertonic_tpu_torch.ops import w8a8
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TEXTS = ["Hello there.", "A rather longer sentence, for a second row."]
@@ -127,6 +131,105 @@ def test_int8_matmul_wrapper_rejects_bad_operands():
 # ---------------------------------------------------------------------------
 # quantization and the weights
 # ---------------------------------------------------------------------------
+
+def _jax_quantize(x):
+    """The activation quantization of the JAX ``_linear_w8a8``
+    (supertonic_tpu/models/layers.py:83-85), its own operations run eagerly
+    as ``jL.linear`` runs them; sx as [M]."""
+    xf = x.astype(jnp.float32)
+    sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-12) / 127.0
+    xq = jnp.round(xf / sx).astype(jnp.int8)
+    return np.asarray(xq), np.asarray(sx[:, 0])
+
+
+# rows 0 and 1 of the "edges" case: a zero row (the 1e-12 clamp), and a row
+# whose amax is 127, so sx = 1 exactly and x / sx lands on x.5 (half to even)
+HALVES = [127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5]
+HALVES_Q = [127, 2, -4, 0, 0, 2, -126, 4]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,k", [("random", 32), ("random", 512), ("edges", 512),
+                                    ("random", 2048)])
+def test_quantize_rows_bit_equal_to_jax(dtype, case, k):
+    """The plain quantize pass (which the card holds the kernel to, bit for
+    bit) gives JAX's sx and xq exactly, and the amax element of each row
+    maps to +-127."""
+    rng = np.random.default_rng(k)
+    x = (rng.standard_normal((37, k)) * 3).astype(np.float32)
+    if case == "edges":
+        x[0] = 0.0
+        x[1] = 0.0
+        x[1, :len(HALVES)] = HALVES
+    xt = torch.as_tensor(x).to(dtype)
+    held = xt.float().numpy()  # the values as dtype holds them
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref_q, ref_s = _jax_quantize(jnp.asarray(held, jdt))
+    ops.reset_launch_counts()
+    xq, sx = qz.quantize_rows(xt)
+    assert ops.launch_counts()["quantize"] == 0
+    assert xq.dtype == torch.int8 and sx.dtype == torch.float32
+    assert tuple(xq.shape) == (37, k) and tuple(sx.shape) == (37,)
+    np.testing.assert_array_equal(sx.numpy(), ref_s)
+    np.testing.assert_array_equal(xq.numpy(), ref_q)
+    rows = np.nonzero(np.abs(held).max(1) > 0)[0]
+    at_max = xq.numpy()[rows, np.abs(held[rows]).argmax(1)]
+    np.testing.assert_array_equal(np.abs(at_max.astype(np.int32)), 127)
+    if case == "edges":
+        assert float(sx[0]) == np.float32(1e-12) / np.float32(127) and not xq[0].any()
+        assert float(sx[1]) == 1.0
+        np.testing.assert_array_equal(xq[1, :len(HALVES)].numpy(), HALVES_Q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(37, 2048, 24), (1, 32, 512), (130, 512, 96)])
+def test_w8a8_linear_wrappers_bit_equal_to_jax(dtype, m, k, n):
+    """The W8A8 ``linear`` built from the new wrappers' plain versions
+    (quantize pass, then the product with its rescale-and-bias epilogue) is
+    bit-equal to the JAX ``_linear_w8a8``, a zero row included; the
+    epilogue alone is bit-equal to the plain f32 operations on the exact
+    int32 product."""
+    rng = np.random.default_rng(m + k + n)
+    p = {"w": (rng.standard_normal((k, n)) * 0.05).astype(np.float32),
+         "b": (rng.standard_normal(n) * 0.1).astype(np.float32)}
+    q = jL.quantize_linear(p)
+    mod = tL.tree_to_modules(q, device="cpu")
+    x = (rng.standard_normal((m, k)) * 2).astype(np.float32)
+    x[0] = 0.0
+    xt = torch.as_tensor(x).to(dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = np.asarray(jL.linear(q, jnp.asarray(xt.float().numpy(), jdt)).astype(jnp.float32))
+    ops.reset_launch_counts()
+    got = tL.linear(mod, xt)
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+    xq, sx = qz.quantize_rows(xt)
+    acc = i8.int8_matmul(xq, mod.w_q).float()
+    y = w8a8.w8a8_matmul(xq, sx, mod.w_q, mod.w_scale, mod.bias, dtype)
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  ((acc * sx[:, None] * mod.w_scale + mod.bias).to(dtype))
+                                  .float().numpy())
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
+
+
+def test_w8a8_wrappers_reject_bad_operands():
+    xq = torch.zeros((4, 32), dtype=torch.int8)
+    w = torch.zeros((8, 32), dtype=torch.int8)
+    sx, ws, b = torch.ones(4), torch.ones(8), torch.zeros(8)
+    with pytest.raises(TypeError):
+        qz.quantize_rows(torch.zeros((4, 32), dtype=torch.float16))
+    with pytest.raises(ValueError):
+        qz.quantize_rows(torch.zeros((2, 4, 32)))
+    with pytest.raises(ValueError):
+        w8a8.w8a8_matmul(xq, sx, torch.zeros((8, 64), dtype=torch.int8), ws, b,
+                         torch.float32)
+    with pytest.raises(ValueError):
+        w8a8.w8a8_matmul(xq, sx[:3], w, ws, b, torch.float32)
+    with pytest.raises(TypeError):
+        w8a8.w8a8_matmul(xq, sx, w, ws, b, torch.float16)
+    with pytest.raises(TypeError):
+        w8a8.w8a8_matmul(xq.float(), sx, w, ws, b, torch.float32)
+
 
 def test_quantize_linear_bit_equal_to_jax():
     rng = np.random.default_rng(3)
@@ -328,9 +431,10 @@ def test_engine_fused_projections_equal_unfused(tiny_config, style_arrays, preci
 
 def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
     """TTS(precision="int8") answers a request; the quantized VE blocks do
-    not reach the fused AdaLN-FFN, and every product goes through the int8
-    wrapper: 8 per block and step, 2 per block for the cross K/V."""
-    calls = {"adaln_ffn": 0, "int8_matmul": 0}
+    not reach the fused AdaLN-FFN, and every W8A8 linear goes through the
+    quantize wrapper and the W8A8 product's wrapper: 8 per block and step,
+    2 per block for the cross K/V."""
+    calls = {"adaln_ffn": 0, "quantize": 0, "w8a8_matmul": 0}
 
     def counted(name, real):
         def f(*args, **kw):
@@ -339,7 +443,8 @@ def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
         return f
 
     monkeypatch.setattr(tL, "fused_adaln_ffn", counted("adaln_ffn", tL.fused_adaln_ffn))
-    monkeypatch.setattr(tL, "int8_matmul", counted("int8_matmul", tL.int8_matmul))
+    monkeypatch.setattr(tL, "quantize_rows", counted("quantize", tL.quantize_rows))
+    monkeypatch.setattr(tL, "w8a8_matmul", counted("w8a8_matmul", tL.w8a8_matmul))
     tts = TTS(device="cpu", cfg=tiny_config, precision="int8")
     assert tts.engine.precision == "int8" and tts.engine.dtype == torch.bfloat16
     style = tts.get_voice_style("M1")
@@ -347,7 +452,8 @@ def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
     assert wav.shape[0] == 1 and np.isfinite(wav).all()
     assert abs(wav.shape[1] - int(tiny_config.sample_rate * float(dur[0]))) <= 1
     n_layers = tiny_config.vector_estimator.n_layers
-    assert calls == {"adaln_ffn": 0, "int8_matmul": n_layers * (8 * 2 + 2)}
+    n_linears = n_layers * (8 * 2 + 2)
+    assert calls == {"adaln_ffn": 0, "quantize": n_linears, "w8a8_matmul": n_linears}
 
 
 def test_int8_entry_points_default_to_cuda(tiny_config):

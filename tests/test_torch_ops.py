@@ -124,6 +124,36 @@ def test_adaln_ffn_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+def test_adaln_ffn_bf16_matches_pallas():
+    """The plain version, which the card holds the bf16 kernel to, against
+    the Pallas kernel in bf16 at a row count that leaves the kernel's
+    128-row GEMM tiles and its LayerNorm pass ragged (B 3 x T 37). 2e-2:
+    bf16 in and out, h and the intermediate rounded to bf16 on both sides."""
+    rng = np.random.default_rng(6)
+    b, t, d, f = 3, 37, 128, 256
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bl = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    w1 = (rng.standard_normal((d, f)) / np.sqrt(d)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(f)).astype(np.float32)
+    w2 = (rng.standard_normal((f, d)) / np.sqrt(f)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    shift, scale, gate = ((0.5 * rng.standard_normal((b, 1, d))).astype(np.float32)
+                          for _ in range(3))
+    bf = jnp.bfloat16
+    ref = j_fused_adaln_ffn(jnp.asarray(x, bf), jnp.asarray(g), jnp.asarray(bl),
+                            jnp.asarray(w1, bf), jnp.asarray(b1), jnp.asarray(w2, bf),
+                            jnp.asarray(b2), *(jnp.asarray(m, bf) for m in (shift, scale, gate)),
+                            interpret=True)
+    tb = torch.bfloat16
+    got = ffn.fused_adaln_ffn(_t(x, tb), _t(g), _t(bl), _t(w1.T, tb).contiguous(), _t(b1),
+                              _t(w2.T, tb).contiguous(), _t(b2), _t(shift, tb), _t(scale, tb),
+                              _t(gate, tb))
+    assert got.dtype == tb and got.shape == (b, t, d)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
 def _chain_params(rng, c, dils):
     return {"convs": [{"a": jL.conv1d_init(rng, c, c, 3),
                        "b": jL.conv1d_init(rng, c, c, 3)} for _ in dils]}
@@ -202,4 +232,5 @@ def test_launch_counters_do_not_move_on_cpu():
     q, k, v, mask = _qkv()
     attention.fused_attention(_t(q), _t(k), _t(v), _t(mask))
     assert ops.launch_counts() == {"attention": 0, "adaln_ffn": 0,
-                                   "resblock_chain": 0, "int8_matmul": 0}
+                                   "resblock_chain": 0, "int8_matmul": 0,
+                                   "w8a8_matmul": 0, "quantize": 0}
