@@ -4,6 +4,10 @@
     python3 chip_smoke.py            # all phases, one card, a few minutes
     python3 chip_smoke.py --profile  # add a torch.profiler breakdown of
                                      # one b64/5-step batch to phase 3
+    python3 chip_smoke.py --pin-rate # phases 3 and 4 at the latent buckets
+                                     # of a fixed 1/11 s/char rate (T=640
+                                     # for the b64 cell), to compare with
+                                     # a tree from before the rate cache
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
@@ -13,9 +17,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                from a seed, zero-init heads perturbed) answers the three
                protocol texts through ``synthesize`` and 16 texts through
                ``synthesize_batch``; checks the audio and each kernel's
-               launch counter; then times b64 batches and records the
+               launch counter; then times b64 batches, records the
                shapes each kernel wrapper is given in one b64/5-step batch
-               (the cell's shapes)
+               (the cell's shapes) and the host time a dispatch spends on
+               its noise generator, its event and its queued copies
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -26,13 +31,29 @@ Phases (each prints its own lines; any failure exits non-zero):
                quantize pass and the W8A8 product bit for bit), with
                kernel / plain / library times and bounds, and the earlier
                kernels' times beside this run's at the cell's shapes
-               (EARLIER_MS)
+               (EARLIER_MS); also at every shape that phase 7 recorded
+               (the batcher's groups at B <= 32, streaming and progress at
+               B=1, the chain on the vocoder windows, the int8 server's
+               quantize and W8A8 shapes), timed where a streamed chunk
+               launches them
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
                card; one b64 batch with fused projections against the
                unfused one, in bf16 and int8; injected noise throughout
-The line before the last is a JSON object of per-kernel numbers, taken at
+  7. serving — runs after phase 4, before phase 5: make_server(TTS()) on a
+               local port with the batcher answers 64 concurrent /tts
+               requests (checked, coalesced), every other endpoint, and a
+               ~900-character /tts/stream whose first audio must arrive
+               before /tts of the same text completes (medians of three
+               turns after a warm one); stream_windows,
+               windowed against whole vocoding (f32 held to 1e-5, bf16
+               printed), infer_with_progress and mu-law egress; an int8
+               server; every kernel of each path must launch. Prints TTFA,
+               p50/p95 latency and served audio-sec/s beside the card
+Each TTS() reads and writes its learned speaking rate under a fresh folder
+of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
+latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
 the cell's shape that spends the most kernel time per batch; the last line
 is ``{"ok": true, "device": {...}}``.
 
@@ -42,11 +63,16 @@ versions on the card are true f32 references.
 
 from __future__ import annotations
 
+import http.client
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -60,6 +86,8 @@ from supertonic_tpu_torch.models import (count_params, fuse_projections, init_al
 from supertonic_tpu_torch.models import layers
 from supertonic_tpu_torch.ops import (_build, attention, ffn, int8_matmul, quantize,
                                       vocoder_fused, w8a8)
+from supertonic_tpu_torch.serve.http_server import make_server
+from supertonic_tpu_torch.utils import read_wav
 
 # protocol texts of the JAX package's bench harness (59 / 152 / 266 chars)
 SHORT_TEXT = "The quick brown fox jumps over the lazy dog near the creek."
@@ -210,7 +238,7 @@ def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
                                 bound_ms=bnd, bound_by=by, earlier_ms=earlier))
 
 
-def check_attention(gen, cell, results):
+def check_attention(gen, cell, results, serving):
     cases = [  # name, B, H, Tq, Tk, mask kind, launches per cell batch (None:
         #        checked, not timed)
         ("ve_self T256", 64, 8, 256, 256, "tail", 0),
@@ -228,6 +256,11 @@ def check_attention(gen, cell, results):
     ]
     cases += [(f"cell H{h} Tq{tq} Tk{tk}", b, h, tq, tk, "tail" if masked else None, n)
               for (b, h, tq, tk, masked), n in sorted(cell["attention"].items())]
+    # the serving run's shapes, timed where a streamed chunk launches them
+    cases += [(f"serving H{h} Tq{tq} Tk{tk} ({k} per streamed chunk)", b, h, tq, tk,
+               "tail" if masked else None, 0 if k else None)
+              for (b, h, tq, tk, masked), k in sorted(serving["attention"].items())
+              if (b, h, tq, tk, masked) not in cell["attention"]]
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, h, tq, tk, mk, n in cases:
             q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=DEV).to(dtype)
@@ -261,7 +294,7 @@ def check_attention(gen, cell, results):
                         qt, kt, vt, attn_mask=bias), shape=(b, h, tq, tk, mk is not None))
 
 
-def check_ffn(gen, cell, results):
+def check_ffn(gen, cell, results, serving):
     """Each case: name, B, T, D, F, launches per cell batch (None: checked,
     not timed). The edges leave the bf16 GEMMs' 128-row tiles ragged (B*T
     not a multiple of 128) and the LayerNorm pass's chunks uneven across a
@@ -273,6 +306,9 @@ def check_ffn(gen, cell, results):
              ("edge B2 x T200, D384 F1152", 2, 200, 384, 1152, None)]
     cases += [(f"cell rows {b}x{t}", b, t, d, f, n)
               for (b, t, d, f), n in sorted(cell["adaln_ffn"].items())]
+    cases += [(f"serving rows {b}x{t} ({k} per streamed chunk)", b, t, d, f, 0 if k else None)
+              for (b, t, d, f), k in sorted(serving["adaln_ffn"].items())
+              if (b, t, d, f) not in cell["adaln_ffn"]]
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, t, d, f, n in cases:
             x = torch.randn((b, t, d), generator=gen, device=DEV).to(dtype)
@@ -306,7 +342,7 @@ def check_ffn(gen, cell, results):
                     nbytes, 4.0 * b * t * d * f, reps=5, shape=(b, t, d, f))
 
 
-def check_chain(gen, cell, results):
+def check_chain(gen, cell, results, serving):
     """Each case: name, B, T', C, launches per cell batch (None: checked, not
     timed), frame mask ("tail": the last tenth masked, "zero": all masked)."""
     dils = (1, 3, 9)
@@ -314,6 +350,10 @@ def check_chain(gen, cell, results):
              ("T'=64x256", 64, 64 * 256, 128, 0, "tail")]
     cases += [(f"cell T'={t_len}", b, t_len, c, n, "tail")
               for (b, t_len, c), n in sorted(cell["resblock_chain"].items())]
+    cases += [(f"serving T'={t_len} ({k} per streamed chunk)", b, t_len, c,
+               0 if k else None, "tail")
+              for (b, t_len, c), k in sorted(serving["resblock_chain"].items())
+              if (b, t_len, c) not in cell["resblock_chain"]]
     for dtype in (torch.float32, torch.bfloat16):
         edges = []  # the kernel's own tile width at each C and dtype
         for c in (128, 256):
@@ -385,15 +425,17 @@ def check_int8_matmul(gen, cell, results):
                 m * k + n * k + 4 * m * n, 2.0 * m * n * k, lib=lib, shape=(m, k, n))
 
 
-def check_quantize(gen, cell, results):
+def check_quantize(gen, cell, results, serving):
     """xq and sx bit-equal to the plain version's, from f32 and bf16 x, at
-    the cell's shapes and at edge shapes, each with a zero row (the 1e-12
-    clamp) and a row of x.5 values (half to even), K up to 2048 (a row held
-    in registers) and past it; timed in bf16, the path's type, at the cell's
-    shapes and at the edge shapes with M = 40,960."""
+    the cell's shapes, the int8 server's and edge shapes, each with a zero
+    row (the 1e-12 clamp) and a row of x.5 values (half to even), K up to
+    2048 (a row held in registers) and past it; timed in bf16, the path's
+    type, at the cell's shapes and at the edge shapes with M = 40,960."""
     cases = {(m, k): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)}
     cases[(37, 4104)] = 0  # past 2048 the kernel reads a row twice
     cases.update(cell["quantize"])  # (M, K): launches per cell batch
+    for key in serving["quantize"]:
+        cases.setdefault(key, None)  # checked, not timed
     halves = torch.tensor(HALVES, device=DEV)
     for (m, k), n_cell in sorted(cases.items()):
         for dtype in (torch.float32, torch.bfloat16):
@@ -408,7 +450,7 @@ def check_quantize(gen, cell, results):
             log(f"  quantize M{m} K{k} {dtype}: xq and sx bit-equal {ok}")
             if not ok:
                 raise AssertionError("quantize disagrees with its plain version")
-            if dtype == torch.float32 or not n_cell and m < CELL_ROWS:
+            if dtype == torch.float32 or n_cell is None or not n_cell and m < CELL_ROWS:
                 continue
             measure(results, "quantize", f"M{m} K{k}", dtype, n_cell, 0.0,
                     lambda: quantize.quantize_rows(x), lambda: quantize.quantize_rows_plain(x),
@@ -416,10 +458,11 @@ def check_quantize(gen, cell, results):
                     ops_dtype=torch.float32)
 
 
-def check_w8a8(gen, cell, results):
+def check_w8a8(gen, cell, results, serving):
     """The int8 product with its rescale-and-bias epilogue bit-equal to the
     plain version (exact product, f32 rescale, one rounding), bf16 and f32
-    out, at the cell's shapes and at edge shapes; the operands come from the
+    out, at the cell's shapes, the int8 server's and edge shapes; the
+    operands come from the
     quantize pass of a random x with a zero row, plus one row and one weight
     row at 127 (the largest sum, 127^2 K, rounds when made float). Timed in
     bf16, the path's type, at the cell's shapes and at the edge shapes with
@@ -427,6 +470,8 @@ def check_w8a8(gen, cell, results):
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 2048)}
     cases.update(cell["w8a8_matmul"])  # (M, K, N): launches per cell batch
+    for key in serving["w8a8_matmul"]:
+        cases.setdefault(key, None)  # checked, not timed
     for (m, k, n), n_cell in sorted(cases.items()):
         x = torch.randn((m, k), generator=gen, device=DEV)
         x[0] = 0.0
@@ -447,7 +492,7 @@ def check_w8a8(gen, cell, results):
             log(f"  w8a8_matmul M{m} K{k} N{n} {dtype}: bit-equal {ok} (max abs err {err:g})")
             if not ok:
                 raise AssertionError("w8a8_matmul disagrees with its plain version")
-            if dtype == torch.float32 or not n_cell and m < CELL_ROWS:
+            if dtype == torch.float32 or n_cell is None or not n_cell and m < CELL_ROWS:
                 continue
             measure(results, "w8a8_matmul", f"M{m} K{k} N{n}", dtype, n_cell, err,
                     lambda: w8a8.w8a8_matmul(*args, dtype),
@@ -555,13 +600,17 @@ def check_launches(counts, per_batch, n_batches, what) -> None:
                                  f"expected {'0' if n == 0 else f'>= {n * n_batches}'}")
 
 
-def main_path(assets, precision, profile: bool, bf16_rates=None):
+def main_path(assets, precision, profile: bool, pin_rate: bool, bf16_rates=None):
     """Drive TTS(assets, precision=...) through the counted run and the b64
     batches; return the shapes each kernel wrapper was given in one
     b64/5-step batch, the b64 audio-sec/s by step count and the launch
-    counts of the counted run."""
+    counts of the counted run. ``pin_rate``: every latent bucket from a
+    fixed 1/11 s/char, no rate learned."""
     t0 = time.perf_counter()
     tts = TTS(assets, precision=precision)  # device defaults to cuda
+    if pin_rate:
+        tts.engine._pin_rate(1.0 / 11.0)
+        tts.engine._rate_frozen = True
     n_params = count_params(tts.assets.params)
     log(f"  TTS() on {tts.engine.device}, precision={tts.engine.precision}, "
         f"{n_params / 1e6:.2f}M params, load {time.perf_counter() - t0:.2f}s")
@@ -615,9 +664,46 @@ def main_path(assets, precision, profile: bool, bf16_rates=None):
                 f" (bf16, phase 3: {' / '.join(f'{r:.2f}' for r in bf16_rates[steps])})")
             log(f"  {precision} b64/{steps}-step rep {rep}: {float(d.sum()):.3f}s audio in "
                 f"{wall:.4f}s = {rates[steps][-1]:.2f} audio-sec/s{beside}")
+    egress_host_cost(tts, texts, style)
     if profile:
         profile_batch(tts, texts, style)
     return cell, rates, counts
+
+
+def egress_host_cost(tts, texts, style, reps: int = 20) -> None:
+    """Median host ms a b64/5-step dispatch spends on its own noise
+    generator, the event recorded behind it and queueing its duration and
+    waveform copies on the egress stream; beside them, on the same tensors
+    and an idle card, the whole fetch (queue and wait) and the synchronous
+    copies into pinned memory that a single-stream engine makes."""
+    eng = tts.engine
+    p = eng.infer_batch_begin(texts, ["en"] * len(texts), style.tile(len(texts)), 5)
+    eng.infer_batch_end(p)
+    dur, wav = p.dur_dev, p.wav_src
+    names = ("generator", "event", "queue copies", "fetch and wait", "synchronous copies")
+    ms = {name: [] for name in names}
+    with torch.inference_mode():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._next_generator()
+            t1 = time.perf_counter()
+            ready = eng._mark()
+            t2 = time.perf_counter()
+            fetch = eng._fetch([dur, wav], ready)
+            t3 = time.perf_counter()
+            eng._wait(fetch)
+            t4 = time.perf_counter()
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            dur.cpu()
+            torch.empty(wav.shape, dtype=wav.dtype, pin_memory=True).copy_(wav)
+            t6 = time.perf_counter()
+            for name, dt in zip(names, (t1 - t0, t2 - t1, t3 - t2, t4 - t2, t6 - t5)):
+                ms[name].append(dt * 1e3)
+    log(f"  host ms per b64/5-step dispatch ({wav.numel() * wav.element_size() / 2**20:.1f} "
+        f"MiB of {wav.dtype} waveform), median of {reps}: " + ", ".join(
+            f"{name} {float(np.median(v)):.4f}" for name, v in ms.items()))
 
 
 def profile_batch(tts, texts, style) -> None:
@@ -773,12 +859,405 @@ def fused_projections_path(params) -> None:
             raise AssertionError(f"fused {precision}: far from the unfused batch")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving path
+# ---------------------------------------------------------------------------
+
+# ~900 characters, four chunks of at most 300: the protocol texts run on
+STREAM_TEXT = " ".join((LONG_TEXT, MID_TEXT, LONG_TEXT, MID_TEXT, SHORT_TEXT))
+N_CONCURRENT = 64
+WINDOW_FRAMES = 64            # the HTTP stream's vocoder window
+WINDOW_F32_ATOL = 1e-5        # windowed vs whole vocoding, f32 on the card
+STREAM_TURNS = 3              # timed /tts/stream against /tts turns
+
+
+def fresh_rate_dir(name: str) -> None:
+    """Point the engines made next at an empty learned-rate cache, so that a
+    rate left by an earlier run cannot change the latent buckets."""
+    d = os.path.join(OUT_DIR, "rates", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.environ["TTS_RATE_CACHE_DIR"] = d
+
+
+def request(port: int, method: str, path: str, body=None):
+    """One HTTP request to the local server: (status, headers, payload)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def expect(port, method, path, body, status, what):
+    got, hdrs, payload = request(port, method, path, body)
+    if got != status:
+        raise AssertionError(f"{what}: HTTP {got} (want {status}): {payload[:200]!r}")
+    return hdrs, payload
+
+
+def check_wav_payload(payload: bytes, sr: int, what: str) -> np.ndarray:
+    if payload[:4] != b"RIFF" or payload[8:12] != b"WAVE":
+        raise AssertionError(f"{what}: not a RIFF/WAVE payload")
+    wav, got_sr = read_wav(io.BytesIO(payload))
+    if got_sr != sr:
+        raise AssertionError(f"{what}: sample rate {got_sr}, want {sr}")
+    check_audio(wav, len(wav) / sr, sr, what)
+    return wav
+
+
+class serving_server:
+    """make_server(tts) on a free local port, served from a thread; shut
+    down, batcher included, on exit."""
+
+    def __init__(self, tts):
+        self.server = make_server(tts, "127.0.0.1", 0)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.service.close()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+        if self.thread.is_alive():
+            raise AssertionError("server thread did not stop")
+
+
+def burst(port: int, sr: int, n: int, steps: int = 5):
+    """n concurrent /tts requests (the protocol texts, cycled), released
+    together; every answer checked. Returns (audio samples per request,
+    client latency per request, wall of the burst)."""
+    out = [None] * n
+    gate = threading.Barrier(n)
+
+    def hit(i):
+        gate.wait()
+        t0 = time.perf_counter()
+        status, _h, payload = request(port, "POST", "/tts",
+                                      {"text": TEXTS[i % 3], "total_step": steps})
+        out[i] = (status, payload, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(o is None for o in out):
+        raise AssertionError("a concurrent /tts request did not finish")
+    samples, lat = [], []
+    for i, (status, payload, dt) in enumerate(out):
+        if status != 200:
+            raise AssertionError(f"/tts request {i}: HTTP {status}: {payload[:200]!r}")
+        samples.append(len(check_wav_payload(payload, sr, f"/tts request {i}")))
+        lat.append(dt)
+    return samples, lat, wall
+
+
+def stream_first_bytes(port: int, body: dict):
+    """POST /tts/stream; returns (seconds to the first audio bytes, seconds
+    to the end, the body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/tts/stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or resp.getheader("Transfer-Encoding") != "chunked":
+            raise AssertionError(f"/tts/stream: HTTP {resp.status}")
+        got, t_first = bytearray(), None
+        while True:
+            piece = resp.read1(1 << 16)
+            if not piece:
+                break
+            got.extend(piece)
+            if t_first is None and len(got) > 44:  # past the RIFF header
+                t_first = time.perf_counter() - t0
+        return t_first, time.perf_counter() - t0, bytes(got)
+    finally:
+        conn.close()
+
+
+def stream_against_whole(port: int, sr: int) -> float:
+    """/tts/stream of STREAM_TEXT against /tts of it: one turn of each to
+    warm what only these requests reach (a lone chunk at B=1, the vocoder
+    windows), then STREAM_TURNS timed turns, every body checked. The
+    median time to the stream's first audio bytes must beat the median
+    /tts. Returns that median TTFA."""
+    body = {"text": STREAM_TEXT, "total_step": 5}
+    firsts, ends, wholes = [], [], []
+    for turn in range(1 + STREAM_TURNS):
+        t_first, t_end, streamed = stream_first_bytes(port, body)
+        t0 = time.perf_counter()
+        _h, whole = expect(port, "POST", "/tts", body, 200, "/tts of the stream text")
+        t_whole = time.perf_counter() - t0
+        if t_first is None:
+            raise AssertionError("/tts/stream sent no audio")
+        pcm = np.frombuffer(streamed[44:], "<i2") / 32767.0
+        check_audio(pcm, len(pcm) / sr, sr, "/tts/stream body")
+        check_wav_payload(whole, sr, "/tts of the stream text")
+        if turn:
+            firsts.append(t_first)
+            ends.append(t_end)
+            wholes.append(t_whole)
+    ttfa, t_whole = float(np.median(firsts)), float(np.median(wholes))
+    log(f"  /tts/stream of {len(STREAM_TEXT)} chars, {STREAM_TURNS} turns after a warm one: "
+        f"first audio bytes after {' / '.join(f'{t:.4f}' for t in firsts)}s (median "
+        f"{ttfa:.4f}), end after {' / '.join(f'{t:.4f}' for t in ends)}s; /tts of the same "
+        f"text {' / '.join(f'{t:.4f}' for t in wholes)}s (median {t_whole:.4f})")
+    if not ttfa < t_whole:
+        raise AssertionError("the stream's first audio did not arrive before /tts ended")
+    return ttfa
+
+
+def check_endpoints(port: int, sr: int) -> None:
+    """Every other endpoint once: a batch as a zip, the OpenAI-compatible
+    surface in wav and pcm, a blended voice, the GET endpoints, a 400 and a
+    422."""
+    hdrs, payload = expect(port, "POST", "/tts", {
+        "text": [SHORT_TEXT, MID_TEXT], "lang": ["en", "en"], "voice_style": ["M1", "F1"],
+        "batch": True, "total_step": 5}, 200, "/tts batch")
+    zf = zipfile.ZipFile(io.BytesIO(payload))
+    if hdrs["content-type"] != "application/zip" or len(zf.namelist()) != 2:
+        raise AssertionError(f"/tts batch: {hdrs['content-type']}, {zf.namelist()}")
+    for name in zf.namelist():
+        check_wav_payload(zf.read(name), sr, f"/tts batch {name}")
+    speech = {"input": MID_TEXT, "voice": "alloy", "total_step": 5}
+    _h, wav = expect(port, "POST", "/v1/audio/speech", speech, 200, "/v1/audio/speech")
+    check_wav_payload(wav, sr, "/v1/audio/speech wav")
+    hdrs, pcm = expect(port, "POST", "/v1/audio/speech", dict(speech, response_format="pcm"),
+                       200, "/v1/audio/speech pcm")
+    if hdrs["content-type"] != "audio/pcm" or len(pcm) != len(wav) - 44:
+        raise AssertionError(f"/v1/audio/speech pcm: {hdrs['content-type']}, {len(pcm)} "
+                             f"bytes against the wav's {len(wav)}")
+    check_audio(np.frombuffer(pcm, "<i2") / 32767.0, len(pcm) / 2 / sr, sr, "pcm")
+    _h, blend = expect(port, "POST", "/tts", {"text": MID_TEXT, "voice_style": "M1+F1:0.3",
+                                              "total_step": 5}, 200, "blended voice")
+    check_wav_payload(blend, sr, "blended voice M1+F1:0.3")
+    _h, voices = expect(port, "GET", "/voices", None, 200, "/voices")
+    _h, health = expect(port, "GET", "/health", None, 200, "/health")
+    hdrs, page = expect(port, "GET", "/", None, 200, "/")
+    if ("M1" not in json.loads(voices)["voices"] or json.loads(health) != {"status": "ok"}
+            or not hdrs["content-type"].startswith("text/html") or b"<audio" not in page):
+        raise AssertionError("/voices, /health or / answered wrong")
+    _h, err = expect(port, "POST", "/tts", {"text": "Hi.", "lang": "de"}, 400, "bad lang")
+    _h, err2 = expect(port, "POST", "/tts", {"text": "Hi.", "total_step": 0}, 422,
+                      "bad total_step")
+    log(f"  /tts batch zip, /v1/audio/speech wav ({len(wav)} B) and pcm ({len(pcm)} B), "
+        f"blend M1+F1:0.3, /voices, /health, /, 400 {json.loads(err)['detail']!r}, "
+        f"422 {json.loads(err2)['detail']!r}: ok")
+
+
+def check_stream_windows(tts, style) -> None:
+    """stream_windows directly: the first chunk in windows (continuations,
+    then its end), one end flag per text chunk, and each chunk's samples
+    equal to its duration."""
+    from supertonic_tpu_torch.frontend import chunk_text, max_len_for_lang
+
+    sr = tts.sample_rate
+    n_chunks = len(chunk_text(STREAM_TEXT, max_len=max_len_for_lang("en")))
+    pieces = list(tts.engine.stream_windows(STREAM_TEXT, "en", style, total_step=5))
+    chunks, cur = [], []
+    for wav, secs, end in pieces:
+        cur.append((wav, secs))
+        if end:
+            chunks.append(cur)
+            cur = []
+    if cur or len(chunks) != n_chunks or len(chunks[0]) < 2 or any(
+            len(c) != 1 for c in chunks[1:]):
+        raise AssertionError(f"stream_windows flags: {[len(c) for c in chunks]} pieces "
+                             f"per chunk, {len(cur)} left open, {n_chunks} chunks")
+    for i, c in enumerate(chunks):
+        n = sum(len(w) for w, _ in c)
+        # a chunk is trimmed to int(sr * duration) samples
+        if not -1e-6 <= sum(secs for _, secs in c) * sr - n < 1.0:
+            raise AssertionError(f"stream_windows chunk {i}: {n} samples != duration")
+        check_audio(np.concatenate([w for w, _ in c]), n / sr, sr, f"stream chunk {i}")
+    log(f"  stream_windows: {n_chunks} chunks, the first in {len(chunks[0])} windows "
+        f"({len(chunks[0]) - 1} continuations), samples = durations")
+
+
+def window_vs_whole(params, tts, style) -> None:
+    """Windowed vocoding (the HTTP stream's windows: 64 frames, the halo the
+    vocoder's receptive field) against whole vocoding of the same latent on
+    the card, in f32 (TF32 off, the kernels' SIMT f32 branches) and bf16."""
+    from supertonic_tpu_torch.engine import synthesis
+    from supertonic_tpu_torch.models import load_params, vocoder
+    from supertonic_tpu_torch.models.vocoder import receptive_field_frames
+
+    cfg = tts.cfg
+    eng = tts.engine
+    halo, w, chunk = receptive_field_frames(cfg), WINDOW_FRAMES, cfg.chunk_size
+    with torch.inference_mode():
+        dev_args, *_ = eng._prepare_inputs([LONG_TEXT], ["en"], style)
+        xt, _dur, fmask = synthesis.flow_fused(
+            eng.params, cfg, *dev_args, torch.Generator(device=DEV).manual_seed(5), 1.05,
+            5, 448, precision="bf16")
+        xt, fmask = xt[:1].contiguous(), fmask
+        f32 = load_params(params, device=DEV, dtype=torch.float32)
+        for dtype, mods in ((torch.float32, f32), (torch.bfloat16, eng.params)):
+            prec = "f32" if dtype == torch.float32 else "bf16"
+            full = vocoder.apply(mods["vocoder"], cfg, xt, frame_mask=fmask, dtype=dtype)
+            xt_pad = torch.nn.functional.pad(xt, (0, 0, halo, halo))
+            m_pad = torch.nn.functional.pad(fmask, (halo, halo))
+            pieces = []
+            t_len = xt.shape[1]
+            for k0 in range(0, t_len, w):
+                start = max(0, min(k0, t_len - w))
+                wav = synthesis.vocode_window(mods, cfg, xt_pad, m_pad, start, w, halo,
+                                              precision=prec, egress="f32")
+                pieces.append(wav[:, (k0 - start) * chunk:(k0 - start + min(w, t_len - k0))
+                                  * chunk])
+            err = float((torch.cat(pieces, 1) - full).abs().max())
+            log(f"  windowed vs whole vocoding, {t_len} frames in windows of {w} + 2 x "
+                f"{halo} halo frames, {dtype}: max abs err {err:.3e}"
+                + (f" (limit {WINDOW_F32_ATOL:g})" if dtype == torch.float32 else
+                   " (printed, no limit: bf16 roundings of a different tiling)"))
+            if dtype == torch.float32 and not err <= WINDOW_F32_ATOL:
+                raise AssertionError("f32 windowed vocoding disagrees with whole vocoding")
+    del f32
+
+
+def check_progress(tts, style) -> None:
+    calls = []
+    wav, dur = tts.engine.infer_with_progress(
+        MID_TEXT, "en", style, total_step=5, progress_callback=lambda s, n: calls.append((s, n)))
+    if calls != [(i, 5) for i in range(1, 6)]:
+        raise AssertionError(f"infer_with_progress callbacks {calls}")
+    check_audio(wav[0], float(dur[0]), tts.sample_rate, "infer_with_progress")
+    log(f"  infer_with_progress: callbacks {calls}, {float(dur[0]):.3f}s of finite audio")
+
+
+def check_mulaw(assets, style, sr: int) -> None:
+    """TTS(egress_format="mulaw") against TTS() on the same noise (same seed,
+    same pinned rate): within the G.711 step of the int16 audio."""
+    out = {}
+    for fmt in ("int16", "mulaw"):
+        tts = TTS(assets, egress_format=fmt)
+        tts.engine._pin_rate()
+        out[fmt] = tts.synthesize(MID_TEXT, style, total_step=5)
+    (w16, d16), (wmu, dmu) = out["int16"], out["mulaw"]
+    err = np.abs(wmu - w16) * 32767.0
+    bound = (np.abs(w16) * 32767.0 + 132.0) / 32.0 + 2.0  # half a segment step
+    log(f"  mu-law egress: durations equal {np.array_equal(d16, dmu)}, max |mulaw - int16| "
+        f"{float(err.max()):.1f} int16 steps, max over the G.711 half-step bound "
+        f"{float((err / bound).max()):.3f}")
+    check_audio(wmu[0], float(dmu[0]), sr, "mu-law egress")
+    if not np.array_equal(d16, dmu) or wmu.shape != w16.shape or np.any(err > bound):
+        raise AssertionError("mu-law egress off the int16 audio by more than the G.711 step")
+
+
+def serving(assets, params, smi: str):
+    """Phase 7: the bf16 server (64 concurrent requests, coalescing, every
+    endpoint, streaming against /tts), stream_windows, windowed against
+    whole vocoding, the progress path and mu-law egress, then an int8
+    server. Returns {kernel: {shape: launches per streamed chunk}} for every
+    shape either server gave a kernel: the shapes phase 5 also checks."""
+    from supertonic_tpu_torch.frontend import chunk_text, max_len_for_lang
+
+    fresh_rate_dir("serve-bf16")
+    tts = TTS(assets)
+    sr = tts.sample_rate
+    style = tts.get_voice_style("M1")
+    ops.reset_launch_counts()
+    with record_shapes() as shapes, serving_server(tts) as srv:
+        batcher, prof = srv.server.service.batcher, tts.engine.profiler
+        burst(srv.port, sr, N_CONCURRENT)  # the rate learned, the allocator warm
+        b0, r0, a0 = batcher.stats["batches"], batcher.stats["batched_requests"], \
+            prof.audio_seconds
+        samples, lat, wall = burst(srv.port, sr, N_CONCURRENT)
+        n_batches = batcher.stats["batches"] - b0
+        n_req = batcher.stats["batched_requests"] - r0
+        audio = prof.audio_seconds - a0
+        if abs(sum(samples) - audio * sr) > N_CONCURRENT:
+            raise AssertionError(f"served samples {sum(samples)} != durations "
+                                 f"{audio * sr:.1f} (one sample each at most)")
+        log(f"  {N_CONCURRENT} concurrent /tts: all 200, RIFF/WAVE at {sr} Hz, RMS > 0.005, "
+            f"samples = durations; batcher {n_batches} batches for {n_req} requests "
+            f"({n_req / n_batches:.2f} a batch)")
+        if n_req != N_CONCURRENT or not n_req / n_batches > 1.0:
+            raise AssertionError("the batcher did not coalesce the concurrent requests")
+        check_endpoints(srv.port, sr)
+        t_first = stream_against_whole(srv.port, sr)
+        _h, metrics = expect(srv.port, "GET", "/metrics", None, 200, "/metrics")
+        m = json.loads(metrics)
+        dev_mem = m.get("device_memory", {}).get("devices", [{}])
+        if not (m["latency_p50_s"] > 0 and m["latency_p95_s"] > 0 and m["ttfa_p50_s"] > 0
+                and dev_mem[0].get("bytes_in_use", 0) > 0):
+            raise AssertionError(f"/metrics lacks percentiles or device memory: {m}")
+        log(f"  /metrics: latency p50 {m['latency_p50_s']:.4f}s p95 "
+            f"{m['latency_p95_s']:.4f}s, ttfa p50 {m['ttfa_p50_s']:.4f}s, device memory "
+            f"{dev_mem[0]['bytes_in_use'] / 2**30:.2f} GiB in use "
+            f"(peak {dev_mem[0]['peak_bytes_in_use'] / 2**30:.2f})")
+        check_stream_windows(tts, style)
+        check_progress(tts, style)
+    counts = ops.launch_counts()
+    log(f"  launches over the bf16 serving run: {counts}")
+    for name in ("attention", "adaln_ffn", "resblock_chain"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{name} was not launched while serving")
+    if any(counts[name] for name in ("int8_matmul", *W8A8_KERNELS)):
+        raise AssertionError("the bf16 server launched an int8 kernel")
+    lat = np.asarray(lat)
+    log(f"  serving times ({smi}): TTFA {t_first:.4f}s (median, {len(STREAM_TEXT)}-char "
+        f"stream, 5 steps); {N_CONCURRENT} concurrent /tts at 5 steps: client latency p50 "
+        f"{np.percentile(lat, 50):.4f}s p95 {np.percentile(lat, 95):.4f}s, "
+        f"{sum(samples) / sr:.3f}s of audio in {wall:.4f}s = "
+        f"{sum(samples) / sr / wall:.2f} served audio-sec/s")
+    first = chunk_text(STREAM_TEXT, max_len=max_len_for_lang("en"))[0]
+    ops.reset_launch_counts()
+    with record_shapes() as per_chunk:
+        list(tts.engine._vocode_stream(first, "en", style, 5, 1.05, WINDOW_FRAMES))
+    log(f"  launches for one streamed chunk ({len(first)} chars, windows of "
+        f"{WINDOW_FRAMES}): {ops.launch_counts()}")
+    window_vs_whole(params, tts, style)
+    del tts
+    check_mulaw(assets, style, sr)
+
+    fresh_rate_dir("serve-int8")
+    tts8 = TTS(assets, precision="int8")
+    ops.reset_launch_counts()
+    with record_shapes() as shapes8, serving_server(tts8) as srv:
+        samples8, _lat8, wall8 = burst(srv.port, sr, 16)
+        t_first8, _t, body8 = stream_first_bytes(srv.port, {"text": STREAM_TEXT,
+                                                            "total_step": 5})
+        check_audio(np.frombuffer(body8[44:], "<i2") / 32767.0, (len(body8) - 44) / 2 / sr,
+                    sr, "int8 /tts/stream body")
+    counts8 = ops.launch_counts()
+    log(f"  int8 server: 16 concurrent /tts ({sum(samples8) / sr:.3f}s of audio in "
+        f"{wall8:.4f}s) and one stream (first audio after {t_first8:.4f}s); launches "
+        f"{counts8}")
+    for name in ("attention", "resblock_chain", *W8A8_KERNELS):
+        if not counts8[name] > 0:
+            raise AssertionError(f"{name} was not launched by the int8 server")
+    if counts8["adaln_ffn"] or counts8["int8_matmul"]:
+        raise AssertionError("the int8 server launched the fused FFN or the int32 product")
+    del tts8
+    served = {kernel: {key: per_chunk[kernel].get(key, 0)
+                       for key in {**shapes[kernel], **shapes8[kernel], **per_chunk[kernel]}}
+              for kernel in record_shapes.KEYS}
+    log("  shapes for phase 5 (launches per streamed chunk): " + "; ".join(
+        f"{kernel} {len(seen)}: {dict(sorted(seen.items()))}" for kernel, seen in served.items()))
+    return served
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one b64/5-step batch in phases 3 and 4")
+    ap.add_argument("--pin-rate", action="store_true",
+                    help="phases 3 and 4 at the latent buckets of a fixed 1/11 s/char "
+                         "(T=640 for the b64 cell), learning no rate")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -788,8 +1267,9 @@ def main() -> int:
     log("phase 1: device (TF32 disabled for matmuls and cuDNN convs)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
-        else f"nvidia-smi unavailable: {torch.cuda.get_device_name(0)}")
+    smi = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
+           else f"nvidia-smi unavailable: {torch.cuda.get_device_name(0)}")
+    log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -804,25 +1284,33 @@ def main() -> int:
     os.makedirs(assets, exist_ok=True)
     save_params(os.path.join(assets, "params.npz"), params)
     log("phase 3: main path, TTS() bf16 at the default 66M config")
-    cell, rates, counts = main_path(assets, "bf16", args.profile)
+    fresh_rate_dir("main-bf16")
+    cell, rates, counts = main_path(assets, "bf16", args.profile, args.pin_rate)
     launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain")}
     log("phase 4: int8 path, TTS(precision=\"int8\") at the default 66M config")
-    cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, bf16_rates=rates)
+    fresh_rate_dir("main-int8")
+    cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, args.pin_rate,
+                                        bf16_rates=rates)
     launches["int8_matmul"] = counts8["int8_matmul"]  # 0: off the path
     for name in W8A8_KERNELS:
         launches[name] = counts8[name]
         cell[name] = cell8[name]
 
+    # phase 7 runs here, before phase 5, so that phase 5 also holds attention
+    # and the chain against their plain versions at the shapes serving gave them
+    log("phase 7: serving, make_server(TTS()) at the default 66M config")
+    served = serving(assets, params, smi)
+
     log("phase 5: kernels vs plain versions")
     results = {name: [] for name in SOURCES}
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    check_attention(gen, cell, results)
-    check_ffn(gen, cell, results)
-    check_chain(gen, cell, results)
+    check_attention(gen, cell, results, served)
+    check_ffn(gen, cell, results, served)
+    check_chain(gen, cell, results, served)
     check_int8_matmul(gen, cell, results)
-    check_quantize(gen, cell, results)
-    check_w8a8(gen, cell, results)
+    check_quantize(gen, cell, results, served)
+    check_w8a8(gen, cell, results, served)
     picked = cell_summary(results, launches)
 
     log("phase 6: whole path: f32 card vs CPU, W8A8 linears card vs CPU, int8 vs bf16 "

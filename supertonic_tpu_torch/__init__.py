@@ -26,13 +26,16 @@ class TTS:
     """High-level synthesizer (the reference's pypi-API shape)."""
 
     def __init__(self, assets_dir: str | None = None, *,
-                 precision: str | None = None, seed: int = 0, device=None,
+                 precision: str | None = None, seed: int = 0,
+                 egress_format: str = "int16", device=None,
                  cfg: TTSConfig | None = None):
         """``device`` defaults to ``cuda`` and raises when there is no card;
         ``device="cpu"`` runs the plain PyTorch path. ``precision``: "bf16"
         (the config's default), "f32", or "int8" (W8A8 vector-estimator
-        block linears, bf16 elsewhere). ``cfg`` applies when
-        ``assets_dir`` holds no config (default: the 66M ``TTSConfig()``)."""
+        block linears, bf16 elsewhere). ``egress_format``: the waveform's
+        form on its way to the host, "int16", "mulaw" (8-bit G.711, half the
+        bytes) or "f32". ``cfg`` applies when ``assets_dir`` holds no config
+        (default: the 66M ``TTSConfig()``)."""
         from .assets import load_assets
         from .engine import resolve_device
 
@@ -42,6 +45,7 @@ class TTS:
         self.engine = SynthesisEngine(self.assets.params, self.cfg,
                                       self.assets.processor,
                                       precision=precision, seed=seed,
+                                      egress_format=egress_format,
                                       device=device)
 
     @property

@@ -3,6 +3,7 @@ from .store import (
     flatten_tree,
     load_assets,
     load_params,
+    refuse_onnx_dir,
     save_params,
     synthesize_default_styles,
     unflatten_tree,
@@ -13,6 +14,7 @@ __all__ = [
     "flatten_tree",
     "load_assets",
     "load_params",
+    "refuse_onnx_dir",
     "save_params",
     "synthesize_default_styles",
     "unflatten_tree",

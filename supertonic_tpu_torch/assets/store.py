@@ -8,9 +8,10 @@ Layout of an assets directory (``<dir>/``):
     unicode_indexer.json  dense codepoint -> id table
     voice_styles/XX.json  reference-format style files
 
-``load_assets`` falls back to deterministic random-init params (the JAX
-package's ``init_all``, bit for bit), the built-in indexer and synthetic
-styles for each missing piece.
+With no directory, ``load_assets`` makes deterministic random-init params
+(the JAX package's ``init_all``, bit for bit); a directory must hold
+``params.npz`` (the port loads no ONNX graphs). The built-in indexer and
+synthetic styles stand in for the other missing pieces.
 """
 
 from __future__ import annotations
@@ -119,14 +120,26 @@ class Assets:
         raise FileNotFoundError(f"voice style {name_or_path!r} not found")
 
 
+def refuse_onnx_dir() -> None:
+    """The entry points' guard for the reference service's variable: an ONNX
+    bundle given there would otherwise be served as random weights."""
+    if os.getenv("TTS_ONNX_DIR"):
+        raise RuntimeError("TTS_ONNX_DIR is set, but the port loads no ONNX "
+                           "bundles: give a params.npz bundle as TTS_ASSETS_DIR")
+
+
 def load_assets(dirpath: str | None = None, *, seed: int = 0,
                 cfg: TTSConfig | None = None) -> Assets:
-    """Load the asset bundle; each missing piece falls back to a
-    deterministic default. ``cfg`` is used when the directory holds no
-    config."""
+    """Load the asset bundle at ``dirpath``, which must hold ``params.npz``;
+    with no ``dirpath``, random-init params from ``seed``. ``cfg`` is used
+    when there is no directory or it holds no config."""
     cfg = cfg or TTSConfig()
     params = indexer = style_dir = None
-    if dirpath and os.path.isdir(dirpath):
+    if dirpath:
+        if not os.path.isfile(os.path.join(dirpath, "params.npz")):
+            raise FileNotFoundError(
+                f"{dirpath}: no params.npz (the port loads params.npz bundles "
+                f"only; give no directory for random-init weights)")
         full_cfg_path = os.path.join(dirpath, "model_config.json")
         cfg_path = os.path.join(dirpath, "tts.json")
         if os.path.exists(full_cfg_path):
@@ -134,9 +147,7 @@ def load_assets(dirpath: str | None = None, *, seed: int = 0,
                 cfg = _dataclass_from_dict(TTSConfig, json.load(f))
         elif os.path.exists(cfg_path):
             cfg = load_tts_json(cfg_path)
-        params_path = os.path.join(dirpath, "params.npz")
-        if os.path.exists(params_path):
-            params = load_params(params_path)
+        params = load_params(os.path.join(dirpath, "params.npz"))
         idx_path = os.path.join(dirpath, "unicode_indexer.json")
         if os.path.exists(idx_path):
             with open(idx_path) as f:

@@ -4,27 +4,36 @@
   * (B, L, T) bucket ladders bound the shapes the device sees;
   * long-form chunks are synthesized as ONE batch;
   * the latent bucket comes from a learned seconds-per-character estimate
-    (per text-length bucket, kept in memory), and a batch whose predicted
-    duration overflows it is re-run at the bucket it needs;
-  * noise is drawn on the device from the engine's ``torch.Generator``
-    (production) or injected (parity path).
-
-``infer_batch_begin`` dispatches and ``infer_batch_end`` resolves; in this
-version they resolve synchronously.
+    per text-length bucket, seeded from ratcheted priors kept on disk, and
+    a batch whose predicted duration overflows it is re-run at the bucket
+    it needs;
+  * noise is drawn on the device from a per-dispatch ``torch.Generator``
+    seeded from the engine's host-side chain (production) or injected
+    (parity path);
+  * ``infer_batch_begin`` queues a batch and its device->host copies;
+    ``infer_batch_end`` resolves it. The copies run on a side stream after
+    an event recorded behind the batch, so a result never waits behind
+    work queued later on the compute stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from collections import deque
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import TTSConfig
 from ..frontend import UnicodeProcessor
+from ..utils.timing import StageProfiler
 from . import buckets, synthesis
 from .longform import LongFormSynthesis
+
+EGRESS_FORMATS = ("int16", "f32", "mulaw")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,14 +92,48 @@ class VoiceStyle:
             raise ValueError(f"tile needs a single style, got {self.batch}")
         return VoiceStyle(np.repeat(self.ttl, n, 0), np.repeat(self.dp, n, 0))
 
+    def blend(self, other: "VoiceStyle", t: float) -> "VoiceStyle":
+        """Linear interpolation in style-embedding space: t=0 -> self, t=1 ->
+        other (an intermediate voice)."""
+        if self.ttl.shape != other.ttl.shape or self.dp.shape != other.dp.shape:
+            raise ValueError(
+                f"style shapes differ: {self.ttl.shape}/{self.dp.shape} vs "
+                f"{other.ttl.shape}/{other.dp.shape}")
+        t = float(t)
+        return VoiceStyle(
+            ((1.0 - t) * self.ttl + t * other.ttl).astype(np.float32),
+            ((1.0 - t) * self.dp + t * other.dp).astype(np.float32),
+        )
+
+    def take(self, idx) -> "VoiceStyle":
+        return VoiceStyle(self.ttl[idx], self.dp[idx])
+
+
+def parse_blend_spec(spec: str) -> tuple[str, str, float]:
+    """Parse the 'A+B' / 'A+B:t' blended-voice syntax shared by the HTTP
+    service and the CLI into (name_a, name_b, t). Raises ValueError on a
+    malformed spec or out-of-range weight (t defaults to 0.5)."""
+    body, _, t_str = spec.partition(":")
+    a, _, b = body.partition("+")
+    try:
+        t = float(t_str) if t_str else 0.5
+    except ValueError:
+        raise ValueError(f"invalid blend weight in {spec!r}")
+    if not a or not b or "+" in b or not (0.0 <= t <= 1.0):
+        raise ValueError(
+            f"invalid blend spec {spec!r} (use 'A+B' or 'A+B:t', t in [0, 1])")
+    return a, b, t
+
 
 @dataclasses.dataclass
 class PendingBatch:
     """A dispatched fused-synthesis batch (infer_batch_begin): the device
-    results plus what infer_batch_end needs to resolve and re-run."""
+    results, the host copies already queued for them, and what
+    infer_batch_end needs to resolve, re-run and record metrics."""
 
     wav_dev: torch.Tensor
     dur_dev: torch.Tensor
+    wav_src: torch.Tensor | None  # pre-sliced egress view, None on device_output
     dev_args: tuple
     text_mask: np.ndarray
     b_true: int
@@ -98,20 +141,30 @@ class PendingBatch:
     n_xfer: int
     total_step: int
     speed: float
+    device_output: bool
+    t_start: float
+    n_chars: int
+    ready: object = None  # CUDA event recorded behind the batch (None on the CPU)
+    fetch: tuple | None = None  # the queued host copies (see _fetch)
 
 
 class SynthesisEngine(LongFormSynthesis):
     def __init__(self, params, cfg: TTSConfig, processor: UnicodeProcessor, *,
-                 precision: str | None = None, seed: int = 0, device=None):
+                 precision: str | None = None, seed: int = 0,
+                 egress_format: str = "int16", device=None):
         """``params``: the JAX-layout numpy param tree (loaded here onto
         ``device`` in the compute dtype) or modules from
         ``models.load_params``. ``precision="int8"`` quantizes a numpy tree
         that holds no ``w_q`` yet (``models.quantize_params``); the params
-        stay unfused, as in the JAX engine. ``device`` defaults to ``cuda``
-        and raises when there is no card; pass ``device="cpu"`` for the
-        plain path."""
+        stay unfused, as in the JAX engine. ``egress_format``: the waveform's
+        form on its way to the host, "int16", "mulaw" (8-bit G.711) or
+        "f32". ``device`` defaults to ``cuda`` and raises when there is no
+        card; pass ``device="cpu"`` for the plain path."""
         from ..models import load_params, quantize_params
 
+        if egress_format not in EGRESS_FORMATS:
+            raise ValueError(f"egress_format must be one of {EGRESS_FORMATS}, "
+                             f"got {egress_format!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.processor = processor
@@ -122,45 +175,139 @@ class SynthesisEngine(LongFormSynthesis):
                 params = quantize_params(params)
             params = load_params(params, device=self.device, dtype=self.dtype)
         self.params = params
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
-        self.stats = {"bucket_overflows": 0}
-        # learned seconds-per-char per text-length bucket: window max times
-        # a margin picks the latent bucket; an overflow re-runs
+        self.egress_format = egress_format
+        self.profiler = StageProfiler()
+        # the host chain each dispatch's noise generator is seeded from
+        self._seed_chain = torch.Generator().manual_seed(seed)
+        # guards the engine's host-side mutable state (the seed chain, the
+        # learned rate, the style cache, lazy builds): the batcher thread and
+        # streaming handler threads drive one engine. Never held across
+        # device work, which would serialize their dispatches.
+        self._host_mutex = threading.RLock()
+        # device->host copies run here, behind an event recorded after the
+        # batch they read, never behind later work on the compute stream
+        self._egress_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
+        # learned seconds-per-char per text-length bucket: the window max
+        # times a margin picks the latent bucket; an overflow re-runs. Each
+        # window is seeded from a prior that ratchets up and is kept on disk,
+        # so a fresh process picks the buckets the last one settled on.
         self._spc_windows: dict[int, deque] = {}
+        self._spc_priors: dict[int, float] = self._load_rate_cache()
+        self._spc_counts: dict[int, int] = {}  # real observations per bucket
         self._spc_default_prior = 1.0 / 11.0
         self._spc_margin = 1.05
+        self._rate_frozen = False
         self._style_dev_cache: dict[tuple, tuple] = {}
 
+    @property
+    def stats(self) -> dict:
+        return {"bucket_overflows": self.profiler.counters.get("bucket_overflows", 0)}
+
     # ------------------------------------------------------------------
-    # learned speaking rate (in memory)
+    # learned speaking rate, persisted per text-length bucket
     # ------------------------------------------------------------------
 
+    def _rate_cache_path(self) -> str:
+        """``$TTS_RATE_CACHE_DIR`` (default ``~/.cache/supertonic_tpu_torch``)
+        / ``stpu_rates_<config key>.json``; never the JAX package's file."""
+        import hashlib
+        import os
+
+        cfg_key = hashlib.md5(
+            f"{self.cfg.chunk_size}:{self.cfg.sample_rate}:"
+            f"{self.cfg.duration_predictor.dim}".encode()).hexdigest()[:10]
+        base = os.environ.get("TTS_RATE_CACHE_DIR") or os.path.expanduser(
+            "~/.cache/supertonic_tpu_torch")
+        return os.path.join(base, f"stpu_rates_{cfg_key}.json")
+
+    def _load_rate_cache(self) -> dict[int, float]:
+        import json
+
+        try:
+            with open(self._rate_cache_path()) as f:
+                raw = json.load(f)
+            return {int(k): float(v) for k, v in raw.items()
+                    if 0.001 < float(v) < 1.0}
+        except (OSError, ValueError, AttributeError, TypeError):
+            return {}  # missing, corrupted or hand-edited: start from defaults
+
+    def _save_rate_cache(self) -> None:
+        import json
+        import os
+
+        try:
+            path = self._rate_cache_path()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            # write-then-rename: a process starting at the same moment must
+            # never read a torn file
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({str(k): round(v, 6)
+                           for k, v in sorted(self._spc_priors.items())}, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass
+
     def _spc_window_for(self, l_bucket: int) -> deque:
-        w = self._spc_windows.get(l_bucket)
-        if w is None:
-            # rates fall with text length: inherit the largest smaller
-            # bucket's estimate, else the conservative default
-            smaller = [b for b in self._spc_windows if b <= l_bucket]
-            prior = (max(self._spc_windows[max(smaller)]) if smaller
-                     else self._spc_default_prior)
-            w = self._spc_windows[l_bucket] = deque([prior], maxlen=16)
-        return w
+        """This text-length bucket's recent-rate window, created on first use
+        seeded with the persisted prior; an unseen bucket inherits the
+        largest smaller bucket's prior (rates fall with text length), else
+        the conservative default."""
+        with self._host_mutex:
+            w = self._spc_windows.get(l_bucket)
+            if w is None:
+                prior = self._spc_priors.get(l_bucket)
+                if prior is None:
+                    smaller = [b for b in self._spc_priors if b <= l_bucket]
+                    prior = (self._spc_priors[max(smaller)] if smaller
+                             else self._spc_default_prior)
+                w = self._spc_windows[l_bucket] = deque([prior], maxlen=16)
+            return w
 
     def _spc_estimate(self, l_bucket: int) -> float:
         return max(self._spc_window_for(l_bucket))
 
     def _observe_rate(self, l_bucket: int, obs_spc: float) -> None:
-        self._spc_window_for(l_bucket).append(obs_spc)
+        """Feed one observed seconds-per-char into the learned rate: window
+        append, count, the prior's ratchet up (on a 1e-6 ceiling grid that
+        the cache file round-trips exactly) and its write-down once a full
+        window of real observations sits well below it."""
+        if self._rate_frozen:
+            return
+        import math
+
+        with self._host_mutex:
+            win = self._spc_window_for(l_bucket)
+            win.append(obs_spc)
+            self._spc_counts[l_bucket] = self._spc_counts.get(l_bucket, 0) + 1
+            q = math.ceil(obs_spc * 1e6) / 1e6
+            prior = self._spc_priors.get(l_bucket, 0.0)
+            if q > prior:
+                self._spc_priors[l_bucket] = q
+                self._save_rate_cache()
+            elif (self._spc_counts[l_bucket] >= win.maxlen and prior > 0.0
+                  and max(win) < prior * 0.9):
+                self._spc_priors[l_bucket] = math.ceil(max(win) * 1e6) / 1e6
+                self._save_rate_cache()
 
     def _pin_rate(self, rate: float = 1.0 / 11.0) -> None:
         """Test hook: force a uniform learned rate for every bucket."""
         self._spc_windows = {}
+        self._spc_priors = {}
+        self._spc_counts = {}
         self._spc_default_prior = rate
 
     # ------------------------------------------------------------------
     # inputs
     # ------------------------------------------------------------------
+
+    def _next_generator(self) -> torch.Generator:
+        """A noise generator of its own for one dispatch, seeded from the
+        engine's chain: concurrent dispatches never share noise."""
+        with self._host_mutex:
+            seed = int(torch.randint(0, 2**62, (1,), generator=self._seed_chain))
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def _pad_batch(self, arrs: list[np.ndarray], b_bucket: int) -> list[np.ndarray]:
         """Pad the batch dim by repeating row 0 (sliced off after compute)."""
@@ -176,26 +323,33 @@ class SynthesisEngine(LongFormSynthesis):
         """Batch-padded (style_dp, style_ttl) on the device, cached by
         content fingerprint and bucket (LRU, 32 entries)."""
         key = (style.fingerprint(), b_bucket)
-        hit = self._style_dev_cache.pop(key, None)
-        if hit is None:
-            ttl, dp = self._pad_batch([style.ttl, style.dp], b_bucket)
-            hit = (torch.as_tensor(dp, dtype=torch.float32).to(self.device),
-                   torch.as_tensor(ttl, dtype=torch.float32).to(self.device))
+        with self._host_mutex:
+            hit = self._style_dev_cache.pop(key, None)
+            if hit is not None:
+                self._style_dev_cache[key] = hit  # newest last
+                return hit
+        ttl, dp = self._pad_batch([style.ttl, style.dp], b_bucket)
+        hit = (torch.as_tensor(dp, dtype=torch.float32).to(self.device),
+               torch.as_tensor(ttl, dtype=torch.float32).to(self.device))
+        with self._host_mutex:
             while len(self._style_dev_cache) >= 32:
                 self._style_dev_cache.pop(next(iter(self._style_dev_cache)))
-        self._style_dev_cache[key] = hit  # newest last
+            self._style_dev_cache[key] = hit
         return hit
 
-    def _prepare_inputs(self, text_list, lang_list, style):
+    def _prepare_inputs(self, text_list, lang_list, style,
+                        pre_normalized: bool = False):
         """Frontend + bucketing + device placement. Returns (dev_args,
         text_mask, l_true, b_true, b_bucket)."""
         rt = self.cfg.runtime
         b_true = len(text_list)
-        text_ids, text_mask3 = self.processor(text_list, lang_list)
-        l_true = text_ids.shape[1]
-        pad_l = buckets.pick_bucket(l_true, rt.text_buckets) - l_true
-        text_ids = np.pad(text_ids, ((0, 0), (0, pad_l)))
-        text_mask = np.pad(text_mask3[:, 0, :], ((0, 0), (0, pad_l)))
+        with self.profiler.stage("frontend"):
+            text_ids, text_mask3 = self.processor(text_list, lang_list,
+                                                  pre_normalized=pre_normalized)
+            l_true = text_ids.shape[1]
+            pad_l = buckets.pick_bucket(l_true, rt.text_buckets) - l_true
+            text_ids = np.pad(text_ids, ((0, 0), (0, pad_l)))
+            text_mask = np.pad(text_mask3[:, 0, :], ((0, 0), (0, pad_l)))
         b_bucket = buckets.pick_bucket(b_true, rt.batch_buckets)
         text_ids, text_mask = self._pad_batch([text_ids, text_mask], b_bucket)
         ids_dev = torch.as_tensor(text_ids, dtype=torch.int64).to(self.device)
@@ -204,12 +358,77 @@ class SynthesisEngine(LongFormSynthesis):
         return (ids_dev, mask_dev, sdp_dev, sttl_dev), text_mask, l_true, b_true, b_bucket
 
     # ------------------------------------------------------------------
+    # device -> host
+    # ------------------------------------------------------------------
+
+    def _mark(self):
+        """An event recorded on this thread's current stream (None on the
+        CPU): what a later copy of the results queued so far waits on."""
+        if self._egress_stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _fetch(self, tensors, ready) -> tuple:
+        """Queue device->host copies of ``tensors`` into pinned memory on the
+        egress stream, after ``ready``. Returns (host tensors, done event);
+        on the CPU the tensors themselves and no event."""
+        if self._egress_stream is None:
+            return list(tensors), None
+        stream = self._egress_stream
+        hosts = []
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            for t in tensors:
+                # a pinned buffer (PyTorch caches them) copies several times
+                # faster than pageable memory would
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(stream)  # the allocator keeps t until the copy ran
+                hosts.append(h)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return hosts, done
+
+    @staticmethod
+    def _wait(fetch) -> list[torch.Tensor]:
+        hosts, done = fetch
+        if done is not None:
+            done.synchronize()
+        return hosts
+
+    def _decode_egress(self, wav: torch.Tensor) -> np.ndarray:
+        """A host copy of the egress waveform -> f32 numpy."""
+        if wav.dtype == torch.int16:
+            # decoded with torch's threaded kernels: at b64 this is several
+            # times faster than numpy's astype and divide
+            return wav.float().div_(32767.0).numpy()
+        if wav.dtype == torch.uint8:
+            from ..utils.mulaw import decode
+
+            return decode(wav.numpy())
+        return wav.float().numpy()
+
+    def to_host(self, wav_dev: torch.Tensor, ready=None) -> np.ndarray:
+        """Transfer a device waveform (a device_output=True result) to a host
+        f32 array, undoing the egress quantization (int16 or mu-law).
+        ``ready``: the event the copy waits on (``PendingBatch.ready`` of the
+        batch that made it); by default one recorded now on this thread's
+        stream."""
+        with torch.inference_mode():
+            if ready is None:
+                ready = self._mark()
+            (host,) = self._wait(self._fetch([wav_dev], ready))
+        return self._decode_egress(host)
+
+    # ------------------------------------------------------------------
     # synthesis
     # ------------------------------------------------------------------
 
     def infer_batch(self, text_list, lang_list, style: VoiceStyle,
                     total_step: int = 5, speed: float = 1.05,
-                    noise: np.ndarray | None = None):
+                    noise: np.ndarray | None = None, device_output: bool = False):
         """Synthesize a batch. Returns (wav [B, n] f32 numpy, padded: trim
         to int(sr * duration[b]), and duration [B] f32). With ``noise``
         ([B, T, C]) the injected-noise parity path runs instead."""
@@ -222,75 +441,127 @@ class SynthesisEngine(LongFormSynthesis):
             return self._infer_injected_noise(dev_args, noise, b_true, b_bucket,
                                               total_step, speed)
         return self.infer_batch_end(self.infer_batch_begin(
-            text_list, lang_list, style, total_step, speed))
+            text_list, lang_list, style, total_step, speed,
+            device_output=device_output))
 
     def _fused(self, dev_args, total_step: int, t_bucket: int, speed: float):
-        with torch.inference_mode():
+        with self.profiler.stage("fused_synthesis"):
             return synthesis.synthesize_fused(
-                self.params, self.cfg, *dev_args, self.generator, speed,
-                int(total_step), int(t_bucket), precision=self.precision)
+                self.params, self.cfg, *dev_args, self._next_generator(), speed,
+                int(total_step), int(t_bucket), precision=self.precision,
+                egress=self.egress_format)
 
     def infer_batch_begin(self, text_list, lang_list, style: VoiceStyle,
-                          total_step: int = 5, speed: float = 1.05) -> PendingBatch:
-        """Dispatch a fused-synthesis batch at the latent bucket the learned
-        rate predicts."""
+                          total_step: int = 5, speed: float = 1.05, *,
+                          device_output: bool = False,
+                          pre_normalized: bool = False) -> PendingBatch:
+        """Queue a fused-synthesis batch at the latent bucket the learned
+        rate predicts, and its host copies (the duration, and on the host
+        path the waveform slice the estimate says exists) on the egress
+        stream behind it. Resolve with infer_batch_end. ``device_output``:
+        the waveform stays on the device (``to_host`` fetches it);
+        ``pre_normalized``: the texts already went through
+        ``preprocess_text``."""
         _check_batch(text_list, style)
         if not text_list:
             raise ValueError("infer_batch_begin requires a non-empty batch")
         if not speed > 0:
             raise ValueError(f"speed must be > 0, got {speed}")
+        t_start = time.perf_counter()
         rt = self.cfg.runtime
         chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
-        dev_args, text_mask, l_true, b_true, _bb = self._prepare_inputs(
-            text_list, lang_list, style)
-        est_secs = (l_true * self._spc_estimate(text_mask.shape[1])
-                    * self._spc_margin / min(speed, 1.0))
-        t_bucket = buckets.pick_bucket(
-            buckets.latent_len_for_duration(est_secs, sr, chunk), rt.latent_buckets)
-        # the transferred slice uses a leaner margin than the bucket choice
-        t_slice = buckets.latent_len_for_duration(
-            est_secs * (1.04 / self._spc_margin), sr, chunk)
-        n_xfer = min(t_bucket, buckets.quantize_up(max(t_slice, 1), 8))
-        wav_dev, dur_dev = self._fused(dev_args, total_step, t_bucket, speed)
-        return PendingBatch(wav_dev=wav_dev, dur_dev=dur_dev, dev_args=dev_args,
-                            text_mask=text_mask, b_true=b_true, t_bucket=t_bucket,
-                            n_xfer=n_xfer, total_step=total_step, speed=speed)
+        with torch.inference_mode():
+            dev_args, text_mask, l_true, b_true, _bb = self._prepare_inputs(
+                text_list, lang_list, style, pre_normalized=pre_normalized)
+            est_secs = (l_true * self._spc_estimate(text_mask.shape[1])
+                        * self._spc_margin / min(speed, 1.0))
+            t_bucket = buckets.pick_bucket(
+                buckets.latent_len_for_duration(est_secs, sr, chunk),
+                rt.latent_buckets)
+            # the transferred slice uses a leaner margin than the bucket
+            # choice: an undershoot costs only the rare tail fetch
+            t_slice = buckets.latent_len_for_duration(
+                est_secs * (1.04 / self._spc_margin), sr, chunk)
+            n_xfer = min(t_bucket, buckets.quantize_up(max(t_slice, 1), 8))
+            wav_dev, dur_dev = self._fused(dev_args, total_step, t_bucket, speed)
+            pending = PendingBatch(
+                wav_dev=wav_dev, dur_dev=dur_dev, wav_src=None, dev_args=dev_args,
+                text_mask=text_mask, b_true=b_true, t_bucket=t_bucket,
+                n_xfer=n_xfer, total_step=total_step, speed=speed,
+                device_output=device_output, t_start=t_start,
+                n_chars=sum(len(t) for t in text_list))
+            self._queue_copies(pending)
+        return pending
+
+    def _queue_copies(self, p: PendingBatch) -> None:
+        """Record the batch's event and queue its host copies: the data
+        streams back the moment compute finishes, not when end() asks."""
+        chunk = self.cfg.chunk_size
+        p.ready = self._mark()
+        p.wav_src = None if p.device_output else p.wav_dev[:p.b_true, :p.n_xfer * chunk]
+        p.fetch = self._fetch([p.dur_dev] + ([] if p.wav_src is None else [p.wav_src]),
+                              p.ready)
 
     def infer_batch_end(self, pending: PendingBatch):
-        """Resolve a dispatch: fetch the duration, re-run at a larger bucket
-        on overflow, update the learned rate, fetch the waveform."""
+        """Resolve a dispatch: wait for the duration (and the waveform on the
+        host path), re-run at a larger bucket on overflow, fetch a missing
+        tail, update the learned rate, record metrics."""
         rt = self.cfg.runtime
         chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
-        b_true = pending.b_true
-        wav_dev, dur_dev = pending.wav_dev, pending.dur_dev
-        t_bucket, n_xfer = pending.t_bucket, pending.n_xfer
-        for _ in range(4):
-            dur = dur_dev.cpu().numpy()
-            t_needed = int(((dur[:b_true] * sr).astype(np.int64).max()
-                            + chunk - 1) // chunk)
-            if t_needed <= t_bucket:
-                break
-            self.stats["bucket_overflows"] += 1
-            t_bucket = buckets.pick_bucket(t_needed, rt.latent_buckets)
-            n_xfer = min(t_bucket, buckets.quantize_up(t_needed, 8))
-            wav_dev, dur_dev = self._fused(pending.dev_args, pending.total_step,
-                                           t_bucket, pending.speed)
-        else:
-            # duration is deterministic per input, so one re-run always fits
-            raise RuntimeError(
-                f"latent bucket overflow persisted after retries (needed "
-                f"{t_needed} > bucket {t_bucket}); refusing to return "
-                f"truncated audio")
-        row_chars = np.maximum(pending.text_mask[:b_true].sum(axis=1), 1.0)
-        self._observe_rate(pending.text_mask.shape[1],
-                           float((dur[:b_true] * pending.speed / row_chars).max()))
-        wav = wav_dev[:b_true, : max(n_xfer, t_needed) * chunk]
-        # a pinned host buffer (PyTorch caches them) copies several times
-        # faster than the pageable memory .cpu() would copy into
-        host = torch.empty(wav.shape, dtype=wav.dtype, pin_memory=wav.is_cuda)
-        host.copy_(wav)
-        # int16 egress decoded with torch's threaded kernels
-        return host.float().div_(32767.0).numpy(), dur[:b_true]
+        p = pending
+        b_true = p.b_true
+        with torch.inference_mode():
+            for attempt in range(4):
+                with self.profiler.stage("duration_sync" if p.device_output else "egress"):
+                    hosts = self._wait(p.fetch)
+                dur = hosts[0].numpy()
+                t_needed = int(((dur[:b_true] * sr).astype(np.int64).max()
+                                + chunk - 1) // chunk)
+                if t_needed <= p.t_bucket:
+                    if not p.device_output:
+                        wav_host = hosts[1]
+                        if t_needed > p.n_xfer:
+                            # the sliced copy undershot the true duration:
+                            # fetch the missing tail (rare)
+                            self.profiler.bump("egress_tail_fetches")
+                            tail = p.wav_dev[:b_true, p.n_xfer * chunk:t_needed * chunk]
+                            with self.profiler.stage("egress"):
+                                (tail_host,) = self._wait(self._fetch([tail], p.ready))
+                            wav_host = torch.cat([wav_host, tail_host], dim=1)
+                    break
+                self.profiler.bump("bucket_overflows")
+                from ..utils.logging import default_logger as log
+
+                log.warning("latent_bucket_overflow", needed=t_needed,
+                            bucket=p.t_bucket, attempt=attempt + 1)
+                p.t_bucket = buckets.pick_bucket(t_needed, rt.latent_buckets)
+                p.n_xfer = min(p.t_bucket, buckets.quantize_up(t_needed, 8))
+                p.wav_dev, p.dur_dev = self._fused(p.dev_args, p.total_step,
+                                                   p.t_bucket, p.speed)
+                self._queue_copies(p)
+            else:
+                # duration is deterministic per input, so one re-run always fits
+                self.profiler.bump("bucket_overflow_exhausted")
+                raise RuntimeError(
+                    f"latent bucket overflow persisted after retries (needed "
+                    f"{t_needed} > bucket {p.t_bucket}); refusing to return "
+                    f"truncated audio")
+        # once per request, outside the re-run loop: duration is
+        # deterministic, so a re-run would count the same observation twice
+        row_chars = np.maximum(p.text_mask[:b_true].sum(axis=1), 1.0)
+        self._observe_rate(p.text_mask.shape[1],
+                           float((dur[:b_true] * p.speed / row_chars).max()))
+        audio_s = float(np.sum(dur[:b_true]))
+        if p.device_output:
+            # per-request latency is recorded by the caller when the audio
+            # reaches the host (the batcher's egress pool)
+            self.profiler.record_throughput(audio_s, p.n_chars,
+                                            time.perf_counter() - p.t_start)
+            return p.wav_dev[:b_true], dur[:b_true]
+        wav_np = self._decode_egress(wav_host)
+        self.profiler.record_result(audio_s, p.n_chars,
+                                    time.perf_counter() - p.t_start)
+        return wav_np, dur[:b_true]
 
     def _infer_injected_noise(self, dev_args, noise, b_true, b_bucket,
                               total_step, speed):
@@ -300,10 +571,11 @@ class SynthesisEngine(LongFormSynthesis):
         chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
         ids, mask, sdp, sttl = dev_args
         with torch.inference_mode():
-            dur_dev, emb = synthesis.text_stage(
-                self.params, self.cfg, ids, mask, sdp, sttl, speed,
-                precision=self.precision)
-            dur = dur_dev.cpu().numpy()
+            with self.profiler.stage("text_stage"):
+                dur_dev, emb = synthesis.text_stage(
+                    self.params, self.cfg, ids, mask, sdp, sttl, speed,
+                    precision=self.precision)
+                dur = dur_dev.cpu().numpy()
             latent_lengths = ((dur * sr).astype(np.int64) + chunk - 1) // chunk
             t_bucket = buckets.pick_bucket(int(latent_lengths[:b_true].max()),
                                            rt.latent_buckets)
@@ -313,9 +585,202 @@ class SynthesisEngine(LongFormSynthesis):
                                  np.float32)
             t_copy = min(noise.shape[1], t_bucket)
             noise_arr[: noise.shape[0], :t_copy] = noise[:, :t_copy]
-            wav = synthesis.acoustic_stage(
-                self.params, self.cfg, emb, sttl, mask,
-                torch.as_tensor(latent_mask).to(self.device),
-                torch.as_tensor(noise_arr).to(self.device), int(total_step),
-                precision=self.precision)
-        return wav[:b_true].cpu().numpy(), dur[:b_true]
+            with self.profiler.stage("acoustic_stage"):
+                wav = synthesis.acoustic_stage(
+                    self.params, self.cfg, emb, sttl, mask,
+                    torch.as_tensor(latent_mask).to(self.device),
+                    torch.as_tensor(noise_arr).to(self.device), int(total_step),
+                    precision=self.precision)
+            with self.profiler.stage("egress"):
+                wav_np = wav[:b_true].cpu().numpy()
+        return wav_np, dur[:b_true]
+
+    def warmup(self, *, batch_sizes: tuple[int, ...] | None = None,
+               text_buckets: tuple[int, ...] | None = None,
+               total_steps: tuple[int, ...] = (2, 5), progress=None) -> int:
+        """Run synthetic batches over the common bucket lattice before live
+        traffic: on the card the first of them builds the kernels, and all
+        of them warm cuBLAS, cuDNN and the allocator at the shapes serving
+        meets. Returns the number of batches run. They stay out of the
+        profiler and of the learned rate (synthetic rows are not speech)."""
+        rt = self.cfg.runtime
+        # `is None`, not falsy: an empty tuple warms nothing for that dim
+        bss = (tuple(b for b in rt.batch_buckets if b <= 32)
+               if batch_sizes is None else batch_sizes)
+        lbs = rt.text_buckets[:3] if text_buckets is None else text_buckets
+        rng = np.random.default_rng(0)
+        live_profiler, live_windows = self.profiler, self._spc_windows
+        self.profiler = StageProfiler()
+        self._spc_windows = {}
+        self._rate_frozen = True
+        try:
+            return self._warmup_lattice(bss, lbs, total_steps, progress, rng)
+        finally:
+            self.profiler = live_profiler
+            self._spc_windows = live_windows
+            self._rate_frozen = False
+
+    def _warmup_lattice(self, bss, lbs, total_steps, progress, rng) -> int:
+        n = 0
+        for b in bss:
+            style = VoiceStyle(
+                rng.standard_normal((1, self.cfg.ttl.style.n_style,
+                                     self.cfg.ttl.style.style_value_dim)).astype(np.float32),
+                rng.standard_normal((1, self.cfg.dp.style.n_style,
+                                     self.cfg.dp.style.style_value_dim)).astype(np.float32),
+            ).tile(b)
+            for lb in lbs:
+                # a text that lands exactly in bucket lb (tags cost 9 chars)
+                text = "a" * max(1, lb - 12) + "."
+                for steps in total_steps:
+                    self.infer_batch([text] * b, ["en"] * b, style,
+                                     total_step=steps, device_output=True)
+                    n += 1
+                    if progress:
+                        progress(n, len(bss) * len(lbs) * len(total_steps))
+        return n
+
+    # ------------------------------------------------------------------
+    # step-at-a-time and windowed paths (__call__ / batch / stream / trim
+    # come from LongFormSynthesis)
+    # ------------------------------------------------------------------
+
+    def infer_with_progress(self, text: str, lang: str, style: VoiceStyle,
+                            total_step: int = 5, speed: float = 1.05,
+                            progress_callback=None):
+        """Single-utterance synthesis with a per-denoising-step callback:
+        the Euler loop runs one estimator step at a time (the cross K/V
+        computed once) and ``progress_callback(step, total_step)`` fires
+        once the step has finished on the device. Slower than the fused
+        path; for interactive front ends, not serving."""
+        from ..models import vector_estimator, vocoder
+
+        if style.batch != 1:
+            raise ValueError("infer_with_progress takes a single style")
+        rt = self.cfg.runtime
+        chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
+        ve = self.params["vector_estimator"]
+        ids, mask3 = self.processor([text], [lang])
+        l_bucket = buckets.pick_bucket(ids.shape[1], rt.text_buckets)
+        ids = np.pad(ids, ((0, 0), (0, l_bucket - ids.shape[1])))
+        mask = np.pad(mask3[:, 0, :], ((0, 0), (0, l_bucket - mask3.shape[2])))
+        with torch.inference_mode():
+            sdp, sttl = self._device_style(style, 1)
+            tmask = torch.as_tensor(mask, dtype=torch.float32).to(self.device)
+            dur_dev, emb = synthesis.text_stage(
+                self.params, self.cfg,
+                torch.as_tensor(ids, dtype=torch.int64).to(self.device), tmask,
+                sdp, sttl, speed, precision=self.precision)
+            dur = dur_dev.cpu().numpy()
+            t_lat = buckets.latent_len_for_duration(float(dur[0]), sr, chunk)
+            t_bucket = buckets.pick_bucket(t_lat, rt.latent_buckets)
+            lmask = torch.as_tensor(
+                (np.arange(t_bucket)[None, :] < t_lat).astype(np.float32)).to(self.device)
+            xt = torch.randn((1, t_bucket, self.cfg.latent_channels),
+                             generator=self._next_generator(), dtype=torch.float32,
+                             device=self.device) * lmask[:, :, None]
+            tot = torch.full((1,), float(total_step), dtype=torch.float32,
+                             device=self.device)
+            cache = vector_estimator.precompute_cross(ve, self.cfg, emb, sttl, tmask,
+                                                      dtype=self.dtype)
+            for step in range(total_step):
+                cur = torch.full((1,), float(step), dtype=torch.float32,
+                                 device=self.device)
+                xt = vector_estimator.step(ve, self.cfg, xt, emb, sttl, tmask, lmask,
+                                           cur, tot, dtype=self.dtype,
+                                           cross_cache=cache)
+                if progress_callback is not None:
+                    # progress means completed steps: wait for the device
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                    progress_callback(step + 1, total_step)
+            # the batch-max frame mask, as the fused path uses
+            wav = vocoder.apply(self.params["vocoder"], self.cfg, xt,
+                                frame_mask=lmask.amax(0), dtype=self.dtype)
+            return wav.cpu().numpy(), dur
+
+    def _vocode_stream(self, text: str, lang: str, style, total_step: int,
+                       speed: float, window_frames: int):
+        """Sub-chunk streaming core. Before the first yield the host waits
+        once: one fused text+flow call (the latent stays on the device, the
+        bucket from the learned rate), window 0 vocoded, and window 0 and the
+        duration fetched together. Then the remaining windows are queued and
+        fetched in doubling groups. Yields (wav [n] f32, seconds,
+        chunk_end); see LongFormSynthesis.stream_windows."""
+        from ..models.vocoder import receptive_field_frames
+
+        rt = self.cfg.runtime
+        chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
+        halo = receptive_field_frames(self.cfg)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            dev_args, text_mask, l_true, _b, _bb = self._prepare_inputs(
+                [text], [lang], style)
+        l_bucket = text_mask.shape[1]
+        est = (l_true * self._spc_estimate(l_bucket) * self._spc_margin
+               / min(speed, 1.0))
+        t_bucket = buckets.pick_bucket(
+            buckets.latent_len_for_duration(est, sr, chunk), rt.latent_buckets)
+
+        def win(k0):
+            """Vocode the window emitting frames from k0 (clamped into the
+            bucket); returns (k0, start, device wav, its event)."""
+            start = max(0, min(k0, t_bucket - w))
+            with torch.inference_mode():
+                wav = synthesis.vocode_window(
+                    self.params, self.cfg, xt_pad, mask_pad, start, w, halo,
+                    precision=self.precision, egress=self.egress_format)
+                return k0, start, wav, self._mark()
+
+        for _attempt in range(4):
+            with self.profiler.stage("fused_synthesis"), torch.inference_mode():
+                xt, dur_dev, fmask = synthesis.flow_fused(
+                    self.params, self.cfg, *dev_args, self._next_generator(), speed,
+                    int(total_step), int(t_bucket), precision=self.precision)
+                xt_pad = F.pad(xt, (0, 0, halo, halo))
+                mask_pad = F.pad(fmask, (halo, halo))
+            w = min(int(window_frames), t_bucket)
+            first = win(0)
+            with self.profiler.stage("egress"), torch.inference_mode():
+                dur_host, w0_host = self._wait(self._fetch([dur_dev, first[2]],
+                                                           first[3]))
+            dur = dur_host.numpy()
+            wav_len = int(float(dur[0]) * sr)
+            t_true = max(1, (wav_len + chunk - 1) // chunk)
+            if t_true <= t_bucket:
+                break
+            self.profiler.bump("bucket_overflows")
+            t_bucket = buckets.pick_bucket(t_true, rt.latent_buckets)
+        else:
+            raise RuntimeError("latent bucket overflow persisted in windowed "
+                               "streaming")
+        # a stream-only server must also learn away its overflow re-runs
+        n_chars = max(float(text_mask[0].sum()), 1.0)
+        self._observe_rate(l_bucket, float(dur[0]) * speed / n_chars)
+        emitted = 0
+
+        def emit(k0, start, host):
+            nonlocal emitted
+            off = (k0 - start) * chunk
+            n_valid = min(wav_len - emitted, w * chunk - off)
+            piece = self._decode_egress(host[:1])[0, off: off + n_valid]
+            emitted += n_valid
+            if emitted >= wav_len:
+                self.profiler.record_result(float(dur[0]), len(text),
+                                            time.perf_counter() - t0)
+            return piece, n_valid / sr, emitted >= wav_len
+
+        yield emit(first[0], first[1], w0_host)
+        rest = [win(k0) for k0 in range(w, t_true, w)]
+        # doubling groups: few host waits, a steady flow to the client; each
+        # group's copies wait only on its own last window
+        i, group = 0, 1
+        while i < len(rest):
+            batch = rest[i: i + group]
+            i += len(batch)
+            group *= 2
+            with self.profiler.stage("egress"), torch.inference_mode():
+                fetched = self._wait(self._fetch([h for _k, _s, h, _e in batch],
+                                                 batch[-1][3]))
+            for (k0, start, _h, _e), host in zip(batch, fetched):
+                yield emit(k0, start, host)

@@ -2,14 +2,19 @@
 
   text_stage:      text ids, masks, styles -> duration [B] (divided by
                    speed), text_emb
-  acoustic_stage:  text_emb, styles, masks, noise -> waveform: the
+  flow_stage:      text_emb, styles, masks, noise -> denoised latent: the
                    cross-attention K/V computed once, ``total_step`` Euler
-                   steps of the vector estimator, the vocoder
-  synthesize_padded: both, with the latent mask derived on the device from
-                   the predicted duration and the latent length fixed by
-                   the injected noise
+                   steps of the vector estimator
+  acoustic_stage:  flow_stage, then the vocoder -> waveform
+  synthesize_padded: both stages, with the latent mask derived on the
+                   device from the predicted duration and the latent length
+                   fixed by the injected noise
   synthesize_fused: the production call: noise drawn on the device from a
-                   ``torch.Generator``, optional int16 egress
+                   ``torch.Generator``, int16 / mu-law / f32 egress
+  flow_fused:      synthesize_fused without the vocoder: latent, duration
+                   and frame mask, the input of windowed vocoding
+  vocode_window:   one vocoder window with its halo; only the interior
+                   samples are kept
 
 PyTorch runs eagerly, so where the JAX package compiles one program per
 bucket, these functions simply run; the shapes are still bucketed by the
@@ -48,12 +53,13 @@ def text_stage(params, cfg: TTSConfig, text_ids, text_mask, style_dp, style_ttl,
     return dur, emb
 
 
-def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
-                   latent_mask, noise, total_step: int, *,
-                   precision: str = "bf16") -> torch.Tensor:
-    """Euler loop + vocoder. Returns wav [B, T*chunk] f32. The initial
-    latent is noise * latent_mask; each step feeds x_t with
-    (current_step, total_step) to the estimator, which applies the update."""
+def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
+               latent_mask, noise, total_step: int, *,
+               precision: str = "bf16") -> torch.Tensor:
+    """The Euler loop: returns the denoised latent [B, T, C] f32. The
+    initial latent is noise * latent_mask; each step feeds x_t with
+    (current_step, total_step) to the estimator, which applies the update;
+    the step-invariant cross K/V is computed once."""
     dtype = dtype_of(precision)
     b = text_emb.shape[0]
     ve = params["vector_estimator"]
@@ -67,11 +73,34 @@ def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
         x = vector_estimator.step(ve, cfg, x, text_emb, style_ttl, text_mask,
                                   latent_mask, cur, tot, dtype=dtype,
                                   cross_cache=cache)
+    return x
+
+
+def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
+                   latent_mask, noise, total_step: int, *,
+                   precision: str = "bf16") -> torch.Tensor:
+    """Euler loop + vocoder. Returns wav [B, T*chunk] f32."""
+    x = flow_stage(params, cfg, text_emb, style_ttl, text_mask, latent_mask,
+                   noise, total_step, precision=precision)
     # batch-max frame validity: frames past the longest utterance are
     # bucket padding, masked inside the vocoder
     frame_mask = latent_mask.amax(0)
     return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
-                         dtype=dtype)
+                         dtype=dtype_of(precision))
+
+
+def _latent_mask(cfg: TTSConfig, dur, t_pad: int):
+    """[B, t_pad] 1/0 mask of the frames the predicted duration covers,
+    clamped into t_pad."""
+    latent_len = torch.clamp(torch.ceil(dur * cfg.sample_rate / cfg.chunk_size),
+                             max=float(t_pad))
+    frame_idx = torch.arange(t_pad, dtype=torch.float32, device=dur.device)[None, :]
+    return (frame_idx < latent_len[:, None]).float()
+
+
+def _noise(cfg: TTSConfig, b: int, t_pad: int, generator, device):
+    return torch.randn((b, t_pad, cfg.latent_channels), generator=generator,
+                       dtype=torch.float32, device=device)
 
 
 def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
@@ -82,11 +111,7 @@ def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
     into T. Returns (wav [B, T*chunk] f32, duration [B] f32, unclamped)."""
     dur, emb = text_stage(params, cfg, text_ids, text_mask, style_dp, style_ttl,
                           speed, precision=precision)
-    t_pad = noise.shape[1]
-    latent_len = torch.clamp(torch.ceil(dur * cfg.sample_rate / cfg.chunk_size),
-                             max=float(t_pad))
-    frame_idx = torch.arange(t_pad, dtype=torch.float32, device=dur.device)[None, :]
-    latent_mask = (frame_idx < latent_len[:, None]).float()
+    latent_mask = _latent_mask(cfg, dur, noise.shape[1])
     wav = acoustic_stage(params, cfg, emb, style_ttl, text_mask, latent_mask,
                          noise, total_step, precision=precision)
     return wav, dur
@@ -98,16 +123,76 @@ def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                      egress: str = "int16"):
     """The production call: noise [B, t_pad, C] ~ N(0, 1) drawn on the
     device from ``generator``, then ``synthesize_padded``. Returns (wav
-    [B, t_pad*chunk] int16 or f32, duration [B] f32 — unclamped, so the
-    caller detects an overflow as ceil(dur*sr/chunk) > t_pad)."""
-    noise = torch.randn((text_ids.shape[0], t_pad, cfg.latent_channels),
-                        generator=generator, dtype=torch.float32,
-                        device=text_ids.device)
+    [B, t_pad*chunk] int16, uint8 mu-law or f32, duration [B] f32 —
+    unclamped, so the caller detects an overflow as
+    ceil(dur*sr/chunk) > t_pad)."""
+    noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
     wav, dur = synthesize_padded(params, cfg, text_ids, text_mask, style_dp,
                                  style_ttl, noise, speed, total_step,
                                  precision=precision)
+    return encode_egress(wav, egress), dur
+
+
+def flow_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
+               style_ttl, generator: torch.Generator, speed: float,
+               total_step: int, t_pad: int, *, precision: str = "bf16"):
+    """synthesize_fused without the vocoder: text stage, noise drawn on the
+    device from ``generator``, the flow loop. Returns (latent [B, t_pad, C],
+    duration [B] — unclamped, for overflow detection —, and the batch-max
+    frame mask [t_pad]): the input of ``vocode_window``."""
+    dur, emb = text_stage(params, cfg, text_ids, text_mask, style_dp, style_ttl,
+                          speed, precision=precision)
+    latent_mask = _latent_mask(cfg, dur, t_pad)
+    noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
+    xt = flow_stage(params, cfg, emb, style_ttl, text_mask, latent_mask, noise,
+                    total_step, precision=precision)
+    return xt, dur, latent_mask.amax(0)
+
+
+def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
+                  window: int, halo: int, *, precision: str = "bf16",
+                  egress: str = "int16") -> torch.Tensor:
+    """Vocode one window: frames [start, start + window + 2*halo) of the
+    latent pre-padded with ``halo`` zero frames each side (``xt_pad``
+    [B, T+2H, C], ``mask_pad`` [T+2H], the batch-max frame mask, zero in
+    the pads), and return only the interior samples [B, window*chunk].
+    With halo >= vocoder.receptive_field_frames(cfg) the interior is
+    full-sequence vocoding of those frames, so audio can leave before the
+    whole chunk is vocoded."""
+    span = window + 2 * halo
+    if not 0 <= start <= xt_pad.shape[1] - span:
+        raise ValueError(f"window [{start}, {start + span}) outside the padded "
+                         f"latent of {xt_pad.shape[1]} frames")
+    wav = vocoder.apply(params["vocoder"], cfg, xt_pad[:, start:start + span],
+                        frame_mask=mask_pad[start:start + span],
+                        dtype=dtype_of(precision))
+    chunk = cfg.chunk_size
+    return encode_egress(wav[:, halo * chunk:(halo + window) * chunk], egress)
+
+
+def encode_egress(wav: torch.Tensor, egress: str) -> torch.Tensor:
+    """The on-device egress form of an f32 waveform: "int16" (clamped
+    x * 32767), "mulaw" (8-bit G.711) or "f32" (unchanged)."""
     if egress == "int16":
-        wav = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
-    elif egress != "f32":
-        raise ValueError(f"egress must be 'int16' or 'f32', got {egress!r}")
-    return wav, dur
+        return torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
+    if egress == "mulaw":
+        return _mulaw_encode(wav)
+    if egress != "f32":
+        raise ValueError(f"egress must be 'int16', 'mulaw' or 'f32', got {egress!r}")
+    return wav
+
+
+def _mulaw_encode(x: torch.Tensor) -> torch.Tensor:
+    """On-device G.711 mu-law companding: 8-bit egress (a quarter of f32, half
+    of int16) at ~13-bit speech quality. Host decode: utils.mulaw.decode."""
+    pcm = torch.clamp(x * 32767.0, -32635.0, 32635.0)
+    sign = (pcm < 0).to(torch.int32) * 0x80
+    mag = pcm.abs().to(torch.int32) + 0x84
+    # segment exponent by integer threshold comparisons: a float log2 can
+    # land just below an exact integer at power-of-two magnitudes, dropping
+    # the exponent and halving the decoded sample
+    exp = torch.zeros_like(mag)
+    for th in (256, 512, 1024, 2048, 4096, 8192, 16384):
+        exp += (mag >= th).to(torch.int32)
+    mant = torch.bitwise_right_shift(mag, exp + 3) & 0x0F
+    return (~(sign | (exp << 4) | mant) & 0xFF).to(torch.uint8)

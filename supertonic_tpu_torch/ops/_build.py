@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -27,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
+# the first launch from several threads at once (the batcher's and a
+# streaming handler's) must build and load each library once
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -57,7 +61,9 @@ def build_all(*, verbose: bool = False) -> dict[str, Path]:
     for name, path in paths.items():
         if path.exists():
             continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        # pid and thread: processes sharing the checkout, and threads
+        # sharing a pid, never write one temporary file
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                "-I", str(CSRC_DIR), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -82,13 +88,16 @@ def function(kernel: str, name: str, argtypes):
     declared (it returns a CUDA error code); builds on first use."""
     fn = _fns.get((kernel, name))
     if fn is None:
-        lib = _libs.get(kernel)
-        if lib is None:
-            lib = _libs[kernel] = ctypes.CDLL(str(build_all()[kernel]))
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[(kernel, name)] = fn
+        with _lock:
+            fn = _fns.get((kernel, name))
+            if fn is None:
+                lib = _libs.get(kernel)
+                if lib is None:
+                    lib = _libs[kernel] = ctypes.CDLL(str(build_all()[kernel]))
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[(kernel, name)] = fn
     return fn
 
 

@@ -18,6 +18,15 @@ from supertonic_tpu_torch.models import init_all, load_params
 TEXTS = ["Hello there.", "A rather longer sentence, for a second row."]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def rate_dir(tmp_path_factory):
+    """The engines' learned-rate cache in a fresh folder, never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        d = tmp_path_factory.mktemp("rates")
+        mp.setenv("TTS_RATE_CACHE_DIR", str(d))
+        yield d
+
+
 @pytest.fixture(scope="module")
 def params(tiny_config):
     p = init_all(0, tiny_config)

@@ -42,6 +42,15 @@ TEXTS = ["Hello there.", "A rather longer sentence, for a second row."]
 DN = (((1,), (0,)), ((), ()))  # a [M, K] . b [K, N]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def rate_dir(tmp_path_factory):
+    """The engines' learned-rate cache in a fresh folder, never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        d = tmp_path_factory.mktemp("rates")
+        mp.setenv("TTS_RATE_CACHE_DIR", str(d))
+        yield d
+
+
 @pytest.fixture(scope="module")
 def microbench():
     """tools/int8_microbench.py, a script: loaded from its file (importing it
