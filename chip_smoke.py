@@ -19,8 +19,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                ``synthesize_batch``; checks the audio and each kernel's
                launch counter; then times b64 batches, records the
                shapes each kernel wrapper is given in one b64/5-step batch
-               (the cell's shapes) and the host time a dispatch spends on
-               its noise generator, its event and its queued copies
+               (the cell's shapes; exactly the per-batch counts, credited
+               by the replay of its program) and the host time a dispatch
+               spends on its noise generator, its event and its queued
+               copies. Every batch runs as a replay of the fused program
+               (a CUDA graph captured per static shape at first use): the
+               cell's program is held bit-equal to synthesize_fused run
+               eagerly with the same generator seed, and one replayed
+               batch runs under torch.profiler, which counts its host
+               launch calls (at most 32), finds each hand-written kernel
+               in its device trace as often as the counters say, and gives
+               device busy and the idle share against the reps' wall;
+               each program's capture seconds and memory are printed
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -50,7 +60,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                windowed against whole vocoding (f32 held to 1e-5, bf16
                printed), infer_with_progress and mu-law egress; an int8
                server; every kernel of each path must launch. Prints TTFA,
-               p50/p95 latency and served audio-sec/s beside the card
+               p50/p95 latency and served audio-sec/s beside the card. The
+               batcher's groups, the streamed chunks' flow and the windows
+               (those of the windowed-vs-whole check too) are replays of
+               their programs
+  8. programs — in f32 and bf16, a fused batch at B=4, the B=1 flow with
+               the halo padding and three vocoder windows: each replay
+               bit-equal to the eager function with the same generator seed
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -79,7 +95,7 @@ import torch
 
 from supertonic_tpu_torch import TTS, TTSConfig, ops
 from supertonic_tpu_torch.assets import save_params
-from supertonic_tpu_torch.engine import SynthesisEngine
+from supertonic_tpu_torch.engine import SynthesisEngine, programs, synthesis
 from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexer
 from supertonic_tpu_torch.models import (count_params, fuse_projections, init_all,
                                          quantize_params)
@@ -154,7 +170,7 @@ SOURCES = {
 # chip_smoke.py phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W, kernel build
 # hash fb4eb80f8363927d (PERF.md section 6); for w8a8_matmul, the int32
 # product it replaces on the path. Printed beside this run's times; keys are
-# the shapes record_shapes tallies.
+# the shapes ops.record_launches tallies.
 INT32_PRODUCT_MS = {(40960, 512, 512): 0.0679, (40960, 512, 2048): 0.2119,
                     (40960, 2048, 512): 0.1699, (23680, 512, 512): 0.0414}
 EARLIER_MS = {
@@ -552,42 +568,26 @@ def check_audio(wav: np.ndarray, dur: float, sr: int, what: str) -> None:
         raise AssertionError(f"{what}: RMS {rms:.5f} <= 0.005")
 
 
-class record_shapes:
-    """Context in which the model code's calls of each kernel wrapper are
-    tallied by shape: {kernel: {shape key: calls}}. The wrappers themselves
-    (and their launch counters) run unchanged."""
+def recorded(eng, run, tries: int = 3):
+    """Run ``run()`` with the launch counts reset and the launches tallied
+    by shape (``ops.record_launches``: replays credit what their capture
+    recorded); again if it met a program key for the first time, whose
+    eager run would count beside its replay. Returns (tally, counts)."""
+    for _ in range(tries):
+        n_programs = len(eng.programs.stats())
+        ops.reset_launch_counts()
+        with ops.record_launches() as tally:
+            run()
+        if len(eng.programs.stats()) == n_programs:
+            return tally, ops.launch_counts()
+    raise AssertionError(f"each of {tries} runs captured a new program")
 
-    KEYS = {  # kernel: (module holding the name the models call, name, key)
-        "attention": (layers, "fused_attention",
-                      lambda q, k, v, m=None: (q.shape[0], q.shape[2], q.shape[1],
-                                               k.shape[1], m is not None)),
-        "adaln_ffn": (layers, "fused_adaln_ffn",
-                      lambda x, g, b, w1, *a: (*x.shape, w1.shape[0])),
-        "resblock_chain": (vocoder_fused, "resblock_chain",
-                           lambda x, *a: tuple(x.shape)),
-        "w8a8_matmul": (layers, "w8a8_matmul",
-                        lambda xq, sx, w, *a: (xq.shape[0], xq.shape[1], w.shape[0])),
-        "quantize": (layers, "quantize_rows", lambda x: tuple(x.shape)),
-    }
 
-    def __enter__(self):
-        self.shapes = {kernel: {} for kernel in self.KEYS}
-        self.saved = []
-        for kernel, (mod, attr, key) in self.KEYS.items():
-            real = getattr(mod, attr)
-            self.saved.append((mod, attr, real))
-
-            def tally(*args, _real=real, _key=key, _seen=self.shapes[kernel]):
-                k = _key(*args)
-                _seen[k] = _seen.get(k, 0) + 1
-                return _real(*args)
-
-            setattr(mod, attr, tally)
-        return self.shapes
-
-    def __exit__(self, *exc):
-        for mod, attr, real in self.saved:
-            setattr(mod, attr, real)
+def check_exact(counts, per_batch, what) -> None:
+    """Exactly per_batch launches of each kernel."""
+    log(f"  launches over {what}: {counts} (exactly {per_batch} required)")
+    if counts != per_batch:
+        raise AssertionError(f"launches over {what}: {counts}, expected {per_batch}")
 
 
 def check_launches(counts, per_batch, n_batches, what) -> None:
@@ -644,29 +644,32 @@ def main_path(assets, precision, profile: bool, pin_rate: bool, bf16_rates=None)
     check_launches(counts, per_batch, n_batches, f"{n_batches} batches")
     # throughput at b64, the system's metric (5 and 2 steps)
     texts = [TEXTS[i % 3] for i in range(64)]
-    rates = {}
+    rates, walls = {}, {}
     for steps in (5, 2):
         tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=steps)
         if steps == 5:  # the rate is learned: this batch runs at the cell's buckets
-            ops.reset_launch_counts()
-            with record_shapes() as cell:
-                tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
+            cell, one = recorded(tts.engine, lambda: tts.synthesize_batch(
+                texts, ["en"] * 64, style.tile(64), total_step=5))
             log(f"  shapes given to each kernel in one b64/5-step batch: {cell}")
-            check_launches(ops.launch_counts(), per_batch, 1, "one b64/5-step batch")
-        rates[steps] = []
+            check_exact(one, per_batch, "one b64/5-step batch (a replay of its program)")
+        rates[steps], walls[steps] = [], []
         for rep in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _w, d = tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=steps)
             wall = time.perf_counter() - t0
             rates[steps].append(float(d.sum()) / wall)
+            walls[steps].append(wall)
             beside = "" if bf16_rates is None else (
                 f" (bf16, phase 3: {' / '.join(f'{r:.2f}' for r in bf16_rates[steps])})")
             log(f"  {precision} b64/{steps}-step rep {rep}: {float(d.sum()):.3f}s audio in "
                 f"{wall:.4f}s = {rates[steps][-1]:.2f} audio-sec/s{beside}")
     egress_host_cost(tts, texts, style)
+    fused_replay_vs_eager(tts.engine, texts, style)
+    trace_replayed_batch(tts, texts, style, per_batch, float(np.median(walls[5])))
     if profile:
         profile_batch(tts, texts, style)
+    log_programs(tts.engine, f"the {precision} engine")
     return cell, rates, counts
 
 
@@ -674,13 +677,16 @@ def egress_host_cost(tts, texts, style, reps: int = 20) -> None:
     """Median host ms a b64/5-step dispatch spends on its own noise
     generator, the event recorded behind it and queueing its duration and
     waveform copies on the egress stream; beside them, on the same tensors
-    and an idle card, the whole fetch (queue and wait) and the synchronous
-    copies into pinned memory that a single-stream engine makes."""
+    and an idle card, the whole fetch (queue and wait), the synchronous
+    copies into pinned memory that a single-stream engine makes, and the
+    host's int16 -> f32 decode of the fetched waveform (outside any
+    graph)."""
     eng = tts.engine
     p = eng.infer_batch_begin(texts, ["en"] * len(texts), style.tile(len(texts)), 5)
     eng.infer_batch_end(p)
     dur, wav = p.dur_dev, p.wav_src
-    names = ("generator", "event", "queue copies", "fetch and wait", "synchronous copies")
+    names = ("generator", "event", "queue copies", "fetch and wait", "synchronous copies",
+             "decode")
     ms = {name: [] for name in names}
     with torch.inference_mode():
         for _ in range(reps):
@@ -692,14 +698,16 @@ def egress_host_cost(tts, texts, style, reps: int = 20) -> None:
             t2 = time.perf_counter()
             fetch = eng._fetch([dur, wav], ready)
             t3 = time.perf_counter()
-            eng._wait(fetch)
+            _dur_host, wav_host = eng._wait(fetch)
             t4 = time.perf_counter()
             torch.cuda.synchronize()
             t5 = time.perf_counter()
             dur.cpu()
             torch.empty(wav.shape, dtype=wav.dtype, pin_memory=True).copy_(wav)
             t6 = time.perf_counter()
-            for name, dt in zip(names, (t1 - t0, t2 - t1, t3 - t2, t4 - t2, t6 - t5)):
+            eng._decode_egress(wav_host)
+            t7 = time.perf_counter()
+            for name, dt in zip(names, (t1 - t0, t2 - t1, t3 - t2, t4 - t2, t6 - t5, t7 - t6)):
                 ms[name].append(dt * 1e3)
     log(f"  host ms per b64/5-step dispatch ({wav.numel() * wav.element_size() / 2**20:.1f} "
         f"MiB of {wav.dtype} waveform), median of {reps}: " + ", ".join(
@@ -857,6 +865,164 @@ def fused_projections_path(params) -> None:
             f"{dur_rel:.3e}, wav relative L2 {rel:.3e} (limit {FUSED_WAV_REL_L2_MAX:g})")
         if dur_rel > 1e-2 or rel > FUSED_WAV_REL_L2_MAX:
             raise AssertionError(f"fused {precision}: far from the unfused batch")
+
+
+# ---------------------------------------------------------------------------
+# the compiled programs: CUDA graphs captured per static shape
+# ---------------------------------------------------------------------------
+
+# the hand-written kernels' names in a device trace, one per wrapper launch
+# (bf16 and f32 designs; the FFN's LayerNorm pass, the W8A8 product's
+# rescale-and-bias epilogue, the int32 product's epilogue)
+TRACE_NAMES = {"attention": ("attn_mma", "attn_kernel"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
+               "resblock_chain": ("chain_mma", "chain_kernel"), "int8_matmul": ("Int32Out",),
+               "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows",)}
+# host calls that launch device work: kernels and graphs
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
+MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def hold_bit_equal(what: str, got, want) -> None:
+    """Each output of a replay bit-equal to the eager function's."""
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        view = BITS.get(w.dtype, w.dtype)
+        same = (g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g.view(view), w.view(view)))
+        err = float((g.float() - w.float()).abs().max()) if g.shape == w.shape else None
+        log(f"  {what}: output {i} {tuple(w.shape)} {w.dtype} bit-equal {same} "
+            f"(max abs err {err})")
+        if not same:
+            raise AssertionError(f"{what}: the replay differs from the eager function")
+
+
+def fused_replay_vs_eager(eng, texts, style, seed: int = 77) -> None:
+    """The fused program at the cell's shape (the engine's egress, the key
+    the cell replays, and f32 egress) against synthesize_fused run eagerly,
+    with generators of one seed."""
+    pend = eng.infer_batch_begin(texts, ["en"] * len(texts), style.tile(len(texts)), 5,
+                                 device_output=True)
+    eng.infer_batch_end(pend)
+    speed = eng._speed(1.05)
+    for egress in (eng.egress_format, "f32"):
+        kw = dict(precision=eng.precision, egress=egress)
+        with torch.inference_mode():
+            got = eng.programs.synthesize_fused(
+                eng.params, eng.cfg, *pend.dev_args, torch.Generator(device=DEV).manual_seed(seed),
+                speed, 5, pend.t_bucket, **kw)
+            want = synthesis.synthesize_fused(
+                eng.params, eng.cfg, *pend.dev_args, torch.Generator(device=DEV).manual_seed(seed),
+                speed, 5, pend.t_bucket, **kw)
+        hold_bit_equal(f"fused program b{len(texts)}/5-step T={pend.t_bucket} {eng.precision} "
+                       f"{egress} egress, replay vs eager", got, want)
+    # speed as a 0-dim tensor (a true division, as in XLA) against the
+    # Python float of the trees before (a product with the reciprocal)
+    cfg = eng.cfg
+    with torch.inference_mode():
+        durs = [synthesis.text_stage(eng.params, cfg, *pend.dev_args, sp,
+                                     precision=eng.precision)[0] for sp in (1.05, speed)]
+    lat = [torch.ceil(d * cfg.sample_rate / cfg.chunk_size) for d in durs]
+    log(f"  duration / speed, b{len(texts)}: {int((durs[0] != durs[1]).sum())} of "
+        f"{durs[0].numel()} durations differ between a float and a tensor speed (max abs "
+        f"{float((durs[0] - durs[1]).abs().max()):.3e} s), {int((lat[0] != lat[1]).sum())} "
+        f"latent lengths")
+
+
+def trace_replayed_batch(tts, texts, style, per_batch, wall_s: float) -> None:
+    """One b64/5-step batch, a replay of its program, under torch.profiler:
+    the host calls that launch device work, the hand-written kernels found
+    in the device trace (one per wrapper launch: the per-batch counts), and
+    device busy against the wall of the unprofiled reps (the idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # the tracer's first start-up, outside the window
+        torch.cuda.synchronize()
+    n_programs = len(tts.engine.programs.stats())
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        tts.synthesize_batch(texts, ["en"] * len(texts), style.tile(len(texts)), total_step=5)
+        torch.cuda.synchronize()
+    if len(tts.engine.programs.stats()) != n_programs:
+        raise AssertionError("the profiled batch captured a new program")
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events if e.device_type.name == "CPU"
+            and (e.key.startswith(HOST_LAUNCH_CALLS) or "Memcpy" in e.key
+                 or "Event" in e.key)}
+    n_launch = sum(n for k, n in host.items() if k.startswith(HOST_LAUNCH_CALLS))
+    dev = [e for e in events if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    found = {k: sum(e.count for e in dev if any(n in e.key for n in TRACE_NAMES[k]))
+             for k in per_batch}
+    log(f"  replayed b64/5-step batch under torch.profiler: {n_launch} host launch calls "
+        f"(limit {MAX_HOST_LAUNCHES}); host calls {dict(sorted(host.items()))}")
+    log(f"  hand-written kernels in its device trace: {found}; device busy {busy:.1f} ms "
+        f"in {sum(e.count for e in dev)} device events; unprofiled wall {wall_s * 1e3:.1f} ms "
+        f"(median of the reps), idle share {max(0.0, 1 - busy / (wall_s * 1e3)):.3f}")
+    n_graphs = sum(n for k, n in host.items() if k.startswith(HOST_LAUNCH_CALLS[2:]))
+    if n_launch > MAX_HOST_LAUNCHES or n_graphs < 1:
+        raise AssertionError(f"one replayed batch: {n_launch} host launch calls, {n_graphs} "
+                             f"of them graph launches")
+    if found != per_batch:
+        raise AssertionError(f"the replayed batch's trace holds {found}, expected {per_batch}")
+
+
+def log_programs(eng, what: str) -> None:
+    """Capture seconds and memory of each program the engine captured."""
+    stats = eng.programs.stats()
+    for st in stats:
+        log(f"    program {st['key']}: capture {st['capture_s']:.3f}s, pool "
+            f"+{st['pool_bytes'] / 2**20:.1f} MiB, static inputs "
+            f"{st['static_bytes'] / 2**20:.3f} MiB")
+    log(f"  {what}: {len(stats)} programs, pool growth "
+        f"{sum(st['pool_bytes'] for st in stats) / 2**30:.3f} GiB in all; device memory "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, the process's peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def programs_check(params) -> None:
+    """Phase 8: in f32 and bf16, a fused batch of the three protocol texts
+    (B bucket 4, T=448), the B=1 flow of the long text with the halo padding
+    and its first, second and last vocoder windows: each program's replay
+    bit-equal to the eager function with generators of one seed."""
+    from supertonic_tpu_torch.models.vocoder import receptive_field_frames
+
+    cfg, proc, texts, style, _noise = whole_path_inputs()
+    halo, w, t_pad = receptive_field_frames(cfg), WINDOW_FRAMES, 448
+    for precision in ("f32", "bf16"):
+        eng = SynthesisEngine(params, cfg, proc, precision=precision)
+        speed = eng._speed(1.05)
+        with torch.inference_mode():
+            dev3, *_ = eng._prepare_inputs(texts, ["en"] * 3, style)
+            dev1, *_ = eng._prepare_inputs([LONG_TEXT], ["en"], style.take(slice(0, 1)))
+            for egress in ("int16", "f32"):
+                kw = dict(precision=precision, egress=egress)
+                got = eng.programs.synthesize_fused(
+                    eng.params, cfg, *dev3, torch.Generator(device=DEV).manual_seed(3), speed,
+                    5, t_pad, **kw)
+                want = synthesis.synthesize_fused(
+                    eng.params, cfg, *dev3, torch.Generator(device=DEV).manual_seed(3), speed,
+                    5, t_pad, **kw)
+                hold_bit_equal(f"fused program b{dev3[0].shape[0]} T={t_pad} {precision} "
+                               f"{egress} egress", got, want)
+            got = eng.programs.flow_fused(
+                eng.params, cfg, *dev1, torch.Generator(device=DEV).manual_seed(4), speed, 5,
+                t_pad, precision=precision, halo=halo)
+            want = synthesis.flow_fused(
+                eng.params, cfg, *dev1, torch.Generator(device=DEV).manual_seed(4), speed, 5,
+                t_pad, precision=precision, halo=halo)
+            hold_bit_equal(f"flow program B1 T={t_pad} + 2 x {halo} halo {precision}", got, want)
+            xt_pad, _dur, m_pad = want
+            for start in (0, w, t_pad - w):
+                kw = dict(precision=precision, egress="f32")
+                got = eng.programs.vocode_window(eng.params, cfg, xt_pad, m_pad, start, w, halo,
+                                                 **kw)
+                want = synthesis.vocode_window(eng.params, cfg, xt_pad, m_pad, start, w, halo,
+                                               **kw)
+                hold_bit_equal(f"window program B1 start {start} {precision}", (got,), (want,))
+        log_programs(eng, f"the {precision} engine of phase 8")
+        del eng
 
 
 # ---------------------------------------------------------------------------
@@ -1088,8 +1254,9 @@ def check_stream_windows(tts, style) -> None:
 def window_vs_whole(params, tts, style) -> None:
     """Windowed vocoding (the HTTP stream's windows: 64 frames, the halo the
     vocoder's receptive field) against whole vocoding of the same latent on
-    the card, in f32 (TF32 off, the kernels' SIMT f32 branches) and bf16."""
-    from supertonic_tpu_torch.engine import synthesis
+    the card, in f32 (TF32 off, the kernels' SIMT f32 branches) and bf16;
+    the windows are replays of the window program (bf16: the server
+    engine's programs, f32: programs of the f32 params)."""
     from supertonic_tpu_torch.models import load_params, vocoder
     from supertonic_tpu_torch.models.vocoder import receptive_field_frames
 
@@ -1103,7 +1270,8 @@ def window_vs_whole(params, tts, style) -> None:
             5, 448, precision="bf16")
         xt, fmask = xt[:1].contiguous(), fmask
         f32 = load_params(params, device=DEV, dtype=torch.float32)
-        for dtype, mods in ((torch.float32, f32), (torch.bfloat16, eng.params)):
+        for dtype, mods, progs in ((torch.float32, f32, programs.Programs(DEV)),
+                                   (torch.bfloat16, eng.params, eng.programs)):
             prec = "f32" if dtype == torch.float32 else "bf16"
             full = vocoder.apply(mods["vocoder"], cfg, xt, frame_mask=fmask, dtype=dtype)
             xt_pad = torch.nn.functional.pad(xt, (0, 0, halo, halo))
@@ -1112,8 +1280,8 @@ def window_vs_whole(params, tts, style) -> None:
             t_len = xt.shape[1]
             for k0 in range(0, t_len, w):
                 start = max(0, min(k0, t_len - w))
-                wav = synthesis.vocode_window(mods, cfg, xt_pad, m_pad, start, w, halo,
-                                              precision=prec, egress="f32")
+                wav = progs.vocode_window(mods, cfg, xt_pad, m_pad, start, w, halo,
+                                          precision=prec, egress="f32")
                 pieces.append(wav[:, (k0 - start) * chunk:(k0 - start + min(w, t_len - k0))
                                   * chunk])
             err = float((torch.cat(pieces, 1) - full).abs().max())
@@ -1168,12 +1336,17 @@ def serving(assets, params, smi: str):
     sr = tts.sample_rate
     style = tts.get_voice_style("M1")
     ops.reset_launch_counts()
-    with record_shapes() as shapes, serving_server(tts) as srv:
+    with ops.record_launches() as shapes, serving_server(tts) as srv:
         batcher, prof = srv.server.service.batcher, tts.engine.profiler
         burst(srv.port, sr, N_CONCURRENT)  # the rate learned, the allocator warm
         b0, r0, a0 = batcher.stats["batches"], batcher.stats["batched_requests"], \
             prof.audio_seconds
+        seen = {st["key"] for st in tts.engine.programs.stats()}
         samples, lat, wall = burst(srv.port, sr, N_CONCURRENT)
+        new = [st for st in tts.engine.programs.stats() if st["key"] not in seen]
+        log(f"  programs captured during the timed burst: {len(new)} "
+            f"({sum(st['capture_s'] for st in new):.3f}s of capture: "
+            f"{[st['key'] for st in new]})")
         n_batches = batcher.stats["batches"] - b0
         n_req = batcher.stats["batched_requests"] - r0
         audio = prof.audio_seconds - a0
@@ -1213,19 +1386,19 @@ def serving(assets, params, smi: str):
         f"{sum(samples) / sr:.3f}s of audio in {wall:.4f}s = "
         f"{sum(samples) / sr / wall:.2f} served audio-sec/s")
     first = chunk_text(STREAM_TEXT, max_len=max_len_for_lang("en"))[0]
-    ops.reset_launch_counts()
-    with record_shapes() as per_chunk:
-        list(tts.engine._vocode_stream(first, "en", style, 5, 1.05, WINDOW_FRAMES))
+    per_chunk, chunk_counts = recorded(tts.engine, lambda: list(
+        tts.engine._vocode_stream(first, "en", style, 5, 1.05, WINDOW_FRAMES)))
     log(f"  launches for one streamed chunk ({len(first)} chars, windows of "
-        f"{WINDOW_FRAMES}): {ops.launch_counts()}")
+        f"{WINDOW_FRAMES}; replays of its flow and window programs): {chunk_counts}")
     window_vs_whole(params, tts, style)
+    log_programs(tts.engine, "the bf16 server's engine")
     del tts
     check_mulaw(assets, style, sr)
 
     fresh_rate_dir("serve-int8")
     tts8 = TTS(assets, precision="int8")
     ops.reset_launch_counts()
-    with record_shapes() as shapes8, serving_server(tts8) as srv:
+    with ops.record_launches() as shapes8, serving_server(tts8) as srv:
         samples8, _lat8, wall8 = burst(srv.port, sr, 16)
         t_first8, _t, body8 = stream_first_bytes(srv.port, {"text": STREAM_TEXT,
                                                             "total_step": 5})
@@ -1240,10 +1413,11 @@ def serving(assets, params, smi: str):
             raise AssertionError(f"{name} was not launched by the int8 server")
     if counts8["adaln_ffn"] or counts8["int8_matmul"]:
         raise AssertionError("the int8 server launched the fused FFN or the int32 product")
+    log_programs(tts8.engine, "the int8 server's engine")
     del tts8
     served = {kernel: {key: per_chunk[kernel].get(key, 0)
                        for key in {**shapes[kernel], **shapes8[kernel], **per_chunk[kernel]}}
-              for kernel in record_shapes.KEYS}
+              for kernel in ops.KERNELS}
     log("  shapes for phase 5 (launches per streamed chunk): " + "; ".join(
         f"{kernel} {len(seen)}: {dict(sorted(seen.items()))}" for kernel, seen in served.items()))
     return served
@@ -1319,6 +1493,10 @@ def main() -> int:
     w8a8_linears(params)
     whole_path_int8(params)
     fused_projections_path(params)
+
+    log("phase 8: programs: replays of the captured fused, flow and window programs "
+        "against the eager functions, f32 and bf16")
+    programs_check(params)
 
     line = []
     for name, (src, replaces) in SOURCES.items():

@@ -72,8 +72,9 @@ def load_params(path: str) -> Any:
         return unflatten_tree({k: z[k] for k in z.files})
 
 
-def load_voice_style(paths: list[str]) -> VoiceStyle:
-    """Stack reference-format style files into a batch."""
+def load_voice_style(paths: list[str], verbose: bool = False) -> VoiceStyle:
+    """Stack reference-format style files into a batch; ``verbose`` prints
+    how many were loaded, as the reference helper does."""
     ttls, dps = [], []
     for p in paths:
         with open(p) as f:
@@ -82,6 +83,8 @@ def load_voice_style(paths: list[str]) -> VoiceStyle:
             raw["style_ttl"]["dims"][1:]))
         dps.append(np.array(raw["style_dp"]["data"], np.float32).reshape(
             raw["style_dp"]["dims"][1:]))
+    if verbose:
+        print(f"Loaded {len(paths)} voice styles")
     return VoiceStyle(np.stack(ttls), np.stack(dps))
 
 

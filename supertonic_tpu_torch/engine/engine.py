@@ -10,6 +10,11 @@
   * noise is drawn on the device from a per-dispatch ``torch.Generator``
     seeded from the engine's host-side chain (production) or injected
     (parity path);
+  * on the card the fused batch, a streamed chunk's flow and each vocoder
+    window replay a CUDA graph captured per static shape at first use
+    (``programs.Programs``, the counterpart of the JAX engine's jitted
+    programs; ``warmup`` captures the lattice); on the CPU the same
+    functions of ``synthesis`` run eagerly;
   * ``infer_batch_begin`` queues a batch and its device->host copies;
     ``infer_batch_end`` resolves it. The copies run on a side stream after
     an event recorded behind the batch, so a result never waits behind
@@ -25,12 +30,11 @@ from collections import deque
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import TTSConfig
 from ..frontend import UnicodeProcessor
 from ..utils.timing import StageProfiler
-from . import buckets, synthesis
+from . import buckets, programs, synthesis
 from .longform import LongFormSynthesis
 
 EGRESS_FORMATS = ("int16", "f32", "mulaw")
@@ -176,6 +180,11 @@ class SynthesisEngine(LongFormSynthesis):
             params = load_params(params, device=self.device, dtype=self.dtype)
         self.params = params
         self.egress_format = egress_format
+        # the fused, flow and window calls: replays of captured programs on
+        # the card, the eager functions on the CPU
+        self.programs = (programs.Programs(self.device)
+                         if self.device.type == "cuda" else None)
+        self._synth = synthesis if self.programs is None else self.programs
         self.profiler = StageProfiler()
         # the host chain each dispatch's noise generator is seeded from
         self._seed_chain = torch.Generator().manual_seed(seed)
@@ -301,6 +310,12 @@ class SynthesisEngine(LongFormSynthesis):
     # ------------------------------------------------------------------
     # inputs
     # ------------------------------------------------------------------
+
+    def _speed(self, speed: float) -> torch.Tensor:
+        """``speed`` as a 0-dim f32 tensor on the device, as the JAX engine
+        passes an array: the duration is then a true division on the card,
+        never a product with the reciprocal."""
+        return torch.full((), float(speed), dtype=torch.float32, device=self.device)
 
     def _next_generator(self) -> torch.Generator:
         """A noise generator of its own for one dispatch, seeded from the
@@ -446,10 +461,10 @@ class SynthesisEngine(LongFormSynthesis):
 
     def _fused(self, dev_args, total_step: int, t_bucket: int, speed: float):
         with self.profiler.stage("fused_synthesis"):
-            return synthesis.synthesize_fused(
-                self.params, self.cfg, *dev_args, self._next_generator(), speed,
-                int(total_step), int(t_bucket), precision=self.precision,
-                egress=self.egress_format)
+            return self._synth.synthesize_fused(
+                self.params, self.cfg, *dev_args, self._next_generator(),
+                self._speed(speed), int(total_step), int(t_bucket),
+                precision=self.precision, egress=self.egress_format)
 
     def infer_batch_begin(self, text_list, lang_list, style: VoiceStyle,
                           total_step: int = 5, speed: float = 1.05, *,
@@ -573,7 +588,7 @@ class SynthesisEngine(LongFormSynthesis):
         with torch.inference_mode():
             with self.profiler.stage("text_stage"):
                 dur_dev, emb = synthesis.text_stage(
-                    self.params, self.cfg, ids, mask, sdp, sttl, speed,
+                    self.params, self.cfg, ids, mask, sdp, sttl, self._speed(speed),
                     precision=self.precision)
                 dur = dur_dev.cpu().numpy()
             latent_lengths = ((dur * sr).astype(np.int64) + chunk - 1) // chunk
@@ -599,10 +614,11 @@ class SynthesisEngine(LongFormSynthesis):
                text_buckets: tuple[int, ...] | None = None,
                total_steps: tuple[int, ...] = (2, 5), progress=None) -> int:
         """Run synthetic batches over the common bucket lattice before live
-        traffic: on the card the first of them builds the kernels, and all
-        of them warm cuBLAS, cuDNN and the allocator at the shapes serving
-        meets. Returns the number of batches run. They stay out of the
-        profiler and of the learned rate (synthetic rows are not speech)."""
+        traffic: on the card the first of them builds the kernels, and each
+        captures the fused program of its shape (at the latent bucket its
+        text gets), as the JAX engine compiles its programs here. Returns the
+        number of batches run. They stay out of the profiler and of the
+        learned rate (synthetic rows are not speech)."""
         rt = self.cfg.runtime
         # `is None`, not falsy: an empty tuple warms nothing for that dim
         bss = (tuple(b for b in rt.batch_buckets if b <= 32)
@@ -670,7 +686,7 @@ class SynthesisEngine(LongFormSynthesis):
             dur_dev, emb = synthesis.text_stage(
                 self.params, self.cfg,
                 torch.as_tensor(ids, dtype=torch.int64).to(self.device), tmask,
-                sdp, sttl, speed, precision=self.precision)
+                sdp, sttl, self._speed(speed), precision=self.precision)
             dur = dur_dev.cpu().numpy()
             t_lat = buckets.latent_len_for_duration(float(dur[0]), sr, chunk)
             t_bucket = buckets.pick_bucket(t_lat, rt.latent_buckets)
@@ -702,11 +718,13 @@ class SynthesisEngine(LongFormSynthesis):
     def _vocode_stream(self, text: str, lang: str, style, total_step: int,
                        speed: float, window_frames: int):
         """Sub-chunk streaming core. Before the first yield the host waits
-        once: one fused text+flow call (the latent stays on the device, the
-        bucket from the learned rate), window 0 vocoded, and window 0 and the
-        duration fetched together. Then the remaining windows are queued and
-        fetched in doubling groups. Yields (wav [n] f32, seconds,
-        chunk_end); see LongFormSynthesis.stream_windows."""
+        once: one fused text+flow call (the latent, padded with the halo,
+        stays on the device; the bucket from the learned rate), window 0
+        vocoded, and window 0 and the duration fetched together. Then the
+        remaining windows are queued and fetched in doubling groups. On the
+        card the flow and every window are replays of captured programs.
+        Yields (wav [n] f32, seconds, chunk_end); see
+        LongFormSynthesis.stream_windows."""
         from ..models.vocoder import receptive_field_frames
 
         rt = self.cfg.runtime
@@ -727,18 +745,17 @@ class SynthesisEngine(LongFormSynthesis):
             bucket); returns (k0, start, device wav, its event)."""
             start = max(0, min(k0, t_bucket - w))
             with torch.inference_mode():
-                wav = synthesis.vocode_window(
+                wav = self._synth.vocode_window(
                     self.params, self.cfg, xt_pad, mask_pad, start, w, halo,
                     precision=self.precision, egress=self.egress_format)
                 return k0, start, wav, self._mark()
 
         for _attempt in range(4):
             with self.profiler.stage("fused_synthesis"), torch.inference_mode():
-                xt, dur_dev, fmask = synthesis.flow_fused(
-                    self.params, self.cfg, *dev_args, self._next_generator(), speed,
-                    int(total_step), int(t_bucket), precision=self.precision)
-                xt_pad = F.pad(xt, (0, 0, halo, halo))
-                mask_pad = F.pad(fmask, (halo, halo))
+                xt_pad, dur_dev, mask_pad = self._synth.flow_fused(
+                    self.params, self.cfg, *dev_args, self._next_generator(),
+                    self._speed(speed), int(total_step), int(t_bucket),
+                    precision=self.precision, halo=halo)
             w = min(int(window_frames), t_bucket)
             first = win(0)
             with self.profiler.stage("egress"), torch.inference_mode():

@@ -1,0 +1,242 @@
+"""Compiled synthesis programs on the card: one CUDA graph per static shape.
+
+The counterpart of the JAX package's jitted programs, which XLA compiles at
+the first call of a shape (and over the bucket lattice in ``warmup``):
+
+  program  JAX counterpart          key (its static arguments)
+  fused    ``jit_synthesize_fused``  batch and text buckets, latent bucket
+                                     ``t_pad``, ``total_step``, precision,
+                                     egress
+  flow     ``jit_flow_fused``        batch and text buckets, ``t_pad``,
+                                     ``total_step``, precision, the halo
+                                     frames padded onto the latent
+  window   ``jit_vocode_window``     batch, ``window``, ``halo``, precision,
+                                     egress
+
+``Programs`` has the three functions of ``synthesis`` that the engine calls,
+with their signatures. The first call of a key runs the function's body
+eagerly once at that shape on a side stream (that builds the kernels with
+``nvcc``, sets their one-time attributes and brings up cuBLAS and cuDNN),
+then captures it into a CUDA graph, under a lock, so that one key is
+captured once whichever threads meet it. Every call copies its inputs into
+the graph's static buffers, draws its noise into the static noise buffer
+from its own generator (the op ``synthesis._noise`` uses, so a seed gives
+the same noise as the eager function), replays the graph and clones the
+outputs into fresh tensors: the next replay of the key overwrites its static
+outputs while an earlier result may still be on its way to the host. The
+window's ``start``, a runtime scalar in JAX, becomes the copy of the
+window's frames into the static input, so one graph serves every window.
+
+All graphs of one ``Programs`` share a memory pool: a capture reuses what
+earlier captures freed, so memory grows with the largest shape plus each
+key's static inputs and outputs. The pool is safe to share because each
+call's copy-in, replay and clone run as one unit under a lock, ordered on
+the device behind the unit before, and no unit waits on the device.
+
+Each program keeps the kernel launches and shapes its capture recorded
+(``ops._count``); every replay credits them, so ``ops.launch_counts`` and
+``ops.record_launches`` count what the graph ran. A capture or replay that
+fails raises: nothing here falls back to eager execution.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Callable
+
+import torch
+
+from ..ops import _count
+from . import synthesis
+
+# the static arguments of the JAX programs each key holds, beside the
+# shapes of the array arguments and the precision (a partial in JAX)
+FUSED_STATIC = ("total_step", "t_pad", "egress")
+FLOW_STATIC = ("total_step", "t_pad")
+WINDOW_STATIC = ("window", "halo", "egress")
+
+
+def fused_key(text_ids, total_step: int, t_pad: int, precision: str, egress: str) -> tuple:
+    b, l_pad = text_ids.shape
+    return ("fused", b, l_pad, int(total_step), int(t_pad), precision, egress)
+
+
+def flow_key(text_ids, total_step: int, t_pad: int, precision: str, halo: int) -> tuple:
+    b, l_pad = text_ids.shape
+    return ("flow", b, l_pad, int(total_step), int(t_pad), precision, int(halo))
+
+
+def window_key(xt_pad, window: int, halo: int, precision: str, egress: str) -> tuple:
+    return ("window", xt_pad.shape[0], int(window), int(halo), precision, egress)
+
+
+@dataclasses.dataclass
+class Draw:
+    """A static input drawn before each replay instead of copied: ``fill``
+    writes the buffer of ``shape`` and ``dtype``."""
+
+    shape: tuple
+    dtype: torch.dtype
+    fill: Callable[[torch.Tensor], object]
+
+
+def _noise_draw(cfg, b: int, t_pad: int, generator) -> Draw:
+    """The noise input: drawn from the call's generator into the static
+    buffer with the op of ``synthesis._noise``."""
+    return Draw((b, t_pad, cfg.latent_channels), torch.float32,
+                lambda out: synthesis._noise(cfg, b, t_pad, generator, out.device, out=out))
+
+
+def static_like(inputs, device) -> tuple[torch.Tensor, ...]:
+    """A static buffer for each input (a tensor or a ``Draw``)."""
+    return tuple(torch.empty(tuple(x.shape), dtype=x.dtype, device=device)
+                 for x in inputs)
+
+
+def fill(static, inputs) -> None:
+    """Copy each tensor input into its static buffer; draw each ``Draw``."""
+    for buf, x in zip(static, inputs):
+        if isinstance(x, Draw):
+            x.fill(buf)
+        else:
+            buf.copy_(x)
+
+
+@dataclasses.dataclass
+class Program:
+    """One captured graph with its static inputs and outputs, the launches
+    its capture recorded, and what the capture took."""
+
+    key: tuple
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: tuple
+    record: dict
+    capture_s: float
+    pool_bytes: int    # growth of the reserved device memory over the capture
+    static_bytes: int  # the static input buffers, outside the pool
+
+
+class Programs:
+    """The captured programs of one engine on one CUDA device."""
+
+    def __init__(self, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs run on a CUDA device, not {device}")
+        self.device = device
+        self._programs: dict[tuple, Program] = {}
+        self._capture_lock = threading.Lock()
+        # one replay unit (copy-in, replay, clone) at a time: the graphs
+        # share one memory pool
+        self._replay_lock = threading.Lock()
+        self._last = None  # event behind the last replay unit
+        self._pool = None
+        self._stream = None
+
+    def stats(self) -> list[dict]:
+        """Per captured key: capture seconds, pool growth and static bytes."""
+        return [dict(key=p.key, capture_s=p.capture_s, pool_bytes=p.pool_bytes,
+                     static_bytes=p.static_bytes) for p in self._programs.values()]
+
+    # ------------------------------------------------------------------
+    # the three programs, with the signatures of the synthesis functions
+    # ------------------------------------------------------------------
+
+    def synthesize_fused(self, params, cfg, text_ids, text_mask, style_dp, style_ttl,
+                         generator, speed, total_step: int, t_pad: int, *,
+                         precision: str = "bf16", egress: str = "int16"):
+        """``synthesis.synthesize_fused`` through its program; ``speed`` is
+        a 0-dim f32 tensor on the device."""
+        noise = _noise_draw(cfg, text_ids.shape[0], t_pad, generator)
+
+        def body(ids, mask, sdp, sttl, spd, nz):
+            wav, dur = synthesis.synthesize_padded(params, cfg, ids, mask, sdp, sttl, nz,
+                                                   spd, total_step, precision=precision)
+            return synthesis.encode_egress(wav, egress), dur
+
+        return self.run(fused_key(text_ids, total_step, t_pad, precision, egress), body,
+                        (text_ids, text_mask, style_dp, style_ttl, speed, noise))
+
+    def flow_fused(self, params, cfg, text_ids, text_mask, style_dp, style_ttl,
+                   generator, speed, total_step: int, t_pad: int, *,
+                   precision: str = "bf16", halo: int = 0):
+        """``synthesis.flow_fused`` through its program."""
+        noise = _noise_draw(cfg, text_ids.shape[0], t_pad, generator)
+
+        def body(ids, mask, sdp, sttl, spd, nz):
+            return synthesis.flow_padded(params, cfg, ids, mask, sdp, sttl, nz, spd,
+                                         total_step, precision=precision, halo=halo)
+
+        return self.run(flow_key(text_ids, total_step, t_pad, precision, halo), body,
+                        (text_ids, text_mask, style_dp, style_ttl, speed, noise))
+
+    def vocode_window(self, params, cfg, xt_pad, mask_pad, start: int, window: int,
+                      halo: int, *, precision: str = "bf16", egress: str = "int16"):
+        """``synthesis.vocode_window`` through its program: the window's
+        frames are copied into the static input."""
+
+        def body(x_win, m_win):
+            return (synthesis.vocode_span(params, cfg, x_win, m_win, window, halo,
+                                          precision=precision, egress=egress),)
+
+        (wav,) = self.run(window_key(xt_pad, window, halo, precision, egress), body,
+                          synthesis.window_span(xt_pad, mask_pad, start, window, halo))
+        return wav
+
+    # ------------------------------------------------------------------
+    # capture and replay
+    # ------------------------------------------------------------------
+
+    def run(self, key: tuple, body, inputs) -> tuple:
+        """Replay the program of ``key`` (captured from ``body`` at first
+        use) on ``inputs``; returns fresh copies of its outputs."""
+        prog = self._program(key, body, inputs)
+        with self._replay_lock:
+            stream = torch.cuda.current_stream(self.device)
+            if self._last is not None:
+                stream.wait_event(self._last)
+            fill(prog.inputs, inputs)
+            prog.graph.replay()
+            outputs = tuple(out.clone() for out in prog.outputs)
+            self._last = torch.cuda.Event()
+            self._last.record(stream)
+        _count.credit(prog.record)
+        return outputs
+
+    def _program(self, key: tuple, body, inputs) -> Program:
+        prog = self._programs.get(key)
+        if prog is None:
+            with self._capture_lock:
+                prog = self._programs.get(key)
+                if prog is None:
+                    prog = self._programs[key] = self._capture(key, body, inputs)
+        return prog
+
+    def _capture(self, key: tuple, body, inputs) -> Program:
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        side, current = self._stream, torch.cuda.current_stream(self.device)
+        static = static_like(inputs, self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            # the eager run at this shape, outside the capture: draws are
+            # left as zeros, so no generator moves
+            fill(static, [torch.zeros_like(s) if isinstance(x, Draw) else x
+                          for s, x in zip(static, inputs)])
+            body(*static)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with _count.capturing() as record, torch.cuda.graph(
+                graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
+            outputs = tuple(body(*static))
+        current.wait_stream(side)
+        return Program(key=key, graph=graph, inputs=static, outputs=outputs, record=record,
+                       capture_s=time.perf_counter() - t0,
+                       pool_bytes=torch.cuda.memory_reserved(self.device) - reserved,
+                       static_bytes=sum(s.numel() * s.element_size() for s in static))

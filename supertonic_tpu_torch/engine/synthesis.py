@@ -11,19 +11,29 @@
                    fixed by the injected noise
   synthesize_fused: the production call: noise drawn on the device from a
                    ``torch.Generator``, int16 / mu-law / f32 egress
-  flow_fused:      synthesize_fused without the vocoder: latent, duration
-                   and frame mask, the input of windowed vocoding
-  vocode_window:   one vocoder window with its halo; only the interior
-                   samples are kept
+  flow_padded:     the text stage and the flow loop at the latent length of
+                   injected noise: latent, duration and frame mask, the
+                   input of windowed vocoding, optionally with halo frames
+  flow_fused:      flow_padded on noise drawn from a ``torch.Generator``
+  vocode_span:     one vocoder window with its halo, given as its own
+                   tensors; only the interior samples are kept
+  vocode_window:   vocode_span of the window at ``start`` of a padded latent
 
-PyTorch runs eagerly, so where the JAX package compiles one program per
-bucket, these functions simply run; the shapes are still bucketed by the
-engine.
+These functions run eagerly. Where the JAX package compiles one program per
+static shape (``jit_synthesize_fused``, ``jit_flow_fused``,
+``jit_vocode_window``), the engine on the card replays a CUDA graph captured
+per shape (``engine/programs.py``) of ``synthesize_padded`` plus egress,
+``flow_padded`` and ``vocode_span``: the bodies that take their noise and
+their window as inputs. ``speed`` may be a Python float or a 0-dim f32
+tensor; the engine passes a tensor, as the JAX engine passes an array: on
+CUDA a division by a Python scalar is a product with its reciprocal, by a
+tensor a true division.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..config import TTSConfig
 from ..models import duration_predictor, text_encoder, vector_estimator, vocoder
@@ -41,9 +51,10 @@ def dtype_of(precision: str) -> torch.dtype:
 
 
 def text_stage(params, cfg: TTSConfig, text_ids, text_mask, style_dp, style_ttl,
-               speed: float, *, precision: str = "bf16"):
+               speed, *, precision: str = "bf16"):
     """Duration prediction + text encoding. Returns (duration [B] f32
-    seconds, already divided by speed, and text_emb)."""
+    seconds, already divided by speed — a float or a 0-dim tensor —, and
+    text_emb)."""
     dtype = dtype_of(precision)
     dur = duration_predictor.apply(params["duration_predictor"], cfg, text_ids,
                                    style_dp, text_mask, dtype=dtype)
@@ -98,13 +109,16 @@ def _latent_mask(cfg: TTSConfig, dur, t_pad: int):
     return (frame_idx < latent_len[:, None]).float()
 
 
-def _noise(cfg: TTSConfig, b: int, t_pad: int, generator, device):
+def _noise(cfg: TTSConfig, b: int, t_pad: int, generator, device, out=None):
+    """Noise [b, t_pad, C] ~ N(0, 1) from ``generator``; into ``out`` when it
+    is given (a captured program's static input), with the same op and so
+    the same numbers."""
     return torch.randn((b, t_pad, cfg.latent_channels), generator=generator,
-                       dtype=torch.float32, device=device)
+                       dtype=torch.float32, device=device, out=out)
 
 
 def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
-                      style_ttl, noise, speed: float, total_step: int, *,
+                      style_ttl, noise, speed, total_step: int, *,
                       precision: str = "bf16"):
     """Text stage + acoustic stage at the latent length of ``noise``
     [B, T, C]; the latent mask comes from the predicted duration, clamped
@@ -118,7 +132,7 @@ def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
 
 
 def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
-                     style_ttl, generator: torch.Generator, speed: float,
+                     style_ttl, generator: torch.Generator, speed,
                      total_step: int, t_pad: int, *, precision: str = "bf16",
                      egress: str = "int16"):
     """The production call: noise [B, t_pad, C] ~ N(0, 1) drawn on the
@@ -133,20 +147,56 @@ def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
     return encode_egress(wav, egress), dur
 
 
-def flow_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
-               style_ttl, generator: torch.Generator, speed: float,
-               total_step: int, t_pad: int, *, precision: str = "bf16"):
-    """synthesize_fused without the vocoder: text stage, noise drawn on the
-    device from ``generator``, the flow loop. Returns (latent [B, t_pad, C],
-    duration [B] — unclamped, for overflow detection —, and the batch-max
-    frame mask [t_pad]): the input of ``vocode_window``."""
+def flow_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
+                style_ttl, noise, speed, total_step: int, *,
+                precision: str = "bf16", halo: int = 0):
+    """The text stage and the flow loop at the latent length of ``noise``
+    [B, T, C]. Returns (latent [B, T + 2*halo, C], duration [B] — unclamped,
+    for overflow detection —, and the batch-max frame mask [T + 2*halo]),
+    with ``halo`` zero frames each side of the latent and the mask: the
+    input of ``vocode_window``."""
     dur, emb = text_stage(params, cfg, text_ids, text_mask, style_dp, style_ttl,
                           speed, precision=precision)
-    latent_mask = _latent_mask(cfg, dur, t_pad)
-    noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
+    latent_mask = _latent_mask(cfg, dur, noise.shape[1])
     xt = flow_stage(params, cfg, emb, style_ttl, text_mask, latent_mask, noise,
                     total_step, precision=precision)
-    return xt, dur, latent_mask.amax(0)
+    fmask = latent_mask.amax(0)
+    if halo:
+        xt = F.pad(xt, (0, 0, halo, halo))
+        fmask = F.pad(fmask, (halo, halo))
+    return xt, dur, fmask
+
+
+def flow_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
+               style_ttl, generator: torch.Generator, speed,
+               total_step: int, t_pad: int, *, precision: str = "bf16",
+               halo: int = 0):
+    """synthesize_fused without the vocoder: ``flow_padded`` on noise
+    [B, t_pad, C] drawn on the device from ``generator``."""
+    noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
+    return flow_padded(params, cfg, text_ids, text_mask, style_dp, style_ttl,
+                       noise, speed, total_step, precision=precision, halo=halo)
+
+
+def window_span(xt_pad, mask_pad, start: int, window: int, halo: int):
+    """Frames [start, start + window + 2*halo) of the padded latent and of
+    its frame mask: the window ``vocode_span`` takes."""
+    span = window + 2 * halo
+    if not 0 <= start <= xt_pad.shape[1] - span:
+        raise ValueError(f"window [{start}, {start + span}) outside the padded "
+                         f"latent of {xt_pad.shape[1]} frames")
+    return xt_pad[:, start:start + span], mask_pad[start:start + span]
+
+
+def vocode_span(params, cfg: TTSConfig, x_win, m_win, window: int, halo: int,
+                *, precision: str = "bf16", egress: str = "int16") -> torch.Tensor:
+    """Vocode one window given as its own tensors, ``x_win`` [B, window +
+    2*halo, C] and its frame mask ``m_win``, and return only the interior
+    samples [B, window*chunk]."""
+    wav = vocoder.apply(params["vocoder"], cfg, x_win, frame_mask=m_win,
+                        dtype=dtype_of(precision))
+    chunk = cfg.chunk_size
+    return encode_egress(wav[:, halo * chunk:(halo + window) * chunk], egress)
 
 
 def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
@@ -159,15 +209,9 @@ def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
     With halo >= vocoder.receptive_field_frames(cfg) the interior is
     full-sequence vocoding of those frames, so audio can leave before the
     whole chunk is vocoded."""
-    span = window + 2 * halo
-    if not 0 <= start <= xt_pad.shape[1] - span:
-        raise ValueError(f"window [{start}, {start + span}) outside the padded "
-                         f"latent of {xt_pad.shape[1]} frames")
-    wav = vocoder.apply(params["vocoder"], cfg, xt_pad[:, start:start + span],
-                        frame_mask=mask_pad[start:start + span],
-                        dtype=dtype_of(precision))
-    chunk = cfg.chunk_size
-    return encode_egress(wav[:, halo * chunk:(halo + window) * chunk], egress)
+    x_win, m_win = window_span(xt_pad, mask_pad, start, window, halo)
+    return vocode_span(params, cfg, x_win, m_win, window, halo,
+                       precision=precision, egress=egress)
 
 
 def encode_egress(wav: torch.Tensor, egress: str) -> torch.Tensor:

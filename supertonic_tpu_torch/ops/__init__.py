@@ -4,19 +4,21 @@ version: attention (``attention.fused_attention``), the AdaLN FFN
 (``vocoder_fused.resblock_chain``), the int8 product (``int8_matmul.int8_matmul``)
 and the W8A8 linear's two passes: the per-token quantize pass
 (``quantize.quantize_rows``) and the int8 product with its rescale-and-bias
-epilogue (``w8a8.w8a8_matmul``). ``_build.build_all`` compiles them."""
+epilogue (``w8a8.w8a8_matmul``). ``_build.build_all`` compiles them.
 
-from . import attention, ffn, int8_matmul, quantize, vocoder_fused, w8a8
+Launches are counted per kernel (``launch_counts``), replays of captured
+CUDA graphs included, and ``record_launches`` tallies them by shape:
+attention (B, H, Tq, Tk, masked), adaln_ffn (B, T, D, F), resblock_chain
+(B, T, C), int8_matmul and w8a8_matmul (M, K, N), quantize (M, K)."""
 
-# launch counter name: the module whose ``launches`` counts that wrapper's launches
-KERNEL_MODULES = {"attention": attention, "adaln_ffn": ffn, "resblock_chain": vocoder_fused,
-                  "int8_matmul": int8_matmul, "w8a8_matmul": w8a8, "quantize": quantize}
+from . import _count, attention, ffn, int8_matmul, quantize, vocoder_fused, w8a8
+from ._count import KERNELS, record_launches
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    _count.reset()
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return dict(_count.counts)
+

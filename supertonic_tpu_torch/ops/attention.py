@@ -25,12 +25,9 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _count
 
 NEG_INF = -1e9
-
-# kernel launches made by fused_attention (a plain counter; callers reset it)
-launches = 0
 
 # q, k, v, key_mask, out, B, Tq, Tk, H, Dh, dtype code, stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -52,7 +49,6 @@ def attention_plain(q, k, v, key_mask=None):
 def fused_attention(q, k, v, key_mask=None):
     """q [B,Tq,H,Dh], k/v [B,Tk,H,Dh], key_mask [B,Tk] (1 = valid) or None
     -> [B,Tq,H,Dh] in q's dtype."""
-    global launches
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if k.shape != (b, tk, h, d) or v.shape != k.shape:
@@ -83,5 +79,5 @@ def fused_attention(q, k, v, key_mask=None):
                     _build.ptr(mask), _build.ptr(out), b, tq, tk, h, d,
                     _build.dtype_code(q.dtype), _build.stream_ptr(q)),
                  "stk_attention")
-    launches += 1
+    _count.launched("attention", (b, h, tq, tk, key_mask is not None))
     return out

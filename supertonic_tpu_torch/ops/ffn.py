@@ -30,10 +30,8 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _count
 
-# calls of fused_adaln_ffn that launched the kernel (a plain counter)
-launches = 0
 
 MAX_D_BF16 = 1024  # the bf16 LayerNorm pass holds a row in one warp's registers
 _F32_NAMES = ("ln_g", "ln_b", "b1", "b2", "shift", "scale", "gate")
@@ -63,7 +61,6 @@ def adaln_ffn_plain(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
 def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
                     *, eps: float = 1e-5):
     """x [B,T,D] -> x + gate * FFN(mod(LN(x))), [B,T,D] in x's dtype."""
-    global launches
     b, t, d = x.shape
     f = w1.shape[0]
     if tuple(w1.shape) != (f, d) or tuple(w2.shape) != (d, f):
@@ -104,5 +101,5 @@ def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
                     P(sc), P(ga), P(h), P(mid), P(out), b, t, d, f, eps,
                     _build.dtype_code(x.dtype), _build.stream_ptr(x)),
                  "stk_adaln_ffn")
-    launches += 1
+    _count.launched("adaln_ffn", (b, t, d, f))
     return out

@@ -26,10 +26,7 @@ import ctypes
 
 import torch
 
-from . import _build
-
-# calls of int8_matmul that launched the kernel (a plain counter)
-launches = 0
+from . import _build, _count
 
 # a, w, c, M, N, K, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -46,7 +43,6 @@ def int8_matmul_plain(a, w):
 
 def int8_matmul(a, w):
     """a [M, K] int8, w [N, K] int8 -> [M, N] int32."""
-    global launches
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
         raise ValueError(f"a must be [M, K] and w [N, K], got {tuple(a.shape)} "
                          f"and {tuple(w.shape)}")
@@ -69,5 +65,5 @@ def int8_matmul(a, w):
     fn = _build.function("int8_matmul", "stk_int8_matmul", _ARGTYPES)
     _build.check(fn(_build.ptr(a), _build.ptr(w), _build.ptr(out), m, n, k,
                     _build.stream_ptr(a)), "stk_int8_matmul")
-    launches += 1
+    _count.launched("int8_matmul", (m, k, n))
     return out

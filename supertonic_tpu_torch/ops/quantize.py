@@ -23,10 +23,7 @@ import ctypes
 
 import torch
 
-from . import _build
-
-# calls of quantize_rows that launched the kernel (a plain counter)
-launches = 0
+from . import _build, _count
 
 # x, xq, sx, M, K, dtype code, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -48,7 +45,6 @@ def quantize_rows_plain(x):
 
 def quantize_rows(x):
     """x [M, K] float32 or bfloat16 -> (xq [M, K] int8, sx [M] float32)."""
-    global launches
     if x.dim() != 2:
         raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -68,5 +64,5 @@ def quantize_rows(x):
     fn = _build.function("quantize", "stk_quantize_rows", _ARGTYPES)
     _build.check(fn(_build.ptr(x), _build.ptr(xq), _build.ptr(sx), m, k,
                     _build.dtype_code(x.dtype), _build.stream_ptr(x)), "stk_quantize_rows")
-    launches += 1
+    _count.launched("quantize", (m, k))
     return xq, sx

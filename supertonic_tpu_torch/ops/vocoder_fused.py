@@ -30,10 +30,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
-
-# kernel launches made by resblock_chain (a plain counter)
-launches = 0
+from . import _build, _count
 
 # x, frame_mask, wa, ba, wb, bb, out, B, T, C, P, dilations, dtype code,
 # stream
@@ -95,7 +92,6 @@ def resblock_chain_plain(x, frame_mask, wa, ba, wb, bb, dilations):
 
 def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
     """x [B,T,C] -> [B,T,C] in x's dtype (see the module docstring)."""
-    global launches
     b, t_len, c = x.shape
     p, k = wa.shape[0], wa.shape[1]
     dilations, dils = _dils(dilations)
@@ -134,7 +130,7 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
                     c, p, ctypes.cast(dils, ctypes.c_void_p),
                     _build.dtype_code(x.dtype), _build.stream_ptr(x)),
                  "stk_resblock_chain")
-    launches += 1
+    _count.launched("resblock_chain", (b, t_len, c))
     return out
 
 

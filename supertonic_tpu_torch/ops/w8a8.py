@@ -27,11 +27,8 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .int8_matmul import K_MULTIPLE, int8_matmul_plain
-
-# calls of w8a8_matmul that launched the kernel (a plain counter)
-launches = 0
 
 # a, w, sx, w_scale, bias, y, M, N, K, dtype code, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -48,7 +45,6 @@ def w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype):
 def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype):
     """xq [M, K] int8, sx [M], w_q [N, K] int8, w_scale [N], bias [N]
     (float32) -> [M, N] in dtype (float32 or bfloat16)."""
-    global launches
     if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[1]:
         raise ValueError(f"xq must be [M, K] and w_q [N, K], got {tuple(xq.shape)} "
                          f"and {tuple(w_q.shape)}")
@@ -80,5 +76,5 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype):
     P = _build.ptr
     _build.check(fn(P(xq), P(w_q), P(sx), P(w_scale), P(bias), P(y), m, n, k,
                     _build.dtype_code(dtype), _build.stream_ptr(xq)), "stk_w8a8_matmul")
-    launches += 1
+    _count.launched("w8a8_matmul", (m, k, n))
     return y

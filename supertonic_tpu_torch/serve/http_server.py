@@ -711,9 +711,10 @@ def main():
     use_batcher = os.getenv("TTS_BATCHER", "1") != "0"
     max_batch = int(os.getenv("TTS_MAX_BATCH", "32"))
     if os.getenv("TTS_WARMUP", "0") != "0":
-        # build the kernels and warm the libraries over the common bucket
-        # lattice before accepting traffic. A failure propagates: it would
-        # be a kernel that does not build or launch.
+        # build the kernels and capture the fused program of each shape of
+        # the common bucket lattice before accepting traffic. A failure
+        # propagates: it would be a kernel that does not build or launch, or
+        # a capture that fails.
         rt = tts.cfg.runtime
         bss = tuple(b for b in rt.batch_buckets if b <= max_batch)
         n = tts.engine.warmup(
