@@ -67,6 +67,16 @@ Phases (each prints its own lines; any failure exits non-zero):
   8. programs — in f32 and bf16, a fused batch at B=4, the B=1 flow with
                the halo padding and three vocoder windows: each replay
                bit-equal to the eager function with the same generator seed
+  9. graph bundle — the smoke params exported as the reference's four ONNX
+               graphs (assets/onnx_export.py) into build/smoke: the automap
+               round trip bit-equal; TTS(<bundle>) in f32 (the fused graph
+               backend under the engine) against the native f32 engine at
+               B=4 on injected noise, card against CPU, a replayed fused
+               batch bit-equal to its eager run with its host launch calls
+               under torch.profiler, the per-call adapter against it; b64
+               audio-sec/s at "default" precision with bf16 storage beside
+               phase 3's native bf16 (at phase 3's learned rate, so at the
+               same buckets), and capture seconds and pool growth
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -1026,6 +1036,203 @@ def programs_check(params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the graph bundle (the ONNX executor backend)
+# ---------------------------------------------------------------------------
+
+GRAPH_DUR_RTOL = 1e-5   # f32 graphs vs the native f32 engine, durations
+GRAPH_WAV_ATOL = 1e-4   # f32 graphs vs native, card vs CPU, adapter vs fused
+
+
+def graph_vs(what: str, got, want, interior: int | None = None) -> None:
+    """Durations within GRAPH_DUR_RTOL with the same latent lengths; wav
+    within GRAPH_WAV_ATOL over each row's audio, int(sr * duration) samples
+    (the samples a caller keeps; past them the two vocoders mask the bucket
+    padding at different points), and over the first ``interior`` samples
+    if given."""
+    (gw, gd), (ww, wd) = got, want
+    cfg = TTSConfig()
+    lat = lambda d: ((d * cfg.sample_rate).astype(np.int64) + cfg.chunk_size - 1) \
+        // cfg.chunk_size  # noqa: E731
+    dur_rel = float(np.max(np.abs(gd - wd) / np.abs(wd)))
+    same_lat = bool(np.array_equal(lat(gd), lat(wd)))
+    wav_err, n_cmp = 0.0, 0
+    for i in range(len(wd)):
+        n = min(int(cfg.sample_rate * float(wd[i])), gw.shape[1], ww.shape[1],
+                interior if interior is not None else gw.shape[1])
+        wav_err = max(wav_err, float(np.max(np.abs(gw[i, :n] - ww[i, :n]))))
+        n_cmp += n
+    log(f"  {what}: duration max rel diff {dur_rel:.3e} (rtol {GRAPH_DUR_RTOL:g}), same "
+        f"latent lengths {same_lat} {lat(gd).tolist()}, wav max abs diff {wav_err:.3e} over "
+        f"{n_cmp} samples (atol {GRAPH_WAV_ATOL:g}; wav shapes {gw.shape} / {ww.shape})")
+    if dur_rel > GRAPH_DUR_RTOL or not same_lat or wav_err > GRAPH_WAV_ATOL:
+        raise AssertionError(f"{what}: disagree")
+
+
+def graph_bundle(params, bf16_rates) -> None:
+    """Phase 9: the smoke params exported as a four-graph bundle by the
+    port's exporter, then (a) the automap round trip bit-equal; (b)
+    TTS(<bundle>) in f32 (strict f32 products, no bf16 storage) against the
+    native f32 engine on the same params and injected noise at B=4; (c) the
+    graph backend card vs CPU in f32; (d) a replayed fused batch of the
+    graph backend bit-equal to its eager run, and its host launch calls
+    under torch.profiler; (e) the per-call adapter against the fused
+    backend in f32; (f) b64 audio-sec/s of TTS(<bundle>) at "default"
+    precision with bf16 storage beside phase 3's native bf16, and each
+    program's capture seconds and pool growth."""
+    from supertonic_tpu_torch.assets import flatten_tree
+    from supertonic_tpu_torch.assets.automap import automap_bundle
+    from supertonic_tpu_torch.assets.onnx_export import export_bundle
+    from supertonic_tpu_torch.models.vocoder import receptive_field_frames
+
+    cfg = TTSConfig()
+    bundle = os.path.join(OUT_DIR, "graph_bundle")
+    shutil.rmtree(bundle, ignore_errors=True)
+    t0 = time.perf_counter()
+    export_bundle(params, cfg, bundle, indexer=build_default_indexer())
+    sizes = {f: os.path.getsize(os.path.join(bundle, f)) for f in sorted(os.listdir(bundle))
+             if f.endswith(".onnx")}
+    log(f"  exported the 66M params as four graphs in {time.perf_counter() - t0:.2f}s: "
+        + ", ".join(f"{f} {n / 2**20:.1f} MiB" for f, n in sizes.items()))
+    for var in ("TTS_ONNX_FUSED", "TTS_ONNX_BF16"):
+        os.environ.pop(var, None)
+
+    # (a)
+    t0 = time.perf_counter()
+    got, reports = automap_bundle(bundle, cfg)
+    want, mapped = flatten_tree(params), flatten_tree(got)
+    bad = [k for k in want if k not in mapped or not np.array_equal(mapped[k], want[k])]
+    log(f"  (a) automap round trip in {time.perf_counter() - t0:.2f}s: {len(mapped)} params "
+        f"of {len(want)} mapped, {len(bad)} differ; "
+        + ", ".join(f"{m} {r['matched_params']} params / {r['consts_checked']} consts"
+                    for m, r in reports.items()))
+    if bad or set(mapped) != set(want):
+        raise AssertionError(f"automap round trip: {bad[:5]}")
+
+    # (b) and (c): injected noise, f32
+    fresh_rate_dir("graph-f32")
+    _cfg, proc, texts, style, noise = whole_path_inputs(4)
+    t0 = time.perf_counter()
+    tts = TTS(bundle, precision="f32")
+    eng = tts.engine
+    if eng.backend is None or eng.programs is None:
+        raise AssertionError("TTS(<bundle>) did not serve the fused graph backend on the card")
+    log(f"  TTS(<bundle>, precision='f32') on {eng.device}: fused graph backend, load "
+        f"{time.perf_counter() - t0:.2f}s, matmul precision "
+        f"{eng.backend.execs['vector_estimator']._matmul_precision}, bf16 storage "
+        f"{eng.backend.execs['vector_estimator']._bf16_storage}")
+    graph = eng.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+    native = SynthesisEngine(params, cfg, proc, precision="f32").infer_batch(
+        texts, ["en"] * 4, style, total_step=2, noise=noise)
+    graph_vs("(b) graph backend vs native engine, f32, B=4, injected noise", graph, native)
+    t0 = time.perf_counter()
+    cpu = TTS(bundle, precision="f32", device="cpu").engine.infer_batch(
+        texts, ["en"] * 4, style, total_step=2, noise=noise)
+    log(f"  graph backend f32 on the CPU: {time.perf_counter() - t0:.2f}s")
+    graph_vs("(c) graph backend card vs CPU, f32", graph, cpu)
+
+    # (d): a replayed fused batch against its eager run, and its host launches
+    pend = eng.infer_batch_begin(texts, ["en"] * 4, style, 5, device_output=True)
+    eng.infer_batch_end(pend)
+    speed = eng._speed(1.05)
+    with torch.inference_mode():
+        for egress in ("int16", "f32"):
+            got = eng.programs.synthesize_fused(
+                eng.params, cfg, *pend.dev_args, torch.Generator(device=DEV).manual_seed(5),
+                speed, 5, pend.t_bucket, precision=eng.precision, egress=egress,
+                backend=eng.backend)
+            want = eng.backend.fused_fn(
+                eng.params, *pend.dev_args, torch.Generator(device=DEV).manual_seed(5),
+                speed, 5, pend.t_bucket, egress)
+            hold_bit_equal(f"(d) graph fused program b{pend.dev_args[0].shape[0]} "
+                           f"T={pend.t_bucket} f32 {egress} egress, replay vs eager", got, want)
+    trace_graph_batch(tts, texts, style)
+
+    # (e): the per-call adapter against the fused backend, f32
+    os.environ["TTS_ONNX_FUSED"] = "0"
+    try:
+        adapter = TTS(bundle, precision="f32").engine
+    finally:
+        del os.environ["TTS_ONNX_FUSED"]
+    if adapter.__class__.__name__ != "OnnxEngineAdapter":
+        raise AssertionError(f"TTS_ONNX_FUSED=0 gave {adapter.__class__.__name__}")
+    # the engine zero-fills injected noise past its frames; the pipeline
+    # takes it channel-first, covering the latent
+    t_max = int(np.max(((graph[1] * cfg.sample_rate).astype(np.int64) + cfg.chunk_size - 1)
+                       // cfg.chunk_size))
+    noise_cf = np.zeros((4, cfg.latent_channels, max(t_max, noise.shape[1])), np.float32)
+    noise_cf[:, :, :noise.shape[1]] = noise.transpose(0, 2, 1)
+    per_call = adapter.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise_cf)
+    # the adapter runs the reference's orchestration: its vocoder sees the
+    # bucket padding unmasked, which reaches back one receptive field from
+    # the longest row's end; the samples before that are the same function
+    interior = (t_max - receptive_field_frames(cfg)) * cfg.chunk_size
+    graph_vs("(e) per-call adapter vs fused graph backend, f32", per_call, graph, interior)
+    del tts, eng, adapter
+
+    # (f): throughput at "default" precision with bf16 storage, from the
+    # rate phase 3 learned, so the batches run at the native cell's buckets
+    os.environ["TTS_RATE_CACHE_DIR"] = os.path.join(OUT_DIR, "rates", "main-bf16")
+    t0 = time.perf_counter()
+    tts = TTS(bundle)
+    vex = tts.engine.backend.execs["vector_estimator"]
+    log(f"  TTS(<bundle>) bf16: matmul precision {vex._matmul_precision}, bf16 storage "
+        f"{vex._bf16_storage}, load {time.perf_counter() - t0:.2f}s")
+    style1 = tts.get_voice_style("M1")
+    texts64 = [TEXTS[i % 3] for i in range(64)]
+    for steps in (5, 2):
+        tts.synthesize_batch(texts64, ["en"] * 64, style1.tile(64), total_step=steps)
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w, d = tts.synthesize_batch(texts64, ["en"] * 64, style1.tile(64), total_step=steps)
+            wall = time.perf_counter() - t0
+            for i in range(3):
+                check_audio(w[i], float(d[i]), tts.sample_rate, f"graph b64 row {i}")
+            log(f"  (f) graph backend b64/{steps}-step rep {rep}: {float(d.sum()):.3f}s audio in "
+                f"{wall:.4f}s = {float(d.sum()) / wall:.2f} audio-sec/s (native bf16, phase 3: "
+                f"{' / '.join(f'{r:.2f}' for r in bf16_rates[steps])})")
+    trace_graph_batch(tts, texts64, style1.tile(64))
+    log_programs(tts.engine, "(f) the graph backend's bf16 engine")
+
+
+def trace_graph_batch(tts, texts, style) -> None:
+    """One replayed graph-backend batch under torch.profiler: its host
+    calls that launch device work (at most MAX_HOST_LAUNCHES, one of them a
+    graph launch), its device busy time and its largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    eng = tts.engine
+    n = len(texts)
+    tts.synthesize_batch(texts, ["en"] * n, style, total_step=5)  # its key, captured
+    n_programs = len(eng.programs.stats())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        tts.synthesize_batch(texts, ["en"] * n, style, total_step=5)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(eng.programs.stats()) != n_programs:
+        raise AssertionError("the profiled graph batch captured a new program")
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events if e.device_type.name == "CPU"
+            and e.key.startswith(HOST_LAUNCH_CALLS)}
+    n_launch = sum(host.values())
+    n_graphs = sum(n for k, n in host.items() if k.startswith(HOST_LAUNCH_CALLS[2:]))
+    dev = [e for e in events if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"  replayed graph-backend b{n}/5-step batch under torch.profiler: {n_launch} host "
+        f"launch calls (limit {MAX_HOST_LAUNCHES}) {dict(sorted(host.items()))}; device busy "
+        f"{busy:.1f} ms in {sum(e.count for e in dev)} device events, profiled wall "
+        f"{wall * 1e3:.1f} ms; largest: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+    if n_launch > MAX_HOST_LAUNCHES or n_graphs < 1:
+        raise AssertionError(f"a replayed graph batch: {n_launch} host launch calls, "
+                             f"{n_graphs} graph launches")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the serving path
 # ---------------------------------------------------------------------------
 
@@ -1497,6 +1704,10 @@ def main() -> int:
     log("phase 8: programs: replays of the captured fused, flow and window programs "
         "against the eager functions, f32 and bf16")
     programs_check(params)
+
+    log("phase 9: graph bundle: the smoke params as four ONNX graphs, served by "
+        "TTS(<bundle>) through the ONNX executor")
+    graph_bundle(params, rates)
 
     line = []
     for name, (src, replaces) in SOURCES.items():

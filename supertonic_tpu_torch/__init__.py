@@ -35,18 +35,101 @@ class TTS:
         block linears, bf16 elsewhere). ``egress_format``: the waveform's
         form on its way to the host, "int16", "mulaw" (8-bit G.711, half the
         bytes) or "f32". ``cfg`` applies when ``assets_dir`` holds no config
-        (default: the 66M ``TTSConfig()``)."""
+        (default: the 66M ``TTSConfig()``).
+
+        A directory (or its ``onnx/``) holding the four reference graphs
+        and no ``params.npz`` is served through the ONNX graph executor:
+        by default the fused backend under the native engine (buckets,
+        learned rate, batcher, one CUDA graph per static key on the card);
+        ``TTS_ONNX_FUSED=0``, or graphs that cannot be composed into the
+        fused stages (``validate``), select the per-call adapter. Graphs
+        whose inputs break the reference contract raise
+        ``ContractMismatch``; unreadable graphs raise too: the port never
+        serves random weights in their place."""
+        import os
+
         from .assets import load_assets
         from .engine import resolve_device
 
         device = resolve_device(device)  # fail before building anything
-        self.assets = load_assets(assets_dir, seed=seed, cfg=cfg)
+        graphs_dir = self._find_graphs(assets_dir)
+        if graphs_dir is not None and graphs_dir != assets_dir and \
+                os.path.exists(os.path.join(graphs_dir, "tts.json")):
+            # an un-flattened bundle (<dir>/onnx/*): the config and the
+            # indexer live next to the graphs
+            assets_dir = graphs_dir
+        self.assets = load_assets(assets_dir, seed=seed, cfg=cfg,
+                                  init_params=graphs_dir is None)
         self.cfg = self.assets.cfg
-        self.engine = SynthesisEngine(self.assets.params, self.cfg,
-                                      self.assets.processor,
-                                      precision=precision, seed=seed,
-                                      egress_format=egress_format,
-                                      device=device)
+        if graphs_dir is None:
+            self.engine = SynthesisEngine(self.assets.params, self.cfg,
+                                          self.assets.processor,
+                                          precision=precision, seed=seed,
+                                          egress_format=egress_format,
+                                          device=device)
+        else:
+            self.engine = self._graph_engine(graphs_dir, precision, seed,
+                                             egress_format, device)
+
+    def _graph_engine(self, graphs_dir: str, precision, seed: int,
+                      egress_format: str, device):
+        import os
+
+        from .utils.logging import default_logger as log
+
+        mp = ("float32" if (precision or self.cfg.runtime.precision) == "f32"
+              else "default")
+        if os.environ.get("TTS_ONNX_FUSED", "1") != "0":
+            from .assets.onnx_backend import load_onnx_backend
+
+            backend = load_onnx_backend(graphs_dir, self.cfg, matmul_precision=mp,
+                                        device=device)
+            try:
+                # a shape-only run on meta tensors: graphs that cannot
+                # compose into the fused stages surface here, and serving
+                # degrades to the per-call adapter instead of failing the
+                # first live request
+                backend.validate()
+            except Exception as e:
+                log.warning("onnx_fused_backend_untraceable", dir=graphs_dir,
+                            error=f"{type(e).__name__}: {e}",
+                            fallback="per-call adapter")
+            else:
+                log.info("serving_onnx_fused_backend", dir=graphs_dir)
+                return SynthesisEngine(None, self.cfg, self.assets.processor,
+                                       precision=precision, seed=seed,
+                                       egress_format=egress_format,
+                                       device=device, backend=backend)
+        from .assets.onnx_pipeline import load_onnx_pipeline
+        from .engine.onnx_adapter import OnnxEngineAdapter
+
+        pipeline = load_onnx_pipeline(graphs_dir, seed=seed, bucketed=True,
+                                      matmul_precision=mp, device=device)
+        if egress_format != "int16":
+            # the adapter always fetches f32 host audio
+            log.warning("onnx_adapter_ignores_egress_format",
+                        requested=egress_format)
+        log.info("serving_onnx_executor_backend", dir=graphs_dir)
+        return OnnxEngineAdapter(pipeline, self.cfg)
+
+    @staticmethod
+    def _find_graphs(assets_dir: str | None) -> str | None:
+        """The directory holding the four reference graphs, when the bundle
+        has them and no converted params.npz: ``<dir>`` or ``<dir>/onnx``."""
+        import os
+
+        if not assets_dir:
+            return None
+        if os.path.exists(os.path.join(assets_dir, "params.npz")):
+            return None
+        graph_names = ("duration_predictor", "text_encoder",
+                       "vector_estimator", "vocoder")
+        for sub in ("", "onnx"):
+            d = os.path.join(assets_dir, sub) if sub else assets_dir
+            if all(os.path.exists(os.path.join(d, f"{g}.onnx"))
+                   for g in graph_names):
+                return d
+        return None
 
     @property
     def sample_rate(self) -> int:

@@ -9,9 +9,12 @@ Layout of an assets directory (``<dir>/``):
     voice_styles/XX.json  reference-format style files
 
 With no directory, ``load_assets`` makes deterministic random-init params
-(the JAX package's ``init_all``, bit for bit); a directory must hold
-``params.npz`` (the port loads no ONNX graphs). The built-in indexer and
-synthetic styles stand in for the other missing pieces.
+(the JAX package's ``init_all``, bit for bit). A directory must hold
+``params.npz``, unless the caller serves it through the ONNX graph backend
+(``init_params=False``: ``TTS`` for a directory of the four graphs); the
+port never serves random weights in place of a missing checkpoint. The
+built-in indexer and synthetic styles stand in for the other missing
+pieces.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Any
 import numpy as np
 
 from ..config import (TTSConfig, VOICE_PRESETS, _dataclass_from_dict,
-                      load_tts_json)
+                      load_tts_json, to_reference_dict)
 from ..engine.engine import VoiceStyle
 from ..frontend import UnicodeProcessor, build_default_indexer
 from ..models import init_all
@@ -88,6 +91,20 @@ def load_voice_style(paths: list[str], verbose: bool = False) -> VoiceStyle:
     return VoiceStyle(np.stack(ttls), np.stack(dps))
 
 
+def save_voice_style(path: str, style: VoiceStyle, index: int = 0) -> None:
+    """Write row ``index`` of ``style`` as a reference-format style file."""
+    ttl = style.ttl[index]
+    dp = style.dp[index]
+    data = {
+        "style_ttl": {"data": ttl[None].tolist(), "dims": [1, *ttl.shape],
+                      "type": "float32"},
+        "style_dp": {"data": dp[None].tolist(), "dims": [1, *dp.shape],
+                     "type": "float32"},
+    }
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
 def synthesize_default_styles(cfg: TTSConfig, seed: int = 1234) -> dict[str, VoiceStyle]:
     """Deterministic stand-in styles for the 10 presets."""
     rng = np.random.default_rng(seed)
@@ -123,26 +140,47 @@ class Assets:
         raise FileNotFoundError(f"voice style {name_or_path!r} not found")
 
 
-def refuse_onnx_dir() -> None:
-    """The entry points' guard for the reference service's variable: an ONNX
-    bundle given there would otherwise be served as random weights."""
-    if os.getenv("TTS_ONNX_DIR"):
-        raise RuntimeError("TTS_ONNX_DIR is set, but the port loads no ONNX "
-                           "bundles: give a params.npz bundle as TTS_ASSETS_DIR")
+def save_assets(dirpath: str, cfg: TTSConfig, params: Any,
+                indexer: np.ndarray | None = None,
+                styles: dict[str, VoiceStyle] | None = None) -> None:
+    """Write a bundle ``load_assets`` reads: params.npz, tts.json, the full
+    config as model_config.json (tts.json carries no layer counts or
+    widths), unicode_indexer.json and voice_styles/ (synthetic presets
+    when ``styles`` is None). The JAX package's ``save_assets``, file for
+    file."""
+    import dataclasses
+
+    os.makedirs(dirpath, exist_ok=True)
+    save_params(os.path.join(dirpath, "params.npz"), params)
+    with open(os.path.join(dirpath, "tts.json"), "w") as f:
+        json.dump(to_reference_dict(cfg), f)
+    with open(os.path.join(dirpath, "model_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    idx = indexer if indexer is not None else build_default_indexer()
+    with open(os.path.join(dirpath, "unicode_indexer.json"), "w") as f:
+        json.dump(np.asarray(idx).tolist(), f)
+    sd = os.path.join(dirpath, "voice_styles")
+    os.makedirs(sd, exist_ok=True)
+    for name, st in (styles or synthesize_default_styles(cfg)).items():
+        save_voice_style(os.path.join(sd, f"{name}.json"), st)
 
 
 def load_assets(dirpath: str | None = None, *, seed: int = 0,
-                cfg: TTSConfig | None = None) -> Assets:
-    """Load the asset bundle at ``dirpath``, which must hold ``params.npz``;
-    with no ``dirpath``, random-init params from ``seed``. ``cfg`` is used
-    when there is no directory or it holds no config."""
+                cfg: TTSConfig | None = None, init_params: bool = True) -> Assets:
+    """Load the asset bundle at ``dirpath``; with no ``dirpath``,
+    random-init params from ``seed``. ``cfg`` is used when there is no
+    directory or it holds no config. ``init_params=False`` is for a
+    directory served through the ONNX graph backend: no params are loaded
+    or made (``Assets.params`` is None). Otherwise the directory must hold
+    ``params.npz``."""
     cfg = cfg or TTSConfig()
     params = indexer = style_dir = None
     if dirpath:
-        if not os.path.isfile(os.path.join(dirpath, "params.npz")):
+        has_params = os.path.isfile(os.path.join(dirpath, "params.npz"))
+        if init_params and not has_params:
             raise FileNotFoundError(
-                f"{dirpath}: no params.npz (the port loads params.npz bundles "
-                f"only; give no directory for random-init weights)")
+                f"{dirpath}: neither params.npz nor the four ONNX graphs "
+                f"(give no directory for random-init weights)")
         full_cfg_path = os.path.join(dirpath, "model_config.json")
         cfg_path = os.path.join(dirpath, "tts.json")
         if os.path.exists(full_cfg_path):
@@ -150,7 +188,8 @@ def load_assets(dirpath: str | None = None, *, seed: int = 0,
                 cfg = _dataclass_from_dict(TTSConfig, json.load(f))
         elif os.path.exists(cfg_path):
             cfg = load_tts_json(cfg_path)
-        params = load_params(os.path.join(dirpath, "params.npz"))
+        if has_params and init_params:
+            params = load_params(os.path.join(dirpath, "params.npz"))
         idx_path = os.path.join(dirpath, "unicode_indexer.json")
         if os.path.exists(idx_path):
             with open(idx_path) as f:
@@ -158,7 +197,7 @@ def load_assets(dirpath: str | None = None, *, seed: int = 0,
         sd = os.path.join(dirpath, "voice_styles")
         if os.path.isdir(sd):
             style_dir = sd
-    if params is None:
+    if params is None and init_params:
         params = init_all(seed, cfg)
     if indexer is None:
         indexer = build_default_indexer()

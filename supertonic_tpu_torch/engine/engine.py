@@ -155,7 +155,7 @@ class PendingBatch:
 class SynthesisEngine(LongFormSynthesis):
     def __init__(self, params, cfg: TTSConfig, processor: UnicodeProcessor, *,
                  precision: str | None = None, seed: int = 0,
-                 egress_format: str = "int16", device=None):
+                 egress_format: str = "int16", device=None, backend=None):
         """``params``: the JAX-layout numpy param tree (loaded here onto
         ``device`` in the compute dtype) or modules from
         ``models.load_params``. ``precision="int8"`` quantizes a numpy tree
@@ -163,18 +163,31 @@ class SynthesisEngine(LongFormSynthesis):
         stay unfused, as in the JAX engine. ``egress_format``: the waveform's
         form on its way to the host, "int16", "mulaw" (8-bit G.711) or
         "f32". ``device`` defaults to ``cuda`` and raises when there is no
-        card; pass ``device="cpu"`` for the plain path."""
+        card; pass ``device="cpu"`` for the plain path.
+
+        ``backend``: a stage-function provider in place of the native
+        models (``assets.onnx_backend.OnnxStageBackend``: the four ONNX
+        graphs composed into the engine's stages, on the backend's device).
+        ``params`` is then the backend's tree (``backend.params`` when
+        None) and is neither loaded nor quantized; every other part of the
+        engine applies unchanged, except windowed streaming, which stays
+        native."""
         from ..models import load_params, quantize_params
 
         if egress_format not in EGRESS_FORMATS:
             raise ValueError(f"egress_format must be one of {EGRESS_FORMATS}, "
                              f"got {egress_format!r}")
+        self.backend = backend
+        if backend is not None:
+            device = backend.device if device is None else device
+            if params is None:
+                params = backend.params
         self.device = resolve_device(device)
         self.cfg = cfg
         self.processor = processor
         self.precision = precision or cfg.runtime.precision
         self.dtype = synthesis.dtype_of(self.precision)
-        if not isinstance(params, torch.nn.Module):
+        if backend is None and not isinstance(params, torch.nn.Module):
             if self.precision == "int8" and not _tree_has_key(params, "w_q"):
                 params = quantize_params(params)
             params = load_params(params, device=self.device, dtype=self.dtype)
@@ -461,10 +474,30 @@ class SynthesisEngine(LongFormSynthesis):
 
     def _fused(self, dev_args, total_step: int, t_bucket: int, speed: float):
         with self.profiler.stage("fused_synthesis"):
+            if self.backend is not None and self.programs is None:
+                return self.backend.fused_fn(
+                    self.params, *dev_args, self._next_generator(),
+                    self._speed(speed), int(total_step), int(t_bucket),
+                    self.egress_format)
+            extra = {} if self.backend is None else {"backend": self.backend}
             return self._synth.synthesize_fused(
                 self.params, self.cfg, *dev_args, self._next_generator(),
                 self._speed(speed), int(total_step), int(t_bucket),
-                precision=self.precision, egress=self.egress_format)
+                precision=self.precision, egress=self.egress_format, **extra)
+
+    def _text_stage(self, ids, mask, sdp, sttl, speed):
+        if self.backend is not None:
+            return self.backend.text_fn(self.params, ids, mask, sdp, sttl, speed)
+        return synthesis.text_stage(self.params, self.cfg, ids, mask, sdp, sttl,
+                                    speed, precision=self.precision)
+
+    def _acoustic_stage(self, emb, sttl, tmask, lmask, noise, total_step: int):
+        if self.backend is not None:
+            return self.backend.acoustic_fn(self.params, emb, sttl, tmask, lmask,
+                                            noise, total_step)
+        return synthesis.acoustic_stage(self.params, self.cfg, emb, sttl, tmask,
+                                        lmask, noise, total_step,
+                                        precision=self.precision)
 
     def infer_batch_begin(self, text_list, lang_list, style: VoiceStyle,
                           total_step: int = 5, speed: float = 1.05, *,
@@ -587,9 +620,7 @@ class SynthesisEngine(LongFormSynthesis):
         ids, mask, sdp, sttl = dev_args
         with torch.inference_mode():
             with self.profiler.stage("text_stage"):
-                dur_dev, emb = synthesis.text_stage(
-                    self.params, self.cfg, ids, mask, sdp, sttl, self._speed(speed),
-                    precision=self.precision)
+                dur_dev, emb = self._text_stage(ids, mask, sdp, sttl, self._speed(speed))
                 dur = dur_dev.cpu().numpy()
             latent_lengths = ((dur * sr).astype(np.int64) + chunk - 1) // chunk
             t_bucket = buckets.pick_bucket(int(latent_lengths[:b_true].max()),
@@ -601,11 +632,9 @@ class SynthesisEngine(LongFormSynthesis):
             t_copy = min(noise.shape[1], t_bucket)
             noise_arr[: noise.shape[0], :t_copy] = noise[:, :t_copy]
             with self.profiler.stage("acoustic_stage"):
-                wav = synthesis.acoustic_stage(
-                    self.params, self.cfg, emb, sttl, mask,
-                    torch.as_tensor(latent_mask).to(self.device),
-                    torch.as_tensor(noise_arr).to(self.device), int(total_step),
-                    precision=self.precision)
+                wav = self._acoustic_stage(
+                    emb, sttl, mask, torch.as_tensor(latent_mask).to(self.device),
+                    torch.as_tensor(noise_arr).to(self.device), int(total_step))
             with self.profiler.stage("egress"):
                 wav_np = wav[:b_true].cpu().numpy()
         return wav_np, dur[:b_true]
@@ -675,7 +704,6 @@ class SynthesisEngine(LongFormSynthesis):
             raise ValueError("infer_with_progress takes a single style")
         rt = self.cfg.runtime
         chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
-        ve = self.params["vector_estimator"]
         ids, mask3 = self.processor([text], [lang])
         l_bucket = buckets.pick_bucket(ids.shape[1], rt.text_buckets)
         ids = np.pad(ids, ((0, 0), (0, l_bucket - ids.shape[1])))
@@ -683,10 +711,9 @@ class SynthesisEngine(LongFormSynthesis):
         with torch.inference_mode():
             sdp, sttl = self._device_style(style, 1)
             tmask = torch.as_tensor(mask, dtype=torch.float32).to(self.device)
-            dur_dev, emb = synthesis.text_stage(
-                self.params, self.cfg,
+            dur_dev, emb = self._text_stage(
                 torch.as_tensor(ids, dtype=torch.int64).to(self.device), tmask,
-                sdp, sttl, self._speed(speed), precision=self.precision)
+                sdp, sttl, self._speed(speed))
             dur = dur_dev.cpu().numpy()
             t_lat = buckets.latent_len_for_duration(float(dur[0]), sr, chunk)
             t_bucket = buckets.pick_bucket(t_lat, rt.latent_buckets)
@@ -697,22 +724,33 @@ class SynthesisEngine(LongFormSynthesis):
                              device=self.device) * lmask[:, :, None]
             tot = torch.full((1,), float(total_step), dtype=torch.float32,
                              device=self.device)
-            cache = vector_estimator.precompute_cross(ve, self.cfg, emb, sttl, tmask,
-                                                      dtype=self.dtype)
+            if self.backend is not None:
+                # the backend's step functions; an opaque graph has no
+                # cross cache
+                _cross, step_fn, voc_fn = self.backend.progress_fns()
+            else:
+                ve = self.params["vector_estimator"]
+                cache = vector_estimator.precompute_cross(ve, self.cfg, emb, sttl, tmask,
+                                                          dtype=self.dtype)
+
+                def step_fn(params, x, *args):
+                    return vector_estimator.step(ve, self.cfg, x, *args, dtype=self.dtype,
+                                                 cross_cache=cache)
+
+                def voc_fn(params, x, fm):
+                    return vocoder.apply(params["vocoder"], self.cfg, x, frame_mask=fm,
+                                         dtype=self.dtype)
             for step in range(total_step):
                 cur = torch.full((1,), float(step), dtype=torch.float32,
                                  device=self.device)
-                xt = vector_estimator.step(ve, self.cfg, xt, emb, sttl, tmask, lmask,
-                                           cur, tot, dtype=self.dtype,
-                                           cross_cache=cache)
+                xt = step_fn(self.params, xt, emb, sttl, tmask, lmask, cur, tot)
                 if progress_callback is not None:
                     # progress means completed steps: wait for the device
                     if self.device.type == "cuda":
                         torch.cuda.current_stream(self.device).synchronize()
                     progress_callback(step + 1, total_step)
             # the batch-max frame mask, as the fused path uses
-            wav = vocoder.apply(self.params["vocoder"], self.cfg, xt,
-                                frame_mask=lmask.amax(0), dtype=self.dtype)
+            wav = voc_fn(self.params, xt, lmask.amax(0))
             return wav.cpu().numpy(), dur
 
     def _vocode_stream(self, text: str, lang: str, style, total_step: int,

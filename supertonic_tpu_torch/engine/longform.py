@@ -74,7 +74,10 @@ class LongFormSynthesis:
         chunks = chunk_text(text, max_len=max_len_for_lang(lang))
         if not chunks:
             return
-        if window_frames and hasattr(self, "_vocode_stream"):
+        # windows are the native engine's (the graph backend's vocoder is
+        # an opaque graph): a backend engine streams whole chunks
+        if (window_frames and getattr(self, "backend", None) is None
+                and hasattr(self, "_vocode_stream")):
             yield from self._vocode_stream(chunks[0], lang, style, total_step,
                                            speed, window_frames)
         else:

@@ -146,12 +146,17 @@ class Programs:
 
     def synthesize_fused(self, params, cfg, text_ids, text_mask, style_dp, style_ttl,
                          generator, speed, total_step: int, t_pad: int, *,
-                         precision: str = "bf16", egress: str = "int16"):
+                         precision: str = "bf16", egress: str = "int16", backend=None):
         """``synthesis.synthesize_fused`` through its program; ``speed`` is
-        a 0-dim f32 tensor on the device."""
+        a 0-dim f32 tensor on the device. With a graph ``backend``
+        (``assets.onnx_backend``) the program is its ``fused_fn``: the
+        captured body is ``backend.padded_fn``, under the same key."""
         noise = _noise_draw(cfg, text_ids.shape[0], t_pad, generator)
 
         def body(ids, mask, sdp, sttl, spd, nz):
+            if backend is not None:
+                return backend.padded_fn(params, ids, mask, sdp, sttl, nz, spd,
+                                         total_step, egress)
             wav, dur = synthesis.synthesize_padded(params, cfg, ids, mask, sdp, sttl, nz,
                                                    spd, total_step, precision=precision)
             return synthesis.encode_egress(wav, egress), dur

@@ -181,7 +181,8 @@ class ContinuousBatcher:
             self.stats["batches"] += 1
             self.stats["batched_requests"] += len(reqs)
 
-            def egress(reqs=reqs, wav_dev=wav_dev, dur=dur, ready=pend.ready):
+            def egress(reqs=reqs, wav_dev=wav_dev, dur=dur,
+                       ready=getattr(pend, "ready", None)):
                 try:
                     # transfer only samples that exist: bucket padding
                     # beyond the longest utterance is wasted bytes on the

@@ -22,13 +22,15 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="TTS inference on a CUDA card (PyTorch)")
     p.add_argument("--assets-dir", "--onnx-dir", dest="assets_dir",
                    type=str,
-                   default=os.getenv("TTS_ASSETS_DIR") or None,
-                   help="Asset bundle dir (params.npz, tts.json or "
-                        "model_config.json, unicode_indexer.json, "
-                        "voice_styles/); --onnx-dir is the reference's name "
-                        "for the same flag, and an ONNX bundle (no "
-                        "params.npz) raises; defaults to $TTS_ASSETS_DIR; "
-                        "random-init weights when absent")
+                   default=os.getenv("TTS_ASSETS_DIR")
+                   or os.getenv("TTS_ONNX_DIR") or None,
+                   help="Asset bundle dir (params.npz, or the four .onnx "
+                        "graphs, with tts.json or model_config.json, "
+                        "unicode_indexer.json, voice_styles/); --onnx-dir "
+                        "is the reference's name for the same flag; "
+                        "defaults to $TTS_ASSETS_DIR / $TTS_ONNX_DIR (the "
+                        "reference service's env); random-init weights "
+                        "when absent")
     p.add_argument("--use-gpu", action="store_true",
                    help="Accepted for reference flag parity and ignored: the "
                         "card is the default device")
@@ -66,12 +68,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     from .. import TTS
-    from ..assets import refuse_onnx_dir
     from ..engine.engine import VoiceStyle
     from ..utils import sanitize_filename, timer, write_wav
 
     print("=== TTS Inference (supertonic_tpu_torch) ===\n")
-    refuse_onnx_dir()
     args = parse_args(argv)
     if len(args.voice_style) != len(args.text):
         raise SystemExit(f"Number of voice styles ({len(args.voice_style)}) must "

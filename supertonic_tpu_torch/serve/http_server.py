@@ -410,9 +410,17 @@ class TTSService:
         # instead of the whole chunk's. Its device work interleaves with the
         # batcher's on the card (the copies wait on events, never on the
         # other thread's work); the remaining chunks coalesce in the batcher.
-        yield from self.tts.engine._vocode_stream(
-            chunks[0], lang, style, req["total_step"], req["speed"],
-            window_frames=64)
+        engine = self.tts.engine
+        if (getattr(engine, "backend", None) is None
+                and hasattr(engine, "_vocode_stream")):
+            yield from engine._vocode_stream(
+                chunks[0], lang, style, req["total_step"], req["speed"],
+                window_frames=64)
+        else:  # the graph backend and its adapter stream whole chunks
+            first = self.batcher.submit(
+                chunks[0], lang, style, req["total_step"], req["speed"])
+            wav, dur = first.result()
+            yield wav, dur, True
         rest = [
             self.batcher.submit(c, lang, style, req["total_step"], req["speed"])
             for c in chunks[1:]
@@ -691,16 +699,14 @@ def make_server(tts, host: str = "0.0.0.0", port: int = 8000,
 def main():
     """Serve ``TTS()`` on ``$TTS_HOST:$TTS_PORT`` (default 0.0.0.0:8000).
     Environment: TTS_PLATFORM=cpu runs on the CPU (the default is the card,
-    and without one this raises), TTS_ASSETS_DIR (a params.npz bundle),
-    TTS_PRECISION, TTS_EGRESS (int16 | mulaw | f32), TTS_BATCHER=0,
-    TTS_MAX_BATCH, TTS_WARMUP=1. TTS_ONNX_DIR raises: the port loads no
-    ONNX bundles."""
+    and without one this raises), TTS_ASSETS_DIR (a params.npz bundle or a
+    directory of the four ONNX graphs; TTS_ONNX_DIR, the reference
+    service's name, is its alias), TTS_PRECISION, TTS_EGRESS (int16 |
+    mulaw | f32), TTS_BATCHER=0, TTS_MAX_BATCH, TTS_WARMUP=1."""
     from .. import TTS
-    from ..assets import refuse_onnx_dir
 
-    refuse_onnx_dir()
     tts = TTS(
-        os.getenv("TTS_ASSETS_DIR") or None,
+        os.getenv("TTS_ASSETS_DIR") or os.getenv("TTS_ONNX_DIR") or None,
         precision=os.getenv("TTS_PRECISION") or None,
         # "mulaw" halves device->host bytes at G.711 speech quality
         egress_format=os.getenv("TTS_EGRESS", "int16"),

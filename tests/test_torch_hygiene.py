@@ -1,18 +1,28 @@
 """The port stands alone: no module of supertonic_tpu_torch, nor
 chip_smoke.py or kernel_variants.py, imports JAX or the JAX package; and its framework-free
-copies (config, frontend, buckets, stitch, wav) behave like the originals."""
+copies (config, frontend, buckets, stitch, wav, and the ONNX reader, exporter, auto-mapper
+and converter) behave like the originals."""
 
 import ast
 import dataclasses
+import json
 import pathlib
 
 import numpy as np
 import pytest
 
+import supertonic_tpu.assets.automap as j_automap
+import supertonic_tpu.assets.convert as j_convert
+import supertonic_tpu.assets.onnx_export as j_export
+import supertonic_tpu.assets.onnx_reader as jR
 import supertonic_tpu.config as jcfg
 import supertonic_tpu.engine.buckets as jbuckets
 import supertonic_tpu.frontend as jfront
 import supertonic_tpu.utils.wav as jwav
+import supertonic_tpu_torch.assets.automap as t_automap
+import supertonic_tpu_torch.assets.convert as t_convert
+import supertonic_tpu_torch.assets.onnx_export as t_export
+import supertonic_tpu_torch.assets.onnx_reader as tR
 import supertonic_tpu_torch.config as tcfg
 import supertonic_tpu_torch.engine.buckets as tbuckets
 import supertonic_tpu_torch.frontend as tfront
@@ -52,6 +62,41 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert not bad, bad
+
+
+GRAPH_BACKEND = ("assets/fetch.py", "assets/onnx_reader.py", "assets/onnx_export.py", "assets/automap.py",
+                 "assets/convert.py", "assets/convert_onnx.py", "assets/onnx_exec.py",
+                 "assets/onnx_pipeline.py", "assets/onnx_backend.py",
+                 "engine/onnx_adapter.py")
+
+
+def test_graph_backend_modules_are_covered_and_import_without_jax():
+    """The graph backend's modules are among the files checked above, and
+    import in a process where JAX and the JAX package cannot be found."""
+    import subprocess
+    import sys
+
+    files = {p.relative_to(ROOT / "supertonic_tpu_torch").as_posix()
+             for p in _port_files() if p.is_relative_to(ROOT / "supertonic_tpu_torch")}
+    assert set(GRAPH_BACKEND) <= files
+    mods = ", ".join(repr("supertonic_tpu_torch." + m[:-3].replace("/", "."))
+                     for m in GRAPH_BACKEND)
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "for k in [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]:\n"
+        "    del sys.modules[k]\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'supertonic_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in ({mods}):\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'supertonic_tpu') for k in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_forbidden_name_match():
@@ -105,3 +150,25 @@ def test_buckets_stitch_and_wav_copies():
         assert da == db
     assert (jwav.wav_bytes(wavs[0] * 0.5, 16000)
             == twav.wav_bytes(wavs[0] * 0.5, 16000))
+
+
+def test_onnx_asset_copies_keep_the_originals_code():
+    """The copies differ from the originals only in their docstrings."""
+    def body(mod):
+        tree = ast.parse(open(mod.__file__).read())
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and \
+                    node.body and isinstance(node.body[0], ast.Expr) and \
+                    isinstance(getattr(node.body[0], "value", None), ast.Constant):
+                node.body = node.body[1:]
+        return ast.dump(tree)
+
+    import supertonic_tpu.assets.fetch as j_fetch
+    import supertonic_tpu_torch.assets.fetch as t_fetch
+
+    for j, t in ((jR, tR), (j_export, t_export), (j_automap, t_automap),
+                 (j_convert, t_convert), (j_fetch, t_fetch)):
+        assert body(j) == body(t), t.__name__
+    with open(tR.__file__) as f:
+        assert "jax" not in f.read().lower().replace("ml_dtypes", "")
+    assert json.dumps(sorted(tR.DTYPE_MAP)) == json.dumps(sorted(jR.DTYPE_MAP))

@@ -7,6 +7,7 @@ policy, demo page) held against the originals."""
 import argparse
 import io
 import json
+import os
 import threading
 import zipfile
 
@@ -30,6 +31,8 @@ import supertonic_tpu_torch.utils.timing as ttiming
 from supertonic_tpu_torch import TTS
 from supertonic_tpu_torch.serve.http_server import TTSService, make_server
 from supertonic_tpu_torch.utils import read_wav, wav_bytes
+
+from test_onnx_pipeline import onnx_dir  # noqa: F401  (a four-graph bundle)
 
 LONG = " ".join(f"Streaming sentence number {i} with several more words attached."
                 for i in range(6))
@@ -561,24 +564,56 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tiny_assets, tmp_path
 
 
 @pytest.mark.parametrize("entry", ["server", "cli"])
-def test_entry_points_refuse_an_onnx_bundle(entry, tiny_assets, tmp_path, monkeypatch):
-    """The port loads no ONNX bundles: TTS_ONNX_DIR, or an assets directory
-    without params.npz (--onnx-dir names the same flag), raises instead of
-    serving random weights."""
+def test_entry_points_refuse_an_onnx_bundle(entry, onnx_dir, tmp_path, monkeypatch):
+    """TTS_ONNX_DIR, the reference service's name for the assets directory,
+    serves a bundle of the four ONNX graphs through the server and the CLI;
+    a directory with neither the graphs nor params.npz still raises instead
+    of serving random weights."""
     monkeypatch.setenv("TTS_PLATFORM", "cpu")
-    onnx = tmp_path / "onnx"
-    onnx.mkdir()
-    (onnx / "tts.json").write_text("{}")
-    run = (http_server.main if entry == "server" else
-           lambda: cli.main(["--save-dir", str(tmp_path / "out")]))
-    monkeypatch.setenv("TTS_ONNX_DIR", str(onnx))
-    with pytest.raises(RuntimeError, match="loads no ONNX"):
+    monkeypatch.setenv("TTS_RATE_CACHE_DIR", str(tmp_path / "rates"))
+    monkeypatch.delenv("TTS_ASSETS_DIR", raising=False)
+    monkeypatch.setenv("TTS_ONNX_DIR", onnx_dir)
+    out = tmp_path / "out"
+    if entry == "server":
+        served = []
+        real_make = http_server.make_server
+
+        def make(tts, host, port, **kw):
+            server = real_make(tts, "127.0.0.1", 0, **kw)
+            serve = server.serve_forever
+
+            def serve_one_request():
+                thread = threading.Thread(target=serve, daemon=True)
+                thread.start()
+                url = f"http://127.0.0.1:{server.server_address[1]}"
+                served.append((tts, httpx.post(f"{url}/tts", json={
+                    "text": "Served from graphs.", "total_step": 2}, timeout=120)))
+                server.shutdown()
+                thread.join(timeout=30)
+
+            server.serve_forever = serve_one_request
+            return server
+
+        monkeypatch.setattr(http_server, "make_server", make)
+        http_server.main()
+        (tts, resp), = served
+        assert tts.engine.backend is not None and tts.cfg.sample_rate == 80
+        assert resp.status_code == 200 and resp.content[:4] == b"RIFF"
+        run = http_server.main
+    else:
+        cli.main(["--save-dir", str(out), "--n-test", "1", "--total-step", "2"])
+        assert any(f.endswith(".wav") for f in os.listdir(out))
+
+        def run():
+            cli.main(["--save-dir", str(out)])
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    (empty / "tts.json").write_text("{}")
+    monkeypatch.setenv("TTS_ONNX_DIR", str(empty))
+    with pytest.raises(FileNotFoundError, match="neither params.npz nor"):
         run()
     monkeypatch.delenv("TTS_ONNX_DIR")
-    monkeypatch.setenv("TTS_ASSETS_DIR", str(onnx))
-    with pytest.raises(FileNotFoundError, match="no params.npz"):
-        run()
-    with pytest.raises(FileNotFoundError, match="no params.npz"):
-        cli.main(["--onnx-dir", str(onnx), "--save-dir", str(tmp_path / "out")])
-    with pytest.raises(FileNotFoundError, match="no params.npz"):
+    with pytest.raises(FileNotFoundError, match="neither params.npz nor"):
+        cli.main(["--onnx-dir", str(empty), "--save-dir", str(out)])
+    with pytest.raises(FileNotFoundError, match="neither params.npz nor"):
         TTS(str(tmp_path / "missing"), device="cpu")
