@@ -30,7 +30,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                launch calls (at most 32), finds each hand-written kernel
                in its device trace as often as the counters say, and gives
                device busy and the idle share against the reps' wall;
-               each program's capture seconds and memory are printed
+               each program's capture seconds and memory are printed;
+               then the same cell through SynthesisEngine(fused_ffn=False),
+               the JAX engine's default (the AdaLN FFN as two cuBLAS
+               products and a silu): its launches, b64 audio-sec/s beside
+               the default's, and the bf16 wav distance between the two
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -77,6 +81,19 @@ Phases (each prints its own lines; any failure exits non-zero):
                audio-sec/s at "default" precision with bf16 storage beside
                phase 3's native bf16 (at phase 3's learned rate, so at the
                same buckets), and capture seconds and pool growth
+ 10. the rest of the single-card surface — compat.load_text_to_speech:
+               __call__ and batch on the card, each run_* card vs CPU in
+               f32, the ONNX probe on phase 9's bundle; python -m
+               supertonic_tpu_torch writes a WAV; infer_with_progress and
+               infer_batch(noise=...) through their programs bit-equal to
+               an eager twin (f32, bf16), with host launch calls under
+               torch.profiler and the progress wall beside the eager one;
+               a replayed b64 batch under utils.timing.device_trace naming
+               each hand-written kernel; the native C++ frontend built from
+               the port's sources, equal to the Python frontend, serving
+               under TTS_NATIVE_FRONTEND=1; the vocoder's up_matmul against
+               the conv path at b64 and TTS_VOC_UP_MATMUL=1 in an engine.
+               Phase 6's int8 vs bf16 check also prints log-mel SNR and MCD
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -152,6 +169,9 @@ PER_BATCH = {
              "w8a8_matmul": 0, "quantize": 0},
     "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
              "w8a8_matmul": 252, "quantize": 252},
+    # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
+    "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
+                         "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0},
 }
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
@@ -352,7 +372,7 @@ def check_ffn(gen, cell, results, serving):
             err = compare(f"adaln_ffn {name} {dtype}", got, ref, dtype)
             if n is None:
                 continue
-            if n and dtype == torch.bfloat16:  # a yardstick; the FFN has no one call
+            if dtype == torch.bfloat16:  # a yardstick; the FFN has no one call
                 hb = torch.randn((b * t, d), generator=gen, device=DEV).to(dtype)
                 b1b, b2b = b1.to(dtype), b2.to(dtype)
                 pair = time_ms(lambda: torch.nn.functional.linear(
@@ -771,6 +791,9 @@ def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def whole_path_f32(params) -> None:
+    """f32 card vs CPU on injected noise: on the card the text and acoustic
+    programs' replays (captured at the first call of their keys), on the
+    CPU the plain versions, eagerly."""
     cfg, proc, texts, style, noise = whole_path_inputs()
     out = {}
     for dev in ("cuda", "cpu"):
@@ -822,7 +845,7 @@ def w8a8_linears(params) -> None:
                 raise AssertionError("W8A8 linear: card and CPU disagree, or no quantization")
 
 
-def whole_path_int8(params) -> None:
+def whole_path_int8(params, smi: str) -> None:
     """int8 against bf16 on the card, same texts and noise, 2 steps: the
     text stage is not quantized, so the durations are bit-equal; the wav
     moves by the W8A8 rounding, within the band set from earlier runs."""
@@ -840,6 +863,13 @@ def whole_path_int8(params) -> None:
     lo, hi = INT8_WAV_REL_L2
     log(f"  int8 vs bf16 on the card: durations bit-equal {d8}, wav relative L2 "
         f"{rel:.6f} (band [{lo:g}, {hi:g}])")
+    from supertonic_tpu_torch.utils.audio_metrics import log_mel_snr, mcd
+
+    for i, d in enumerate(db):  # each row over its own audio
+        n = int(cfg.sample_rate * float(d))
+        log(f"  int8 vs bf16 row {i} ({len(texts[i])} chars, {n} samples): log-mel SNR "
+            f"{log_mel_snr(wb[i, :n], w8[i, :n], cfg.sample_rate):.3f} dB, MCD "
+            f"{mcd(wb[i, :n], w8[i, :n], cfg.sample_rate):.4f} dB (readings; {smi})")
     if not lo <= rel <= hi:
         raise AssertionError("int8 whole path: wav outside the band around bf16")
 
@@ -855,6 +885,9 @@ def fused_projections_path(params) -> None:
         out = {}
         for tree_name, tree in trees:
             eng = SynthesisEngine(tree, cfg, proc, precision=precision)
+            # the first call captures the text and acoustic programs (their
+            # eager runs count too); the counted call replays them
+            eng.infer_batch(texts, ["en"] * 64, style, total_step=5, noise=noise)
             ops.reset_launch_counts()
             out[tree_name] = eng.infer_batch(texts, ["en"] * 64, style, total_step=5,
                                              noise=noise)
@@ -1230,6 +1263,380 @@ def trace_graph_batch(tts, texts, style) -> None:
     if n_launch > MAX_HOST_LAUNCHES or n_graphs < 1:
         raise AssertionError(f"a replayed graph batch: {n_launch} host launch calls, "
                              f"{n_graphs} graph launches")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, second engine: the JAX default's unfused AdaLN FFN
+# ---------------------------------------------------------------------------
+
+def unfused_ffn_cell(assets, rates, smi: str) -> None:
+    """The b64 cell through SynthesisEngine(fused_ffn=False), the JAX
+    engine's default (the AdaLN FFN as linear, silu, linear: cuBLAS
+    products), at the rate phase 3 learned: the launches of one replayed
+    b64/5-step batch, b64 audio-sec/s at 5 and 2 steps beside the default's
+    from the same process, and the bf16 wav distance between the two
+    settings on the same injected noise."""
+    tts = TTS(assets)
+    a = tts.assets
+    tts.engine = SynthesisEngine(a.params, tts.cfg, a.processor, fused_ffn=False)
+    if tts.engine.fused_ffn:
+        raise AssertionError("fused_ffn=False did not reach the engine")
+    style = tts.get_voice_style("M1")
+    texts = [TEXTS[i % 3] for i in range(64)]
+    walls = []
+    for steps in (5, 2):
+        tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=steps)
+        if steps == 5:
+            shapes, one = recorded(tts.engine, lambda: tts.synthesize_batch(
+                texts, ["en"] * 64, style.tile(64), total_step=5))
+            log(f"  fused_ffn=False: shapes given to each kernel in one b64/5-step batch: "
+                f"{shapes}")
+            check_exact(one, PER_BATCH["bf16 unfused FFN"],
+                        "one b64/5-step batch with fused_ffn=False (a replay)")
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _w, d = tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=steps)
+            wall = time.perf_counter() - t0
+            if steps == 5:
+                walls.append(wall)
+            log(f"  fused_ffn=False bf16 b64/{steps}-step rep {rep}: {float(d.sum()):.3f}s "
+                f"audio in {wall:.4f}s = {float(d.sum()) / wall:.2f} audio-sec/s (fused_ffn="
+                f"True, phase 3: {' / '.join(f'{r:.2f}' for r in rates[steps])}; {smi})")
+    trace_replayed_batch(tts, texts, style, PER_BATCH["bf16 unfused FFN"],
+                         float(np.median(walls)))
+    log_programs(tts.engine, "the fused_ffn=False engine")
+    cfg, proc, texts64, style64, noise = whole_path_inputs(64)
+    out = {}
+    for fused in (True, False):
+        eng = SynthesisEngine(a.params, cfg, proc, fused_ffn=fused)
+        out[fused] = eng.infer_batch(texts64, ["en"] * 64, style64, total_step=5, noise=noise)
+        del eng
+    (wf, df), (wu, du) = out[True], out[False]
+    if not np.array_equal(df, du) or wf.shape != wu.shape:
+        raise AssertionError("fused_ffn: the text stage differs between the settings")
+    from supertonic_tpu_torch.utils.audio_metrics import log_mel_snr, mcd
+
+    log(f"  bf16 b64/5-step, injected noise: fused_ffn=False against True: durations "
+        f"bit-equal, wav relative L2 {rel_l2(wu, wf):.6f}, max abs diff "
+        f"{float(np.abs(wu - wf).max()):.3e} (readings; {smi})")
+    for i in range(3):  # each protocol text over its own audio
+        n = int(cfg.sample_rate * float(df[i]))
+        log(f"  fused_ffn=False against True, row {i} ({len(texts64[i])} chars): log-mel SNR "
+            f"{log_mel_snr(wf[i, :n], wu[i, :n], cfg.sample_rate):.3f} dB, MCD "
+            f"{mcd(wf[i, :n], wu[i, :n], cfg.sample_rate):.4f} dB (readings; {smi})")
+    del tts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the single-card surface
+# ---------------------------------------------------------------------------
+
+PROGRESS_MAX_HOST_LAUNCHES = 32   # kernel and graph launches of one progress call
+NATIVE_FUZZ = 200                 # seeded random texts through the native frontend
+UP_MATMUL_F32_ATOL = 1e-4         # up_matmul vs the conv path, f32, b64
+RUN_F32_TOL = 1e-4                # compat run_* card vs CPU in f32 (atol = rtol)
+
+
+def host_launches(prof) -> tuple[int, int, int]:
+    """(kernel and graph launch calls, graph launches, memcpy calls) of a
+    torch.profiler run on the host."""
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
+    n_launch = sum(e.count for e in ev if e.key.startswith(HOST_LAUNCH_CALLS))
+    n_graph = sum(e.count for e in ev if e.key.startswith(HOST_LAUNCH_CALLS[2:]))
+    n_copy = sum(e.count for e in ev if e.key.startswith("cudaMemcpy"))
+    return n_launch, n_graph, n_copy
+
+
+def eager_twin(params, cfg, proc, **kw):
+    """An engine on the card with no programs: every call eager."""
+    eng = SynthesisEngine(params, cfg, proc, **kw)
+    eng.programs, eng._synth = None, synthesis
+    return eng
+
+
+def compat_surface(assets, smi: str) -> None:
+    """load_text_to_speech on the smoke params: __call__ and batch on the
+    card, each run_* card against CPU in f32, the ONNX probe on phase 9's
+    bundle (the per-call pipeline on the card)."""
+    from supertonic_tpu_torch import compat
+    from supertonic_tpu_torch.assets import save_voice_style, synthesize_default_styles
+    from supertonic_tpu_torch.assets.onnx_pipeline import OnnxPipeline
+
+    cfg = TTSConfig()
+    sdir = os.path.join(OUT_DIR, "styles")
+    os.makedirs(sdir, exist_ok=True)
+    paths = []
+    for name, st in synthesize_default_styles(cfg).items():
+        if name in ("M1", "F1"):
+            paths.append(os.path.join(sdir, f"{name}.json"))
+            save_voice_style(paths[-1], st)
+    t0 = time.perf_counter()
+    tts = compat.load_text_to_speech(assets)
+    log(f"  compat.load_text_to_speech(<smoke params>) on {tts.engine.device}, "
+        f"{tts.engine.precision}, load {time.perf_counter() - t0:.2f}s")
+    one, two = compat.load_voice_style(paths[:1]), compat.load_voice_style(paths)
+    wav, dur = tts(MID_TEXT, "en", one, 5)
+    check_audio(wav[0], float(dur[0]), tts.sample_rate, "compat __call__")
+    wavs, durs = tts.batch([SHORT_TEXT, LONG_TEXT], ["en", "en"], two, 5)
+    for i in range(2):
+        check_audio(wavs[i], float(durs[i]), tts.sample_rate, f"compat batch row {i}")
+    log(f"  compat __call__ {float(dur[0]):.3f}s and batch {durs.round(3).tolist()}s of "
+        f"audio: finite, of the durations' length, RMS > 0.005")
+    cpu = compat.load_text_to_speech(assets, device="cpu")
+    ids, mask = compat.UnicodeProcessor(build_default_indexer())([MID_TEXT], ["en"])
+    rng = np.random.default_rng(11)
+    noisy = rng.standard_normal((1, cfg.latent_channels, 64)).astype(np.float32)
+    lat_mask = np.ones((1, 1, 64), np.float32)
+    got = {}
+    for dev, t in (("cuda", tts), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        d = t.run_duration_predictor(ids, one.dp, mask)
+        emb = t.run_text_encoder(ids, one.ttl, mask)
+        x = t.run_vector_estimator(noisy, emb, one.ttl, mask, lat_mask,
+                                   np.zeros(1, np.float32), np.full(1, 5.0, np.float32))
+        got[dev] = dict(duration_predictor=d, text_encoder=emb, vector_estimator=x,
+                        vocoder=t.run_vocoder(x))
+        log(f"  compat run_* on {dev} (f32): {time.perf_counter() - t0:.2f}s")
+    for name, want in got["cpu"].items():
+        g = got["cuda"][name]
+        err = float(np.abs(g - want).max())
+        worst = float((np.abs(g - want) / (RUN_F32_TOL + RUN_F32_TOL * np.abs(want))).max())
+        log(f"  compat run_{name} card vs CPU f32 {tuple(g.shape)}: max abs diff "
+            f"{err:.3e} (atol = rtol = "
+            f"{RUN_F32_TOL:g}, worst/limit {worst:.3f})")
+        if g.shape != want.shape or worst > 1.0:
+            raise AssertionError(f"compat run_{name}: card and CPU disagree")
+    del cpu
+    bundle = os.path.join(OUT_DIR, "graph_bundle")
+    t0 = time.perf_counter()
+    pipe = compat.load_text_to_speech(bundle)
+    if not isinstance(pipe, OnnxPipeline):
+        raise AssertionError(f"the ONNX probe gave {type(pipe).__name__}")
+    wav, dur = pipe(SHORT_TEXT, "en", one, 2)
+    check_audio(wav[0], float(dur[0]), pipe.sample_rate, "compat ONNX pipeline")
+    log(f"  compat.load_text_to_speech(<phase 9 bundle>): OnnxPipeline, one 2-step call "
+        f"{float(dur[0]):.3f}s of audio in {time.perf_counter() - t0:.2f}s with the load")
+
+
+def cli_module(assets, smi: str) -> None:
+    """python -m supertonic_tpu_torch writes a WAV that passes check_audio."""
+    out = os.path.join(OUT_DIR, "cli_out")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, TTS_RATE_CACHE_DIR=os.path.join(OUT_DIR, "rates", "cli"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "supertonic_tpu_torch", "--assets-dir", assets,
+                           "--n-test", "1", "--total-step", "5", "--text", MID_TEXT,
+                           "--save-dir", out], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m supertonic_tpu_torch: {proc.stderr[-2000:]}")
+    files = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
+    if not files:
+        raise AssertionError("python -m supertonic_tpu_torch wrote no WAV")
+    wav, sr = read_wav(os.path.join(out, files[0]))
+    check_audio(wav, len(wav) / sr, sr, "python -m supertonic_tpu_torch")
+    log(f"  python -m supertonic_tpu_torch: {files} ({len(wav) / sr:.3f}s at {sr} Hz) in "
+        f"{time.perf_counter() - t0:.2f}s of process ({smi})")
+
+
+def progress_programs(params, smi: str) -> None:
+    """infer_with_progress through the text, cross, step and vocoder
+    programs against an eager twin with the same seed, f32 and bf16 (bit
+    for bit), its host launch calls under torch.profiler and its wall
+    beside the eager twin's; infer_batch(noise=...) through the text and
+    acoustic programs against the eager twin, bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, proc, texts, style, noise = whole_path_inputs(4)
+    one = style.take(slice(0, 1))
+    for precision in ("f32", "bf16"):
+        eng = SynthesisEngine(params, cfg, proc, precision=precision, seed=3)
+        twin = eager_twin(params, cfg, proc, precision=precision, seed=3)
+        calls = []
+        got = eng.infer_with_progress(MID_TEXT, "en", one, total_step=5,
+                                      progress_callback=lambda s, n: calls.append((s, n)))
+        want = twin.infer_with_progress(MID_TEXT, "en", one, total_step=5)
+        if calls != [(i, 5) for i in range(1, 6)]:
+            raise AssertionError(f"progress callbacks {calls}")
+        hold_bit_equal(f"progress B1/5-step {precision}: programs vs eager (wav, duration)",
+                       [torch.as_tensor(x) for x in got], [torch.as_tensor(x) for x in want])
+        kinds = sorted({st["key"][0] for st in eng.programs.stats()})
+        if kinds != ["cross", "step", "text", "vocoder"]:
+            raise AssertionError(f"progress programs {kinds}")
+        got = eng.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+        want = twin.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+        hold_bit_equal(f"injected noise B4/2-step {precision}: programs vs eager (wav, "
+                       f"duration)", [torch.as_tensor(x) for x in got],
+                       [torch.as_tensor(x) for x in want])
+        if precision == "bf16":
+            _shapes, per_call = recorded(eng, lambda: eng.infer_with_progress(
+                MID_TEXT, "en", one, total_step=5))
+            check_exact(per_call, PER_BATCH["bf16"],
+                        "one replayed B1/5-step progress call (the b64 batch's counts)")
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            for what, e in (("programs", eng), ("eager", twin)):
+                e.infer_with_progress(MID_TEXT, "en", one, total_step=5)  # warm
+                torch.cuda.synchronize()
+                with profile(activities=acts) as prof:
+                    e.infer_with_progress(MID_TEXT, "en", one, total_step=5)
+                    torch.cuda.synchronize()
+                n_launch, n_graph, n_copy = host_launches(prof)
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    e.infer_with_progress(MID_TEXT, "en", one, total_step=5)
+                    walls.append(time.perf_counter() - t0)
+                log(f"  progress B1/5-step bf16, {what}: {n_launch} host launch calls "
+                    f"({n_graph} graph launches, {n_launch / 5:.1f} a step), {n_copy} memcpy "
+                    f"calls; wall {' / '.join(f'{w * 1e3:.2f}' for w in walls)} ms "
+                    f"({smi}, a reading)")
+                if what == "programs" and (n_launch > PROGRESS_MAX_HOST_LAUNCHES
+                                           or n_graph != 3 + 5):
+                    raise AssertionError(f"a replayed progress call: {n_launch} host launch "
+                                         f"calls, {n_graph} graph launches")
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                eng.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+                torch.cuda.synchronize()
+            n_launch, n_graph, n_copy = host_launches(prof)
+            log(f"  injected noise B4/2-step bf16, programs: {n_launch} host launch calls "
+                f"({n_graph} graph launches), {n_copy} memcpy calls")
+            if n_launch > MAX_HOST_LAUNCHES or n_graph != 2:
+                raise AssertionError("the injected-noise path launched more than its programs")
+        log_programs(eng, f"the {precision} progress and injected-noise engine")
+        del eng, twin
+
+
+def trace_b64(assets) -> None:
+    """One replayed b64/5-step batch under utils.timing.device_trace: the
+    Chrome trace exists and names each hand-written kernel of the bf16 path
+    as often as the per-batch counts say."""
+    from supertonic_tpu_torch.utils.timing import device_trace
+
+    os.environ["TTS_RATE_CACHE_DIR"] = os.path.join(OUT_DIR, "rates", "main-bf16")
+    tts = TTS(assets)
+    style = tts.get_voice_style("M1")
+    texts = [TEXTS[i % 3] for i in range(64)]
+    tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)  # captured
+    n_programs = len(tts.engine.programs.stats())
+    logdir = os.path.join(OUT_DIR, "device_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    with device_trace(logdir) as prof:
+        tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
+        torch.cuda.synchronize()
+    if len(tts.engine.programs.stats()) != n_programs:
+        raise AssertionError("the traced batch captured a new program")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(any(n in name for n in TRACE_NAMES[k]) for name in kernels)
+             for k in PER_BATCH["bf16"]}
+    log(f"  device_trace of a replayed b64/5-step batch: {os.path.basename(prof.trace_path)} "
+        f"({os.path.getsize(prof.trace_path) / 2**20:.1f} MiB, {len(kernels)} kernel events); "
+        f"hand-written kernels named in it: {found}")
+    if found != PER_BATCH["bf16"]:
+        raise AssertionError(f"the trace names {found}, expected {PER_BATCH['bf16']}")
+    del tts
+
+
+def native_frontend(assets) -> None:
+    """The C++ frontend built from the port's sources: ids and masks equal
+    to the Python frontend on the protocol texts and a seeded fuzz set,
+    chunks equal on the stream text, and TTS_NATIVE_FRONTEND=1 serving
+    through it."""
+    from supertonic_tpu_torch.frontend import chunker, native
+
+    t0 = time.perf_counter()
+    lib = native.load_native()
+    if lib is None:
+        raise AssertionError("the native frontend did not build")
+    log(f"  native frontend: {native._LIB_PATH} built and loaded in "
+        f"{time.perf_counter() - t0:.2f}s")
+    idx = build_default_indexer()
+    py, cc = UnicodeProcessor(idx), native.NativeUnicodeProcessor(idx)
+    rng = np.random.default_rng(0)
+    pools = (list(range(0x20, 0x7F)) + list(range(0xA0, 0x100)) + list(range(0xAC00, 0xAC80))
+             + list(range(0x2010, 0x2030)) + [0x1F600, 0x2764, 0x2026])
+    fuzz = ["".join(chr(int(c)) for c in rng.choice(pools, int(rng.integers(1, 120))))
+            for _ in range(NATIVE_FUZZ)]
+    langs = [str(rng.choice(["en", "ko", "es", "pt", "fr"])) for _ in range(NATIVE_FUZZ)]
+    for what, texts, lg in (("protocol texts", list(TEXTS), ["en"] * 3),
+                            (f"{NATIVE_FUZZ} seeded fuzz texts", fuzz, langs)):
+        (ip, mp), (ic, mc) = py(texts, lg), cc(texts, lg)
+        same = np.array_equal(ip, ic) and np.array_equal(mp, mc)
+        log(f"  native vs Python frontend, {what}: ids and masks equal {same}")
+        if not same:
+            raise AssertionError(f"native frontend differs on the {what}")
+    for max_len in (120, 300):
+        if native.native_chunk_text(STREAM_TEXT, max_len) != chunker._chunk_text_py(
+                STREAM_TEXT, max_len):
+            raise AssertionError("native chunker differs on the stream text")
+    os.environ["TTS_NATIVE_FRONTEND"] = "1"
+    try:
+        tts = TTS(assets)
+        if not isinstance(tts.engine.processor, native.NativeUnicodeProcessor):
+            raise AssertionError("TTS_NATIVE_FRONTEND=1 did not select the native frontend")
+        wav, dur = tts.synthesize(MID_TEXT, tts.get_voice_style("M1"), total_step=5)
+        check_audio(wav[0], float(dur[0]), tts.sample_rate, "native frontend synthesis")
+    finally:
+        del os.environ["TTS_NATIVE_FRONTEND"]
+    log(f"  TTS_NATIVE_FRONTEND=1: TTS() served {float(dur[0]):.3f}s of audio through "
+        f"NativeUnicodeProcessor; the chunker equal on the stream text at 120 and 300")
+    del tts
+
+
+def up_matmul_vocoder(params, smi: str) -> None:
+    """The vocoder's up_matmul lever against the conv path at b64 (T=448,
+    the tail masked): f32 max abs diff, and both device times in f32 and
+    bf16 as readings; then TTS_VOC_UP_MATMUL=1 read by an engine."""
+    from supertonic_tpu_torch.models import load_params, vocoder
+
+    cfg = TTSConfig()
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    lat = torch.randn((64, 448, cfg.latent_channels), generator=gen, device=DEV)
+    fm = (torch.arange(448, device=DEV) < 420).float()
+    for dtype in (torch.float32, torch.bfloat16):
+        mods = load_params({"vocoder": params["vocoder"]}, device=DEV, dtype=dtype)["vocoder"]
+        with torch.inference_mode():
+            run = {up: (lambda up=up: vocoder.apply(mods, cfg, lat, frame_mask=fm, dtype=dtype,
+                                                   up_matmul=up)) for up in (False, True)}
+            conv, mm = run[False](), run[True]()
+            err = float((mm - conv).abs().max())
+            ms = {up: time_ms(fn, 3) for up, fn in run.items()}
+        log(f"  vocoder b64 T=448 {dtype}: up_matmul vs conv max abs diff {err:.3e}"
+            + (f" (limit {UP_MATMUL_F32_ATOL:g})" if dtype == torch.float32 else " (printed)")
+            + f"; device ms conv {ms[False]:.3f}, up_matmul {ms[True]:.3f} ({smi}, readings)")
+        if dtype == torch.float32 and not err <= UP_MATMUL_F32_ATOL:
+            raise AssertionError("up_matmul disagrees with the conv path in f32")
+        del mods
+    cfg, proc, texts, style, noise = whole_path_inputs(4)
+    os.environ["TTS_VOC_UP_MATMUL"] = "1"
+    try:
+        eng = SynthesisEngine(params, cfg, proc)
+    finally:
+        del os.environ["TTS_VOC_UP_MATMUL"]
+    if not eng.up_matmul:
+        raise AssertionError("TTS_VOC_UP_MATMUL=1 was not read by the engine")
+    w, d = eng.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+    w0, d0 = SynthesisEngine(params, cfg, proc).infer_batch(texts, ["en"] * 4, style,
+                                                            total_step=2, noise=noise)
+    if not np.array_equal(d, d0):
+        raise AssertionError("up_matmul changed the durations")
+    log(f"  TTS_VOC_UP_MATMUL=1 engine, B4/2-step bf16 on injected noise: acoustic program "
+        f"key {[st['key'] for st in eng.programs.stats() if st['key'][0] == 'acoustic']}, wav "
+        f"relative L2 {rel_l2(w, w0):.3e} against the conv path")
+
+
+def single_card_surface(assets, params, smi: str) -> None:
+    """Phase 10."""
+    compat_surface(assets, smi)
+    cli_module(assets, smi)
+    progress_programs(params, smi)
+    trace_b64(assets)
+    native_frontend(assets)
+    up_matmul_vocoder(params, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -1668,6 +2075,8 @@ def main() -> int:
     fresh_rate_dir("main-bf16")
     cell, rates, counts = main_path(assets, "bf16", args.profile, args.pin_rate)
     launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain")}
+    log("phase 3, second engine: the b64 cell with SynthesisEngine(fused_ffn=False)")
+    unfused_ffn_cell(assets, rates, smi)
     log("phase 4: int8 path, TTS(precision=\"int8\") at the default 66M config")
     fresh_rate_dir("main-int8")
     cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, args.pin_rate,
@@ -1698,7 +2107,7 @@ def main() -> int:
         "on the card, fused projections")
     whole_path_f32(params)
     w8a8_linears(params)
-    whole_path_int8(params)
+    whole_path_int8(params, smi)
     fused_projections_path(params)
 
     log("phase 8: programs: replays of the captured fused, flow and window programs "
@@ -1708,6 +2117,10 @@ def main() -> int:
     log("phase 9: graph bundle: the smoke params as four ONNX graphs, served by "
         "TTS(<bundle>) through the ONNX executor")
     graph_bundle(params, rates)
+
+    log("phase 10: the rest of the single-card surface: compat, python -m, progress and "
+        "injected-noise programs, device_trace, the native frontend, up_matmul")
+    single_card_surface(assets, params, smi)
 
     line = []
     for name, (src, replaces) in SOURCES.items():

@@ -172,7 +172,8 @@ def load_assets(dirpath: str | None = None, *, seed: int = 0,
     directory or it holds no config. ``init_params=False`` is for a
     directory served through the ONNX graph backend: no params are loaded
     or made (``Assets.params`` is None). Otherwise the directory must hold
-    ``params.npz``."""
+    ``params.npz``. ``TTS_NATIVE_FRONTEND=1`` selects the C++ text frontend
+    (``frontend.native``) when it builds."""
     cfg = cfg or TTSConfig()
     params = indexer = style_dir = None
     if dirpath:
@@ -201,4 +202,10 @@ def load_assets(dirpath: str | None = None, *, seed: int = 0,
         params = init_all(seed, cfg)
     if indexer is None:
         indexer = build_default_indexer()
+    if os.getenv("TTS_NATIVE_FRONTEND", "0") != "0":
+        # the C++ frontend (GIL-free normalization and tokenization), as in
+        # the JAX package; the Python one when it cannot be built
+        from ..frontend.native import best_processor
+
+        return Assets(cfg, params, best_processor(indexer), style_dir)
     return Assets(cfg, params, UnicodeProcessor(indexer), style_dir)

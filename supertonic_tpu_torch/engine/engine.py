@@ -10,8 +10,10 @@
   * noise is drawn on the device from a per-dispatch ``torch.Generator``
     seeded from the engine's host-side chain (production) or injected
     (parity path);
-  * on the card the fused batch, a streamed chunk's flow and each vocoder
-    window replay a CUDA graph captured per static shape at first use
+  * on the card every synthesis call (the fused batch, a streamed chunk's
+    flow and each vocoder window, the injected-noise path's two stages, the
+    progress path's text stage, cross K/V, steps and vocoder) replays a
+    CUDA graph captured per static shape at first use
     (``programs.Programs``, the counterpart of the JAX engine's jitted
     programs; ``warmup`` captures the lattice); on the CPU the same
     functions of ``synthesis`` run eagerly;
@@ -155,7 +157,8 @@ class PendingBatch:
 class SynthesisEngine(LongFormSynthesis):
     def __init__(self, params, cfg: TTSConfig, processor: UnicodeProcessor, *,
                  precision: str | None = None, seed: int = 0,
-                 egress_format: str = "int16", device=None, backend=None):
+                 egress_format: str = "int16", device=None, backend=None,
+                 fused_ffn: bool = True):
         """``params``: the JAX-layout numpy param tree (loaded here onto
         ``device`` in the compute dtype) or modules from
         ``models.load_params``. ``precision="int8"`` quantizes a numpy tree
@@ -171,7 +174,17 @@ class SynthesisEngine(LongFormSynthesis):
         ``params`` is then the backend's tree (``backend.params`` when
         None) and is neither loaded nor quantized; every other part of the
         engine applies unchanged, except windowed streaming, which stays
-        native."""
+        native.
+
+        ``fused_ffn``: the vector estimator's AdaLN FFN through the fused
+        kernel (the default), or, with False, through ``linear``, silu and
+        ``linear`` (the JAX engine's default, whose products are cuBLAS
+        calls here). The W8A8 path takes the unfused FFN either way. The
+        vocoder's upsample convs run as products when ``TTS_VOC_UP_MATMUL=1``
+        at construction (``vocoder.apply(up_matmul=)``); the engine reads the
+        variable once, here."""
+        import os
+
         from ..models import load_params, quantize_params
 
         if egress_format not in EGRESS_FORMATS:
@@ -193,8 +206,10 @@ class SynthesisEngine(LongFormSynthesis):
             params = load_params(params, device=self.device, dtype=self.dtype)
         self.params = params
         self.egress_format = egress_format
-        # the fused, flow and window calls: replays of captured programs on
-        # the card, the eager functions on the CPU
+        self.fused_ffn = bool(fused_ffn)
+        self.up_matmul = os.environ.get("TTS_VOC_UP_MATMUL", "0") == "1"
+        # the synthesis calls: replays of captured programs on the card, the
+        # eager functions on the CPU
         self.programs = (programs.Programs(self.device)
                          if self.device.type == "cuda" else None)
         self._synth = synthesis if self.programs is None else self.programs
@@ -483,21 +498,33 @@ class SynthesisEngine(LongFormSynthesis):
             return self._synth.synthesize_fused(
                 self.params, self.cfg, *dev_args, self._next_generator(),
                 self._speed(speed), int(total_step), int(t_bucket),
-                precision=self.precision, egress=self.egress_format, **extra)
+                precision=self.precision, egress=self.egress_format,
+                fused_ffn=self.fused_ffn, up_matmul=self.up_matmul, **extra)
 
     def _text_stage(self, ids, mask, sdp, sttl, speed):
+        if self.programs is not None:
+            return self.programs.text_stage(self.params, self.cfg, ids, mask, sdp, sttl,
+                                            speed, precision=self.precision,
+                                            backend=self.backend)
         if self.backend is not None:
             return self.backend.text_fn(self.params, ids, mask, sdp, sttl, speed)
         return synthesis.text_stage(self.params, self.cfg, ids, mask, sdp, sttl,
                                     speed, precision=self.precision)
 
     def _acoustic_stage(self, emb, sttl, tmask, lmask, noise, total_step: int):
+        if self.programs is not None:
+            return self.programs.acoustic_stage(
+                self.params, self.cfg, emb, sttl, tmask, lmask, noise, total_step,
+                precision=self.precision, fused_ffn=self.fused_ffn,
+                up_matmul=self.up_matmul, backend=self.backend)
         if self.backend is not None:
             return self.backend.acoustic_fn(self.params, emb, sttl, tmask, lmask,
                                             noise, total_step)
         return synthesis.acoustic_stage(self.params, self.cfg, emb, sttl, tmask,
                                         lmask, noise, total_step,
-                                        precision=self.precision)
+                                        precision=self.precision,
+                                        fused_ffn=self.fused_ffn,
+                                        up_matmul=self.up_matmul)
 
     def infer_batch_begin(self, text_list, lang_list, style: VoiceStyle,
                           total_step: int = 5, speed: float = 1.05, *,
@@ -614,7 +641,8 @@ class SynthesisEngine(LongFormSynthesis):
     def _infer_injected_noise(self, dev_args, noise, b_true, b_bucket,
                               total_step, speed):
         """Parity path: text stage, a duration sync to size the latent grid
-        to the caller's noise, then the acoustic stage."""
+        to the caller's noise, then the acoustic stage (on the card, the
+        ``text`` and ``acoustic`` programs)."""
         rt = self.cfg.runtime
         chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
         ids, mask, sdp, sttl = dev_args
@@ -696,10 +724,12 @@ class SynthesisEngine(LongFormSynthesis):
         """Single-utterance synthesis with a per-denoising-step callback:
         the Euler loop runs one estimator step at a time (the cross K/V
         computed once) and ``progress_callback(step, total_step)`` fires
-        once the step has finished on the device. Slower than the fused
-        path; for interactive front ends, not serving."""
-        from ..models import vector_estimator, vocoder
-
+        once the step has finished on the device. On the card the text
+        stage, the cross K/V, each step and the vocoder replay their
+        programs (``text``, ``cross``, ``step``, ``vocoder``), as the JAX
+        engine calls its jitted ``_text_fn``, ``_cross_fn``, ``_step_fn``
+        and ``_vocoder_fn``. Slower than the fused path; for interactive
+        front ends, not serving."""
         if style.batch != 1:
             raise ValueError("infer_with_progress takes a single style")
         rt = self.cfg.runtime
@@ -724,34 +754,44 @@ class SynthesisEngine(LongFormSynthesis):
                              device=self.device) * lmask[:, :, None]
             tot = torch.full((1,), float(total_step), dtype=torch.float32,
                              device=self.device)
-            if self.backend is not None:
-                # the backend's step functions; an opaque graph has no
-                # cross cache
-                _cross, step_fn, voc_fn = self.backend.progress_fns()
-            else:
-                ve = self.params["vector_estimator"]
-                cache = vector_estimator.precompute_cross(ve, self.cfg, emb, sttl, tmask,
-                                                          dtype=self.dtype)
-
-                def step_fn(params, x, *args):
-                    return vector_estimator.step(ve, self.cfg, x, *args, dtype=self.dtype,
-                                                 cross_cache=cache)
-
-                def voc_fn(params, x, fm):
-                    return vocoder.apply(params["vocoder"], self.cfg, x, frame_mask=fm,
-                                         dtype=self.dtype)
+            step_fn, voc_fn = self._progress_fns(emb, sttl, tmask, lmask, tot)
             for step in range(total_step):
                 cur = torch.full((1,), float(step), dtype=torch.float32,
                                  device=self.device)
-                xt = step_fn(self.params, xt, emb, sttl, tmask, lmask, cur, tot)
+                xt = step_fn(xt, cur)
                 if progress_callback is not None:
                     # progress means completed steps: wait for the device
                     if self.device.type == "cuda":
                         torch.cuda.current_stream(self.device).synchronize()
                     progress_callback(step + 1, total_step)
             # the batch-max frame mask, as the fused path uses
-            wav = voc_fn(self.params, xt, lmask.amax(0))
+            wav = voc_fn(xt, lmask.amax(0))
             return wav.cpu().numpy(), dur
+
+    def _progress_fns(self, emb, sttl, tmask, lmask, tot):
+        """(step(x, cur), vocoder(x, frame_mask)) of the progress path, with
+        the cross K/V computed once: the programs on the card, the eager
+        functions on the CPU (a graph backend's ``progress_fns`` there)."""
+        if self.backend is not None and self.programs is None:
+            # an opaque graph has no cross cache
+            _cross, step_fn, voc_fn = self.backend.progress_fns()
+            return (lambda x, cur: step_fn(self.params, x, emb, sttl, tmask, lmask, cur, tot),
+                    lambda x, fm: voc_fn(self.params, x, fm))
+        extra = {} if self.backend is None else {"backend": self.backend}
+        synth, prec = self._synth, self.precision
+        cache = synth.cross_cache(self.params, self.cfg, emb, sttl, tmask, precision=prec,
+                                  **extra)
+
+        def step(x, cur):
+            return synth.euler_step(self.params, self.cfg, x, emb, sttl, tmask, lmask, cur,
+                                    tot, cache, precision=prec, fused_ffn=self.fused_ffn,
+                                    **extra)
+
+        def voc(x, fm):
+            return synth.vocode(self.params, self.cfg, x, fm, precision=prec,
+                                up_matmul=self.up_matmul, **extra)
+
+        return step, voc
 
     def _vocode_stream(self, text: str, lang: str, style, total_step: int,
                        speed: float, window_frames: int):
@@ -785,7 +825,8 @@ class SynthesisEngine(LongFormSynthesis):
             with torch.inference_mode():
                 wav = self._synth.vocode_window(
                     self.params, self.cfg, xt_pad, mask_pad, start, w, halo,
-                    precision=self.precision, egress=self.egress_format)
+                    precision=self.precision, egress=self.egress_format,
+                    up_matmul=self.up_matmul)
                 return k0, start, wav, self._mark()
 
         for _attempt in range(4):
@@ -793,7 +834,7 @@ class SynthesisEngine(LongFormSynthesis):
                 xt_pad, dur_dev, mask_pad = self._synth.flow_fused(
                     self.params, self.cfg, *dev_args, self._next_generator(),
                     self._speed(speed), int(total_step), int(t_bucket),
-                    precision=self.precision, halo=halo)
+                    precision=self.precision, halo=halo, fused_ffn=self.fused_ffn)
             w = min(int(window_frames), t_bucket)
             first = win(0)
             with self.profiler.stage("egress"), torch.inference_mode():

@@ -3,18 +3,34 @@
 The counterpart of the JAX package's jitted programs, which XLA compiles at
 the first call of a shape (and over the bucket lattice in ``warmup``):
 
-  program  JAX counterpart          key (its static arguments)
-  fused    ``jit_synthesize_fused``  batch and text buckets, latent bucket
-                                     ``t_pad``, ``total_step``, precision,
-                                     egress
-  flow     ``jit_flow_fused``        batch and text buckets, ``t_pad``,
-                                     ``total_step``, precision, the halo
-                                     frames padded onto the latent
-  window   ``jit_vocode_window``     batch, ``window``, ``halo``, precision,
-                                     egress
+  program   JAX counterpart           key (its static arguments)
+  fused     ``jit_synthesize_fused``  batch and text buckets, latent bucket
+                                      ``t_pad``, ``total_step``, precision,
+                                      egress
+  flow      ``jit_flow_fused``        batch and text buckets, ``t_pad``,
+                                      ``total_step``, precision, the halo
+                                      frames padded onto the latent
+  window    ``jit_vocode_window``     batch, ``window``, ``halo``, precision,
+                                      egress
+  text      ``jit_text_stage``        batch and text buckets, precision
+  acoustic  ``jit_acoustic_stage``    batch, text and latent buckets,
+                                      ``total_step``, precision
+  cross     the engine's ``_cross_fn``    batch and text buckets, precision
+  step      the engine's ``_step_fn``     batch, text and latent buckets,
+                                          precision
+  vocoder   the engine's ``_vocoder_fn``  batch, latent bucket, precision
 
-``Programs`` has the three functions of ``synthesis`` that the engine calls,
-with their signatures. The first call of a key runs the function's body
+Every key that runs the vector estimator also holds the engine's
+``fused_ffn``, and every key that runs the vocoder its ``up_matmul``: JAX
+fixes both when the engine builds its jitted functions, so two engines with
+different settings never share a program.
+
+``Programs`` has the functions of ``synthesis`` that the engine calls, with
+their signatures: the fused batch, a streamed chunk's flow and each vocoder
+window; the two stages of the injected-noise path (the host syncs on the
+duration between them); and the progress path's three calls, whose
+``step`` program is replayed once per Euler step with the step number
+copied in. The first call of a key runs the function's body
 eagerly once at that shape on a side stream (that builds the kernels with
 ``nvcc``, sets their one-time attributes and brings up cuBLAS and cuDNN),
 then captures it into a CUDA graph, under a lock, so that one key is
@@ -56,20 +72,56 @@ from . import synthesis
 FUSED_STATIC = ("total_step", "t_pad", "egress")
 FLOW_STATIC = ("total_step", "t_pad")
 WINDOW_STATIC = ("window", "halo", "egress")
+TEXT_STATIC = ()
+ACOUSTIC_STATIC = ("total_step",)
+# the engine's progress closures are plain jax.jit: shapes only
+CROSS_STATIC = STEP_STATIC = VOCODER_STATIC = ()
 
 
-def fused_key(text_ids, total_step: int, t_pad: int, precision: str, egress: str) -> tuple:
+def fused_key(text_ids, total_step: int, t_pad: int, precision: str, egress: str,
+              fused_ffn: bool = True, up_matmul: bool = False) -> tuple:
     b, l_pad = text_ids.shape
-    return ("fused", b, l_pad, int(total_step), int(t_pad), precision, egress)
+    return ("fused", b, l_pad, int(total_step), int(t_pad), precision, egress,
+            bool(fused_ffn), bool(up_matmul))
 
 
-def flow_key(text_ids, total_step: int, t_pad: int, precision: str, halo: int) -> tuple:
+def flow_key(text_ids, total_step: int, t_pad: int, precision: str, halo: int,
+             fused_ffn: bool = True) -> tuple:
     b, l_pad = text_ids.shape
-    return ("flow", b, l_pad, int(total_step), int(t_pad), precision, int(halo))
+    return ("flow", b, l_pad, int(total_step), int(t_pad), precision, int(halo),
+            bool(fused_ffn))
 
 
-def window_key(xt_pad, window: int, halo: int, precision: str, egress: str) -> tuple:
-    return ("window", xt_pad.shape[0], int(window), int(halo), precision, egress)
+def window_key(xt_pad, window: int, halo: int, precision: str, egress: str,
+               up_matmul: bool = False) -> tuple:
+    return ("window", xt_pad.shape[0], int(window), int(halo), precision, egress,
+            bool(up_matmul))
+
+
+def text_key(text_ids, precision: str) -> tuple:
+    b, l_pad = text_ids.shape
+    return ("text", b, l_pad, precision)
+
+
+def acoustic_key(text_emb, latent_mask, total_step: int, precision: str,
+                 fused_ffn: bool = True, up_matmul: bool = False) -> tuple:
+    b, l_pad = text_emb.shape[:2]
+    return ("acoustic", b, l_pad, latent_mask.shape[1], int(total_step), precision,
+            bool(fused_ffn), bool(up_matmul))
+
+
+def cross_key(text_emb, precision: str) -> tuple:
+    b, l_pad = text_emb.shape[:2]
+    return ("cross", b, l_pad, precision)
+
+
+def step_key(x, text_emb, precision: str, fused_ffn: bool = True) -> tuple:
+    return ("step", x.shape[0], text_emb.shape[1], x.shape[1], precision,
+            bool(fused_ffn))
+
+
+def vocoder_key(x, precision: str, up_matmul: bool = False) -> tuple:
+    return ("vocoder", x.shape[0], x.shape[1], precision, bool(up_matmul))
 
 
 @dataclasses.dataclass
@@ -146,7 +198,9 @@ class Programs:
 
     def synthesize_fused(self, params, cfg, text_ids, text_mask, style_dp, style_ttl,
                          generator, speed, total_step: int, t_pad: int, *,
-                         precision: str = "bf16", egress: str = "int16", backend=None):
+                         precision: str = "bf16", egress: str = "int16",
+                         fused_ffn: bool = True, up_matmul: bool = False,
+                         backend=None):
         """``synthesis.synthesize_fused`` through its program; ``speed`` is
         a 0-dim f32 tensor on the device. With a graph ``backend``
         (``assets.onnx_backend``) the program is its ``fused_fn``: the
@@ -157,37 +211,127 @@ class Programs:
             if backend is not None:
                 return backend.padded_fn(params, ids, mask, sdp, sttl, nz, spd,
                                          total_step, egress)
-            wav, dur = synthesis.synthesize_padded(params, cfg, ids, mask, sdp, sttl, nz,
-                                                   spd, total_step, precision=precision)
+            wav, dur = synthesis.synthesize_padded(
+                params, cfg, ids, mask, sdp, sttl, nz, spd, total_step,
+                precision=precision, fused_ffn=fused_ffn, up_matmul=up_matmul)
             return synthesis.encode_egress(wav, egress), dur
 
-        return self.run(fused_key(text_ids, total_step, t_pad, precision, egress), body,
-                        (text_ids, text_mask, style_dp, style_ttl, speed, noise))
+        key = fused_key(text_ids, total_step, t_pad, precision, egress, fused_ffn, up_matmul)
+        return self.run(key, body, (text_ids, text_mask, style_dp, style_ttl, speed, noise))
 
     def flow_fused(self, params, cfg, text_ids, text_mask, style_dp, style_ttl,
                    generator, speed, total_step: int, t_pad: int, *,
-                   precision: str = "bf16", halo: int = 0):
+                   precision: str = "bf16", halo: int = 0, fused_ffn: bool = True):
         """``synthesis.flow_fused`` through its program."""
         noise = _noise_draw(cfg, text_ids.shape[0], t_pad, generator)
 
         def body(ids, mask, sdp, sttl, spd, nz):
             return synthesis.flow_padded(params, cfg, ids, mask, sdp, sttl, nz, spd,
-                                         total_step, precision=precision, halo=halo)
+                                         total_step, precision=precision, halo=halo,
+                                         fused_ffn=fused_ffn)
 
-        return self.run(flow_key(text_ids, total_step, t_pad, precision, halo), body,
-                        (text_ids, text_mask, style_dp, style_ttl, speed, noise))
+        key = flow_key(text_ids, total_step, t_pad, precision, halo, fused_ffn)
+        return self.run(key, body, (text_ids, text_mask, style_dp, style_ttl, speed, noise))
 
     def vocode_window(self, params, cfg, xt_pad, mask_pad, start: int, window: int,
-                      halo: int, *, precision: str = "bf16", egress: str = "int16"):
+                      halo: int, *, precision: str = "bf16", egress: str = "int16",
+                      up_matmul: bool = False):
         """``synthesis.vocode_window`` through its program: the window's
         frames are copied into the static input."""
 
         def body(x_win, m_win):
             return (synthesis.vocode_span(params, cfg, x_win, m_win, window, halo,
-                                          precision=precision, egress=egress),)
+                                          precision=precision, egress=egress,
+                                          up_matmul=up_matmul),)
 
-        (wav,) = self.run(window_key(xt_pad, window, halo, precision, egress), body,
-                          synthesis.window_span(xt_pad, mask_pad, start, window, halo))
+        (wav,) = self.run(window_key(xt_pad, window, halo, precision, egress, up_matmul),
+                          body, synthesis.window_span(xt_pad, mask_pad, start, window, halo))
+        return wav
+
+    # -- the injected-noise path: two programs, the host syncs between -----
+
+    def text_stage(self, params, cfg, text_ids, text_mask, style_dp, style_ttl, speed,
+                   *, precision: str = "bf16", backend=None):
+        """``synthesis.text_stage`` (or ``backend.text_fn``) through its
+        program: (duration [B], text_emb)."""
+
+        def body(ids, mask, sdp, sttl, spd):
+            if backend is not None:
+                return backend.text_fn(params, ids, mask, sdp, sttl, spd)
+            return synthesis.text_stage(params, cfg, ids, mask, sdp, sttl, spd,
+                                        precision=precision)
+
+        return self.run(text_key(text_ids, precision), body,
+                        (text_ids, text_mask, style_dp, style_ttl, speed))
+
+    def acoustic_stage(self, params, cfg, text_emb, style_ttl, text_mask, latent_mask,
+                       noise, total_step: int, *, precision: str = "bf16",
+                       fused_ffn: bool = True, up_matmul: bool = False, backend=None):
+        """``synthesis.acoustic_stage`` (or ``backend.acoustic_fn``) through
+        its program: wav [B, T*chunk] f32."""
+
+        def body(emb, sttl, tmask, lmask, nz):
+            if backend is not None:
+                return (backend.acoustic_fn(params, emb, sttl, tmask, lmask, nz,
+                                            total_step),)
+            return (synthesis.acoustic_stage(params, cfg, emb, sttl, tmask, lmask, nz,
+                                             total_step, precision=precision,
+                                             fused_ffn=fused_ffn, up_matmul=up_matmul),)
+
+        key = acoustic_key(text_emb, latent_mask, total_step, precision, fused_ffn,
+                           up_matmul)
+        (wav,) = self.run(key, body, (text_emb, style_ttl, text_mask, latent_mask, noise))
+        return wav
+
+    # -- the progress path: the cross K/V once, a step per replay, vocoder --
+
+    def cross_cache(self, params, cfg, text_emb, style_ttl, text_mask, *,
+                    precision: str = "bf16", backend=None) -> tuple:
+        """``synthesis.cross_cache`` through its program. A graph backend
+        has no cache to take out of its opaque graph: ()."""
+        if backend is not None:
+            return ()
+
+        def body(emb, sttl, tmask):
+            return synthesis.cross_cache(params, cfg, emb, sttl, tmask,
+                                         precision=precision)
+
+        return self.run(cross_key(text_emb, precision), body,
+                        (text_emb, style_ttl, text_mask))
+
+    def euler_step(self, params, cfg, x, text_emb, style_ttl, text_mask, latent_mask,
+                   current_step, total_step, cache: tuple, *, precision: str = "bf16",
+                   fused_ffn: bool = True, backend=None):
+        """``synthesis.euler_step`` (or the graph backend's progress step)
+        through its program. ``current_step`` is a static input copied in
+        before each replay, so one graph serves every step."""
+
+        def body(x, emb, sttl, tmask, lmask, cur, tot, *cache):
+            if backend is not None:
+                _cross, step_fn, _voc = backend.progress_fns()
+                return (step_fn(params, x, emb, sttl, tmask, lmask, cur, tot),)
+            return (synthesis.euler_step(params, cfg, x, emb, sttl, tmask, lmask, cur,
+                                         tot, cache, precision=precision,
+                                         fused_ffn=fused_ffn),)
+
+        (x,) = self.run(step_key(x, text_emb, precision, fused_ffn), body,
+                        (x, text_emb, style_ttl, text_mask, latent_mask, current_step,
+                         total_step, *cache))
+        return x
+
+    def vocode(self, params, cfg, x, frame_mask, *, precision: str = "bf16",
+               up_matmul: bool = False, backend=None):
+        """``synthesis.vocode`` (or the graph backend's progress vocoder)
+        through its program."""
+
+        def body(x, fm):
+            if backend is not None:
+                _cross, _step, voc_fn = backend.progress_fns()
+                return (voc_fn(params, x, fm),)
+            return (synthesis.vocode(params, cfg, x, fm, precision=precision,
+                                     up_matmul=up_matmul),)
+
+        (wav,) = self.run(vocoder_key(x, precision, up_matmul), body, (x, frame_mask))
         return wav
 
     # ------------------------------------------------------------------

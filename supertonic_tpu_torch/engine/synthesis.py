@@ -18,6 +18,8 @@
   vocode_span:     one vocoder window with its halo, given as its own
                    tensors; only the interior samples are kept
   vocode_window:   vocode_span of the window at ``start`` of a padded latent
+  cross_cache, euler_step, vocode: the progress path's three calls (the
+                   cross K/V once, one Euler step, the vocoder)
 
 These functions run eagerly. Where the JAX package compiles one program per
 static shape (``jit_synthesize_fused``, ``jit_flow_fused``,
@@ -66,11 +68,12 @@ def text_stage(params, cfg: TTSConfig, text_ids, text_mask, style_dp, style_ttl,
 
 def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
                latent_mask, noise, total_step: int, *,
-               precision: str = "bf16") -> torch.Tensor:
+               precision: str = "bf16", fused_ffn: bool = True) -> torch.Tensor:
     """The Euler loop: returns the denoised latent [B, T, C] f32. The
     initial latent is noise * latent_mask; each step feeds x_t with
     (current_step, total_step) to the estimator, which applies the update;
-    the step-invariant cross K/V is computed once."""
+    the step-invariant cross K/V is computed once. ``fused_ffn``: the
+    estimator's AdaLN FFN through the fused kernel (``layers.block``)."""
     dtype = dtype_of(precision)
     b = text_emb.shape[0]
     ve = params["vector_estimator"]
@@ -83,21 +86,23 @@ def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
         cur = torch.full((b,), float(i), dtype=torch.float32, device=x.device)
         x = vector_estimator.step(ve, cfg, x, text_emb, style_ttl, text_mask,
                                   latent_mask, cur, tot, dtype=dtype,
-                                  cross_cache=cache)
+                                  cross_cache=cache, fused_ffn=fused_ffn)
     return x
 
 
 def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
                    latent_mask, noise, total_step: int, *,
-                   precision: str = "bf16") -> torch.Tensor:
-    """Euler loop + vocoder. Returns wav [B, T*chunk] f32."""
+                   precision: str = "bf16", fused_ffn: bool = True,
+                   up_matmul: bool = False) -> torch.Tensor:
+    """Euler loop + vocoder. Returns wav [B, T*chunk] f32. ``up_matmul``:
+    the vocoder's upsample convs as products (``vocoder.apply``)."""
     x = flow_stage(params, cfg, text_emb, style_ttl, text_mask, latent_mask,
-                   noise, total_step, precision=precision)
+                   noise, total_step, precision=precision, fused_ffn=fused_ffn)
     # batch-max frame validity: frames past the longest utterance are
     # bucket padding, masked inside the vocoder
     frame_mask = latent_mask.amax(0)
     return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
-                         dtype=dtype_of(precision))
+                         dtype=dtype_of(precision), up_matmul=up_matmul)
 
 
 def _latent_mask(cfg: TTSConfig, dur, t_pad: int):
@@ -119,7 +124,8 @@ def _noise(cfg: TTSConfig, b: int, t_pad: int, generator, device, out=None):
 
 def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                       style_ttl, noise, speed, total_step: int, *,
-                      precision: str = "bf16"):
+                      precision: str = "bf16", fused_ffn: bool = True,
+                      up_matmul: bool = False):
     """Text stage + acoustic stage at the latent length of ``noise``
     [B, T, C]; the latent mask comes from the predicted duration, clamped
     into T. Returns (wav [B, T*chunk] f32, duration [B] f32, unclamped)."""
@@ -127,14 +133,16 @@ def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                           speed, precision=precision)
     latent_mask = _latent_mask(cfg, dur, noise.shape[1])
     wav = acoustic_stage(params, cfg, emb, style_ttl, text_mask, latent_mask,
-                         noise, total_step, precision=precision)
+                         noise, total_step, precision=precision,
+                         fused_ffn=fused_ffn, up_matmul=up_matmul)
     return wav, dur
 
 
 def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                      style_ttl, generator: torch.Generator, speed,
                      total_step: int, t_pad: int, *, precision: str = "bf16",
-                     egress: str = "int16"):
+                     egress: str = "int16", fused_ffn: bool = True,
+                     up_matmul: bool = False):
     """The production call: noise [B, t_pad, C] ~ N(0, 1) drawn on the
     device from ``generator``, then ``synthesize_padded``. Returns (wav
     [B, t_pad*chunk] int16, uint8 mu-law or f32, duration [B] f32 —
@@ -143,13 +151,14 @@ def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
     noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
     wav, dur = synthesize_padded(params, cfg, text_ids, text_mask, style_dp,
                                  style_ttl, noise, speed, total_step,
-                                 precision=precision)
+                                 precision=precision, fused_ffn=fused_ffn,
+                                 up_matmul=up_matmul)
     return encode_egress(wav, egress), dur
 
 
 def flow_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                 style_ttl, noise, speed, total_step: int, *,
-                precision: str = "bf16", halo: int = 0):
+                precision: str = "bf16", halo: int = 0, fused_ffn: bool = True):
     """The text stage and the flow loop at the latent length of ``noise``
     [B, T, C]. Returns (latent [B, T + 2*halo, C], duration [B] — unclamped,
     for overflow detection —, and the batch-max frame mask [T + 2*halo]),
@@ -159,7 +168,7 @@ def flow_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                           speed, precision=precision)
     latent_mask = _latent_mask(cfg, dur, noise.shape[1])
     xt = flow_stage(params, cfg, emb, style_ttl, text_mask, latent_mask, noise,
-                    total_step, precision=precision)
+                    total_step, precision=precision, fused_ffn=fused_ffn)
     fmask = latent_mask.amax(0)
     if halo:
         xt = F.pad(xt, (0, 0, halo, halo))
@@ -170,12 +179,43 @@ def flow_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
 def flow_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                style_ttl, generator: torch.Generator, speed,
                total_step: int, t_pad: int, *, precision: str = "bf16",
-               halo: int = 0):
+               halo: int = 0, fused_ffn: bool = True):
     """synthesize_fused without the vocoder: ``flow_padded`` on noise
     [B, t_pad, C] drawn on the device from ``generator``."""
     noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
     return flow_padded(params, cfg, text_ids, text_mask, style_dp, style_ttl,
-                       noise, speed, total_step, precision=precision, halo=halo)
+                       noise, speed, total_step, precision=precision, halo=halo,
+                       fused_ffn=fused_ffn)
+
+
+def cross_cache(params, cfg: TTSConfig, text_emb, style_ttl, text_mask, *,
+                precision: str = "bf16") -> tuple:
+    """The step-invariant cross-attention memory of the progress path,
+    ``vector_estimator.precompute_cross`` flattened: (mem_mask, k_0, v_0,
+    k_1, v_1, ...)."""
+    mem_mask, kvs = vector_estimator.precompute_cross(
+        params["vector_estimator"], cfg, text_emb, style_ttl, text_mask,
+        dtype=dtype_of(precision))
+    return (mem_mask, *[t for kv in kvs for t in kv])
+
+
+def euler_step(params, cfg: TTSConfig, x, text_emb, style_ttl, text_mask,
+               latent_mask, current_step, total_step, cache: tuple, *,
+               precision: str = "bf16", fused_ffn: bool = True) -> torch.Tensor:
+    """One Euler step of the progress path on the flat ``cross_cache``."""
+    mem_mask, flat = cache[0], cache[1:]
+    kvs = [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+    return vector_estimator.step(params["vector_estimator"], cfg, x, text_emb,
+                                 style_ttl, text_mask, latent_mask, current_step,
+                                 total_step, dtype=dtype_of(precision),
+                                 cross_cache=(mem_mask, kvs), fused_ffn=fused_ffn)
+
+
+def vocode(params, cfg: TTSConfig, x, frame_mask, *, precision: str = "bf16",
+           up_matmul: bool = False) -> torch.Tensor:
+    """The progress path's vocoder call: wav [B, T*chunk] f32."""
+    return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
+                         dtype=dtype_of(precision), up_matmul=up_matmul)
 
 
 def window_span(xt_pad, mask_pad, start: int, window: int, halo: int):
@@ -189,19 +229,20 @@ def window_span(xt_pad, mask_pad, start: int, window: int, halo: int):
 
 
 def vocode_span(params, cfg: TTSConfig, x_win, m_win, window: int, halo: int,
-                *, precision: str = "bf16", egress: str = "int16") -> torch.Tensor:
+                *, precision: str = "bf16", egress: str = "int16",
+                up_matmul: bool = False) -> torch.Tensor:
     """Vocode one window given as its own tensors, ``x_win`` [B, window +
     2*halo, C] and its frame mask ``m_win``, and return only the interior
     samples [B, window*chunk]."""
     wav = vocoder.apply(params["vocoder"], cfg, x_win, frame_mask=m_win,
-                        dtype=dtype_of(precision))
+                        dtype=dtype_of(precision), up_matmul=up_matmul)
     chunk = cfg.chunk_size
     return encode_egress(wav[:, halo * chunk:(halo + window) * chunk], egress)
 
 
 def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
                   window: int, halo: int, *, precision: str = "bf16",
-                  egress: str = "int16") -> torch.Tensor:
+                  egress: str = "int16", up_matmul: bool = False) -> torch.Tensor:
     """Vocode one window: frames [start, start + window + 2*halo) of the
     latent pre-padded with ``halo`` zero frames each side (``xt_pad``
     [B, T+2H, C], ``mask_pad`` [T+2H], the batch-max frame mask, zero in
@@ -211,7 +252,7 @@ def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
     whole chunk is vocoded."""
     x_win, m_win = window_span(xt_pad, mask_pad, start, window, halo)
     return vocode_span(params, cfg, x_win, m_win, window, halo,
-                       precision=precision, egress=egress)
+                       precision=precision, egress=egress, up_matmul=up_matmul)
 
 
 def encode_egress(wav: torch.Tensor, egress: str) -> torch.Tensor:

@@ -100,7 +100,25 @@ def _split_oversized(sentence: str, max_len: int) -> list[str]:
 
 
 def chunk_text(text: str, max_len: int = 300) -> list[str]:
-    """Split ``text`` into synthesis chunks of at most ``max_len`` chars."""
+    """Split ``text`` into synthesis chunks of at most ``max_len`` chars.
+
+    With TTS_NATIVE_FRONTEND=1 the C++ twin chunks it (the same opt-in as
+    the native normalizer in assets.load_assets), falling back to the
+    Python implementation when the library is unavailable."""
+    import os
+
+    if os.getenv("TTS_NATIVE_FRONTEND", "0") != "0" and "\x00" not in text:
+        # a NUL would truncate the C string: such texts take the Python path
+        try:
+            from .native import native_chunk_text
+
+            return native_chunk_text(text, max_len)
+        except RuntimeError:
+            pass  # no toolchain: the Python implementation below
+    return _chunk_text_py(text, max_len)
+
+
+def _chunk_text_py(text: str, max_len: int = 300) -> list[str]:
     chunks: list[str] = []
     for paragraph in _PARA_SPLIT.split(text.strip()):
         paragraph = paragraph.strip()

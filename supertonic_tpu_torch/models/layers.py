@@ -400,12 +400,13 @@ def _modulate(x, shift, scale):
 
 def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
           memory=None, memory_mask=None, q_rope_cross=None, k_rope_cross=None,
-          cond=None, cross_kv=None) -> torch.Tensor:
+          cond=None, cross_kv=None, fused_ffn: bool = True) -> torch.Tensor:
     """Pre-LN transformer block: self-attn [+ cross-attn] + FFN, optionally
-    AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. The AdaLN FFN sublayer
-    goes through the fused AdaLN-FFN kernel's wrapper (ops/ffn.py) when its
-    linears are plain; W8A8 linears take mod(LN) and ``ffn``, as the JAX
-    int8 path does."""
+    AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. With ``fused_ffn`` the
+    AdaLN FFN sublayer goes through the fused AdaLN-FFN kernel's wrapper
+    (ops/ffn.py) when its linears are plain; without it, and for W8A8
+    linears, it is mod(LN), ``linear``, silu and ``linear``, as in the JAX
+    package's unfused path."""
     has_cross = "cross" in p
     if cond is not None and "adaln" in p:
         n_sub = 3 if has_cross else 2
@@ -431,7 +432,8 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
                            k_rope=k_rope_cross, kv_cache=cross_kv)
         i_sub += 1
     f = p["ffn"]
-    if mods is not None and isinstance(f["in"], Linear) and isinstance(f["out"], Linear):
+    if (fused_ffn and mods is not None and isinstance(f["in"], Linear)
+            and isinstance(f["out"], Linear)):
         shift, scale, gate = (mods[3 * i_sub], mods[3 * i_sub + 1],
                               mods[3 * i_sub + 2])
         ln = p["ln3"]

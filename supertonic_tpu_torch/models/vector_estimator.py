@@ -71,7 +71,8 @@ def precompute_cross(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
 
 
 def velocity(params, cfg: TTSConfig, latent, text_emb, style_ttl, text_mask,
-             latent_mask, t, *, dtype=torch.float32, cross_cache=None):
+             latent_mask, t, *, dtype=torch.float32, cross_cache=None,
+             fused_ffn: bool = True):
     hp = cfg.vector_estimator
     x = L.linear(params["in_proj"], latent.to(dtype))
     temb = L.sinusoidal_embedding(t, hp.time_embed_dim).to(dtype)
@@ -89,7 +90,7 @@ def velocity(params, cfg: TTSConfig, latent, text_emb, style_ttl, text_mask,
     for bp, kv in zip(params["blocks"], kvs):
         x = L.block(bp, x, hp.n_heads, self_mask=latent_mask, self_rope=q_rope,
                     memory_mask=mem_mask, q_rope_cross=q_rope, cond=cond,
-                    cross_kv=kv)
+                    cross_kv=kv, fused_ffn=fused_ffn)
 
     h = L.layer_norm(params["ln_out"], x)
     shift, scale = L.linear(params["adaln_out"], cond)[:, None, :].chunk(2, dim=-1)
@@ -100,11 +101,14 @@ def velocity(params, cfg: TTSConfig, latent, text_emb, style_ttl, text_mask,
 
 def step(params, cfg: TTSConfig, noisy_latent, text_emb, style_ttl, text_mask,
          latent_mask, current_step, total_step, *, dtype=torch.float32,
-         cross_cache=None):
-    """One flow step: x_{t+dt} = x_t + dt * v(x_t, t), masked."""
+         cross_cache=None, fused_ffn: bool = True):
+    """One flow step: x_{t+dt} = x_t + dt * v(x_t, t), masked.
+    ``fused_ffn``: the blocks' AdaLN FFN through the fused kernel
+    (``layers.block``)."""
     t = current_step / total_step
     dt = (1.0 / total_step)[:, None, None]
     v = velocity(params, cfg, noisy_latent, text_emb, style_ttl, text_mask,
-                 latent_mask, t, dtype=dtype, cross_cache=cross_cache)
+                 latent_mask, t, dtype=dtype, cross_cache=cross_cache,
+                 fused_ffn=fused_ffn)
     x = noisy_latent.float() + dt * v
     return x * latent_mask[:, :, None]

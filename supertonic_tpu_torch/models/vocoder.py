@@ -77,6 +77,20 @@ def receptive_field_frames(cfg: TTSConfig) -> int:
     return math.ceil(r)
 
 
+def _up_matmul(p: L.Conv1d, s: torch.Tensor) -> torch.Tensor:
+    """conv1d with SAME padding as one product: the k shifted copies of
+    ``s`` [B, T, Cin] stacked along channels, times the weight [k*Cin,
+    Cout], bias added as the convolution adds it."""
+    cout, cin, k = p.weight.shape
+    half = (k - 1) // 2
+    t_len = s.shape[1]
+    sp = F.pad(s, (0, 0, half, k - 1 - half))
+    xk = torch.cat([sp[:, i:i + t_len] for i in range(k)], dim=-1)
+    # [Cout, Cin, k] -> [Cout, k*Cin], tap-major as the stacked channels
+    w = L._weight(p, s.dtype).permute(0, 2, 1).reshape(cout, k * cin)
+    return F.linear(xk, w, p.bias.to(s.dtype))
+
+
 def init(rng, cfg: TTSConfig) -> L.Params:
     hp = cfg.vocoder
     c_lat = cfg.latent_channels
@@ -101,10 +115,15 @@ def init(rng, cfg: TTSConfig) -> L.Params:
 
 
 def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
-          dtype=torch.float32) -> torch.Tensor:
+          dtype=torch.float32, up_matmul: bool = False) -> torch.Tensor:
     """latent [B, T, C] -> wav [B, T * chunk_size] float32. ``frame_mask``
     ([T] or [B, T], 1 = real frame) marks batch-max-valid frames; with it,
-    bucket-padded execution equals exact-length execution."""
+    bucket-padded execution equals exact-length execution.
+
+    ``up_matmul``: each upsample conv as one K-stacked product ([B, T,
+    k*Cin] @ [k*Cin, Cout*f]) instead of a convolution, the JAX package's
+    ``TTS_VOC_UP_MATMUL`` lever; the same sums in another order. The engine
+    reads that variable once when it is built and passes the flag here."""
     hp = cfg.vocoder
 
     def res(p, x, m):
@@ -121,7 +140,10 @@ def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
         x = x * m
     x = res(params["pre_res"], x, m)
     for sp, factor in zip(params["stages"], hp.upsample_factors):
-        h = L.conv1d(sp["up"], F.silu(x))               # [B, T, cout*factor]
+        if up_matmul:
+            h = _up_matmul(sp["up"], F.silu(x))
+        else:
+            h = L.conv1d(sp["up"], F.silu(x))           # [B, T, cout*factor]
         b, t, cf = h.shape
         x = h.reshape(b, t * factor, cf // factor)       # depth-to-space
         if m is not None:

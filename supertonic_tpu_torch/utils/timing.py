@@ -1,9 +1,10 @@
 """Timers and per-stage profiling counters, a copy of
-``supertonic_tpu.utils.timing`` (its ``device_trace``, a ``jax.profiler``
-trace, is not carried over): a wall-clock context manager and a stage
+``supertonic_tpu.utils.timing``: a wall-clock context manager and a stage
 profiler whose counters are the serving metrics: per-stage seconds, RTF,
 chars/sec, audio-sec/s, request latency and time-to-first-audio
-percentiles.
+percentiles. ``device_trace`` is the counterpart of the JAX package's
+``jax.profiler`` trace: a ``torch.profiler`` trace of the host and, with a
+card, the device, written as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -148,6 +149,29 @@ class StageProfiler:
         out["ttfa_p50_s"] = self._percentile(ttfa, 50)
         out["ttfa_p95_s"] = self._percentile(ttfa, 95)
         return out
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Trace the block under ``torch.profiler`` (CPU activity, and CUDA
+    activity when a card is present) and write a Chrome trace (view it in
+    Perfetto or chrome://tracing) to ``logdir``/trace_<pid>_<ms>.json.
+    Yields the profiler; its ``trace_path`` names the file."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.trace_path = os.path.join(
+        logdir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json")
+    with prof:
+        yield prof
+    prof.export_chrome_trace(prof.trace_path)
 
 
 def sanitize_filename(text: str, max_len: int) -> str:

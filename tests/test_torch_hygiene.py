@@ -70,17 +70,21 @@ GRAPH_BACKEND = ("assets/fetch.py", "assets/onnx_reader.py", "assets/onnx_export
                  "engine/onnx_adapter.py")
 
 
-def test_graph_backend_modules_are_covered_and_import_without_jax():
-    """The graph backend's modules are among the files checked above, and
-    import in a process where JAX and the JAX package cannot be found."""
+SINGLE_CARD_SURFACE = ("compat.py", "__main__.py", "frontend/native.py",
+                       "utils/audio_metrics.py", "utils/timing.py", "serve/app.py")
+
+
+def _covered_and_imports_without_jax(modules, skip_import=()):
+    """The modules are among the files checked above, and import in a
+    process where JAX and the JAX package cannot be found."""
     import subprocess
     import sys
 
     files = {p.relative_to(ROOT / "supertonic_tpu_torch").as_posix()
              for p in _port_files() if p.is_relative_to(ROOT / "supertonic_tpu_torch")}
-    assert set(GRAPH_BACKEND) <= files
+    assert set(modules) <= files
     mods = ", ".join(repr("supertonic_tpu_torch." + m[:-3].replace("/", "."))
-                     for m in GRAPH_BACKEND)
+                     for m in modules if m not in skip_import)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -91,12 +95,26 @@ def test_graph_backend_modules_are_covered_and_import_without_jax():
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'supertonic_tpu'):\n"
         "            raise ImportError(name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        f"for m in ({mods}):\n"
+        f"for m in ({mods},):\n"
         "    importlib.import_module(m)\n"
         "assert not any(k.split('.')[0] in ('jax', 'supertonic_tpu') for k in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_graph_backend_modules_are_covered_and_import_without_jax():
+    """The graph backend's modules are among the files checked above, and
+    import in a process where JAX and the JAX package cannot be found."""
+    _covered_and_imports_without_jax(GRAPH_BACKEND)
+
+
+def test_single_card_surface_modules_are_covered_and_import_without_jax():
+    """The same for the compat layer, the native frontend's binding, the
+    audio metrics, the timers with device_trace and the FastAPI app
+    (``__main__`` is checked by the AST scan only: importing it runs the
+    CLI)."""
+    _covered_and_imports_without_jax(SINGLE_CARD_SURFACE, skip_import=("__main__.py",))
 
 
 def test_forbidden_name_match():

@@ -81,10 +81,16 @@ KEYS = {  # program: (JAX jit factory, static names, key function, its arguments
              dict(text_ids=IDS, total_step=5, t_pad=448, precision="bf16", halo=24)),
     "window": (JS.jit_vocode_window, programs.WINDOW_STATIC, programs.window_key,
                dict(xt_pad=XT_PAD, window=64, halo=24, precision="bf16", egress="int16")),
+    "text": (JS.jit_text_stage, programs.TEXT_STATIC, programs.text_key,
+             dict(text_ids=IDS, precision="bf16")),
+    "acoustic": (JS.jit_acoustic_stage, programs.ACOUSTIC_STATIC, programs.acoustic_key,
+                 dict(text_emb=torch.zeros((4, 64, 16)), latent_mask=torch.zeros((4, 448)),
+                      total_step=5, precision="bf16")),
 }
 OTHER = {"total_step": 2, "t_pad": 640, "egress": "f32", "window": 32, "halo": 12,
          "precision": "int8", "text_ids": torch.zeros((4, 128), dtype=torch.int64),
-         "xt_pad": torch.zeros((2, 112, 8))}
+         "xt_pad": torch.zeros((2, 112, 8)), "text_emb": torch.zeros((4, 128, 16)),
+         "latent_mask": torch.zeros((4, 640)), "x": torch.zeros((1, 640, 8))}
 
 
 @pytest.mark.parametrize("name", sorted(KEYS))
@@ -99,6 +105,42 @@ def test_program_key_holds_the_jax_static_arguments(name, tiny_config):
     varied = [arg for arg in kwargs if key_fn(**dict(kwargs, **{arg: OTHER[arg]})) != base]
     assert set(static) <= set(varied)
     assert set(varied) == set(kwargs)  # array shapes and precision too
+
+
+PROGRESS_KEYS = {  # the JAX engine's progress closure, key function, its arguments
+    "cross": ("_cross_fn", programs.CROSS_STATIC, programs.cross_key,
+              dict(text_emb=torch.zeros((1, 64, 16)), precision="bf16")),
+    "step": ("_step_fn", programs.STEP_STATIC, programs.step_key,
+             dict(x=torch.zeros((1, 448, 8)), text_emb=torch.zeros((1, 64, 16)),
+                  precision="bf16")),
+    "vocoder": ("_vocoder_fn", programs.VOCODER_STATIC, programs.vocoder_key,
+                dict(x=torch.zeros((1, 448, 8)), precision="bf16")),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_progress_engine(params, tiny_config, style):
+    """A JAX engine whose progress closures have been built by one call."""
+    from supertonic_tpu.engine import SynthesisEngine as JEngine
+    from supertonic_tpu.engine import VoiceStyle as JVoiceStyle
+    from supertonic_tpu.frontend import UnicodeProcessor as JProcessor
+    from supertonic_tpu.frontend import build_default_indexer as j_indexer
+
+    jeng = JEngine(params, tiny_config, JProcessor(j_indexer()), precision="f32")
+    jeng.infer_with_progress(TEXTS[0], "en", JVoiceStyle(style.ttl, style.dp), total_step=2)
+    return jeng
+
+
+@pytest.mark.parametrize("name", sorted(PROGRESS_KEYS))
+def test_progress_key_holds_the_jax_static_arguments(name, jax_progress_engine):
+    """The JAX engine jits its progress closures with no static argument:
+    the key holds the shapes of the arrays they take and the precision."""
+    attr, static, key_fn, kwargs = PROGRESS_KEYS[name]
+    assert getattr(jax_progress_engine, attr)._jit_info.static_argnames == static == ()
+    base = key_fn(**kwargs)
+    assert base == key_fn(**kwargs) and base[0] == name
+    varied = [arg for arg in kwargs if key_fn(**dict(kwargs, **{arg: OTHER[arg]})) != base]
+    assert set(varied) == set(kwargs)
 
 
 def test_flow_key_holds_the_engine_halo():
@@ -352,3 +394,87 @@ def test_cpu_engine_builds_no_program(engine, style, monkeypatch):
     assert np.isfinite(wav).all() and wav.shape[0] == 2
     pieces = list(engine._vocode_stream(TEXTS[0], "en", style, 2, 3.0, 8))
     assert len(pieces) > 1 and pieces[-1][2]
+    noise = np.zeros((2, 64, engine.cfg.latent_channels), np.float32)
+    wav, _ = engine.infer_batch(TEXTS, ["en", "en"], style.tile(2), total_step=2, noise=noise)
+    assert np.isfinite(wav).all()
+    wav, _ = engine.infer_with_progress(TEXTS[0], "en", style, total_step=2)
+    assert np.isfinite(wav).all()
+
+
+# ---------------------------------------------------------------------------
+# the progress and injected-noise programs' bodies, run eagerly on the CPU
+# ---------------------------------------------------------------------------
+
+class EagerPrograms(programs.Programs):
+    """``Programs`` whose ``run`` calls the body eagerly on fresh copies of
+    its inputs (the graph capture needs a card): what a replay computes,
+    with each key recorded."""
+
+    def __init__(self):
+        self.keys = []
+
+    def run(self, key, body, inputs):
+        self.keys.append(key)
+        static = programs.static_like(inputs, "cpu")
+        programs.fill(static, inputs)
+        return tuple(out.clone() for out in body(*static))
+
+
+def _eager_programs_engine(params, cfg, **kw):
+    eng = SynthesisEngine(params, cfg, UnicodeProcessor(build_default_indexer()),
+                          device="cpu", **kw)
+    eng.programs = eng._synth = EagerPrograms()
+    return eng
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_progress_programs_equal_the_eager_path(params, tiny_config, engine, style,
+                                                precision):
+    """infer_with_progress through the text, cross, step and vocoder
+    programs' bodies equals the eager path bit for bit with the same seed;
+    the step program is one key replayed per step, and the callbacks fire
+    in order after each step."""
+    eng = _eager_programs_engine(params, tiny_config, precision=precision, seed=5)
+    ref = SynthesisEngine(params, tiny_config, UnicodeProcessor(build_default_indexer()),
+                          precision=precision, device="cpu", seed=5)
+    seen = []
+    wav, dur = eng.infer_with_progress(TEXTS[1], "en", style, total_step=3,
+                                       progress_callback=lambda *a: seen.append(a))
+    want_wav, want_dur = ref.infer_with_progress(TEXTS[1], "en", style, total_step=3)
+    assert seen == [(1, 3), (2, 3), (3, 3)]
+    np.testing.assert_array_equal(dur, want_dur)
+    np.testing.assert_array_equal(wav, want_wav)
+    kinds = [k[0] for k in eng.programs.keys]
+    assert kinds == ["text", "cross", "step", "step", "step", "vocoder"]
+    steps = [k for k in eng.programs.keys if k[0] == "step"]
+    assert len(set(steps)) == 1 and steps[0][-1] is True  # fused_ffn
+    t_bucket = steps[0][3]
+    assert eng.programs.keys[-1] == ("vocoder", 1, t_bucket, precision, False)
+
+
+def test_injected_noise_programs_match_jax(params, tiny_config, style):
+    """infer_batch(noise=...) through the text and acoustic programs'
+    bodies (the host syncs on the duration between them) against the JAX
+    engine: duration rtol 1e-6 with the same latent grid, wav atol 1e-4."""
+    from supertonic_tpu.engine import SynthesisEngine as JEngine
+    from supertonic_tpu.engine import VoiceStyle as JVoiceStyle
+    from supertonic_tpu.frontend import UnicodeProcessor as JProcessor
+    from supertonic_tpu.frontend import build_default_indexer as j_indexer
+
+    cfg = tiny_config
+    noise = np.random.default_rng(3).standard_normal(
+        (2, 256, cfg.latent_channels)).astype(np.float32)
+    for fused_ffn in (False, True):
+        eng = _eager_programs_engine(params, cfg, precision="f32", fused_ffn=fused_ffn)
+        jeng = JEngine(params, cfg, JProcessor(j_indexer()), precision="f32",
+                       fused_ffn=fused_ffn)
+        w, d = eng.infer_batch(TEXTS, ["en", "en"], style.tile(2), total_step=2, noise=noise)
+        jw, jd = jeng.infer_batch(TEXTS, ["en", "en"], JVoiceStyle(style.ttl, style.dp).tile(2),
+                                  total_step=2, noise=noise)
+        np.testing.assert_allclose(d, jd, rtol=1e-6)
+        np.testing.assert_array_equal(np.ceil(d * cfg.sample_rate / cfg.chunk_size),
+                                      np.ceil(jd * cfg.sample_rate / cfg.chunk_size))
+        np.testing.assert_allclose(w, jw, rtol=0, atol=1e-4)
+        text, acoustic = eng.programs.keys
+        assert text[0] == "text" and acoustic[0] == "acoustic"
+        assert acoustic[-2:] == (fused_ffn, False) and acoustic[4] == 2

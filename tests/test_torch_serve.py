@@ -415,7 +415,23 @@ def test_logger_and_profiler_equal_the_originals():
     assert got == want and got["requests"] == 5 and got["counters"]["egress_tail_fetches"] == 2
     assert ttiming.sanitize_filename("Héllo, wörld!", 9) == jtiming.sanitize_filename(
         "Héllo, wörld!", 9) == "Héllo__wö"
-    assert not hasattr(ttiming, "device_trace")
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """``device_trace`` (the port's counterpart of the JAX package's
+    ``jax.profiler`` trace) writes a Chrome trace of the block into its
+    folder; on the CPU it holds the host's ops."""
+    import json
+
+    import torch
+
+    logdir = tmp_path / "trace"
+    with ttiming.device_trace(str(logdir)) as prof:
+        torch.randn(64, 64) @ torch.randn(64, 64)
+    assert os.path.dirname(prof.trace_path) == str(logdir)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "aten::mm" for e in events)
 
 
 def test_router_policy_equals_the_original():
