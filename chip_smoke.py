@@ -8,6 +8,9 @@
                                      # of a fixed 1/11 s/char rate (T=640
                                      # for the b64 cell), to compare with
                                      # a tree from before the rate cache
+    python3 chip_smoke.py --mesh-only # phases 1, 2 and 11 (a)-(b) alone; on
+                                     # several cards DP over all of them
+                                     # and TP over cuda:0 and cuda:1 too
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
@@ -94,6 +97,29 @@ Phases (each prints its own lines; any failure exits non-zero):
                under TTS_NATIVE_FRONTEND=1; the vocoder's up_matmul against
                the conv path at b64 and TTS_VOC_UP_MATMUL=1 in an engine.
                Phase 6's int8 vs bf16 check also prints log-mel SNR and MCD
+ 11. the mesh — (a)-(d) run after phase 7, before phase 5, so that phase 5
+               also checks every kernel at the shapes the mesh gave it:
+               (a) SynthesisEngine(mesh=make_mesh(devices=[cuda:0,
+               cuda:0])) at the b64/5-step bf16 cell: audio, launches
+               exactly twice a B=32 shard's, durations bit-equal to the
+               single-device engine with the same seed in bf16 and (B=8)
+               f32, the f32 wav within 1e-5 and the bf16 wav's relative L2
+               at most 0.01, audio-sec/s beside the single device (over
+               every card too, where there are several); (b) model=2 over
+               [cuda:0, cuda:0] at B=4, eager: f32 within 5e-5 of the
+               single device, attention at half the heads, no FFN-kernel
+               launch, VE block 0's W8A8 linears sharded bit-equal to
+               unsharded (f32 and bf16 out), the int8 engine against
+               single-device int8 (printed), whose int32-product launches
+               the kernel line reports; (c) two processes on a gloo control
+               group (``--multihost-worker``), each with local_mesh() and
+               its host_shard; no config is a no-op, a bad coordinator
+               raises; (d) two port servers behind the router: 16 /tts over
+               both, then one killed and the rest served by failover. (e),
+               last: phase 9's bundle under a DP mesh against the single
+               device (f32, 3e-5), python -m
+               supertonic_tpu_torch.tools.parity_check --skip-ort exits 0
+               and tools.bench_onnx_backend prints both modes
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -303,7 +329,7 @@ def check_attention(gen, cell, results, serving):
     cases += [(f"cell H{h} Tq{tq} Tk{tk}", b, h, tq, tk, "tail" if masked else None, n)
               for (b, h, tq, tk, masked), n in sorted(cell["attention"].items())]
     # the serving run's shapes, timed where a streamed chunk launches them
-    cases += [(f"serving H{h} Tq{tq} Tk{tk} ({k} per streamed chunk)", b, h, tq, tk,
+    cases += [(f"phase 7/11 H{h} Tq{tq} Tk{tk} ({k} per streamed chunk)", b, h, tq, tk,
                "tail" if masked else None, 0 if k else None)
               for (b, h, tq, tk, masked), k in sorted(serving["attention"].items())
               if (b, h, tq, tk, masked) not in cell["attention"]]
@@ -352,7 +378,8 @@ def check_ffn(gen, cell, results, serving):
              ("edge B2 x T200, D384 F1152", 2, 200, 384, 1152, None)]
     cases += [(f"cell rows {b}x{t}", b, t, d, f, n)
               for (b, t, d, f), n in sorted(cell["adaln_ffn"].items())]
-    cases += [(f"serving rows {b}x{t} ({k} per streamed chunk)", b, t, d, f, 0 if k else None)
+    cases += [(f"phase 7/11 rows {b}x{t} ({k} per streamed chunk)", b, t, d, f,
+               0 if k else None)
               for (b, t, d, f), k in sorted(serving["adaln_ffn"].items())
               if (b, t, d, f) not in cell["adaln_ffn"]]
     for dtype in (torch.float32, torch.bfloat16):
@@ -396,7 +423,7 @@ def check_chain(gen, cell, results, serving):
              ("T'=64x256", 64, 64 * 256, 128, 0, "tail")]
     cases += [(f"cell T'={t_len}", b, t_len, c, n, "tail")
               for (b, t_len, c), n in sorted(cell["resblock_chain"].items())]
-    cases += [(f"serving T'={t_len} ({k} per streamed chunk)", b, t_len, c,
+    cases += [(f"phase 7/11 T'={t_len} ({k} per streamed chunk)", b, t_len, c,
                0 if k else None, "tail")
               for (b, t_len, c), k in sorted(serving["resblock_chain"].items())
               if (b, t_len, c) not in cell["resblock_chain"]]
@@ -438,14 +465,16 @@ def check_chain(gen, cell, results, serving):
                     nbytes, 12.0 * p * c * c * b * t_len, reps=3, shape=(b, t_len, c))
 
 
-def check_int8_matmul(gen, cell, results):
+def check_int8_matmul(gen, cell, results, tp):
     """Exact (max abs error 0) against the plain version, float64 sums cast
-    to int32, at the W8A8 path's shapes and at edge shapes; timed at the
-    path's shapes (with the W8A8 product's launches per cell batch: the
-    int32 form is off the path) and at the edge shapes with M = 40,960."""
+    to int32, at its path's shapes (the row-parallel W8A8 linears of phase
+    11's TP int8 batch, ``tp``: (M, K, N) -> launches), at the W8A8 path's
+    and at edge shapes; timed at its path's shapes (with their launches),
+    at the W8A8 path's and at the edge shapes with M = 40,960."""
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 1536, 2048)}
-    cases.update(cell["w8a8_matmul"])  # (M, K, N): launches per cell batch
+    cases.update({shape: 0 for shape in cell["w8a8_matmul"]})
+    cases.update(tp)
     for (m, k, n), n_cell in sorted(cases.items()):
         a, w = (torch.randint(-127, 128, shape, generator=gen, device=DEV).to(torch.int8)
                 for shape in ((m, k), (n, k)))
@@ -457,7 +486,7 @@ def check_int8_matmul(gen, cell, results):
         log(f"  int8_matmul M{m} K{k} N{n}: max_abs_err={err} (exact required)")
         if got.dtype != torch.int32 or err != 0:
             raise AssertionError("int8_matmul disagrees with its plain version")
-        if not n_cell and m < CELL_ROWS:
+        if not n_cell and m < CELL_ROWS and (m, k, n) not in cell["w8a8_matmul"]:
             continue
         lib = None
         if m <= 16 or k % 8 or n % 8:
@@ -560,8 +589,9 @@ def cell_summary(results, launches) -> dict:
         sums = {key: (None if any(r[key] is None for r in cell)
                       else f"{sum(r['n_cell'] * r[key] for r in cell):.4f}")
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "earlier_ms")}
-        off = "" if launches[kernel] else " (off the path: at the W8A8 product's counts)"
-        log(f"  {kernel} per b64/5-step batch at the cell's shapes{off} ({cell[0]['dtype']}, "
+        where = ("per b64/5-step batch at the cell's shapes" if kernel != "int8_matmul"
+                 else "per TP int8 batch of phase 11 (b), at its shapes")
+        log(f"  {kernel} {where} ({cell[0]['dtype']}, "
             f"{sum(r['n_cell'] for r in cell)} launches): kernel {sums['ms']} ms "
             f"(earlier: {sums['earlier_ms']} ms), plain {sums['plain_ms']} ms, library "
             f"{sums['library_ms']} ms, bound {sums['bound_ms']} ms")
@@ -604,11 +634,11 @@ def recorded(eng, run, tries: int = 3):
     recorded); again if it met a program key for the first time, whose
     eager run would count beside its replay. Returns (tally, counts)."""
     for _ in range(tries):
-        n_programs = len(eng.programs.stats())
+        n_programs = programs_count(eng)
         ops.reset_launch_counts()
         with ops.record_launches() as tally:
             run()
-        if len(eng.programs.stats()) == n_programs:
+        if programs_count(eng) == n_programs:
             return tally, ops.launch_counts()
     raise AssertionError(f"each of {tries} runs captured a new program")
 
@@ -2037,6 +2067,434 @@ def serving(assets, params, smi: str):
     return served
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh (data and tensor parallelism), multihost, the pod, the
+# graph backend under a mesh and the port's tools
+# ---------------------------------------------------------------------------
+
+# a b64/5-step batch over two data shards: each shard's counts are a B=32
+# batch's, which are a b64 batch's
+DP_PER_BATCH = {name: 2 * n for name, n in PER_BATCH["bf16"].items()}
+DP_F32_WAV_ATOL = 1e-5       # f32 wav, mesh vs single device, B=8
+DP_BF16_REL_L2_MAX = 0.01    # bf16 wav, mesh vs single device, b64
+TP_F32_WAV_ATOL = 5e-5       # the JAX mesh tests' TP bound
+GRAPH_DP_WAV_ATOL = 3e-5     # the graph backend under a mesh, f32
+MESH_SEED = 5
+
+
+def programs_count(eng) -> int:
+    """Programs captured so far over every shard of an engine."""
+    return sum(len(s.programs.stats()) for s in eng.shards if s.programs is not None)
+
+
+def mesh_engines(params, proc, precision: str, mesh, **kw):
+    """(single-device engine, mesh engine) on the same params and seed,
+    both at the fixed 1/11 s/char rate, so that they pick the same buckets."""
+    cfg = TTSConfig()
+    out = (SynthesisEngine(params, cfg, proc, precision=precision, seed=MESH_SEED,
+                           device=DEV, **kw),
+           SynthesisEngine(params, cfg, proc, precision=precision, seed=MESH_SEED, mesh=mesh,
+                           **kw))
+    for eng in out:
+        eng._pin_rate(1.0 / 11.0)
+        eng._rate_frozen = True
+    return out
+
+
+def same_seed(eng, texts, style, steps):
+    """One batch from the engine's seed, as a fresh engine would draw it."""
+    eng._seed_chain.manual_seed(MESH_SEED)
+    return eng.infer_batch(texts, ["en"] * len(texts), style, total_step=steps)
+
+
+def mesh_dp(params, smi: str) -> dict:
+    """Phase 11 (a): SynthesisEngine(mesh=make_mesh(devices=[cuda:0, cuda:0]))
+    at the b64/5-step bf16 cell: audio, counters exactly twice a B=32
+    shard's, durations bit-equal to the single-device engine with the same
+    seed in bf16 and (B=8) f32, the f32 wav within 1e-5, the bf16 wav's
+    relative L2 at most 0.01, audio-sec/s beside the single-device engine;
+    over distinct cards where there are several. Returns the shapes of one
+    DP batch."""
+    from supertonic_tpu_torch.parallel import make_mesh
+
+    cfg, proc, _t, style, _n = whole_path_inputs(1)
+    texts = [TEXTS[i % 3] for i in range(64)]
+    meshes = [("[cuda:0, cuda:0]", make_mesh(devices=[DEV, DEV]))]
+    if torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        meshes.append((f"{n} distinct cards", make_mesh()))
+    shapes = None
+    for label, mesh in meshes:
+        single, dp = mesh_engines(params, proc, "bf16", mesh)
+        log(f"  mesh {label}: {mesh.shape}; shards on {[str(s.device) for s in dp.shards]}, "
+            f"each with its programs: {all(s.programs is not None for s in dp.shards)}")
+        st = style.tile(64)
+        for eng in (single, dp):  # captures: the single program, each shard's two
+            eng.infer_batch(texts, ["en"] * 64, st, total_step=5)
+        one = lambda: dp.infer_batch(texts, ["en"] * 64, st, total_step=5)  # noqa: E731
+        if shapes is None:
+            shapes, counts = recorded(dp, one)
+            check_exact(counts, DP_PER_BATCH, f"one DP b64/5-step batch over {label}")
+            log(f"  shapes given to each kernel in one DP batch: {shapes}")
+        w1, d1 = same_seed(single, texts, st, 5)
+        w2, d2 = same_seed(dp, texts, st, 5)
+        for i in range(3):
+            check_audio(w2[i], float(d2[i]), cfg.sample_rate, f"DP b64 row {i}")
+        if not np.array_equal(d1, d2):
+            raise AssertionError(f"DP durations differ from the single device's: "
+                                 f"{np.abs(d1 - d2).max():.3e}")
+        err = rel_l2(w2, w1)
+        log(f"  (a) DP b64/5-step bf16 against the single device, same seed: durations "
+            f"bit-equal, wav relative L2 {err:.6f} (<= {DP_BF16_REL_L2_MAX}), max abs "
+            f"{np.abs(w2 - w1).max():.3e}")
+        if not err <= DP_BF16_REL_L2_MAX:
+            raise AssertionError("DP bf16 wav differs from the single device's")
+        rates = {"single": [], "DP": []}
+        for _rep in range(2):
+            for name, eng in (("single", single), ("DP", dp)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _w, d = eng.infer_batch(texts, ["en"] * 64, st, total_step=5)
+                rates[name].append(float(d.sum()) / (time.perf_counter() - t0))
+        log(f"  (a) b64/5-step bf16 audio-sec/s, {label} ({smi}): DP "
+            f"{' / '.join(f'{r:.2f}' for r in rates['DP'])} against the single device "
+            f"{' / '.join(f'{r:.2f}' for r in rates['single'])}"
+            + (" (one card: DP overhead, not scaling)" if "cuda:0, cuda:0" in label else ""))
+        del single, dp
+        single, dp = mesh_engines(params, proc, "f32", mesh, egress_format="f32")
+        st8, t8 = style.tile(8), texts[:8]
+        w1, d1 = same_seed(single, t8, st8, 5)
+        w2, d2 = same_seed(dp, t8, st8, 5)
+        err = float(np.abs(w2 - w1).max())
+        log(f"  (a) DP B=8 f32 against the single device, same seed, {label}: durations "
+            f"bit-equal {np.array_equal(d1, d2)}, wav max abs {err:.3e} (<= "
+            f"{DP_F32_WAV_ATOL})")
+        if not np.array_equal(d1, d2) or not err <= DP_F32_WAV_ATOL:
+            raise AssertionError("DP f32 differs from the single device")
+        del single, dp
+    return shapes
+
+
+def mesh_tp(params, devices) -> tuple[dict, int]:
+    """Phase 11 (b): model=2 over ``devices`` (two), eagerly on the card: the
+    f32 engine against the single device within 5e-5 on injected noise
+    (B=4), attention at H/2 and no FFN-kernel launch; VE block 0's W8A8
+    linears sharded bit-equal to their unsharded form in f32 and bf16 out;
+    the int8 engine against the single-device int8 engine (printed).
+    Returns the TP runs' shapes and the int32 product's launches."""
+    from supertonic_tpu_torch.models import load_params
+    from supertonic_tpu_torch.parallel import make_mesh, shard_params
+
+    cfg, proc, texts, style, noise = whole_path_inputs(4)
+    mesh = make_mesh(devices=devices, model_parallel=2)
+    log(f"  (b) TP mesh {mesh}")
+    single, tp = mesh_engines(params, proc, "f32", mesh, egress_format="f32")
+    if any(s.programs is not None for s in tp.shards):
+        raise AssertionError("a TP row captured programs")
+    single.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)  # warm
+    ops.reset_launch_counts()
+    with ops.record_launches() as shapes:
+        t0 = time.perf_counter()
+        w2, d2 = tp.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    w1, d1 = single.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+    err = float(np.abs(w2 - w1).max())
+    log(f"  (b) TP model=2 f32, B=4, injected noise, eager ({wall:.3f}s): launches {counts}; "
+        f"against the single device: durations max abs {np.abs(d2 - d1).max():.3e}, wav max "
+        f"abs {err:.3e} (<= {TP_F32_WAV_ATOL})")
+    log(f"  (b) attention shapes under TP (B, H, Tq, Tk, masked): "
+        f"{dict(sorted(shapes['attention'].items()))}")
+    heads = {cfg.vector_estimator.n_heads // 2, cfg.text_encoder.n_heads // 2}
+    if {k[1] for k in shapes["attention"]} != heads:
+        raise AssertionError(f"TP attention heads {set(k[1] for k in shapes['attention'])}, "
+                             f"expected {heads}")
+    if counts["adaln_ffn"] or not counts["attention"] or not counts["resblock_chain"]:
+        raise AssertionError("TP: the FFN kernel ran, or attention or the chain did not")
+    if not err <= TP_F32_WAV_ATOL:
+        raise AssertionError("TP f32 differs from the single device")
+    del single, tp
+
+    # VE block 0's W8A8 linears, sharded against unsharded, on the card
+    qtree = quantize_params(params)
+    sub = {"vector_estimator": {"blocks": [qtree["vector_estimator"]["blocks"][0]]}}
+    m = 4 * 448
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        (row,) = shard_params(sub, mesh, dtype=dtype)
+        full = load_params(sub, device=DEV, dtype=dtype)
+        sb, fb = row["vector_estimator"]["blocks"][0], full["vector_estimator"]["blocks"][0]
+        names = [(s, k) for s in ("self", "cross") for k in ("q", "k", "v", "o")]
+        names += [("ffn", "in"), ("ffn", "out")]
+        for s, k in names:
+            whole, sharded = fb[s][k], sb[s][k]
+            x = torch.randn((m, whole.w_q.shape[1]), generator=gen, device=DEV).to(dtype)
+            ranks = [s.w_q.device for s in sharded.shards]
+            with torch.inference_mode():
+                want = layers.linear(whole, x)
+                got = (torch.cat([y.to(x.device) for y in layers.col_linear(sharded, x)], -1)
+                       if sharded.split == "col" else layers.row_linear(
+                           sharded, [c.to(d) for c, d in zip(x.chunk(2, -1), ranks)],
+                           x.device))
+            hold_bit_equal(f"(b) W8A8 {s}.{k} ({sharded.split}-parallel) M{m} {dtype}, "
+                           f"sharded vs unsharded", (got,), (want,))
+
+    single8, tp8 = mesh_engines(params, proc, "int8", mesh, egress_format="f32")
+    w1, d1 = single8.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+    ops.reset_launch_counts()
+    with ops.record_launches() as shapes8:
+        w2, d2 = tp8.infer_batch(texts, ["en"] * 4, style, total_step=2, noise=noise)
+    counts8 = ops.launch_counts()
+    log(f"  (b) TP model=2 int8, B=4: launches {counts8}; against the single-device int8 "
+        f"engine: durations max abs {np.abs(d2 - d1).max():.3e}, wav relative L2 "
+        f"{rel_l2(w2, w1):.6f}, max abs {np.abs(w2 - w1).max():.3e}")
+    log(f"  (b) int32 product shapes under TP int8 (M, K, N): "
+        f"{dict(sorted(shapes8['int8_matmul'].items()))}")
+    for name in ("attention", "resblock_chain", "int8_matmul", *W8A8_KERNELS):
+        if not counts8[name] > 0:
+            raise AssertionError(f"TP int8: {name} was not launched")
+    if counts8["adaln_ffn"]:
+        raise AssertionError("TP int8 launched the fused FFN")
+    merged = {k: {**shapes[k], **shapes8[k]} for k in ops.KERNELS}
+    return merged, counts8["int8_matmul"]
+
+
+def multihost_worker(pid: int, nprocs: int, port: int, assets: str) -> int:
+    """One process of phase 11 (c): join the control group, build the local
+    mesh, synthesize this host's shard of eight requests."""
+    from supertonic_tpu_torch.assets import load_assets
+    from supertonic_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=nprocs,
+                         process_id=pid, initialization_timeout=120)
+    counts = multihost.device_counts()
+    mesh = multihost.local_mesh()
+    a = load_assets(assets)
+    eng = SynthesisEngine(a.params, a.cfg, a.processor, mesh=mesh)
+    mine = multihost.host_shard([TEXTS[i % 3] for i in range(8)])
+    style = a.get_voice_style("M1").tile(len(mine))
+    wav, dur = eng.infer_batch(mine, ["en"] * len(mine), style, total_step=2)
+    for w, d in zip(wav, dur):
+        check_audio(w, float(d), a.cfg.sample_rate, f"process {pid}")
+    print(f"MULTIPROC_OK pid={pid} nprocs={multihost.world_size()} "
+          f"global_devices={sum(counts)} mesh={mesh.shape} shard={len(mine)} "
+          f"egress={multihost.is_egress_host()} audio={float(dur.sum()):.3f}s", flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def multihost_phase(assets) -> None:
+    """Phase 11 (c): two processes on a gloo control group, each with
+    local_mesh() on this machine's cards, each running its host_shard; no
+    config is a no-op; a bad coordinator raises."""
+    from supertonic_tpu_torch.parallel import initialize_distributed
+
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, here, "--multihost-worker", str(i), "2",
+                               str(port), assets], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env,
+                              cwd=os.path.dirname(here))
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        stop(procs)
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        line = [x for x in out.splitlines() if x.startswith("MULTIPROC_OK")]
+        if p.returncode != 0 or not line or f"pid={i} nprocs=2" not in line[0]:
+            raise AssertionError(f"multihost worker {i} (rc {p.returncode}):\n{out[-3000:]}")
+        log(f"  (c) {line[0]}")
+    log(f"  (c) two processes in {time.perf_counter() - t0:.2f}s")
+    saved = os.environ.pop("MASTER_ADDR", None)
+    try:
+        initialize_distributed()
+    finally:
+        if saved is not None:
+            os.environ["MASTER_ADDR"] = saved
+    if torch.distributed.is_initialized():
+        raise AssertionError("initialize_distributed() without config started a group")
+    code = ("from supertonic_tpu_torch.parallel import initialize_distributed\n"
+            "try:\n"
+            "    initialize_distributed(coordinator_address='localhost:1', num_processes=2,\n"
+            "                           process_id=1, initialization_timeout=5)\n"
+            "except Exception as e:\n"
+            "    print('RAISED', type(e).__name__)\n"
+            "else:\n"
+            "    print('SWALLOWED')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=os.path.dirname(here), timeout=120)
+    if "RAISED" not in out.stdout:
+        raise AssertionError(f"a bad coordinator did not raise: {out.stdout}{out.stderr[-2000:]}")
+    log(f"  (c) no config: a no-op; a bad coordinator: {out.stdout.strip()}")
+
+
+def pod(assets, sr: int) -> None:
+    """Phase 11 (d): two port servers (python -m
+    supertonic_tpu_torch.serve.http_server) on this card behind the router:
+    16 /tts requests spread over both, then one server is killed and the
+    rest are served through failover."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from supertonic_tpu_torch.serve.router import Router, make_router_server
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ports = [free_port(), free_port()]
+    procs, logs = [], []
+    for i, port in enumerate(ports):
+        env = dict(os.environ, TTS_ASSETS_DIR=assets, TTS_HOST="127.0.0.1",
+                   TTS_PORT=str(port), TTS_BATCHER="1",
+                   TTS_RATE_CACHE_DIR=os.path.join(OUT_DIR, "rates", f"pod-{i}"))
+        env.pop("TTS_PLATFORM", None)
+        f = open(os.path.join(OUT_DIR, f"pod-server-{i}.log"), "w")
+        logs.append(f)
+        procs.append(subprocess.Popen([sys.executable, "-m",
+                                       "supertonic_tpu_torch.serve.http_server"],
+                                      env=env, stdout=f, stderr=subprocess.STDOUT, cwd=root))
+    router = front = None
+    try:
+        t0 = time.perf_counter()
+        for port, p in zip(ports, procs):
+            while True:
+                if p.poll() is not None:
+                    raise AssertionError(f"pod server on {port} exited {p.returncode}")
+                try:
+                    if request(port, "GET", "/health")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > 240:
+                    raise AssertionError(f"pod server on {port} never became healthy")
+                time.sleep(0.5)
+        log(f"  (d) two servers healthy after {time.perf_counter() - t0:.2f}s")
+        router = Router([f"http://127.0.0.1:{p}" for p in ports], health_interval_s=0.2,
+                        failure_threshold=1)
+        router.check_health()
+        router.start_health_loop()
+        front = make_router_server(router, "127.0.0.1", 0)
+        threading.Thread(target=front.serve_forever, daemon=True).start()
+        fport = front.server_address[1]
+
+        def tts_req(i):
+            status, hdrs, body = request(fport, "POST", "/tts",
+                                         {"text": TEXTS[i % 3], "total_step": 2})
+            if status != 200:
+                raise AssertionError(f"pod /tts {i}: HTTP {status} {body[:200]!r}")
+            check_wav_payload(body, sr, f"pod /tts {i}")
+            return len(body)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(tts_req, range(16)))
+        served = [json.loads(expect(p, "GET", "/metrics", None, 200, "/metrics")[1])["requests"]
+                  for p in ports]
+        log(f"  (d) 16 /tts through the router in {time.perf_counter() - t0:.3f}s: "
+            f"served {served} by the two servers")
+        if sum(served) != 16 or min(served) == 0:
+            raise AssertionError(f"the router did not spread the requests: {served}")
+        procs[0].kill()
+        procs[0].wait(timeout=30)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(tts_req, range(8)))
+        healthy = sum(b["healthy"] for b in router.health()[1]["backends"].values())
+        after = json.loads(expect(ports[1], "GET", "/metrics", None, 200, "/metrics")[1])
+        log(f"  (d) server 0 killed: 8 more /tts all 200 in {time.perf_counter() - t0:.3f}s "
+            f"through failover; healthy backends {healthy}; server 1 served "
+            f"{after['requests'] - served[1]} of them")
+        if after["requests"] - served[1] != 8:
+            raise AssertionError("the surviving server did not serve the rest")
+    finally:
+        if front is not None:
+            front.shutdown()
+        if router is not None:
+            router.close()
+        stop(procs)
+        for f in logs:
+            f.close()
+
+
+def graph_mesh_and_tools(params) -> None:
+    """Phase 11 (e): phase 9's bundle under a DP mesh against the single
+    device (f32, B=8, within 3e-5); the port's parity_check --skip-ort
+    exits 0 on it; bench_onnx_backend prints both modes."""
+    from supertonic_tpu_torch.assets.onnx_backend import load_onnx_backend
+    from supertonic_tpu_torch.parallel import make_mesh
+
+    from supertonic_tpu_torch.config import load_tts_json
+
+    bundle = os.path.join(OUT_DIR, "graph_bundle")
+    cfg = load_tts_json(os.path.join(bundle, "tts.json"))
+    with open(os.path.join(bundle, "unicode_indexer.json")) as f:
+        proc = UnicodeProcessor(np.asarray(json.load(f), np.int64))
+    backend = load_onnx_backend(bundle, cfg, matmul_precision="float32", bf16_storage=False,
+                                device=DEV)
+    engines = [SynthesisEngine(None, cfg, proc, precision="f32",
+                               seed=MESH_SEED, egress_format="f32", backend=backend,
+                               mesh=mesh)
+               for mesh in (None, make_mesh(devices=[DEV, DEV]))]
+    for eng in engines:
+        eng._pin_rate(1.0 / 11.0)
+        eng._rate_frozen = True
+    _cfg, _proc, texts, style, noise = whole_path_inputs(8)
+    (w1, d1), (w2, d2) = (same_seed(e, texts, style, 2) for e in engines)
+    err = float(np.abs(w2 - w1).max())
+    log(f"  (e) graph backend under a DP mesh, f32, B=8, same seed: durations max abs "
+        f"{np.abs(d2 - d1).max():.3e}, wav max abs {err:.3e} (<= {GRAPH_DP_WAV_ATOL}); "
+        f"shards with programs: {sum(s.programs is not None for s in engines[1].shards)}")
+    (n1, e1), (n2, e2) = (e.infer_batch(texts, ["en"] * 8, style, total_step=2, noise=noise)
+                          for e in engines)
+    err_n = float(np.abs(n2 - n1).max())
+    log(f"  (e) the same on injected noise: wav max abs {err_n:.3e}")
+    if max(err, err_n) > GRAPH_DP_WAV_ATOL or np.abs(d2 - d1).max() > 1e-6:
+        raise AssertionError("the graph backend under a mesh differs from the single device")
+    del engines, backend
+    root = os.path.dirname(os.path.abspath(__file__))
+    for tool, args in (("parity_check", ["--skip-ort", "--total-step", "2"]),
+                       ("bench_onnx_backend", ["--n", "3", "--total-step", "2"])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"supertonic_tpu_torch.tools.{tool}",
+                            "--assets-dir", bundle, *args], capture_output=True, text=True,
+                           cwd=root, timeout=600)
+        last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+        log(f"  (e) python -m supertonic_tpu_torch.tools.{tool} {' '.join(args)}: rc "
+            f"{r.returncode} in {time.perf_counter() - t0:.2f}s: {last}")
+        if r.returncode != 0:
+            raise AssertionError(f"{tool} failed:\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        out = json.loads(last)
+        if tool == "parity_check" and out["parity_ok"] is not True:
+            raise AssertionError("parity_check did not pass")
+        if tool == "bench_onnx_backend" and not ("adapter" in out and "fused" in out):
+            raise AssertionError("bench_onnx_backend did not print both modes")
+
+
 def main() -> int:
     import argparse
 
@@ -2046,10 +2504,18 @@ def main() -> int:
     ap.add_argument("--pin-rate", action="store_true",
                     help="phases 3 and 4 at the latent buckets of a fixed 1/11 s/char "
                          "(T=640 for the b64 cell), learning no rate")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 11 (a)-(b) alone: on several cards, DP over all "
+                         "of them and TP over cuda:0 and cuda:1 too")
+    ap.add_argument("--multihost-worker", nargs=4, metavar=("PID", "NPROCS", "PORT", "ASSETS"),
+                    help=argparse.SUPPRESS)  # one process of phase 11 (c)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.multihost_worker:
+        pid, nprocs, port, assets_dir = args.multihost_worker
+        return multihost_worker(int(pid), int(nprocs), int(port), assets_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("phase 1: device (TF32 disabled for matmuls and cuDNN convs)")
@@ -2068,6 +2534,17 @@ def main() -> int:
         f"build/{next(iter(libs.values())).parent.name} (a hash of the sources)")
 
     params = smoke_params(TTSConfig())
+    if args.mesh_only:
+        log("phase 11 (a): data parallelism at the b64/5-step bf16 cell")
+        mesh_dp(params, smi)
+        log("phase 11 (b): tensor parallelism, model=2, B=4, eager")
+        mesh_tp(params, [DEV, DEV])
+        if torch.cuda.device_count() > 1:
+            mesh_tp(params, [torch.device("cuda", 0), torch.device("cuda", 1)])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     assets = os.path.join(OUT_DIR, "assets")
     os.makedirs(assets, exist_ok=True)
     save_params(os.path.join(assets, "params.npz"), params)
@@ -2081,7 +2558,6 @@ def main() -> int:
     fresh_rate_dir("main-int8")
     cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, args.pin_rate,
                                         bf16_rates=rates)
-    launches["int8_matmul"] = counts8["int8_matmul"]  # 0: off the path
     for name in W8A8_KERNELS:
         launches[name] = counts8[name]
         cell[name] = cell8[name]
@@ -2091,6 +2567,21 @@ def main() -> int:
     log("phase 7: serving, make_server(TTS()) at the default 66M config")
     served = serving(assets, params, smi)
 
+    # phase 11 (a)-(d) run here too, so that phase 5 holds each kernel at the
+    # shapes the mesh gave it; (e) needs phase 9's bundle and runs last
+    log("phase 11 (a): data parallelism, SynthesisEngine(mesh=make_mesh(devices=[cuda:0, "
+        "cuda:0])) at the b64/5-step bf16 cell")
+    dp_shapes = mesh_dp(params, smi)
+    log("phase 11 (b): tensor parallelism, model=2 over [cuda:0, cuda:0], B=4, eager")
+    tp_shapes, launches["int8_matmul"] = mesh_tp(params, [DEV, DEV])
+    log("phase 11 (c): multihost, two processes on a gloo control group")
+    multihost_phase(assets)
+    log("phase 11 (d): the pod, two port servers behind the router, failover")
+    pod(assets, 44100)
+    for kernel in ops.KERNELS:  # checked (not timed) in phase 5
+        for shape in {**dp_shapes[kernel], **tp_shapes[kernel]}:
+            served[kernel].setdefault(shape, 0)
+
     log("phase 5: kernels vs plain versions")
     results = {name: [] for name in SOURCES}
     gen = torch.Generator(device=DEV)
@@ -2098,7 +2589,7 @@ def main() -> int:
     check_attention(gen, cell, results, served)
     check_ffn(gen, cell, results, served)
     check_chain(gen, cell, results, served)
-    check_int8_matmul(gen, cell, results)
+    check_int8_matmul(gen, cell, results, tp_shapes["int8_matmul"])
     check_quantize(gen, cell, results, served)
     check_w8a8(gen, cell, results, served)
     picked = cell_summary(results, launches)
@@ -2121,6 +2612,10 @@ def main() -> int:
     log("phase 10: the rest of the single-card surface: compat, python -m, progress and "
         "injected-noise programs, device_trace, the native frontend, up_matmul")
     single_card_surface(assets, params, smi)
+
+    log("phase 11 (e): phase 9's bundle under a DP mesh, python -m "
+        "supertonic_tpu_torch.tools.parity_check and bench_onnx_backend")
+    graph_mesh_and_tools(params)
 
     line = []
     for name, (src, replaces) in SOURCES.items():

@@ -12,6 +12,9 @@ executors into the engine's stage functions instead:
   padded_fn    fused_fn with the noise as an input: the body that
                ``engine/programs.py`` captures into one CUDA graph per
                static key, as JAX's jit makes fused_fn one program
+  flow_fn, vocode_fn  the two halves of a mesh shard's batch: the text
+               stage and estimator loop, then the vocoder with the whole
+               batch's frame mask
 
 so a ``SynthesisEngine(..., backend=OnnxStageBackend(...))`` runs the graphs
 with no host sync inside a batch and keeps the native engine's machinery:
@@ -106,9 +109,18 @@ class OnnxStageBackend:
             text_ids=ids, style_ttl=sttl, text_mask=mask3)
         return dur, emb
 
-    def acoustic_fn(self, params, emb, sttl, tmask, lmask, noise, total_step: int):
+    def acoustic_fn(self, params, emb, sttl, tmask, lmask, noise, total_step: int,
+                    frame_mask=None):
         """``total_step`` estimator calls (the JAX fori_loop), then the
-        vocoder. Returns wav [B, T*chunk] f32."""
+        vocoder. Returns wav [B, T*chunk] f32. ``frame_mask`` [T]: the
+        vocoder's, when the batch is a mesh shard (by default this batch's
+        batch-max frame mask)."""
+        x = self._flow(params, emb, sttl, tmask, lmask, noise, total_step)
+        fmask = lmask.float().amax(0) if frame_mask is None else frame_mask
+        return self._vocode(params, x, fmask)
+
+    def _flow(self, params, emb, sttl, tmask, lmask, noise, total_step: int):
+        """The estimator loop on channel-first latents: x [B, C, T]."""
         b = lmask.shape[0]
         tmask3 = tmask[:, None, :].float()
         lmask3 = lmask[:, None, :].float()
@@ -128,15 +140,34 @@ class OnnxStageBackend:
                     f"vector_estimator maps a latent of {tuple(x.shape)} to "
                     f"{tuple(x2.shape)}: the step loop needs the same shape")
             x = x2.to(x.dtype)
-        # batch-max frame mask: the reference vocoder graph is mask-free and
-        # runs at batch-max length, but frames past the longest utterance
-        # are bucket padding: pre-mask the latent and re-zero them after
-        # every conv (the executor's time mask), so bucketed execution
-        # equals exact-length execution
-        fmask = lmask.float().amax(0)  # [T]
+        return x
+
+    def _vocode(self, params, x, fmask):
+        """The vocoder on x [B, C, T] with the batch-max frame mask [T]: the
+        reference vocoder graph is mask-free and runs at batch-max length,
+        but frames past the longest utterance are bucket padding: pre-mask
+        the latent and re-zero them after every conv (the executor's time
+        mask), so bucketed execution equals exact-length execution."""
         x = x * fmask[None, None, :]
         (wav,) = self._call["vocoder"](params["vocoder"], latent=x, time_mask=fmask)
-        return self._fit_wav(wav, lmask.shape[1])
+        return self._fit_wav(wav, x.shape[2])
+
+    def flow_fn(self, params, ids, mask, sdp, sttl, noise, speed, total_step: int):
+        """``synthesis.flow_padded`` of the graphs (no halo): the text stage
+        and the estimator loop at the latent length of ``noise`` [B, T, C].
+        Returns (latent [B, T, C], duration [B], unclamped, and the
+        batch-max frame mask [T])."""
+        from ..engine import synthesis as S
+
+        dur, emb = self.text_fn(params, ids, mask, sdp, sttl, speed)
+        lmask = S._latent_mask(self.cfg, dur, noise.shape[1])
+        x = self._flow(params, emb, sttl, mask, lmask, noise, total_step)
+        return x.permute(0, 2, 1), dur, lmask.amax(0)
+
+    def vocode_fn(self, params, x, frame_mask):
+        """The vocoder on a channel-last latent [B, T, C] with a given
+        frame mask [T]: wav [B, T*chunk] f32."""
+        return self._vocode(params, x.permute(0, 2, 1), frame_mask)
 
     def _fit_wav(self, wav, t_frames: int):
         # contract: wav [B, T*chunk]; normalize the width so the engine's
@@ -211,13 +242,7 @@ class OnnxStageBackend:
                 current_step=cur, total_step=tot)
             return x2.permute(0, 2, 1).to(x.dtype)
 
-        def _voc(params, x, fm):
-            # fm [T]: batch-max frame mask (see acoustic_fn)
-            xm = x.permute(0, 2, 1) * fm[None, None, :]
-            (wav,) = self._call["vocoder"](params["vocoder"], latent=xm, time_mask=fm)
-            return self._fit_wav(wav, x.shape[1])
-
-        return None, _step, _voc
+        return None, _step, self.vocode_fn
 
 
 def load_onnx_backend(onnx_dir: str, cfg: TTSConfig, *,

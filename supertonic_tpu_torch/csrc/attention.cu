@@ -384,14 +384,8 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   if (D != 64 || Tk < 1) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
   if constexpr (std::is_same<T, bf16>::value) {
-    static bool configured = false;
-    if (!configured) {
-      int err = (int)cudaFuncSetAttribute(attn_mma,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)sizeof(MmaSmem));
-      if (err) return err;
-      configured = true;
-    }
+    static size_t configured[stk::kMaxDevices] = {};
+    if (int err = stk::allow_dynamic_smem(attn_mma, sizeof(MmaSmem), configured)) return err;
     dim3 grid((Tq + MQ - 1) / MQ, H, B);
     attn_mma<<<grid, NW * 32, sizeof(MmaSmem), st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, Tq, Tk, H,

@@ -460,15 +460,6 @@ ffn_fused(const bf16* __restrict__ h, const bf16* __restrict__ x, const bf16* __
   }
 }
 
-// lets `kernel` take `bytes` of dynamic shared memory (once per kernel)
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool* done) {
-  if (*done) return 0;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (!err) *done = true;
-  return err;
-}
-
 int launch_ln(const bf16* x, const float* g, const float* b, const float* shift,
               const float* scale, bf16* h, int N, int Tlen, int D, float eps,
               cudaStream_t st) {
@@ -499,8 +490,8 @@ int launch_bf16(const bf16* x, const float* g, const float* b, const bf16* w1,
   if (int err = launch_ln(x, g, b, shift, scale, h, N, Tlen, D, eps, st)) return err;
   if constexpr (ON_CHIP) {
     if (D != FD || F % FC) return (int)cudaErrorInvalidValue;
-    static bool smem_set = false;
-    if (int err = allow_smem(ffn_fused<FD>, FUSED_SMEM, &smem_set)) return err;
+    static size_t smem_set[stk::kMaxDevices] = {};
+    if (int err = stk::allow_dynamic_smem(ffn_fused<FD>, FUSED_SMEM, smem_set)) return err;
     ffn_fused<FD><<<(N + FBM - 1) / FBM, FNT, FUSED_SMEM, st>>>(h, x, w1, b1, w2, b2, gate,
                                                                 out, N, Tlen, F);
     return (int)cudaGetLastError();

@@ -208,13 +208,8 @@ mma_gemm(const typename Mma::In* __restrict__ A, const typename Mma::In* __restr
 template <typename Mma, typename S, typename Epi>
 int launch_mma_gemm(const typename Mma::In* A, const typename Mma::In* W, int M, int N, int K,
                     Epi epi, cudaStream_t st) {
-  static bool smem_set = false;  // one per instantiation
-  if (!smem_set) {
-    int err = (int)cudaFuncSetAttribute(mma_gemm<Mma, S, Epi>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (err) return err;
-    smem_set = true;
-  }
+  static size_t smem_set[kMaxDevices] = {};  // one per instantiation
+  if (int err = allow_dynamic_smem(mma_gemm<Mma, S, Epi>, S::SMEM, smem_set)) return err;
   const int n_tiles = (N + S::BN - 1) / S::BN;
   const long long blocks = (long long)((M + S::BM - 1) / S::BM) * n_tiles;
   if (M < 1 || N < 1 || K < 1 || blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;

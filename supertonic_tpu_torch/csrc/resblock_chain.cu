@@ -386,16 +386,6 @@ Tiling chain_tiling(const Dil& dil, int P) {
   return t;
 }
 
-// lets `kernel` take `bytes` of dynamic shared memory (once per size)
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return 0;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)bytes);
-  if (!err) *configured = bytes;
-  return err;
-}
-
 template <typename T, int C>
 int launch(const void* x, const float* m, const void* wa, const float* ba,
            const void* wb, const float* bb, void* out, int B, int Tlen, int P,
@@ -404,16 +394,16 @@ int launch(const void* x, const float* m, const void* wa, const float* ba,
   if (t.W <= 2 * t.halo) return (int)cudaErrorInvalidValue;
   const int TT = t.W - 2 * t.halo;
   dim3 grid((Tlen + TT - 1) / TT, B);
-  static size_t configured = 0;
+  static size_t configured[stk::kMaxDevices] = {};
   if constexpr (std::is_same<T, bf16>::value) {
     const size_t bytes = MmaLayout<C>::bytes(t.pad);
-    if (int err = allow_smem(chain_mma<C>, bytes, &configured)) return err;
+    if (int err = stk::allow_dynamic_smem(chain_mma<C>, bytes, configured)) return err;
     chain_mma<C><<<grid, MMA_NT, bytes, st>>>((const bf16*)x, m, (const bf16*)wa, ba,
                                               (const bf16*)wb, bb, (bf16*)out, Tlen, P,
                                               dil, t.halo, t.pad);
   } else {
     const size_t bytes = smem_bytes<C>(t.W, t.pad);
-    if (int err = allow_smem(chain_kernel<T, C>, bytes, &configured)) return err;
+    if (int err = stk::allow_dynamic_smem(chain_kernel<T, C>, bytes, configured)) return err;
     chain_kernel<T, C><<<grid, NT, bytes, st>>>((const T*)x, m, (const T*)wa, ba,
                                                 (const T*)wb, bb, (T*)out, Tlen, P,
                                                 dil, t.W, t.halo, t.pad);

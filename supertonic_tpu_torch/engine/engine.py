@@ -20,11 +20,23 @@
   * ``infer_batch_begin`` queues a batch and its device->host copies;
     ``infer_batch_end`` resolves it. The copies run on a side stream after
     an event recorded behind the batch, so a result never waits behind
-    work queued later on the compute stream.
+    work queued later on the compute stream;
+  * over a device mesh (``parallel.mesh``), every batch is split over the
+    data rows, one ``Shard`` each: a replica of the params (split over the
+    row's model ranks), its programs on a card when the row has one rank,
+    and its slice of the batch. The whole batch's noise is drawn once on
+    the lead device, so a mesh engine equals the single-device engine with
+    the same seed; each shard runs its flow, the rows' frame masks are
+    max-reduced across shards (the vocoder masks frames past the whole
+    batch's longest row), each shard vocodes, and the outputs are gathered
+    in row order on the lead device. The host never waits between shards.
+    A row with several model ranks runs eagerly: a CUDA graph cannot span
+    devices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -154,11 +166,33 @@ class PendingBatch:
     fetch: tuple | None = None  # the queued host copies (see _fetch)
 
 
+@dataclasses.dataclass
+class Shard:
+    """One data row of an engine: the row's lead device, its replica of
+    the params and its captured programs (None where it runs eagerly: on
+    the CPU, and for a row of several model ranks). A single-device engine
+    has one."""
+
+    device: torch.device
+    params: object
+    programs: programs.Programs | None
+
+    @property
+    def synth(self):
+        """The synthesis calls: the programs' replays, or the eager ones."""
+        return synthesis if self.programs is None else self.programs
+
+    def on(self):
+        """The shard's device as the current one, where it is a card."""
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
+
 class SynthesisEngine(LongFormSynthesis):
     def __init__(self, params, cfg: TTSConfig, processor: UnicodeProcessor, *,
                  precision: str | None = None, seed: int = 0,
                  egress_format: str = "int16", device=None, backend=None,
-                 fused_ffn: bool = True):
+                 fused_ffn: bool = True, mesh=None):
         """``params``: the JAX-layout numpy param tree (loaded here onto
         ``device`` in the compute dtype) or modules from
         ``models.load_params``. ``precision="int8"`` quantizes a numpy tree
@@ -182,10 +216,18 @@ class SynthesisEngine(LongFormSynthesis):
         calls here). The W8A8 path takes the unfused FFN either way. The
         vocoder's upsample convs run as products when ``TTS_VOC_UP_MATMUL=1``
         at construction (``vocoder.apply(up_matmul=)``); the engine reads the
-        variable once, here."""
+        variable once, here.
+
+        ``mesh``: a ``parallel.mesh.Mesh`` (axes data, model). The params
+        are placed with ``shard_params`` (the TP layout over each row's
+        model ranks; a graph backend's weights replicated) and every batch
+        is split over the data rows (see the module's docstring); the lead
+        device ``mesh.devices[0, 0]`` takes the place of ``device``. With
+        model > 1 every transformer network's heads and FFN width must
+        divide by it. Windowed streaming stays off, as in the JAX engine."""
         import os
 
-        from ..models import load_params, quantize_params
+        from ..models import load_params, quantize_params, to_numpy_tree
 
         if egress_format not in EGRESS_FORMATS:
             raise ValueError(f"egress_format must be one of {EGRESS_FORMATS}, "
@@ -195,24 +237,50 @@ class SynthesisEngine(LongFormSynthesis):
             device = backend.device if device is None else device
             if params is None:
                 params = backend.params
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and backend is None:
+                raise ValueError("pass either device or mesh, not both")
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.processor = processor
         self.precision = precision or cfg.runtime.precision
         self.dtype = synthesis.dtype_of(self.precision)
-        if backend is None and not isinstance(params, torch.nn.Module):
+        if backend is None and (mesh is not None
+                                or not isinstance(params, torch.nn.Module)):
+            if isinstance(params, torch.nn.Module):
+                params = to_numpy_tree(params)
             if self.precision == "int8" and not _tree_has_key(params, "w_q"):
                 params = quantize_params(params)
-            params = load_params(params, device=self.device, dtype=self.dtype)
-        self.params = params
+            if mesh is None:
+                params = load_params(params, device=self.device, dtype=self.dtype)
         self.egress_format = egress_format
         self.fused_ffn = bool(fused_ffn)
         self.up_matmul = os.environ.get("TTS_VOC_UP_MATMUL", "0") == "1"
         # the synthesis calls: replays of captured programs on the card, the
-        # eager functions on the CPU
-        self.programs = (programs.Programs(self.device)
-                         if self.device.type == "cuda" else None)
-        self._synth = synthesis if self.programs is None else self.programs
+        # eager functions on the CPU and on a row of several model ranks
+        if mesh is None:
+            self._data_size = 1
+            self.shards = [Shard(self.device, params,
+                                 programs.Programs(self.device)
+                                 if self.device.type == "cuda" else None)]
+        else:
+            from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, check_tensor_parallel,
+                                         shard_params)
+
+            model = mesh.shape[MODEL_AXIS]
+            if backend is None:
+                check_tensor_parallel(cfg, model)
+            self._data_size = mesh.shape[DATA_AXIS]
+            self.shards = [
+                Shard(dev, p, programs.Programs(dev)
+                      if dev.type == "cuda" and model == 1 else None)
+                for dev, p in zip(mesh.leads, shard_params(params, mesh, dtype=self.dtype))]
+        # the lead shard serves the single-row paths (progress, streaming)
+        self.params = self.shards[0].params
+        self.programs = self.shards[0].programs
+        self._synth = self.shards[0].synth
         self.profiler = StageProfiler()
         # the host chain each dispatch's noise generator is seeded from
         self._seed_chain = torch.Generator().manual_seed(seed)
@@ -339,11 +407,12 @@ class SynthesisEngine(LongFormSynthesis):
     # inputs
     # ------------------------------------------------------------------
 
-    def _speed(self, speed: float) -> torch.Tensor:
-        """``speed`` as a 0-dim f32 tensor on the device, as the JAX engine
-        passes an array: the duration is then a true division on the card,
-        never a product with the reciprocal."""
-        return torch.full((), float(speed), dtype=torch.float32, device=self.device)
+    def _speed(self, speed: float, device=None) -> torch.Tensor:
+        """``speed`` as a 0-dim f32 tensor on the device (a shard's, when
+        given), as the JAX engine passes an array: the duration is then a
+        true division on the card, never a product with the reciprocal."""
+        return torch.full((), float(speed), dtype=torch.float32,
+                          device=self.device if device is None else device)
 
     def _next_generator(self) -> torch.Generator:
         """A noise generator of its own for one dispatch, seeded from the
@@ -362,18 +431,25 @@ class SynthesisEngine(LongFormSynthesis):
             out.append(a)
         return out
 
-    def _device_style(self, style: VoiceStyle, b_bucket: int):
+    def _device_style(self, style: VoiceStyle, b_bucket: int, *, sharded: bool = True):
         """Batch-padded (style_dp, style_ttl) on the device, cached by
-        content fingerprint and bucket (LRU, 32 entries)."""
-        key = (style.fingerprint(), b_bucket)
+        content fingerprint and bucket (LRU, 32 entries); on a mesh, unless
+        ``sharded`` is False, the lists of each shard's rows."""
+        sharded = sharded and self.mesh is not None
+        key = (style.fingerprint(), b_bucket, sharded)
         with self._host_mutex:
             hit = self._style_dev_cache.pop(key, None)
             if hit is not None:
                 self._style_dev_cache[key] = hit  # newest last
                 return hit
         ttl, dp = self._pad_batch([style.ttl, style.dp], b_bucket)
-        hit = (torch.as_tensor(dp, dtype=torch.float32).to(self.device),
-               torch.as_tensor(ttl, dtype=torch.float32).to(self.device))
+        dp, ttl = np.asarray(dp, np.float32), np.asarray(ttl, np.float32)
+        if sharded:
+            from ..parallel.mesh import shard_batch
+
+            hit = shard_batch(self.mesh, dp, ttl)
+        else:
+            hit = (torch.as_tensor(dp).to(self.device), torch.as_tensor(ttl).to(self.device))
         with self._host_mutex:
             while len(self._style_dev_cache) >= 32:
                 self._style_dev_cache.pop(next(iter(self._style_dev_cache)))
@@ -383,7 +459,8 @@ class SynthesisEngine(LongFormSynthesis):
     def _prepare_inputs(self, text_list, lang_list, style,
                         pre_normalized: bool = False):
         """Frontend + bucketing + device placement. Returns (dev_args,
-        text_mask, l_true, b_true, b_bucket)."""
+        text_mask, l_true, b_true, b_bucket); on a mesh each of the four
+        device arguments is the list of the shards' rows."""
         rt = self.cfg.runtime
         b_true = len(text_list)
         with self.profiler.stage("frontend"):
@@ -394,9 +471,17 @@ class SynthesisEngine(LongFormSynthesis):
             text_ids = np.pad(text_ids, ((0, 0), (0, pad_l)))
             text_mask = np.pad(text_mask3[:, 0, :], ((0, 0), (0, pad_l)))
         b_bucket = buckets.pick_bucket(b_true, rt.batch_buckets)
+        if b_bucket % self._data_size:
+            b_bucket = -(-b_bucket // self._data_size) * self._data_size
         text_ids, text_mask = self._pad_batch([text_ids, text_mask], b_bucket)
-        ids_dev = torch.as_tensor(text_ids, dtype=torch.int64).to(self.device)
-        mask_dev = torch.as_tensor(text_mask, dtype=torch.float32).to(self.device)
+        if self.mesh is None:
+            ids_dev = torch.as_tensor(text_ids, dtype=torch.int64).to(self.device)
+            mask_dev = torch.as_tensor(text_mask, dtype=torch.float32).to(self.device)
+        else:
+            from ..parallel.mesh import shard_batch
+
+            ids_dev, mask_dev = shard_batch(self.mesh, text_ids.astype(np.int64),
+                                            text_mask.astype(np.float32))
         sdp_dev, sttl_dev = self._device_style(style, b_bucket)
         return (ids_dev, mask_dev, sdp_dev, sttl_dev), text_mask, l_true, b_true, b_bucket
 
@@ -489,6 +574,8 @@ class SynthesisEngine(LongFormSynthesis):
 
     def _fused(self, dev_args, total_step: int, t_bucket: int, speed: float):
         with self.profiler.stage("fused_synthesis"):
+            if self.mesh is not None:
+                return self._mesh_fused(dev_args, total_step, t_bucket, speed)
             if self.backend is not None and self.programs is None:
                 return self.backend.fused_fn(
                     self.params, *dev_args, self._next_generator(),
@@ -501,30 +588,85 @@ class SynthesisEngine(LongFormSynthesis):
                 precision=self.precision, egress=self.egress_format,
                 fused_ffn=self.fused_ffn, up_matmul=self.up_matmul, **extra)
 
-    def _text_stage(self, ids, mask, sdp, sttl, speed):
-        if self.programs is not None:
-            return self.programs.text_stage(self.params, self.cfg, ids, mask, sdp, sttl,
-                                            speed, precision=self.precision,
-                                            backend=self.backend)
+    def _mesh_fused(self, dev_args, total_step: int, t_bucket: int, speed: float):
+        """The fused call over the mesh: the whole batch's noise drawn once
+        on the lead device from the dispatch generator (the single-device
+        engine's numbers), each shard's flow on its rows of it, the frame
+        masks max-reduced across shards, each shard's vocoding with the
+        result, and the outputs gathered in row order on the lead."""
+        ids, mask, sdp, sttl = dev_args
+        noise = synthesis._noise(self.cfg, sum(t.shape[0] for t in ids), t_bucket,
+                                 self._next_generator(), self.device)
+        flows = []
+        for s, i, m, sd, st, nz in zip(self.shards, ids, mask, sdp, sttl,
+                                       noise.chunk(len(self.shards))):
+            with s.on():
+                flows.append(self._shard_flow(s, i, m, sd, st, nz.to(s.device),
+                                              speed, total_step))
+        fmask = torch.stack([f[2].to(self.device) for f in flows]).amax(0)
+        wavs = []
+        for s, (x, _dur, _fm) in zip(self.shards, flows):
+            with s.on():
+                wavs.append(self._shard_vocode(s, x, fmask.to(s.device)))
+        return (torch.cat([w.to(self.device) for w in wavs]),
+                torch.cat([f[1].to(self.device) for f in flows]))
+
+    def _shard_flow(self, s: Shard, ids, mask, sdp, sttl, noise, speed, total_step: int):
+        """One shard's text stage and flow loop on its noise: (latent,
+        duration, the shard's frame mask)."""
+        spd = self._speed(speed, s.device)
+        if self.backend is not None and s.programs is None:
+            return self.backend.flow_fn(s.params, ids, mask, sdp, sttl, noise, spd,
+                                        int(total_step))
+        extra = {} if self.backend is None else {"backend": self.backend}
+        return s.synth.flow_padded(s.params, self.cfg, ids, mask, sdp, sttl, noise, spd,
+                                   int(total_step), precision=self.precision,
+                                   fused_ffn=self.fused_ffn, **extra)
+
+    def _shard_vocode(self, s: Shard, x, fmask):
+        """One shard's vocoding of its whole latent with the batch's frame
+        mask, in the egress form."""
+        if self.backend is not None and s.programs is None:
+            return synthesis.encode_egress(self.backend.vocode_fn(s.params, x, fmask),
+                                           self.egress_format)
+        extra = {} if self.backend is None else {"backend": self.backend}
+        return s.synth.vocode_window(s.params, self.cfg, x, fmask, 0, x.shape[1], 0,
+                                     precision=self.precision, egress=self.egress_format,
+                                     up_matmul=self.up_matmul, **extra)
+
+    def _programs_of(self, shard: Shard | None):
+        """(programs, params) of ``shard``; the engine's own (the lead
+        shard's) for None."""
+        if shard is None:
+            return self.programs, self.params
+        return shard.programs, shard.params
+
+    def _text_stage(self, ids, mask, sdp, sttl, speed, shard: Shard | None = None):
+        progs, params = self._programs_of(shard)
+        if progs is not None:
+            return progs.text_stage(params, self.cfg, ids, mask, sdp, sttl, speed,
+                                    precision=self.precision, backend=self.backend)
         if self.backend is not None:
-            return self.backend.text_fn(self.params, ids, mask, sdp, sttl, speed)
-        return synthesis.text_stage(self.params, self.cfg, ids, mask, sdp, sttl,
+            return self.backend.text_fn(params, ids, mask, sdp, sttl, speed)
+        return synthesis.text_stage(params, self.cfg, ids, mask, sdp, sttl,
                                     speed, precision=self.precision)
 
-    def _acoustic_stage(self, emb, sttl, tmask, lmask, noise, total_step: int):
-        if self.programs is not None:
-            return self.programs.acoustic_stage(
-                self.params, self.cfg, emb, sttl, tmask, lmask, noise, total_step,
+    def _acoustic_stage(self, emb, sttl, tmask, lmask, noise, total_step: int,
+                        shard: Shard | None = None, frame_mask=None):
+        progs, params = self._programs_of(shard)
+        if progs is not None:
+            return progs.acoustic_stage(
+                params, self.cfg, emb, sttl, tmask, lmask, noise, total_step,
                 precision=self.precision, fused_ffn=self.fused_ffn,
-                up_matmul=self.up_matmul, backend=self.backend)
+                up_matmul=self.up_matmul, backend=self.backend, frame_mask=frame_mask)
         if self.backend is not None:
-            return self.backend.acoustic_fn(self.params, emb, sttl, tmask, lmask,
-                                            noise, total_step)
-        return synthesis.acoustic_stage(self.params, self.cfg, emb, sttl, tmask,
+            return self.backend.acoustic_fn(params, emb, sttl, tmask, lmask,
+                                            noise, total_step, frame_mask=frame_mask)
+        return synthesis.acoustic_stage(params, self.cfg, emb, sttl, tmask,
                                         lmask, noise, total_step,
                                         precision=self.precision,
                                         fused_ffn=self.fused_ffn,
-                                        up_matmul=self.up_matmul)
+                                        up_matmul=self.up_matmul, frame_mask=frame_mask)
 
     def infer_batch_begin(self, text_list, lang_list, style: VoiceStyle,
                           total_step: int = 5, speed: float = 1.05, *,
@@ -642,29 +784,66 @@ class SynthesisEngine(LongFormSynthesis):
                               total_step, speed):
         """Parity path: text stage, a duration sync to size the latent grid
         to the caller's noise, then the acoustic stage (on the card, the
-        ``text`` and ``acoustic`` programs)."""
-        rt = self.cfg.runtime
-        chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
+        ``text`` and ``acoustic`` programs). On a mesh each shard runs both
+        on its rows, and the acoustic stage takes the whole batch's frame
+        mask."""
+        if self.mesh is not None:
+            return self._mesh_injected_noise(dev_args, noise, b_true, b_bucket,
+                                             total_step, speed)
         ids, mask, sdp, sttl = dev_args
         with torch.inference_mode():
             with self.profiler.stage("text_stage"):
                 dur_dev, emb = self._text_stage(ids, mask, sdp, sttl, self._speed(speed))
                 dur = dur_dev.cpu().numpy()
-            latent_lengths = ((dur * sr).astype(np.int64) + chunk - 1) // chunk
-            t_bucket = buckets.pick_bucket(int(latent_lengths[:b_true].max()),
-                                           rt.latent_buckets)
-            latent_mask = (np.arange(t_bucket)[None, :]
-                           < latent_lengths[:, None]).astype(np.float32)
-            noise_arr = np.zeros((b_bucket, t_bucket, self.cfg.latent_channels),
-                                 np.float32)
-            t_copy = min(noise.shape[1], t_bucket)
-            noise_arr[: noise.shape[0], :t_copy] = noise[:, :t_copy]
+            latent_mask, noise_arr = self._latent_grid(dur, noise, b_true, b_bucket)
             with self.profiler.stage("acoustic_stage"):
                 wav = self._acoustic_stage(
                     emb, sttl, mask, torch.as_tensor(latent_mask).to(self.device),
                     torch.as_tensor(noise_arr).to(self.device), int(total_step))
             with self.profiler.stage("egress"):
                 wav_np = wav[:b_true].cpu().numpy()
+        return wav_np, dur[:b_true]
+
+    def _latent_grid(self, dur: np.ndarray, noise: np.ndarray, b_true: int,
+                     b_bucket: int):
+        """The injected-noise path's latent mask [B, T] and noise [B, T, C]
+        at the latent bucket the predicted duration needs."""
+        chunk, sr = self.cfg.chunk_size, self.cfg.sample_rate
+        latent_lengths = ((dur * sr).astype(np.int64) + chunk - 1) // chunk
+        t_bucket = buckets.pick_bucket(int(latent_lengths[:b_true].max()),
+                                       self.cfg.runtime.latent_buckets)
+        latent_mask = (np.arange(t_bucket)[None, :]
+                       < latent_lengths[:, None]).astype(np.float32)
+        noise_arr = np.zeros((b_bucket, t_bucket, self.cfg.latent_channels), np.float32)
+        t_copy = min(noise.shape[1], t_bucket)
+        noise_arr[: noise.shape[0], :t_copy] = noise[:, :t_copy]
+        return latent_mask, noise_arr
+
+    def _mesh_injected_noise(self, dev_args, noise, b_true, b_bucket, total_step, speed):
+        from ..parallel.mesh import shard_batch
+
+        ids, mask, sdp, sttl = dev_args
+        with torch.inference_mode():
+            with self.profiler.stage("text_stage"):
+                stages = []
+                for s, i, m, sd, st in zip(self.shards, ids, mask, sdp, sttl):
+                    with s.on():
+                        stages.append(self._text_stage(i, m, sd, st,
+                                                       self._speed(speed, s.device), shard=s))
+                dur = torch.cat([d.cpu() for d, _emb in stages]).numpy()
+            latent_mask, noise_arr = self._latent_grid(dur, noise, b_true, b_bucket)
+            fmask = latent_mask.max(0)
+            lmasks, noises = shard_batch(self.mesh, latent_mask, noise_arr)
+            with self.profiler.stage("acoustic_stage"):
+                wavs = []
+                for s, (_d, emb), st, m, lm, nz in zip(self.shards, stages, sttl, mask,
+                                                       lmasks, noises):
+                    with s.on():
+                        wavs.append(self._acoustic_stage(
+                            emb, st, m, lm, nz, int(total_step), shard=s,
+                            frame_mask=torch.as_tensor(fmask).to(s.device)))
+            with self.profiler.stage("egress"):
+                wav_np = torch.cat([w.cpu() for w in wavs])[:b_true].numpy()
         return wav_np, dur[:b_true]
 
     def warmup(self, *, batch_sizes: tuple[int, ...] | None = None,
@@ -739,7 +918,8 @@ class SynthesisEngine(LongFormSynthesis):
         ids = np.pad(ids, ((0, 0), (0, l_bucket - ids.shape[1])))
         mask = np.pad(mask3[:, 0, :], ((0, 0), (0, l_bucket - mask3.shape[2])))
         with torch.inference_mode():
-            sdp, sttl = self._device_style(style, 1)
+            # one row: the lead shard's alone on a mesh
+            sdp, sttl = self._device_style(style, 1, sharded=False)
             tmask = torch.as_tensor(mask, dtype=torch.float32).to(self.device)
             dur_dev, emb = self._text_stage(
                 torch.as_tensor(ids, dtype=torch.int64).to(self.device), tmask,

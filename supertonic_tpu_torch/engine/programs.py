@@ -27,7 +27,8 @@ different settings never share a program.
 
 ``Programs`` has the functions of ``synthesis`` that the engine calls, with
 their signatures: the fused batch, a streamed chunk's flow and each vocoder
-window; the two stages of the injected-noise path (the host syncs on the
+window (a mesh shard's batch is its flow on noise copied in, then one
+window over the whole latent with the whole batch's frame mask); the two stages of the injected-noise path (the host syncs on the
 duration between them); and the progress path's three calls, whose
 ``step`` program is replayed once per Euler step with the step number
 copied in. The first call of a key runs the function's body
@@ -104,10 +105,13 @@ def text_key(text_ids, precision: str) -> tuple:
 
 
 def acoustic_key(text_emb, latent_mask, total_step: int, precision: str,
-                 fused_ffn: bool = True, up_matmul: bool = False) -> tuple:
+                 fused_ffn: bool = True, up_matmul: bool = False,
+                 frame_mask: bool = False) -> tuple:
     b, l_pad = text_emb.shape[:2]
-    return ("acoustic", b, l_pad, latent_mask.shape[1], int(total_step), precision,
-            bool(fused_ffn), bool(up_matmul))
+    key = ("acoustic", b, l_pad, latent_mask.shape[1], int(total_step), precision,
+           bool(fused_ffn), bool(up_matmul))
+    # a mesh shard's program takes the whole batch's frame mask as an input
+    return key + ("frame_mask",) if frame_mask else key
 
 
 def cross_key(text_emb, precision: str) -> tuple:
@@ -223,23 +227,43 @@ class Programs:
                    generator, speed, total_step: int, t_pad: int, *,
                    precision: str = "bf16", halo: int = 0, fused_ffn: bool = True):
         """``synthesis.flow_fused`` through its program."""
-        noise = _noise_draw(cfg, text_ids.shape[0], t_pad, generator)
+        return self.flow_padded(
+            params, cfg, text_ids, text_mask, style_dp, style_ttl,
+            _noise_draw(cfg, text_ids.shape[0], t_pad, generator), speed, total_step,
+            precision=precision, halo=halo, fused_ffn=fused_ffn)
+
+    def flow_padded(self, params, cfg, text_ids, text_mask, style_dp, style_ttl, noise,
+                    speed, total_step: int, *, precision: str = "bf16", halo: int = 0,
+                    fused_ffn: bool = True, backend=None):
+        """``synthesis.flow_padded`` through the ``flow`` program, the noise
+        copied into its static buffer: a mesh engine's shard takes its rows
+        of the noise drawn once for the whole batch. With a graph
+        ``backend`` the body is its ``flow_fn`` (halo 0)."""
 
         def body(ids, mask, sdp, sttl, spd, nz):
+            if backend is not None:
+                return backend.flow_fn(params, ids, mask, sdp, sttl, nz, spd, total_step)
             return synthesis.flow_padded(params, cfg, ids, mask, sdp, sttl, nz, spd,
                                          total_step, precision=precision, halo=halo,
                                          fused_ffn=fused_ffn)
 
+        t_pad = noise.shape[1]
         key = flow_key(text_ids, total_step, t_pad, precision, halo, fused_ffn)
         return self.run(key, body, (text_ids, text_mask, style_dp, style_ttl, speed, noise))
 
     def vocode_window(self, params, cfg, xt_pad, mask_pad, start: int, window: int,
                       halo: int, *, precision: str = "bf16", egress: str = "int16",
-                      up_matmul: bool = False):
+                      up_matmul: bool = False, backend=None):
         """``synthesis.vocode_window`` through its program: the window's
-        frames are copied into the static input."""
+        frames are copied into the static input. With a graph ``backend``
+        the vocoder is its ``vocode_fn``."""
 
         def body(x_win, m_win):
+            if backend is not None:
+                wav = backend.vocode_fn(params, x_win, m_win)
+                chunk = cfg.chunk_size
+                return (synthesis.encode_egress(
+                    wav[:, halo * chunk:(halo + window) * chunk], egress),)
             return (synthesis.vocode_span(params, cfg, x_win, m_win, window, halo,
                                           precision=precision, egress=egress,
                                           up_matmul=up_matmul),)
@@ -266,21 +290,26 @@ class Programs:
 
     def acoustic_stage(self, params, cfg, text_emb, style_ttl, text_mask, latent_mask,
                        noise, total_step: int, *, precision: str = "bf16",
-                       fused_ffn: bool = True, up_matmul: bool = False, backend=None):
+                       fused_ffn: bool = True, up_matmul: bool = False, backend=None,
+                       frame_mask=None):
         """``synthesis.acoustic_stage`` (or ``backend.acoustic_fn``) through
-        its program: wav [B, T*chunk] f32."""
+        its program: wav [B, T*chunk] f32. A given ``frame_mask`` is one
+        more static input, under a key of its own."""
 
-        def body(emb, sttl, tmask, lmask, nz):
+        def body(emb, sttl, tmask, lmask, nz, *fm):
+            fm = fm[0] if fm else None
             if backend is not None:
                 return (backend.acoustic_fn(params, emb, sttl, tmask, lmask, nz,
-                                            total_step),)
+                                            total_step, frame_mask=fm),)
             return (synthesis.acoustic_stage(params, cfg, emb, sttl, tmask, lmask, nz,
                                              total_step, precision=precision,
-                                             fused_ffn=fused_ffn, up_matmul=up_matmul),)
+                                             fused_ffn=fused_ffn, up_matmul=up_matmul,
+                                             frame_mask=fm),)
 
         key = acoustic_key(text_emb, latent_mask, total_step, precision, fused_ffn,
-                           up_matmul)
-        (wav,) = self.run(key, body, (text_emb, style_ttl, text_mask, latent_mask, noise))
+                           up_matmul, frame_mask is not None)
+        inputs = (text_emb, style_ttl, text_mask, latent_mask, noise)
+        (wav,) = self.run(key, body, inputs + (() if frame_mask is None else (frame_mask,)))
         return wav
 
     # -- the progress path: the cross K/V once, a step per replay, vocoder --
@@ -341,6 +370,10 @@ class Programs:
     def run(self, key: tuple, body, inputs) -> tuple:
         """Replay the program of ``key`` (captured from ``body`` at first
         use) on ``inputs``; returns fresh copies of its outputs."""
+        with torch.cuda.device(self.device):  # one Programs per card of a mesh
+            return self._run(key, body, inputs)
+
+    def _run(self, key: tuple, body, inputs) -> tuple:
         prog = self._program(key, body, inputs)
         with self._replay_lock:
             stream = torch.cuda.current_stream(self.device)

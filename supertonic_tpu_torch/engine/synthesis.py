@@ -93,14 +93,17 @@ def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
 def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
                    latent_mask, noise, total_step: int, *,
                    precision: str = "bf16", fused_ffn: bool = True,
-                   up_matmul: bool = False) -> torch.Tensor:
+                   up_matmul: bool = False, frame_mask=None) -> torch.Tensor:
     """Euler loop + vocoder. Returns wav [B, T*chunk] f32. ``up_matmul``:
-    the vocoder's upsample convs as products (``vocoder.apply``)."""
+    the vocoder's upsample convs as products (``vocoder.apply``).
+    ``frame_mask`` [T]: the vocoder's frame mask when the batch is one
+    shard of a larger one (the whole batch's; by default this batch's)."""
     x = flow_stage(params, cfg, text_emb, style_ttl, text_mask, latent_mask,
                    noise, total_step, precision=precision, fused_ffn=fused_ffn)
     # batch-max frame validity: frames past the longest utterance are
     # bucket padding, masked inside the vocoder
-    frame_mask = latent_mask.amax(0)
+    if frame_mask is None:
+        frame_mask = latent_mask.amax(0)
     return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
                          dtype=dtype_of(precision), up_matmul=up_matmul)
 
@@ -192,19 +195,27 @@ def cross_cache(params, cfg: TTSConfig, text_emb, style_ttl, text_mask, *,
                 precision: str = "bf16") -> tuple:
     """The step-invariant cross-attention memory of the progress path,
     ``vector_estimator.precompute_cross`` flattened: (mem_mask, k_0, v_0,
-    k_1, v_1, ...)."""
+    k_1, v_1, ...); over a model group each block's (k, v) per rank, in
+    rank order."""
     mem_mask, kvs = vector_estimator.precompute_cross(
         params["vector_estimator"], cfg, text_emb, style_ttl, text_mask,
         dtype=dtype_of(precision))
-    return (mem_mask, *[t for kv in kvs for t in kv])
+    return (mem_mask, *[t for kv in kvs
+                        for pair in (kv if isinstance(kv, list) else [kv])
+                        for t in pair])
 
 
 def euler_step(params, cfg: TTSConfig, x, text_emb, style_ttl, text_mask,
                latent_mask, current_step, total_step, cache: tuple, *,
                precision: str = "bf16", fused_ffn: bool = True) -> torch.Tensor:
     """One Euler step of the progress path on the flat ``cross_cache``."""
+    from ..models.layers import tp_ranks
+
     mem_mask, flat = cache[0], cache[1:]
     kvs = [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+    ranks = tp_ranks(params["vector_estimator"]["blocks"][0]["cross"])
+    if ranks > 1:  # each block's per-rank pairs
+        kvs = [kvs[i:i + ranks] for i in range(0, len(kvs), ranks)]
     return vector_estimator.step(params["vector_estimator"], cfg, x, text_emb,
                                  style_ttl, text_mask, latent_mask, current_step,
                                  total_step, dtype=dtype_of(precision),

@@ -23,6 +23,12 @@ Conventions:
     quantize pass (ops/quantize.py) and the int8 product with its
     rescale-and-bias epilogue (ops/w8a8.py), in the JAX ``_linear_w8a8``'s
     order.
+  * Tensor parallelism (``parallel.mesh``): a sharded linear is a
+    ``ShardedLinear`` of per-rank shards; ``mha``, ``kv_project`` and
+    ``ffn`` run each rank's heads or hidden columns on its device and sum
+    the row-parallel partials onto the group's lead device
+    (``col_linear``, ``row_linear``). Everything else is replicated and
+    runs on the lead.
 
 The ``*_init`` helpers are verbatim numpy copies of the JAX package's, so
 that ``models.init_all`` draws the same numbers in the same order.
@@ -40,6 +46,7 @@ from torch import nn
 
 from ..ops.attention import fused_attention
 from ..ops.ffn import fused_adaln_ffn
+from ..ops.int8_matmul import int8_matmul
 from ..ops.quantize import quantize_rows
 from ..ops.w8a8 import w8a8_matmul
 
@@ -185,6 +192,36 @@ class Embedding(nn.Module):
         return {"table": _np(self.table)}
 
 
+class ShardedLinear(nn.Module):
+    """A linear split over the ranks of a model group
+    (``parallel.mesh.shard_params``), each shard a ``Linear`` or ``QLinear``
+    on its rank's device. ``split="col"`` (QKV, FFN-in): a rank holds its
+    output columns and their bias; ``"row"`` (O, FFN-out): a rank holds its
+    input rows and the whole bias, and the ranks' partial products are
+    summed across the group before the bias (``row_linear``)."""
+
+    def __init__(self, shards, split: str):
+        super().__init__()
+        if split not in ("col", "row"):
+            raise ValueError(f"split must be 'col' or 'row', got {split!r}")
+        self.shards = nn.ModuleList(shards)
+        self.split = split
+
+    def to_tree(self) -> Params:
+        """The unsharded JAX-layout leaves."""
+        parts = [s.to_tree() for s in self.shards]
+        col = self.split == "col"
+        out = {}
+        for k in parts[0]:
+            if k in ("w", "w_q"):
+                out[k] = np.concatenate([t[k] for t in parts], axis=1 if col else 0)
+            elif col:  # "b", "w_scale": per output column
+                out[k] = np.concatenate([t[k] for t in parts])
+            else:
+                out[k] = parts[0][k]
+        return out
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).contiguous().numpy().copy()
 
@@ -264,6 +301,69 @@ def _linear_w8a8(p: QLinear, x: torch.Tensor) -> torch.Tensor:
     xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
     y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype)
     return y.reshape(*x.shape[:-1], -1)
+
+
+def _device_of(p: nn.Module) -> torch.device:
+    return next(p.parameters()).device
+
+
+def col_linear(p: ShardedLinear, x: torch.Tensor) -> list[torch.Tensor]:
+    """A column-parallel linear on the replicated input ``x``: each rank's
+    output columns, on its device. A W8A8 linear quantizes ``x`` once and
+    gives every rank the same (xq, sx): each rank's slice is then exactly
+    those columns of the unsharded product."""
+    if isinstance(p.shards[0], QLinear):
+        xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+        outs = []
+        for s in p.shards:
+            dev = s.w_q.device
+            y = w8a8_matmul(xq.to(dev), sx.to(dev), s.w_q, s.w_scale, s.bias, x.dtype)
+            outs.append(y.reshape(*x.shape[:-1], -1))
+        return outs
+    return [linear(s, x.to(_device_of(s))) for s in p.shards]
+
+
+def row_linear(p: ShardedLinear, xs: list[torch.Tensor], out_device) -> torch.Tensor:
+    """A row-parallel linear on each rank's input columns ``xs``: the
+    ranks' partial products summed across the group onto ``out_device``
+    (the all-reduce of the JAX mesh, explicit here), then the bias in
+    ``linear``'s order. A W8A8 linear quantizes the whole activation row
+    (its amax over every rank's columns, as GSPMD reduces it), takes each
+    rank's int32 partial from the int8 product, sums them exactly and
+    rescales once: bit for bit the unsharded ``_linear_w8a8``."""
+    lead = p.shards[0]
+    dtype = xs[0].dtype
+    lead_shape = xs[0].shape[:-1]
+    if isinstance(lead, QLinear):
+        x = torch.cat([t.to(out_device) for t in xs], dim=-1)
+        xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+        acc, k0 = None, 0
+        for s, t in zip(p.shards, xs):
+            k1 = k0 + t.shape[-1]
+            part = int8_matmul(xq[:, k0:k1].contiguous().to(s.w_q.device), s.w_q)
+            part = part.to(out_device)
+            acc = part if acc is None else acc + part  # int32: exact
+            k0 = k1
+        y = acc.float() * sx[:, None] * lead.w_scale.to(out_device)
+        y = (y + lead.bias.to(out_device)).to(dtype)
+        return y.reshape(*lead_shape, -1)
+    acc = None
+    for s, t in zip(p.shards, xs):
+        part = F.linear(t, _weight(s, dtype)).to(out_device, torch.float32)
+        acc = part if acc is None else acc + part
+    bias = lead.bias.to(out_device)
+    if dtype == torch.bfloat16:
+        return acc.to(torch.bfloat16) + bias.to(torch.bfloat16)
+    return (acc + bias).to(dtype)
+
+
+def tp_ranks(p) -> int:
+    """The model-group size of an attention or FFN sublayer's params (1
+    when unsharded)."""
+    for leaf in p.values():
+        if isinstance(leaf, ShardedLinear):
+            return len(leaf.shards)
+    return 1
 
 
 def embedding(p: Embedding, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -360,7 +460,12 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
     """Multi-head attention; self-attention when memory is None.
     ``kv_cache``: precomputed (k, v), head-split and rotated. Fused
     projections (``models.fuse_projections``): "qkv" replaces q/k/v in
-    self-attention, "kv" replaces k/v in cross-attention."""
+    self-attention, "kv" replaces k/v in cross-attention. Sharded over a
+    model group (``ShardedLinear``), each rank runs its own heads through
+    the attention kernel, and O sums the ranks' partials (``row_linear``);
+    ``kv_cache`` is then the per-rank list of ``kv_project``."""
+    if isinstance(p["o"], ShardedLinear):
+        return _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache)
     if memory is None and kv_cache is None and "qkv" in p:
         q, k, v = _split_fused(linear(p["qkv"], x), 3, n_heads)
         if k_rope is not None:
@@ -374,8 +479,33 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
     return linear(p["o"], _merge_heads(attention_core(q, k, v, key_mask)))
 
 
+def _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache):
+    ranks = len(p["o"].shards)
+    kvs = kv_cache if kv_cache is not None else kv_project(
+        p, x if memory is None else memory, n_heads, k_rope)
+    outs = []
+    for q, (k, v) in zip(col_linear(p["q"], x), kvs):
+        dev = q.device
+        q = _split_heads(q, n_heads // ranks)
+        if q_rope is not None:
+            q = apply_rope(q, *(t.to(dev) for t in q_rope))
+        mask = None if key_mask is None else key_mask.to(dev)
+        outs.append(_merge_heads(attention_core(q, k, v, mask)))
+    return row_linear(p["o"], outs, x.device)
+
+
 def kv_project(p, mem, n_heads: int, k_rope=None):
-    """Project memory into head-split (k, v) with optional rotation."""
+    """Project memory into head-split (k, v) with optional rotation; over
+    a model group, a list of each rank's (k, v) for its heads."""
+    if "k" in p and isinstance(p["k"], ShardedLinear):
+        ranks = len(p["k"].shards)
+        out = []
+        for k, v in zip(col_linear(p["k"], mem), col_linear(p["v"], mem)):
+            k = _split_heads(k, n_heads // ranks)
+            if k_rope is not None:
+                k = apply_rope(k, *(t.to(k.device) for t in k_rope))
+            out.append((k, _split_heads(v, n_heads // ranks)))
+        return out
     if "kv" in p:
         k, v = _split_fused(linear(p["kv"], mem), 2, n_heads)
     else:
@@ -391,6 +521,8 @@ def kv_project(p, mem, n_heads: int, k_rope=None):
 # ---------------------------------------------------------------------------
 
 def ffn(p, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p["in"], ShardedLinear):
+        return row_linear(p["out"], [F.silu(u) for u in col_linear(p["in"], x)], x.device)
     return linear(p["out"], F.silu(linear(p["in"], x)))
 
 
@@ -406,7 +538,9 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
     AdaLN FFN sublayer goes through the fused AdaLN-FFN kernel's wrapper
     (ops/ffn.py) when its linears are plain; without it, and for W8A8
     linears, it is mod(LN), ``linear``, silu and ``linear``, as in the JAX
-    package's unfused path."""
+    package's unfused path. Over a model group (``ShardedLinear``) it is
+    the unfused path too: the kernel fuses the bias, gate and residual into
+    its second product's epilogue, which cannot take partial sums."""
     has_cross = "cross" in p
     if cond is not None and "adaln" in p:
         n_sub = 3 if has_cross else 2

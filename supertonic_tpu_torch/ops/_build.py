@@ -106,6 +106,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def on(t):
+    """``t``'s device as the current one around a launch: a kernel runs on
+    the current device, whose stream ``stream_ptr`` must be, and its
+    one-time attributes are set per device."""
+    import torch
+
+    return torch.cuda.device(t.device)
+
+
 def stream_ptr(t) -> ctypes.c_void_p:
     import torch
 

@@ -75,9 +75,10 @@ def fused_attention(q, k, v, key_mask=None):
         mask = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(q)
     fn = _build.function("attention", "stk_attention", _ARGTYPES)
-    _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                    _build.ptr(mask), _build.ptr(out), b, tq, tk, h, d,
-                    _build.dtype_code(q.dtype), _build.stream_ptr(q)),
-                 "stk_attention")
+    with _build.on(q):
+        _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
+                        _build.ptr(mask), _build.ptr(out), b, tq, tk, h, d,
+                        _build.dtype_code(q.dtype), _build.stream_ptr(q)),
+                     "stk_attention")
     _count.launched("attention", (b, h, tq, tk, key_mask is not None))
     return out

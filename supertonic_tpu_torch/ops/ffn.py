@@ -97,9 +97,10 @@ def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
     fn = _build.function("ffn", "stk_adaln_ffn", _ARGTYPES)
     g, bl, b1f, b2f, sh, sc, ga = args
     P = _build.ptr
-    _build.check(fn(P(x), P(g), P(bl), P(w1), P(b1f), P(w2), P(b2f), P(sh),
-                    P(sc), P(ga), P(h), P(mid), P(out), b, t, d, f, eps,
-                    _build.dtype_code(x.dtype), _build.stream_ptr(x)),
-                 "stk_adaln_ffn")
+    with _build.on(x):
+        _build.check(fn(P(x), P(g), P(bl), P(w1), P(b1f), P(w2), P(b2f), P(sh),
+                        P(sc), P(ga), P(h), P(mid), P(out), b, t, d, f, eps,
+                        _build.dtype_code(x.dtype), _build.stream_ptr(x)),
+                     "stk_adaln_ffn")
     _count.launched("adaln_ffn", (b, t, d, f))
     return out

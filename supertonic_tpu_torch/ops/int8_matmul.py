@@ -63,7 +63,8 @@ def int8_matmul(a, w):
                              f"on {a.device}")
     out = torch.empty((m, n), device=a.device, dtype=torch.int32)
     fn = _build.function("int8_matmul", "stk_int8_matmul", _ARGTYPES)
-    _build.check(fn(_build.ptr(a), _build.ptr(w), _build.ptr(out), m, n, k,
-                    _build.stream_ptr(a)), "stk_int8_matmul")
+    with _build.on(a):
+        _build.check(fn(_build.ptr(a), _build.ptr(w), _build.ptr(out), m, n, k,
+                        _build.stream_ptr(a)), "stk_int8_matmul")
     _count.launched("int8_matmul", (m, k, n))
     return out

@@ -62,7 +62,8 @@ def quantize_rows(x):
     xq = torch.empty((m, k), device=x.device, dtype=torch.int8)
     sx = torch.empty((m,), device=x.device, dtype=torch.float32)
     fn = _build.function("quantize", "stk_quantize_rows", _ARGTYPES)
-    _build.check(fn(_build.ptr(x), _build.ptr(xq), _build.ptr(sx), m, k,
-                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "stk_quantize_rows")
+    with _build.on(x):
+        _build.check(fn(_build.ptr(x), _build.ptr(xq), _build.ptr(sx), m, k,
+                        _build.dtype_code(x.dtype), _build.stream_ptr(x)), "stk_quantize_rows")
     _count.launched("quantize", (m, k))
     return xq, sx

@@ -126,10 +126,11 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
     out = torch.empty_like(x)
     fn = _build.function("resblock_chain", "stk_resblock_chain", _ARGTYPES)
     P = _build.ptr
-    _build.check(fn(P(x), P(fm), P(wa), P(baf), P(wb), P(bbf), P(out), b, t_len,
-                    c, p, ctypes.cast(dils, ctypes.c_void_p),
-                    _build.dtype_code(x.dtype), _build.stream_ptr(x)),
-                 "stk_resblock_chain")
+    with _build.on(x):
+        _build.check(fn(P(x), P(fm), P(wa), P(baf), P(wb), P(bbf), P(out), b, t_len,
+                        c, p, ctypes.cast(dils, ctypes.c_void_p),
+                        _build.dtype_code(x.dtype), _build.stream_ptr(x)),
+                     "stk_resblock_chain")
     _count.launched("resblock_chain", (b, t_len, c))
     return out
 

@@ -74,7 +74,8 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype):
     y = torch.empty((m, n), device=xq.device, dtype=dtype)
     fn = _build.function("int8_matmul", "stk_w8a8_matmul", _ARGTYPES)
     P = _build.ptr
-    _build.check(fn(P(xq), P(w_q), P(sx), P(w_scale), P(bias), P(y), m, n, k,
-                    _build.dtype_code(dtype), _build.stream_ptr(xq)), "stk_w8a8_matmul")
+    with _build.on(xq):
+        _build.check(fn(P(xq), P(w_q), P(sx), P(w_scale), P(bias), P(y), m, n, k,
+                        _build.dtype_code(dtype), _build.stream_ptr(xq)), "stk_w8a8_matmul")
     _count.launched("w8a8_matmul", (m, k, n))
     return y

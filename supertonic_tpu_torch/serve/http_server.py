@@ -412,11 +412,12 @@ class TTSService:
         # other thread's work); the remaining chunks coalesce in the batcher.
         engine = self.tts.engine
         if (getattr(engine, "backend", None) is None
+                and getattr(engine, "mesh", None) is None
                 and hasattr(engine, "_vocode_stream")):
             yield from engine._vocode_stream(
                 chunks[0], lang, style, req["total_step"], req["speed"],
                 window_frames=64)
-        else:  # the graph backend and its adapter stream whole chunks
+        else:  # the graph backend, its adapter and a mesh stream whole chunks
             first = self.batcher.submit(
                 chunks[0], lang, style, req["total_step"], req["speed"])
             wav, dur = first.result()
@@ -531,7 +532,13 @@ def _device_memory_stats() -> dict | None:
 
 def make_server(tts, host: str = "0.0.0.0", port: int = 8000,
                 *, use_batcher: bool = True,
-                max_batch: int = 32) -> ThreadingHTTPServer:
+                max_batch: int = 32,
+                fault_delay_s: float = 0.0) -> ThreadingHTTPServer:
+    """``fault_delay_s`` (env TTS_FAULT_DELAY_S): chaos-injection knob —
+    sleep this long before serving each synthesis request, simulating a
+    degraded-but-alive host (thermal throttle, noisy neighbor, dying disk).
+    Used by the pod straggler tests to prove the router's least-expected-wait
+    policy sheds load from a slow backend; never set in production."""
     service = TTSService(tts, use_batcher=use_batcher, max_batch=max_batch)
 
     class Handler(BaseHTTPRequestHandler):
@@ -622,6 +629,8 @@ def make_server(tts, host: str = "0.0.0.0", port: int = 8000,
             if self.path not in ("/tts", "/tts/stream", "/v1/audio/speech"):
                 self._send_json(404, {"detail": "not found"})
                 return
+            if fault_delay_s > 0:  # chaos injection (see make_server doc)
+                time.sleep(fault_delay_s)
             t0 = time.perf_counter()
             try:
                 try:
@@ -702,7 +711,8 @@ def main():
     and without one this raises), TTS_ASSETS_DIR (a params.npz bundle or a
     directory of the four ONNX graphs; TTS_ONNX_DIR, the reference
     service's name, is its alias), TTS_PRECISION, TTS_EGRESS (int16 |
-    mulaw | f32), TTS_BATCHER=0, TTS_MAX_BATCH, TTS_WARMUP=1."""
+    mulaw | f32), TTS_BATCHER=0, TTS_MAX_BATCH, TTS_WARMUP=1,
+    TTS_FAULT_DELAY_S (the chaos knob of ``make_server``)."""
     from .. import TTS
 
     tts = TTS(
@@ -728,7 +738,8 @@ def main():
             progress=lambda i, total: print(f"warmup {i}/{total}"))
         print(f"warmed {n} batch shapes")
     server = make_server(tts, host, port, use_batcher=use_batcher,
-                         max_batch=max_batch)
+                         max_batch=max_batch,
+                         fault_delay_s=float(os.getenv("TTS_FAULT_DELAY_S", "0")))
     print(f"Serving Supertonic TTS (PyTorch, {tts.engine.device}) on "
           f"{host}:{port} (batcher={'on' if use_batcher else 'off'})")
 

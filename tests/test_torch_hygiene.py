@@ -1,5 +1,6 @@
-"""The port stands alone: no module of supertonic_tpu_torch, nor
-chip_smoke.py or kernel_variants.py, imports JAX or the JAX package; and its framework-free
+"""The port stands alone: no module of supertonic_tpu_torch (its mesh,
+multi-process bring-up and tools included), nor chip_smoke.py or
+kernel_variants.py, imports JAX or the JAX package; and its framework-free
 copies (config, frontend, buckets, stitch, wav, and the ONNX reader, exporter, auto-mapper
 and converter) behave like the originals."""
 
@@ -115,6 +116,16 @@ def test_single_card_surface_modules_are_covered_and_import_without_jax():
     (``__main__`` is checked by the AST scan only: importing it runs the
     CLI)."""
     _covered_and_imports_without_jax(SINGLE_CARD_SURFACE, skip_import=("__main__.py",))
+
+
+MESH_AND_TOOLS = ("parallel/mesh.py", "parallel/multihost.py", "tools/__init__.py",
+                  "tools/parity_check.py", "tools/bench_onnx_backend.py")
+
+
+def test_mesh_multihost_and_tools_are_covered_and_import_without_jax():
+    """The same for the device mesh, the multi-process bring-up and the
+    port's tools."""
+    _covered_and_imports_without_jax(MESH_AND_TOOLS)
 
 
 def test_forbidden_name_match():

@@ -4,14 +4,23 @@ built with make and g++ from the port's sources into a temporary build
 directory, then its normalization, tokenization (ids and masks) and
 chunking equal, character for character, to the port's Python frontend and
 to the JAX package's native frontend on the corpora of
-tests/test_native_frontend.py and seeded fuzz sets; the whole-batch call
-under threads; the NUL and contract edges; ``TTS_NATIVE_FRONTEND=1`` in
-``load_assets`` and ``chunk_text``; the fall-back to Python without a
-toolchain; and the sanitizer build of the C++ test driver."""
+tests/test_native_frontend.py (copied here, and held equal to that file's
+lists) and seeded fuzz sets; the whole-batch call under threads; the NUL
+and contract edges; ``TTS_NATIVE_FRONTEND=1`` in ``load_assets`` and
+``chunk_text``; the fall-back to Python without a toolchain; and the
+sanitizer build of the C++ test driver.
 
+The JAX package's library is built here too, from a copy of its sources in
+a temporary directory, and installed as that package's loaded library for
+the module: this file never builds into ``supertonic_tpu/native``, where
+tests/test_native_frontend.py may be building at the same moment on
+another worker."""
+
+import ast
 import concurrent.futures
 import ctypes
 import os
+import shutil
 import subprocess
 import sys
 
@@ -23,24 +32,106 @@ from supertonic_tpu_torch.assets import load_assets
 from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexer
 from supertonic_tpu_torch.frontend import chunker, native, preprocess_text
 
-from test_native_frontend import CHUNK_CORPUS, CORPUS
+TESTS = os.path.dirname(os.path.abspath(__file__))
+PORT_NATIVE = os.path.join(TESTS, "..", "supertonic_tpu_torch", "native")
+JAX_NATIVE = os.path.join(TESTS, "..", "supertonic_tpu", "native")
 
-PORT_NATIVE = os.path.join(os.path.dirname(__file__), "..", "supertonic_tpu_torch", "native")
+# copies of tests/test_native_frontend.py's corpora
+# (test_corpora_equal_the_jax_tests_lists holds them equal)
+CORPUS = [
+    ("Hello world", "en"),
+    ("Hello world.", "en"),
+    ("what ?  really !", "en"),
+    ("a–b—c_d [x] |y| /z/ #tag", "en"),
+    ("“curly quotes” and ‘single’ ones", "en"),
+    ("me@home and fruits, e.g., apples, i.e., the red ones", "en"),
+    ('she said ""hi"" and ``bye``', "en"),
+    ("hearts ♥ stars ☆ love ♡ copy © back\\slash", "en"),
+    ("emoji test 😀🚀🎉 flag 🇺🇸 done", "en"),
+    ("ellipsis… here", "en"),
+    ("trailing quote”", "en"),
+    ("multi   space\t\ttabs\nnewlines", "en"),
+    ("café résumé naïve", "fr"),
+    ("mañana señor", "es"),
+    ("ação coração", "pt"),
+    ("안녕하세요 세계", "ko"),
+    ("한국어 테스트 문장입니다", "ko"),
+    ("ﬁne ligature ™ symbol ½ fraction", "en"),
+    ("ＦＵＬＬｗｉｄｔｈ", "en"),
+    ("already ends!", "en"),
+    ("colon ends:", "en"),
+    ("CJK stop。", "en"),
+    ("", "en"),
+]
+
+CHUNK_CORPUS = [
+    "Dr. Smith met Mr. Jones at 5 p.m. sharp. They talked.",
+    "The U.S. Government and the E.U. Commission agreed. Next item.",
+    "F. Scott Fitzgerald wrote it. B. B. King played it.",
+    "e.g., apples, i.e., the red ones, etc. are fruits. Right?",
+    "Para one sentence one. Para one sentence two.\n\nPara two starts here.",
+    "One! Two? Three. Four;\n\n\n  Five after blank lines.",
+    "A sentence with, many, commas, that keeps, going, and going, and "
+    "going, far beyond any reasonable budget, to force comma fallback.",
+    "Supercalifragilisticexpialidocious" * 12 + " tail words here.",
+    "안녕하세요. 오늘 날씨가 참 좋네요. 산책을 갈까요? 네, 좋아요. " * 6,
+    "Mixed café sentences. Ação coração! Mañana señor? Fin.",
+    "  leading and trailing whitespace  \n\n  around paragraphs  ",
+    "no terminal punctuation at all just words",
+    "",
+    "...",
+    "Inc. Ltd. Co. Corp. St. Ave. Blvd. all abbreviations. Done.",
+    "a. b. c. single letters split. lowercase ok.",
+    "line one\nline two stays in one chunk. second sentence here.",
+]
+
+
+def _jax_test_lists() -> dict:
+    """CORPUS and CHUNK_CORPUS as tests/test_native_frontend.py defines
+    them, read from its text (importing it would build the JAX library in
+    its source tree)."""
+    path = os.path.join(TESTS, "test_native_frontend.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = {}
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id in ("CORPUS", "CHUNK_CORPUS")):
+            # literals, string concatenation and repetition only
+            code = compile(ast.Expression(node.value), path, "eval")
+            out[node.targets[0].id] = eval(code, {"__builtins__": {}})
+    return out
 
 
 @pytest.fixture(scope="module", autouse=True)
 def lib(tmp_path_factory):
     """The library built from the port's sources into a temporary
-    directory, installed as the module's loaded library for every test."""
+    directory, installed as the module's loaded library for every test;
+    beside it the JAX package's library, built from a copy of its sources
+    in another temporary directory and installed as that package's."""
     out = tmp_path_factory.mktemp("native_build")
     path = native.build_native(out_dir=str(out))
     assert path == os.path.join(str(out), "libstpu_frontend.so") and os.path.exists(path)
     lib = ctypes.CDLL(path)
     native._bind(lib)
+    jdir = tmp_path_factory.mktemp("jax_native_build")
+    for f in ("frontend.cpp", "gen_nfkd_table.py", "Makefile"):
+        shutil.copy(os.path.join(JAX_NATIVE, f), jdir / f)
+    proc = subprocess.run(["make", "-C", str(jdir)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    jlib = ctypes.CDLL(str(jdir / "libstpu_frontend.so"))
+    jnative._bind(jlib)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "_lib", lib)
+        mp.setattr(jnative, "_lib", jlib)
         mp.delenv("TTS_NATIVE_FRONTEND", raising=False)
         yield lib
+
+
+def test_corpora_equal_the_jax_tests_lists():
+    assert _jax_test_lists() == {"CORPUS": CORPUS, "CHUNK_CORPUS": CHUNK_CORPUS}
 
 
 def test_built_from_the_ports_own_sources(lib, tmp_path):
@@ -57,7 +148,7 @@ def test_built_from_the_ports_own_sources(lib, tmp_path):
 
 
 def test_preprocess_equals_python_and_jax_native():
-    assert jnative.load_native() is not None
+    assert jnative._lib is not None
     for text, lang in CORPUS:
         want = preprocess_text(text, lang)
         assert native.native_preprocess(text, lang) == want, (text, lang)
