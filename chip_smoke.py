@@ -15,7 +15,10 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
   2. build   — compile every kernel in supertonic_tpu_torch/csrc with nvcc,
-               printing ptxas's register and spill report
+               printing ptxas's register and spill report; count the wgmma
+               (HGMMA) and TMA-load (UTMALDG) instructions of the bf16
+               attention and FFN libraries (cuobjdump -sass; none fails)
+               and print the tiles each chose
   3. main    — TTS() at the default 66M config (bf16, random weights made
                from a seed, zero-init heads perturbed) answers the three
                protocol texts through ``synthesize`` and 16 texts through
@@ -136,6 +139,7 @@ import http.client
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -221,18 +225,24 @@ SOURCES = {
     "quantize": ("supertonic_tpu_torch/csrc/quantize.cu",
                  "supertonic_tpu/models/layers.py:84"),
 }
-# ms per launch at the cell's shapes (bf16; int8 for the int8 product) as the
-# kernels took them before the FFN's redesign and the W8A8 epilogue:
-# chip_smoke.py phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W, kernel build
-# hash fb4eb80f8363927d (PERF.md section 6); for w8a8_matmul, the int32
-# product it replaces on the path. Printed beside this run's times; keys are
-# the shapes ops.record_launches tallies.
+# ms per launch (bf16; int8 for the int8 product) of the designs that the
+# kernels on the path replaced, printed beside this run's times; keys are
+# the shapes ops.record_launches tallies. Attention and the AdaLN FFN: the
+# mma.sync designs they replaced (supertonic_tpu_torch/csrc/earlier/)
+# at the b64 cell's shapes (L=320, T=448) and a streamed chunk's B=1
+# shapes, kernel_variants.py's "earlier" rows (CUDA events, as time_ms) on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The
+# chain and the int8 products: chip_smoke.py phase 5 at the T=640 cell, on
+# the same card (build hash fb4eb80f8363927d, PERF.md section 6); for
+# w8a8_matmul, the int32 product it replaces on the path.
 INT32_PRODUCT_MS = {(40960, 512, 512): 0.0679, (40960, 512, 2048): 0.2119,
                     (40960, 2048, 512): 0.1699, (23680, 512, 512): 0.0414}
 EARLIER_MS = {
-    "attention": {(64, 8, 640, 640, True): 0.3948, (64, 8, 640, 370, True): 0.2523,
-                  (64, 4, 320, 320, True): 0.0619, (64, 4, 320, 50, False): 0.0403},
-    "adaln_ffn": {(64, 640, 512, 2048): 1.982},
+    "attention": {(64, 8, 448, 448, True): 0.2016, (64, 8, 448, 370, True): 0.1758,
+                  (64, 4, 320, 320, True): 0.0579, (64, 4, 320, 50, False): 0.0185,
+                  (1, 8, 448, 448, True): 0.0158, (1, 8, 448, 370, True): 0.0179,
+                  (1, 4, 320, 320, True): 0.0154, (1, 4, 320, 50, False): 0.0200},
+    "adaln_ffn": {(64, 448, 512, 2048): 0.4592, (1, 448, 512, 2048): 0.0567},
     "resblock_chain": {(64, 40960, 128): 10.017, (64, 5120, 256): 6.072},
     "int8_matmul": INT32_PRODUCT_MS,
     "w8a8_matmul": INT32_PRODUCT_MS,
@@ -261,6 +271,22 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of fn, from a CUDA graph of reps calls
+    replayed (CUDA events around the replays), as the engine runs the
+    kernels: no host work per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, 5) / reps
 
 
 def compare(name: str, got, ref, dtype) -> float:
@@ -301,10 +327,16 @@ def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
     lib_ms = None if lib is None else time_ms(lib, reps)
     bnd, by = bound(nbytes, nops, ops_dtype or dtype)
     lib_txt = "None" if lib_ms is None else f"{lib_ms:.4f}"
-    earlier = EARLIER_MS[kernel].get(shape) if n_cell and dtype != torch.float32 else None
+    earlier = EARLIER_MS[kernel].get(shape) if dtype != torch.float32 else None
     earlier_txt = "" if earlier is None else f" (earlier: {earlier} ms)"
+    # the redesigned bf16 kernels also from a replayed graph, beside the library call
+    replay_txt = ""
+    if kernel in ("attention", "adaln_ffn") and dtype == torch.bfloat16:
+        replay_txt = f" graph_replay_ms={graph_ms(fn):.4f}"
+        if lib is not None:
+            replay_txt += f" library_graph_replay_ms={graph_ms(lib):.4f}"
     log(f"  {kernel} {name} {dtype}: kernel_ms={ms:.4f}{earlier_txt} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_txt} bound_ms={bnd:.4f} ({by}) cell_launches={n_cell}")
+        f"library_ms={lib_txt} bound_ms={bnd:.4f} ({by}) cell_launches={n_cell}{replay_txt}")
     results[kernel].append(dict(name=name, dtype=dtype, n_cell=n_cell, max_abs_err=err,
                                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=bnd, bound_by=by, earlier_ms=earlier))
@@ -319,9 +351,16 @@ def check_attention(gen, cell, results, serving):
         ("te_cross_nomask", 64, 4, 192, 50, None, 0),
         ("fully_masked_row", 4, 8, 64, 96, "one_row_empty", None),
         ("long_1100", 2, 8, 1100, 1100, "tail", 0),
-        # the bf16 kernel's tile edges: 64 queries a block, 64 keys a stage
+        # the bf16 kernel's tile edges: 64 queries a consumer warpgroup (128
+        # with two), 64 keys a ring stage, wgmma's N in steps of 8 keys
         ("edge Tq65 Tk63", 3, 2, 65, 63, "tail", None),
         ("edge Tq65 Tk63 no mask", 3, 2, 65, 63, None, None),
+        ("edge Tq63 Tk65", 3, 2, 63, 65, "tail", None),
+        ("edge Tq64 Tk64 no mask", 2, 2, 64, 64, None, None),
+        ("edge Tq129 Tk127", 2, 2, 129, 127, "tail", None),
+        ("edge Tk5, below one wgmma N step", 3, 2, 70, 5, "tail", None),
+        ("edge Tk100 no mask: the second stage's zero-filled keys", 3, 2, 129, 100, None, None),
+        ("edge fully masked row, Tk70 crossing a stage", 2, 2, 65, 70, "one_row_empty", None),
         ("edge Tq1 Tk1", 2, 2, 1, 1, None, None),
         ("edge Tq1 Tk1 masked", 2, 2, 1, 1, "tail", None),
         ("edge B1 H1", 1, 1, 640, 640, "tail", None),
@@ -368,13 +407,17 @@ def check_attention(gen, cell, results, serving):
 
 def check_ffn(gen, cell, results, serving):
     """Each case: name, B, T, D, F, launches per cell batch (None: checked,
-    not timed). The edges leave the bf16 GEMMs' 128-row tiles ragged (B*T
-    not a multiple of 128) and the LayerNorm pass's chunks uneven across a
-    warp's lanes (D 384); ragged columns are the int8 product's edges, on
-    the same GEMM template."""
+    not timed). The edges leave the bf16 GEMMs' row tiles ragged (B*T not a
+    multiple of 128 or 64, or below one tile), make one tile read the gates
+    of several batch rows (T not dividing the tile), take the many-row and
+    the few-row tiles, leave GEMM1's 256-column tiles ragged (F 1152) and
+    the LayerNorm pass's chunks uneven across a warp's lanes (D 384)."""
     cases = [("rows 64x256", 64, 256, 512, 2048, 0),
              ("edge B3 x T37", 3, 37, 512, 2048, None),
              ("edge B1 x T1", 1, 1, 512, 2048, None),
+             ("edge B2 x T21: 42 rows, below one 64-row tile", 2, 21, 512, 2048, None),
+             ("edge B5 x T100: few-row tiles straddle batch rows", 5, 100, 512, 2048, None),
+             ("edge B64 x T37: many-row tiles straddle batch rows", 64, 37, 512, 2048, None),
              ("edge B2 x T200, D384 F1152", 2, 200, 384, 1152, None)]
     cases += [(f"cell rows {b}x{t}", b, t, d, f, n)
               for (b, t, d, f), n in sorted(cell["adaln_ffn"].items())]
@@ -397,6 +440,11 @@ def check_ffn(gen, cell, results, serving):
             got = ffn.fused_adaln_ffn(*args)
             ref = ffn.adaln_ffn_plain(*args)
             err = compare(f"adaln_ffn {name} {dtype}", got, ref, dtype)
+            if dtype == torch.bfloat16 and name.startswith("edge B3"):
+                # the modulation vectors in f32 beside bf16 x (the kernel's other form)
+                args32 = args[:7] + tuple(m.float() for m in args[7:])
+                compare(f"adaln_ffn {name}, f32 modulation {dtype}",
+                        ffn.fused_adaln_ffn(*args32), ffn.adaln_ffn_plain(*args32), dtype)
             if n is None:
                 continue
             if dtype == torch.bfloat16:  # a yardstick; the FFN has no one call
@@ -574,6 +622,22 @@ def check_w8a8(gen, cell, results, serving):
                     lambda: w8a8.w8a8_matmul_plain(*args, dtype),
                     m * k + n * k + 4 * m + 8 * n + got.element_size() * m * n,
                     2.0 * m * n * k, shape=(m, k, n), ops_dtype=torch.int8)
+
+
+def check_instructions(libs) -> None:
+    """The bf16 attention and FFN run on Hopper's own instructions: count
+    wgmma (SASS HGMMA) and TMA loads (UTMALDG) in each library's code, and
+    print the tiles each kernel chose."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("attention", "ffn"):
+        sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True,
+                              check=True).stdout
+        found = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+        log(f"  lib{name}.so: {found['HGMMA']} HGMMA, {found['UTMALDG']} UTMALDG")
+        if not all(found.values()):
+            raise AssertionError(f"lib{name}.so has no wgmma or no TMA load")
+    log(f"  attention tiles: {attention.kernel_tiles()}")
+    log(f"  adaln_ffn tiles (rows, columns, stages): {ffn.kernel_tiles()}")
 
 
 def cell_summary(results, launches) -> dict:
@@ -947,7 +1011,7 @@ def fused_projections_path(params) -> None:
 # the hand-written kernels' names in a device trace, one per wrapper launch
 # (bf16 and f32 designs; the FFN's LayerNorm pass, the W8A8 product's
 # rescale-and-bias epilogue, the int32 product's epilogue)
-TRACE_NAMES = {"attention": ("attn_mma", "attn_kernel"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
+TRACE_NAMES = {"attention": ("attn_wgmma", "attn_kernel"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
                "resblock_chain": ("chain_mma", "chain_kernel"), "int8_matmul": ("Int32Out",),
                "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows",)}
 # host calls that launch device work: kernels and graphs
@@ -2532,6 +2596,7 @@ def main() -> int:
     libs = _build.build_all(verbose=True)
     log(f"  built {', '.join(libs)} in {time.perf_counter() - t0:.2f}s into "
         f"build/{next(iter(libs.values())).parent.name} (a hash of the sources)")
+    check_instructions(libs)
 
     params = smoke_params(TTSConfig())
     if args.mesh_only:

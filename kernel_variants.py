@@ -8,20 +8,31 @@ csrc/attention.cu, resblock_chain.cu and ffn.cu.
     python3 kernel_variants.py ffn attention   # some of them
 
 Each variant is the kernel's own source with design constants changed by
-text substitution in its bf16 section, built with the package's nvcc flags
-into supertonic_tpu_torch/build/variants/ (ptxas's register and spill
-report printed), checked against the plain PyTorch version and timed in
-turns with the kernel as committed (committed, variants, variants in
-reverse, committed), at the shapes one b64/5-step batch gives each kernel
-(chip_smoke.py records them):
-  attention  a 3-stage K/V ring; 8 warps and 128 queries a block
+text substitution in its bf16 section, or for "earlier" the design the
+committed kernel replaced (supertonic_tpu_torch/csrc/earlier/), built with
+the package's nvcc flags into supertonic_tpu_torch/build/variants/
+(ptxas's register and spill report printed), checked against the plain
+PyTorch version and timed in turns with the kernel as committed
+(committed, variants, variants in reverse, committed), at the shapes one
+b64/5-step batch gives each kernel (chip_smoke.py records them) and, for
+attention and the FFN, at the B=1 shapes of a streamed chunk. Attention
+and the FFN are timed twice: launched from the host (CUDA events around
+the calls, as chip_smoke.py times them) and replayed from a CUDA graph of
+the same calls, as the engine runs them, which leaves out the host's
+per-call work:
+  attention  the mma.sync design it replaced (earlier); three blocks an SM,
+             with 64- or 32-key stages; two consumer warpgroups and one
+             block an SM; 3 ring stages
   chain      the accurate silu (expf and IEEE division); 16 warps of
              32 frames x 64 channels, with either silu
-  ffn        the intermediate kept on chip (the LayerNorm pass, then one
-             launch of 64-row blocks); GEMM warp tiles of 64 x 64 (8 warps
-             of a 128 x 256 tile, one block an SM, or 4 warps of a 128 x
-             128 tile, two blocks an SM); and a torch.profiler split of the
-             committed FFN's launches
+  ffn        the mma.sync design it replaced (earlier); silu by
+             __fdividef, or with its reciprocal by Newton's method; one
+             tile a consumer
+             warpgroup (not persistent); stores from the registers; GEMM1
+             in 64 x 256 tiles a consumer; 3 ring stages; 128 x 256
+             tiles shared by the two consumers; at few rows GEMM2 in 64 x
+             64 tiles; and a torch.profiler split of the committed FFN's
+             launches
 """
 
 from __future__ import annotations
@@ -37,31 +48,64 @@ import chip_smoke as cs
 from supertonic_tpu_torch.ops import _build, attention, ffn, vocoder_fused
 
 BF16_SECTION = "// bf16 on the tensor cores"
-ATTN_8W = [("constexpr int MQ = 64;", "constexpr int MQ = 128;"),
-           ("__launch_bounds__(NW * 32, 4)", "__launch_bounds__(256, 2)"),
-           ("NW * 32", "256")]
+EARLIER = "earlier"  # a variant that is a whole source file of csrc/earlier/
 CHAIN_ACC = [("stk::silu_fast(", "stk::silu_f(")]
 CHAIN_16W = [("constexpr int MMA_NT = 256;", "constexpr int MMA_NT = 512;"),
              ("constexpr int WM = 64, WN = 64;", "constexpr int WM = 32, WN = 64;")]
-FFN_TILE = "stk::GemmShape<128, 128, 64, 32, 3, 2>"
-VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...]}
-    "attention": {"3-stage ring": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
-                  "8 warps, 128 queries": ATTN_8W},
+UP = "using UpTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
+DOWN = "using DownTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
+UP_FEW = "using UpTileSmall = stk::WgTile<2, 1, 64, 8, 1, true>;"
+DOWN_FEW = "using DownTileSmall = stk::WgTile<2, 1, 32, 8, 1, true, false, false>;"
+
+
+def tile(line: str, args: str) -> tuple[str, str]:
+    """(committed tile line, the same line with other WgTile arguments)."""
+    return line, line[:line.index("<") + 1] + args + ">;"
+
+
+VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or EARLIER file}
+    "attention": {
+        "earlier: mma.sync, cp.async ring": (EARLIER, "attention_mma_sync.cu"),
+        "3 blocks an SM, 32-key stages": [
+            ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 3;"),
+            ("constexpr int STAGE_KEYS = 64;", "constexpr int STAGE_KEYS = 32;")],
+        "3 blocks an SM": [
+            ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 3;")],
+        "two consumer warpgroups, 1 block an SM": [
+            ("constexpr int CONSUMERS = 1;", "constexpr int CONSUMERS = 2;"),
+            ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 1;")],
+        "3 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")]},
     "resblock_chain": {"accurate silu": CHAIN_ACC, "16 warps of 32x64": CHAIN_16W,
                        "16 warps of 32x64, accurate silu": CHAIN_16W + CHAIN_ACC},
-    "ffn": {"intermediate on chip": [("constexpr bool MID_ON_CHIP = false;",
-                                      "constexpr bool MID_ON_CHIP = true;")],
-            "128 x 256 tiles of 8 warps of 64 x 64, 1 block an SM": [
-                (FFN_TILE, "stk::GemmShape<128, 256, 64, 64, 3, 1>")],
-            "128 x 128 tiles of 4 warps of 64 x 64, 2 blocks an SM": [
-                (FFN_TILE, "stk::GemmShape<128, 128, 64, 64, 3, 2>")]},
+    "ffn": {
+        "earlier: mma.sync, cp.async ring": (EARLIER, "ffn_mma_sync.cu"),
+        "not persistent: one tile a consumer": [
+            tile(UP, "2, 2, 128, 4, 1, false"), tile(DOWN, "2, 2, 128, 4, 1, false"),
+            tile(UP_FEW, "2, 1, 64, 8, 1, false"),
+            tile(DOWN_FEW, "2, 1, 32, 8, 1, false, false, false")],
+        "silu by __fdividef (stk::silu_fast)": [
+            ("silu_epi(v0 + bv.x), silu_epi(v1 + bv.y)",
+             "stk::silu_fast(v0 + bv.x), stk::silu_fast(v1 + bv.y)")],
+        "silu's reciprocal by Newton's method on the FMA pipe": [
+            ("  float r;\n  asm(\"rcp.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(r) : \"f\"(y));\n",
+             "  float r = __int_as_float(0x7EF311C7 - __float_as_int(fminf(y, 1e30f)));\n"
+             "#pragma unroll\n  for (int i = 0; i < 3; ++i) r = r * fmaf(-y, r, 2.0f);\n")],
+        "stores from the registers, not by TMA": [
+            tile(UP, "2, 2, 128, 4, 1, true, false, false"),
+            tile(DOWN, "2, 2, 128, 4, 1, true, false, false"),
+            tile(UP_FEW, "2, 1, 64, 8, 1, true, false, false")],
+        "GEMM1 in 64 x 256 tiles a consumer": [tile(UP, "2, 1, 256, 4, 1, true")],
+        "3 stages": [tile(UP, "2, 2, 128, 3, 1, true"), tile(DOWN, "2, 2, 128, 3, 1, true")],
+        "both GEMMs in 128 x 256 tiles shared by both consumers": [
+            tile(UP, "2, 1, 256, 3, 1, true, true"), tile(DOWN, "2, 1, 256, 3, 1, true, true")],
+        "few rows: GEMM2 in 64 x 64 tiles": [tile(DOWN_FEW, "2, 1, 64, 8, 1, true")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES),
          "ffn": ("stk_adaln_ffn", ffn._ARGTYPES)}
 # names (in ptxas's mangled names) of each kernel's bf16 device functions
-BF16_FUNCTIONS = {"attention": ("_mma",), "resblock_chain": ("_mma",),
-                  "ffn": ("mma_gemm", "ffn_fused", "ln_mod")}
+BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"), "resblock_chain": ("_mma",),
+                  "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod")}
 OUT = _build.BUILD_ROOT / "variants"
 
 
@@ -74,13 +118,17 @@ def build_variants(kernels) -> dict:
         head, bf16 = (_build.CSRC_DIR / f"{kernel}.cu").read_text().split(BF16_SECTION)
         # the committed source too, for its ptxas report beside the variants'
         for i, (name, subs) in enumerate([("committed", [])] + list(variants.items())):
-            src = bf16
-            for old, new in subs:
-                if old not in src:
-                    raise RuntimeError(f"{kernel}: '{old}' not in the bf16 section")
-                src = src.replace(old, new)
+            if subs and subs[0] == EARLIER:
+                text = (_build.CSRC_DIR / EARLIER / subs[1]).read_text()
+            else:
+                src = bf16
+                for old, new in subs:
+                    if old not in src:
+                        raise RuntimeError(f"{kernel}: '{old}' not in the bf16 section")
+                    src = src.replace(old, new)
+                text = head + BF16_SECTION + src
             path = OUT / f"{kernel}_v{i}.cu"
-            path.write_text(head + BF16_SECTION + src)
+            path.write_text(text)
             lib = path.with_suffix(".so")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
                    str(_build.CSRC_DIR), "-o", str(lib), str(path)]
@@ -96,6 +144,9 @@ def build_variants(kernels) -> dict:
         for i, line in enumerate(lines):  # the bf16 kernels' registers and spills
             if "Function properties" in line and any(f in line for f in BF16_FUNCTIONS[kernel]):
                 cs.log(f"  {kernel} / {name}: {' '.join(x.strip() for x in lines[i + 1:i + 3])}")
+            # wgmma serialised by the compiler, or setmaxnreg ignored
+            if any(code in line for code in ("C7515", "C7508", "C7510")):
+                cs.log(f"  {kernel} / {name}: {line.strip()[:160]}")
         entry, argtypes = ENTRY[kernel]
         fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -134,7 +185,7 @@ def ffn_call(fn, x, g, bl, w1, b1, w2, b2, shift, scale, gate):
     P = _build.ptr
     _build.check(fn(P(x), P(g), P(bl), P(w1), P(b1), P(w2), P(b2), P(shift), P(scale),
                     P(gate), P(h), P(mid), P(out), b, t, d, f, 1e-5,
-                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "variant")
+                    _build.dtype_code(x.dtype), _build.stream_ptr(x), 0), "variant")
     return out
 
 
@@ -153,15 +204,23 @@ def ffn_split(args) -> None:
                    f"x{e.count} {e.key[:100]}")
 
 
-def in_turns(label: str, calls: dict, reps: int) -> None:
+def in_turns(label: str, calls: dict, reps: int, graphs: bool = False) -> None:
     """Time each call in the order committed, variants, variants reversed,
-    committed; print both readings of each."""
+    committed; print both readings of each (and, with graphs, both readings
+    from replayed CUDA graphs)."""
     names = list(calls)
     times = {name: [] for name in names}
     for name in names + names[::-1]:
         times[name].append(cs.time_ms(calls[name], reps))
+    replays = {name: [] for name in names}
+    if graphs:
+        for name in names + names[::-1]:
+            replays[name].append(cs.graph_ms(calls[name], reps))
     for name in names:
-        cs.log(f"  {label} {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms")
+        graph_txt = (f"; graph replay {' / '.join(f'{t:.4f}' for t in replays[name])} ms"
+                     if graphs else "")
+        cs.log(f"  {label} {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms"
+               f"{graph_txt}")
 
 
 def main() -> int:
@@ -191,34 +250,43 @@ def main() -> int:
 
 def variants_ffn(fns, gen, dt) -> None:
     cs.log("AdaLN FFN, ms per call (all its launches)")
-    b, t, d, f = 64, 640, 512, 2048
-    x = torch.randn((b, t, d), generator=gen, device=cs.DEV).to(dt)
-    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
-    bl = 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
-    w1 = (torch.rand((f, d), generator=gen, device=cs.DEV) * 2 - 1).div(d ** 0.5).to(dt)
-    w2 = (torch.rand((d, f), generator=gen, device=cs.DEV) * 2 - 1).div(f ** 0.5).to(dt)
-    b1 = 0.1 * torch.randn(f, generator=gen, device=cs.DEV)
-    b2 = 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
-    shift, scale, gate = ((0.5 * torch.randn((b, 1, d), generator=gen, device=cs.DEV)).to(dt)
-                          for _ in range(3))
-    args = (x, g, bl, w1, b1, w2, b2, shift, scale, gate)
-    ref = ffn.adaln_ffn_plain(*args)
-    flat = [v.float().reshape(b, d) for v in (shift, scale, gate)]
-    calls = {"committed": lambda: ffn.fused_adaln_ffn(*args)}
-    for name in VARIANTS["ffn"]:
-        fn = fns[("ffn", name)]
-        calls[name] = lambda fn=fn: ffn_call(fn, x, g, bl, w1, b1, w2, b2, *flat)
-    label = f"B{b} T{t} D{d} F{f}"
-    for name, call in calls.items():
-        cs.compare(f"ffn {label} {name}", call(), ref, dt)
-    in_turns(label, calls, 10)
-    ffn_split(args)
+    d, f = 512, 2048
+    for b, t in ((64, 448), (1, 448)):
+        x = torch.randn((b, t, d), generator=gen, device=cs.DEV).to(dt)
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
+        bl = 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
+        w1 = (torch.rand((f, d), generator=gen, device=cs.DEV) * 2 - 1).div(d ** 0.5).to(dt)
+        w2 = (torch.rand((d, f), generator=gen, device=cs.DEV) * 2 - 1).div(f ** 0.5).to(dt)
+        b1 = 0.1 * torch.randn(f, generator=gen, device=cs.DEV)
+        b2 = 0.1 * torch.randn(d, generator=gen, device=cs.DEV)
+        shift, scale, gate = ((0.5 * torch.randn((b, 1, d), generator=gen, device=cs.DEV))
+                              .to(dt) for _ in range(3))
+        args = (x, g, bl, w1, b1, w2, b2, shift, scale, gate)
+        ref = ffn.adaln_ffn_plain(*args)
+        flat = [v.float().reshape(b, d) for v in (shift, scale, gate)]
+        calls = {"committed": lambda: ffn.fused_adaln_ffn(*args)}
+        for name in VARIANTS["ffn"]:
+            fn = fns[("ffn", name)]
+            calls[name] = lambda fn=fn: ffn_call(fn, x, g, bl, w1, b1, w2, b2, *flat)
+        hb = torch.randn((b * t, d), generator=gen, device=cs.DEV).to(dt)
+        b1b, b2b = b1.to(dt), b2.to(dt)
+        calls["the cuBLAS pair F.linear -> silu -> F.linear (yardstick)"] = (
+            lambda: torch.nn.functional.linear(
+                torch.nn.functional.silu(torch.nn.functional.linear(hb, w1, b1b)), w2, b2b))
+        label = f"B{b} T{t} D{d} F{f}"
+        for name, call in calls.items():
+            if "cuBLAS" not in name:
+                cs.compare(f"ffn {label} {name}", call(), ref, dt)
+        in_turns(label, calls, 10, graphs=True)
+        ffn_split(args)
 
 
 def variants_attention(fns, gen, dt) -> None:
     cs.log("attention, ms per launch")
-    for b, h, tq, tk, masked in ((64, 8, 640, 640, True), (64, 8, 640, 370, True),
-                                 (64, 4, 320, 320, True), (64, 4, 320, 50, False)):
+    for b, h, tq, tk, masked in ((64, 8, 448, 448, True), (64, 8, 448, 370, True),
+                                 (64, 4, 320, 320, True), (64, 4, 320, 50, False),
+                                 (1, 8, 448, 448, True), (1, 8, 448, 370, True),
+                                 (1, 4, 320, 320, True), (1, 4, 320, 50, False)):
         q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=cs.DEV).to(dt)
                    for t in (tq, tk, tk))
         mask = None
@@ -230,10 +298,15 @@ def variants_attention(fns, gen, dt) -> None:
         for name in VARIANTS["attention"]:
             fn = fns[("attention", name)]
             calls[name] = lambda fn=fn: attention_call(fn, q, k, v, mask)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bias = None if mask is None else ((1.0 - mask) * -1e9)[:, None, None, :].to(dt)
+        calls["SDPA (yardstick)"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias)
         label = f"B{b} H{h} Tq{tq} Tk{tk}"
         for name, call in calls.items():
-            cs.compare(f"attention {label} {name}", call(), ref, dt)
-        in_turns(label, calls, 20)
+            if "SDPA" not in name:
+                cs.compare(f"attention {label} {name}", call(), ref, dt)
+        in_turns(label, calls, 20, graphs=True)
 
 
 def variants_chain(fns, gen, dt) -> None:

@@ -10,35 +10,47 @@
 // stream through shared memory, so there is no length cap).
 //
 // Bound on the H100: at the path's shapes (Tq, Tk <= ~700, Dh = 64) the
-// arithmetic is 4*Tq*Tk*Dh per head against 4*(Tq+Tk)*Dh*size bytes. In
-// bf16 that puts the tensor-core bound near the memory bound, so what sets
-// the pace is everything around the products: moving K and V into shared
-// memory, the softmax's exponentials and the data movement between products
-// and softmax. Keeping the Pallas kernel's rounding point (probabilities
-// normalised, then rounded) needs two passes over the keys, so q.k is
-// computed twice.
+// arithmetic is 4*Tq*Tk*Dh per head against 4*(Tq+Tk)*Dh*size bytes, so in
+// bf16 the tensor-core bound sits near the memory bound. Keeping the Pallas
+// kernel's rounding point (probabilities normalised, then rounded) needs
+// two passes over the keys: q.k is computed twice and every logit takes two
+// exponentials, which on the SFU (16 a clock an SM) cost about as much as
+// the products. What sets the pace is keeping the products, the
+// exponentials and the loads in flight together.
 //
-// bf16 design (attn_mma), FlashAttention-2 style on mma.sync: a block of 4
-// warps owns 64 queries of one (batch, head), 16 per warp. Q is loaded once
-// and held in registers as mma A fragments for both passes. K and V stream
-// in 64-key tiles through a 2-stage cp.async ring in shared memory, with the
-// tile's key mask beside them; rows of 64 bf16 are XOR-swizzled by 16-byte
-// chunk so that every ldmatrix is free of bank conflicts, and the next tile
-// is in flight while the current one multiplies, with one block barrier per
-// tile. Two stages (41 KB) let 4 blocks share an SM, which measured faster
-// than three stages (3 blocks) or 8 warps with 128 queries a block
-// (kernel_variants.py): the pace is set by the softmax and the products,
-// not by the copies.
-// Pass 1 streams K only: S = Q.K^T by mma.sync.m16n8k16 (bf16 -> f32,
-// K's B fragments by ldmatrix), scale and bias in registers, and a running
-// max and sum per row and thread, combined across the row's four threads at
-// the end. Pass 2 streams K and V: S again, p = exp(s - max) / sum rounded
-// to bf16 and packed straight from the S accumulators into the A fragments
-// of P.V (V's B fragments by ldmatrix.trans), O accumulated in registers.
-// Nothing passes through shared memory but the K/V tiles; the exponentials
-// are exp2 with log2(e) folded into the scale and bias, and 1/sum is taken
-// once per row. O leaves as bf16 through the warp's own rows of the Q tile,
-// in 16-byte stores.
+// bf16 design (attn_wgmma), on Hopper's own instructions: a block is one
+// producer warpgroup and CONSUMERS consumer warpgroups of 64 queries of one
+// (batch, head) each. The producer's first warp loads Q once and streams K
+// (pass 1) then K and V (pass 2) in STAGE_KEYS-key tiles through a
+// STAGES-deep ring by TMA (one 4-D map per operand over (Dh, H, T, B), box
+// (64, 1, rows, 1), 128-byte swizzle: a box never crosses a batch row, and
+// keys past Tk arrive as zeros) behind full/empty mbarriers; its lanes
+// write each stage's key bias (log2 units; -inf for keys past Tk, which
+// the zero fill alone would leave at logit 0), loaded from the mask a step
+// ahead. setmaxnreg moves the producer's registers to the consumers. Pass
+// 1: S = Q.K^T by wgmma.m64nNk16 (N = STAGE_KEYS) with Q and K both K-major
+// from shared memory, scale and bias in registers, running max and sum per
+// row reduced in trees. Pass 2: S again, p = exp2(s - max) / sum rounded to
+// bf16 and repacked from the accumulators straight into wgmma's
+// A-from-registers fragments, O += P.V by wgmma.m64n64k16 with V the
+// MN-major (transposed) B operand; a tile's P.V products run on beside the
+// next tile's S products. The exponentials are ex2 with log2(e) folded into
+// the scale and bias, 1/sum once a row. O leaves as bf16 through the
+// consumer's Q tile, in 16-byte stores.
+// One tile's softmax overlaps another's products across the blocks that
+// share an SM: the measured alternatives (kernel_variants.py: starting the
+// next tile's S products before this tile's softmax, with a second S and P
+// in registers; two consumer warpgroups a block; three blocks an SM) were
+// slower, the first two for the registers and instructions they add, the
+// last for spills. Keep every accumulator written by wgmma alone while
+// products are in flight: a plain write to one (even its zeroing) makes the
+// compiler serialise them.
+// Tiles for the path's lengths (T = 448 and 640, L = 320, cross Tk = 370
+// and 50): 64 queries a block and 64 keys a stage divide 448, 640 and 320
+// with no waste (a 128 tile wastes 1/8 at 448) and give a B = 1 call twice
+// the blocks of 128; 370 keys take 6 stages (384). The mma.sync design
+// this replaces (csrc/earlier/attention_mma_sync.cu) is kernel_variants.py's
+// "earlier" variant.
 //
 // f32 (attn_kernel): SIMT, exact to f32 rounding: one block of 4 warps per
 // (batch, head, 16 queries), each warp 4 rows, lanes over keys for q.k and
@@ -46,7 +58,7 @@
 // two passes.
 #include <type_traits>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -181,201 +193,284 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-constexpr int DH = 64;      // head dim: 8 chunks of 16 bytes a row
-constexpr int MQ = 64;      // queries per block, 16 per warp
-constexpr int KT = 64;      // keys per ring stage
-constexpr int STAGES = 2;   // depth of the K/V ring
+constexpr int DH = 64;  // head dim: one 128-byte swizzled row
 constexpr float LOG2E = 1.4426950408889634f;
+// Design knobs (kernel_variants.py builds other values): consumer
+// warpgroups a block (64 queries each), keys a ring stage (the N of the
+// S product), ring depth, blocks an SM (which sets the register split).
+constexpr int CONSUMERS = 1;
+constexpr int STAGE_KEYS = 64;
+constexpr int STAGES = 4;
+constexpr int BLOCKS_PER_SM = 2;
 
-struct Stage {
-  bf16 k[KT * DH];  // swizzled rows (stk::swz)
-  bf16 v[KT * DH];
-  float mask[KT];   // the key mask of these keys
+template <int NC, int BKT, int NS>
+struct AttnSmem {
+  bf16 q[NC][64 * DH];   // each consumer's Q tile; at the end its output staging
+  bf16 k[NS][BKT * DH];  // the ring: K of every step, V of pass 2's steps
+  bf16 v[NS][BKT * DH];
+  float bias[NS][BKT];   // the stage's key bias in log2 units, -inf past Tk
+  uint64_t full[NS], empty[NS], q_full;
 };
-struct MmaSmem {
-  bf16 q[MQ * DH];  // swizzled; at the end each warp's output staging
-  Stage ring[STAGES];
-};
 
-__global__ void __launch_bounds__(NW * 32, 4)
-attn_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-         const bf16* __restrict__ v, const float* __restrict__ mask,
-         bf16* __restrict__ out, int Tq, int Tk, int H, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  MmaSmem& sm = *reinterpret_cast<MmaSmem*>(raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * MQ;
-  const size_t rs = (size_t)H * DH;  // stride between time steps
-  const bf16* qb = q + (size_t)b * Tq * rs + (size_t)h * DH;
-  const bf16* kb = k + (size_t)b * Tk * rs + (size_t)h * DH;
-  const bf16* vb = v + (size_t)b * Tk * rs + (size_t)h * DH;
-  const float* mb = mask ? mask + (size_t)b * Tk : nullptr;
-  const int n_tiles = (Tk + KT - 1) / KT, steps = 2 * n_tiles;
+// pins P's A fragments at this point (wgmma reads them asynchronously)
+template <int KK>
+__device__ __forceinline__ void fence_p(uint32_t (&p)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[kk][e])::"memory");
+}
 
-  // ring step i: key tile i (pass 1, K only) or i - n_tiles (pass 2, K and
-  // V); keys past Tk are zero-filled
-  auto load_step = [&](int i) {
-    const bool with_v = i >= n_tiles;
-    const int k0 = (with_v ? i - n_tiles : i) * KT;
-    Stage& st = sm.ring[i % STAGES];
-    for (int c = tid; c < KT * 8; c += NW * 32) {
-      const int j = c >> 3, ch = c & 7, kj = k0 + j;
-      const bool ok = kj < Tk;
-      const size_t src = (size_t)(ok ? kj : 0) * rs + ch * 8;
-      stk::cp_async16(stk::smem_u32(st.k + stk::swz<DH>(j, ch)), kb + src, ok);
-      if (with_v) stk::cp_async16(stk::smem_u32(st.v + stk::swz<DH>(j, ch)), vb + src, ok);
+template <int NC, int BKT, int NS, int BPS>
+__global__ void __launch_bounds__((NC + 1) * 128, BPS)
+attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
+           __grid_constant__ const CUtensorMap tm_v, const float* __restrict__ mask,
+           bf16* __restrict__ out, int Tq, int Tk, int H, float scale_log2) {
+  using Smem = AttnSmem<NC, BKT, NS>;
+  extern __shared__ __align__(1024) unsigned char raw[];
+  // swizzled tiles need 1024-byte alignment; the launch adds the slack
+  Smem& sm = *reinterpret_cast<Smem*>(raw + ((1024 - (stk::smem_u32(raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 64 * NC;
+  const int n_tiles = (Tk + BKT - 1) / BKT;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      stk::mbar_init(&sm.full[s], 32);        // the producer warp's lanes
+      stk::mbar_init(&sm.empty[s], 4 * NC);  // each consumer warp
     }
-    if (mb && tid < KT) {
-      const int kj = k0 + tid;
-      stk::cp_async4(stk::smem_u32(&st.mask[tid]), mb + (kj < Tk ? kj : 0), kj < Tk);
-    }
-  };
-  // the Q tile joins the first group, then STAGES - 1 ring steps in flight
-  for (int c = tid; c < MQ * 8; c += NW * 32) {
-    const int r = c >> 3, ch = c & 7, qi = q0 + r;
-    const bool ok = qi < Tq;
-    stk::cp_async16(stk::smem_u32(sm.q + stk::swz<DH>(r, ch)),
-                    qb + (size_t)(ok ? qi : 0) * rs + ch * 8, ok);
+    stk::mbar_init(&sm.q_full, 1);
+    stk::mbar_fence_init();
   }
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < steps) load_step(i);
-    stk::cp_async_commit();
-  }
-  // step i has landed for every thread and step i - 1 is consumed by every
-  // warp (one barrier); the step STAGES - 1 ahead goes into step i - 1's slot
-  auto advance = [&](int i) {
-    stk::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (i + STAGES - 1 < steps) load_step(i + STAGES - 1);
-    stk::cp_async_commit();
-  };
+  __syncthreads();
 
-  // this warp's 16 x 64 logits of a stage in log2 units, in mma accumulator
-  // layout: s[j] = keys 8j + 2t, 8j + 2t + 1 of rows g (s[j][0..1]) and
-  // g + 8 (s[j][2..3])
-  uint32_t qf[4][4];  // Q's A fragments, 4 steps of 16 dims
-  auto logits = [&](const Stage& st, int k0, float s[8][4]) {
+  if (wg == NC) {
+    // producer warpgroup: its first warp walks the ring, pass 1 (K) then
+    // pass 2 (K and V). Lane 0 issues the stage's TMA boxes; every lane
+    // writes its keys' bias, loaded from the mask one step ahead so that the
+    // loads' latency passes while the stage is still in use, and arrives
+    // after its own writes.
+    stk::regs_dealloc<stk::kProducerRegs>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      stk::mbar_arrive_tx(&sm.q_full, NC * 64 * DH * 2);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      for (int c = 0; c < NC; ++c)
+        stk::tma_load_4d(sm.q[c], &tm_q, &sm.q_full, 0, h, q0 + 64 * c, b);
+    }
+    const float* mb = mask ? mask + (size_t)b * Tk : nullptr;
+    float bias[BKT / 32];  // this lane's keys of the next step
+    auto load_bias = [&](int step) {
+      const int k0 = (step >= n_tiles ? step - n_tiles : step) * BKT;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        // matrices: keys 16jp + (0-7 | 8-15) x dims (low | high 8 of the step)
-        uint32_t bk[4];
-        const int row = jp * 16 + ((lane >> 4) << 3) + (lane & 7);
-        stk::ldmatrix_x4(bk, stk::smem_u32(st.k + stk::swz<DH>(row, kk * 2 + ((lane >> 3) & 1))));
-        stk::mma_bf16(s[2 * jp], qf[kk], bk[0], bk[1]);
-        stk::mma_bf16(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+      for (int i = 0; i < BKT / 32; ++i) {
+        const int kj = k0 + lane + 32 * i;
+        bias[i] = kj >= Tk ? -INFINITY : (mb ? (1.0f - mb[kj]) * (-1e9f * LOG2E) : 0.0f);
+      }
+    };
+    load_bias(0);
+    for (int step = 0; step < 2 * n_tiles; ++step) {
+      const int s = step % NS;
+      const bool with_v = step >= n_tiles;
+      const int k0 = (with_v ? step - n_tiles : step) * BKT;
+      stk::mbar_wait(&sm.empty[s], ((step / NS) & 1) ^ 1);
+      if (lane == 0) {
+        stk::mbar_expect_tx(&sm.full[s], (with_v ? 2 : 1) * BKT * DH * 2);
+        // keys past Tk are zero-filled by the map's T extent, never the next row's
+        stk::tma_load_4d(sm.k[s], &tm_k, &sm.full[s], 0, h, k0, b);
+        if (with_v) stk::tma_load_4d(sm.v[s], &tm_v, &sm.full[s], 0, h, k0, b);
       }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j * 8 + 2 * t + e;
-        const float bias = k0 + key >= Tk ? -INFINITY
-                           : (mb ? (1.0f - st.mask[key]) * (-1e9f * LOG2E) : 0.0f);
-        s[j][e] = fmaf(s[j][e], scale_log2, bias);
-        s[j][e + 2] = fmaf(s[j][e + 2], scale_log2, bias);
-      }
-  };
-
-  // pass 1: running max and sum per row over this thread's keys
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  int i = 0;
-  for (int tile = 0; tile < n_tiles; ++tile, ++i) {
-    advance(i);
-    if (tile == 0) {  // Q landed with step 0
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        stk::ldmatrix_x4(qf[kk], stk::smem_u32(sm.q + stk::swz<DH>(warp * 16 + (lane & 15),
-                                                                   kk * 2 + (lane >> 4))));
+      for (int i = 0; i < BKT / 32; ++i) sm.bias[s][lane + 32 * i] = bias[i];
+      stk::mbar_arrive(&sm.full[s]);
+      if (step + 1 < 2 * n_tiles) load_bias(step + 1);
     }
-    float s[8][4];
-    logits(sm.ring[i % STAGES], tile * KT, s);
+  } else {
+    // consumer warpgroup wg: queries [q0 + 64 wg, + 64), thread rows
+    // 16 warp + g and + 8 in the wgmma accumulator layout (csrc/wgmma.cuh)
+    stk::regs_alloc<stk::consumer_regs(NC, BPS)>();
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_addr = stk::smem_u32(sm.q[wg]);
+    constexpr int NJ = BKT / 8;
+    constexpr int SN = BKT / 2;  // S accumulators a thread
+    float s[SN], o[32];  // S of the current tile, O
+    uint32_t pa[BKT / 16][4];  // P's A fragments, key step kk
+
+    // ring step `step` (pass 1: key tile step; pass 2: step - n_tiles) has
+    // landed: start s = Q.K^T of its stage (4 products over Dh, the first
+    // overwriting s), committed as one group
+    auto issue_s = [&](int step) {
+      const int st = step % NS;
+      stk::mbar_wait(&sm.full[st], (step / NS) & 1);
+      const uint32_t k_addr = stk::smem_u32(sm.k[st]);
+      stk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        stk::Wgmma<BKT>::template ss<0>(s, stk::desc_sw128(q_addr + 32 * kk),
+                                        stk::desc_sw128(k_addr + 32 * kk), kk);
+      stk::wgmma_commit();
+    };
+    // every product in flight has completed: s, scaled and biased in log2
+    // units (in place: nothing is in flight that writes it)
+    auto finish_s = [&](int step) {
+      stk::wgmma_wait<0>();
+      stk::fence_regs(s);
+      const float* bias = sm.bias[step % NS];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+        s[4 * j] = fmaf(s[4 * j], scale_log2, bj.x);
+        s[4 * j + 1] = fmaf(s[4 * j + 1], scale_log2, bj.y);
+        s[4 * j + 2] = fmaf(s[4 * j + 2], scale_log2, bj.x);
+        s[4 * j + 3] = fmaf(s[4 * j + 3], scale_log2, bj.y);
+      }
+    };
+    // the stage of `step` is read (products complete, bias loaded): one
+    // arrival a warp
+    auto release = [&](int step) {
+      __syncwarp();
+      if (lane == 0) stk::mbar_arrive(&sm.empty[step % NS]);
+    };
+
+    // a warpgroup whose queries all lie past Tq (the last block of an odd
+    // number of 64-query tiles) only releases each stage it would have read
+    if (q0 + 64 * wg >= Tq) {
+      for (int step = 0; step < 2 * n_tiles; ++step) {
+        stk::mbar_wait(&sm.full[step % NS], (step / NS) & 1);
+        release(step);
+      }
+      return;
+    }
+    stk::mbar_wait(&sm.q_full, 0);
+    // pass 1: running max and sum per row over this thread's keys, reduced
+    // in trees (short dependency chains). The softmax of one block overlaps
+    // another's products: BLOCKS_PER_SM blocks share an SM.
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      issue_s(tile);
+      finish_s(tile);
+      release(tile);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) v[j] = fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+#pragma unroll
+        for (int w = NJ / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) v[j] = fmaxf(v[j], v[j + w]);
+        const float mx = fmaxf(m[r], v[0]);
+        if (mx == -INFINITY) continue;  // none of this thread's keys below Tk yet
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          v[j] = stk::exp2_ftz(s[4 * j + 2 * r] - mx) + stk::exp2_ftz(s[4 * j + 2 * r + 1] - mx);
+#pragma unroll
+        for (int w = NJ / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) v[j] += v[j + w];
+        l[r] = l[r] * stk::exp2_ftz(m[r] - mx) + v[0];
+        m[r] = mx;
+      }
+    }
+    // the four threads of a row (a quad) combine; the row max is finite (Tk >= 1)
+    float inv_l[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      if (mx == -INFINITY) continue;  // no key below Tk yet
-      float part = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        part += exp2f(s[j][2 * r] - mx) + exp2f(s[j][2 * r + 1] - mx);
-      l[r] = l[r] * exp2f(m[r] - mx) + part;
+      float mx = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float part = m[r] == -INFINITY ? 0.0f : l[r] * stk::exp2_ftz(m[r] - mx);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
       m[r] = mx;
+      inv_l[r] = 1.0f / part;
+    }
+
+    // pass 2: p = exp2(s - max) / sum rounded to bf16, repacked from the S
+    // accumulators straight into wgmma's A fragments (key step kk = column
+    // groups 2kk and 2kk + 1), O += P.V with V the MN-major B operand. A
+    // tile's P.V products run on beside the next tile's S products; the wait
+    // for both completes the last tile's stage, which is then released.
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int step = n_tiles + tile;
+      issue_s(step);
+      finish_s(step);
+      fence_p(pa);  // the last P.V read them
+      if (tile > 0) release(step - 1);
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float* c = s + 4 * (2 * kk + hh);
+          pa[kk][2 * hh] = stk::pack_bf16(stk::exp2_ftz(c[0] - m[0]) * inv_l[0],
+                                          stk::exp2_ftz(c[1] - m[0]) * inv_l[0]);
+          pa[kk][2 * hh + 1] = stk::pack_bf16(stk::exp2_ftz(c[2] - m[1]) * inv_l[1],
+                                              stk::exp2_ftz(c[3] - m[1]) * inv_l[1]);
+        }
+      const uint32_t v_addr = stk::smem_u32(sm.v[step % NS]);
+      stk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+        stk::Wgmma<DH>::template rs<1>(o, pa[kk], stk::desc_sw128(v_addr + kk * 16 * DH * 2),
+                                       tile > 0 || kk > 0);
+      stk::wgmma_commit();
+    }
+    stk::wgmma_wait<0>();
+    stk::fence_regs(o);
+    fence_p(pa);
+
+    // O -> bf16 through this warpgroup's Q tile (its last reader, the last
+    // S product, has completed), each warp its own 16 rows, then 16-byte
+    // stores of whole rows
+    bf16* stage = sm.q[wg];
+    const int r0 = 16 * warp;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(r0 + g, j) + 2 * t) =
+          stk::pack_bf16(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(r0 + g + 8, j) + 2 * t) =
+          stk::pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+    }
+    __syncwarp();
+    const size_t rs = (size_t)H * DH;
+    bf16* ob = out + (size_t)b * Tq * rs + (size_t)h * DH;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int c = lane + 32 * it, r = r0 + (c >> 3), ch = c & 7, qi = q0 + 64 * wg + r;
+      if (qi < Tq)
+        *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + ch * 8) =
+            *reinterpret_cast<const uint4*>(stage + stk::swz<DH>(r, ch));
     }
   }
-  // the four threads of a row (a quad) combine; row max is finite (Tk >= 1)
-  float inv_l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float part = m[r] == -INFINITY ? 0.0f : l[r] * exp2f(m[r] - mx);
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
-    m[r] = mx;
-    inv_l[r] = 1.0f / part;
-  }
+}
 
-  // pass 2: probabilities rounded to bf16, O += P.V
-  float o[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  for (int tile = 0; tile < n_tiles; ++tile, ++i) {
-    advance(i);
-    const Stage& st = sm.ring[i % STAGES];
-    float s[8][4];
-    logits(st, tile * KT, s);
-    // the accumulators of key tiles 2kk and 2kk + 1 are, element for
-    // element, the A fragment of P for key step kk
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float* c = s[2 * kk + hh];
-        pf[kk][2 * hh] = stk::pack_bf16(exp2f(c[0] - m[0]) * inv_l[0],
-                                        exp2f(c[1] - m[0]) * inv_l[0]);
-        pf[kk][2 * hh + 1] = stk::pack_bf16(exp2f(c[2] - m[1]) * inv_l[1],
-                                            exp2f(c[3] - m[1]) * inv_l[1]);
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        // matrices: keys 16kk + (0-7 | 8-15) x dims 16dp + (0-7 | 8-15), transposed
-        uint32_t bv[4];
-        const int row = kk * 16 + (((lane >> 3) & 1) << 3) + (lane & 7);
-        stk::ldmatrix_x4_trans(bv, stk::smem_u32(st.v + stk::swz<DH>(row, dp * 2 + (lane >> 4))));
-        stk::mma_bf16(o[2 * dp], pf[kk], bv[0], bv[1]);
-        stk::mma_bf16(o[2 * dp + 1], pf[kk], bv[2], bv[3]);
-      }
-  }
+// one TMA map over [B, T, H, Dh] as (Dh, H, T, B), box (64, 1, rows, 1):
+// a box never crosses a batch row, and rows past T read as zeros
+int encode_bthd(CUtensorMap* map, const void* base, int B, int T, int H, int rows) {
+  const cuuint64_t dims[4] = {DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {DH * 2, (cuuint64_t)H * DH * 2, (cuuint64_t)T * H * DH * 2};
+  const cuuint32_t box[4] = {DH, 1, (cuuint32_t)rows, 1};
+  return stk::encode_tma(map, base, 4, dims, strides, box);
+}
 
-  // O -> bf16 through this warp's own 16 rows of the Q tile (read by this
-  // warp alone, at the first tile), then 16-byte stores of whole rows
-  bf16* stage = sm.q + warp * 16 * DH;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(g, j) + 2 * t) =
-        stk::pack_bf16(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(g + 8, j) + 2 * t) =
-        stk::pack_bf16(o[j][2], o[j][3]);
-  }
-  __syncwarp();
-  bf16* ob = out + (size_t)b * Tq * rs + (size_t)h * DH;
-#pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    const int c = lane + 32 * it, r = c >> 3, ch = c & 7, qi = q0 + warp * 16 + r;
-    if (qi < Tq)
-      *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + stk::swz<DH>(r, ch));
-  }
+template <int NC, int BKT, int NS, int BPS>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const float* mask, bf16* out,
+                 int B, int Tq, int Tk, int H, float scale_log2, cudaStream_t st) {
+  // encoded at every launch: a graph capture keeps this launch's maps
+  CUtensorMap tq, tk, tv;
+  if (int err = encode_bthd(&tq, q, B, Tq, H, 64)) return err;
+  if (int err = encode_bthd(&tk, k, B, Tk, H, BKT)) return err;
+  if (int err = encode_bthd(&tv, v, B, Tk, H, BKT)) return err;
+  constexpr size_t smem = sizeof(AttnSmem<NC, BKT, NS>) + 1024;
+  auto kernel = attn_wgmma<NC, BKT, NS, BPS>;
+  static size_t configured[stk::kMaxDevices] = {};
+  if (int err = stk::allow_dynamic_smem(kernel, smem, configured)) return err;
+  static int regs_at_entry = 0;
+  if (int err = stk::check_reg_split(kernel, 128, NC * 128, stk::consumer_regs(NC, BPS),
+                                     regs_at_entry))
+    return err;
+  dim3 grid((Tq + 64 * NC - 1) / (64 * NC), H, B);
+  kernel<<<grid, (NC + 1) * 128, smem, st>>>(tq, tk, tv, mask, out, Tq, Tk, H, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -384,18 +479,15 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   if (D != 64 || Tk < 1) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
   if constexpr (std::is_same<T, bf16>::value) {
-    static size_t configured[stk::kMaxDevices] = {};
-    if (int err = stk::allow_dynamic_smem(attn_mma, sizeof(MmaSmem), configured)) return err;
-    dim3 grid((Tq + MQ - 1) / MQ, H, B);
-    attn_mma<<<grid, NW * 32, sizeof(MmaSmem), st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, Tq, Tk, H,
-        scale * LOG2E);
+    return launch_wgmma<CONSUMERS, STAGE_KEYS, STAGES, BLOCKS_PER_SM>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, B, Tq, Tk, H,
+        scale * LOG2E, st);
   } else {
     dim3 grid((Tq + BQ - 1) / BQ, H, B);
     attn_kernel<T, 64><<<grid, NW * 32, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, Tq, Tk, H, scale);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -411,4 +503,14 @@ extern "C" int stk_attention(const void* q, const void* k, const void* v,
   if (dtype == 0) return launch<float>(q, k, v, m, out, B, Tq, Tk, H, D, st);
   if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, m, out, B, Tq, Tk, H, D, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 kernel's tiles: queries a block, keys a ring stage, ring stages,
+// blocks an SM
+extern "C" int stk_attention_tiles(int* tiles) {
+  tiles[0] = 64 * CONSUMERS;
+  tiles[1] = STAGE_KEYS;
+  tiles[2] = STAGES;
+  tiles[3] = BLOCKS_PER_SM;
+  return 0;
 }

@@ -9,47 +9,52 @@
 // W2's type, the residual x_f32 + gate_f32 * y rounded once to x's type.
 //
 // Bound on the H100: 4*N*D*F operations against (2*N*D + 2*D*F) elements:
-// 172 GFLOP for the path's 40,960 rows at D=512, F=2048, 0.174 ms at the
-// 989 TFLOP/s of the bf16 tensor cores, against 0.03 ms for the bytes.
-// So the design is about keeping the tensor cores fed.
+// 120 GFLOP for the path's 28,672 rows at D=512, F=2048, 0.122 ms at the
+// 989 TFLOP/s of the bf16 tensor cores, against ~0.02 ms for the bytes.
+// So the design is about keeping the tensor cores fed, which on Hopper
+// takes wgmma fed by TMA.
 //
 // bf16 design, three launches:
 // (1) ln_mod: one warp a row computes the row's LN statistics once, applies
 //     normalise, affine and modulation once per element with ln g/b and the
 //     row's scale/shift held in registers (the batch index is one division a
-//     row), and writes the modulated, rounded h [N, D] (42 MB at the path's
-//     shape, ~0.03 ms).
+//     row), and writes the modulated, rounded h [N, D].
 // (2) a GEMM with the UpEpi epilogue: mid [N, F] = silu(h . W1^T + b1).
 // (3) a GEMM with the DownEpi epilogue: out = x + gate * (mid . W2^T + b2).
-// Both run the tensor-core GEMM of csrc/mma_gemm.cuh on mma.sync.m16n8k16
-// (bf16 -> f32) with its epilogue on 8 columns a lane, 16-byte stores: bias
-// and silu for (2); bias, gate and residual for (3). Tiles: 128 x 128, 8
-// warps of 64 x 32, two blocks an SM (~123 registers a thread, no spills),
-// so one block's ring fill and epilogue overlap the other's products; that
-// measured faster than 64 x 64 warp tiles (8 warps of a 128 x 256 tile, or
-// 4 of a 128 x 128 tile, at ~208 registers). W1 and W2 (2 MB each) stay in
-// L2; the intermediate passes through device memory (2 * 168 MB, ~0.1 ms
-// at 3.35 TB/s).
-//
-// The alternative, one launch with the intermediate on chip (ffn_fused
-// below, selected by MID_ON_CHIP), keeps a 64-row block's [64, 512] f32
-// output accumulator in registers across all of F, GEMM1's chunk output in
-// shared memory as GEMM2's A operand; every block then streams all of W1
-// and W2 from L2 (2.6 GB per launch at the path's shape) through 32 x 32
-// warp tiles for GEMM1. It measured ~1.3x the time of the kept design
-// (kernel_variants.py, PERF.md).
+// Both run the warp-specialised GEMM of csrc/wgmma_gemm.cuh: a producer
+// warpgroup streams 64-element K slices of h (or mid) and W1 (or W2), both
+// K-major as torch's linear layout keeps them, by TMA into a ring of
+// 128-byte-swizzled stages behind full/empty mbarriers; two consumer
+// warpgroups take turns over whole tiles (persistent blocks), each running
+// wgmma.m64nNk16 from shared memory and its epilogue straight from the
+// accumulator registers while the other's products run: bias and silu for
+// (2); bias, gate (chosen by each row's batch index) and residual for (3);
+// the bf16 results leave through shared memory by TMA stores. W1 and W2
+// (2 MB each) stay in L2; the intermediate passes through device memory.
+// The epilogues must stay shorter than the other consumer's products,
+// hence silu on the SFU's bare instructions (silu_epi).
+// The modulation vectors are read in bf16 as the path gives them, or f32.
+// The mma.sync design this replaces (csrc/earlier/ffn_mma_sync.cu, with
+// csrc/mma_gemm.cuh) and the one-launch design with the intermediate on
+// chip that measured ~1.3x slower live there, for kernel_variants.py.
 //
 // f32: SIMT tiles on the float units (64x64 tiles, 4x4 per thread), two
 // launches, exact to f32 rounding: the reference for the f32 whole path.
 //
 // Weights are in torch's linear layout: W1 [F, D], W2 [D, F] (each row one
 // output channel), so both products read A and B along K.
-#include "mma_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using stk::load8;
+
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
 
 // ---------------------------------------------------------------------------
 // f32 on the SIMT units. C tile = A . B^T over K, A from load_a(row, r, k),
@@ -163,11 +168,6 @@ int launch_f32(const float* x, const float* g, const float* b, const float* w1,
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
-// the intermediate through device memory (false: three launches) or on chip
-// (true: ln_mod and one ffn_fused launch, D = 512 only); kernel_variants.py
-// builds the other
-constexpr bool MID_ON_CHIP = false;
-
 __device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -178,17 +178,21 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float v[8]) {
   }
 }
 
+__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
+}
+
 // (1) h = bf16(mod(LN(x))). One warp a row, each lane CPL 16-byte chunks
 // (chunk lane + 32 i) of a row of D = 8 * nc values, D <= 256 * CPL; each
 // warp a contiguous run of rows, so the row's scale/shift reload only when
 // the batch index changes.
 constexpr int LN_NT = 256;
 
-template <int CPL>
+template <int CPL, typename TM>
 __global__ void __launch_bounds__(LN_NT)
 ln_mod(const bf16* __restrict__ x, const float* __restrict__ ln_g,
-       const float* __restrict__ ln_b, const float* __restrict__ shift,
-       const float* __restrict__ scale, bf16* __restrict__ h, int N, int Tlen, int D,
+       const float* __restrict__ ln_b, const TM* __restrict__ shift,
+       const TM* __restrict__ scale, bf16* __restrict__ h, int N, int Tlen, int D,
        int rows_per_warp, float eps) {
   const int lane = threadIdx.x & 31;
   const int r0 = (blockIdx.x * (LN_NT / 32) + (threadIdx.x >> 5)) * rows_per_warp;
@@ -264,211 +268,87 @@ ln_mod(const bf16* __restrict__ x, const float* __restrict__ ln_g,
   }
 }
 
-// (2), (3): mma_gemm (csrc/mma_gemm.cuh) over 128 x 128 block tiles of 8
-// warps of 64 x 32, a 3-stage ring, two blocks an SM; kernel_variants.py
-// times the 64 x 64 warp tiles it replaced.
-using GemmTile = stk::GemmShape<128, 128, 64, 32, 3, 2>;  // BM, BN, WM, WN, stages, blocks/SM
+// (2), (3): the wgmma GEMM of csrc/wgmma_gemm.cuh, persistent, two consumer
+// warpgroups taking turns, results stored by TMA. Tiles (kernel_variants.py
+// builds others) at many rows: 128 x 128 a consumer for both GEMMs (GEMM2,
+// N = D: 896 tiles at 28,672 rows, 6.8 a block on 132 SMs; 128 x 256
+// would leave 3.4; GEMM1 in 64 x 256 measured the same). When there are fewer such tiles than
+// consumers on the card (a streamed chunk's B1 x 448 rows), 64 x 64 for
+// GEMM1 and 64 x 32 for GEMM2 (224 tiles each at 448 rows; 32 columns are
+// stored from the registers, below TMA's 64-column box).
+using UpTile = stk::WgTile<2, 2, 128, 4, 1, true>;  // NC, MI (BM = 64 MI), BN, NS, BPS, persistent
+using DownTile = stk::WgTile<2, 2, 128, 4, 1, true>;
+using UpTileSmall = stk::WgTile<2, 1, 64, 8, 1, true>;
+using DownTileSmall = stk::WgTile<2, 1, 32, 8, 1, true, false, false>;  // stores from registers
 
-// (2): mid = bf16(silu(acc + b1))
+// two consecutive values of a float or bf16 vector as float
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// silu in f32 for the GEMM1 epilogue, x / (1 + 2^(-x log2 e)), on the SFU's
+// bare ex2 and reciprocal (rcp.approx.ftz, about 1 ulp; for x below -88
+// the reciprocal of +inf gives -0, as the quotient does). The epilogue
+// runs beside the other consumer's products and must stay shorter:
+// __fdividef's range checks, or a reciprocal by Newton's method on the FMA
+// pipe, made the FFN ~24% slower at 28,672 rows (kernel_variants.py).
+__device__ __forceinline__ float silu_epi(float x) {
+  const float y = 1.0f + stk::exp2_ftz(-1.4426950408889634f * x);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(y));
+  return x * r;
+}
+
+// (2): mid = bf16(silu(acc + b1)), two columns a call
 struct UpEpi {
   const float* b1;
-  bf16* mid;
-  int F;
-  __device__ __forceinline__ void operator()(int row, int col, const float v[8]) const {
-    float bv[8];
-    load8(b1 + col, bv);
-    uint4 o;
-    uint32_t* p = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p[e] = stk::pack_bf16(stk::silu_fast(v[2 * e] + bv[2 * e]),
-                            stk::silu_fast(v[2 * e + 1] + bv[2 * e + 1]));
-    *reinterpret_cast<uint4*>(mid + (size_t)row * F + col) = o;
-  }
+  struct Row {
+    const float* b1;
+    __device__ __forceinline__ uint32_t operator()(int col, float v0, float v1) const {
+      const float2 bv = *reinterpret_cast<const float2*>(b1 + col);
+      return stk::pack_bf16(silu_epi(v0 + bv.x), silu_epi(v1 + bv.y));
+    }
+  };
+  __device__ __forceinline__ Row row(int) const { return {b1}; }
 };
 
-// (3): out = bf16(x + gate[batch] * (acc + b2))
+// (3): out = bf16(x + gate[batch] * (acc + b2)); the gate is the row's
+// batch row (row / T), so a tile that straddles two batch rows reads both
+template <typename TM>
 struct DownEpi {
   const bf16* x;
   const float* b2;
-  const float* gate;
-  bf16* out;
+  const TM* gate;
   int D, Tlen;
-  __device__ __forceinline__ void operator()(int row, int col, const float v[8]) const {
-    const size_t i = (size_t)row * D + col;
-    float xv[8], gv[8], bv[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + i), xv);
-    load8(gate + (size_t)(row / Tlen) * D + col, gv);
-    load8(b2 + col, bv);
-    uint4 o;
-    uint32_t* p = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p[e] = stk::pack_bf16(xv[2 * e] + gv[2 * e] * (v[2 * e] + bv[2 * e]),
-                            xv[2 * e + 1] + gv[2 * e + 1] * (v[2 * e + 1] + bv[2 * e + 1]));
-    *reinterpret_cast<uint4*>(out + i) = o;
+  struct Row {
+    const bf16* x;
+    const float* b2;
+    const TM* gate;
+    __device__ __forceinline__ uint32_t operator()(int col, float v0, float v1) const {
+      const float2 xv = load2(x + col);
+      const float2 gv = load2(gate + col);
+      const float2 bv = *reinterpret_cast<const float2*>(b2 + col);
+      return stk::pack_bf16(xv.x + gv.x * (v0 + bv.x), xv.y + gv.y * (v1 + bv.y));
+    }
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return {x + (size_t)r * D, b2, gate + (size_t)(r / Tlen) * D};
   }
 };
 
-// The rejected design: one launch per 64 rows with the intermediate on chip.
-// Shared memory: the block's modulated h panel [64, 512] (swizzled rows) |
-// a 2-stage ring of 64 KB stages | P [64, FC], silu(GEMM1 chunk) in bf16.
-// Per F chunk of FC = 128: two stages of W1 (its FC rows, K halves of 256),
-// then two of W2 (all 512 rows, the chunk's K in halves of 64). GEMM1's
-// chunk [64, 128] runs on 2 x 4 warps of 32 x 32; GEMM2 accumulates
-// [64, 512] in registers, 8 warps of 64 x 64 columns.
-constexpr int FBM = 64, FD = 512, FC = 128;
-constexpr int FSTAGE = 128 * 256;  // elements: [128, 256] of W1 or [512, 64] of W2
-constexpr int FUSED_SMEM = (FBM * FD + 2 * FSTAGE + FBM * FC) * (int)sizeof(bf16);
-
-constexpr int FNT = 256;  // 8 warps
-
-template <int D_>
-__global__ void __launch_bounds__(FNT, 1)
-ffn_fused(const bf16* __restrict__ h, const bf16* __restrict__ x, const bf16* __restrict__ w1,
-          const float* __restrict__ b1, const bf16* __restrict__ w2,
-          const float* __restrict__ b2, const float* __restrict__ gate,
-          bf16* __restrict__ out, int N, int Tlen, int F) {
-  static_assert(D_ == FD, "the on-chip variant is laid out for D = 512");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* panel = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ring = panel + FBM * FD;
-  bf16* P = ring + 2 * FSTAGE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * FBM;
-  const int steps = 4 * (F / FC);
-
-  auto load = [&](int s) {
-    const int c = s >> 2, part = s & 3;
-    bf16* dst = ring + (s & 1) * FSTAGE;
-    if (part < 2) {  // W1 rows [c FC, c FC + FC), k [part 256, part 256 + 256)
-      for (int e = tid; e < FC * 32; e += FNT) {
-        const int r = e >> 5, ch = e & 31;
-        stk::cp_async16(stk::smem_u32(dst + stk::swz<256>(r, ch)),
-                        w1 + (size_t)(c * FC + r) * FD + part * 256 + ch * 8, true);
-      }
-    } else {  // W2 rows [0, 512), k [c FC + (part - 2) 64, + 64)
-      for (int e = tid; e < FD * 8; e += FNT) {
-        const int r = e >> 3, ch = e & 7;
-        stk::cp_async16(stk::smem_u32(dst + stk::swz<64>(r, ch)),
-                        w2 + (size_t)r * F + c * FC + (part - 2) * 64 + ch * 8, true);
-      }
-    }
-  };
-  for (int e = tid; e < FBM * (FD / 8); e += FNT) {
-    const int r = e / (FD / 8), ch = e % (FD / 8);
-    const bool valid = m0 + r < N;
-    stk::cp_async16(stk::smem_u32(panel + stk::swz<FD>(r, ch)),
-                    valid ? h + (size_t)(m0 + r) * FD + ch * 8 : h, valid);
-  }
-  load(0);
-  stk::cp_async_commit();
-
-  const int wm1 = (warp >> 2) * 32, wn1 = (warp & 3) * 32;  // GEMM1 warp tile
-  const int wn2 = warp * 64;                                 // GEMM2 warp columns
-  float acc1[2][4][4] = {};
-  float acc2[4][8][4] = {};
-  for (int s = 0; s < steps; ++s) {
-    stk::cp_async_wait<0>();
-    __syncthreads();
-    if (s + 1 < steps) load(s + 1);
-    stk::cp_async_commit();
-    const bf16* ws = ring + (s & 1) * FSTAGE;
-    const int c = s >> 2, part = s & 3;
-    if (part < 2) {
-#pragma unroll 4
-      for (int kk = 0; kk < 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          stk::ldmatrix_x4(a[i], stk::smem_u32(panel + stk::swz<FD>(wm1 + i * 16 + (lane & 15),
-                                                                     part * 32 + kk * 2 +
-                                                                         (lane >> 4))));
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          uint32_t b[4];
-          stk::ldmatrix_x4(b, stk::smem_u32(ws + stk::swz<256>(wn1 + jp * 16 +
-                                                                   ((lane >> 4) << 3) + (lane & 7),
-                                                               kk * 2 + ((lane >> 3) & 1))));
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            stk::mma_bf16(acc1[i][2 * jp], a[i], b[0], b[1]);
-            stk::mma_bf16(acc1[i][2 * jp + 1], a[i], b[2], b[3]);
-          }
-        }
-      }
-      if (part == 1) {  // P = bf16(silu(acc1 + b1)); the next barrier publishes it
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = wn1 + j * 8 + 2 * t;
-          const float2 bv = *reinterpret_cast<const float2*>(b1 + c * FC + col);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int r = wm1 + i * 16 + g + 8 * hh;
-              *reinterpret_cast<uint32_t*>(P + stk::swz<FC>(r, col >> 3) + (col & 7)) =
-                  stk::pack_bf16(stk::silu_fast(acc1[i][j][2 * hh] + bv.x),
-                                 stk::silu_fast(acc1[i][j][2 * hh + 1] + bv.y));
-              acc1[i][j][2 * hh] = acc1[i][j][2 * hh + 1] = 0.0f;
-            }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          stk::ldmatrix_x4(a[i], stk::smem_u32(P + stk::swz<FC>(i * 16 + (lane & 15),
-                                                                 (part - 2) * 8 + kk * 2 +
-                                                                     (lane >> 4))));
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {
-          uint32_t b[4];
-          stk::ldmatrix_x4(b, stk::smem_u32(ws + stk::swz<64>(wn2 + jp * 16 +
-                                                                  ((lane >> 4) << 3) + (lane & 7),
-                                                              kk * 2 + ((lane >> 3) & 1))));
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            stk::mma_bf16(acc2[i][2 * jp], a[i], b[0], b[1]);
-            stk::mma_bf16(acc2[i][2 * jp + 1], a[i], b[2], b[3]);
-          }
-        }
-      }
-    }
-  }
-  // out = bf16(x + gate * (acc2 + b2)), two columns a store
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = wn2 + j * 8 + 2 * t;
-    const float2 bv = *reinterpret_cast<const float2*>(b2 + col);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + i * 16 + g + 8 * hh;
-        if (row >= N) continue;
-        const size_t at = (size_t)row * FD + col;
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at));
-        const float2 gv = *reinterpret_cast<const float2*>(gate + (size_t)(row / Tlen) * FD + col);
-        *reinterpret_cast<uint32_t*>(out + at) =
-            stk::pack_bf16(xv.x + gv.x * (acc2[i][j][2 * hh] + bv.x),
-                           xv.y + gv.y * (acc2[i][j][2 * hh + 1] + bv.y));
-      }
-  }
-}
-
-int launch_ln(const bf16* x, const float* g, const float* b, const float* shift,
-              const float* scale, bf16* h, int N, int Tlen, int D, float eps,
+template <typename TM>
+int launch_ln(const bf16* x, const float* g, const float* b, const TM* shift,
+              const TM* scale, bf16* h, int N, int Tlen, int D, float eps,
               cudaStream_t st) {
   const int warps = 132 * 2 * (LN_NT / 32);  // two blocks an SM
   const int rows_per_warp = (N + warps - 1) / warps;
   const int blocks = (N + rows_per_warp * (LN_NT / 32) - 1) / (rows_per_warp * (LN_NT / 32));
   const int cpl = (D / 8 + 31) / 32;
 #define STK_LN(C)                                                                        \
-  ln_mod<C><<<blocks, LN_NT, 0, st>>>(x, g, b, shift, scale, h, N, Tlen, D, rows_per_warp, \
+  ln_mod<C, TM><<<blocks, LN_NT, 0, st>>>(x, g, b, shift, scale, h, N, Tlen, D, rows_per_warp, \
                                       eps)
   if (cpl == 1) STK_LN(1);
   else if (cpl == 2) STK_LN(2);
@@ -479,52 +359,66 @@ int launch_ln(const bf16* x, const float* g, const float* b, const float* shift,
   return (int)cudaGetLastError();
 }
 
-// a template, so that only the design chosen by MID_ON_CHIP is compiled
-template <bool ON_CHIP>
+// TM: the modulation vectors' type (float, or bf16 as the path gives them)
+template <typename TM>
 int launch_bf16(const bf16* x, const float* g, const float* b, const bf16* w1,
-                const float* b1, const bf16* w2, const float* b2, const float* shift,
-                const float* scale, const float* gate, bf16* h, bf16* mid, bf16* out,
+                const float* b1, const bf16* w2, const float* b2, const TM* shift,
+                const TM* scale, const TM* gate, bf16* h, bf16* mid, bf16* out,
                 int B, int Tlen, int D, int F, float eps, cudaStream_t st) {
   if (D % 64 || F % 64 || D > 4 * 256) return (int)cudaErrorInvalidValue;
   const int N = B * Tlen;
   if (int err = launch_ln(x, g, b, shift, scale, h, N, Tlen, D, eps, st)) return err;
-  if constexpr (ON_CHIP) {
-    if (D != FD || F % FC) return (int)cudaErrorInvalidValue;
-    static size_t smem_set[stk::kMaxDevices] = {};
-    if (int err = stk::allow_dynamic_smem(ffn_fused<FD>, FUSED_SMEM, smem_set)) return err;
-    ffn_fused<FD><<<(N + FBM - 1) / FBM, FNT, FUSED_SMEM, st>>>(h, x, w1, b1, w2, b2, gate,
-                                                                out, N, Tlen, F);
-    return (int)cudaGetLastError();
-  } else {
-    using stk::MmaBf16;
-    if (int err = stk::launch_mma_gemm<MmaBf16, GemmTile>(h, w1, N, F, D, UpEpi{b1, mid, F}, st))
-      return err;
-    return stk::launch_mma_gemm<MmaBf16, GemmTile>(mid, w2, N, D, F,
-                                                   DownEpi{x, b2, gate, out, D, Tlen}, st);
-  }
+  int sms = 0;
+  if (int err = stk::sm_count(sms)) return err;
+  using Op = stk::WgmmaBf16;
+  const UpEpi up{b1};
+  const DownEpi<TM> down{x, b2, gate, D, Tlen};
+  int err = stk::gemm_tiles<UpTile>(N, F) >= 2 * sms
+                ? stk::launch_wgmma_gemm<Op, UpTile>(h, w1, mid, N, F, D, up, st)
+                : stk::launch_wgmma_gemm<Op, UpTileSmall>(h, w1, mid, N, F, D, up, st);
+  if (err) return err;
+  return stk::gemm_tiles<DownTile>(N, D) >= 2 * sms
+             ? stk::launch_wgmma_gemm<Op, DownTile>(mid, w2, out, N, D, F, down, st)
+             : stk::launch_wgmma_gemm<Op, DownTileSmall>(mid, w2, out, N, D, F, down, st);
 }
 
 }  // namespace
 
 // x/out [B,T,D]; w1 [F,D]; w2 [D,F] (storage type: dtype 0 float, 1 bf16);
-// ln g/b [D], b1 [F], b2 [D], shift/scale/gate [B,D] float; scratch: mid
-// [B*T,F] in the storage type, and for bf16 h [B*T,D] bf16. All contiguous
-// and 16-byte aligned; D and F multiples of 128 (bf16: D <= 1024).
+// ln g/b [D], b1 [F], b2 [D] float; shift/scale/gate [B,D] float, or for
+// bf16 with mod_dtype 1 bf16; scratch: mid [B*T,F] in the storage type,
+// and for bf16 h [B*T,D] bf16. All contiguous and 16-byte aligned; D and F
+// multiples of 128 (bf16: D <= 1024). mod_dtype comes after the stream, so
+// that the earlier design's entry (csrc/earlier/), which lacks it, takes
+// the same call with float modulation.
 extern "C" int stk_adaln_ffn(const void* x, const void* g, const void* b,
                              const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* shift, const void* scale,
                              const void* gate, void* h, void* mid, void* out, int B,
                              int Tlen, int D, int F, float eps, int dtype,
-                             void* stream) {
+                             void* stream, int mod_dtype) {
   cudaStream_t st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
+  auto hb = [](const void* p) { return (const bf16*)p; };
   if (B < 1 || Tlen < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (dtype == 0 && mod_dtype == 0)
     return launch_f32(f(x), f(g), f(b), f(w1), f(b1), f(w2), f(b2), f(shift), f(scale),
                       f(gate), (float*)mid, (float*)out, B, Tlen, D, F, eps, st);
-  if (dtype == 1)
-    return launch_bf16<MID_ON_CHIP>((const bf16*)x, f(g), f(b), (const bf16*)w1, f(b1),
-                                    (const bf16*)w2, f(b2), f(shift), f(scale), f(gate),
-                                    (bf16*)h, (bf16*)mid, (bf16*)out, B, Tlen, D, F, eps, st);
+  if (dtype == 1 && mod_dtype == 0)
+    return launch_bf16(hb(x), f(g), f(b), hb(w1), f(b1), hb(w2), f(b2), f(shift), f(scale),
+                       f(gate), (bf16*)h, (bf16*)mid, (bf16*)out, B, Tlen, D, F, eps, st);
+  if (dtype == 1 && mod_dtype == 1)
+    return launch_bf16(hb(x), f(g), f(b), hb(w1), f(b1), hb(w2), f(b2), hb(shift), hb(scale),
+                       hb(gate), (bf16*)h, (bf16*)mid, (bf16*)out, B, Tlen, D, F, eps, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 GEMMs' tiles, rows x columns x stages: GEMM1 and GEMM2 at many
+// rows, then at few
+extern "C" int stk_adaln_ffn_tiles(int* tiles) {
+  const int v[12] = {UpTile::BM, UpTile::BN, UpTile::NS, DownTile::BM, DownTile::BN,
+                     DownTile::NS, UpTileSmall::BM, UpTileSmall::BN, UpTileSmall::NS,
+                     DownTileSmall::BM, DownTileSmall::BN, DownTileSmall::NS};
+  for (int i = 0; i < 12; ++i) tiles[i] = v[i];
+  return 0;
 }

@@ -1,0 +1,367 @@
+// Hopper's own data movement and tensor-core product, shared by the bf16
+// attention (csrc/attention.cu) and the FFN's GEMMs (csrc/ffn.cu):
+//   - TMA: tensor maps encoded on the host (encode_tma, through the driver
+//     entry point the runtime hands out, so nothing links libcuda) and
+//     passed by value as __grid_constant__ kernel parameters; one thread
+//     asks for a whole box, which lands 128-byte swizzled in shared memory
+//     and reports its bytes to an mbarrier;
+//   - mbarriers: the full/empty handshake of a producer warp and consumer
+//     warpgroups over a ring of stages, each waiter tracking the phase
+//     parity of the round it waits for;
+//   - wgmma.mma_async: 64 x N x 16 products of a warpgroup (128 threads)
+//     into f32 registers, B from shared memory through a matrix descriptor,
+//     A from shared memory or from registers;
+//   - setmaxnreg: producer and consumer warpgroups trade registers.
+// Every operand tile in shared memory is rows of 128 bytes (64 bf16) in
+// TMA's 128-byte swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+// (stk::swz), in atoms of 8 rows = 1024 bytes, so every tile starts on a
+// 1024-byte boundary and the descriptors say "128B swizzle".
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+
+#include "common.cuh"
+
+namespace stk {
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled's signature (CUDA driver API)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The error an encoding failure returns: kTmaEncodeError + the driver's
+// CUresult (or + 0 when the entry point is missing), which no CUDA runtime
+// error code reaches.
+constexpr int kTmaEncodeError = 100000;
+
+// A tensor map (bf16 unless `type` says otherwise) of `rank` dimensions,
+// innermost first: dims[i] elements, byte strides of dims 1.. (multiples of
+// 16), a box of box[i] elements whose innermost extent is 128 bytes,
+// swizzled by 128 bytes; reads past a dimension's end are zero-filled. Returns 0 or kTmaEncodeError + CUresult.
+inline int encode_tma(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return kTmaEncodeError;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, type, (cuuint32_t)rank,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaEncodeError + (int)r;
+}
+
+// ---------------------------------------------------------------------------
+// device: mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// one arrival that also expects `bytes` of TMA traffic in this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// expects `bytes` more of TMA traffic in the current phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// returns once the barrier's phase of parity `parity` has completed; a
+// phase that never completes (a protocol fault) traps after ~2^36 cycles
+// (tens of seconds) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 36)) __trap();
+  } while (!done);
+}
+
+// box at coordinates (c0 innermost, ...) of `map` into shared `dst`,
+// completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// shared `src` -> the box at (c0, c1) of `map` (parts past the tensor's
+// ends are not written), in this thread's bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// at most N of this thread's bulk groups still reading shared memory
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// at most N of this thread's bulk groups not yet complete
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// this thread's shared-memory writes, visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: warpgroup roles and wgmma
+// ---------------------------------------------------------------------------
+
+template <int R> __device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Registers a consumer thread may raise to with setmaxnreg once the
+// block's producer warpgroup drops to kProducerRegs. setmaxnreg only moves
+// registers within the block, so the split must fit in what the block got
+// at entry. That is at most the __launch_bounds__ cap, 65536 / (threads *
+// blocks), but the compiler may choose less (it chose 128 at a cap of 136):
+// the split assumes the cap rounded down to a multiple of 16, and the
+// launch checks the count the compiler chose (check_reg_split). (A lone
+// producer warp, whose warpgroup's other warps do not exist, cannot take
+// part: setmaxnreg waits for the whole warpgroup.)
+constexpr int kProducerRegs = 40;
+__host__ __device__ constexpr int round8(int r) { return r / 8 * 8; }
+__host__ __device__ constexpr int entry_regs(int threads, int blocks) {
+  return 65536 / (threads * blocks) / 16 * 16 < 240 ? 65536 / (threads * blocks) / 16 * 16 : 240;
+}
+__host__ __device__ constexpr int consumer_regs(int consumer_wgs, int blocks) {
+  return round8((entry_regs((consumer_wgs + 1) * 128, blocks) * (consumer_wgs + 1) -
+                 kProducerRegs) / consumer_wgs) < 240
+             ? round8((entry_regs((consumer_wgs + 1) * 128, blocks) * (consumer_wgs + 1) -
+                       kProducerRegs) / consumer_wgs)
+             : 240;
+}
+static_assert(consumer_regs(1, 2) == 216 && consumer_regs(2, 1) == 216 &&
+                  consumer_regs(1, 3) == 120, "register split");
+
+// Returns cudaErrorInvalidConfiguration, rather than a launch whose
+// consumers would wait forever in setmaxnreg, when `kernel`'s registers at
+// entry cannot hold `producer_threads` at kProducerRegs and
+// `consumer_threads` at `regs`. Asked once per kernel (`entry` caches it).
+template <typename Kernel>
+inline int check_reg_split(Kernel kernel, int producer_threads, int consumer_threads, int regs,
+                           int& entry) {
+  if (!entry) {
+    cudaFuncAttributes a;
+    if (int err = (int)cudaFuncGetAttributes(&a, kernel)) return err;
+    entry = a.numRegs;
+  }
+  return entry * (producer_threads + consumer_threads) <
+                 producer_threads * kProducerRegs + consumer_threads * regs
+             ? (int)cudaErrorInvalidConfiguration
+             : 0;
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero (one
+// instruction; exp2f adds a rescale for them)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// at most N committed groups of this warpgroup still in flight
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins the accumulators at this point of the program: the compiler may not
+// move their reads or writes across it (wgmma writes them asynchronously)
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Matrix descriptor of a 128-byte-swizzled operand tile at shared address
+// `addr` (1024-byte aligned at the tile's atom): SBO = 1024 bytes between
+// 8-row atoms along the strided dimension, LBO = 16 bytes (read only for
+// MN-major tiles wider than 64 elements, which no kernel here has), layout
+// type 1 = 128B swizzle.
+// A K-major tile advances 16 elements of K by adding 32 bytes to the
+// address (2 in the descriptor's 16-byte units); an MN-major tile advances
+// 16 rows of K by 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// m64nNk16 bf16 x bf16 -> f32. Accumulator d[4j + e], for the warpgroup's
+// thread with warp w, g = lane / 4, t = lane % 4: row 16w + g + 8 (e / 2),
+// column 8j + 2t + (e % 2). A from registers has the same row / column
+// pattern over 16 columns: a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
+// a[2] = (g, 2t+8..), a[3] = (g + 8, 2t+8..), two bf16 a register, the lower
+// column in the low half. scale_d = 0 overwrites d, 1 accumulates.
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<32> {
+  // d (64 x 32) (+)= A (smem, K-major) . B (smem; MN-major when TRANS_B)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // d (64 x 64) (+)= A (smem, K-major) . B (smem; MN-major when TRANS_B)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+  // the same with A (64 x 16) from registers in the accumulator-like fragment
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // d (64 x 128) (+)= A (smem, K-major) . B (smem; MN-major when TRANS_B)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+template <> struct Wgmma<256> {
+  // d (64 x 256) (+)= A (smem, K-major) . B (smem; MN-major when TRANS_B)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+}  // namespace stk

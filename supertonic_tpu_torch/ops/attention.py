@@ -33,6 +33,14 @@ NEG_INF = -1e9
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
+def kernel_tiles() -> dict:
+    """The bf16 kernel's tile choice (builds the library on first use)."""
+    tiles = (ctypes.c_int * 4)()
+    _build.function("attention", "stk_attention_tiles", [ctypes.c_void_p])(tiles)
+    return dict(zip(("queries_per_block", "keys_per_stage", "stages", "blocks_per_sm"),
+                    tiles))
+
+
 def attention_plain(q, k, v, key_mask=None):
     """Plain PyTorch version, with the kernel's rounding points."""
     scale = 1.0 / math.sqrt(q.shape[-1])

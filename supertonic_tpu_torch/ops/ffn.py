@@ -11,7 +11,8 @@ Replaces ``supertonic_tpu/ops/ffn.py:_ffn_kernel`` (``fused_adaln_ffn``):
 
 Weights come in torch's linear layout: ``w1`` [F, D] and ``w2`` [D, F]
 (the port's ``Linear.weight``), biases and LN parameters in f32,
-``shift``/``scale``/``gate`` [B, 1, D] in any float dtype.
+``shift``/``scale``/``gate`` [B, 1, D] in any float dtype (the bf16 kernel
+reads them in bf16 when all three are, else in f32).
 
 What bounds the kernel on the H100 and what its design does about it is in
 the header of ``csrc/ffn.cu``: in bf16, a LayerNorm-and-modulation pass
@@ -37,9 +38,18 @@ MAX_D_BF16 = 1024  # the bf16 LayerNorm pass holds a row in one warp's registers
 _F32_NAMES = ("ln_g", "ln_b", "b1", "b2", "shift", "scale", "gate")
 
 # x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate, h, mid, out, B, T, D,
-# F, eps, dtype code, stream
+# F, eps, dtype code, stream, modulation dtype code
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+
+
+def kernel_tiles() -> dict:
+    """The bf16 GEMMs' tiles (rows, columns, ring stages), at many rows and
+    at few (builds the library on first use)."""
+    t = (ctypes.c_int * 12)()
+    _build.function("ffn", "stk_adaln_ffn_tiles", [ctypes.c_void_p])(t)
+    names = ("gemm1", "gemm2", "gemm1_few_rows", "gemm2_few_rows")
+    return {name: tuple(t[3 * i:3 * i + 3]) for i, name in enumerate(names)}
 
 
 def adaln_ffn_plain(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
@@ -81,11 +91,17 @@ def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
         raise ValueError(f"the FFN kernel takes D and F in multiples of 128 (bf16: "
                          f"D <= {MAX_D_BF16}), got D={d}, F={f}")
 
-    def f32(v):
-        v = v.to(device=x.device, dtype=torch.float32).contiguous()
+    # the modulation vectors stay in bf16 where the path gives them so (the
+    # kernel reads them as they are), else go to f32 like the other vectors
+    mods = (shift, scale, gate)
+    mod_dtype = (torch.bfloat16 if x.dtype == torch.bfloat16
+                 and all(m.dtype == torch.bfloat16 for m in mods) else torch.float32)
+
+    def vec(v, dtype=torch.float32):
+        v = v.to(device=x.device, dtype=dtype).contiguous()
         return v.reshape(b, d) if v.dim() == 3 else v
 
-    args = [f32(v) for v in (ln_g, ln_b, b1, b2, shift, scale, gate)]
+    args = [vec(v) for v in (ln_g, ln_b, b1, b2)] + [vec(m, mod_dtype) for m in mods]
     for name, p in (("x", x), ("w1", w1), ("w2", w2), *zip(_F32_NAMES, args)):
         if not p.is_contiguous() or p.device != x.device or p.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {x.device}")
@@ -100,7 +116,8 @@ def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
     with _build.on(x):
         _build.check(fn(P(x), P(g), P(bl), P(w1), P(b1f), P(w2), P(b2f), P(sh),
                         P(sc), P(ga), P(h), P(mid), P(out), b, t, d, f, eps,
-                        _build.dtype_code(x.dtype), _build.stream_ptr(x)),
+                        _build.dtype_code(x.dtype), _build.stream_ptr(x),
+                        _build.dtype_code(mod_dtype)),
                      "stk_adaln_ffn")
     _count.launched("adaln_ffn", (b, t, d, f))
     return out

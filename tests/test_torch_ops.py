@@ -68,14 +68,18 @@ def test_attention_bf16_matches_pallas():
 
 
 @pytest.mark.parametrize("tq,tk,masked", [(65, 70, True), (320, 50, False), (1, 1, True),
-                                           (1, 1, False), (9, 1, True)])
+                                           (1, 1, False), (9, 1, True), (63, 65, True),
+                                           (64, 64, False), (129, 127, True), (70, 5, True),
+                                           (129, 100, False)])
 def test_attention_bf16_dh64_matches_pallas(tq, tk, masked):
     """The port's plain version, which the card holds the kernel to, against
     the Pallas kernel at Dh = 64 (the kernel's head width): a path shape
-    (Tq 320, Tk 50 unmasked, TE/DP cross) and the kernel's tile edges (Tq
-    and Tk not multiples of 64, a single key; with one key masked away the
-    row is the mean of v). 2e-2: bf16 in and out, probabilities rounded to
-    bf16 on both sides."""
+    (Tq 320, Tk 50 unmasked, TE/DP cross) and the kernel's tile edges, the
+    shapes chip_smoke.py holds the kernel to: Tq and Tk at 64 (queries a
+    consumer warpgroup, keys a stage) and 128 plus or minus one, a single
+    key (masked away, the row is the mean of v), fewer keys than one wgmma
+    N step of 8, and a second key stage that crosses Tk without a mask.
+    2e-2: bf16 in and out, probabilities rounded to bf16 on both sides."""
     rng = np.random.default_rng(tq * 1000 + tk)
     q, k, v = (rng.standard_normal((2, t, 2, 64)).astype(np.float32) for t in (tq, tk, tk))
     mask = None
@@ -131,6 +135,37 @@ def test_adaln_ffn_bf16_matches_pallas():
     bf16 in and out, h and the intermediate rounded to bf16 on both sides."""
     rng = np.random.default_rng(6)
     b, t, d, f = 3, 37, 128, 256
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bl = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    w1 = (rng.standard_normal((d, f)) / np.sqrt(d)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(f)).astype(np.float32)
+    w2 = (rng.standard_normal((f, d)) / np.sqrt(f)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    shift, scale, gate = ((0.5 * rng.standard_normal((b, 1, d))).astype(np.float32)
+                          for _ in range(3))
+    bf = jnp.bfloat16
+    ref = j_fused_adaln_ffn(jnp.asarray(x, bf), jnp.asarray(g), jnp.asarray(bl),
+                            jnp.asarray(w1, bf), jnp.asarray(b1), jnp.asarray(w2, bf),
+                            jnp.asarray(b2), *(jnp.asarray(m, bf) for m in (shift, scale, gate)),
+                            interpret=True)
+    tb = torch.bfloat16
+    got = ffn.fused_adaln_ffn(_t(x, tb), _t(g), _t(bl), _t(w1.T, tb).contiguous(), _t(b1),
+                              _t(w2.T, tb).contiguous(), _t(b2), _t(shift, tb), _t(scale, tb),
+                              _t(gate, tb))
+    assert got.dtype == tb and got.shape == (b, t, d)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,t", [(2, 21), (5, 100)])
+def test_adaln_ffn_bf16_tile_edges_match_pallas(b, t):
+    """The plain version against the Pallas kernel in bf16 at the GEMM
+    tiles' edges that chip_smoke.py holds the kernel to: fewer rows than one
+    64-row tile (B 2 x T 21), and tiles whose rows span several batch rows,
+    each with its own gate (B 5 x T 100). 2e-2 as above."""
+    rng = np.random.default_rng(7 + t)
+    d, f = 128, 256
     x = rng.standard_normal((b, t, d)).astype(np.float32)
     g = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
     bl = (0.1 * rng.standard_normal(d)).astype(np.float32)
