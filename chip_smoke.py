@@ -40,7 +40,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                then the same cell through SynthesisEngine(fused_ffn=False),
                the JAX engine's default (the AdaLN FFN as two cuBLAS
                products and a silu): its launches, b64 audio-sec/s beside
-               the default's, and the bf16 wav distance between the two
+               the default's, and the bf16 wav distance between the two;
+               and through SynthesisEngine(fused_resblocks=False) (the
+               vocoder's chains as torch convs, JAX's TTS_VOC_FUSED unset):
+               no chain launch, b64/5-step audio-sec/s beside the default's,
+               and the bf16 wav distance to an engine built under
+               TTS_VOC_FUSED=0 (no chain launch either)
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -55,7 +60,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                (the batcher's groups at B <= 32, streaming and progress at
                B=1, the chain on the vocoder windows, the int8 server's
                quantize and W8A8 shapes), timed where a streamed chunk
-               launches them
+               launches them; at the other widths (every bf16 attention
+               instance, Dh 12 to 128; the FFN's K and N tails; every chain
+               instance and padded channel counts; chains of conv size 5,
+               of five pairs and of a lone pair at the domain's largest
+               reach, run as more than one launch where a tile cannot hold
+               them) and, timed, at every shape phase 12 recorded; the
+               chain's domain constant (vocoder_fused.MAX_PAIR_REACH)
+               against the library's
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -98,7 +110,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                each hand-written kernel; the native C++ frontend built from
                the port's sources, equal to the Python frontend, serving
                under TTS_NATIVE_FRONTEND=1; the vocoder's up_matmul against
-               the conv path at b64 and TTS_VOC_UP_MATMUL=1 in an engine.
+               the conv path at b64 and TTS_VOC_UP_MATMUL=1 in an engine;
+               python -m supertonic_tpu_torch.tools.smoke_test (the CLI in
+               its four modes, the bundle exported from the smoke params).
                Phase 6's int8 vs bf16 check also prints log-mel SNR and MCD
  11. the mesh — (a)-(d) run after phase 7, before phase 5, so that phase 5
                also checks every kernel at the shapes the mesh gave it:
@@ -123,6 +137,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                device (f32, 3e-5), python -m
                supertonic_tpu_torch.tools.parity_check --skip-ort exits 0
                and tools.bench_onnx_backend prints both modes
+ 12. widths — runs after phase 11 (d), before phase 5: the whole path at
+               three configs off the default widths (the tests' tiny dims:
+               Dh 16 and 32, FFN D 64 F 256, chains at C 64, 32, 16; a
+               reference tts.json with proj_out.idim 384: TE Dh 96; the VE
+               at Dh 128 with the vocoder's chains at 384 and 192), depth
+               cut, through TTS(<its assets>): f32 on the card against the
+               CPU on injected noise (B=2, 2 steps; 1e-5 in the wav) and
+               bf16 synthesize_batch (finite, RMS); attention, the FFN and
+               the chain must launch at every width the config gives them,
+               and no plain version may see a CUDA tensor
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -202,6 +226,9 @@ PER_BATCH = {
     # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
     "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
                          "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0},
+    # SynthesisEngine(fused_resblocks=False): every chain as _resblock's convs
+    "bf16 unfused resblocks": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 0,
+                               "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0},
 }
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
@@ -238,10 +265,10 @@ SOURCES = {
 INT32_PRODUCT_MS = {(40960, 512, 512): 0.0679, (40960, 512, 2048): 0.2119,
                     (40960, 2048, 512): 0.1699, (23680, 512, 512): 0.0414}
 EARLIER_MS = {
-    "attention": {(64, 8, 448, 448, True): 0.2016, (64, 8, 448, 370, True): 0.1758,
-                  (64, 4, 320, 320, True): 0.0579, (64, 4, 320, 50, False): 0.0185,
-                  (1, 8, 448, 448, True): 0.0158, (1, 8, 448, 370, True): 0.0179,
-                  (1, 4, 320, 320, True): 0.0154, (1, 4, 320, 50, False): 0.0200},
+    "attention": {(64, 8, 448, 448, True, 64): 0.2016, (64, 8, 448, 370, True, 64): 0.1758,
+                  (64, 4, 320, 320, True, 64): 0.0579, (64, 4, 320, 50, False, 64): 0.0185,
+                  (1, 8, 448, 448, True, 64): 0.0158, (1, 8, 448, 370, True, 64): 0.0179,
+                  (1, 4, 320, 320, True, 64): 0.0154, (1, 4, 320, 50, False, 64): 0.0200},
     "adaln_ffn": {(64, 448, 512, 2048): 0.4592, (1, 448, 512, 2048): 0.0567},
     "resblock_chain": {(64, 40960, 128): 10.017, (64, 5120, 256): 6.072},
     "int8_matmul": INT32_PRODUCT_MS,
@@ -342,39 +369,52 @@ def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
                                 bound_ms=bnd, bound_by=by, earlier_ms=earlier))
 
 
-def check_attention(gen, cell, results, serving):
+def check_attention(gen, cell, results, serving, widths):
     cases = [  # name, B, H, Tq, Tk, mask kind, launches per cell batch (None:
-        #        checked, not timed)
-        ("ve_self T256", 64, 8, 256, 256, "tail", 0),
-        ("ve_cross Tk242", 64, 8, 256, 242, "tail", 0),
-        ("te_self L192", 64, 4, 192, 192, "tail", 0),
-        ("te_cross_nomask", 64, 4, 192, 50, None, 0),
-        ("fully_masked_row", 4, 8, 64, 96, "one_row_empty", None),
-        ("long_1100", 2, 8, 1100, 1100, "tail", 0),
+        #        checked, not timed), Dh
+        ("ve_self T256", 64, 8, 256, 256, "tail", 0, 64),
+        ("ve_cross Tk242", 64, 8, 256, 242, "tail", 0, 64),
+        ("te_self L192", 64, 4, 192, 192, "tail", 0, 64),
+        ("te_cross_nomask", 64, 4, 192, 50, None, 0, 64),
+        ("fully_masked_row", 4, 8, 64, 96, "one_row_empty", None, 64),
+        ("long_1100", 2, 8, 1100, 1100, "tail", 0, 64),
         # the bf16 kernel's tile edges: 64 queries a consumer warpgroup (128
         # with two), 64 keys a ring stage, wgmma's N in steps of 8 keys
-        ("edge Tq65 Tk63", 3, 2, 65, 63, "tail", None),
-        ("edge Tq65 Tk63 no mask", 3, 2, 65, 63, None, None),
-        ("edge Tq63 Tk65", 3, 2, 63, 65, "tail", None),
-        ("edge Tq64 Tk64 no mask", 2, 2, 64, 64, None, None),
-        ("edge Tq129 Tk127", 2, 2, 129, 127, "tail", None),
-        ("edge Tk5, below one wgmma N step", 3, 2, 70, 5, "tail", None),
-        ("edge Tk100 no mask: the second stage's zero-filled keys", 3, 2, 129, 100, None, None),
-        ("edge fully masked row, Tk70 crossing a stage", 2, 2, 65, 70, "one_row_empty", None),
-        ("edge Tq1 Tk1", 2, 2, 1, 1, None, None),
-        ("edge Tq1 Tk1 masked", 2, 2, 1, 1, "tail", None),
-        ("edge B1 H1", 1, 1, 640, 640, "tail", None),
+        ("edge Tq65 Tk63", 3, 2, 65, 63, "tail", None, 64),
+        ("edge Tq65 Tk63 no mask", 3, 2, 65, 63, None, None, 64),
+        ("edge Tq63 Tk65", 3, 2, 63, 65, "tail", None, 64),
+        ("edge Tq64 Tk64 no mask", 2, 2, 64, 64, None, None, 64),
+        ("edge Tq129 Tk127", 2, 2, 129, 127, "tail", None, 64),
+        ("edge Tk5, below one wgmma N step", 3, 2, 70, 5, "tail", None, 64),
+        ("edge Tk100 no mask: the second stage's zero-filled keys", 3, 2, 129, 100, None, None,
+         64),
+        ("edge fully masked row, Tk70 crossing a stage", 2, 2, 65, 70, "one_row_empty", None,
+         64),
+        ("edge Tq1 Tk1", 2, 2, 1, 1, None, None, 64),
+        ("edge Tq1 Tk1 masked", 2, 2, 1, 1, "tail", None, 64),
+        ("edge B1 H1", 1, 1, 640, 640, "tail", None, 64),
     ]
-    cases += [(f"cell H{h} Tq{tq} Tk{tk}", b, h, tq, tk, "tail" if masked else None, n)
-              for (b, h, tq, tk, masked), n in sorted(cell["attention"].items())]
+    # the other head widths: every bf16 instance (16 .. 128 in steps of 16;
+    # two 64-column panels above 64), a width the bf16 wrapper pads (12, 24,
+    # 100) and the f32 kernel's padded columns, at the tile edges
+    cases += [(f"edge Dh{dh} Tq65 Tk{tk}", 3, 2, 65, tk, mk, None, dh)
+              for dh in (12, 16, 24, 32, 48, 80, 96, 100, 112, 128)
+              for tk, mk in ((63, "tail"), (130, None))]
+    cases += [("edge Dh128 fully masked row", 2, 2, 65, 70, "one_row_empty", None, 128)]
+    cases += [(f"cell H{h} Tq{tq} Tk{tk}", b, h, tq, tk, "tail" if masked else None, n, dh)
+              for (b, h, tq, tk, masked, dh), n in sorted(cell["attention"].items())]
     # the serving run's shapes, timed where a streamed chunk launches them
     cases += [(f"phase 7/11 H{h} Tq{tq} Tk{tk} ({k} per streamed chunk)", b, h, tq, tk,
-               "tail" if masked else None, 0 if k else None)
-              for (b, h, tq, tk, masked), k in sorted(serving["attention"].items())
-              if (b, h, tq, tk, masked) not in cell["attention"]]
+               "tail" if masked else None, 0 if k else None, dh)
+              for (b, h, tq, tk, masked, dh), k in sorted(serving["attention"].items())
+              if (b, h, tq, tk, masked, dh) not in cell["attention"]]
+    # phase 12's widths, off the b64 path: timed
+    cases += [(f"phase 12 Dh{dh} H{h} Tq{tq} Tk{tk}", b, h, tq, tk,
+               "tail" if masked else None, 0, dh)
+              for (b, h, tq, tk, masked, dh) in sorted(widths["attention"])]
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, h, tq, tk, mk, n in cases:
-            q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=DEV).to(dtype)
+        for name, b, h, tq, tk, mk, n, dh in cases:
+            q, k, v = (torch.randn((b, t, h, dh), generator=gen, device=DEV).to(dtype)
                        for t in (tq, tk, tk))
             mask = None
             if mk is not None:
@@ -386,7 +426,7 @@ def check_attention(gen, cell, results, serving):
             ref = attention.attention_plain(q, k, v, mask)
             err = compare(f"attention {name} B{b} {dtype}", got, ref, dtype)
             if mk == "one_row_empty":
-                mean_v = v[0].float().mean(0, keepdim=True).expand(tq, h, 64)
+                mean_v = v[0].float().mean(0, keepdim=True).expand(tq, h, dh)
                 if not torch.allclose(got[0].float(), mean_v, atol=TOL[dtype] * 4,
                                       rtol=TOL[dtype]):
                     raise AssertionError("fully masked row is not the mean of v")
@@ -396,35 +436,44 @@ def check_attention(gen, cell, results, serving):
             bias = None if mask is None else (
                 (1.0 - mask) * -1e9)[:, None, None, :].to(dtype)
             es = q.element_size()
-            nbytes = es * b * h * 64 * (2 * tq + 2 * tk) + (0 if mask is None else 4 * b * tk)
+            nbytes = es * b * h * dh * (2 * tq + 2 * tk) + (0 if mask is None else 4 * b * tk)
             measure(results, "attention", name, dtype, n, err,
                     lambda: attention.fused_attention(q, k, v, mask),
                     lambda: attention.attention_plain(q, k, v, mask),
-                    nbytes, 4.0 * b * h * tq * tk * 64,
+                    nbytes, 4.0 * b * h * tq * tk * dh,
                     lib=lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=bias), shape=(b, h, tq, tk, mk is not None))
+                        qt, kt, vt, attn_mask=bias), shape=(b, h, tq, tk, mk is not None, dh))
 
 
-def check_ffn(gen, cell, results, serving):
+def check_ffn(gen, cell, results, serving, widths):
     """Each case: name, B, T, D, F, launches per cell batch (None: checked,
     not timed). The edges leave the bf16 GEMMs' row tiles ragged (B*T not a
     multiple of 128 or 64, or below one tile), make one tile read the gates
     of several batch rows (T not dividing the tile), take the many-row and
     the few-row tiles, leave GEMM1's 256-column tiles ragged (F 1152) and
-    the LayerNorm pass's chunks uneven across a warp's lanes (D 384)."""
+    the LayerNorm pass's chunks uneven across a warp's lanes (D 384); the
+    other widths leave K and N tails to TMA's zero fill and the stores' clip
+    (D, F multiples of 8, not of 64) and the f32 tiles ragged."""
     cases = [("rows 64x256", 64, 256, 512, 2048, 0),
              ("edge B3 x T37", 3, 37, 512, 2048, None),
              ("edge B1 x T1", 1, 1, 512, 2048, None),
              ("edge B2 x T21: 42 rows, below one 64-row tile", 2, 21, 512, 2048, None),
              ("edge B5 x T100: few-row tiles straddle batch rows", 5, 100, 512, 2048, None),
              ("edge B64 x T37: many-row tiles straddle batch rows", 64, 37, 512, 2048, None),
-             ("edge B2 x T200, D384 F1152", 2, 200, 384, 1152, None)]
+             ("edge B2 x T200, D384 F1152", 2, 200, 384, 1152, None),
+             ("edge B3 x T50, D200 F808: K and N tails", 3, 50, 200, 808, None),
+             ("edge B64 x T37, D200 F808: many-row tiles with tails", 64, 37, 200, 808, None),
+             ("edge B1 x T7, D8 F24: below one box", 1, 7, 8, 24, None),
+             ("edge B2 x T37, D64 F256", 2, 37, 64, 256, None),
+             ("edge B2 x T21, D1024 F1032: the widest bf16 row", 2, 21, 1024, 1032, None)]
     cases += [(f"cell rows {b}x{t}", b, t, d, f, n)
               for (b, t, d, f), n in sorted(cell["adaln_ffn"].items())]
     cases += [(f"phase 7/11 rows {b}x{t} ({k} per streamed chunk)", b, t, d, f,
                0 if k else None)
               for (b, t, d, f), k in sorted(serving["adaln_ffn"].items())
               if (b, t, d, f) not in cell["adaln_ffn"]]
+    cases += [(f"phase 12 rows {b}x{t} D{d} F{f}", b, t, d, f, 0)
+              for (b, t, d, f) in sorted(widths["adaln_ffn"])]
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, t, d, f, n in cases:
             x = torch.randn((b, t, d), generator=gen, device=DEV).to(dtype)
@@ -463,40 +512,76 @@ def check_ffn(gen, cell, results, serving):
                     nbytes, 4.0 * b * t * d * f, reps=5, shape=(b, t, d, f))
 
 
-def check_chain(gen, cell, results, serving):
+def check_chain(gen, cell, results, serving, widths):
     """Each case: name, B, T', C, launches per cell batch (None: checked, not
-    timed), frame mask ("tail": the last tenth masked, "zero": all masked)."""
+    timed), frame mask ("tail": the last tenth masked, "zero": all masked),
+    dilations, conv size. The tile edges at every instance of the kernel
+    (vocoder_fused.CHAIN_WIDTHS) and at channel counts the wrapper pads to
+    the next; chains the wrapper runs as several launches or on the SIMT
+    kernel in bf16; phase 12's widths with their config's dilations."""
     dils = (1, 3, 9)
-    cases = [("T'=8x256", 64, 8 * 256, 256, 0, "tail"),
-             ("T'=64x256", 64, 64 * 256, 128, 0, "tail")]
-    cases += [(f"cell T'={t_len}", b, t_len, c, n, "tail")
+    cases = [("T'=8x256", 64, 8 * 256, 256, 0, "tail", dils, 3),
+             ("T'=64x256", 64, 64 * 256, 128, 0, "tail", dils, 3)]
+    cases += [(f"cell T'={t_len}", b, t_len, c, n, "tail", dils, 3)
               for (b, t_len, c), n in sorted(cell["resblock_chain"].items())]
     cases += [(f"phase 7/11 T'={t_len} ({k} per streamed chunk)", b, t_len, c,
-               0 if k else None, "tail")
+               0 if k else None, "tail", dils, 3)
               for (b, t_len, c), k in sorted(serving["resblock_chain"].items())
               if (b, t_len, c) not in cell["resblock_chain"]]
+    cases += [(f"phase 12 T'={t_len} dilations {d}", b, t_len, c, 0, "tail", d, 3)
+              for (b, t_len, c), d in sorted(widths["resblock_chain"].items())]
     for dtype in (torch.float32, torch.bfloat16):
+        # the wrapper's domain constant is the library's
+        reach = vocoder_fused.max_pair_reach(dtype)
+        if reach != vocoder_fused.MAX_PAIR_REACH[dtype]:
+            raise AssertionError(f"chain pair reach {dtype}: library {reach}, "
+                                 f"vocoder_fused.MAX_PAIR_REACH {vocoder_fused.MAX_PAIR_REACH}")
         edges = []  # the kernel's own tile width at each C and dtype
         for c in (128, 256):
             tile = vocoder_fused.chain_tile(c, dtype, dils)
-            edges += [(f"edge T'={tile // 2 + 1} < tile {tile}", 3, tile // 2 + 1, c, None, "tail"),
-                      (f"edge T'=tile+1={tile + 1}", 3, tile + 1, c, None, "tail"),
+            edges += [(f"edge T'={tile // 2 + 1} < tile {tile}", 3, tile // 2 + 1, c, None, "tail",
+                       dils, 3),
+                      (f"edge T'=tile+1={tile + 1}", 3, tile + 1, c, None, "tail", dils, 3),
                       (f"edge T'={2 * tile + 5}, all frames masked", 2, 2 * tile + 5, c, None,
-                       "zero")]
-        for name, b, t_len, c, n, mk in cases + edges:
+                       "zero", dils, 3)]
+        for c in (16, 32, 64, 96, 192, 200, 320, 384):
+            tile = vocoder_fused.chain_tile(c, dtype, dils)
+            edges += [(f"edge C={c} T'=2 tiles+3", 2, 2 * tile + 3, c, None, "tail", dils, 3),
+                      (f"edge C={c} T'={tile // 2 + 1}, dilations (1, 3)", 3, tile // 2 + 1, c,
+                       None, "tail", (1, 3), 3)]
+        # off the default kernel and dilations: conv size 5, five pairs, a
+        # dilation of 27, and a lone pair at the largest reach (dilation
+        # reach - 1 at k 3, reach / 3 - 1 at k 7)
+        top = vocoder_fused.MAX_PAIR_REACH[dtype]
+        for c in (64, 128, 384):
+            edges += [(f"k=5 C={c}", 2, 700, c, None, "tail", (1, 3), 5),
+                      (f"five pairs C={c}", 2, 700, c, None, "tail", (1, 3, 9, 1, 3), 3),
+                      (f"lone pair at reach {top} C={c}", 2, 300, c, None, "tail", (top - 1,), 3),
+                      (f"k=7 C={c}", 2, 300, c, None, "tail", (1, top // 3 - 1), 7)]
+            if vocoder_fused.supports(c, 3, (1, 3, 9, 27), dtype):
+                edges.append((f"dilations (1, 3, 9, 27) C={c}", 2, 700, c, None, "tail",
+                              (1, 3, 9, 27), 3))
+        for name, b, t_len, c, n, mk, dils, ks in cases + edges:
+            if not vocoder_fused.supports(c, ks, dils, dtype):
+                raise AssertionError(f"chain case {name} {dtype} lies outside supports()")
             x = torch.randn((b, t_len, c), generator=gen, device=DEV).to(dtype)
             fm = torch.zeros(t_len, device=DEV)
             if mk == "tail":
                 fm[:t_len - max(1, t_len // 10)] = 1.0
-            s = (3 * c) ** -0.5
-            wa, wb = ((torch.rand((3, 3, c, c), generator=gen, device=DEV) * 2 - 1)
+            s = (ks * c) ** -0.5
+            p = len(dils)
+            wa, wb = ((torch.rand((p, ks, c, c), generator=gen, device=DEV) * 2 - 1)
                       .mul(s).to(dtype) for _ in range(2))
-            ba, bb = (0.1 * torch.randn((3, c), generator=gen, device=DEV) for _ in range(2))
+            ba, bb = (0.1 * torch.randn((p, c), generator=gen, device=DEV) for _ in range(2))
             args = (x, fm, wa, ba, wb, bb, dils)
             got = vocoder_fused.resblock_chain(*args)
             ref = vocoder_fused.resblock_chain_plain(*args)
-            tile = vocoder_fused.chain_tile(c, dtype, dils)
-            err = compare(f"resblock_chain C={c} B{b} {name} tiles={-(-t_len // tile)} "
+            width = vocoder_fused.kernel_width(c)
+            plan = vocoder_fused.launch_plan(width, ks, tuple(dils), dtype)
+            tiles = [vocoder_fused._tile(width, ks, dils[i:j], dtype) for i, j in plan]
+            where = " + ".join(f"{'mma' if mma else 'simt'} {-(-t_len // tile)} tiles"
+                               for tile, mma in tiles)
+            err = compare(f"resblock_chain C={c} B{b} {name} k={ks} launches: {where} "
                           f"{dtype}", got, ref, dtype)
             if not torch.equal(got[:, -1], x[:, -1]):
                 raise AssertionError("masked tail frame changed")
@@ -505,12 +590,11 @@ def check_chain(gen, cell, results, serving):
             if n is None:
                 continue
             es = x.element_size()
-            p = len(dils)
-            nbytes = es * (2 * b * t_len * c + 2 * p * 3 * c * c) + 4 * (t_len + 2 * p * c)
+            nbytes = es * (2 * b * t_len * c + 2 * p * ks * c * c) + 4 * (t_len + 2 * p * c)
             measure(results, "resblock_chain", f"C={c} {name}", dtype, n, err,
                     lambda: vocoder_fused.resblock_chain(*args),
                     lambda: vocoder_fused.resblock_chain_plain(*args),
-                    nbytes, 12.0 * p * c * c * b * t_len, reps=3, shape=(b, t_len, c))
+                    nbytes, 4.0 * ks * p * c * c * b * t_len, reps=3, shape=(b, t_len, c))
 
 
 def check_int8_matmul(gen, cell, results, tp):
@@ -1423,6 +1507,229 @@ def unfused_ffn_cell(assets, rates, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, third engine: the vocoder's chains without the chain kernel
+# ---------------------------------------------------------------------------
+
+def unfused_resblocks_cell(assets, rates, smi: str) -> None:
+    """The b64 cell through SynthesisEngine(fused_resblocks=False) (the JAX
+    engine's default, TTS_VOC_FUSED unset there): every chain through
+    _resblock's torch convs. The launches of one replayed b64/5-step batch
+    (no chain), b64/5-step audio-sec/s beside the default's from the same
+    process, and, on the same injected noise, the bf16 wav distance to an
+    engine built under TTS_VOC_FUSED=0, which must launch no chain either."""
+    tts = TTS(assets)
+    a = tts.assets
+    tts.engine = SynthesisEngine(a.params, tts.cfg, a.processor, fused_resblocks=False)
+    if tts.engine.fused_resblocks:
+        raise AssertionError("fused_resblocks=False did not reach the engine")
+    style = tts.get_voice_style("M1")
+    texts = [TEXTS[i % 3] for i in range(64)]
+    tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
+    shapes, one = recorded(tts.engine, lambda: tts.synthesize_batch(
+        texts, ["en"] * 64, style.tile(64), total_step=5))
+    log(f"  fused_resblocks=False: shapes given to each kernel in one b64/5-step batch: "
+        f"{shapes}")
+    check_exact(one, PER_BATCH["bf16 unfused resblocks"],
+                "one b64/5-step batch with fused_resblocks=False (a replay)")
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _w, d = tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
+        wall = time.perf_counter() - t0
+        log(f"  fused_resblocks=False bf16 b64/5-step rep {rep}: {float(d.sum()):.3f}s audio "
+            f"in {wall:.4f}s = {float(d.sum()) / wall:.2f} audio-sec/s (fused_resblocks=True, "
+            f"phase 3: {' / '.join(f'{r:.2f}' for r in rates[5])}; {smi})")
+    log_programs(tts.engine, "the fused_resblocks=False engine")
+    del tts
+    cfg, proc, texts64, style64, noise = whole_path_inputs(64)
+    out = {}
+    for fused in (True, False):
+        if not fused:
+            os.environ["TTS_VOC_FUSED"] = "0"
+        try:
+            eng = SynthesisEngine(a.params, cfg, proc)
+        finally:
+            os.environ.pop("TTS_VOC_FUSED", None)
+        if eng.fused_resblocks != fused:
+            raise AssertionError(f"TTS_VOC_FUSED: engine.fused_resblocks is "
+                                 f"{eng.fused_resblocks}")
+        ops.reset_launch_counts()
+        out[fused] = eng.infer_batch(texts64, ["en"] * 64, style64, total_step=5, noise=noise)
+        chains = ops.launch_counts()["resblock_chain"]
+        log(f"  TTS_VOC_FUSED={'unset' if fused else '0'}: {chains} chain launches over one "
+            f"injected-noise b64 batch")
+        if (chains == 0) == fused:
+            raise AssertionError(f"TTS_VOC_FUSED={'unset' if fused else '0'}: {chains} "
+                                 f"chain launches")
+        del eng
+    (wf, df), (wu, du) = out[True], out[False]
+    if not np.array_equal(df, du) or wf.shape != wu.shape:
+        raise AssertionError("fused_resblocks: the text stage differs between the settings")
+    log(f"  bf16 b64/5-step, injected noise: fused_resblocks=False against True: durations "
+        f"bit-equal, wav relative L2 {rel_l2(wu, wf):.6f}, max abs diff "
+        f"{float(np.abs(wu - wf).max()):.3e} (readings; {smi})")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the whole path at widths off the default config
+# ---------------------------------------------------------------------------
+
+PATH_KERNELS = ("attention", "adaln_ffn", "resblock_chain")
+
+
+def width_configs() -> list:
+    """(name, config) of phase 12: the tests' tiny config's dims; a
+    reference-format tts.json with proj_out.idim 384 (the text encoder at
+    Dh 96); the vector estimator at Dh 128 with the vocoder's fine
+    timelines at 384 and 192 channels. Depth cut to one block a network
+    (two at the tiny dims)."""
+    import dataclasses
+
+    from supertonic_tpu_torch import config as C
+
+    style = C.StyleTokenLayerConfig(n_style=4, style_value_dim=16)
+    tiny = C.TTSConfig(
+        ae=C.AEConfig(sample_rate=16000, base_chunk_size=64),
+        ttl=C.TTLConfig(chunk_compress_factor=2, latent_dim=8, proj_out_idim=32,
+                        proj_out_odim=64, style=style),
+        dp=C.DPConfig(latent_dim=8, chunk_compress_factor=2, style=style),
+        text_encoder=C.TextEncoderHParams(vocab_size=256, dim=32, n_layers=2, n_heads=2),
+        duration_predictor=C.DurationPredictorHParams(vocab_size=256, dim=32, n_layers=2,
+                                                      n_heads=2),
+        vector_estimator=C.VectorEstimatorHParams(dim=64, n_layers=2, n_heads=2,
+                                                  time_embed_dim=32),
+        vocoder=C.VocoderHParams(dim=64, upsample_factors=(4, 4), channels=(32, 16),
+                                 resblock_dilations=(1, 3)))
+
+    def shallow(cfg, **kw):
+        return dataclasses.replace(
+            cfg, text_encoder=dataclasses.replace(cfg.text_encoder, n_layers=1),
+            duration_predictor=dataclasses.replace(cfg.duration_predictor, n_layers=1),
+            vector_estimator=dataclasses.replace(cfg.vector_estimator, n_layers=1, **kw))
+
+    te96 = shallow(C.tts_config_from_reference_dict(
+        {"ttl": {"text_encoder": {"proj_out": {"idim": 384, "odim": 512}}}}))
+    ve128 = shallow(C.TTSConfig(), dim=256, n_heads=2)
+    ve128 = dataclasses.replace(ve128, vocoder=dataclasses.replace(ve128.vocoder,
+                                                                   channels=(384, 192)))
+    return [("tiny dims", tiny), ("tts.json proj_out.idim 384", te96),
+            ("VE Dh 128, vocoder channels (384, 192)", ve128)]
+
+
+def expected_widths(cfg) -> dict:
+    """The widths each path kernel must be given at ``cfg``: head widths,
+    the VE's (D, F), the chains' channels and dilations."""
+    heads = {net.dim // net.n_heads for net in (cfg.text_encoder, cfg.duration_predictor,
+                                                cfg.vector_estimator)}
+    ve = cfg.vector_estimator
+    voc = cfg.vocoder
+    chains = {c for c in (voc.dim, *voc.channels) if c <= vocoder_fused.MAX_CHANNELS}
+    return {"attention": heads, "adaln_ffn": {(ve.dim, ve.dim * ve.ffn_mult)},
+            "resblock_chain": chains}
+
+
+def launched_widths(tally) -> dict:
+    return {"attention": {k[5] for k in tally["attention"]},
+            "adaln_ffn": {k[2:] for k in tally["adaln_ffn"]},
+            "resblock_chain": {k[2] for k in tally["resblock_chain"]}}
+
+
+class NoPlainOnCuda:
+    """Within, a plain version given a CUDA tensor raises: the wrappers must
+    send every CUDA tensor to their kernels."""
+    PLAIN = ((attention, "attention_plain"), (ffn, "adaln_ffn_plain"),
+             (vocoder_fused, "resblock_chain_plain"))
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.PLAIN]
+        for m, n, fn in self.saved:
+            def guarded(*args, _fn=fn, _n=n, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    raise AssertionError(f"{_n} was given a CUDA tensor")
+                return _fn(*args, **kw)
+            setattr(m, n, guarded)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def widths_phase(smi: str) -> dict:
+    """Phase 12: at each of width_configs(), TTS(<its assets>) in f32 on the
+    card against the same path on the CPU on injected noise (B=2, 2 steps;
+    wav atol WHOLE_PATH_WAV_ATOL, durations rtol WHOLE_PATH_DUR_RTOL), then
+    TTS() in bf16 through synthesize_batch (finite audio, RMS). Each card
+    run must launch attention, the AdaLN FFN and the chain at every width
+    its config gives them, and no plain version may see a CUDA tensor.
+    Returns the shapes the card runs gave each kernel (the chain's with its
+    dilations), which phase 5 holds and times."""
+    import dataclasses
+
+    widths = {k: {} for k in ops.KERNELS}
+    texts = [SHORT_TEXT, MID_TEXT]
+    for i, (name, cfg) in enumerate(width_configs()):
+        d = os.path.join(OUT_DIR, "widths", str(i))
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "model_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        save_params(os.path.join(d, "params.npz"), smoke_params(cfg, seed=3))
+        want = expected_widths(cfg)
+        noise = np.random.default_rng(5).standard_normal(
+            (2, 128, cfg.latent_channels)).astype(np.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            fresh_rate_dir(f"widths-{i}-{dev}")
+            tts = TTS(d, precision="f32", device=dev)
+            style = tts.get_voice_style("M1").tile(2)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with NoPlainOnCuda(), ops.record_launches() as tally:
+                out[dev] = tts.engine.infer_batch(texts, ["en", "en"], style, total_step=2,
+                                                  noise=noise)
+            wall = time.perf_counter() - t0
+            if dev == "cuda":
+                counts = {k: ops.launch_counts()[k] for k in PATH_KERNELS}
+                got = launched_widths(tally)
+                log(f"  {name}: f32 on the card in {wall:.2f}s, launches {counts}, widths "
+                    f"{got}")
+                if got != want or not all(counts.values()):
+                    raise AssertionError(f"{name}: f32 launched widths {got}, expected {want}")
+                for kernel in PATH_KERNELS:
+                    for shape in tally[kernel]:
+                        widths[kernel][shape] = cfg.vocoder.resblock_dilations
+            del tts
+        (wg, dg), (wc, dc) = out["cuda"], out["cpu"]
+        if wg.shape != wc.shape:
+            raise AssertionError(f"{name}: wav shapes differ: {wg.shape} vs {wc.shape}")
+        wav_err = float(np.max(np.abs(wg - wc)))
+        dur_rel = float(np.max(np.abs(dg - dc) / np.abs(dc)))
+        rms = float(np.sqrt(np.mean(np.square(wc))))
+        log(f"  {name}: f32 card vs CPU: max wav diff {wav_err:.3e} (atol "
+            f"{WHOLE_PATH_WAV_ATOL:g}; wav RMS {rms:.4f}), duration rel diff {dur_rel:.3e}")
+        if wav_err > WHOLE_PATH_WAV_ATOL or dur_rel > WHOLE_PATH_DUR_RTOL or rms <= 0.005:
+            raise AssertionError(f"{name}: f32 whole path: card and CPU disagree")
+        fresh_rate_dir(f"widths-{i}-bf16")
+        tts = TTS(d)
+        style = tts.get_voice_style("M1").tile(2)
+        with NoPlainOnCuda(), ops.record_launches() as tally:
+            wavs, durs = tts.synthesize_batch(texts, ["en", "en"], style, total_step=2)
+            torch.cuda.synchronize()
+        got = launched_widths(tally)
+        if got != want:
+            raise AssertionError(f"{name}: bf16 launched widths {got}, expected {want}")
+        for w, dur in zip(wavs, durs):
+            check_audio(w, float(dur), tts.sample_rate, f"{name} bf16")
+        log(f"  {name}: bf16 synthesize_batch B=2: {[f'{float(x):.3f}' for x in durs]} s of "
+            f"audio, finite, RMS > 0.005; widths {got} ({smi})")
+        for kernel in PATH_KERNELS:
+            for shape in tally[kernel]:
+                widths[kernel][shape] = cfg.vocoder.resblock_dilations
+        del tts
+    return widths
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the rest of the single-card surface
 # ---------------------------------------------------------------------------
 
@@ -1723,10 +2030,27 @@ def up_matmul_vocoder(params, smi: str) -> None:
         f"relative L2 {rel_l2(w, w0):.3e} against the conv path")
 
 
+def smoke_tool(assets, smi: str) -> None:
+    """python -m supertonic_tpu_torch.tools.smoke_test on the card: the CLI
+    in its default, batch, long-form and graph-bundle modes over the smoke
+    params (the bundle exported from them), each WAV checked for size."""
+    env = dict(os.environ, TTS_RATE_CACHE_DIR=os.path.join(OUT_DIR, "rates", "smoke_tool"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "supertonic_tpu_torch.tools.smoke_test",
+                           "--assets-dir", assets], capture_output=True, text=True,
+                          timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools.smoke_test: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout.splitlines()[-1])
+    log(f"  python -m supertonic_tpu_torch.tools.smoke_test: {summary['wavs']} WAVs over "
+        f"{sorted(summary['modes'])} in {time.perf_counter() - t0:.2f}s ({smi})")
+
+
 def single_card_surface(assets, params, smi: str) -> None:
     """Phase 10."""
     compat_surface(assets, smi)
     cli_module(assets, smi)
+    smoke_tool(assets, smi)
     progress_programs(params, smi)
     trace_b64(assets)
     native_frontend(assets)
@@ -2619,6 +2943,8 @@ def main() -> int:
     launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain")}
     log("phase 3, second engine: the b64 cell with SynthesisEngine(fused_ffn=False)")
     unfused_ffn_cell(assets, rates, smi)
+    log("phase 3, third engine: the b64 cell with SynthesisEngine(fused_resblocks=False)")
+    unfused_resblocks_cell(assets, rates, smi)
     log("phase 4: int8 path, TTS(precision=\"int8\") at the default 66M config")
     fresh_rate_dir("main-int8")
     cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, args.pin_rate,
@@ -2647,13 +2973,19 @@ def main() -> int:
         for shape in {**dp_shapes[kernel], **tp_shapes[kernel]}:
             served[kernel].setdefault(shape, 0)
 
+    # phase 12 runs here too, so that phase 5 holds and times each path
+    # kernel at the widths it gave them
+    log("phase 12: widths: the whole path at three configs off the default widths, f32 "
+        "card vs CPU and bf16")
+    widths = widths_phase(smi)
+
     log("phase 5: kernels vs plain versions")
     results = {name: [] for name in SOURCES}
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    check_attention(gen, cell, results, served)
-    check_ffn(gen, cell, results, served)
-    check_chain(gen, cell, results, served)
+    check_attention(gen, cell, results, served, widths)
+    check_ffn(gen, cell, results, served, widths)
+    check_chain(gen, cell, results, served, widths)
     check_int8_matmul(gen, cell, results, tp_shapes["int8_matmul"])
     check_quantize(gen, cell, results, served)
     check_w8a8(gen, cell, results, served)

@@ -38,7 +38,6 @@ per-call work:
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 import sys
 
@@ -159,7 +158,7 @@ def attention_call(fn, q, k, v, mask):
     b, tq, h, d = q.shape
     P = _build.ptr
     _build.check(fn(P(q), P(k), P(v), P(mask), P(out), b, tq, k.shape[1], h, d,
-                    _build.dtype_code(q.dtype), _build.stream_ptr(q)), "variant")
+                    _build.dtype_code(q.dtype), _build.stream_ptr(q), d ** -0.5), "variant")
     return out
 
 
@@ -169,8 +168,8 @@ def chain_call(fn, x, fm, wa, ba, wb, bb, dils):
     d = (ctypes.c_int * len(dils))(*dils)
     P = _build.ptr
     _build.check(fn(P(x), P(fm), P(wa), P(ba), P(wb), P(bb), P(out), b, t_len, c,
-                    len(dils), ctypes.cast(d, ctypes.c_void_p), _build.dtype_code(x.dtype),
-                    _build.stream_ptr(x)), "variant")
+                    wa.shape[1], len(dils), ctypes.cast(d, ctypes.c_void_p),
+                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "variant")
     return out
 
 

@@ -163,7 +163,8 @@ class TextToSpeech:
         with torch.inference_mode():
             x = self._dev(np.transpose(np.asarray(latent), (0, 2, 1)))
             return vocoder.apply(self._params()["vocoder"], self.engine.cfg, x,
-                                 up_matmul=self.engine.up_matmul).cpu().numpy()
+                                 up_matmul=self.engine.up_matmul,
+                                 fused_resblocks=self.engine.fused_resblocks).cpu().numpy()
 
 
 def load_text_to_speech(assets_dir: str | None = None,

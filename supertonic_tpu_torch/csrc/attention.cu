@@ -6,8 +6,11 @@
 // softmax statistics in f32, probabilities rounded to v's storage type
 // before the PV product, PV accumulated in f32, output in q's type. Keys
 // past Tk get -inf; a fully masked row sees every logit at -1e9 and so gives
-// the uniform mean of v, never NaN. Dh = 64 only; any Tq and Tk (keys
-// stream through shared memory, so there is no length cap).
+// the uniform mean of v, never NaN. Any Tq and Tk (keys stream through
+// shared memory, so there is no length cap) and any Dh up to 128, with the
+// scale the caller passes (1/sqrt of the model's true head width, which a
+// caller that pads Dh with zero columns keeps: zero columns change no logit
+// and no kept output column).
 //
 // Bound on the H100: at the path's shapes (Tq, Tk <= ~700, Dh = 64) the
 // arithmetic is 4*Tq*Tk*Dh per head against 4*(Tq+Tk)*Dh*size bytes, so in
@@ -51,13 +54,23 @@
 // the blocks of 128; 370 keys take 6 stages (384). The mma.sync design
 // this replaces (csrc/earlier/attention_mma_sync.cu) is kernel_variants.py's
 // "earlier" variant.
+// Other head widths: one instance per DK = Dh in steps of 16 (16 .. 128;
+// the wrapper pads a Dh that is not a multiple of 16 with zero columns, in
+// both types the one way a head width off the instances is taken).
+// Every operand tile keeps the layout above in panels of 64 columns (one
+// 128-byte swizzled row a panel row; DK 80-128 take two panels): the TMA
+// box stays 64 columns wide and zero-fills the columns past Dh, the S
+// product runs DK / 16 k16 steps across the panels, and P.V one n64 product
+// a panel, whose columns past Dh come out 0 and are not stored. Two panels
+// double the ring's bytes, so they take 2 ring stages (two blocks an SM
+// still fit); DK = 64 is the one-panel kernel above.
 //
 // f32 (attn_kernel): SIMT, exact to f32 rounding: one block of 4 warps per
 // (batch, head, 16 queries), each warp 4 rows, lanes over keys for q.k and
-// over Dh for p.v, K and V through shared memory in 64-key tiles, the same
-// two passes.
-#include <type_traits>
-
+// over Dh for p.v, K and V through shared memory in 64-key tiles (32 above
+// Dh = 64, to stay within 48 KB of static shared memory), the same two
+// passes. One instance per D = 32, 64, 96, 128 (the wrapper pads another
+// Dh with zero columns, as in bf16).
 #include "wgmma.cuh"
 
 namespace {
@@ -73,6 +86,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const float* __restrict__ mask,
             T* __restrict__ out, int Tq, int Tk, int H, float scale) {
   constexpr int DL = D / 32;  // output dims per lane
+  constexpr int BK = D <= 64 ? ::BK : 32;  // keys a tile
   __shared__ float Qs[BQ][D];
   __shared__ float Ks[BK][D + 1];
   __shared__ float Vs[BK][D + 1];
@@ -193,7 +207,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-constexpr int DH = 64;  // head dim: one 128-byte swizzled row
+constexpr int DH = 64;  // columns of a panel: one 128-byte swizzled row
+constexpr int MAX_DK = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 // Design knobs (kernel_variants.py builds other values): consumer
 // warpgroups a block (64 queries each), keys a ring stage (the N of the
@@ -202,13 +217,15 @@ constexpr int CONSUMERS = 1;
 constexpr int STAGE_KEYS = 64;
 constexpr int STAGES = 4;
 constexpr int BLOCKS_PER_SM = 2;
+constexpr int STAGES_TWO_PANELS = 2;  // ring depth at DK > 64
 
-template <int NC, int BKT, int NS>
+// NP panels of DH columns: a panel of a tile is rows x DH, swizzled
+template <int NC, int BKT, int NS, int NP>
 struct AttnSmem {
-  bf16 q[NC][64 * DH];   // each consumer's Q tile; at the end its output staging
-  bf16 k[NS][BKT * DH];  // the ring: K of every step, V of pass 2's steps
-  bf16 v[NS][BKT * DH];
-  float bias[NS][BKT];   // the stage's key bias in log2 units, -inf past Tk
+  bf16 q[NC][NP][64 * DH];   // each consumer's Q tile; at the end its output staging
+  bf16 k[NS][NP][BKT * DH];  // the ring: K of every step, V of pass 2's steps
+  bf16 v[NS][NP][BKT * DH];
+  float bias[NS][BKT];       // the stage's key bias in log2 units, -inf past Tk
   uint64_t full[NS], empty[NS], q_full;
 };
 
@@ -221,12 +238,15 @@ __device__ __forceinline__ void fence_p(uint32_t (&p)[KK][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[kk][e])::"memory");
 }
 
-template <int NC, int BKT, int NS, int BPS>
+// DK: the tensors' head width, a multiple of 16 (16 .. 128), in NP panels
+template <int NC, int BKT, int NS, int BPS, int DK>
 __global__ void __launch_bounds__((NC + 1) * 128, BPS)
 attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
            __grid_constant__ const CUtensorMap tm_v, const float* __restrict__ mask,
            bf16* __restrict__ out, int Tq, int Tk, int H, float scale_log2) {
-  using Smem = AttnSmem<NC, BKT, NS>;
+  static_assert(DK % 16 == 0 && DK <= MAX_DK, "head width in steps of 16 up to 128");
+  constexpr int NP = (DK + DH - 1) / DH;
+  using Smem = AttnSmem<NC, BKT, NS, NP>;
   extern __shared__ __align__(1024) unsigned char raw[];
   // swizzled tiles need 1024-byte alignment; the launch adds the slack
   Smem& sm = *reinterpret_cast<Smem*>(raw + ((1024 - (stk::smem_u32(raw) & 1023)) & 1023));
@@ -253,10 +273,12 @@ attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUt
     stk::regs_dealloc<stk::kProducerRegs>();
     if (warp != 0) return;
     if (lane == 0) {
-      stk::mbar_arrive_tx(&sm.q_full, NC * 64 * DH * 2);
+      stk::mbar_arrive_tx(&sm.q_full, NC * NP * 64 * DH * 2);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        stk::tma_load_4d(sm.q[c], &tm_q, &sm.q_full, 0, h, q0 + 64 * c, b);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          stk::tma_load_4d(sm.q[c][p], &tm_q, &sm.q_full, DH * p, h, q0 + 64 * c, b);
     }
     const float* mb = mask ? mask + (size_t)b * Tk : nullptr;
     float bias[BKT / 32];  // this lane's keys of the next step
@@ -275,10 +297,14 @@ attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUt
       const int k0 = (with_v ? step - n_tiles : step) * BKT;
       stk::mbar_wait(&sm.empty[s], ((step / NS) & 1) ^ 1);
       if (lane == 0) {
-        stk::mbar_expect_tx(&sm.full[s], (with_v ? 2 : 1) * BKT * DH * 2);
-        // keys past Tk are zero-filled by the map's T extent, never the next row's
-        stk::tma_load_4d(sm.k[s], &tm_k, &sm.full[s], 0, h, k0, b);
-        if (with_v) stk::tma_load_4d(sm.v[s], &tm_v, &sm.full[s], 0, h, k0, b);
+        stk::mbar_expect_tx(&sm.full[s], (with_v ? 2 : 1) * NP * BKT * DH * 2);
+        // keys past Tk are zero-filled by the map's T extent, never the next
+        // row's, and columns past DK by its Dh extent
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          stk::tma_load_4d(sm.k[s][p], &tm_k, &sm.full[s], DH * p, h, k0, b);
+          if (with_v) stk::tma_load_4d(sm.v[s][p], &tm_v, &sm.full[s], DH * p, h, k0, b);
+        }
       }
 #pragma unroll
       for (int i = 0; i < BKT / 32; ++i) sm.bias[s][lane + 32 * i] = bias[i];
@@ -293,21 +319,23 @@ attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUt
     const uint32_t q_addr = stk::smem_u32(sm.q[wg]);
     constexpr int NJ = BKT / 8;
     constexpr int SN = BKT / 2;  // S accumulators a thread
-    float s[SN], o[32];  // S of the current tile, O
+    float s[SN], o[NP][32];  // S of the current tile, O by panel
     uint32_t pa[BKT / 16][4];  // P's A fragments, key step kk
 
     // ring step `step` (pass 1: key tile step; pass 2: step - n_tiles) has
-    // landed: start s = Q.K^T of its stage (4 products over Dh, the first
-    // overwriting s), committed as one group
+    // landed: start s = Q.K^T of its stage (DK / 16 products over Dh, k16
+    // step kk in panel kk / 4, the first overwriting s), committed as one
+    // group
     auto issue_s = [&](int step) {
       const int st = step % NS;
       stk::mbar_wait(&sm.full[st], (step / NS) & 1);
       const uint32_t k_addr = stk::smem_u32(sm.k[st]);
       stk::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        stk::Wgmma<BKT>::template ss<0>(s, stk::desc_sw128(q_addr + 32 * kk),
-                                        stk::desc_sw128(k_addr + 32 * kk), kk);
+      for (int kk = 0; kk < DK / 16; ++kk)
+        stk::Wgmma<BKT>::template ss<0>(
+            s, stk::desc_sw128(q_addr + (kk / 4) * 64 * DH * 2 + 32 * (kk % 4)),
+            stk::desc_sw128(k_addr + (kk / 4) * BKT * DH * 2 + 32 * (kk % 4)), kk);
       stk::wgmma_commit();
     };
     // every product in flight has completed: s, scaled and biased in log2
@@ -410,58 +438,69 @@ attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUt
       stk::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKT / 16; ++kk)
-        stk::Wgmma<DH>::template rs<1>(o, pa[kk], stk::desc_sw128(v_addr + kk * 16 * DH * 2),
-                                       tile > 0 || kk > 0);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          stk::Wgmma<DH>::template rs<1>(
+              o[p], pa[kk], stk::desc_sw128(v_addr + p * BKT * DH * 2 + kk * 16 * DH * 2),
+              tile > 0 || kk > 0);
       stk::wgmma_commit();
     }
     stk::wgmma_wait<0>();
-    stk::fence_regs(o);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) stk::fence_regs(o[p]);
     fence_p(pa);
 
     // O -> bf16 through this warpgroup's Q tile (its last reader, the last
-    // S product, has completed), each warp its own 16 rows, then 16-byte
-    // stores of whole rows
-    bf16* stage = sm.q[wg];
+    // S product, has completed), each warp its own 16 rows of each panel,
+    // then 16-byte stores of whole rows, the columns below DK
     const int r0 = 16 * warp;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(r0 + g, j) + 2 * t) =
-          stk::pack_bf16(o[4 * j], o[4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(r0 + g + 8, j) + 2 * t) =
-          stk::pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+    for (int p = 0; p < NP; ++p) {
+      bf16* stage = sm.q[wg][p];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(r0 + g, j) + 2 * t) =
+            stk::pack_bf16(o[p][4 * j], o[p][4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(stage + stk::swz<DH>(r0 + g + 8, j) + 2 * t) =
+            stk::pack_bf16(o[p][4 * j + 2], o[p][4 * j + 3]);
+      }
     }
     __syncwarp();
-    const size_t rs = (size_t)H * DH;
-    bf16* ob = out + (size_t)b * Tq * rs + (size_t)h * DH;
+    const size_t rs = (size_t)H * DK;
+    bf16* ob = out + (size_t)b * Tq * rs + (size_t)h * DK;
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int c = lane + 32 * it, r = r0 + (c >> 3), ch = c & 7, qi = q0 + 64 * wg + r;
-      if (qi < Tq)
-        *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + ch * 8) =
-            *reinterpret_cast<const uint4*>(stage + stk::swz<DH>(r, ch));
-    }
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int c = lane + 32 * it, r = r0 + (c >> 3), ch = c & 7, qi = q0 + 64 * wg + r;
+        if (qi < Tq && (DK % DH == 0 || DH * p + ch * 8 < DK))
+          *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + DH * p + ch * 8) =
+              *reinterpret_cast<const uint4*>(sm.q[wg][p] + stk::swz<DH>(r, ch));
+      }
   }
 }
 
 // one TMA map over [B, T, H, Dh] as (Dh, H, T, B), box (64, 1, rows, 1):
-// a box never crosses a batch row, and rows past T read as zeros
-int encode_bthd(CUtensorMap* map, const void* base, int B, int T, int H, int rows) {
-  const cuuint64_t dims[4] = {DH, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {DH * 2, (cuuint64_t)H * DH * 2, (cuuint64_t)T * H * DH * 2};
+// a box never crosses a batch row, and rows past T and columns past Dh read
+// as zeros
+int encode_bthd(CUtensorMap* map, const void* base, int B, int T, int H, int rows, int dh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)H * dh * 2,
+                                 (cuuint64_t)T * H * dh * 2};
   const cuuint32_t box[4] = {DH, 1, (cuuint32_t)rows, 1};
   return stk::encode_tma(map, base, 4, dims, strides, box);
 }
 
-template <int NC, int BKT, int NS, int BPS>
+template <int NC, int BKT, int NS, int BPS, int DK>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const float* mask, bf16* out,
                  int B, int Tq, int Tk, int H, float scale_log2, cudaStream_t st) {
   // encoded at every launch: a graph capture keeps this launch's maps
   CUtensorMap tq, tk, tv;
-  if (int err = encode_bthd(&tq, q, B, Tq, H, 64)) return err;
-  if (int err = encode_bthd(&tk, k, B, Tk, H, BKT)) return err;
-  if (int err = encode_bthd(&tv, v, B, Tk, H, BKT)) return err;
-  constexpr size_t smem = sizeof(AttnSmem<NC, BKT, NS>) + 1024;
-  auto kernel = attn_wgmma<NC, BKT, NS, BPS>;
+  if (int err = encode_bthd(&tq, q, B, Tq, H, 64, DK)) return err;
+  if (int err = encode_bthd(&tk, k, B, Tk, H, BKT, DK)) return err;
+  if (int err = encode_bthd(&tv, v, B, Tk, H, BKT, DK)) return err;
+  constexpr size_t smem = sizeof(AttnSmem<NC, BKT, NS, (DK + DH - 1) / DH>) + 1024;
+  auto kernel = attn_wgmma<NC, BKT, NS, BPS, DK>;
   static size_t configured[stk::kMaxDevices] = {};
   if (int err = stk::allow_dynamic_smem(kernel, smem, configured)) return err;
   static int regs_at_entry = 0;
@@ -473,20 +512,47 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const float* mask,
-           void* out, int B, int Tq, int Tk, int H, int D, cudaStream_t st) {
-  if (D != 64 || Tk < 1) return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)D);
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch_wgmma<CONSUMERS, STAGE_KEYS, STAGES, BLOCKS_PER_SM>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, B, Tq, Tk, H,
-        scale * LOG2E, st);
-  } else {
-    dim3 grid((Tq + BQ - 1) / BQ, H, B);
-    attn_kernel<T, 64><<<grid, NW * 32, 0, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, Tq, Tk, H, scale);
-    return (int)cudaGetLastError();
+template <int DK>
+int launch_bf16(const void* q, const void* k, const void* v, const float* mask, void* out,
+                int B, int Tq, int Tk, int H, float scale, cudaStream_t st) {
+  return launch_wgmma<CONSUMERS, STAGE_KEYS, DK <= DH ? STAGES : STAGES_TWO_PANELS,
+                      BLOCKS_PER_SM, DK>((const bf16*)q, (const bf16*)k, (const bf16*)v, mask,
+                                         (bf16*)out, B, Tq, Tk, H, scale * LOG2E, st);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const float* mask, void* out,
+               int B, int Tq, int Tk, int H, float scale, cudaStream_t st) {
+  dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  attn_kernel<float, D><<<grid, NW * 32, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, mask, (float*)out, Tq, Tk, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// D: the tensors' head width (bf16: a multiple of 16; f32: of 32)
+int launch(const void* q, const void* k, const void* v, const float* mask, void* out,
+           int B, int Tq, int Tk, int H, int D, int dtype, float scale, cudaStream_t st) {
+  if (D < 1 || D > MAX_DK || Tk < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    switch (D) {
+      case 16: return launch_bf16<16>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 32: return launch_bf16<32>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 48: return launch_bf16<48>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 64: return launch_bf16<64>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 80: return launch_bf16<80>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 96: return launch_bf16<96>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 112: return launch_bf16<112>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 128: return launch_bf16<128>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch_f32<32>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+    case 64: return launch_f32<64>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+    case 96: return launch_f32<96>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+    case 128: return launch_f32<128>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -494,15 +560,15 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 
 // q [B,Tq,H,D], k/v [B,Tk,H,D], out [B,Tq,H,D], contiguous and 16-byte
 // aligned, of one storage type (dtype 0 = float, 1 = bfloat16); mask [B,Tk]
-// float or null. D = 64, Tk >= 1.
+// float or null. D <= 128, a multiple of 16 in bf16 and of 32 in f32, Tk >= 1; the
+// logits are q.k * scale. scale comes after the stream, so that the earlier
+// design's entry (csrc/earlier/), which lacks it (1/sqrt(D), D = 64), takes
+// the same call.
 extern "C" int stk_attention(const void* q, const void* k, const void* v,
                              const void* mask, void* out, int B, int Tq, int Tk,
-                             int H, int D, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* m = (const float*)mask;
-  if (dtype == 0) return launch<float>(q, k, v, m, out, B, Tq, Tk, H, D, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, m, out, B, Tq, Tk, H, D, st);
-  return (int)cudaErrorInvalidValue;
+                             int H, int D, int dtype, void* stream, float scale) {
+  return launch(q, k, v, (const float*)mask, out, B, Tq, Tk, H, D, dtype, scale,
+                (cudaStream_t)stream);
 }
 
 // the bf16 kernel's tiles: queries a block, keys a ring stage, ring stages,

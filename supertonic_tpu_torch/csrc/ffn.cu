@@ -41,6 +41,13 @@
 // f32: SIMT tiles on the float units (64x64 tiles, 4x4 per thread), two
 // launches, exact to f32 rounding: the reference for the f32 whole path.
 //
+// Widths: D and F in multiples of 8 (bf16: D <= 1024, the LayerNorm pass's
+// row in one warp's registers). In bf16, K and N tails come from TMA's zero
+// fill on the loads, and stores past N are clipped by the TMA store or
+// masked in the epilogue (csrc/wgmma_gemm.cuh). In f32 a width that is not
+// a multiple of the SIMT tile runs the TAIL instance, which guards its
+// loads and stores; D = 512, F = 2048 run the unguarded one.
+//
 // Weights are in torch's linear layout: W1 [F, D], W2 [D, F] (each row one
 // output channel), so both products read A and B along K.
 #include "wgmma_gemm.cuh"
@@ -63,8 +70,10 @@ __device__ __forceinline__ void load8(const float* p, float v[8]) {
 constexpr int NT = 256;
 constexpr int SBM = 64, SBN = 64, SBK = 16;
 
-template <typename LoadA, typename Epi>
-__device__ __forceinline__ void gemm_simt(int m0, int n0, int N, int K,
+// N rows of A, `cols` rows of B (columns of C); TAIL guards K and cols,
+// which are otherwise multiples of SBK and SBN.
+template <bool TAIL, typename LoadA, typename Epi>
+__device__ __forceinline__ void gemm_simt(int m0, int n0, int N, int K, int cols,
                                           const float* __restrict__ b_rows,
                                           LoadA load_a, Epi epilogue) {
   __shared__ float As[SBK][SBM + 4];
@@ -75,8 +84,10 @@ __device__ __forceinline__ void gemm_simt(int m0, int n0, int N, int K,
 #pragma unroll
     for (int i = 0; i < (SBM * SBK) / NT; ++i) {
       int e = tid + i * NT, r = e / SBK, kk = e % SBK;
-      As[kk][r] = m0 + r < N ? load_a(m0 + r, r, k0 + kk) : 0.0f;
-      Bs[kk][r] = b_rows[(size_t)(n0 + r) * K + k0 + kk];
+      const bool k_ok = !TAIL || k0 + kk < K;
+      As[kk][r] = m0 + r < N && k_ok ? load_a(m0 + r, r, k0 + kk) : 0.0f;
+      Bs[kk][r] = !TAIL || (k_ok && n0 + r < cols) ? b_rows[(size_t)(n0 + r) * K + k0 + kk]
+                                                   : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -96,10 +107,12 @@ __device__ __forceinline__ void gemm_simt(int m0, int n0, int N, int K,
     int row = m0 + ty * 4 + i;
     if (row >= N) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) epilogue(row, n0 + tx * 4 + j, acc[i][j]);
+    for (int j = 0; j < 4; ++j)
+      if (!TAIL || n0 + tx * 4 + j < cols) epilogue(row, n0 + tx * 4 + j, acc[i][j]);
   }
 }
 
+template <bool TAIL>
 __global__ void __launch_bounds__(NT)
 ffn_up_f32(const float* __restrict__ x, const float* __restrict__ ln_g,
            const float* __restrict__ ln_b, const float* __restrict__ w1,
@@ -133,9 +146,10 @@ ffn_up_f32(const float* __restrict__ x, const float* __restrict__ ln_g,
   auto epi = [&](int row, int col, float acc) {
     mid[(size_t)row * F + col] = stk::silu_f(acc + b1[col]);
   };
-  gemm_simt(m0, n0, N, D, w1, load_a, epi);
+  gemm_simt<TAIL>(m0, n0, N, D, F, w1, load_a, epi);
 }
 
+template <bool TAIL>
 __global__ void __launch_bounds__(NT)
 ffn_down_f32(const float* __restrict__ x, const float* __restrict__ mid,
              const float* __restrict__ w2, const float* __restrict__ b2,
@@ -148,20 +162,23 @@ ffn_down_f32(const float* __restrict__ x, const float* __restrict__ mid,
     out[i] = x[i] + gate[(size_t)bi * D + col] * (acc + b2[col]);
   };
   auto load_a = [&](int row, int, int k) { return mid[(size_t)row * F + k]; };
-  gemm_simt(m0, n0, N, F, w2, load_a, epi);
+  gemm_simt<TAIL>(m0, n0, N, F, D, w2, load_a, epi);
 }
 
 int launch_f32(const float* x, const float* g, const float* b, const float* w1,
                const float* b1, const float* w2, const float* b2, const float* shift,
                const float* scale, const float* gate, float* mid, float* out, int B,
                int Tlen, int D, int F, float eps, cudaStream_t st) {
-  if (D % SBN || F % SBN) return (int)cudaErrorInvalidValue;
+  if (D % 8 || F % 8) return (int)cudaErrorInvalidValue;
   const int N = B * Tlen;
-  dim3 up(F / SBN, (N + SBM - 1) / SBM), down(D / SBN, (N + SBM - 1) / SBM);
-  ffn_up_f32<<<up, NT, 0, st>>>(x, g, b, w1, b1, shift, scale, mid, N, Tlen, D, F, eps);
+  dim3 up((F + SBN - 1) / SBN, (N + SBM - 1) / SBM), down((D + SBN - 1) / SBN, (N + SBM - 1) / SBM);
+  const bool tail = D % SBN || F % SBN;  // SBK divides SBN
+  if (tail) ffn_up_f32<true><<<up, NT, 0, st>>>(x, g, b, w1, b1, shift, scale, mid, N, Tlen, D, F, eps);
+  else ffn_up_f32<false><<<up, NT, 0, st>>>(x, g, b, w1, b1, shift, scale, mid, N, Tlen, D, F, eps);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  ffn_down_f32<<<down, NT, 0, st>>>(x, mid, w2, b2, gate, out, N, Tlen, D, F);
+  if (tail) ffn_down_f32<true><<<down, NT, 0, st>>>(x, mid, w2, b2, gate, out, N, Tlen, D, F);
+  else ffn_down_f32<false><<<down, NT, 0, st>>>(x, mid, w2, b2, gate, out, N, Tlen, D, F);
   return (int)cudaGetLastError();
 }
 
@@ -365,7 +382,7 @@ int launch_bf16(const bf16* x, const float* g, const float* b, const bf16* w1,
                 const float* b1, const bf16* w2, const float* b2, const TM* shift,
                 const TM* scale, const TM* gate, bf16* h, bf16* mid, bf16* out,
                 int B, int Tlen, int D, int F, float eps, cudaStream_t st) {
-  if (D % 64 || F % 64 || D > 4 * 256) return (int)cudaErrorInvalidValue;
+  if (D % 8 || F % 8 || D > 4 * 256) return (int)cudaErrorInvalidValue;
   const int N = B * Tlen;
   if (int err = launch_ln(x, g, b, shift, scale, h, N, Tlen, D, eps, st)) return err;
   int sms = 0;
@@ -388,7 +405,7 @@ int launch_bf16(const bf16* x, const float* g, const float* b, const bf16* w1,
 // ln g/b [D], b1 [F], b2 [D] float; shift/scale/gate [B,D] float, or for
 // bf16 with mod_dtype 1 bf16; scratch: mid [B*T,F] in the storage type,
 // and for bf16 h [B*T,D] bf16. All contiguous and 16-byte aligned; D and F
-// multiples of 128 (bf16: D <= 1024). mod_dtype comes after the stream, so
+// multiples of 8 (bf16: D <= 1024). mod_dtype comes after the stream, so
 // that the earlier design's entry (csrc/earlier/), which lacks it, takes
 // the same call with float modulation.
 extern "C" int stk_adaln_ffn(const void* x, const void* g, const void* b,

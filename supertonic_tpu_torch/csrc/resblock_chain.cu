@@ -1,6 +1,7 @@
-// Whole dilated residual chain of the vocoder's fine timelines, one launch:
-//   for each dilation d_i:  h = mask * (conv_{k3,d_i}(silu x) + ba_i)
-//                           x = x + mask * (conv_{k3,1}(silu h) + bb_i)
+// Dilated residual chain of the vocoder's fine timelines, up to MAX_P conv
+// pairs a launch:
+//   for each dilation d_i:  h = mask * (conv_{k,d_i}(silu x) + ba_i)
+//                           x = x + mask * (conv_{k,1}(silu h) + bb_i)
 //
 // Replaces supertonic_tpu/ops/vocoder_fused.py:_kernel (resblock_chain).
 // Numerics follow it: silu in f32 rounded to the storage type; each conv
@@ -13,7 +14,7 @@
 // Tiling (both types): one block per (batch row, tile of TT output frames).
 // The block holds W = TT + 2*halo frames (halo = the chain's one-sided
 // reach, 16 for k=3 and dilations 1,3,9) in shared memory, zero outside
-// [0, T), and runs all six convs between three shared buffers (x, silu(x),
+// [0, T), and runs all the convs between three shared buffers (x, silu(x),
 // silu(h)) in the storage type. A buffer that a conv reads at shifted rows
 // has zero pad rows on both sides (that conv's reach), so the reads stay
 // inside it; the values they feed lie outside the exact region, whose
@@ -50,6 +51,30 @@
 //
 // f32 (chain_kernel): SIMT, exact to f32 rounding, each thread 16 frames x 4
 // channels, W the largest multiple of 16 whose buffers fit SMEM_BUDGET.
+// Only the buffers read at shifted rows carry pad rows, as in bf16. Rows of
+// more than 1 KB (f32 above C = 256) leave no room for three buffers past
+// the halo: the kernel then keeps two (x, silu h) and takes silu(x) as it
+// reads x. The SIMT kernel also runs bf16 chains that the tensor-core
+// kernel does not take: a conv size other than 3, or a pad past its shared
+// memory or a halo past its W.
+//
+// Domain: any odd conv size k and any dilations >= 1 whose one conv pair
+// reaches at most MAX_REACH frames ((d + 1) * (k - 1) / 2; 23 in f32, 31 in
+// bf16): static_asserts below hold every instance to a lone pair of that
+// reach. The caller runs a longer chain, or one whose halo outgrows W, as
+// consecutive launches over groups of pairs, each writing x for the next:
+// the same values as one launch, since x between pairs is stored in the
+// storage type either way and each launch zeroes frames outside [0, T).
+//
+// Widths: one instance per C in CHAIN_WIDTHS (multiples of 64 up to 384, the
+// Pallas kernel's VMEM rule): the swizzle of 16-byte chunks by the row needs
+// rows of a multiple of 8 chunks. The wrapper pads another C <= 384 with
+// zero channels to the next instance: zero weights and biases keep the
+// padded channels at exactly 0, so the real ones are as without them. In
+// bf16 the 8 warps tile [W frames, C channels] as FG x CG warps of WM x WN
+// (MmaLayout): C = 64 takes W = 512 frames; 192 and 384 warp tiles 48
+// channels wide; 320 and 384 hold 64 frames, since the three buffers of
+// [W, C] bf16 must fit in 227 KB. C = 128 and 256 keep the layout above.
 #include <type_traits>
 
 #include "common.cuh"
@@ -57,18 +82,21 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+// K: the tensor-core kernel's conv size; the SIMT kernel takes any odd size
 constexpr int NT = 256, TF = 16, K = 3, MAX_P = 4;
 
 struct Dil { int d[MAX_P]; };
 
-// SIMT conv: out[f][c] for this thread's frames and channels.
-// in points at frame 0 of a buffer with `pad` readable rows on each side.
-template <typename T, int C, typename Epi>
+// SIMT conv of size k at dilation d: out[f][c] for this thread's frames and
+// channels. in points at frame 0 of a buffer with d * (k - 1) / 2 readable
+// rows on each side. SILU_IN: the buffer holds x and the conv reads silu(x).
+template <typename T, int C, bool SILU_IN, typename Epi>
 __device__ __forceinline__ void conv_simt(const T* in, const T* __restrict__ w,
-                                          const float* __restrict__ bias, int d,
+                                          const float* __restrict__ bias, int d, int k,
                                           int W, Epi epi) {
   constexpr int CG = C / 4, FG = NT / CG;
   const int cg = threadIdx.x % CG, fg = threadIdx.x / CG, c0 = cg * 4;
+  if (FG * CG != NT && fg >= FG) return;  // threads past whole frame groups idle
   float bv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) bv[i] = bias[c0 + i];
@@ -78,9 +106,8 @@ __device__ __forceinline__ void conv_simt(const T* in, const T* __restrict__ w,
     for (int j = 0; j < TF; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] = bv[i];
-#pragma unroll
-    for (int tap = 0; tap < K; ++tap) {
-      const T* rows = in + (ptrdiff_t)(f0 + (tap - (K - 1) / 2) * d) * C;
+    for (int tap = 0; tap < k; ++tap) {
+      const T* rows = in + (ptrdiff_t)(f0 + (tap - (k - 1) / 2) * d) * C;
       const T* wt = w + (size_t)tap * C * C + c0;
       for (int ci = 0; ci < C; ++ci) {
         float wv[4];
@@ -88,6 +115,7 @@ __device__ __forceinline__ void conv_simt(const T* in, const T* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < TF; ++j) {
           float a = stk::to_f(rows[j * C + ci]);
+          if (SILU_IN) a = stk::silu_f(a);
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[j][i] += a * wv[i];
         }
@@ -101,16 +129,31 @@ __device__ __forceinline__ void conv_simt(const T* in, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// f32 on the SIMT units
+// SIMT (every f32 chain; bf16 chains the tensor-core kernel does not take)
 // ---------------------------------------------------------------------------
-// Dynamic shared memory of one f32 block, in this order (chain_kernel carves
-// it up the same way): three [W + 2*pad, C] buffers (x, silu x, silu h) and
-// the [W] f32 frame mask.
 constexpr size_t SMEM_BUDGET = 224 * 1024;
+template <typename T>
+constexpr int MAX_REACH = sizeof(T) == 4 ? 23 : 31;
 
-template <int C>
-constexpr size_t smem_bytes(int W, int pad) {
-  return 3 * (size_t)(W + 2 * pad) * C * sizeof(float) + (size_t)W * sizeof(float);
+template <typename T, int C>
+constexpr int NBUF = C * sizeof(T) > 1024 ? 2 : 3;
+
+// Dynamic shared memory of one SIMT block holding W frames, in this order
+// (chain_kernel carves it up the same way): three buffers x [W], silu x
+// [W + 2 pad], silu h [W + 2 hk], or two, x [W + 2 pad] and silu h
+// [W + 2 hk]; then the [W] f32 frame mask. reach = pad + hk: the largest
+// pair's reach.
+template <typename T, int C>
+constexpr size_t smem_bytes(int W, int reach) {
+  return ((size_t)NBUF<T, C> * W + 2 * reach) * C * sizeof(T) + (size_t)W * sizeof(float);
+}
+
+// the most frames (a multiple of TF) a SIMT block holds at this reach
+template <typename T, int C>
+constexpr int simt_frames(int reach) {
+  int W = 1024;
+  while (W > 0 && smem_bytes<T, C>(W, reach) > SMEM_BUDGET) W -= TF;
+  return W;
 }
 
 template <typename T, int C>
@@ -118,29 +161,34 @@ __global__ void __launch_bounds__(NT, 1)
 chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
              const T* __restrict__ wa, const float* __restrict__ ba,
              const T* __restrict__ wb, const float* __restrict__ bb,
-             T* __restrict__ out, int Tlen, int P, Dil dil, int W, int halo,
+             T* __restrict__ out, int Tlen, int P, int k, Dil dil, int W, int halo,
              int pad) {
+  constexpr bool TWO = NBUF<T, C> == 2;  // no silu(x) buffer: conv a takes silu as it reads x
   extern __shared__ __align__(128) unsigned char smem[];
-  const size_t buf = (size_t)(W + 2 * pad) * C;  // elements per buffer
-  T* X = reinterpret_cast<T*>(smem) + (size_t)pad * C;
-  T* S = X + buf;   // silu(x)
-  T* Hs = S + buf;  // silu(h)
-  float* M = reinterpret_cast<float*>(reinterpret_cast<T*>(smem) + 3 * buf);
+  const int hk = (k - 1) / 2;  // the reach of a conv b
+  T* X = reinterpret_cast<T*>(smem) + (TWO ? (size_t)pad * C : 0);
+  T* S = TWO ? X : X + (size_t)(W + pad) * C;  // silu(x), pad rows each side
+  T* Hs = S + (size_t)(W + pad + hk) * C;      // silu(h), hk rows each side
+  float* M = reinterpret_cast<float*>(Hs + (size_t)(W + hk) * C);
   const int TT = W - 2 * halo;
   const int b = blockIdx.y, t0 = blockIdx.x * TT - halo;
   const T* xb = x + (size_t)b * Tlen * C;
 
-  // zero the pad rows of the three buffers (read only by inexact frames)
-  for (int e = threadIdx.x; e < 3 * 2 * pad * C; e += NT) {
-    int which = e / (2 * pad * C), r = e % (2 * pad * C);
-    T* base = reinterpret_cast<T*>(smem) + which * buf;
-    base[r < pad * C ? r : r + (size_t)W * C] = stk::from_f<T>(0.0f);
+  // zero the pad rows (read only by inexact frames)
+  const T zero = stk::from_f<T>(0.0f);
+  for (int e = threadIdx.x; e < pad * C; e += NT) {
+    S[e - pad * C] = zero;
+    S[(size_t)W * C + e] = zero;
+  }
+  for (int e = threadIdx.x; e < hk * C; e += NT) {
+    Hs[e - hk * C] = zero;
+    Hs[(size_t)W * C + e] = zero;
   }
   for (int e = threadIdx.x; e < W * C; e += NT) {
     int f = e / C, tg = t0 + f;
     float v = (tg >= 0 && tg < Tlen) ? stk::to_f(xb[(size_t)tg * C + e % C]) : 0.0f;
     X[e] = stk::from_f<T>(v);
-    S[e] = stk::from_f<T>(stk::silu_f(v));
+    if (!TWO) S[e] = stk::from_f<T>(stk::silu_f(v));
   }
   for (int f = threadIdx.x; f < W; f += NT) {
     int tg = t0 + f;
@@ -158,14 +206,14 @@ chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
     size_t i = (size_t)f * C + c;
     float xn = stk::rnd<T>(stk::to_f(X[i]) + stk::rnd<T>(acc) * M[f]);
     X[i] = stk::from_f<T>(xn);
-    S[i] = stk::from_f<T>(stk::silu_f(xn));
+    if (!TWO) S[i] = stk::from_f<T>(stk::silu_f(xn));
   };
   for (int p = 0; p < P; ++p) {
-    const T* wpa = wa + (size_t)p * K * C * C;
-    const T* wpb = wb + (size_t)p * K * C * C;
-    conv_simt<T, C>(S, wpa, ba + p * C, dil.d[p], W, epi_a);
+    const T* wpa = wa + (size_t)p * k * C * C;
+    const T* wpb = wb + (size_t)p * k * C * C;
+    conv_simt<T, C, TWO>(S, wpa, ba + p * C, dil.d[p], k, W, epi_a);
     __syncthreads();
-    conv_simt<T, C>(Hs, wpb, bb + p * C, 1, W, epi_b);
+    conv_simt<T, C, false>(Hs, wpb, bb + p * C, 1, k, W, epi_b);
     __syncthreads();
   }
 
@@ -180,16 +228,22 @@ chain_kernel(const T* __restrict__ x, const float* __restrict__ fmask,
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int MMA_NT = 256;        // 8 warps
-constexpr int WM = 64, WN = 64;    // warp tile: frames x output channels
-constexpr int MI = WM / 16, NJ = WN / 8;  // m16 and n8 tiles of a warp tile
+constexpr int WM = 64, WN = 64;    // warp tile at C = 128 and 256: frames x output channels
 constexpr int WSTAGES = 3;         // depth of the weight ring
 constexpr int HPAD = (K - 1) / 2;  // pad rows of silu(h): conv b's reach
 constexpr size_t MMA_SMEM_MAX = 232448;  // the most a block may have (227 KB)
 
 template <int C>
 struct MmaLayout {
-  static constexpr int W = (MMA_NT / 32) * WM * WN / C;  // frames a block holds
-  static constexpr int KC = C == 128 ? 32 : 16;          // input channels a stage
+  // the 8 warps as FG frame groups x CG channel groups, each warp WM frames x
+  // WN output channels (WN a multiple of 16, one ldmatrix.x4.trans a step)
+  static constexpr int CG = C == 64 ? 1 : C == 384 ? 8 : C == 192 || C == 320 ? 4 : C / WN;
+  static constexpr int WN_ = C / CG;                  // 64, 64, 48, 64, 80, 48
+  static constexpr int WM_ = C == 320 ? 32 : WM;
+  static constexpr int FG = (MMA_NT / 32) / CG;
+  static constexpr int MI = WM_ / 16, NJ = WN_ / 8;   // m16 and n8 tiles of a warp tile
+  static constexpr int W = FG * WM_;                  // frames a block holds
+  static constexpr int KC = C <= 128 ? 32 : 16;       // input channels a stage
   static constexpr int CH = C / 8;                        // 16-byte chunks a row
   static constexpr int NK = K * C / KC;                   // weight stages a conv
   static constexpr int STAGE = KC * C;                    // elements a stage
@@ -208,6 +262,8 @@ chain_mma(const bf16* __restrict__ x, const float* __restrict__ fmask,
           bf16* __restrict__ out, int Tlen, int P, Dil dil, int halo, int pad) {
   using L = MmaLayout<C>;
   constexpr int W = L::W, KC = L::KC, CH = L::CH, NK = L::NK;
+  constexpr int MI = L::MI, NJ = L::NJ, WM = L::WM_, WN = L::WN_;
+  static_assert(L::FG * L::CG == MMA_NT / 32 && WN % 16 == 0 && C % KC == 0, "warp tiling");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* X = ring + WSTAGES * L::STAGE;  // row f: frame f
@@ -218,7 +274,7 @@ chain_mma(const bf16* __restrict__ x, const float* __restrict__ fmask,
   const int g = lane >> 2, t = lane & 3;
   const int TT = W - 2 * halo;
   const int b = blockIdx.y, t0 = blockIdx.x * TT - halo;
-  const int f0 = (warp / (C / WN)) * WM, n0 = (warp % (C / WN)) * WN;
+  const int f0 = (warp / L::CG) * WM, n0 = (warp % L::CG) * WN;
   const int steps = 2 * P * NK;
 
   // weight stage s: conv s / NK (a, b, a, b, ...), rows [r KC, r KC + KC) of
@@ -365,60 +421,68 @@ chain_mma(const bf16* __restrict__ x, const float* __restrict__ fmask,
 // tiling and launch
 // ---------------------------------------------------------------------------
 // halo = the chain's one-sided reach, pad = the largest reach of one conv
-// a (the pad of silu x), W = frames a block holds (tile = W - 2*halo); W = 0
-// when no layout fits.
-struct Tiling { int halo, pad, W; };
+// a (the pad of silu x), hk = a conv b's reach, W = frames a block holds
+// (tile = W - 2*halo), mma: the tensor-core kernel runs it.
+struct Tiling { int halo, pad, hk, W; bool mma; };
 
 template <typename T, int C>
-Tiling chain_tiling(const Dil& dil, int P) {
-  constexpr int half = (K - 1) / 2;
-  Tiling t = {0, 0, 0};
+Tiling chain_tiling(const Dil& dil, int P, int k) {
+  const int hk = (k - 1) / 2;
+  Tiling t = {0, 0, hk, 0, false};
   for (int i = 0; i < P; ++i) {
-    t.halo += dil.d[i] * half + half;
-    t.pad = dil.d[i] * half > t.pad ? dil.d[i] * half : t.pad;
+    t.halo += dil.d[i] * hk + hk;
+    t.pad = dil.d[i] * hk > t.pad ? dil.d[i] * hk : t.pad;
   }
   if constexpr (std::is_same<T, bf16>::value) {
-    t.W = MmaLayout<C>::bytes(t.pad) <= MMA_SMEM_MAX ? MmaLayout<C>::W : 0;
-  } else {
-    t.W = 1024;
-    while (t.W > 0 && smem_bytes<C>(t.W, t.pad) > SMEM_BUDGET) t.W -= 16;
+    if (k == K && MmaLayout<C>::bytes(t.pad) <= MMA_SMEM_MAX && MmaLayout<C>::W > 2 * t.halo) {
+      t.W = MmaLayout<C>::W;
+      t.mma = true;
+      return t;
+    }
   }
+  t.W = simt_frames<T, C>(t.pad + hk);
   return t;
 }
 
 template <typename T, int C>
 int launch(const void* x, const float* m, const void* wa, const float* ba,
-           const void* wb, const float* bb, void* out, int B, int Tlen, int P,
+           const void* wb, const float* bb, void* out, int B, int Tlen, int P, int k,
            Dil dil, cudaStream_t st) {
-  const Tiling t = chain_tiling<T, C>(dil, P);
+  static_assert(simt_frames<T, C>(MAX_REACH<T>) > 2 * MAX_REACH<T>,
+                "every instance takes a lone conv pair of MAX_REACH");
+  const Tiling t = chain_tiling<T, C>(dil, P, k);
   if (t.W <= 2 * t.halo) return (int)cudaErrorInvalidValue;
   const int TT = t.W - 2 * t.halo;
   dim3 grid((Tlen + TT - 1) / TT, B);
-  static size_t configured[stk::kMaxDevices] = {};
   if constexpr (std::is_same<T, bf16>::value) {
-    const size_t bytes = MmaLayout<C>::bytes(t.pad);
-    if (int err = stk::allow_dynamic_smem(chain_mma<C>, bytes, configured)) return err;
-    chain_mma<C><<<grid, MMA_NT, bytes, st>>>((const bf16*)x, m, (const bf16*)wa, ba,
-                                              (const bf16*)wb, bb, (bf16*)out, Tlen, P,
-                                              dil, t.halo, t.pad);
-  } else {
-    const size_t bytes = smem_bytes<C>(t.W, t.pad);
-    if (int err = stk::allow_dynamic_smem(chain_kernel<T, C>, bytes, configured)) return err;
-    chain_kernel<T, C><<<grid, NT, bytes, st>>>((const T*)x, m, (const T*)wa, ba,
-                                                (const T*)wb, bb, (T*)out, Tlen, P,
-                                                dil, t.W, t.halo, t.pad);
+    if (t.mma) {
+      static size_t configured[stk::kMaxDevices] = {};
+      const size_t bytes = MmaLayout<C>::bytes(t.pad);
+      if (int err = stk::allow_dynamic_smem(chain_mma<C>, bytes, configured)) return err;
+      chain_mma<C><<<grid, MMA_NT, bytes, st>>>((const bf16*)x, m, (const bf16*)wa, ba,
+                                                (const bf16*)wb, bb, (bf16*)out, Tlen, P,
+                                                dil, t.halo, t.pad);
+      return (int)cudaGetLastError();
+    }
   }
+  static size_t configured[stk::kMaxDevices] = {};
+  const size_t bytes = smem_bytes<T, C>(t.W, t.pad + t.hk);
+  if (int err = stk::allow_dynamic_smem(chain_kernel<T, C>, bytes, configured)) return err;
+  chain_kernel<T, C><<<grid, NT, bytes, st>>>((const T*)x, m, (const T*)wa, ba, (const T*)wb,
+                                              bb, (T*)out, Tlen, P, k, dil, t.W, t.halo,
+                                              t.pad);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
-int tile_frames(Dil dil, int P) {
-  const Tiling t = chain_tiling<T, C>(dil, P);
+int tile_frames(Dil dil, int P, int k, int* mma) {
+  const Tiling t = chain_tiling<T, C>(dil, P, k);
+  if (mma) *mma = t.mma;
   return t.W > 2 * t.halo ? t.W - 2 * t.halo : -1;
 }
 
-bool read_dils(const int* dils, int P, Dil* dil) {
-  if (P < 1 || P > MAX_P) return false;
+bool read_args(const int* dils, int P, int k, Dil* dil) {
+  if (P < 1 || P > MAX_P || k < 1 || k % 2 == 0) return false;
   for (int i = 0; i < P; ++i) {
     if (dils[i] < 1) return false;
     dil->d[i] = dils[i];
@@ -428,37 +492,48 @@ bool read_dils(const int* dils, int P, Dil* dil) {
 
 }  // namespace
 
-// x/out [B,T,C]; wa/wb [P,3,C,C] (HIO per conv) in the storage type (dtype
-// 0 float, 1 bf16); ba/bb [P,C] float; fmask [T] float or null; dils [P].
-// All contiguous and 16-byte aligned. The kernel picks its own time tiling.
+// x/out [B,T,C]; wa/wb [P,k,C,C] (HIO per conv) in the storage type (dtype
+// 0 float, 1 bf16); ba/bb [P,C] float; fmask [T] float or null; dils [P],
+// 1 <= P <= 4; k odd. All contiguous and 16-byte aligned; C one of the
+// instances (64, 128, 192, 256, 320, 384). The kernel picks its own time
+// tiling, and fails when the chain's halo leaves no tile.
+#define STK_CHAIN_WIDTHS(X) X(64) X(128) X(192) X(256) X(320) X(384)
+
 extern "C" int stk_resblock_chain(const void* x, const void* fmask, const void* wa,
                                   const void* ba, const void* wb, const void* bb,
-                                  void* out, int B, int Tlen, int C, int P,
+                                  void* out, int B, int Tlen, int C, int k, int P,
                                   const int* dils, int dtype, void* stream) {
   Dil dil = {};
-  if (!read_dils(dils, P, &dil)) return (int)cudaErrorInvalidValue;
+  if (!read_args(dils, P, k, &dil)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* m = (const float*)fmask;
   const float* fa = (const float*)ba;
   const float* fb = (const float*)bb;
-  if (dtype == 0 && C == 128)
-    return launch<float, 128>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
-  if (dtype == 0 && C == 256)
-    return launch<float, 256>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
-  if (dtype == 1 && C == 128)
-    return launch<bf16, 128>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
-  if (dtype == 1 && C == 256)
-    return launch<bf16, 256>(x, m, wa, fa, wb, fb, out, B, Tlen, P, dil, st);
+#define STK_LAUNCH(W)                                                                    \
+  if (dtype == 0 && C == W)                                                              \
+    return launch<float, W>(x, m, wa, fa, wb, fb, out, B, Tlen, P, k, dil, st);          \
+  if (dtype == 1 && C == W)                                                              \
+    return launch<bf16, W>(x, m, wa, fa, wb, fb, out, B, Tlen, P, k, dil, st);
+  STK_CHAIN_WIDTHS(STK_LAUNCH)
+#undef STK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// Output frames per block the kernel uses for these arguments, or -1.
-extern "C" int stk_resblock_chain_tile(int C, int P, const int* dils, int dtype) {
+// Output frames per block the kernel uses for these arguments, or -1; *mma
+// (when not null): whether the tensor-core kernel runs them.
+extern "C" int stk_resblock_chain_tile(int C, int k, int P, const int* dils, int dtype,
+                                       int* mma) {
   Dil dil = {};
-  if (!read_dils(dils, P, &dil)) return -1;
-  if (dtype == 0 && C == 128) return tile_frames<float, 128>(dil, P);
-  if (dtype == 0 && C == 256) return tile_frames<float, 256>(dil, P);
-  if (dtype == 1 && C == 128) return tile_frames<bf16, 128>(dil, P);
-  if (dtype == 1 && C == 256) return tile_frames<bf16, 256>(dil, P);
+  if (!read_args(dils, P, k, &dil)) return -1;
+#define STK_TILE(W)                                                        \
+  if (dtype == 0 && C == W) return tile_frames<float, W>(dil, P, k, mma);  \
+  if (dtype == 1 && C == W) return tile_frames<bf16, W>(dil, P, k, mma);
+  STK_CHAIN_WIDTHS(STK_TILE)
+#undef STK_TILE
   return -1;
+}
+
+// The largest reach of one conv pair that every instance takes in dtype.
+extern "C" int stk_resblock_chain_max_reach(int dtype) {
+  return dtype == 0 ? MAX_REACH<float> : dtype == 1 ? MAX_REACH<bf16> : -1;
 }

@@ -192,7 +192,8 @@ class SynthesisEngine(LongFormSynthesis):
     def __init__(self, params, cfg: TTSConfig, processor: UnicodeProcessor, *,
                  precision: str | None = None, seed: int = 0,
                  egress_format: str = "int16", device=None, backend=None,
-                 fused_ffn: bool = True, mesh=None):
+                 fused_ffn: bool = True, fused_resblocks: bool | None = None,
+                 mesh=None):
         """``params``: the JAX-layout numpy param tree (loaded here onto
         ``device`` in the compute dtype) or modules from
         ``models.load_params``. ``precision="int8"`` quantizes a numpy tree
@@ -218,6 +219,13 @@ class SynthesisEngine(LongFormSynthesis):
         at construction (``vocoder.apply(up_matmul=)``); the engine reads the
         variable once, here.
 
+        ``fused_resblocks``: the vocoder's fine-timeline chains through the
+        chain kernel (``vocoder.apply(fused_resblocks=)``), or with False
+        through ``_resblock``'s convs. None reads ``TTS_VOC_FUSED`` once,
+        here: the kernel unless it is "0". The JAX engine runs the kernel
+        only at "1"; the port keeps it as its default, as it keeps
+        ``fused_ffn``.
+
         ``mesh``: a ``parallel.mesh.Mesh`` (axes data, model). The params
         are placed with ``shard_params`` (the TP layout over each row's
         model ranks; a graph backend's weights replicated) and every batch
@@ -228,6 +236,7 @@ class SynthesisEngine(LongFormSynthesis):
         import os
 
         from ..models import load_params, quantize_params, to_numpy_tree
+        from ..models.vocoder import fused_resblocks_default
 
         if egress_format not in EGRESS_FORMATS:
             raise ValueError(f"egress_format must be one of {EGRESS_FORMATS}, "
@@ -258,6 +267,8 @@ class SynthesisEngine(LongFormSynthesis):
         self.egress_format = egress_format
         self.fused_ffn = bool(fused_ffn)
         self.up_matmul = os.environ.get("TTS_VOC_UP_MATMUL", "0") == "1"
+        self.fused_resblocks = (fused_resblocks_default() if fused_resblocks is None
+                                else bool(fused_resblocks))
         # the synthesis calls: replays of captured programs on the card, the
         # eager functions on the CPU and on a row of several model ranks
         if mesh is None:
@@ -586,7 +597,8 @@ class SynthesisEngine(LongFormSynthesis):
                 self.params, self.cfg, *dev_args, self._next_generator(),
                 self._speed(speed), int(total_step), int(t_bucket),
                 precision=self.precision, egress=self.egress_format,
-                fused_ffn=self.fused_ffn, up_matmul=self.up_matmul, **extra)
+                fused_ffn=self.fused_ffn, up_matmul=self.up_matmul,
+                fused_resblocks=self.fused_resblocks, **extra)
 
     def _mesh_fused(self, dev_args, total_step: int, t_bucket: int, speed: float):
         """The fused call over the mesh: the whole batch's noise drawn once
@@ -632,7 +644,8 @@ class SynthesisEngine(LongFormSynthesis):
         extra = {} if self.backend is None else {"backend": self.backend}
         return s.synth.vocode_window(s.params, self.cfg, x, fmask, 0, x.shape[1], 0,
                                      precision=self.precision, egress=self.egress_format,
-                                     up_matmul=self.up_matmul, **extra)
+                                     up_matmul=self.up_matmul,
+                                     fused_resblocks=self.fused_resblocks, **extra)
 
     def _programs_of(self, shard: Shard | None):
         """(programs, params) of ``shard``; the engine's own (the lead
@@ -658,7 +671,8 @@ class SynthesisEngine(LongFormSynthesis):
             return progs.acoustic_stage(
                 params, self.cfg, emb, sttl, tmask, lmask, noise, total_step,
                 precision=self.precision, fused_ffn=self.fused_ffn,
-                up_matmul=self.up_matmul, backend=self.backend, frame_mask=frame_mask)
+                up_matmul=self.up_matmul, fused_resblocks=self.fused_resblocks,
+                backend=self.backend, frame_mask=frame_mask)
         if self.backend is not None:
             return self.backend.acoustic_fn(params, emb, sttl, tmask, lmask,
                                             noise, total_step, frame_mask=frame_mask)
@@ -666,7 +680,9 @@ class SynthesisEngine(LongFormSynthesis):
                                         lmask, noise, total_step,
                                         precision=self.precision,
                                         fused_ffn=self.fused_ffn,
-                                        up_matmul=self.up_matmul, frame_mask=frame_mask)
+                                        up_matmul=self.up_matmul,
+                                        fused_resblocks=self.fused_resblocks,
+                                        frame_mask=frame_mask)
 
     def infer_batch_begin(self, text_list, lang_list, style: VoiceStyle,
                           total_step: int = 5, speed: float = 1.05, *,
@@ -969,7 +985,8 @@ class SynthesisEngine(LongFormSynthesis):
 
         def voc(x, fm):
             return synth.vocode(self.params, self.cfg, x, fm, precision=prec,
-                                up_matmul=self.up_matmul, **extra)
+                                up_matmul=self.up_matmul,
+                                fused_resblocks=self.fused_resblocks, **extra)
 
         return step, voc
 
@@ -1006,7 +1023,7 @@ class SynthesisEngine(LongFormSynthesis):
                 wav = self._synth.vocode_window(
                     self.params, self.cfg, xt_pad, mask_pad, start, w, halo,
                     precision=self.precision, egress=self.egress_format,
-                    up_matmul=self.up_matmul)
+                    up_matmul=self.up_matmul, fused_resblocks=self.fused_resblocks)
                 return k0, start, wav, self._mark()
 
         for _attempt in range(4):

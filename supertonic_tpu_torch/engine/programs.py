@@ -21,8 +21,9 @@ the first call of a shape (and over the bucket lattice in ``warmup``):
   vocoder   the engine's ``_vocoder_fn``  batch, latent bucket, precision
 
 Every key that runs the vector estimator also holds the engine's
-``fused_ffn``, and every key that runs the vocoder its ``up_matmul``: JAX
-fixes both when the engine builds its jitted functions, so two engines with
+``fused_ffn``, and every key that runs the vocoder its ``up_matmul`` and,
+when it is off, ``fused_resblocks`` (a trailing "unfused_resblocks"): JAX
+fixes them when the engine builds its jitted functions, so two engines with
 different settings never share a program.
 
 ``Programs`` has the functions of ``synthesis`` that the engine calls, with
@@ -79,11 +80,17 @@ ACOUSTIC_STATIC = ("total_step",)
 CROSS_STATIC = STEP_STATIC = VOCODER_STATIC = ()
 
 
+def _resblocks(key: tuple, fused_resblocks: bool) -> tuple:
+    """A vocoding key, marked when its chains skip the chain kernel."""
+    return key if fused_resblocks else key + ("unfused_resblocks",)
+
+
 def fused_key(text_ids, total_step: int, t_pad: int, precision: str, egress: str,
-              fused_ffn: bool = True, up_matmul: bool = False) -> tuple:
+              fused_ffn: bool = True, up_matmul: bool = False,
+              fused_resblocks: bool = True) -> tuple:
     b, l_pad = text_ids.shape
-    return ("fused", b, l_pad, int(total_step), int(t_pad), precision, egress,
-            bool(fused_ffn), bool(up_matmul))
+    return _resblocks(("fused", b, l_pad, int(total_step), int(t_pad), precision, egress,
+                       bool(fused_ffn), bool(up_matmul)), fused_resblocks)
 
 
 def flow_key(text_ids, total_step: int, t_pad: int, precision: str, halo: int,
@@ -94,9 +101,9 @@ def flow_key(text_ids, total_step: int, t_pad: int, precision: str, halo: int,
 
 
 def window_key(xt_pad, window: int, halo: int, precision: str, egress: str,
-               up_matmul: bool = False) -> tuple:
-    return ("window", xt_pad.shape[0], int(window), int(halo), precision, egress,
-            bool(up_matmul))
+               up_matmul: bool = False, fused_resblocks: bool = True) -> tuple:
+    return _resblocks(("window", xt_pad.shape[0], int(window), int(halo), precision,
+                       egress, bool(up_matmul)), fused_resblocks)
 
 
 def text_key(text_ids, precision: str) -> tuple:
@@ -106,12 +113,12 @@ def text_key(text_ids, precision: str) -> tuple:
 
 def acoustic_key(text_emb, latent_mask, total_step: int, precision: str,
                  fused_ffn: bool = True, up_matmul: bool = False,
-                 frame_mask: bool = False) -> tuple:
+                 frame_mask: bool = False, fused_resblocks: bool = True) -> tuple:
     b, l_pad = text_emb.shape[:2]
     key = ("acoustic", b, l_pad, latent_mask.shape[1], int(total_step), precision,
            bool(fused_ffn), bool(up_matmul))
     # a mesh shard's program takes the whole batch's frame mask as an input
-    return key + ("frame_mask",) if frame_mask else key
+    return _resblocks(key + ("frame_mask",) if frame_mask else key, fused_resblocks)
 
 
 def cross_key(text_emb, precision: str) -> tuple:
@@ -124,8 +131,10 @@ def step_key(x, text_emb, precision: str, fused_ffn: bool = True) -> tuple:
             bool(fused_ffn))
 
 
-def vocoder_key(x, precision: str, up_matmul: bool = False) -> tuple:
-    return ("vocoder", x.shape[0], x.shape[1], precision, bool(up_matmul))
+def vocoder_key(x, precision: str, up_matmul: bool = False,
+                fused_resblocks: bool = True) -> tuple:
+    return _resblocks(("vocoder", x.shape[0], x.shape[1], precision, bool(up_matmul)),
+                      fused_resblocks)
 
 
 @dataclasses.dataclass
@@ -204,7 +213,7 @@ class Programs:
                          generator, speed, total_step: int, t_pad: int, *,
                          precision: str = "bf16", egress: str = "int16",
                          fused_ffn: bool = True, up_matmul: bool = False,
-                         backend=None):
+                         fused_resblocks: bool = True, backend=None):
         """``synthesis.synthesize_fused`` through its program; ``speed`` is
         a 0-dim f32 tensor on the device. With a graph ``backend``
         (``assets.onnx_backend``) the program is its ``fused_fn``: the
@@ -217,10 +226,12 @@ class Programs:
                                          total_step, egress)
             wav, dur = synthesis.synthesize_padded(
                 params, cfg, ids, mask, sdp, sttl, nz, spd, total_step,
-                precision=precision, fused_ffn=fused_ffn, up_matmul=up_matmul)
+                precision=precision, fused_ffn=fused_ffn, up_matmul=up_matmul,
+                fused_resblocks=fused_resblocks)
             return synthesis.encode_egress(wav, egress), dur
 
-        key = fused_key(text_ids, total_step, t_pad, precision, egress, fused_ffn, up_matmul)
+        key = fused_key(text_ids, total_step, t_pad, precision, egress, fused_ffn, up_matmul,
+                        fused_resblocks)
         return self.run(key, body, (text_ids, text_mask, style_dp, style_ttl, speed, noise))
 
     def flow_fused(self, params, cfg, text_ids, text_mask, style_dp, style_ttl,
@@ -253,7 +264,7 @@ class Programs:
 
     def vocode_window(self, params, cfg, xt_pad, mask_pad, start: int, window: int,
                       halo: int, *, precision: str = "bf16", egress: str = "int16",
-                      up_matmul: bool = False, backend=None):
+                      up_matmul: bool = False, fused_resblocks: bool = True, backend=None):
         """``synthesis.vocode_window`` through its program: the window's
         frames are copied into the static input. With a graph ``backend``
         the vocoder is its ``vocode_fn``."""
@@ -266,9 +277,11 @@ class Programs:
                     wav[:, halo * chunk:(halo + window) * chunk], egress),)
             return (synthesis.vocode_span(params, cfg, x_win, m_win, window, halo,
                                           precision=precision, egress=egress,
-                                          up_matmul=up_matmul),)
+                                          up_matmul=up_matmul,
+                                          fused_resblocks=fused_resblocks),)
 
-        (wav,) = self.run(window_key(xt_pad, window, halo, precision, egress, up_matmul),
+        (wav,) = self.run(window_key(xt_pad, window, halo, precision, egress, up_matmul,
+                                     fused_resblocks),
                           body, synthesis.window_span(xt_pad, mask_pad, start, window, halo))
         return wav
 
@@ -290,8 +303,8 @@ class Programs:
 
     def acoustic_stage(self, params, cfg, text_emb, style_ttl, text_mask, latent_mask,
                        noise, total_step: int, *, precision: str = "bf16",
-                       fused_ffn: bool = True, up_matmul: bool = False, backend=None,
-                       frame_mask=None):
+                       fused_ffn: bool = True, up_matmul: bool = False,
+                       fused_resblocks: bool = True, backend=None, frame_mask=None):
         """``synthesis.acoustic_stage`` (or ``backend.acoustic_fn``) through
         its program: wav [B, T*chunk] f32. A given ``frame_mask`` is one
         more static input, under a key of its own."""
@@ -304,10 +317,11 @@ class Programs:
             return (synthesis.acoustic_stage(params, cfg, emb, sttl, tmask, lmask, nz,
                                              total_step, precision=precision,
                                              fused_ffn=fused_ffn, up_matmul=up_matmul,
+                                             fused_resblocks=fused_resblocks,
                                              frame_mask=fm),)
 
         key = acoustic_key(text_emb, latent_mask, total_step, precision, fused_ffn,
-                           up_matmul, frame_mask is not None)
+                           up_matmul, frame_mask is not None, fused_resblocks)
         inputs = (text_emb, style_ttl, text_mask, latent_mask, noise)
         (wav,) = self.run(key, body, inputs + (() if frame_mask is None else (frame_mask,)))
         return wav
@@ -349,7 +363,7 @@ class Programs:
         return x
 
     def vocode(self, params, cfg, x, frame_mask, *, precision: str = "bf16",
-               up_matmul: bool = False, backend=None):
+               up_matmul: bool = False, fused_resblocks: bool = True, backend=None):
         """``synthesis.vocode`` (or the graph backend's progress vocoder)
         through its program."""
 
@@ -358,9 +372,11 @@ class Programs:
                 _cross, _step, voc_fn = backend.progress_fns()
                 return (voc_fn(params, x, fm),)
             return (synthesis.vocode(params, cfg, x, fm, precision=precision,
-                                     up_matmul=up_matmul),)
+                                     up_matmul=up_matmul,
+                                     fused_resblocks=fused_resblocks),)
 
-        (wav,) = self.run(vocoder_key(x, precision, up_matmul), body, (x, frame_mask))
+        (wav,) = self.run(vocoder_key(x, precision, up_matmul, fused_resblocks), body,
+                          (x, frame_mask))
         return wav
 
     # ------------------------------------------------------------------

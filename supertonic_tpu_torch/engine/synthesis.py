@@ -93,9 +93,11 @@ def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
 def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
                    latent_mask, noise, total_step: int, *,
                    precision: str = "bf16", fused_ffn: bool = True,
-                   up_matmul: bool = False, frame_mask=None) -> torch.Tensor:
+                   up_matmul: bool = False, fused_resblocks: bool = True,
+                   frame_mask=None) -> torch.Tensor:
     """Euler loop + vocoder. Returns wav [B, T*chunk] f32. ``up_matmul``:
-    the vocoder's upsample convs as products (``vocoder.apply``).
+    the vocoder's upsample convs as products, ``fused_resblocks``: its
+    chains through the chain kernel (``vocoder.apply``).
     ``frame_mask`` [T]: the vocoder's frame mask when the batch is one
     shard of a larger one (the whole batch's; by default this batch's)."""
     x = flow_stage(params, cfg, text_emb, style_ttl, text_mask, latent_mask,
@@ -105,7 +107,8 @@ def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
     if frame_mask is None:
         frame_mask = latent_mask.amax(0)
     return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
-                         dtype=dtype_of(precision), up_matmul=up_matmul)
+                         dtype=dtype_of(precision), up_matmul=up_matmul,
+                         fused_resblocks=fused_resblocks)
 
 
 def _latent_mask(cfg: TTSConfig, dur, t_pad: int):
@@ -128,7 +131,7 @@ def _noise(cfg: TTSConfig, b: int, t_pad: int, generator, device, out=None):
 def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                       style_ttl, noise, speed, total_step: int, *,
                       precision: str = "bf16", fused_ffn: bool = True,
-                      up_matmul: bool = False):
+                      up_matmul: bool = False, fused_resblocks: bool = True):
     """Text stage + acoustic stage at the latent length of ``noise``
     [B, T, C]; the latent mask comes from the predicted duration, clamped
     into T. Returns (wav [B, T*chunk] f32, duration [B] f32, unclamped)."""
@@ -137,7 +140,8 @@ def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
     latent_mask = _latent_mask(cfg, dur, noise.shape[1])
     wav = acoustic_stage(params, cfg, emb, style_ttl, text_mask, latent_mask,
                          noise, total_step, precision=precision,
-                         fused_ffn=fused_ffn, up_matmul=up_matmul)
+                         fused_ffn=fused_ffn, up_matmul=up_matmul,
+                         fused_resblocks=fused_resblocks)
     return wav, dur
 
 
@@ -145,7 +149,7 @@ def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                      style_ttl, generator: torch.Generator, speed,
                      total_step: int, t_pad: int, *, precision: str = "bf16",
                      egress: str = "int16", fused_ffn: bool = True,
-                     up_matmul: bool = False):
+                     up_matmul: bool = False, fused_resblocks: bool = True):
     """The production call: noise [B, t_pad, C] ~ N(0, 1) drawn on the
     device from ``generator``, then ``synthesize_padded``. Returns (wav
     [B, t_pad*chunk] int16, uint8 mu-law or f32, duration [B] f32 —
@@ -155,7 +159,7 @@ def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
     wav, dur = synthesize_padded(params, cfg, text_ids, text_mask, style_dp,
                                  style_ttl, noise, speed, total_step,
                                  precision=precision, fused_ffn=fused_ffn,
-                                 up_matmul=up_matmul)
+                                 up_matmul=up_matmul, fused_resblocks=fused_resblocks)
     return encode_egress(wav, egress), dur
 
 
@@ -223,10 +227,11 @@ def euler_step(params, cfg: TTSConfig, x, text_emb, style_ttl, text_mask,
 
 
 def vocode(params, cfg: TTSConfig, x, frame_mask, *, precision: str = "bf16",
-           up_matmul: bool = False) -> torch.Tensor:
+           up_matmul: bool = False, fused_resblocks: bool = True) -> torch.Tensor:
     """The progress path's vocoder call: wav [B, T*chunk] f32."""
     return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
-                         dtype=dtype_of(precision), up_matmul=up_matmul)
+                         dtype=dtype_of(precision), up_matmul=up_matmul,
+                         fused_resblocks=fused_resblocks)
 
 
 def window_span(xt_pad, mask_pad, start: int, window: int, halo: int):
@@ -241,19 +246,21 @@ def window_span(xt_pad, mask_pad, start: int, window: int, halo: int):
 
 def vocode_span(params, cfg: TTSConfig, x_win, m_win, window: int, halo: int,
                 *, precision: str = "bf16", egress: str = "int16",
-                up_matmul: bool = False) -> torch.Tensor:
+                up_matmul: bool = False, fused_resblocks: bool = True) -> torch.Tensor:
     """Vocode one window given as its own tensors, ``x_win`` [B, window +
     2*halo, C] and its frame mask ``m_win``, and return only the interior
     samples [B, window*chunk]."""
     wav = vocoder.apply(params["vocoder"], cfg, x_win, frame_mask=m_win,
-                        dtype=dtype_of(precision), up_matmul=up_matmul)
+                        dtype=dtype_of(precision), up_matmul=up_matmul,
+                        fused_resblocks=fused_resblocks)
     chunk = cfg.chunk_size
     return encode_egress(wav[:, halo * chunk:(halo + window) * chunk], egress)
 
 
 def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
                   window: int, halo: int, *, precision: str = "bf16",
-                  egress: str = "int16", up_matmul: bool = False) -> torch.Tensor:
+                  egress: str = "int16", up_matmul: bool = False,
+                  fused_resblocks: bool = True) -> torch.Tensor:
     """Vocode one window: frames [start, start + window + 2*halo) of the
     latent pre-padded with ``halo`` zero frames each side (``xt_pad``
     [B, T+2H, C], ``mask_pad`` [T+2H], the batch-max frame mask, zero in
@@ -263,7 +270,8 @@ def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
     whole chunk is vocoded."""
     x_win, m_win = window_span(xt_pad, mask_pad, start, window, halo)
     return vocode_span(params, cfg, x_win, m_win, window, halo,
-                       precision=precision, egress=egress, up_matmul=up_matmul)
+                       precision=precision, egress=egress, up_matmul=up_matmul,
+                       fused_resblocks=fused_resblocks)
 
 
 def encode_egress(wav: torch.Tensor, egress: str) -> torch.Tensor:

@@ -5,9 +5,13 @@ timeline, one subpixel head, tanh). Layout [B, T, C]; returns the padded
 waveform [B, T * chunk_size] float32.
 
 Routing of the residual chains follows the JAX package's rule for its
-fused kernel: a chain with C <= 384 and a frame mask shared by the batch
-goes through the chain kernel's wrapper (ops/vocoder_fused.py); the others
-(the C=512 ``pre_res`` at the default config) stay plain torch convs.
+fused kernel, and that rule alone: with ``fused_resblocks``, a chain with
+C <= ``vocoder_fused.MAX_CHANNELS`` (384) and a frame mask shared by the
+batch goes through the chain kernel's wrapper (ops/vocoder_fused.py), which
+raises on the card for a chain outside its kernel's domain
+(``vocoder_fused.supports``); the others (the C=512 ``pre_res`` at the
+default config), and every chain without ``fused_resblocks``, stay torch
+convs (``_resblock``).
 """
 
 from __future__ import annotations
@@ -91,6 +95,14 @@ def _up_matmul(p: L.Conv1d, s: torch.Tensor) -> torch.Tensor:
     return F.linear(xk, w, p.bias.to(s.dtype))
 
 
+def fused_resblocks_default() -> bool:
+    """``TTS_VOC_FUSED`` as the port reads it: the chain kernel unless the
+    variable is "0" (the JAX package runs it only at "1")."""
+    import os
+
+    return os.environ.get("TTS_VOC_FUSED", "1") != "0"
+
+
 def init(rng, cfg: TTSConfig) -> L.Params:
     hp = cfg.vocoder
     c_lat = cfg.latent_channels
@@ -115,7 +127,8 @@ def init(rng, cfg: TTSConfig) -> L.Params:
 
 
 def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
-          dtype=torch.float32, up_matmul: bool = False) -> torch.Tensor:
+          dtype=torch.float32, fused_resblocks: bool | None = None,
+          up_matmul: bool = False) -> torch.Tensor:
     """latent [B, T, C] -> wav [B, T * chunk_size] float32. ``frame_mask``
     ([T] or [B, T], 1 = real frame) marks batch-max-valid frames; with it,
     bucket-padded execution equals exact-length execution.
@@ -123,11 +136,20 @@ def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
     ``up_matmul``: each upsample conv as one K-stacked product ([B, T,
     k*Cin] @ [k*Cin, Cout*f]) instead of a convolution, the JAX package's
     ``TTS_VOC_UP_MATMUL`` lever; the same sums in another order. The engine
-    reads that variable once when it is built and passes the flag here."""
+    reads that variable once when it is built and passes the flag here.
+
+    ``fused_resblocks``: the fine-timeline chains through the chain kernel
+    (``ops.vocoder_fused``), the JAX package's ``TTS_VOC_FUSED`` lever.
+    None reads that variable as JAX does, but the port's default is on:
+    only "0" turns the kernel off (the engine reads it once when it is
+    built and passes the flag here)."""
     hp = cfg.vocoder
+    if fused_resblocks is None:
+        fused_resblocks = fused_resblocks_default()
 
     def res(p, x, m):
-        if x.shape[-1] <= 384 and (m is None or m.shape[0] == 1):
+        if (fused_resblocks and x.shape[-1] <= vocoder_fused.MAX_CHANNELS
+                and (m is None or m.shape[0] == 1)):
             return vocoder_fused.fused_resblock(p, x, hp.resblock_dilations, m)
         return _resblock(p, x, hp.resblock_dilations, m)
 

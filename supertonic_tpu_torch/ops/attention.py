@@ -12,7 +12,12 @@ follows the kernel.
 What bounds the kernel on the H100 and what its design does about it is in
 the header of ``csrc/attention.cu``. Unlike the Pallas kernel there is no
 panel cap: keys stream through shared memory, so every Tq and Tk the path
-produces runs in the kernel.
+produces runs in the kernel. ``supports`` states the kernel's domain: any
+head width Dh up to ``MAX_HEAD_DIM`` (the Pallas kernel takes any; a wider
+head raises here). The kernel takes Dh in steps of ``HEAD_STEP`` (16 in
+bf16, 32 in f32): the wrapper pads another Dh with zero columns
+(``pad_head_dim``) and keeps the scale 1/sqrt(Dh) of the true width, which
+leaves every logit and every kept output column as they are.
 
 ``fused_attention`` is the wrapper: it runs the plain version for CPU
 tensors only; CUDA tensors go to the kernel, or it raises.
@@ -28,9 +33,22 @@ import torch
 from . import _build, _count
 
 NEG_INF = -1e9
+MAX_HEAD_DIM = 128
+HEAD_STEP = {torch.bfloat16: 16, torch.float32: 32}  # the kernel's head widths
 
-# q, k, v, key_mask, out, B, Tq, Tk, H, Dh, dtype code, stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# q, k, v, key_mask, out, B, Tq, Tk, H, Dh, dtype code, stream, scale
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+             + [ctypes.c_float])
+
+
+def supports(head_dim: int, keys: int = 1) -> bool:
+    """Whether the kernel takes heads of ``head_dim`` over ``keys`` keys."""
+    return 1 <= head_dim <= MAX_HEAD_DIM and keys >= 1
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, T, H, Dh] -> [B, T, H, width] with zero columns past Dh."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
 
 
 def kernel_tiles() -> dict:
@@ -41,9 +59,11 @@ def kernel_tiles() -> dict:
                     tiles))
 
 
-def attention_plain(q, k, v, key_mask=None):
-    """Plain PyTorch version, with the kernel's rounding points."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def attention_plain(q, k, v, key_mask=None, scale: float | None = None):
+    """Plain PyTorch version, with the kernel's rounding points; ``scale``
+    defaults to 1/sqrt(Dh)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if key_mask is not None:
         logits = logits + ((1.0 - key_mask.float()) * NEG_INF)[:, None, None, :]
@@ -69,11 +89,11 @@ def fused_attention(q, k, v, key_mask=None):
         return attention_plain(q, k, v, key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("q, k and v must share one dtype")
-    if d != 64 or tk < 1:
-        raise ValueError(f"the attention kernel takes Dh = 64 and Tk >= 1, got "
-                         f"Dh = {d}, Tk = {tk}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in HEAD_STEP:
+        raise TypeError("q, k and v must share one dtype, float32 or bfloat16")
+    if not supports(d, tk):
+        raise ValueError(f"the attention kernel takes 1 <= Dh <= {MAX_HEAD_DIM} and "
+                         f"Tk >= 1, got Dh = {d}, Tk = {tk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on "
@@ -81,12 +101,17 @@ def fused_attention(q, k, v, key_mask=None):
     mask = None
     if key_mask is not None:
         mask = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
+    step = HEAD_STEP[q.dtype]
+    width = -(-d // step) * step
+    if width != d:
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _build.function("attention", "stk_attention", _ARGTYPES)
     with _build.on(q):
         _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                        _build.ptr(mask), _build.ptr(out), b, tq, tk, h, d,
-                        _build.dtype_code(q.dtype), _build.stream_ptr(q)),
+                        _build.ptr(mask), _build.ptr(out), b, tq, tk, h, width,
+                        _build.dtype_code(q.dtype), _build.stream_ptr(q),
+                        1.0 / math.sqrt(d)),
                      "stk_attention")
-    _count.launched("attention", (b, h, tq, tk, key_mask is not None))
-    return out
+    _count.launched("attention", (b, h, tq, tk, key_mask is not None, d))
+    return out if width == d else out[..., :d].contiguous()

@@ -21,6 +21,9 @@ epilogues (b1 and silu; b2, gate and residual) pass the [B*T, F]
 intermediate through device memory, which measured faster than keeping it
 on chip (PERF.md).
 
+``supports`` states the kernel's domain: D and F in multiples of 8, and in
+bf16 D <= ``MAX_D_BF16``.
+
 ``fused_adaln_ffn`` is the wrapper: plain version for CPU tensors only;
 CUDA tensors go to the kernel, or it raises.
 """
@@ -35,12 +38,20 @@ from . import _build, _count
 
 
 MAX_D_BF16 = 1024  # the bf16 LayerNorm pass holds a row in one warp's registers
+WIDTH_STEP = 8     # 16-byte rows of bf16 for TMA
 _F32_NAMES = ("ln_g", "ln_b", "b1", "b2", "shift", "scale", "gate")
 
 # x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate, h, mid, out, B, T, D,
 # F, eps, dtype code, stream, modulation dtype code
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+
+
+def supports(d: int, f: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes a model width ``d`` and an FFN width ``f``
+    in ``dtype``."""
+    return (d >= WIDTH_STEP and f >= WIDTH_STEP and d % WIDTH_STEP == 0
+            and f % WIDTH_STEP == 0 and (dtype != torch.bfloat16 or d <= MAX_D_BF16))
 
 
 def kernel_tiles() -> dict:
@@ -87,9 +98,9 @@ def fused_adaln_ffn(x, ln_g, ln_b, w1, b1, w2, b2, shift, scale, gate,
         raise ValueError(f"unsupported device {x.device}")
     if w1.dtype != x.dtype or w2.dtype != x.dtype:
         raise TypeError("w1 and w2 must be in x's dtype")
-    if d % 128 or f % 128 or (x.dtype == torch.bfloat16 and d > MAX_D_BF16):
-        raise ValueError(f"the FFN kernel takes D and F in multiples of 128 (bf16: "
-                         f"D <= {MAX_D_BF16}), got D={d}, F={f}")
+    if not supports(d, f, x.dtype):
+        raise ValueError(f"the FFN kernel takes D and F in multiples of {WIDTH_STEP} "
+                         f"(bf16: D <= {MAX_D_BF16}), got D={d}, F={f}")
 
     # the modulation vectors stay in bf16 where the path gives them so (the
     # kernel reads them as they are), else go to f32 like the other vectors

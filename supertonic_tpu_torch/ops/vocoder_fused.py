@@ -19,6 +19,18 @@ the header of ``csrc/resblock_chain.cu``, which also chooses the kernel's
 time tiling (each block holds ``tile + 2*halo`` frames; ``chain_tile`` asks
 the kernel's library for ``tile``).
 
+``supports`` states the kernel's domain: C <= ``MAX_CHANNELS`` (the Pallas
+kernel's VMEM rule), an odd conv size, and any number of conv pairs with
+dilations >= 1 of which none reaches past ``MAX_PAIR_REACH`` frames (the
+library asserts that every instance takes a lone pair of that reach). A
+launch takes up to ``MAX_PAIRS`` pairs whose halo fits a tile; the wrapper
+runs a longer chain as consecutive launches over groups of pairs
+(``launch_plan``), which gives the same values as one launch. The kernel
+has one instance per C in ``CHAIN_WIDTHS``; the wrapper pads another C with
+zero channels to the next (``pad_channels``), which leaves the real
+channels as they are: zero weights and biases keep the padded ones at
+exactly 0.
+
 ``resblock_chain`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.
 """
@@ -26,22 +38,60 @@ tensors go to the kernel, or it raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import _build, _count
 
-# x, frame_mask, wa, ba, wb, bb, out, B, T, C, P, dilations, dtype code,
+# x, frame_mask, wa, ba, wb, bb, out, B, T, C, k, P, dilations, dtype code,
 # stream
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+MAX_CHANNELS = 384
+CHAIN_WIDTHS = (64, 128, 192, 256, 320, 384)  # the kernel's instances
+MAX_PAIRS = 4  # conv pairs a launch
+# the largest reach of one conv pair, (d + 1) * (k - 1) / 2, that every
+# instance takes (the library's MAX_REACH; phase 5 of chip_smoke.py reads it)
+MAX_PAIR_REACH = {torch.float32: 23, torch.bfloat16: 31}
+
+
+def kernel_width(channels: int) -> int:
+    """The instance that runs ``channels``: the next of CHAIN_WIDTHS."""
+    return next(w for w in CHAIN_WIDTHS if w >= channels)
+
+
+def pair_reach(kernel: int, dilation: int) -> int:
+    """One-sided reach of a conv pair: conv a at ``dilation``, conv b at 1."""
+    return (dilation + 1) * ((kernel - 1) // 2)
+
+
+def supports(channels: int, kernel: int, dilations, dtype: torch.dtype | None = None) -> bool:
+    """Whether the kernel takes a chain of ``channels`` with conv ``kernel``
+    and ``dilations`` (one per conv pair) in ``dtype`` (None: both)."""
+    dilations = tuple(int(d) for d in dilations)
+    if (kernel < 1 or kernel % 2 == 0 or not dilations or min(dilations) < 1
+            or not 1 <= channels <= MAX_CHANNELS):
+        return False
+    dtypes = tuple(MAX_PAIR_REACH) if dtype is None else (dtype,)
+    reach = max(pair_reach(kernel, d) for d in dilations)
+    return all(reach <= MAX_PAIR_REACH.get(dt, -1) for dt in dtypes)
+
+
+def pad_channels(x, frame_mask, wa, ba, wb, bb, width: int):
+    """The chain's arguments with C zero-padded to ``width`` channels."""
+    c = x.shape[-1]
+    p = width - c
+    x = F.pad(x, (0, p)).contiguous()
+    wa, wb = (F.pad(w, (0, p, 0, p)).contiguous() for w in (wa, wb))
+    ba, bb = (F.pad(b, (0, p)).contiguous() for b in (ba, bb))
+    return x, frame_mask, wa, ba, wb, bb
 
 
 def chain_halo(kernel: int, dilations) -> int:
     """One-sided receptive field of the dilated(a)+plain(b) conv chain."""
-    half = (kernel - 1) // 2
-    return sum(d * half + half for d in dilations)
+    return sum(pair_reach(kernel, d) for d in dilations)
 
 
 def _dils(dilations):
@@ -49,17 +99,57 @@ def _dils(dilations):
     return dilations, (ctypes.c_int * len(dilations))(*dilations)
 
 
-def chain_tile(channels: int, dtype: torch.dtype, dilations) -> int:
-    """Output frames per block that the CUDA kernel uses (builds it)."""
+def _tile(width: int, kernel: int, dilations, dtype: torch.dtype) -> tuple[int, bool]:
+    """(output frames a block, tensor-core kernel) of one launch, from the
+    library; frames <= 0 when the launch has no tiling."""
     dilations, dils = _dils(dilations)
     fn = _build.function("resblock_chain", "stk_resblock_chain_tile",
-                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
-    tile = fn(channels, len(dilations), ctypes.cast(dils, ctypes.c_void_p),
-              _build.dtype_code(dtype))
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    mma = ctypes.c_int(0)
+    tile = fn(width, kernel, len(dilations), ctypes.cast(dils, ctypes.c_void_p),
+              _build.dtype_code(dtype), ctypes.byref(mma))
+    return tile, bool(mma.value)
+
+
+def chain_tile(channels: int, dtype: torch.dtype, dilations, kernel: int = 3) -> int:
+    """Output frames per block that the CUDA kernel uses for a chain of
+    ``channels`` in one launch (run by the ``kernel_width`` instance;
+    builds it)."""
+    tile, _ = _tile(kernel_width(channels), kernel, tuple(dilations), dtype)
     if tile <= 0:
-        raise ValueError(f"no chain tiling for C={channels}, {dtype}, "
-                         f"dilations {dilations}")
+        raise ValueError(f"no chain tiling for C={channels}, k={kernel}, {dtype}, "
+                         f"dilations {tuple(dilations)}")
     return tile
+
+
+def max_pair_reach(dtype: torch.dtype) -> int:
+    """The library's MAX_REACH in ``dtype`` (builds it)."""
+    fn = _build.function("resblock_chain", "stk_resblock_chain_max_reach", [ctypes.c_int])
+    return fn(_build.dtype_code(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(width: int, kernel: int, dilations: tuple, dtype: torch.dtype) -> tuple:
+    """The launches that run a chain: (first pair, end) of each group of
+    consecutive pairs. From each pair on, the longest group of at most
+    MAX_PAIRS that the tensor-core kernel takes, else the longest with a
+    tiling (a lone pair within MAX_PAIR_REACH always has one)."""
+    plan, i = [], 0
+    while i < len(dilations):
+        on_mma = any_tile = None
+        for j in range(i + 1, min(i + MAX_PAIRS, len(dilations)) + 1):
+            tile, mma = _tile(width, kernel, dilations[i:j], dtype)
+            if tile <= 0:
+                break
+            any_tile = j
+            on_mma = j if mma else on_mma
+        end = on_mma or any_tile
+        if end is None:
+            raise ValueError(f"no chain tiling for C={width}, k={kernel}, {dtype}, "
+                             f"dilation {dilations[i]}")
+        plan.append((i, end))
+        i = end
+    return tuple(plan)
 
 
 def _silu_rounded(v: torch.Tensor) -> torch.Tensor:
@@ -94,7 +184,7 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
     """x [B,T,C] -> [B,T,C] in x's dtype (see the module docstring)."""
     b, t_len, c = x.shape
     p, k = wa.shape[0], wa.shape[1]
-    dilations, dils = _dils(dilations)
+    dilations = tuple(int(d) for d in dilations)
     if (tuple(wa.shape) != (p, k, c, c) or wb.shape != wa.shape
             or tuple(ba.shape) != (p, c) or bb.shape != ba.shape
             or len(dilations) != p):
@@ -107,10 +197,11 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
         return resblock_chain_plain(x, frame_mask, wa, ba, wb, bb, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if k != 3 or c not in (128, 256) or not 1 <= p <= 4 or min(dilations) < 1:
-        raise ValueError(f"the chain kernel takes k=3, C in (128, 256) and up "
-                         f"to 4 conv pairs with dilations >= 1, got k={k}, "
-                         f"C={c}, P={p}, dilations {dilations}")
+    if not supports(c, k, dilations, x.dtype):
+        raise ValueError(f"the chain kernel takes C <= {MAX_CHANNELS}, an odd k and "
+                         f"dilations >= 1 whose conv pairs reach at most "
+                         f"{MAX_PAIR_REACH.get(x.dtype)} frames in {x.dtype}, got k={k}, "
+                         f"C={c}, dilations {dilations}")
     if wa.dtype != x.dtype or wb.dtype != x.dtype:
         raise TypeError("wa and wb must be in x's dtype")
     for name, tns in (("x", x), ("wa", wa), ("wb", wb)):
@@ -123,16 +214,24 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
                                            dtype=torch.float32).contiguous()
 
     fm, baf, bbf = f32(frame_mask), f32(ba), f32(bb)
-    out = torch.empty_like(x)
+    width = kernel_width(c)
+    xk = x
+    if width != c:
+        xk, fm, wa, baf, wb, bbf = pad_channels(x, fm, wa, baf, wb, bbf, width)
     fn = _build.function("resblock_chain", "stk_resblock_chain", _ARGTYPES)
     P = _build.ptr
-    with _build.on(x):
-        _build.check(fn(P(x), P(fm), P(wa), P(baf), P(wb), P(bbf), P(out), b, t_len,
-                        c, p, ctypes.cast(dils, ctypes.c_void_p),
-                        _build.dtype_code(x.dtype), _build.stream_ptr(x)),
-                     "stk_resblock_chain")
-    _count.launched("resblock_chain", (b, t_len, c))
-    return out
+    for i, j in launch_plan(width, k, dilations, x.dtype):
+        out = torch.empty_like(xk)
+        _, dils = _dils(dilations[i:j])
+        with _build.on(x):
+            _build.check(fn(P(xk), P(fm), P(wa[i:j]), P(baf[i:j]), P(wb[i:j]), P(bbf[i:j]),
+                            P(out), b, t_len, width, k, j - i,
+                            ctypes.cast(dils, ctypes.c_void_p),
+                            _build.dtype_code(x.dtype), _build.stream_ptr(x)),
+                         "stk_resblock_chain")
+        _count.launched("resblock_chain", (b, t_len, c))
+        xk = out
+    return xk if width == c else xk[..., :c].contiguous()
 
 
 def stack_resblock(params, dtype) -> tuple[torch.Tensor, ...]:
@@ -149,7 +248,8 @@ def stack_resblock(params, dtype) -> tuple[torch.Tensor, ...]:
 
 def fused_resblock(params, x, dilations, mask=None):
     """Drop-in for models.vocoder._resblock(params, x, dilations, mask) with
-    the batch-shared mask [1, T, 1] (or None)."""
+    the batch-shared mask [1, T, 1] (or None), for ``x`` in any layout (the
+    vocoder's first chain takes a conv's transposed output)."""
     wa, ba, wb, bb = stack_resblock(params, x.dtype)
     fm = None if mask is None else mask.reshape(mask.shape[-2])
-    return resblock_chain(x, fm, wa, ba, wb, bb, dilations)
+    return resblock_chain(x.contiguous(), fm, wa, ba, wb, bb, dilations)
