@@ -17,8 +17,9 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. build   — compile every kernel in supertonic_tpu_torch/csrc with nvcc,
                printing ptxas's register and spill report; count the wgmma
                (HGMMA) and TMA-load (UTMALDG) instructions of the bf16
-               attention and FFN libraries (cuobjdump -sass; none fails)
-               and print the tiles each chose
+               attention, FFN and chain libraries (cuobjdump -sass; none
+               fails) and print the tiles each chose (the chain's at the
+               b64 cell's shapes and the two vocoder windows)
   3. main    — TTS() at the default 66M config (bf16, random weights made
                from a seed, zero-init heads perturbed) answers the three
                protocol texts through ``synthesize`` and 16 texts through
@@ -61,13 +62,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                B=1, the chain on the vocoder windows, the int8 server's
                quantize and W8A8 shapes), timed where a streamed chunk
                launches them; at the other widths (every bf16 attention
-               instance, Dh 12 to 128; the FFN's K and N tails; every chain
+               instance, Dh 12 to 256, and Dh 320 past them, in both types,
+               timed at Dh 192 and 256; the FFN's K and N tails; every chain
                instance and padded channel counts; chains of conv size 5,
-               of five pairs and of a lone pair at the domain's largest
-               reach, run as more than one launch where a tile cannot hold
-               them) and, timed, at every shape phase 12 recorded; the
-               chain's domain constant (vocoder_fused.MAX_PAIR_REACH)
-               against the library's
+               of five pairs and of a lone pair at the fused kernels'
+               largest reach, run as more than one launch where a tile
+               cannot hold them; pairs past that reach, k 3 at dilation 32
+               and k 11 at dilation 5, alone and in chains, which run as
+               per-conv launches) and, timed, at every shape phase 12
+               recorded; the fused kernels' reach constant
+               (vocoder_fused.MAX_PAIR_REACH) against the library's
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -138,10 +142,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                supertonic_tpu_torch.tools.parity_check --skip-ort exits 0
                and tools.bench_onnx_backend prints both modes
  12. widths — runs after phase 11 (d), before phase 5: the whole path at
-               three configs off the default widths (the tests' tiny dims:
+               four configs off the default widths (the tests' tiny dims:
                Dh 16 and 32, FFN D 64 F 256, chains at C 64, 32, 16; a
                reference tts.json with proj_out.idim 384: TE Dh 96; the VE
-               at Dh 128 with the vocoder's chains at 384 and 192), depth
+               at Dh 128 with the vocoder's chains at 384 and 192; a
+               reference tts.json with proj_out.idim 1024, TE Dh 256, and
+               the vocoder's chains at conv size 7, pairs reaching 30
+               frames, per-conv launches in f32 at C 256), depth
                cut, through TTS(<its assets>): f32 on the card against the
                CPU on injected noise (B=2, 2 steps; 1e-5 in the wav) and
                bf16 synthesize_batch (finite, RMS); attention, the FFN and
@@ -258,9 +265,12 @@ SOURCES = {
 # mma.sync designs they replaced (supertonic_tpu_torch/csrc/earlier/)
 # at the b64 cell's shapes (L=320, T=448) and a streamed chunk's B=1
 # shapes, kernel_variants.py's "earlier" rows (CUDA events, as time_ms) on
-# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The
-# chain and the int8 products: chip_smoke.py phase 5 at the T=640 cell, on
-# the same card (build hash fb4eb80f8363927d, PERF.md section 6); for
+# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The chain: the
+# mma.sync design it replaced, at the b64 cell's two shapes (T=448) and the
+# two vocoder windows of a streamed chunk, kernel_variants.py's "earlier"
+# rows on the same card (PERF.md section 6). The int8 products:
+# chip_smoke.py phase 5 at the T=640 cell, on the same card (build hash
+# fb4eb80f8363927d); for
 # w8a8_matmul, the int32 product it replaces on the path.
 INT32_PRODUCT_MS = {(40960, 512, 512): 0.0679, (40960, 512, 2048): 0.2119,
                     (40960, 2048, 512): 0.1699, (23680, 512, 512): 0.0414}
@@ -270,7 +280,8 @@ EARLIER_MS = {
                   (1, 8, 448, 448, True, 64): 0.0158, (1, 8, 448, 370, True, 64): 0.0179,
                   (1, 4, 320, 320, True, 64): 0.0154, (1, 4, 320, 50, False, 64): 0.0200},
     "adaln_ffn": {(64, 448, 512, 2048): 0.4592, (1, 448, 512, 2048): 0.0567},
-    "resblock_chain": {(64, 40960, 128): 10.017, (64, 5120, 256): 6.072},
+    "resblock_chain": {(64, 28672, 128): 6.886, (64, 3584, 256): 4.176,
+                       (1, 896, 256): 0.2158, (1, 7168, 128): 0.1077},
     "int8_matmul": INT32_PRODUCT_MS,
     "w8a8_matmul": INT32_PRODUCT_MS,
     "quantize": {},
@@ -358,7 +369,7 @@ def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
     earlier_txt = "" if earlier is None else f" (earlier: {earlier} ms)"
     # the redesigned bf16 kernels also from a replayed graph, beside the library call
     replay_txt = ""
-    if kernel in ("attention", "adaln_ffn") and dtype == torch.bfloat16:
+    if kernel in ("attention", "adaln_ffn", "resblock_chain") and dtype == torch.bfloat16:
         replay_txt = f" graph_replay_ms={graph_ms(fn):.4f}"
         if lib is not None:
             replay_txt += f" library_graph_replay_ms={graph_ms(lib):.4f}"
@@ -395,12 +406,23 @@ def check_attention(gen, cell, results, serving, widths):
         ("edge B1 H1", 1, 1, 640, 640, "tail", None, 64),
     ]
     # the other head widths: every bf16 instance (16 .. 128 in steps of 16;
-    # two 64-column panels above 64), a width the bf16 wrapper pads (12, 24,
-    # 100) and the f32 kernel's padded columns, at the tile edges
+    # two 64-column panels above 64) and a width the bf16 wrapper pads (12,
+    # 24, 100), at the tile edges; f32 takes each width as it is
     cases += [(f"edge Dh{dh} Tq65 Tk{tk}", 3, 2, 65, tk, mk, None, dh)
               for dh in (12, 16, 24, 32, 48, 80, 96, 100, 112, 128)
               for tk, mk in ((63, "tail"), (130, None))]
     cases += [("edge Dh128 fully masked row", 2, 2, 65, 70, "one_row_empty", None, 128)]
+    # past 128: the bf16 kernel's three- and four-panel instances (144 .. 256)
+    # and past 256 the SIMT kernel's slices of the output columns (f32 at
+    # every width); timed at the TE's b64 shape for Dh 192 and 256 (a
+    # tts.json with proj_out.idim 768 or 1024)
+    cases += [(f"edge Dh{dh} Tq65 Tk{tk}", 3, 2, 65, tk, mk, None, dh)
+              for dh in (144, 192, 256, 320)
+              for tk, mk in ((63, "tail"), (130, None))]
+    cases += [(f"edge Dh{dh} fully masked row", 2, 2, 65, 70, "one_row_empty", None, dh)
+              for dh in (256, 320)]
+    cases += [(f"wide Dh{dh} TE self B64 H4 L320", 64, 4, 320, 320, "tail", 0, dh)
+              for dh in (192, 256)]
     cases += [(f"cell H{h} Tq{tq} Tk{tk}", b, h, tq, tk, "tail" if masked else None, n, dh)
               for (b, h, tq, tk, masked, dh), n in sorted(cell["attention"].items())]
     # the serving run's shapes, timed where a streamed chunk launches them
@@ -517,8 +539,10 @@ def check_chain(gen, cell, results, serving, widths):
     timed), frame mask ("tail": the last tenth masked, "zero": all masked),
     dilations, conv size. The tile edges at every instance of the kernel
     (vocoder_fused.CHAIN_WIDTHS) and at channel counts the wrapper pads to
-    the next; chains the wrapper runs as several launches or on the SIMT
-    kernel in bf16; phase 12's widths with their config's dilations."""
+    the next; chains the wrapper runs as several launches; pairs past the
+    fused kernels' reach (per-conv launches), also where no fused bf16 tile
+    holds the pair at C 320 and where none holds it at C 64 (dilation 150);
+    phase 12's widths with their config's dilations and conv size."""
     dils = (1, 3, 9)
     cases = [("T'=8x256", 64, 8 * 256, 256, 0, "tail", dils, 3),
              ("T'=64x256", 64, 64 * 256, 128, 0, "tail", dils, 3)]
@@ -528,8 +552,9 @@ def check_chain(gen, cell, results, serving, widths):
                0 if k else None, "tail", dils, 3)
               for (b, t_len, c), k in sorted(serving["resblock_chain"].items())
               if (b, t_len, c) not in cell["resblock_chain"]]
-    cases += [(f"phase 12 T'={t_len} dilations {d}", b, t_len, c, 0, "tail", d, 3)
-              for (b, t_len, c), d in sorted(widths["resblock_chain"].items())]
+    cases += [(f"phase 12 T'={t_len} dilations {d}", b, t_len, c, 0, "tail", d, ks)
+              for (b, t_len, c), kinds in sorted(widths["resblock_chain"].items())
+              for d, ks in sorted(kinds)]
     for dtype in (torch.float32, torch.bfloat16):
         # the wrapper's domain constant is the library's
         reach = vocoder_fused.max_pair_reach(dtype)
@@ -558,29 +583,45 @@ def check_chain(gen, cell, results, serving, widths):
                       (f"five pairs C={c}", 2, 700, c, None, "tail", (1, 3, 9, 1, 3), 3),
                       (f"lone pair at reach {top} C={c}", 2, 300, c, None, "tail", (top - 1,), 3),
                       (f"k=7 C={c}", 2, 300, c, None, "tail", (1, top // 3 - 1), 7)]
-            if vocoder_fused.supports(c, 3, (1, 3, 9, 27), dtype):
-                edges.append((f"dilations (1, 3, 9, 27) C={c}", 2, 700, c, None, "tail",
-                              (1, 3, 9, 27), 3))
-        for name, b, t_len, c, n, mk, dils, ks in cases + edges:
-            if not vocoder_fused.supports(c, ks, dils, dtype):
+            edges.append((f"dilations (1, 3, 9, 27) C={c}", 2, 700, c, None, "tail",
+                          (1, 3, 9, 27), 3))
+            # past the fused kernels' reach: k 3 at dilation 32 (33 frames, past
+            # bf16's 31), k 11 at dilation 5 (30, past f32's 23), alone and in chains
+            edges += [(f"past the reach: dilation 32 C={c}", 2, 300, c, None, "tail", (32,), 3),
+                      (f"past the reach: dilations (1, 32, 3) C={c}", 2, 300, c, None, "tail",
+                       (1, 32, 3), 3),
+                      (f"past the reach: k=11 dilation 5 C={c}", 2, 300, c, None, "tail",
+                       (5,), 11),
+                      (f"past the reach: k=11 dilations (1, 3, 5) C={c}", 2, 300, c, None,
+                       "tail", (1, 3, 5), 11)]
+        edges += [("past the reach: dilation 32 C=320", 2, 300, 320, None, "tail", (32,), 3),
+                  ("past every tile: dilation 150 C=64", 2, 400, 64, None, "tail", (150,), 3)]
+        for name, b, t_len, c, n, mk, pair_dils, ks in cases + edges:
+            if not vocoder_fused.supports(c, ks, pair_dils, dtype):
                 raise AssertionError(f"chain case {name} {dtype} lies outside supports()")
             x = torch.randn((b, t_len, c), generator=gen, device=DEV).to(dtype)
             fm = torch.zeros(t_len, device=DEV)
             if mk == "tail":
                 fm[:t_len - max(1, t_len // 10)] = 1.0
             s = (ks * c) ** -0.5
-            p = len(dils)
+            p = len(pair_dils)
             wa, wb = ((torch.rand((p, ks, c, c), generator=gen, device=DEV) * 2 - 1)
                       .mul(s).to(dtype) for _ in range(2))
             ba, bb = (0.1 * torch.randn((p, c), generator=gen, device=DEV) for _ in range(2))
-            args = (x, fm, wa, ba, wb, bb, dils)
+            args = (x, fm, wa, ba, wb, bb, pair_dils)
             got = vocoder_fused.resblock_chain(*args)
             ref = vocoder_fused.resblock_chain_plain(*args)
             width = vocoder_fused.kernel_width(c)
-            plan = vocoder_fused.launch_plan(width, ks, tuple(dils), dtype)
-            tiles = [vocoder_fused._tile(width, ks, dils[i:j], dtype) for i, j in plan]
-            where = " + ".join(f"{'mma' if mma else 'simt'} {-(-t_len // tile)} tiles"
-                               for tile, mma in tiles)
+            plan = vocoder_fused.launch_plan(width, ks, tuple(pair_dils), dtype)
+            where = []
+            for i, j, route in plan:
+                if route == "conv":
+                    where.append("per-conv x2")
+                    continue
+                tile = vocoder_fused._tile(width, ks, pair_dils[i:j], dtype, b, t_len)
+                where.append(f"{'wgmma' if dtype == torch.bfloat16 else 'simt'} "
+                             f"{-(-t_len // tile)} tiles of {tile}")
+            where = " + ".join(where)
             err = compare(f"resblock_chain C={c} B{b} {name} k={ks} launches: {where} "
                           f"{dtype}", got, ref, dtype)
             if not torch.equal(got[:, -1], x[:, -1]):
@@ -709,11 +750,11 @@ def check_w8a8(gen, cell, results, serving):
 
 
 def check_instructions(libs) -> None:
-    """The bf16 attention and FFN run on Hopper's own instructions: count
-    wgmma (SASS HGMMA) and TMA loads (UTMALDG) in each library's code, and
-    print the tiles each kernel chose."""
+    """The bf16 attention, FFN and chain run on Hopper's own instructions:
+    count wgmma (SASS HGMMA) and TMA loads (UTMALDG) in each library's code,
+    and print the tiles each kernel chose."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("attention", "ffn"):
+    for name in ("attention", "ffn", "resblock_chain"):
         sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True,
                               check=True).stdout
         found = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
@@ -722,6 +763,13 @@ def check_instructions(libs) -> None:
             raise AssertionError(f"lib{name}.so has no wgmma or no TMA load")
     log(f"  attention tiles: {attention.kernel_tiles()}")
     log(f"  adaln_ffn tiles (rows, columns, stages): {ffn.kernel_tiles()}")
+    for c in vocoder_fused.CHAIN_WIDTHS:
+        for half in (False, True)[:1 + (c <= 256)]:
+            log(f"  resblock_chain bf16 layout at C={c}: {vocoder_fused.kernel_layout(c, half)}")
+    for b, t_len, c in ((64, 28672, 128), (64, 3584, 256), (1, 896, 256), (1, 7168, 128)):
+        tile = vocoder_fused._tile(c, 3, (1, 3, 9), torch.bfloat16, b, t_len)
+        log(f"  resblock_chain bf16 tile at B{b} x {t_len} frames, C={c}: {tile} output frames "
+            f"a block, {b * -(-t_len // tile)} blocks")
 
 
 def cell_summary(results, launches) -> dict:
@@ -1095,8 +1143,9 @@ def fused_projections_path(params) -> None:
 # the hand-written kernels' names in a device trace, one per wrapper launch
 # (bf16 and f32 designs; the FFN's LayerNorm pass, the W8A8 product's
 # rescale-and-bias epilogue, the int32 product's epilogue)
-TRACE_NAMES = {"attention": ("attn_wgmma", "attn_kernel"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
-               "resblock_chain": ("chain_mma", "chain_kernel"), "int8_matmul": ("Int32Out",),
+TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
+               "resblock_chain": ("chain_wgmma", "chain_kernel", "conv_pass"),
+               "int8_matmul": ("Int32Out",),
                "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows",)}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
@@ -1581,8 +1630,11 @@ def width_configs() -> list:
     """(name, config) of phase 12: the tests' tiny config's dims; a
     reference-format tts.json with proj_out.idim 384 (the text encoder at
     Dh 96); the vector estimator at Dh 128 with the vocoder's fine
-    timelines at 384 and 192 channels. Depth cut to one block a network
-    (two at the tiny dims)."""
+    timelines at 384 and 192 channels; a reference-format tts.json with
+    proj_out.idim 1024 (the text encoder at Dh 256) and the vocoder's
+    chains at conv size 7, whose pairs reach 30 frames (past the fused
+    kernels' 23 in f32: per-conv launches where no fused tile holds them).
+    Depth cut to one block a network (two at the tiny dims)."""
     import dataclasses
 
     from supertonic_tpu_torch import config as C
@@ -1612,8 +1664,13 @@ def width_configs() -> list:
     ve128 = shallow(C.TTSConfig(), dim=256, n_heads=2)
     ve128 = dataclasses.replace(ve128, vocoder=dataclasses.replace(ve128.vocoder,
                                                                    channels=(384, 192)))
+    te256 = shallow(C.tts_config_from_reference_dict(
+        {"ttl": {"text_encoder": {"proj_out": {"idim": 1024, "odim": 512}}}}))
+    te256 = dataclasses.replace(te256, vocoder=dataclasses.replace(te256.vocoder,
+                                                                   resblock_kernel=7))
     return [("tiny dims", tiny), ("tts.json proj_out.idim 384", te96),
-            ("VE Dh 128, vocoder channels (384, 192)", ve128)]
+            ("VE Dh 128, vocoder channels (384, 192)", ve128),
+            ("tts.json proj_out.idim 1024, vocoder conv size 7", te256)]
 
 
 def expected_widths(cfg) -> dict:
@@ -1662,8 +1719,9 @@ def widths_phase(smi: str) -> dict:
     TTS() in bf16 through synthesize_batch (finite audio, RMS). Each card
     run must launch attention, the AdaLN FFN and the chain at every width
     its config gives them, and no plain version may see a CUDA tensor.
-    Returns the shapes the card runs gave each kernel (the chain's with its
-    dilations), which phase 5 holds and times."""
+    Returns the shapes the card runs gave each kernel, each with the set of
+    (dilations, conv size) of the configs that gave it (the chain's), which
+    phase 5 holds and times."""
     import dataclasses
 
     widths = {k: {} for k in ops.KERNELS}
@@ -1697,7 +1755,8 @@ def widths_phase(smi: str) -> dict:
                     raise AssertionError(f"{name}: f32 launched widths {got}, expected {want}")
                 for kernel in PATH_KERNELS:
                     for shape in tally[kernel]:
-                        widths[kernel][shape] = cfg.vocoder.resblock_dilations
+                        widths[kernel].setdefault(shape, set()).add(
+                            (cfg.vocoder.resblock_dilations, cfg.vocoder.resblock_kernel))
             del tts
         (wg, dg), (wc, dc) = out["cuda"], out["cpu"]
         if wg.shape != wc.shape:
@@ -1724,7 +1783,8 @@ def widths_phase(smi: str) -> dict:
             f"audio, finite, RMS > 0.005; widths {got} ({smi})")
         for kernel in PATH_KERNELS:
             for shape in tally[kernel]:
-                widths[kernel][shape] = cfg.vocoder.resblock_dilations
+                widths[kernel].setdefault(shape, set()).add(
+                    (cfg.vocoder.resblock_dilations, cfg.vocoder.resblock_kernel))
         del tts
     return widths
 
@@ -2975,7 +3035,7 @@ def main() -> int:
 
     # phase 12 runs here too, so that phase 5 holds and times each path
     # kernel at the widths it gave them
-    log("phase 12: widths: the whole path at three configs off the default widths, f32 "
+    log("phase 12: widths: the whole path at four configs off the default widths, f32 "
         "card vs CPU and bf16")
     widths = widths_phase(smi)
 

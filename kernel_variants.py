@@ -5,26 +5,39 @@ behind the design choices stated in the headers of supertonic_tpu_torch/
 csrc/attention.cu, resblock_chain.cu and ffn.cu.
 
     python3 kernel_variants.py                 # every kernel
-    python3 kernel_variants.py ffn attention   # some of them
+    python3 kernel_variants.py ffn attention   # some of them (attention_f32:
+                                               # the f32 attention)
+    python3 kernel_variants.py resblock_chain --split  # and the chain's
+                                               # time split (SPLIT)
 
 Each variant is the kernel's own source with design constants changed by
-text substitution in its bf16 section, or for "earlier" the design the
-committed kernel replaced (supertonic_tpu_torch/csrc/earlier/), built with
+text substitution in its bf16 section, or a whole source file: for
+"earlier" the design the committed kernel replaced
+(supertonic_tpu_torch/csrc/earlier/), for the chain's clusters a design
+alternative (supertonic_tpu_torch/csrc/variants/), built with
 the package's nvcc flags into supertonic_tpu_torch/build/variants/
 (ptxas's register and spill report printed), checked against the plain
 PyTorch version and timed in turns with the kernel as committed
 (committed, variants, variants in reverse, committed), at the shapes one
 b64/5-step batch gives each kernel (chip_smoke.py records them) and, for
-attention and the FFN, at the B=1 shapes of a streamed chunk. Attention
-and the FFN are timed twice: launched from the host (CUDA events around
-the calls, as chip_smoke.py times them) and replayed from a CUDA graph of
-the same calls, as the engine runs them, which leaves out the host's
-per-call work:
+all three, at the B=1 shapes of a streamed chunk (the chain: the two
+vocoder windows). Each is timed twice: launched from the host (CUDA events
+around the calls, as chip_smoke.py times them) and replayed from a CUDA
+graph of the same calls, as the engine runs them, which leaves out the
+host's per-call work:
   attention  the mma.sync design it replaced (earlier); three blocks an SM,
              with 64- or 32-key stages; two consumer warpgroups and one
              block an SM; 3 ring stages
-  chain      the accurate silu (expf and IEEE division); 16 warps of
-             32 frames x 64 channels, with either silu
+  attention_f32  the f32 kernel with instances at Dh 32-128 that the
+             SIMT kernel of any width replaced (earlier), at Dh 64 and 128
+  chain      the mma.sync design it replaced (earlier); clusters of 2 and
+             of 4 blocks on neighbouring tiles with each weight stage
+             multicast by TMA into all of them; the accurate silu
+             (expf and IEEE division); half of silu's exponentials by a
+             polynomial on the FMA pipe; the largest tile at every shape
+             (no smaller tiles for a grid that does not fill the card); two
+             consumer warpgroups at every C; no stages of 64 input
+             channels; the conv size at run time only
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -47,10 +60,34 @@ import chip_smoke as cs
 from supertonic_tpu_torch.ops import _build, attention, ffn, vocoder_fused
 
 BF16_SECTION = "// bf16 on the tensor cores"
-EARLIER = "earlier"  # a variant that is a whole source file of csrc/earlier/
+FILE = "file"  # a variant that is a whole source file under csrc/ (+ substitutions)
+CLUSTER_SRC = "variants/resblock_chain_cluster.cu"
 CHAIN_ACC = [("stk::silu_fast(", "stk::silu_f(")]
-CHAIN_16W = [("constexpr int MMA_NT = 256;", "constexpr int MMA_NT = 512;"),
-             ("constexpr int WM = 64, WN = 64;", "constexpr int WM = 32, WN = 64;")]
+# half the exponentials of the chain's silu on the FMA pipe: 2^y = 2^n 2^f,
+# n = rint(y), 2^f by its degree-5 Taylor polynomial on |f| <= 1/2
+CHAIN_POLY = [(
+    "  return stk::pack_bf16(stk::silu_fast(a), stk::silu_fast(b));",
+    "  const float y = fminf(fmaxf(-1.4426950408889634f * a, -126.0f), 126.0f);\n"
+    "  const float r = y + 12582912.0f, f = y - (r - 12582912.0f);\n"
+    "  float p = fmaf(1.3333558e-3f, f, 9.6181291e-3f);\n"
+    "  p = fmaf(fmaf(fmaf(fmaf(p, f, 5.5504109e-2f), f, 2.4022651e-1f), f, 6.9314718e-1f), f,"
+    " 1.0f);\n"
+    "  const float e = __int_as_float(__float_as_int(p) + ((__float_as_int(r) - 0x4B400000)"
+    " << 23));\n"
+    "  return stk::pack_bf16(__fdividef(a, 1.0f + e), stk::silu_fast(b));")]
+# Deliberately incomplete chain kernels, timed beside the committed one to
+# split where its time goes, and never checked (their outputs are wrong):
+# python3 kernel_variants.py resblock_chain --split
+CHAIN_EPILOGUE = "    const bool last = conv == 2 * P - 1;\n"
+SPLIT = {"resblock_chain": {
+    "split: silu as the identity": [
+        ("  return stk::pack_bf16(stk::silu_fast(a), stk::silu_fast(b));",
+         "  return stk::pack_bf16(a, b);")],
+    "split: no epilogue": [
+        (CHAIN_EPILOGUE, CHAIN_EPILOGUE + "    if (Tlen >= 0) {\n"
+         "      stk::named_bar_sync(1, L::NC * 128);\n      continue;\n    }\n")],
+    "split: no products": [
+        ("stk::Wgmma<64>::template rs<1>(", "if (Tlen < 0) stk::Wgmma<64>::template rs<1>(")]}}
 UP = "using UpTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
 DOWN = "using DownTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
 UP_FEW = "using UpTileSmall = stk::WgTile<2, 1, 64, 8, 1, true>;"
@@ -62,9 +99,9 @@ def tile(line: str, args: str) -> tuple[str, str]:
     return line, line[:line.index("<") + 1] + args + ">;"
 
 
-VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or EARLIER file}
+VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE, path, [...])}
     "attention": {
-        "earlier: mma.sync, cp.async ring": (EARLIER, "attention_mma_sync.cu"),
+        "earlier: mma.sync, cp.async ring": (FILE, "earlier/attention_mma_sync.cu", []),
         "3 blocks an SM, 32-key stages": [
             ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 3;"),
             ("constexpr int STAGE_KEYS = 64;", "constexpr int STAGE_KEYS = 32;")],
@@ -74,10 +111,25 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or EARLI
             ("constexpr int CONSUMERS = 1;", "constexpr int CONSUMERS = 2;"),
             ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 1;")],
         "3 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")]},
-    "resblock_chain": {"accurate silu": CHAIN_ACC, "16 warps of 32x64": CHAIN_16W,
-                       "16 warps of 32x64, accurate silu": CHAIN_16W + CHAIN_ACC},
+    "attention_f32": {
+        "earlier: instances at Dh 32-128": (FILE, "earlier/attention_f32_simt.cu", [])},
+    "resblock_chain": {
+        "earlier: mma.sync, cp.async ring": (FILE, "earlier/resblock_chain_mma_sync.cu", []),
+        "accurate silu": CHAIN_ACC,
+        "half the exponentials by a polynomial on the FMA pipe": CHAIN_POLY,
+        "clusters of 2, weight stages multicast": (FILE, CLUSTER_SRC, []),
+        "clusters of 4, weight stages multicast": (
+            FILE, CLUSTER_SRC, [("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 4;")]),
+        "two consumer warpgroups at every C": [
+            ("constexpr int WIDE_CONSUMERS = 4;", "constexpr int WIDE_CONSUMERS = 2;")],
+        "the conv size at run time only (no k = 3 instances)": [
+            ("  const int k = KT ? KT : k_;", "  const int k = k_;")],
+        "largest tile at every shape": [
+            ("W0 / 2 > 2 * t.halo && B > 0", "W0 / 2 > 2 * t.halo && B < 0")],
+        "no 64-channel stages (32, 16 at C 256)": [
+            ("BUFS <= 128 * 1024 && (C / 64)", "BUFS < 1 && (C / 64)")]},
     "ffn": {
-        "earlier: mma.sync, cp.async ring": (EARLIER, "ffn_mma_sync.cu"),
+        "earlier: mma.sync, cp.async ring": (FILE, "earlier/ffn_mma_sync.cu", []),
         "not persistent: one tile a consumer": [
             tile(UP, "2, 2, 128, 4, 1, false"), tile(DOWN, "2, 2, 128, 4, 1, false"),
             tile(UP_FEW, "2, 1, 64, 8, 1, false"),
@@ -100,11 +152,16 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or EARLI
         "few rows: GEMM2 in 64 x 64 tiles": [tile(DOWN_FEW, "2, 1, 64, 8, 1, true")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
+         "attention_f32": ("stk_attention", attention._ARGTYPES),
          "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES),
          "ffn": ("stk_adaln_ffn", ffn._ARGTYPES)}
-# names (in ptxas's mangled names) of each kernel's bf16 device functions
-BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"), "resblock_chain": ("_mma",),
+# names (in ptxas's mangled names) of the device functions whose registers and
+# spills each build prints (the bf16 kernels; attention_f32: the f32 ones)
+BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
+                  "attention_f32": ("attn_wide", "attn_kernel"),
+                  "resblock_chain": ("chain_mma", "chain_wgmma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod")}
+SOURCE = {"attention_f32": "attention"}  # kernels timed from another kernel's source
 OUT = _build.BUILD_ROOT / "variants"
 
 
@@ -114,18 +171,20 @@ def build_variants(kernels) -> dict:
     procs = {}
     for kernel in kernels:
         variants = VARIANTS[kernel]
-        head, bf16 = (_build.CSRC_DIR / f"{kernel}.cu").read_text().split(BF16_SECTION)
+        source = (_build.CSRC_DIR / f"{SOURCE.get(kernel, kernel)}.cu").read_text()
+        head, bf16 = source.split(BF16_SECTION)
         # the committed source too, for its ptxas report beside the variants'
         for i, (name, subs) in enumerate([("committed", [])] + list(variants.items())):
-            if subs and subs[0] == EARLIER:
-                text = (_build.CSRC_DIR / EARLIER / subs[1]).read_text()
+            if subs and subs[0] == FILE:
+                _, where, subs = subs
+                src, prefix = (_build.CSRC_DIR / where).read_text(), ""
             else:
-                src = bf16
-                for old, new in subs:
-                    if old not in src:
-                        raise RuntimeError(f"{kernel}: '{old}' not in the bf16 section")
-                    src = src.replace(old, new)
-                text = head + BF16_SECTION + src
+                src, prefix, where = bf16, head + BF16_SECTION, "the bf16 section"
+            for old, new in subs:
+                if old not in src:
+                    raise RuntimeError(f"{kernel}: '{old}' not in {where}")
+                src = src.replace(old, new)
+            text = prefix + src
             path = OUT / f"{kernel}_v{i}.cu"
             path.write_text(text)
             lib = path.with_suffix(".so")
@@ -144,7 +203,7 @@ def build_variants(kernels) -> dict:
             if "Function properties" in line and any(f in line for f in BF16_FUNCTIONS[kernel]):
                 cs.log(f"  {kernel} / {name}: {' '.join(x.strip() for x in lines[i + 1:i + 3])}")
             # wgmma serialised by the compiler, or setmaxnreg ignored
-            if any(code in line for code in ("C7515", "C7508", "C7510")):
+            if any(code in line for code in ("C7515", "C7508", "C7510", "C7512", "C7520")):
                 cs.log(f"  {kernel} / {name}: {line.strip()[:160]}")
         entry, argtypes = ENTRY[kernel]
         fn = getattr(ctypes.CDLL(str(lib)), entry)
@@ -229,9 +288,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     cs.log(smi.stdout.strip() or torch.cuda.get_device_name(0))
-    kernels = sys.argv[1:] or list(VARIANTS)
+    kernels = [a for a in sys.argv[1:] if a != "--split"] or list(VARIANTS)
     if any(k not in VARIANTS for k in kernels):
-        raise SystemExit(f"kernels: {', '.join(VARIANTS)}")
+        raise SystemExit(f"kernels: {', '.join(VARIANTS)} [--split]")
+    if "--split" in sys.argv:
+        for kernel, extra in SPLIT.items():
+            VARIANTS[kernel] = {**VARIANTS[kernel], **extra}
     _build.build_all()
     cs.log("build (bf16 kernels of each variant: ptxas registers and spills)")
     fns = build_variants(kernels)
@@ -240,6 +302,8 @@ def main() -> int:
     dt = torch.bfloat16
     if "attention" in kernels:
         variants_attention(fns, gen, dt)
+    if "attention_f32" in kernels:
+        variants_attention_f32(fns, gen)
     if "resblock_chain" in kernels:
         variants_chain(fns, gen, dt)
     if "ffn" in kernels:
@@ -308,10 +372,27 @@ def variants_attention(fns, gen, dt) -> None:
         in_turns(label, calls, 20, graphs=True)
 
 
+def variants_attention_f32(fns, gen) -> None:
+    cs.log("attention f32, ms per launch")
+    for b, h, t, d in ((64, 8, 448, 64), (64, 8, 448, 128)):
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=cs.DEV) for _ in range(3))
+        lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device=cs.DEV)
+        mask = (torch.arange(t, device=cs.DEV)[None] < lens[:, None]).float()
+        ref = attention.attention_plain(q, k, v, mask)
+        calls = {"committed": lambda: attention.fused_attention(q, k, v, mask)}
+        for name in VARIANTS["attention_f32"]:
+            fn = fns[("attention_f32", name)]
+            calls[name] = lambda fn=fn: attention_call(fn, q, k, v, mask)
+        label = f"f32 B{b} H{h} T{t} Dh{d}"
+        for name, call in calls.items():
+            cs.compare(f"attention {label} {name}", call(), ref, torch.float32)
+        in_turns(label, calls, 3, graphs=True)
+
+
 def variants_chain(fns, gen, dt) -> None:
     cs.log("resblock chain, ms per launch")
     dils = (1, 3, 9)
-    for b, t_len, c in ((64, 40960, 128), (64, 5120, 256)):
+    for b, t_len, c in ((64, 28672, 128), (64, 3584, 256), (1, 896, 256), (1, 7168, 128)):
         x = torch.randn((b, t_len, c), generator=gen, device=cs.DEV).to(dt)
         fm = torch.ones(t_len, device=cs.DEV)
         fm[-(t_len // 10):] = 0.0
@@ -326,8 +407,9 @@ def variants_chain(fns, gen, dt) -> None:
             calls[name] = lambda fn=fn: chain_call(fn, *args)
         label = f"C={c} B{b} x {t_len} frames"
         for name, call in calls.items():
-            cs.compare(f"chain {label} {name}", call(), ref, dt)
-        in_turns(label, calls, 3)
+            if not name.startswith("split:"):
+                cs.compare(f"chain {label} {name}", call(), ref, dt)
+        in_turns(label, calls, 3 if b > 1 else 20, graphs=True)
 
 
 if __name__ == "__main__":

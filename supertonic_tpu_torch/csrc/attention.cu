@@ -7,7 +7,7 @@
 // before the PV product, PV accumulated in f32, output in q's type. Keys
 // past Tk get -inf; a fully masked row sees every logit at -1e9 and so gives
 // the uniform mean of v, never NaN. Any Tq and Tk (keys stream through
-// shared memory, so there is no length cap) and any Dh up to 128, with the
+// shared memory, so there is no length cap) and any Dh, with the
 // scale the caller passes (1/sqrt of the model's true head width, which a
 // caller that pads Dh with zero columns keeps: zero columns change no logit
 // and no kept output column).
@@ -54,103 +54,118 @@
 // the blocks of 128; 370 keys take 6 stages (384). The mma.sync design
 // this replaces (csrc/earlier/attention_mma_sync.cu) is kernel_variants.py's
 // "earlier" variant.
-// Other head widths: one instance per DK = Dh in steps of 16 (16 .. 128;
-// the wrapper pads a Dh that is not a multiple of 16 with zero columns, in
-// both types the one way a head width off the instances is taken).
+// Other head widths: one instance per DK = Dh in steps of 16 (16 .. 256;
+// the wrapper pads a Dh up to 256 that is not a multiple of 16 with zero
+// columns).
 // Every operand tile keeps the layout above in panels of 64 columns (one
-// 128-byte swizzled row a panel row; DK 80-128 take two panels): the TMA
-// box stays 64 columns wide and zero-fills the columns past Dh, the S
-// product runs DK / 16 k16 steps across the panels, and P.V one n64 product
-// a panel, whose columns past Dh come out 0 and are not stored. Two panels
-// double the ring's bytes, so they take 2 ring stages (two blocks an SM
-// still fit); DK = 64 is the one-panel kernel above.
+// 128-byte swizzled row a panel row; DK 80-128 take two panels, 144-192
+// three, 208-256 four): the TMA box stays 64 columns wide and zero-fills
+// the columns past Dh, the S product runs DK / 16 k16 steps across the
+// panels, and P.V one n64 product a panel, whose columns past Dh come out 0
+// and are not stored. Two panels double the ring's bytes, so they take 2
+// ring stages (two blocks an SM still fit); three and four panels take one
+// block an SM, its consumer 240 registers (O is 32 NP floats a thread), and
+// as many stages of 64 keys as fit 227 KB (4 and 3: a four-panel stage of K
+// and V is 64 KB). DK = 64 is the one-panel kernel above.
 //
-// f32 (attn_kernel): SIMT, exact to f32 rounding: one block of 4 warps per
-// (batch, head, 16 queries), each warp 4 rows, lanes over keys for q.k and
-// over Dh for p.v, K and V through shared memory in 64-key tiles (32 above
-// Dh = 64, to stay within 48 KB of static shared memory), the same two
-// passes. One instance per D = 32, 64, 96, 128 (the wrapper pads another
-// Dh with zero columns, as in bf16).
+// f32 at every Dh, and bf16 above 256 (attn_wide): SIMT, exact to f32
+// rounding, the same two passes; one block of 4 warps per (batch, head
+// and slice of WIDE_DS output columns, 16 queries), each warp 4 rows,
+// lanes over keys for q.k and over output columns for p.v. A block computes
+// the full logits, Q and K in WIDE_DC-column chunks through shared memory
+// in turn, and P.V for its own slice of V and O, so shared memory does not
+// grow with Dh and any Dh runs unpadded. It replaced an f32 kernel with
+// instances at D 32-128 and the same sum orders
+// (csrc/earlier/attention_f32_simt.cu), which kernel_variants.py times
+// beside it.
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int BQ = 16;   // queries per block
-constexpr int BK = 64;   // keys per shared-memory tile
 constexpr int NW = 4;    // warps per block
 constexpr int R = BQ / NW;  // query rows per warp
 
-template <typename T, int D>
+constexpr int WIDE_DC = 64;   // columns of a q.k chunk
+constexpr int WIDE_DS = 128;  // output columns a block
+constexpr int WIDE_BK = 32;   // keys a tile: one a lane
+
+template <typename T>
 __global__ void __launch_bounds__(NW * 32)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const float* __restrict__ mask,
-            T* __restrict__ out, int Tq, int Tk, int H, float scale) {
-  constexpr int DL = D / 32;  // output dims per lane
-  constexpr int BK = D <= 64 ? ::BK : 32;  // keys a tile
-  __shared__ float Qs[BQ][D];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D + 1];
-  __shared__ float Ps[NW][R][BK];
-  __shared__ float Bs[BK];
+attn_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const float* __restrict__ mask, T* __restrict__ out, int Tq, int Tk, int H, int D,
+          float scale) {
+  constexpr int DL = WIDE_DS / 32;  // output columns per lane
+  __shared__ float Qs[BQ][WIDE_DC];
+  __shared__ float Ks[WIDE_BK][WIDE_DC + 1];
+  __shared__ float Vs[WIDE_BK][WIDE_DS + 1];
+  __shared__ float Ps[NW][R][WIDE_BK];
+  __shared__ float Bs[WIDE_BK];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int slices = (D + WIDE_DS - 1) / WIDE_DS;
+  const int b = blockIdx.z, h = blockIdx.y / slices, c0 = (blockIdx.y % slices) * WIDE_DS;
+  const int q0 = blockIdx.x * BQ;
   const size_t rs = (size_t)H * D;  // stride between time steps
   const T* qb = q + (size_t)b * Tq * rs + (size_t)h * D;
   const T* kb = k + (size_t)b * Tk * rs + (size_t)h * D;
   const T* vb = v + (size_t)b * Tk * rs + (size_t)h * D;
 
-  for (int e = tid; e < BQ * D; e += NW * 32) {
-    int r = e / D, d = e % D, qi = q0 + r;
-    Qs[r][d] = qi < Tq ? stk::to_f(qb[(size_t)qi * rs + d]) : 0.0f;
-  }
-
+  // the tile's key bias and (pass 2) its V columns of this block's slice
   auto load_tile = [&](int k0, bool with_v) {
     __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < BK * D; e += NW * 32) {
-      int j = e / D, d = e % D, kj = k0 + j;
-      bool ok = kj < Tk;
-      Ks[j][d] = ok ? stk::to_f(kb[(size_t)kj * rs + d]) : 0.0f;
-      if (with_v) Vs[j][d] = ok ? stk::to_f(vb[(size_t)kj * rs + d]) : 0.0f;
-    }
-    if (tid < BK) {
-      int kj = k0 + tid;
+    if (with_v)
+      for (int e = tid; e < WIDE_BK * WIDE_DS; e += NW * 32) {
+        const int j = e / WIDE_DS, c = c0 + e % WIDE_DS, kj = k0 + j;
+        Vs[j][e % WIDE_DS] = kj < Tk && c < D ? stk::to_f(vb[(size_t)kj * rs + c]) : 0.0f;
+      }
+    if (tid < WIDE_BK) {
+      const int kj = k0 + tid;
       Bs[tid] = kj >= Tk ? -INFINITY
                 : (mask ? (1.0f - mask[(size_t)b * Tk + kj]) * -1e9f : 0.0f);
     }
-    __syncthreads();
   };
-
-  // logits of this warp's R rows against key j of the current tile
-  auto logits = [&](int j, float s[R]) {
+  // logits of this warp's R rows against key `lane` of the tile at k0, over
+  // Dh in chunks of WIDE_DC columns (every thread loads, so every thread
+  // calls)
+  auto logits = [&](int k0, float s[R]) {
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kv = Ks[j][d];
+    for (int d0 = 0; d0 < D; d0 += WIDE_DC) {
+      __syncthreads();  // the last chunk is no longer read
+      for (int e = tid; e < BQ * WIDE_DC; e += NW * 32) {
+        const int r = e / WIDE_DC, d = d0 + e % WIDE_DC, qi = q0 + r;
+        Qs[r][e % WIDE_DC] = qi < Tq && d < D ? stk::to_f(qb[(size_t)qi * rs + d]) : 0.0f;
+      }
+      for (int e = tid; e < WIDE_BK * WIDE_DC; e += NW * 32) {
+        const int j = e / WIDE_DC, d = d0 + e % WIDE_DC, kj = k0 + j;
+        Ks[j][e % WIDE_DC] = kj < Tk && d < D ? stk::to_f(kb[(size_t)kj * rs + d]) : 0.0f;
+      }
+      __syncthreads();
+      const int n = D - d0 < WIDE_DC ? D - d0 : WIDE_DC;
+      for (int d = 0; d < n; ++d) {
+        const float kv = Ks[lane][d];
 #pragma unroll
-      for (int r = 0; r < R; ++r) s[r] += Qs[warp * R + r][d] * kv;
+        for (int r = 0; r < R; ++r) s[r] += Qs[warp * R + r][d] * kv;
+      }
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = s[r] * scale + Bs[j];
+    for (int r = 0; r < R; ++r) s[r] = s[r] * scale + Bs[lane];
   };
 
   // pass 1: running max and sum per row, per lane, then across the warp
   float m[R], l[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) { m[r] = -INFINITY; l[r] = 0.0f; }
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+  for (int k0 = 0; k0 < Tk; k0 += WIDE_BK) {
     load_tile(k0, false);
+    float s[R];
+    logits(k0, s);
 #pragma unroll
-    for (int jj = 0; jj < BK / 32; ++jj) {
-      float s[R];
-      logits(lane + 32 * jj, s);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (s[r] == -INFINITY) continue;  // key past Tk
-        if (s[r] > m[r]) { l[r] = l[r] * expf(m[r] - s[r]) + 1.0f; m[r] = s[r]; }
-        else l[r] += expf(s[r] - m[r]);
-      }
+    for (int r = 0; r < R; ++r) {
+      if (s[r] == -INFINITY) continue;  // key past Tk
+      if (s[r] > m[r]) { l[r] = l[r] * expf(m[r] - s[r]) + 1.0f; m[r] = s[r]; }
+      else l[r] += expf(s[r] - m[r]);
     }
   }
 #pragma unroll
@@ -167,23 +182,18 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int t = 0; t < DL; ++t) acc[r][t] = 0.0f;
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+  for (int k0 = 0; k0 < Tk; k0 += WIDE_BK) {
     load_tile(k0, true);
+    float s[R];
+    logits(k0, s);  // its barriers also order the V and bias loads
 #pragma unroll
-    for (int jj = 0; jj < BK / 32; ++jj) {
-      int j = lane + 32 * jj;
-      float s[R];
-      logits(j, s);
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        Ps[warp][r][j] = s[r] == -INFINITY ? 0.0f
-                         : stk::rnd<T>(expf(s[r] - m[r]) / l[r]);
-    }
+    for (int r = 0; r < R; ++r)
+      Ps[warp][r][lane] = s[r] == -INFINITY ? 0.0f : stk::rnd<T>(expf(s[r] - m[r]) / l[r]);
     __syncwarp();
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < WIDE_BK; ++j) {
 #pragma unroll
       for (int t = 0; t < DL; ++t) {
-        float vv = Vs[j][lane + 32 * t];
+        const float vv = Vs[j][lane + 32 * t];
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r][t] += Ps[warp][r][j] * vv;
       }
@@ -194,21 +204,22 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ob = out + (size_t)b * Tq * rs + (size_t)h * D;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    int qi = q0 + warp * R + r;
+    const int qi = q0 + warp * R + r;
     if (qi >= Tq) continue;
 #pragma unroll
-    for (int t = 0; t < DL; ++t)
-      ob[(size_t)qi * rs + lane + 32 * t] = stk::from_f<T>(acc[r][t]);
+    for (int t = 0; t < DL; ++t) {
+      const int c = c0 + lane + 32 * t;
+      if (c < D) ob[(size_t)qi * rs + c] = stk::from_f<T>(acc[r][t]);
+    }
   }
 }
-
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int DH = 64;  // columns of a panel: one 128-byte swizzled row
-constexpr int MAX_DK = 128;
+constexpr int MAX_DK = 256;  // the widest instance: four panels
 constexpr float LOG2E = 1.4426950408889634f;
 // Design knobs (kernel_variants.py builds other values): consumer
 // warpgroups a block (64 queries each), keys a ring stage (the N of the
@@ -217,7 +228,12 @@ constexpr int CONSUMERS = 1;
 constexpr int STAGE_KEYS = 64;
 constexpr int STAGES = 4;
 constexpr int BLOCKS_PER_SM = 2;
-constexpr int STAGES_TWO_PANELS = 2;  // ring depth at DK > 64
+constexpr int STAGES_TWO_PANELS = 2;  // ring depth at DK 80-128
+// three and four panels: one block an SM, the stages that fit 227 KB
+template <int NP> constexpr int stages_of() {
+  return NP == 1 ? STAGES : NP == 2 ? STAGES_TWO_PANELS : NP == 3 ? 4 : 3;
+}
+template <int NP> constexpr int blocks_of() { return NP <= 2 ? BLOCKS_PER_SM : 1; }
 
 // NP panels of DH columns: a panel of a tile is rows x DH, swizzled
 template <int NC, int BKT, int NS, int NP>
@@ -244,7 +260,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, BPS)
 attn_wgmma(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
            __grid_constant__ const CUtensorMap tm_v, const float* __restrict__ mask,
            bf16* __restrict__ out, int Tq, int Tk, int H, float scale_log2) {
-  static_assert(DK % 16 == 0 && DK <= MAX_DK, "head width in steps of 16 up to 128");
+  static_assert(DK % 16 == 0 && DK <= MAX_DK, "head width in steps of 16 up to 256");
   constexpr int NP = (DK + DH - 1) / DH;
   using Smem = AttnSmem<NC, BKT, NS, NP>;
   extern __shared__ __align__(1024) unsigned char raw[];
@@ -500,6 +516,7 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   if (int err = encode_bthd(&tk, k, B, Tk, H, BKT, DK)) return err;
   if (int err = encode_bthd(&tv, v, B, Tk, H, BKT, DK)) return err;
   constexpr size_t smem = sizeof(AttnSmem<NC, BKT, NS, (DK + DH - 1) / DH>) + 1024;
+  static_assert(smem * BPS <= 232448, "the blocks' shared memory");
   auto kernel = attn_wgmma<NC, BKT, NS, BPS, DK>;
   static size_t configured[stk::kMaxDevices] = {};
   if (int err = stk::allow_dynamic_smem(kernel, smem, configured)) return err;
@@ -515,25 +532,29 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 template <int DK>
 int launch_bf16(const void* q, const void* k, const void* v, const float* mask, void* out,
                 int B, int Tq, int Tk, int H, float scale, cudaStream_t st) {
-  return launch_wgmma<CONSUMERS, STAGE_KEYS, DK <= DH ? STAGES : STAGES_TWO_PANELS,
-                      BLOCKS_PER_SM, DK>((const bf16*)q, (const bf16*)k, (const bf16*)v, mask,
-                                         (bf16*)out, B, Tq, Tk, H, scale * LOG2E, st);
+  constexpr int NP = (DK + DH - 1) / DH;
+  return launch_wgmma<CONSUMERS, STAGE_KEYS, stages_of<NP>(), blocks_of<NP>(), DK>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, B, Tq, Tk, H,
+      scale * LOG2E, st);
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const float* mask, void* out,
-               int B, int Tq, int Tk, int H, float scale, cudaStream_t st) {
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  attn_kernel<float, D><<<grid, NW * 32, 0, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, mask, (float*)out, Tq, Tk, H, scale);
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const float* mask, void* out,
+                int B, int Tq, int Tk, int H, int D, float scale, cudaStream_t st) {
+  const long long slices = H * (long long)((D + WIDE_DS - 1) / WIDE_DS);
+  if (slices > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((Tq + BQ - 1) / BQ, (unsigned)slices, B);
+  attn_wide<T><<<grid, NW * 32, 0, st>>>((const T*)q, (const T*)k, (const T*)v, mask, (T*)out,
+                                          Tq, Tk, H, D, scale);
   return (int)cudaGetLastError();
 }
 
-// D: the tensors' head width (bf16: a multiple of 16; f32: of 32)
+// D: the tensors' head width (bf16 up to MAX_DK: a multiple of 16)
 int launch(const void* q, const void* k, const void* v, const float* mask, void* out,
            int B, int Tq, int Tk, int H, int D, int dtype, float scale, cudaStream_t st) {
-  if (D < 1 || D > MAX_DK || Tk < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+    if (D > MAX_DK) return launch_wide<bf16>(q, k, v, mask, out, B, Tq, Tk, H, D, scale, st);
     switch (D) {
       case 16: return launch_bf16<16>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
       case 32: return launch_bf16<32>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
@@ -543,24 +564,26 @@ int launch(const void* q, const void* k, const void* v, const float* mask, void*
       case 96: return launch_bf16<96>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
       case 112: return launch_bf16<112>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
       case 128: return launch_bf16<128>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 144: return launch_bf16<144>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 160: return launch_bf16<160>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 176: return launch_bf16<176>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 192: return launch_bf16<192>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 208: return launch_bf16<208>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 224: return launch_bf16<224>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 240: return launch_bf16<240>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
+      case 256: return launch_bf16<256>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32: return launch_f32<32>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
-    case 64: return launch_f32<64>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
-    case 96: return launch_f32<96>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
-    case 128: return launch_f32<128>(q, k, v, mask, out, B, Tq, Tk, H, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_wide<float>(q, k, v, mask, out, B, Tq, Tk, H, D, scale, st);
 }
 
 }  // namespace
 
 // q [B,Tq,H,D], k/v [B,Tk,H,D], out [B,Tq,H,D], contiguous and 16-byte
 // aligned, of one storage type (dtype 0 = float, 1 = bfloat16); mask [B,Tk]
-// float or null. D <= 128, a multiple of 16 in bf16 and of 32 in f32, Tk >= 1; the
+// float or null. D >= 1 (in bf16 up to 256 a multiple of 16), Tk >= 1; the
 // logits are q.k * scale. scale comes after the stream, so that the earlier
 // design's entry (csrc/earlier/), which lacks it (1/sqrt(D), D = 64), takes
 // the same call.

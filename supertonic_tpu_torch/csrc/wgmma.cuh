@@ -1,5 +1,6 @@
 // Hopper's own data movement and tensor-core product, shared by the bf16
-// attention (csrc/attention.cu) and the FFN's GEMMs (csrc/ffn.cu):
+// attention (csrc/attention.cu), the FFN's GEMMs (csrc/ffn.cu) and the
+// resblock chain (csrc/resblock_chain.cu):
 //   - TMA: tensor maps encoded on the host (encode_tma, through the driver
 //     entry point the runtime hands out, so nothing links libcuda) and
 //     passed by value as __grid_constant__ kernel parameters; one thread
@@ -193,11 +194,12 @@ __host__ __device__ constexpr int round8(int r) { return r / 8 * 8; }
 __host__ __device__ constexpr int entry_regs(int threads, int blocks) {
   return 65536 / (threads * blocks) / 16 * 16 < 240 ? 65536 / (threads * blocks) / 16 * 16 : 240;
 }
-__host__ __device__ constexpr int consumer_regs(int consumer_wgs, int blocks) {
+__host__ __device__ constexpr int consumer_regs(int consumer_wgs, int blocks,
+                                                int producer_regs = kProducerRegs) {
   return round8((entry_regs((consumer_wgs + 1) * 128, blocks) * (consumer_wgs + 1) -
-                 kProducerRegs) / consumer_wgs) < 240
+                 producer_regs) / consumer_wgs) < 240
              ? round8((entry_regs((consumer_wgs + 1) * 128, blocks) * (consumer_wgs + 1) -
-                       kProducerRegs) / consumer_wgs)
+                       producer_regs) / consumer_wgs)
              : 240;
 }
 static_assert(consumer_regs(1, 2) == 216 && consumer_regs(2, 1) == 216 &&
@@ -205,18 +207,18 @@ static_assert(consumer_regs(1, 2) == 216 && consumer_regs(2, 1) == 216 &&
 
 // Returns cudaErrorInvalidConfiguration, rather than a launch whose
 // consumers would wait forever in setmaxnreg, when `kernel`'s registers at
-// entry cannot hold `producer_threads` at kProducerRegs and
+// entry cannot hold `producer_threads` at `producer_regs` and
 // `consumer_threads` at `regs`. Asked once per kernel (`entry` caches it).
 template <typename Kernel>
 inline int check_reg_split(Kernel kernel, int producer_threads, int consumer_threads, int regs,
-                           int& entry) {
+                           int& entry, int producer_regs = kProducerRegs) {
   if (!entry) {
     cudaFuncAttributes a;
     if (int err = (int)cudaFuncGetAttributes(&a, kernel)) return err;
     entry = a.numRegs;
   }
   return entry * (producer_threads + consumer_threads) <
-                 producer_threads * kProducerRegs + consumer_threads * regs
+                 producer_threads * producer_regs + consumer_threads * regs
              ? (int)cudaErrorInvalidConfiguration
              : 0;
 }

@@ -13,11 +13,13 @@ What bounds the kernel on the H100 and what its design does about it is in
 the header of ``csrc/attention.cu``. Unlike the Pallas kernel there is no
 panel cap: keys stream through shared memory, so every Tq and Tk the path
 produces runs in the kernel. ``supports`` states the kernel's domain: any
-head width Dh up to ``MAX_HEAD_DIM`` (the Pallas kernel takes any; a wider
-head raises here). The kernel takes Dh in steps of ``HEAD_STEP`` (16 in
-bf16, 32 in f32): the wrapper pads another Dh with zero columns
-(``pad_head_dim``) and keeps the scale 1/sqrt(Dh) of the true width, which
-leaves every logit and every kept output column as they are.
+head width Dh and any Tk >= 1, as the Pallas kernel takes (in f32, and
+above Dh ``MAX_PANEL_DH`` in bf16, a SIMT kernel with a grid axis over
+slices of the output columns takes any Dh as it is). The bf16 tensor-core
+kernel takes Dh in steps of ``HEAD_STEP`` up to ``MAX_PANEL_DH``: the
+wrapper pads another Dh there with zero columns (``pad_head_dim``) and
+keeps the scale 1/sqrt(Dh) of the true width, which leaves every logit and
+every kept output column as they are.
 
 ``fused_attention`` is the wrapper: it runs the plain version for CPU
 tensors only; CUDA tensors go to the kernel, or it raises.
@@ -33,8 +35,8 @@ import torch
 from . import _build, _count
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128
-HEAD_STEP = {torch.bfloat16: 16, torch.float32: 32}  # the kernel's head widths
+HEAD_STEP = 16  # the bf16 tensor-core kernel's head widths: multiples of 16
+MAX_PANEL_DH = 256  # up to four 64-column panels
 
 # q, k, v, key_mask, out, B, Tq, Tk, H, Dh, dtype code, stream, scale
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -43,7 +45,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 def supports(head_dim: int, keys: int = 1) -> bool:
     """Whether the kernel takes heads of ``head_dim`` over ``keys`` keys."""
-    return 1 <= head_dim <= MAX_HEAD_DIM and keys >= 1
+    return head_dim >= 1 and keys >= 1
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -89,11 +91,11 @@ def fused_attention(q, k, v, key_mask=None):
         return attention_plain(q, k, v, key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in HEAD_STEP:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("q, k and v must share one dtype, float32 or bfloat16")
     if not supports(d, tk):
-        raise ValueError(f"the attention kernel takes 1 <= Dh <= {MAX_HEAD_DIM} and "
-                         f"Tk >= 1, got Dh = {d}, Tk = {tk}")
+        raise ValueError(f"the attention kernel takes Dh >= 1 and Tk >= 1, got Dh = {d}, "
+                         f"Tk = {tk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on "
@@ -101,8 +103,9 @@ def fused_attention(q, k, v, key_mask=None):
     mask = None
     if key_mask is not None:
         mask = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
-    step = HEAD_STEP[q.dtype]
-    width = -(-d // step) * step
+    width = d
+    if q.dtype == torch.bfloat16 and d <= MAX_PANEL_DH:
+        width = -(-d // HEAD_STEP) * HEAD_STEP
     if width != d:
         q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(q)

@@ -15,21 +15,22 @@ edges, so positions outside [0, T) and masked frames are exactly zero
 after every conv.
 
 What bounds the kernel on the H100 and what its design does about it is in
-the header of ``csrc/resblock_chain.cu``, which also chooses the kernel's
-time tiling (each block holds ``tile + 2*halo`` frames; ``chain_tile`` asks
-the kernel's library for ``tile``).
+the header of ``csrc/resblock_chain.cu``, which also chooses the fused
+kernels' time tiling (each block holds ``tile + 2*halo`` frames; ``_tile``
+asks the kernel's library for ``tile`` at a launch's shape).
 
 ``supports`` states the kernel's domain: C <= ``MAX_CHANNELS`` (the Pallas
 kernel's VMEM rule), an odd conv size, and any number of conv pairs with
-dilations >= 1 of which none reaches past ``MAX_PAIR_REACH`` frames (the
-library asserts that every instance takes a lone pair of that reach). A
-launch takes up to ``MAX_PAIRS`` pairs whose halo fits a tile; the wrapper
-runs a longer chain as consecutive launches over groups of pairs
-(``launch_plan``), which gives the same values as one launch. The kernel
-has one instance per C in ``CHAIN_WIDTHS``; the wrapper pads another C with
-zero channels to the next (``pad_channels``), which leaves the real
-channels as they are: zero weights and biases keep the padded ones at
-exactly 0.
+any dilations >= 1. A fused launch takes up to ``MAX_PAIRS`` pairs whose
+halo fits its tile (every pair that reaches at most ``MAX_PAIR_REACH``
+frames fits alone: the library asserts it); the wrapper runs a longer
+chain as consecutive launches over groups of pairs (``launch_plan``),
+which gives the same values as one launch, and a pair that no fused
+kernel tiles as two per-conv launches (conv a into a scratch, conv b onto
+x) that keep no halo in shared memory. The kernel has one instance per C
+in ``CHAIN_WIDTHS``; the wrapper pads another C with zero channels to the
+next (``pad_channels``), which leaves the real channels as they are: zero
+weights and biases keep the padded ones at exactly 0.
 
 ``resblock_chain`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.
@@ -49,11 +50,15 @@ from . import _build, _count
 # stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+# in, x, frame_mask, w, bias, out, B, T, C, k, dilation, is conv b, dtype
+# code, stream
+_CONV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 MAX_CHANNELS = 384
 CHAIN_WIDTHS = (64, 128, 192, 256, 320, 384)  # the kernel's instances
 MAX_PAIRS = 4  # conv pairs a launch
-# the largest reach of one conv pair, (d + 1) * (k - 1) / 2, that every
-# instance takes (the library's MAX_REACH; phase 5 of chip_smoke.py reads it)
+# the largest reach of one conv pair, (d + 1) * (k - 1) / 2, that the fused
+# kernels take alone at every instance (the library's MAX_REACH; phase 5 of
+# chip_smoke.py reads it); a pair past it may run as two per-conv launches
 MAX_PAIR_REACH = {torch.float32: 23, torch.bfloat16: 31}
 
 
@@ -71,12 +76,9 @@ def supports(channels: int, kernel: int, dilations, dtype: torch.dtype | None = 
     """Whether the kernel takes a chain of ``channels`` with conv ``kernel``
     and ``dilations`` (one per conv pair) in ``dtype`` (None: both)."""
     dilations = tuple(int(d) for d in dilations)
-    if (kernel < 1 or kernel % 2 == 0 or not dilations or min(dilations) < 1
-            or not 1 <= channels <= MAX_CHANNELS):
-        return False
-    dtypes = tuple(MAX_PAIR_REACH) if dtype is None else (dtype,)
-    reach = max(pair_reach(kernel, d) for d in dilations)
-    return all(reach <= MAX_PAIR_REACH.get(dt, -1) for dt in dtypes)
+    return (kernel >= 1 and kernel % 2 == 1 and bool(dilations) and min(dilations) >= 1
+            and 1 <= channels <= MAX_CHANNELS
+            and dtype in (None, torch.float32, torch.bfloat16))
 
 
 def pad_channels(x, frame_mask, wa, ba, wb, bb, width: int):
@@ -99,23 +101,38 @@ def _dils(dilations):
     return dilations, (ctypes.c_int * len(dilations))(*dilations)
 
 
-def _tile(width: int, kernel: int, dilations, dtype: torch.dtype) -> tuple[int, bool]:
-    """(output frames a block, tensor-core kernel) of one launch, from the
-    library; frames <= 0 when the launch has no tiling."""
+def _tile(width: int, kernel: int, dilations, dtype: torch.dtype, batch: int = 0,
+          frames: int = 0) -> int:
+    """Output frames a block of one fused launch (the tensor-core kernel in
+    bf16, the SIMT kernel in f32), from the library: at ``batch`` x
+    ``frames`` (where the bf16 kernel may take a smaller tile to fill the
+    card), or with both 0 its largest tile; <= 0 when the fused kernel does
+    not tile the launch."""
     dilations, dils = _dils(dilations)
     fn = _build.function("resblock_chain", "stk_resblock_chain_tile",
-                         [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    mma = ctypes.c_int(0)
-    tile = fn(width, kernel, len(dilations), ctypes.cast(dils, ctypes.c_void_p),
-              _build.dtype_code(dtype), ctypes.byref(mma))
-    return tile, bool(mma.value)
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3)
+    return fn(width, kernel, len(dilations), ctypes.cast(dils, ctypes.c_void_p),
+              _build.dtype_code(dtype), batch, frames)
+
+
+def kernel_layout(width: int, half: bool = False) -> dict:
+    """The bf16 tensor-core kernel's layout at instance ``width``: of its
+    largest tile, or with ``half`` of its instance at half the frames
+    (builds the library)."""
+    info = (ctypes.c_int * 7)()
+    fn = _build.function("resblock_chain", "stk_resblock_chain_layout",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    if fn(width, int(half), info) != 0:
+        raise ValueError(f"no chain instance at C={width}{' (half)' if half else ''}")
+    return dict(zip(("frames_per_block", "consumers", "m_tiles_per_consumer",
+                     "panels_per_consumer", "channels_per_stage", "stages", "smem_bytes"), info))
 
 
 def chain_tile(channels: int, dtype: torch.dtype, dilations, kernel: int = 3) -> int:
-    """Output frames per block that the CUDA kernel uses for a chain of
-    ``channels`` in one launch (run by the ``kernel_width`` instance;
-    builds it)."""
-    tile, _ = _tile(kernel_width(channels), kernel, tuple(dilations), dtype)
+    """Output frames per block (the largest) that the fused CUDA kernel uses
+    for a chain of ``channels`` in one launch (run by the ``kernel_width``
+    instance; builds it)."""
+    tile = _tile(kernel_width(channels), kernel, tuple(dilations), dtype)
     if tile <= 0:
         raise ValueError(f"no chain tiling for C={channels}, k={kernel}, {dtype}, "
                          f"dilations {tuple(dilations)}")
@@ -130,25 +147,19 @@ def max_pair_reach(dtype: torch.dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(width: int, kernel: int, dilations: tuple, dtype: torch.dtype) -> tuple:
-    """The launches that run a chain: (first pair, end) of each group of
-    consecutive pairs. From each pair on, the longest group of at most
-    MAX_PAIRS that the tensor-core kernel takes, else the longest with a
-    tiling (a lone pair within MAX_PAIR_REACH always has one)."""
+    """The launches that run a chain: (first pair, end, route) of each group
+    of consecutive pairs. From each pair on, the longest group of at most
+    MAX_PAIRS that the fused kernel tiles (route "fused"); a pair that it
+    does not tile alone runs as two per-conv launches (route "conv")."""
     plan, i = [], 0
     while i < len(dilations):
-        on_mma = any_tile = None
+        end = None
         for j in range(i + 1, min(i + MAX_PAIRS, len(dilations)) + 1):
-            tile, mma = _tile(width, kernel, dilations[i:j], dtype)
-            if tile <= 0:
+            if _tile(width, kernel, dilations[i:j], dtype) <= 0:
                 break
-            any_tile = j
-            on_mma = j if mma else on_mma
-        end = on_mma or any_tile
-        if end is None:
-            raise ValueError(f"no chain tiling for C={width}, k={kernel}, {dtype}, "
-                             f"dilation {dilations[i]}")
-        plan.append((i, end))
-        i = end
+            end = j
+        plan.append((i, end, "fused") if end else (i, i + 1, "conv"))
+        i = end or i + 1
     return tuple(plan)
 
 
@@ -199,9 +210,8 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
         raise ValueError(f"unsupported device {x.device}")
     if not supports(c, k, dilations, x.dtype):
         raise ValueError(f"the chain kernel takes C <= {MAX_CHANNELS}, an odd k and "
-                         f"dilations >= 1 whose conv pairs reach at most "
-                         f"{MAX_PAIR_REACH.get(x.dtype)} frames in {x.dtype}, got k={k}, "
-                         f"C={c}, dilations {dilations}")
+                         f"dilations >= 1 in float32 or bfloat16, got k={k}, C={c}, "
+                         f"dilations {dilations}, {x.dtype}")
     if wa.dtype != x.dtype or wb.dtype != x.dtype:
         raise TypeError("wa and wb must be in x's dtype")
     for name, tns in (("x", x), ("wa", wa), ("wb", wb)):
@@ -220,16 +230,28 @@ def resblock_chain(x, frame_mask, wa, ba, wb, bb, dilations):
         xk, fm, wa, baf, wb, bbf = pad_channels(x, fm, wa, baf, wb, bbf, width)
     fn = _build.function("resblock_chain", "stk_resblock_chain", _ARGTYPES)
     P = _build.ptr
-    for i, j in launch_plan(width, k, dilations, x.dtype):
+    code = _build.dtype_code(x.dtype)
+    for i, j, route in launch_plan(width, k, dilations, x.dtype):
         out = torch.empty_like(xk)
-        _, dils = _dils(dilations[i:j])
-        with _build.on(x):
-            _build.check(fn(P(xk), P(fm), P(wa[i:j]), P(baf[i:j]), P(wb[i:j]), P(bbf[i:j]),
-                            P(out), b, t_len, width, k, j - i,
-                            ctypes.cast(dils, ctypes.c_void_p),
-                            _build.dtype_code(x.dtype), _build.stream_ptr(x)),
-                         "stk_resblock_chain")
-        _count.launched("resblock_chain", (b, t_len, c))
+        if route == "conv":
+            conv = _build.function("resblock_chain", "stk_resblock_conv", _CONV_ARGTYPES)
+            silu_h = torch.empty_like(xk)
+            for src, w, bias, dst, d, is_b in ((xk, wa[i], baf[i], silu_h, dilations[i], 0),
+                                               (silu_h, wb[i], bbf[i], out, 1, 1)):
+                with _build.on(x):
+                    _build.check(conv(P(src), P(xk), P(fm), P(w), P(bias), P(dst), b, t_len,
+                                      width, k, d, is_b, code, _build.stream_ptr(x)),
+                                 "stk_resblock_conv")
+                _count.launched("resblock_chain", (b, t_len, c))
+        else:
+            _, dils = _dils(dilations[i:j])
+            with _build.on(x):
+                _build.check(fn(P(xk), P(fm), P(wa[i:j]), P(baf[i:j]), P(wb[i:j]),
+                                P(bbf[i:j]), P(out), b, t_len, width, k, j - i,
+                                ctypes.cast(dils, ctypes.c_void_p), code,
+                                _build.stream_ptr(x)),
+                             "stk_resblock_chain")
+            _count.launched("resblock_chain", (b, t_len, c))
         xk = out
     return xk if width == c else xk[..., :c].contiguous()
 

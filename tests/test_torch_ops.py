@@ -189,9 +189,9 @@ def test_adaln_ffn_bf16_tile_edges_match_pallas(b, t):
                                rtol=2e-2, atol=2e-2)
 
 
-def _chain_params(rng, c, dils):
-    return {"convs": [{"a": jL.conv1d_init(rng, c, c, 3),
-                       "b": jL.conv1d_init(rng, c, c, 3)} for _ in dils]}
+def _chain_params(rng, c, dils, k=3):
+    return {"convs": [{"a": jL.conv1d_init(rng, c, c, k),
+                       "b": jL.conv1d_init(rng, c, c, k)} for _ in dils]}
 
 
 @pytest.mark.parametrize("c,t,b", [(128, 96, 2), (256, 160, 1)])
@@ -217,6 +217,36 @@ def test_resblock_chain_matches_pallas_and_xla(c, t, b):
     np.testing.assert_array_equal(got[:, -1], x[:, -1])
 
 
+@pytest.mark.parametrize("k,dils", [(11, (1, 3, 5)), (7, (1, 3, 9)), (3, (27,))],
+                         ids=["k11-d1,3,5", "k7-d1,3,9", "k3-d27"])
+def test_resblock_chain_far_reach_matches_pallas_and_xla(k, dils):
+    """Chains whose pairs reach past the fused kernels' MAX_PAIR_REACH in f32
+    (30, 30 and 28 frames; the per-conv launches on the card where no fused
+    tile holds them): the plain version the card holds them to, against the
+    Pallas kernel in interpret mode and XLA's convs. 2e-6, as above."""
+    rng = np.random.default_rng(k * 100 + dils[-1])
+    c, t, b = 64, 150, 2
+    assert max(vocoder_fused.pair_reach(k, d) for d in dils) > vocoder_fused.MAX_PAIR_REACH[
+        torch.float32]
+    p = _chain_params(rng, c, dils, k)
+    for cp in p["convs"]:  # nonzero biases: conv1d_init leaves them at 0
+        for key in ("a", "b"):
+            cp[key]["b"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    mask = np.ones((1, t, 1), np.float32)
+    mask[0, -13:, 0] = 0.0
+    jp = {"convs": [{k_: {n: jnp.asarray(a) for n, a in cp[k_].items()} for k_ in cp}
+                    for cp in p["convs"]]}
+    xla = np.asarray(jvocoder._resblock(jp, jnp.asarray(x), dils, jnp.asarray(mask)))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jvf.fused_resblock(jp, jnp.asarray(x), dils, jnp.asarray(mask)))
+    mods = tL.tree_to_modules(p, device="cpu")
+    got = vocoder_fused.fused_resblock(mods, _t(x), dils, _t(mask)).numpy()
+    np.testing.assert_allclose(got, pallas, rtol=2e-6, atol=2e-6)
+    np.testing.assert_allclose(got, xla, rtol=2e-6, atol=2e-6)
+    np.testing.assert_array_equal(got[:, -1], x[:, -1])
+
+
 def _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile):
     """The kernel's tiling, in plain torch: each block sees tile + 2*halo
     frames, zero outside [0, T), and keeps only its central tile."""
@@ -238,12 +268,15 @@ def _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile):
 
 
 # Tile widths (output frames per block) the CUDA kernel picks for dilations
-# (1, 3, 9), halo 16, from the layout in csrc/resblock_chain.cu: bf16 blocks
-# hold 8 warps x 64 frames x 64 channels, W = 256 frames at C=128 and 128 at
-# C=256 (tiles 224 and 96); f32 blocks hold the largest multiple of 16 frames
-# whose three f32 buffers (two with pad rows) fit 224 KB, W = 128 and 64
-# (tiles 96 and 32).
-@pytest.mark.parametrize("c,tiles", [(128, (7, 96, 224)), (256, (7, 32, 96))])
+# (1, 3, 9), halo 16, from the layouts in csrc/resblock_chain.cu: the bf16
+# tensor-core kernel's blocks hold W0 = 256 frames at C 64 and 128, 128 at
+# C 192 and 256 and 64 at C 320 and 384 (tiles 224, 96 and 32), and at a
+# grid too small to fill the card W0 / 2 (C <= 256: tiles 96 and 32); the
+# f32 blocks hold the largest multiple of 16 frames whose three f32 buffers
+# (two with pad rows) fit 224 KB, W = 128 and 64 (tiles 96 and 32). Tile
+# 160 at C 64 is an extra width, a tile no instance takes.
+@pytest.mark.parametrize("c,tiles", [(128, (7, 96, 224)), (256, (7, 32, 96)),
+                                     (64, (32, 96, 160, 224)), (384, (32,))])
 def test_resblock_chain_tiles_are_seam_free(c, tiles):
     """Multi-tile output equals single-tile output: the halo argument of
     the kernel's design, at the kernel's own tile widths at this C and at a
@@ -261,6 +294,32 @@ def test_resblock_chain_tiles_are_seam_free(c, tiles):
     for tile in tiles:
         tiled = _chain_by_tiles(x, fm, wa, ba, wb, bb, dils, tile)
         np.testing.assert_allclose(tiled.numpy(), one.numpy(), rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dh", [144, 192, 256, 320])
+def test_attention_wide_heads_match_pallas(dh, dtype):
+    """Head widths past 128 (the bf16 kernel's three- and four-panel
+    instances, and past 256 its slices of the output columns): the plain
+    version against the Pallas kernel, f32 1e-5 (only the sum order
+    differs) and bf16 2e-2 (bf16 in and out, probabilities rounded to bf16
+    on both sides)."""
+    rng = np.random.default_rng(dh + (dtype == "bf16"))
+    q, k, v = (rng.standard_normal((2, t, 2, dh)).astype(np.float32) for t in (37, 53, 53))
+    mask = (np.arange(53)[None, :] < np.array([[53], [20]])).astype(np.float32)
+    if dtype == "f32":
+        ref = fused_attention_interpret(*(jnp.asarray(a) for a in (q, k, v, mask)))
+        got = attention.fused_attention(_t(q), _t(k), _t(v), _t(mask))
+        tol = 1e-5
+    else:
+        qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        ref = fused_attention_interpret(qb, kb, vb, jnp.asarray(mask))
+        got = attention.fused_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)), _t(mask))
+        assert got.dtype == torch.bfloat16
+        tol = 2e-2
+    assert attention.supports(dh, 53) and got.shape == (2, 37, 2, dh)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=tol,
+                               atol=tol)
 
 
 def test_launch_counters_do_not_move_on_cpu():

@@ -133,13 +133,13 @@ def test_resblock_chain_at_channels_matches_pallas(c, k, dils):
 # the pad helpers, exact
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("step", sorted(set(attention.HEAD_STEP.values())))
-@pytest.mark.parametrize("dh", [12, 24, 40, 100])
+@pytest.mark.parametrize("step", [attention.HEAD_STEP])
+@pytest.mark.parametrize("dh", [12, 24, 40, 100, 140, 180, 200, 250])
 def test_attention_head_pad_is_exact(dh, step):
-    """The wrapper's zero columns up to the kernel's step (16 in bf16, 32
-    in f32) with the true width's scale: the plain version on the padded
-    heads, cut back to Dh, equals it on the heads as they are (rtol = atol
-    = 0)."""
+    """The wrapper's zero columns up to the bf16 kernel's step of 16 (two,
+    three and four 64-column panels too) with the true width's scale: the
+    plain version on the padded heads, cut back to Dh, equals it on the
+    heads as they are (rtol = atol = 0)."""
     rng = np.random.default_rng(dh)
     q, k, v = (_t(rng.standard_normal((2, t, 2, dh))) for t in (9, 14, 14))
     mask = _t(np.arange(14)[None, :] < np.array([[14], [6]]))
@@ -176,9 +176,11 @@ def test_chain_channel_pad_is_exact(c, sparse):
 # ---------------------------------------------------------------------------
 
 def test_supports_tables():
+    # every head width >= 1 (wider than 256 in bf16 and 128 in f32: the
+    # kernel's slices of the output columns)
     for dh, keys, ok in [(1, 1, True), (12, 5, True), (64, 370, True), (96, 1, True),
-                         (128, 9, True), (129, 9, False), (256, 9, False), (0, 4, False),
-                         (64, 0, False)]:
+                         (128, 9, True), (129, 9, True), (256, 9, True), (320, 9, True),
+                         (0, 4, False), (64, 0, False)]:
         assert attention.supports(dh, keys) is ok, (dh, keys)
     bf, f32 = torch.bfloat16, torch.float32
     for d, f, dt, ok in [(512, 2048, bf, True), (64, 256, bf, True), (200, 808, bf, True),
@@ -196,43 +198,64 @@ def test_supports_tables():
                                (200, 5, d139, None, True), (64, 1, d139, None, True),
                                (64, 3, (1, 3, 9, 27, 1), bf, True),
                                (64, 4, (1, 3), None, False), (64, 0, (1,), None, False),
-                               # a pair reaches (d + 1) * (k - 1) / 2 frames: at most
-                               # 23 in f32, 31 in bf16
+                               # any reach: a pair that no fused kernel tiles runs
+                               # as two per-conv launches
                                (384, 3, (1, 3, 9, 27), bf, True),
-                               (128, 3, (1, 3, 9, 27), f32, False),
-                               (128, 3, (1, 3, 9, 27), None, False),
-                               (384, 3, (22,), f32, True), (384, 3, (23,), f32, False),
-                               (384, 3, (30,), bf, True), (384, 3, (31,), bf, False),
-                               (96, 11, (1, 3, 5), None, False), (96, 11, (1, 3), None, True),
-                               (96, 7, (1, 3, 7), bf, True), (96, 7, (1, 3, 7), f32, False),
+                               (128, 3, (1, 3, 9, 27), f32, True),
+                               (128, 3, (1, 3, 9, 27), None, True),
+                               (384, 3, (22,), f32, True), (384, 3, (23,), f32, True),
+                               (384, 3, (30,), bf, True), (384, 3, (31,), bf, True),
+                               (96, 11, (1, 3, 5), None, True), (96, 11, (1, 3), None, True),
+                               (96, 7, (1, 3, 7), bf, True), (96, 7, (1, 3, 7), f32, True),
+                               (96, 11, (5,), None, True), (64, 3, (32,), bf, True),
+                               (384, 3, (1000,), None, True),
                                (64, 3, (1,), torch.float16, False)]:
         assert vocoder_fused.supports(c, k, dils, dt) is ok, (c, k, dils, dt)
 
 
 def test_chain_launch_plan_groups_pairs(monkeypatch):
     """The wrapper's launches over a chain's pairs, against a tiling that
-    fits at most three pairs on the tensor-core kernel, two on the SIMT
-    kernel past a dilation of 9, and none past a pair's reach of 31: the
-    longest group on the tensor cores, else the longest with a tile, at
-    most MAX_PAIRS a launch."""
+    fits at most three pairs up to a dilation of 9, two past it, and none
+    past a pair's reach of 31: the longest group with a tile, at most
+    MAX_PAIRS a launch; a pair with no fused tile runs per conv."""
 
     def tile(width, kernel, dils, dtype):
         if max(dils) > 30:
-            return -1, False
+            return -1
         if len(dils) <= 3 and max(dils) <= 9:
-            return 100, True
-        return (50, False) if len(dils) <= 2 else (-1, False)
+            return 100
+        return 50 if len(dils) <= 2 else -1
 
     monkeypatch.setattr(vocoder_fused, "_tile", tile)
     plan = vocoder_fused.launch_plan.__wrapped__
     bf = torch.bfloat16
     assert vocoder_fused.MAX_PAIRS == 4
-    assert plan(128, 3, (1, 3, 9), bf) == ((0, 3),)
-    assert plan(128, 3, (1, 3, 9, 1, 3, 9, 1), bf) == ((0, 3), (3, 6), (6, 7))
-    assert plan(128, 3, (1, 3, 9, 27), bf) == ((0, 3), (3, 4))
-    assert plan(128, 3, (27, 1, 3), bf) == ((0, 2), (2, 3))
-    with pytest.raises(ValueError, match="no chain tiling"):
-        plan(128, 3, (1, 31), bf)
+    fused = "fused"
+    assert plan(128, 3, (1, 3, 9), bf) == ((0, 3, fused),)
+    assert plan(128, 3, (1, 3, 9, 1, 3, 9, 1), bf) == ((0, 3, fused), (3, 6, fused),
+                                                       (6, 7, fused))
+    assert plan(128, 3, (1, 3, 9, 27), bf) == ((0, 3, fused), (3, 4, fused))
+    assert plan(128, 3, (27, 1, 3), bf) == ((0, 2, fused), (2, 3, fused))
+    assert plan(128, 3, (1, 31), bf) == ((0, 1, fused), (1, 2, "conv"))
+
+
+def test_chain_launch_plan_routes_pairs_past_every_tile(monkeypatch):
+    """Pairs that no fused tile holds, against a tiling whose fused kernel
+    holds a halo of at most 31 frames: each such pair alone in a per-conv
+    group, the pairs around it still grouped, and a chain of them all per
+    conv."""
+
+    def tile(width, kernel, dils, dtype):
+        halo = vocoder_fused.chain_halo(kernel, dils)
+        return 64 - 2 * halo if 2 * halo < 64 else -1
+
+    monkeypatch.setattr(vocoder_fused, "_tile", tile)
+    plan = vocoder_fused.launch_plan.__wrapped__
+    f32 = torch.float32
+    assert plan(256, 3, (1, 3, 40, 1, 3), f32) == ((0, 2, "fused"), (2, 3, "conv"),
+                                                    (3, 5, "fused"))
+    assert plan(256, 11, (7, 9), f32) == ((0, 1, "conv"), (1, 2, "conv"))
+    assert plan(256, 3, (1,) * 6, f32) == ((0, 4, "fused"), (4, 6, "fused"))
 
 
 # ---------------------------------------------------------------------------
