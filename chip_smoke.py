@@ -17,9 +17,13 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. build   — compile every kernel in supertonic_tpu_torch/csrc with nvcc,
                printing ptxas's register and spill report; count the wgmma
                (HGMMA) and TMA-load (UTMALDG) instructions of the bf16
-               attention, FFN and chain libraries (cuobjdump -sass; none
-               fails) and print the tiles each chose (the chain's at the
-               b64 cell's shapes and the two vocoder windows)
+               attention, FFN and chain libraries, the integer wgmma
+               (IGMMA), TMA loads and stores (UTMALDG, UTMASTG) and mma.sync
+               (IMMA) of the int8 library and the bulk copies (UBLKCP) of
+               the quantize library (cuobjdump -sass; a library without
+               them, or an int8 library with IMMA, fails) and print the
+               tiles each chose (the chain's at the b64 cell's shapes and
+               the two vocoder windows; the int8 library's instances)
   3. main    — TTS() at the default 66M config (bf16, random weights made
                from a seed, zero-init heads perturbed) answers the three
                protocol texts through ``synthesize`` and 16 texts through
@@ -55,7 +59,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                smaller shapes of a T=256 batch and at the tile edges of
                the bf16 kernels, in f32 and bf16 (the int8 product, the
                quantize pass and the W8A8 product bit for bit), with
-               kernel / plain / library times and bounds, and the earlier
+               kernel / plain / library times and bounds (each kernel
+               also from a replayed CUDA graph, the library call too;
+               torch._int_mm is the library time of the int32 product and,
+               as the product alone, of the W8A8 product), and the earlier
                kernels' times beside this run's at the cell's shapes
                (EARLIER_MS); also at every shape that phase 7 recorded
                (the batcher's groups at B <= 32, streaming and progress at
@@ -241,6 +248,9 @@ W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
 FUSED_W8A8_LINEARS = 6 * (6 * 5 + 1)
+# int8 products at an N whose rows no TMA store takes (odd, and 4 bytes of
+# bf16): the instances that store from the registers, element by element
+ODD_N = ((1, 32, 37), (37, 512, 37), (37, 2048, 7), (130, 512, 2))
 # a row of x.5 values whose amax is 127, so sx = 1 exactly: rounds half to even
 HALVES = (127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -126.5, 4.5)
 SOURCES = {
@@ -268,12 +278,13 @@ SOURCES = {
 # an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The chain: the
 # mma.sync design it replaced, at the b64 cell's two shapes (T=448) and the
 # two vocoder windows of a streamed chunk, kernel_variants.py's "earlier"
-# rows on the same card (PERF.md section 6). The int8 products:
-# chip_smoke.py phase 5 at the T=640 cell, on the same card (build hash
-# fb4eb80f8363927d); for
-# w8a8_matmul, the int32 product it replaces on the path.
-INT32_PRODUCT_MS = {(40960, 512, 512): 0.0679, (40960, 512, 2048): 0.2119,
-                    (40960, 2048, 512): 0.1699, (23680, 512, 512): 0.0414}
+# rows on the same card (PERF.md section 6). The int8 products and the
+# quantize pass: the mma.sync product and the one-warp-a-row pass they
+# replaced (csrc/earlier/), kernel_variants.py's "earlier" rows, host
+# launches (through a lighter call than the wrappers: at the TP shapes
+# the host's work is most of the time), mean of the two readings, on the
+# same card (PERF.md section 6): W8A8 bf16 results at the b64 cell's
+# shapes (T=448) and the TP shapes; int32 at the TP shapes and the cell's.
 EARLIER_MS = {
     "attention": {(64, 8, 448, 448, True, 64): 0.2016, (64, 8, 448, 370, True, 64): 0.1758,
                   (64, 4, 320, 320, True, 64): 0.0579, (64, 4, 320, 50, False, 64): 0.0185,
@@ -282,9 +293,14 @@ EARLIER_MS = {
     "adaln_ffn": {(64, 448, 512, 2048): 0.4592, (1, 448, 512, 2048): 0.0567},
     "resblock_chain": {(64, 28672, 128): 6.886, (64, 3584, 256): 4.176,
                        (1, 896, 256): 0.2158, (1, 7168, 128): 0.1077},
-    "int8_matmul": INT32_PRODUCT_MS,
-    "w8a8_matmul": INT32_PRODUCT_MS,
-    "quantize": {},
+    "int8_matmul": {(1792, 256, 512): 0.0211, (1792, 1024, 512): 0.0157,
+                    (28672, 512, 512): 0.0505, (28672, 512, 2048): 0.1581,
+                    (28672, 2048, 512): 0.1176, (23680, 512, 512): 0.0447},
+    "w8a8_matmul": {(28672, 512, 512): 0.0420, (28672, 512, 2048): 0.1463,
+                    (28672, 2048, 512): 0.1072, (23680, 512, 512): 0.0363,
+                    (1792, 256, 512): 0.0182, (1792, 1024, 512): 0.0249},
+    "quantize": {(28672, 512): 0.0218, (28672, 2048): 0.0671, (23680, 512): 0.0196,
+                 (1792, 256): 0.0286, (1792, 512): 0.0230, (1792, 1024): 0.0172},
 }
 DEV = torch.device("cuda")
 CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
@@ -367,17 +383,20 @@ def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
     lib_txt = "None" if lib_ms is None else f"{lib_ms:.4f}"
     earlier = EARLIER_MS[kernel].get(shape) if dtype != torch.float32 else None
     earlier_txt = "" if earlier is None else f" (earlier: {earlier} ms)"
-    # the redesigned bf16 kernels also from a replayed graph, beside the library call
-    replay_txt = ""
-    if kernel in ("attention", "adaln_ffn", "resblock_chain") and dtype == torch.bfloat16:
-        replay_txt = f" graph_replay_ms={graph_ms(fn):.4f}"
+    # each kernel in its path's type also from a replayed graph, beside the library call
+    replay_txt, replay, lib_replay = "", None, None
+    if dtype != torch.float32:
+        replay = graph_ms(fn)
+        replay_txt = f" graph_replay_ms={replay:.4f}"
         if lib is not None:
-            replay_txt += f" library_graph_replay_ms={graph_ms(lib):.4f}"
+            lib_replay = graph_ms(lib)
+            replay_txt += f" library_graph_replay_ms={lib_replay:.4f}"
     log(f"  {kernel} {name} {dtype}: kernel_ms={ms:.4f}{earlier_txt} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_txt} bound_ms={bnd:.4f} ({by}) cell_launches={n_cell}{replay_txt}")
     results[kernel].append(dict(name=name, dtype=dtype, n_cell=n_cell, max_abs_err=err,
                                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bnd, bound_by=by, earlier_ms=earlier))
+                                bound_ms=bnd, bound_by=by, earlier_ms=earlier,
+                                graph_ms=replay, library_graph_ms=lib_replay))
 
 
 def check_attention(gen, cell, results, serving, widths):
@@ -646,6 +665,7 @@ def check_int8_matmul(gen, cell, results, tp):
     at the W8A8 path's and at the edge shapes with M = 40,960."""
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 1536, 2048)}
+    cases.update({shape: 0 for shape in ODD_N})
     cases.update({shape: 0 for shape in cell["w8a8_matmul"]})
     cases.update(tp)
     for (m, k, n), n_cell in sorted(cases.items()):
@@ -677,10 +697,11 @@ def check_quantize(gen, cell, results, serving):
     """xq and sx bit-equal to the plain version's, from f32 and bf16 x, at
     the cell's shapes, the int8 server's and edge shapes, each with a zero
     row (the 1e-12 clamp) and a row of x.5 values (half to even), K up to
-    2048 (a row held in registers) and past it; timed in bf16, the path's
+    2048 (a warp's slot) and past it, and K 24; timed in bf16, the path's
     type, at the cell's shapes and at the edge shapes with M = 40,960."""
     cases = {(m, k): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)}
-    cases[(37, 4104)] = 0  # past 2048 the kernel reads a row twice
+    cases[(37, 4104)] = 0  # rows past 4 KB (bf16) go through a ring twice
+    cases[(37, 24)] = 0  # K an odd multiple of 8: 8-byte stores of xq
     cases.update(cell["quantize"])  # (M, K): launches per cell batch
     for key in serving["quantize"]:
         cases.setdefault(key, None)  # checked, not timed
@@ -717,6 +738,7 @@ def check_w8a8(gen, cell, results, serving):
     M = 40,960."""
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 2048)}
+    cases.update({shape: 0 for shape in ODD_N})
     cases.update(cell["w8a8_matmul"])  # (M, K, N): launches per cell batch
     for key in serving["w8a8_matmul"]:
         cases.setdefault(key, None)  # checked, not timed
@@ -742,30 +764,50 @@ def check_w8a8(gen, cell, results, serving):
                 raise AssertionError("w8a8_matmul disagrees with its plain version")
             if dtype == torch.float32 or n_cell is None or not n_cell and m < CELL_ROWS:
                 continue
+            lib = None
+            if m > 16 and k % 8 == 0 and n % 8 == 0:  # the product alone: no epilogue
+                lib = lambda: torch._int_mm(xq, w.t())
+            log(f"  w8a8_matmul M{m} K{k} N{n}: library_ms is torch._int_mm, the int8 product "
+                f"alone (int32 out, no rescale or bias)" if lib else
+                f"  torch._int_mm refuses M{m} K{k} N{n}: library_ms None")
             measure(results, "w8a8_matmul", f"M{m} K{k} N{n}", dtype, n_cell, err,
                     lambda: w8a8.w8a8_matmul(*args, dtype),
                     lambda: w8a8.w8a8_matmul_plain(*args, dtype),
                     m * k + n * k + 4 * m + 8 * n + got.element_size() * m * n,
-                    2.0 * m * n * k, shape=(m, k, n), ops_dtype=torch.int8)
+                    2.0 * m * n * k, lib=lib, shape=(m, k, n), ops_dtype=torch.int8)
+
+
+# the SASS instructions each library must hold (and, for the int8 library,
+# must not): bf16 wgmma (HGMMA), integer wgmma (IGMMA), TMA loads and stores
+# (UTMALDG, UTMASTG), bulk copies to and from shared memory (UBLKCP), and
+# the mma.sync of the replaced int8 design (IMMA)
+SASS_REQUIRED = {"attention": ("HGMMA", "UTMALDG"), "ffn": ("HGMMA", "UTMALDG"),
+                 "resblock_chain": ("HGMMA", "UTMALDG"),
+                 "int8_matmul": ("IGMMA", "UTMALDG", "UTMASTG"), "quantize": ("UBLKCP",)}
+SASS_FORBIDDEN = {"int8_matmul": ("IMMA",)}
 
 
 def check_instructions(libs) -> None:
-    """The bf16 attention, FFN and chain run on Hopper's own instructions:
-    count wgmma (SASS HGMMA) and TMA loads (UTMALDG) in each library's code,
-    and print the tiles each kernel chose."""
+    """The bf16 attention, FFN and chain, the int8 product and the quantize
+    pass run on Hopper's own instructions: count wgmma (SASS HGMMA, IGMMA),
+    TMA loads and stores (UTMALDG, UTMASTG) and bulk copies (UBLKCP) in
+    each library's code, and print the tiles each kernel chose."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("attention", "ffn", "resblock_chain"):
+    for name, required in SASS_REQUIRED.items():
         sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True, text=True,
                               check=True).stdout
-        found = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
-        log(f"  lib{name}.so: {found['HGMMA']} HGMMA, {found['UTMALDG']} UTMALDG")
-        if not all(found.values()):
-            raise AssertionError(f"lib{name}.so has no wgmma or no TMA load")
+        forbidden = SASS_FORBIDDEN.get(name, ())
+        found = {op: len(re.findall(rf"\b{op}\b", sass)) for op in required + forbidden}
+        log(f"  lib{name}.so: " + ", ".join(f"{n} {op}" for op, n in found.items()))
+        if not all(found[op] for op in required) or any(found[op] for op in forbidden):
+            raise AssertionError(f"lib{name}.so: instructions {found}, required {required}, "
+                                 f"forbidden {forbidden}")
     log(f"  attention tiles: {attention.kernel_tiles()}")
     log(f"  adaln_ffn tiles (rows, columns, stages): {ffn.kernel_tiles()}")
     for c in vocoder_fused.CHAIN_WIDTHS:
         for half in (False, True)[:1 + (c <= 256)]:
             log(f"  resblock_chain bf16 layout at C={c}: {vocoder_fused.kernel_layout(c, half)}")
+    log(f"  int8_matmul tiles (rows, columns, stages): {int8_matmul.kernel_tiles()}")
     for b, t_len, c in ((64, 28672, 128), (64, 3584, 256), (1, 896, 256), (1, 7168, 128)):
         tile = vocoder_fused._tile(c, 3, (1, 3, 9), torch.bfloat16, b, t_len)
         log(f"  resblock_chain bf16 tile at B{b} x {t_len} frames, C={c}: {tile} output frames "
@@ -784,13 +826,15 @@ def cell_summary(results, launches) -> dict:
             raise AssertionError(f"{kernel}: no shape recorded on the cell's path")
         sums = {key: (None if any(r[key] is None for r in cell)
                       else f"{sum(r['n_cell'] * r[key] for r in cell):.4f}")
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "earlier_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "earlier_ms",
+                            "graph_ms", "library_graph_ms")}
         where = ("per b64/5-step batch at the cell's shapes" if kernel != "int8_matmul"
                  else "per TP int8 batch of phase 11 (b), at its shapes")
         log(f"  {kernel} {where} ({cell[0]['dtype']}, "
             f"{sum(r['n_cell'] for r in cell)} launches): kernel {sums['ms']} ms "
-            f"(earlier: {sums['earlier_ms']} ms), plain {sums['plain_ms']} ms, library "
-            f"{sums['library_ms']} ms, bound {sums['bound_ms']} ms")
+            f"[graph {sums['graph_ms']}] (earlier: {sums['earlier_ms']} ms), plain "
+            f"{sums['plain_ms']} ms, library {sums['library_ms']} ms "
+            f"[graph {sums['library_graph_ms']}], bound {sums['bound_ms']} ms")
         line[kernel] = max(cell, key=lambda r: r["n_cell"] * r["ms"])
     return line
 
@@ -1146,10 +1190,11 @@ def fused_projections_path(params) -> None:
 TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
                "resblock_chain": ("chain_wgmma", "chain_kernel", "conv_pass"),
                "int8_matmul": ("Int32Out",),
-               "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows",)}
+               "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows")}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch
+DEVICE_BUSY_MS: dict = {}  # precision -> device busy of its main engine's traced replayed batch
 BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 
 
@@ -1227,9 +1272,15 @@ def trace_replayed_batch(tts, texts, style, per_batch, wall_s: float) -> None:
              for k in per_batch}
     log(f"  replayed b64/5-step batch under torch.profiler: {n_launch} host launch calls "
         f"(limit {MAX_HOST_LAUNCHES}); host calls {dict(sorted(host.items()))}")
-    log(f"  hand-written kernels in its device trace: {found}; device busy {busy:.1f} ms "
-        f"in {sum(e.count for e in dev)} device events; unprofiled wall {wall_s * 1e3:.1f} ms "
-        f"(median of the reps), idle share {max(0.0, 1 - busy / (wall_s * 1e3)):.3f}")
+    precision = tts.engine.precision
+    DEVICE_BUSY_MS.setdefault(precision, busy)  # the first engine of each precision
+    beside = ("" if precision == "bf16" or "bf16" not in DEVICE_BUSY_MS else
+              f" (bf16, phase 3: {DEVICE_BUSY_MS['bf16']:.1f} ms; {precision} - bf16 = "
+              f"{busy - DEVICE_BUSY_MS['bf16']:+.1f} ms)")
+    log(f"  hand-written kernels in its device trace: {found}; device busy {busy:.1f} ms"
+        f"{beside} in {sum(e.count for e in dev)} device events; unprofiled wall "
+        f"{wall_s * 1e3:.1f} ms (median of the reps), idle share "
+        f"{max(0.0, 1 - busy / (wall_s * 1e3)):.3f}")
     n_graphs = sum(n for k, n in host.items() if k.startswith(HOST_LAUNCH_CALLS[2:]))
     if n_launch > MAX_HOST_LAUNCHES or n_graphs < 1:
         raise AssertionError(f"one replayed batch: {n_launch} host launch calls, {n_graphs} "

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the bf16 attention, resblock-chain and AdaLN FFN kernels of the
-PyTorch port against design variants on one CUDA card: the measurements
-behind the design choices stated in the headers of supertonic_tpu_torch/
-csrc/attention.cu, resblock_chain.cu and ffn.cu.
+"""Time the bf16 attention, resblock-chain and AdaLN FFN kernels, the int8
+product and the quantize pass of the PyTorch port against design variants
+on one CUDA card: the measurements behind the design choices stated in the
+headers of supertonic_tpu_torch/csrc/attention.cu, resblock_chain.cu,
+ffn.cu, int8_matmul.cu and quantize.cu.
 
     python3 kernel_variants.py                 # every kernel
     python3 kernel_variants.py ffn attention   # some of them (attention_f32:
                                                # the f32 attention)
-    python3 kernel_variants.py resblock_chain --split  # and the chain's
-                                               # time split (SPLIT)
+    python3 kernel_variants.py resblock_chain quantize --split  # and the
+                                               # time splits (SPLIT)
 
 Each variant is the kernel's own source with design constants changed by
 text substitution in its bf16 section, or a whole source file: for
@@ -21,7 +22,8 @@ PyTorch version and timed in turns with the kernel as committed
 (committed, variants, variants in reverse, committed), at the shapes one
 b64/5-step batch gives each kernel (chip_smoke.py records them) and, for
 all three, at the B=1 shapes of a streamed chunk (the chain: the two
-vocoder windows). Each is timed twice: launched from the host (CUDA events
+vocoder windows; the int8 product and the quantize pass: the b64 batch's
+shapes and the TP int8 batch's). Each is timed twice: launched from the host (CUDA events
 around the calls, as chip_smoke.py times them) and replayed from a CUDA
 graph of the same calls, as the engine runs them, which leaves out the
 host's per-call work:
@@ -38,6 +40,21 @@ host's per-call work:
              (no smaller tiles for a grid that does not fill the card); two
              consumer warpgroups at every C; no stages of 64 input
              channels; the conv size at run time only
+  int8       the W8A8 product (bf16 results) at the b64 cell's shapes and the
+             int32 form at the TP int8 path's and the cell's, beside
+             torch._int_mm (the product alone, a yardstick): the mma.sync
+             design it replaced (earlier); 64 x 256 tiles a consumer; 3 ring
+             stages; not persistent; stores from the registers (no TMA
+             store); 128 x 256 tiles shared by the two consumers
+  quantize   the one-warp-a-row design it replaced (earlier); persistent
+             blocks whose warps walk rings of 1-4 KB stages (the design
+             first built for it, csrc/variants/); 4 KB or 1 KB of rows a
+             warp; 8 warps a block; and with --split: loads only (the rows
+             staged, nothing computed or stored), loads and each row's max
+             (no division, no xq), a product with 1 / sx for the IEEE
+             division (not bit-equal), and the earlier design's loads and
+             max alone, at the cell's shapes, the TP shapes and at M from
+             7,168 to 57,344
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -57,7 +74,8 @@ import sys
 import torch
 
 import chip_smoke as cs
-from supertonic_tpu_torch.ops import _build, attention, ffn, vocoder_fused
+from supertonic_tpu_torch.ops import (_build, attention, ffn, int8_matmul, quantize,
+                                      vocoder_fused, w8a8)
 
 BF16_SECTION = "// bf16 on the tensor cores"
 FILE = "file"  # a variant that is a whole source file under csrc/ (+ substitutions)
@@ -87,11 +105,26 @@ SPLIT = {"resblock_chain": {
         (CHAIN_EPILOGUE, CHAIN_EPILOGUE + "    if (Tlen >= 0) {\n"
          "      stk::named_bar_sync(1, L::NC * 128);\n      continue;\n    }\n")],
     "split: no products": [
-        ("stk::Wgmma<64>::template rs<1>(", "if (Tlen < 0) stk::Wgmma<64>::template rs<1>(")]}}
+        ("stk::Wgmma<64>::template rs<1>(", "if (Tlen < 0) stk::Wgmma<64>::template rs<1>(")]},
+    "quantize": {
+        "split: loads only": [
+            ("  stk::mbar_wait(&full[warp], 0);\n", "  stk::mbar_wait(&full[warp], 0);\n"
+             "  if (K >= 0) return;\n")],
+        "split: loads and the row max (no division, no xq)": [
+            ("  if (sub == 0) *sx_row = sc;\n", "  if (sub == 0) *sx_row = sc;\n  if (K >= 0) return;\n")],
+        "split: a product with 1 / sx for the division (not bit-equal)": [
+            ("__float2int_rn(__fdiv_rn(v[e], s))", "__float2int_rn(v[e] * s)")],
+        "split, earlier: loads and the row max (no division, no xq)": (
+            FILE, "earlier/quantize_warp_rows.cu",
+            [("*reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);", "")])}}
 UP = "using UpTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
 DOWN = "using DownTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
 UP_FEW = "using UpTileSmall = stk::WgTile<2, 1, 64, 8, 1, true>;"
 DOWN_FEW = "using DownTileSmall = stk::WgTile<2, 1, 32, 8, 1, true, false, false>;"
+I8_BIG = "using Bf16Tile = stk::WgTile<2, 2, 128, 4, 1, true>;"
+I8_FEW = "using Bf16TileFew = stk::WgTile<2, 1, 64, 8, 1, true>;"
+I8_WIDE = "using WideTile = stk::WgTile<2, 1, 128, 4, 1, true, false, true, 4>;"
+I8_WIDE_FEW = "using WideTileFew = stk::WgTile<2, 1, 64, 8, 1, true, false, true, 4>;"
 
 
 def tile(line: str, args: str) -> tuple[str, str]:
@@ -150,18 +183,49 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "both GEMMs in 128 x 256 tiles shared by both consumers": [
             tile(UP, "2, 1, 256, 3, 1, true, true"), tile(DOWN, "2, 1, 256, 3, 1, true, true")],
         "few rows: GEMM2 in 64 x 64 tiles": [tile(DOWN_FEW, "2, 1, 64, 8, 1, true")]},
+    "int8": {
+        "earlier: mma.sync, cp.async ring": (FILE, "earlier/int8_matmul_mma_sync.cu", []),
+        "bf16 results in 64 x 256 tiles a consumer": [tile(I8_BIG, "2, 1, 256, 4, 1, true")],
+        "3 stages": [tile(I8_BIG, "2, 2, 128, 3, 1, true"),
+                     tile(I8_WIDE, "2, 1, 128, 3, 1, true, false, true, 4")],
+        "not persistent: one tile a consumer": [
+            tile(I8_BIG, "2, 2, 128, 4, 1, false"), tile(I8_FEW, "2, 1, 64, 8, 1, false"),
+            tile(I8_WIDE, "2, 1, 128, 4, 1, false, false, true, 4"),
+            tile(I8_WIDE_FEW, "2, 1, 64, 8, 1, false, false, true, 4")],
+        "stores from the registers, not by TMA": [
+            tile(I8_BIG, "2, 2, 128, 4, 1, true, false, false"),
+            tile(I8_FEW, "2, 1, 64, 8, 1, true, false, false"),
+            tile(I8_WIDE, "2, 1, 128, 4, 1, true, false, false, 4"),
+            tile(I8_WIDE_FEW, "2, 1, 64, 8, 1, true, false, false, 4")],
+        "128 x 256 tiles shared by both consumers": [
+            tile(I8_BIG, "2, 1, 256, 3, 1, true, true")]},
+    "quantize": {
+        "earlier: one warp a row": (FILE, "earlier/quantize_warp_rows.cu", []),
+        "persistent blocks, each warp a ring of 1-4 KB stages": (
+            FILE, "variants/quantize_persistent_ring.cu", []),
+        "4 KB of rows a warp (4 rows at K 512)": [
+            ("constexpr int STAGED = 2048;", "constexpr int STAGED = 4096;")],
+        "1 KB of rows a warp (1 row at K 512)": [
+            ("constexpr int STAGED = 2048;", "constexpr int STAGED = 1024;")],
+        "8 warps a block": [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
          "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES),
-         "ffn": ("stk_adaln_ffn", ffn._ARGTYPES)}
+         "ffn": ("stk_adaln_ffn", ffn._ARGTYPES),
+         "int8": ("stk_w8a8_matmul", w8a8._ARGTYPES),
+         "quantize": ("stk_quantize_rows", quantize._ARGTYPES)}
+# further entries of a variant's library, {kernel: {name: argtypes}}
+MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES}}
 # names (in ptxas's mangled names) of the device functions whose registers and
 # spills each build prints (the bf16 kernels; attention_f32: the f32 ones)
 BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
                   "attention_f32": ("attn_wide", "attn_kernel"),
                   "resblock_chain": ("chain_mma", "chain_wgmma"),
-                  "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod")}
-SOURCE = {"attention_f32": "attention"}  # kernels timed from another kernel's source
+                  "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
+                  "int8": ("wgmma_gemm", "mma_gemm"),
+                  "quantize": ("quantize_",)}
+SOURCE = {"attention_f32": "attention", "int8": "int8_matmul"}  # kernels timed from another kernel's source
 OUT = _build.BUILD_ROOT / "variants"
 
 
@@ -172,14 +236,18 @@ def build_variants(kernels) -> dict:
     for kernel in kernels:
         variants = VARIANTS[kernel]
         source = (_build.CSRC_DIR / f"{SOURCE.get(kernel, kernel)}.cu").read_text()
-        head, bf16 = source.split(BF16_SECTION)
+        # substitutions act on the bf16 section of a source that has one, else
+        # on the whole source
+        head, bf16 = (source.split(BF16_SECTION) if BF16_SECTION in source
+                      else ("", source))
         # the committed source too, for its ptxas report beside the variants'
         for i, (name, subs) in enumerate([("committed", [])] + list(variants.items())):
             if subs and subs[0] == FILE:
                 _, where, subs = subs
                 src, prefix = (_build.CSRC_DIR / where).read_text(), ""
             else:
-                src, prefix, where = bf16, head + BF16_SECTION, "the bf16 section"
+                src, where = bf16, "the bf16 section"
+                prefix = head + BF16_SECTION if head else ""
             for old, new in subs:
                 if old not in src:
                     raise RuntimeError(f"{kernel}: '{old}' not in {where}")
@@ -205,10 +273,13 @@ def build_variants(kernels) -> dict:
             # wgmma serialised by the compiler, or setmaxnreg ignored
             if any(code in line for code in ("C7515", "C7508", "C7510", "C7512", "C7520")):
                 cs.log(f"  {kernel} / {name}: {line.strip()[:160]}")
+        library = ctypes.CDLL(str(lib))
         entry, argtypes = ENTRY[kernel]
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fns[(kernel, name)] = fn = getattr(library, entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[(kernel, name)] = fn
+        for entry, argtypes in MORE_ENTRIES.get(kernel, {}).items():
+            fns[(kernel, name, entry)] = fn = getattr(library, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fns
 
 
@@ -308,7 +379,104 @@ def main() -> int:
         variants_chain(fns, gen, dt)
     if "ffn" in kernels:
         variants_ffn(fns, gen, dt)
+    if "int8" in kernels:
+        variants_int8(fns, gen)
+    if "quantize" in kernels:
+        variants_quantize(fns, gen)
     return 0
+
+
+# (M, K, N) of the W8A8 products of one b64/5-step batch (T=448) and of the
+# TP int8 batch's int32 products (phase 11 (b) of chip_smoke.py)
+CELL_INT8 = ((28672, 512, 512), (28672, 512, 2048), (28672, 2048, 512), (23680, 512, 512))
+TP_INT8 = ((1792, 256, 512), (1792, 1024, 512))
+
+
+def int8_call(fn, a, w, out_dtype, sx=None, ws=None, bias=None):
+    """One product through a variant's library: the int32 form, or the
+    W8A8 epilogue's."""
+    m, k = a.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), device=a.device, dtype=out_dtype)
+    P = _build.ptr
+    if out_dtype == torch.int32:
+        err = fn(P(a), P(w), P(out), m, n, k, _build.stream_ptr(a))
+    else:
+        err = fn(P(a), P(w), P(sx), P(ws), P(bias), P(out), m, n, k,
+                 _build.dtype_code(out_dtype), _build.stream_ptr(a))
+    _build.check(err, "variant")
+    return out
+
+
+def variants_int8(fns, gen) -> None:
+    cs.log("int8 product, ms per launch (W8A8 bf16 results at the cell's shapes; int32 at "
+           "the TP shapes and the cell's)")
+    cases = [(shape, torch.bfloat16) for shape in CELL_INT8 + TP_INT8]
+    cases += [(shape, torch.int32) for shape in TP_INT8 + CELL_INT8]
+    for (m, k, n), out_dtype in cases:
+        a, w = (torch.randint(-127, 128, shape, generator=gen, device=cs.DEV).to(torch.int8)
+                for shape in ((m, k), (n, k)))
+        sx = torch.rand(m, generator=gen, device=cs.DEV) * 0.02
+        ws = torch.rand(n, generator=gen, device=cs.DEV) * 0.01
+        bias = 0.1 * torch.randn(n, generator=gen, device=cs.DEV)
+        if out_dtype == torch.int32:
+            ref = int8_matmul.int8_matmul_plain(a, w)
+            calls = {"committed": lambda: int8_matmul.int8_matmul(a, w)}
+            for name in VARIANTS["int8"]:
+                fn = fns[("int8", name, "stk_int8_matmul")]
+                calls[name] = lambda fn=fn: int8_call(fn, a, w, torch.int32)
+        else:
+            ref = w8a8.w8a8_matmul_plain(a, sx, w, ws, bias, out_dtype)
+            calls = {"committed": lambda: w8a8.w8a8_matmul(a, sx, w, ws, bias, out_dtype)}
+            for name in VARIANTS["int8"]:
+                fn = fns[("int8", name)]
+                calls[name] = lambda fn=fn: int8_call(fn, a, w, out_dtype, sx, ws, bias)
+        label = f"M{m} K{k} N{n} {str(out_dtype).split('.')[-1]}"
+        for name, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"int8 {label} {name}: not bit-equal to the plain version")
+        cs.log(f"  int8 {label}: every variant bit-equal to the plain version")
+        calls["torch._int_mm, the product alone (yardstick)"] = lambda: torch._int_mm(a, w.t())
+        in_turns(label, calls, 20, graphs=True)
+
+
+def quantize_call(fn, x):
+    m, k = x.shape
+    xq = torch.empty((m, k), device=x.device, dtype=torch.int8)
+    sx = torch.empty((m,), device=x.device, dtype=torch.float32)
+    P = _build.ptr
+    _build.check(fn(P(x), P(xq), P(sx), m, k, _build.dtype_code(x.dtype), _build.stream_ptr(x)),
+                 "variant")
+    return xq, sx
+
+
+def variants_quantize(fns, gen) -> None:
+    cs.log("quantize, ms per launch (bf16 x): the cell's shapes, the TP int8 batch's, and "
+           "M from 7,168 to 57,344 at K 512")
+    shapes = ((28672, 512), (28672, 2048), (23680, 512), (1792, 256), (1792, 512),
+              (1792, 1024), (7168, 512), (14336, 512), (57344, 512))
+    for m, k in shapes:
+        x = (3 * torch.randn((m, k), generator=gen, device=cs.DEV)).to(torch.bfloat16)
+        x[0] = 0.0
+        rq, rs = quantize.quantize_rows_plain(x)
+        calls = {"committed": lambda: quantize.quantize_rows(x)}
+        for name in VARIANTS["quantize"]:
+            fn = fns[("quantize", name)]
+            calls[name] = lambda fn=fn: quantize_call(fn, x)
+        label = f"M{m} K{k}"
+        for name, call in calls.items():
+            if name.startswith("split"):
+                continue
+            xq, sx = call()
+            torch.cuda.synchronize()
+            if not (torch.equal(xq, rq) and torch.equal(sx.view(torch.int32),
+                                                        rs.view(torch.int32))):
+                raise AssertionError(f"quantize {label} {name}: not bit-equal")
+        cs.log(f"  quantize {label}: every variant bit-equal to the plain version "
+               f"(bound {cs.bound(m * k * 3 + 4 * m, 3.0 * m * k, torch.float32)[0]:.4f} ms)")
+        in_turns(label, calls, 20, graphs=True)
 
 
 def variants_ffn(fns, gen, dt) -> None:

@@ -10,90 +10,124 @@
 // weight in torch's linear layout [dout, din]. |sum| <= 127^2 * K, far
 // inside int32 for every K the path has.
 //
-// Bound on the H100: at the path's shapes (M = 40,960 rows, K = 512, N = 2048)
-// the output sets it: 336 MB of int32 (0.107 ms at 3.35 TB/s) for
-// int8_matmul, 168 MB of bf16 (0.053 ms) for w8a8_matmul, against 0.043 ms
-// for the 2*M*N*K operations at 1,979 TOPS int8. So the W8A8 path writes
-// the linear's output from the accumulators and never an int32 tensor, and
-// the output is written coalesced: each warp stages its accumulator tile
-// through shared memory, and each lane then writes 8 columns (16 bytes of
-// bf16). The epilogue is bit-equal to the plain version's f32 operations:
+// Bound on the H100: the bytes. At the W8A8 path's main shape (M = 28,672
+// rows, K = 512, N = 512, bf16 out) 14.7 MB of A, 0.26 MB of W and 29.4 MB
+// of Y take 0.0133 ms at 3.35 TB/s, against 0.0076 ms for the 15 G
+// operations at 1,979 TOPS int8. So the W8A8 path writes the linear's
+// output straight from the accumulators and never an int32 tensor. The
+// epilogue is bit-equal to the plain version's f32 operations:
 // __int2float_rn (which rounds above 2^24, as torch's .float() does), then
 // __fmul_rn, __fmul_rn and __fadd_rn in the plain order, so nvcc cannot
-// contract them into an FMA.
+// contract them into an FMA, and one rounding to the stored type.
 //
-// Design: the tensor-core GEMM of csrc/mma_gemm.cuh on mma.sync.m16n8k32
-// s8.s8.s32: 128 x 128 block tiles, 8 warps of 64 x 32, two blocks an SM;
-// K in steps of 128 bytes through a 3-stage cp.async ring with XOR-swizzled
-// rows, fragments by ldmatrix.x4 loaded ahead of the products. Rows past M
-// or N and K past its end are zero-filled on load, and the store is masked;
-// K is a multiple of 32, one product's depth. wgmma and TMA are later work.
-#include "mma_gemm.cuh"
+// Design: the warp-specialised GEMM of csrc/wgmma_gemm.cuh with its s8
+// operation (WgmmaS8: wgmma.mma_async m64nBNk32 s32.s8.s8, both operands
+// K-major from 128-byte-swizzled shared memory). A producer warpgroup
+// streams K in stages of 128 bytes (128 int8, four products) by TMA (the
+// unsigned 8-bit map type moves the bytes unchanged); persistent blocks of
+// two consumer warpgroups take turns over whole tiles, n fastest so that
+// the tiles in flight share their A rows in L2, and each one's epilogue
+// (the row's and the column's scales, the rounding, the swizzled staging
+// and the TMA store) runs beside the other's products: with K = 512 a
+// tile is only four stages, and its epilogue is about as long as its
+// mainloop. Results leave by TMA stores in 128-byte rows (64 bf16 columns,
+// or 32 of int32 / f32); rows past M and columns past N load as zeros and
+// are not stored; an N whose rows are no multiple of 16 bytes (an odd N,
+// say) takes the register-store instance, which writes element by element
+// where it must. The three tensor maps are encoded at every launch (a
+// graph capture keeps them): a cache of encoded maps measured no faster
+// host-launched at the TP int8 path's shapes, where the Python wrapper's
+// own work is the host time (PERF.md section 6). A launch takes the large
+// tile while that gives every consumer warpgroup of the card a tile (896
+// tiles of 128 x 128 at the cell's M 28,672 N 512), else the small one (the
+// TP int8 path's M 1,792). The mma.sync design this replaces is
+// csrc/earlier/int8_matmul_mma_sync.cu (with csrc/mma_gemm.cuh).
+#include <type_traits>
+
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-using Int8Tile = stk::GemmShape<128, 128, 64, 32, 3, 2>;  // BM, BN, WM, WN, stages, blocks/SM
+using Op = stk::WgmmaS8;
+// NC, MI (rows 64 MI), BN, stages, blocks an SM, persistent, shared tiles,
+// TMA store, result bytes, any N (kernel_variants.py builds others): bf16
+// results, then 4-byte (int32, f32) ones, at many tiles, at few, and at an
+// N whose rows no TMA map takes
+using Bf16Tile = stk::WgTile<2, 2, 128, 4, 1, true>;
+using Bf16TileFew = stk::WgTile<2, 1, 64, 8, 1, true>;
+using Bf16TileAnyN = stk::WgTile<2, 1, 64, 8, 1, true, false, false, 2, true>;
+using WideTile = stk::WgTile<2, 1, 128, 4, 1, true, false, true, 4>;
+using WideTileFew = stk::WgTile<2, 1, 64, 8, 1, true, false, true, 4>;
+using WideTileAnyN = stk::WgTile<2, 1, 64, 8, 1, true, false, false, 4, true>;
 
-// The stored form of the product: out(row, col, v) takes the exact int32
-// sums of 8 consecutive columns (fewer at the right edge, past N unused).
-struct Int32Out {  // int8_matmul: C = the sums
-  int32_t* C;
-  int N;
-  __device__ __forceinline__ void operator()(int row, int col, const int v[8]) const {
-    int32_t* dst = C + (size_t)row * N + col;
-    if ((N & 3) == 0 && col + 8 <= N) {
-      *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<int4*>(dst + 4) = make_int4(v[4], v[5], v[6], v[7]);
-    } else {
-      for (int e = 0; e < 8 && col + e < N; ++e) dst[e] = v[e];
+// int8_matmul: C = the exact sums
+struct Int32Out {
+  using Out = int32_t;
+  struct Row {
+    __device__ __forceinline__ uint2 operator()(int, int v0, int v1) const {
+      return make_uint2((uint32_t)v0, (uint32_t)v1);
     }
-  }
+  };
+  __device__ __forceinline__ Row row(int) const { return {}; }
 };
 
-template <typename T>  // w8a8_matmul: Y = (float(sums) * sx[row]) * ws[col] + bias[col]
+// w8a8_matmul: Y = (float(sums) * sx[row]) * ws[col] + bias[col], rounded
+// once to T; ANY_N reads the last odd column's scale and bias alone
+template <typename T, bool ANY_N>
 struct ScaleOut {
-  T* Y;
+  using Out = T;
   const float* sx;
   const float* ws;
   const float* bias;
   int N;
-  __device__ __forceinline__ void operator()(int row, int col, const int v[8]) const {
-    const float s = sx[row];
-    T* dst = Y + (size_t)row * N + col;
-    if ((N & 7) == 0 && col + 8 <= N) {  // rows 16-byte aligned: 8-wide loads and stores
-      float w[8], b[8], y[8];
-      stk::load4(ws + col, w);
-      stk::load4(ws + col + 4, w + 4);
-      stk::load4(bias + col, b);
-      stk::load4(bias + col + 4, b + 4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        y[e] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v[e]), s), w[e]), b[e]);
-      store8(dst, y);
-    } else {
-      for (int e = 0; e < 8 && col + e < N; ++e)
-        dst[e] = stk::from_f<T>(
-            __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v[e]), s), ws[col + e]), bias[col + e]));
+  struct Row {
+    float s;
+    const float* ws;
+    const float* bias;
+    int N;
+    __device__ __forceinline__ stk::Pair<sizeof(T)> operator()(int col, int v0, int v1) const {
+      float2 w, b;
+      if (!ANY_N || col + 1 < N) {  // col is even: 8-byte aligned
+        w = *reinterpret_cast<const float2*>(ws + col);
+        b = *reinterpret_cast<const float2*>(bias + col);
+      } else {
+        w = make_float2(ws[col], 0.0f);
+        b = make_float2(bias[col], 0.0f);
+      }
+      const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v0), s), w.x), b.x);
+      const float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v1), s), w.y), b.y);
+      if constexpr (sizeof(T) == 2) {
+        return stk::pack_bf16(y0, y1);  // round to nearest even, as torch's .to(bf16)
+      } else {
+        return make_uint2(__float_as_uint(y0), __float_as_uint(y1));
+      }
     }
-  }
-  static __device__ __forceinline__ void store8(float* dst, const float y[8]) {
-    *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(y[4], y[5], y[6], y[7]);
-  }
-  static __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float y[8]) {
-    uint4 o;
-    uint32_t* p = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[e] = stk::pack_bf16(y[2 * e], y[2 * e + 1]);
-    *reinterpret_cast<uint4*>(dst) = o;
-  }
+  };
+  __device__ __forceinline__ Row row(int r) const { return {sx[r], ws, bias, N}; }
 };
 
-template <typename Out>
-int launch(const void* a, const void* w, int M, int N, int K, Out out, void* stream) {
+template <typename S, typename Epi>
+int go(const void* a, const void* w, void* c, int M, int N, int K, Epi epi, void* stream) {
+  return stk::launch_wgmma_gemm<Op, S, Epi>(
+      (const int8_t*)a, (const int8_t*)w, (typename stk::EpiOut<Epi>::type*)c, M, N, K, epi,
+      (cudaStream_t)stream);
+}
+
+// the instance for results of T at this shape
+template <typename T, typename Epi, typename EpiAnyN>
+int launch(const void* a, const void* w, void* c, int M, int N, int K, Epi epi,
+           EpiAnyN epi_any_n, void* stream) {
+  constexpr bool B16 = sizeof(T) == 2;
+  using Many = std::conditional_t<B16, Bf16Tile, WideTile>;
+  using Few = std::conditional_t<B16, Bf16TileFew, WideTileFew>;
+  using AnyN = std::conditional_t<B16, Bf16TileAnyN, WideTileAnyN>;
   if (M < 1 || N < 1 || K < 32 || K % 32) return (int)cudaErrorInvalidValue;
-  return stk::launch_mma_gemm<stk::MmaS8, Int8Tile>((const int8_t*)a, (const int8_t*)w, M, N, K,
-                                                    out, (cudaStream_t)stream);
+  if ((N * sizeof(T)) % 16) return go<AnyN>(a, w, c, M, N, K, epi_any_n, stream);
+  int sms = 0;
+  if (int err = stk::sm_count(sms)) return err;
+  if (stk::gemm_tiles<Many>(M, N) >= (long long)Many::NC * sms)
+    return go<Many>(a, w, c, M, N, K, epi, stream);
+  return go<Few>(a, w, c, M, N, K, epi, stream);
 }
 
 }  // namespace
@@ -102,7 +136,7 @@ int launch(const void* a, const void* w, int M, int N, int K, Out out, void* str
 // 16-byte aligned; M, N >= 1; K a positive multiple of 32.
 extern "C" int stk_int8_matmul(const void* a, const void* w, void* c, int M, int N,
                                int K, void* stream) {
-  return launch(a, w, M, N, K, Int32Out{(int32_t*)c, N}, stream);
+  return launch<int32_t>(a, w, c, M, N, K, Int32Out{}, Int32Out{}, stream);
 }
 
 // a [M, K] int8, w [N, K] int8 as above; sx [M], w_scale [N], bias [N]
@@ -112,12 +146,26 @@ extern "C" int stk_w8a8_matmul(const void* a, const void* w, const void* sx,
                                const void* w_scale, const void* bias, void* y, int M,
                                int N, int K, int dtype, void* stream) {
   auto f = [](const void* p) { return (const float*)p; };
+  using bf16 = __nv_bfloat16;
   if (dtype == 0)
-    return launch(a, w, M, N, K, ScaleOut<float>{(float*)y, f(sx), f(w_scale), f(bias), N},
-                  stream);
+    return launch<float>(a, w, y, M, N, K,
+                         ScaleOut<float, false>{f(sx), f(w_scale), f(bias), N},
+                         ScaleOut<float, true>{f(sx), f(w_scale), f(bias), N}, stream);
   if (dtype == 1)
-    return launch(a, w, M, N, K,
-                  ScaleOut<__nv_bfloat16>{(__nv_bfloat16*)y, f(sx), f(w_scale), f(bias), N},
-                  stream);
+    return launch<bf16>(a, w, y, M, N, K,
+                        ScaleOut<bf16, false>{f(sx), f(w_scale), f(bias), N},
+                        ScaleOut<bf16, true>{f(sx), f(w_scale), f(bias), N}, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// the instances' tiles, rows x columns x ring stages: bf16 results at many
+// tiles, at few and at any N, then the same for 4-byte results
+extern "C" int stk_int8_tiles(int* tiles) {
+  const int v[18] = {Bf16Tile::BM, Bf16Tile::BN, Bf16Tile::NS, Bf16TileFew::BM,
+                     Bf16TileFew::BN, Bf16TileFew::NS, Bf16TileAnyN::BM, Bf16TileAnyN::BN,
+                     Bf16TileAnyN::NS, WideTile::BM, WideTile::BN, WideTile::NS,
+                     WideTileFew::BM, WideTileFew::BN, WideTileFew::NS, WideTileAnyN::BM,
+                     WideTileAnyN::BN, WideTileAnyN::NS};
+  for (int i = 0; i < 18; ++i) tiles[i] = v[i];
+  return 0;
 }

@@ -8,19 +8,47 @@
 // package's _linear_w8a8 (supertonic_tpu/models/layers.py) leaves it to XLA.
 // Bit-equal to the plain version: the max is exact in any order, both
 // divisions are true IEEE divisions (__fdiv_rn; a product with the
-// reciprocal is an ulp off in some rows and flips a rounding), rintf rounds
-// half to even as torch.round does, and fmaxf clamps as torch.clamp(min=).
+// reciprocal is an ulp off in some rows and flips a rounding), the
+// conversion to int rounds half to even (__float2int_rn, as rintf and
+// torch.round), and fmaxf clamps as torch.clamp(min=).
 //
-// Bound on the H100: the bytes, M*K*(size + 1) + 4*M (63 MB at the path's
-// 40,960 x 512 bf16, 19 us at 3.35 TB/s). One warp a row reads the row in
-// 16-byte chunks, held in registers up to K = 2048 in bf16 and 1024 in f32
-// (above, the row is read again, from L1), takes the max across the warp,
-// and writes 8 int8 a lane at a time.
-#include "common.cuh"
+// Bound on the H100: the bytes, M*K*(size + 1) + 4*M (44 MB at the path's
+// 28,672 x 512 bf16, 0.0132 ms at 3.35 TB/s). The IEEE division is the
+// longest part of the arithmetic (a product with 1 / sx in its place
+// takes ~30% off the time at that shape).
+//
+// What the split found (kernel_variants.py quantize --split, PERF.md
+// section 6): the one-warp-a-row design this replaces was never slow on
+// the card; 0.035 ms a launch, flat in M, was the Python wrapper's host
+// time between back-to-back launches. From a replayed graph it takes
+// 0.015 ms at the cell's shape, its loads and row max alone 0.0065.
+//
+// Design: each warp stages R whole rows (R a power of 2, up to 2 KB of
+// them, or one row of up to 4 KB) into its own slot of shared memory with
+// one bulk copy (cp.async.bulk, completing on the warp's mbarrier), the
+// rows contiguous in x; groups of 32 / R lanes take a row each, hold its
+// values in registers from one read of the slot, reduce the row's max
+// over the group with shuffles, and write xq from the registers in 16-byte
+// stores (8-byte where K is no multiple of 16). Blocks of 4 warps, one
+// slot a warp, as many blocks as the rows need (R is smaller where fewer
+// rows would leave SMs idle): the card's scheduler keeps many warps'
+// copies in flight while others quantize. Persistent blocks walking rings
+// of stages (csrc/variants/quantize_persistent_ring.cu) measured slower at
+// every shape of the path (0.0243 against 0.0170 ms from graphs at 28,672
+// x 512). Rows longer than 4 KB (K past 2048 in bf16, 1024 in f32)
+// pass through a persistent warp's ring in 4 KB chunks twice, once for the
+// max and once to quantize.
+#include <algorithm>
+
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int WARPS = 4;            // warps a block of the row kernel
+constexpr int SLOT = 4096;          // bytes of a warp's slot: its rows
+constexpr int STAGED = 2048;        // bytes of rows a warp stages, or one longer row
+constexpr int LONG_WARPS = 16;      // the long-row kernel: warps a block, one block an SM,
+constexpr int STAGE = 4096, NS = 3;  // each warp a ring of NS chunks of STAGE bytes
 
 // 8 consecutive values of T as raw 16-byte words (U<T> of them), and as float
 template <typename T> constexpr int U = (int)sizeof(T) / 2;  // 2 for float, 1 for bf16
@@ -48,96 +76,242 @@ __device__ __forceinline__ void to_float<__nv_bfloat16>(const uint4 r[1], float 
     v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
   }
 }
-
-__device__ __forceinline__ uint2 quantize8(const float v[8], float s) {
-  uint2 o;
-  uint32_t* p = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    uint32_t packed = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = (int)rintf(__fdiv_rn(v[4 * w + e], s));
-      packed |= (uint32_t)(q & 0xff) << (8 * e);
-    }
-    p[w] = packed;
-  }
-  return o;
+template <typename T> __device__ __forceinline__ void load8(const T* p, float v[8]) {
+  uint4 raw[U<T>];
+  load_raw(p, raw);
+  to_float<T>(raw, v);
 }
 
-// CPL > 0: each lane holds its CPL chunks of 8 values (chunk lane + 32 i)
-// in registers as loaded, so x is read once (K <= 256 CPL); CPL = 0: any
-// K, the row read twice, the second time from L1.
-template <typename T, int CPL>
-__global__ void __launch_bounds__(NT)
-quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
-              int M, int K) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const T* xr = x + (size_t)row * K;
-  int8_t* qr = xq + (size_t)row * K;
-  const int nc = K / 8;
-  float amax = 0.0f;
-  if constexpr (CPL > 0) {
-    uint4 raw[CPL][U<T>];
+// the largest |v| of this lane's chunks of 8 values at p: chunks first,
+// first + stride, ... below n8
+template <typename T>
+__device__ __forceinline__ float chunk_amax(const T* p, int n8, int first, int stride,
+                                            float amax) {
+#pragma unroll 2
+  for (int c = first; c < n8; c += stride) {
+    float v[8];
+    load8(p + 8 * c, v);
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < nc) {
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  }
+  return amax;
+}
+
+// four ints in [-127, 127] as the bytes q0 (lowest) .. q3 of a word: two
+// cvt.pack.sat, each packing two values beside the lower half of its last
+// operand shifted up by 16
+__device__ __forceinline__ uint32_t pack4(int q0, int q1, int q2, int q3) {
+  uint32_t hi, d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, 0;\n" : "=r"(hi) : "r"(q3), "r"(q2));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(q1), "r"(q0), "r"(hi));
+  return d;
+}
+
+// round_half_even(v / s) as int8: __float2int_rn rounds half to even as
+// rintf does, in the conversion itself
+__device__ __forceinline__ uint2 quantize8(const float v[8], float s) {
+  int q[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) q[e] = __float2int_rn(__fdiv_rn(v[e], s));
+  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+}
+
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fdiv_rn(fmaxf(stk::warp_max(amax), 1e-12f), 127.0f);
+}
+
+// One row of K values at `in` (shared memory) by the L lanes of a group
+// (sub: this lane's place in it, the group L consecutive lanes): the max
+// over the group by shuffles, sx, and xq. The lane's values are held in
+// registers from one read of the slot, 16 values (16 bytes of xq) a step,
+// at most H steps a lane: K a multiple of 16 and K / 16 <= H L, which every
+// slot's R rows of at most 2 KB (or one row of at most 4 KB) meet. An
+// invalid group (past the slot's rows) takes part in the shuffles only.
+template <typename T>
+__device__ __forceinline__ void quantize_row_held(const T* in, int8_t* out, float* sx_row,
+                                                  bool valid, int K, int L, int sub) {
+  constexpr int H = 4 / U<T>, W = 2 * U<T>;  // steps a lane, 16-byte words a step
+  const int steps = K / 16;
+  uint4 raw[H][W];
+  float amax = 0.0f;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int s = sub + h * L;
+    if (valid && s < steps) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) raw[h][w] = reinterpret_cast<const uint4*>(in + 16 * s)[w];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
         float v[8];
-        load_raw(xr + c * 8, raw[i]);
-        to_float<T>(raw[i], v);
+        to_float<T>(&raw[h][p * U<T>], v);
 #pragma unroll
         for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
       }
     }
-    const float s = __fdiv_rn(fmaxf(stk::warp_max(amax), 1e-12f), 127.0f);
+  }
+  for (int o = L / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  if (!valid) return;
+  if (sub == 0) *sx_row = sc;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < nc) {
+  for (int h = 0; h < H; ++h) {
+    const int s = sub + h * L;
+    if (s < steps) {
+      uint2 q[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
         float v[8];
-        to_float<T>(raw[i], v);
-        *reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);
+        to_float<T>(&raw[h][p * U<T>], v);
+        q[p] = quantize8(v, sc);
+      }
+      *reinterpret_cast<uint4*>(out + 16 * s) = make_uint4(q[0].x, q[0].y, q[1].x, q[1].y);
+    }
+  }
+}
+
+// R rows (a power of 2) a warp, groups of 32 / R lanes a row: unit
+// blockIdx.x WARPS + warp is rows R unit .. R unit + R - 1.
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int M,
+              int K, int R, int units) {
+  __shared__ __align__(128) uint8_t slot[WARPS][SLOT];
+  __shared__ uint64_t full[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = blockIdx.x * WARPS + warp;
+  if (unit >= units) return;
+  const int r0 = unit * R, n = min(R, M - r0);
+  if (lane == 0) {
+    stk::mbar_init(&full[warp], 1);
+    stk::mbar_fence_init();
+    const uint32_t bytes = (uint32_t)(n * K * sizeof(T));
+    stk::mbar_arrive_tx(&full[warp], bytes);
+    stk::bulk_load(slot[warp], x + (size_t)r0 * K, bytes, &full[warp]);
+  }
+  const int L = 32 / R, grp = lane / L, sub = lane % L;
+  const bool valid = grp < n;
+  const int row = r0 + (valid ? grp : 0);
+  const T* in = reinterpret_cast<const T*>(slot[warp]) + (size_t)(valid ? grp : 0) * K;
+  __syncwarp();
+  stk::mbar_wait(&full[warp], 0);
+  if (K % 16 == 0) {
+    quantize_row_held<T>(in, xq + (size_t)row * K, sx + row, valid, K, L, sub);
+    return;
+  }
+  // K an odd multiple of 8: 8 values a step, read from the slot twice,
+  // 8-byte stores (the rows of xq are 8-byte aligned)
+  float amax = 0.0f;
+  if (valid) amax = chunk_amax(in, K / 8, sub, L, amax);
+  for (int o = L / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  if (!valid) return;
+  if (sub == 0) sx[row] = sc;
+  for (int c = sub; c < K / 8; c += L) {
+    float v[8];
+    load8(in + 8 * c, v);
+    *reinterpret_cast<uint2*>(xq + (size_t)row * K + 8 * c) = quantize8(v, sc);
+  }
+}
+
+// a warp's ring and its stages' barriers in the block's shared memory
+struct Ring {
+  uint8_t* base;
+  uint64_t* full;
+  __device__ __forceinline__ Ring(unsigned char* smem, int warp, int lane)
+      : base(smem + warp * NS * STAGE),
+        full(reinterpret_cast<uint64_t*>(smem + LONG_WARPS * NS * STAGE) + warp * NS) {
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) stk::mbar_init(&full[s], 1);
+      stk::mbar_fence_init();
+    }
+    __syncwarp();
+  }
+  __device__ __forceinline__ uint8_t* stage(int i) const { return base + (i % NS) * STAGE; }
+  // lane 0: load i's bytes into its stage
+  __device__ __forceinline__ void load(int i, const void* src, uint32_t bytes) const {
+    stk::mbar_arrive_tx(&full[i % NS], bytes);
+    stk::bulk_load(stage(i), src, bytes, &full[i % NS]);
+  }
+  __device__ __forceinline__ void wait(int i) const { stk::mbar_wait(&full[i % NS], (i / NS) & 1); }
+};
+
+// Rows longer than a stage: this warp's rows are gw + i tw, each through
+// the ring in chunks of STAGE bytes twice (the max, then the quantization,
+// lanes storing 8 bytes each).
+template <typename T>
+__global__ void __launch_bounds__(LONG_WARPS * 32, 1)
+quantize_long_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
+                   int M, int K) {
+  constexpr int CE = STAGE / (int)sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Ring ring(smem, warp, lane);
+  const int gw = blockIdx.x * LONG_WARPS + warp, tw = gridDim.x * LONG_WARPS;
+  const int chunks = (K + CE - 1) / CE;
+  const int n_rows = gw < M ? (M - 1 - gw) / tw + 1 : 0;
+  const int n_loads = 2 * chunks * n_rows;
+  auto issue = [&](int j) {  // lane 0: load j is chunk j % chunks of row j / (2 chunks)
+    if (j >= n_loads) return;
+    const int row = gw + (j / (2 * chunks)) * tw, e0 = (j % chunks) * CE;
+    ring.load(j, x + (size_t)row * K + e0, (uint32_t)(min(CE, K - e0) * sizeof(T)));
+  };
+  if (lane == 0)
+    for (int j = 0; j < NS; ++j) issue(j);
+  int j = 0;
+  for (int i = 0; i < n_rows; ++i) {
+    const int row = gw + i * tw;
+    float amax = 0.0f, s = 0.0f;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int ch = 0; ch < chunks; ++ch, ++j) {
+        const int e0 = ch * CE, n8 = min(CE, K - e0) / 8;
+        const T* in = reinterpret_cast<const T*>(ring.stage(j));
+        ring.wait(j);
+        if (pass == 0) {
+          amax = chunk_amax(in, n8, lane, 32, amax);
+        } else {
+          for (int c = lane; c < n8; c += 32) {
+            float v[8];
+            load8(in + 8 * c, v);
+            *reinterpret_cast<uint2*>(xq + (size_t)row * K + e0 + 8 * c) = quantize8(v, s);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) issue(j + NS);
+      }
+      if (pass == 0) {
+        s = row_scale(amax);
+        if (lane == 0) sx[row] = s;
       }
     }
-    if (lane == 0) sx[row] = s;
-  } else {
-    for (int c = lane; c < nc; c += 32) {
-      uint4 r[U<T>];
-      float v[8];
-      load_raw(xr + c * 8, r);
-      to_float<T>(r, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
-    }
-    const float s = __fdiv_rn(fmaxf(stk::warp_max(amax), 1e-12f), 127.0f);
-    for (int c = lane; c < nc; c += 32) {
-      uint4 r[U<T>];
-      float v[8];
-      load_raw(xr + c * 8, r);
-      to_float<T>(r, v);
-      *reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);
-    }
-    if (lane == 0) sx[row] = s;
   }
 }
 
 template <typename T>
-int launch(const void* x, void* xq, void* sx, int M, int K, cudaStream_t st) {
-  const unsigned blocks = (unsigned)((M + NT / 32 - 1) / (NT / 32));
-  const int cpl = (K / 8 + 31) / 32;
-  auto go = [&](auto kernel) {
-    kernel<<<blocks, NT, 0, st>>>((const T*)x, (int8_t*)xq, (float*)sx, M, K);
+int launch(const void* x_, void* xq_, void* sx_, int M, int K, cudaStream_t st) {
+  const T* x = (const T*)x_;
+  int8_t* xq = (int8_t*)xq_;
+  float* sx = (float*)sx_;
+  const int row_bytes = K * (int)sizeof(T);
+  int sms = 0;
+  if (int err = stk::sm_count(sms)) return err;
+  if (row_bytes <= SLOT) {
+    // rows a warp: as many as STAGED bytes hold, a power of 2 up to 8, while
+    // the blocks still cover every SM
+    int R = 1;
+    while (2 * R <= 8 && 2 * R * row_bytes <= STAGED && 2 * R * sms * WARPS <= M) R *= 2;
+    const int units = (M + R - 1) / R;
+    quantize_rows<T><<<(units + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(x, xq, sx, M, K, R,
+                                                                         units);
     return (int)cudaGetLastError();
-  };
-  if (cpl <= 1) return go(quantize_rows<T, 1>);
-  if (cpl <= 2) return go(quantize_rows<T, 2>);
-  if (cpl <= 4) return go(quantize_rows<T, 4>);
-  // 8 chunks of f32 a lane (64 registers of row) spill; of bf16 they do not
-  if (cpl <= 8 && U<T> == 1) return go(quantize_rows<T, 8>);
-  return go(quantize_rows<T, 0>);
+  }
+  constexpr size_t smem = (size_t)LONG_WARPS * NS * (STAGE + 8);
+  auto kernel = quantize_long_rows<T>;
+  static size_t smem_set[stk::kMaxDevices] = {};
+  if (int err = stk::allow_dynamic_smem(kernel, smem, smem_set)) return err;
+  kernel<<<std::min(sms, (M + LONG_WARPS - 1) / LONG_WARPS), LONG_WARPS * 32, smem, st>>>(
+      x, xq, sx, M, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

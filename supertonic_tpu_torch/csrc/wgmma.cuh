@@ -1,17 +1,19 @@
 // Hopper's own data movement and tensor-core product, shared by the bf16
-// attention (csrc/attention.cu), the FFN's GEMMs (csrc/ffn.cu) and the
-// resblock chain (csrc/resblock_chain.cu):
+// attention (csrc/attention.cu), the FFN's GEMMs (csrc/ffn.cu), the
+// resblock chain (csrc/resblock_chain.cu), the int8 product
+// (csrc/int8_matmul.cu) and the quantize pass (csrc/quantize.cu):
 //   - TMA: tensor maps encoded on the host (encode_tma, through the driver
 //     entry point the runtime hands out, so nothing links libcuda) and
-//     passed by value as __grid_constant__ kernel parameters; one thread
-//     asks for a whole box, which lands 128-byte swizzled in shared memory
-//     and reports its bytes to an mbarrier;
+//     passed by value as __grid_constant__ kernel parameters; one thread asks for a whole box, which lands 128-byte
+//     swizzled in shared memory and reports its bytes to an mbarrier; bulk
+//     copies of contiguous bytes (cp.async.bulk) need no map;
 //   - mbarriers: the full/empty handshake of a producer warp and consumer
 //     warpgroups over a ring of stages, each waiter tracking the phase
 //     parity of the round it waits for;
-//   - wgmma.mma_async: 64 x N x 16 products of a warpgroup (128 threads)
-//     into f32 registers, B from shared memory through a matrix descriptor,
-//     A from shared memory or from registers;
+//   - wgmma.mma_async: 64 x N x 16 bf16 products of a warpgroup (128
+//     threads) into f32 registers, B from shared memory through a matrix
+//     descriptor, A from shared memory or from registers; 64 x N x 32 s8
+//     products into s32 registers, both operands from shared memory;
 //   - setmaxnreg: producer and consumer warpgroups trade registers.
 // Every operand tile in shared memory is rows of 128 bytes (64 bf16) in
 // TMA's 128-byte swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
@@ -71,6 +73,19 @@ inline int encode_tma(CUtensorMap* map, const void* base, int rank, const cuuint
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTmaEncodeError + (int)r;
+}
+
+// SMs of the current device, asked once per device
+inline int sm_count(int& sms) {
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  if (int err = (int)cudaGetDevice(&dev)) return err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!cached[dev])
+    if (int err = (int)cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev))
+      return err;
+  sms = cached[dev];
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -147,6 +162,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// `bytes` (a multiple of 16) of contiguous global memory at `src` into shared
+// `dst` (both 16-byte aligned), completing its bytes on `bar`: a bulk copy,
+// no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -246,6 +271,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Matrix descriptor of a 128-byte-swizzled operand tile at shared address
@@ -363,6 +392,77 @@ template <> struct Wgmma<256> {
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
+// m64nNk32 s8 x s8 -> s32: the int8 product, 32 bytes of K a product as the
+// bf16 form's k16. Both operands K-major from 128-byte-swizzled shared
+// memory (the only layout wgmma takes for 8-bit types); the s32
+// accumulator has the f32 form's fragment: d[4j + e] at row 16w + g + 8 (e
+// / 2), column 8j + 2t + (e % 2).
+template <int N> struct WgmmaInt8;
+
+template <> struct WgmmaInt8<64> {
+  // d (64 x 64) (+)= A (smem, K-major) . B (smem, K-major)
+  static __device__ __forceinline__ void ss(int (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaInt8<128> {
+  // d (64 x 128) (+)= A (smem, K-major) . B (smem, K-major)
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaInt8<256> {
+  // d (64 x 256) (+)= A (smem, K-major) . B (smem, K-major)
+  static __device__ __forceinline__ void ss(int (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 

@@ -11,10 +11,13 @@ linear layout (``QLinear.w_q`` is [dout, din]):
 exact integer sums, any M >= 1 and N >= 1, K a multiple of 32 on the card.
 The W8A8 path takes the same kernel with its rescale-and-bias epilogue
 (``ops/w8a8.py``), which writes the linear's output instead of the int32
-sums; this int32 form is the direct port of the Pallas kernel.
+sums; this int32 form is the direct port of the Pallas kernel, and the TP
+int8 path's product (the row-parallel linears sum its exact partials).
 
-What bounds the kernel on the H100 and what its design does about it is in
-the header of ``csrc/int8_matmul.cu``.
+The kernel is ``wgmma`` s8 fed by a TMA ring (csrc/wgmma_gemm.cuh), its
+tile chosen by the library from the shape (``kernel_tiles``): what bounds
+it on the H100 and what its design does about it is in the header of
+``csrc/int8_matmul.cu``.
 
 ``int8_matmul`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.
@@ -31,7 +34,18 @@ from . import _build, _count
 # a, w, c, M, N, K, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
-K_MULTIPLE = 32  # the depth of one mma.sync.m16n8k32 step
+K_MULTIPLE = 32  # the depth of one wgmma m64nNk32 s8 product (32 bytes)
+
+
+def kernel_tiles() -> dict:
+    """The library's instances (rows, columns, ring stages) for bf16 and for
+    4-byte results, at many tiles, at few and at an N whose rows no TMA map
+    takes (builds the library on first use)."""
+    t = (ctypes.c_int * 18)()
+    _build.function("int8_matmul", "stk_int8_tiles", [ctypes.c_void_p])(t)
+    names = [f"{out}_{case}" for out in ("bf16", "4-byte")
+             for case in ("many_tiles", "few_tiles", "any_n")]
+    return {name: tuple(t[3 * i:3 * i + 3]) for i, name in enumerate(names)}
 
 
 def int8_matmul_plain(a, w):

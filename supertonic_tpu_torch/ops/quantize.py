@@ -9,9 +9,11 @@ it is the W8A8 linear's own prologue, before the int8 product
     quantize_rows(x [M, K] f32 or bf16) -> (xq [M, K] int8, sx [M] f32)
     sx = max(amax_k |x|, 1e-12) / 127;  xq = round_half_even(x / sx)
 
-bit for bit the same on the card and on the CPU. What bounds the kernel on
-the H100 and what its design does about it is in the header of
-``csrc/quantize.cu``.
+bit for bit the same on the card and on the CPU. The kernel runs persistent
+blocks whose warps stage rows through rings in shared memory by bulk
+copies (``cp.async.bulk``) and store xq by bulk copies from there: what
+bounds it on the H100 and what its design does about it is in the header
+of ``csrc/quantize.cu``.
 
 ``quantize_rows`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.
@@ -28,7 +30,7 @@ from . import _build, _count
 # x, xq, sx, M, K, dtype code, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
-K_MULTIPLE = 8  # the kernel reads 16-byte chunks of bf16
+K_MULTIPLE = 8  # rows of 16-byte multiples in bf16, as the bulk copies take them
 
 
 def quantize_rows_plain(x):

@@ -14,8 +14,9 @@ output, in torch's linear layout (``QLinear.w_q`` is [dout, din]):
                                         [M, N], rounded once to dtype
 
 bit for bit the same on the card and on the CPU, and no int32 [M, N] tensor
-is written. What bounds the kernel on the H100 and what its design does
-about it is in the header of ``csrc/int8_matmul.cu``.
+is written. The kernel is the int32 form's ``wgmma`` s8 GEMM with this
+epilogue in place of the int32 store; what bounds it on the H100 and what
+its design does about it is in the header of ``csrc/int8_matmul.cu``.
 
 ``w8a8_matmul`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.

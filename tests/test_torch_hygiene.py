@@ -128,6 +128,42 @@ def test_mesh_multihost_and_tools_are_covered_and_import_without_jax():
     _covered_and_imports_without_jax(MESH_AND_TOOLS)
 
 
+CSRC = ROOT / "supertonic_tpu_torch" / "csrc"
+
+
+def test_cuda_sources_stand_alone_and_earlier_designs_stay_off_the_path():
+    """Every CUDA source of the port includes only the port's own headers
+    (found under csrc/) and the CUDA toolkit's, never PyTorch's; the package
+    builds each csrc/*.cu and nothing under csrc/earlier/ or
+    csrc/variants/, which kernel_variants.py alone builds by name; and the
+    mma.sync GEMM (mma_gemm.cuh) of the replaced int8 and FFN designs
+    serves those earlier designs only."""
+    import re
+
+    from supertonic_tpu_torch.ops import _build
+
+    sources = sorted(p for p in CSRC.rglob("*") if p.suffix in (".cu", ".cuh"))
+    assert {p.name for p in sources} >= {"int8_matmul.cu", "quantize.cu", "wgmma.cuh",
+                                         "wgmma_gemm.cuh", "int8_matmul_mma_sync.cu",
+                                         "quantize_warp_rows.cu"}
+    mma_gemm_users = set()
+    for path in sources:
+        text = path.read_text()
+        for local in re.findall(r'#include "([^"]+)"', text):
+            assert (CSRC / local).is_file(), f"{path.name} includes {local}"
+            if local == "mma_gemm.cuh":
+                mma_gemm_users.add(path.relative_to(CSRC).as_posix())
+        for system in re.findall(r"#include <([^>]+)>", text):
+            assert not system.startswith(("torch", "ATen", "c10", "pybind11")), path.name
+    assert sorted(p.stem for p in CSRC.glob("*.cu")) == sorted(_build.KERNELS)
+    variants = (ROOT / "kernel_variants.py").read_text()
+    for path in sources:
+        rel = path.relative_to(CSRC)
+        if rel.parts[0] in ("earlier", "variants"):
+            assert rel.as_posix() in variants, f"kernel_variants.py does not build {rel}"
+    assert mma_gemm_users == {"earlier/ffn_mma_sync.cu", "earlier/int8_matmul_mma_sync.cu"}
+
+
 def test_forbidden_name_match():
     assert _forbidden("supertonic_tpu.models") and _forbidden("jax.numpy")
     assert not _forbidden("supertonic_tpu_torch") and not _forbidden("jaxtyping")

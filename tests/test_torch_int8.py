@@ -109,10 +109,11 @@ def test_int8_matmul_equals_pallas_kernel(microbench, m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 32, 24), (37, 32, 24), (37, 2048, 24),
-                                   (1, 512, 512)])
+                                   (1, 512, 512), (37, 512, 7), (37, 512, 37)])
 def test_int8_matmul_edge_shapes_equal_dot_general(m, k, n):
     """Shapes the 512 tiles of the Pallas kernel do not divide, against the
-    product _linear_w8a8 uses; exact."""
+    product _linear_w8a8 uses; exact. An odd N is where the card's kernel
+    stores from the registers, element by element."""
     rng = np.random.default_rng(m * n + k)
     a, b = _i8(rng, (m, k)), _i8(rng, (k, n))
     b[:, 0] = a[0] = 127  # the largest sum: 127^2 * K
@@ -191,7 +192,8 @@ def test_quantize_rows_bit_equal_to_jax(dtype, case, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(37, 2048, 24), (1, 32, 512), (130, 512, 96)])
+@pytest.mark.parametrize("m,k,n", [(37, 2048, 24), (1, 32, 512), (130, 512, 96),
+                                   (37, 512, 7)])
 def test_w8a8_linear_wrappers_bit_equal_to_jax(dtype, m, k, n):
     """The W8A8 ``linear`` built from the new wrappers' plain versions
     (quantize pass, then the product with its rescale-and-bias epilogue) is
