@@ -51,6 +51,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                no chain launch, b64/5-step audio-sec/s beside the default's,
                and the bf16 wav distance to an engine built under
                TTS_VOC_FUSED=0 (no chain launch either)
+               Every phase that counts launches also counts the block's
+               three elementwise kernels: the LayerNorm with the AdaLN
+               modulation, the bias add with the rotary embedding and the
+               gated residual (exact per-batch counts in PER_BATCH)
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -78,7 +82,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                and k 11 at dilation 5, alone and in chains, which run as
                per-conv launches) and, timed, at every shape phase 12
                recorded; the fused kernels' reach constant
-               (vocoder_fused.MAX_PAIR_REACH) against the library's
+               (vocoder_fused.MAX_PAIR_REACH) against the library's; the
+               block's three elementwise kernels at every shape phases 3,
+               4, 7, 11 and 12 recorded and at edges (bias_rope and
+               gated_residual bit for bit, ln_modulate within
+               ln_modulate.F32_ATOL in f32 and, in bf16, its one-step rule:
+               ln_modulate.one_step_match), timed in bf16 at the cell's
+               shapes beside F.layer_norm and torch.addcmul
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -158,9 +168,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                frames, per-conv launches in f32 at C 256), depth
                cut, through TTS(<its assets>): f32 on the card against the
                CPU on injected noise (B=2, 2 steps; 1e-5 in the wav) and
-               bf16 synthesize_batch (finite, RMS); attention, the FFN and
-               the chain must launch at every width the config gives them,
-               and no plain version may see a CUDA tensor
+               bf16 synthesize_batch (finite, RMS); attention, the FFN,
+               the chain and the block's three elementwise kernels must
+               launch at every width the config gives them, and no plain
+               version may see a CUDA tensor
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -195,8 +206,8 @@ from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexe
 from supertonic_tpu_torch.models import (count_params, fuse_projections, init_all,
                                          quantize_params)
 from supertonic_tpu_torch.models import layers
-from supertonic_tpu_torch.ops import (_build, attention, ffn, int8_matmul, quantize,
-                                      vocoder_fused, w8a8)
+from supertonic_tpu_torch.ops import (_build, attention, ffn, gated_residual, int8_matmul,
+                                      ln_modulate, quantize, rope, vocoder_fused, w8a8)
 from supertonic_tpu_torch.serve.http_server import make_server
 from supertonic_tpu_torch.utils import read_wav
 
@@ -228,22 +239,33 @@ WHOLE_PATH_DUR_RTOL = 1e-5
 # separates a right quantization from none
 INT8_WAV_REL_L2 = (0.003, 0.03)
 FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
-# kernel launches per b64/5-step batch at the default config: attention 2 per
-# VE block and step + 20 in TE/DP, the fused FFN 1 per VE block and step,
-# W8A8 linears (a quantize pass and a W8A8 product each) 8 per VE block and
-# step + 2 per block for the cross K/V; the int32 int8 product is off the path
+# kernel launches per b64/5-step batch at the default config (TE 6 blocks, DP
+# 4, VE 6 at 5 steps): attention 2 per VE block and step + 20 in TE/DP, the
+# fused FFN 1 per VE block and step, W8A8 linears (a quantize pass and a
+# W8A8 product each) 8 per VE block and step + 2 per block for the cross
+# K/V; the int32 int8 product is off the path. The block's elementwise
+# kernels: the LayerNorm 3 per TE/DP block + 2 per VE block and step (3
+# where the FFN is unfused: fused_ffn=False and the int8 path) + the three
+# networks' ln_out (1 per step in the VE): 32 + 65 (97); the bias and
+# rotation at every self-attention Q and K (TE/DP 20, VE 60) and the VE's
+# cross Q (30) + the cross K of each VE block once a batch (6): 116; the
+# gated residual after each sublayer but the fused FFN: 30 + 60 (90)
+_BLOCK = {"ln_modulate": 97, "bias_rope": 116, "gated_residual": 90}
+_BLOCK_UNFUSED_FFN = {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120}
 PER_BATCH = {
     "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 0, "quantize": 0},
+             "w8a8_matmul": 0, "quantize": 0, **_BLOCK},
     "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 252, "quantize": 252},
+             "w8a8_matmul": 252, "quantize": 252, **_BLOCK_UNFUSED_FFN},
     # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
     "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
-                         "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0},
+                         "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
+                         **_BLOCK_UNFUSED_FFN},
     # SynthesisEngine(fused_resblocks=False): every chain as _resblock's convs
     "bf16 unfused resblocks": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 0,
-                               "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0},
+                               "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0, **_BLOCK},
 }
+BLOCK_KERNELS = tuple(_BLOCK)
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
@@ -268,6 +290,13 @@ SOURCES = {
     # the W8A8 linear's quantize prologue (XLA ops in the JAX package)
     "quantize": ("supertonic_tpu_torch/csrc/quantize.cu",
                  "supertonic_tpu/models/layers.py:84"),
+    # the transformer block's XLA fusions: layer_norm with _modulate, the
+    # bias add with apply_rope, and the gated residual
+    "ln_modulate": ("supertonic_tpu_torch/csrc/ln_modulate.cu",
+                    "supertonic_tpu/models/layers.py:106"),
+    "bias_rope": ("supertonic_tpu_torch/csrc/rope.cu", "supertonic_tpu/models/layers.py:162"),
+    "gated_residual": ("supertonic_tpu_torch/csrc/gated_residual.cu",
+                       "supertonic_tpu/models/layers.py:428"),
 }
 # ms per launch (bf16; int8 for the int8 product) of the designs that the
 # kernels on the path replaced, printed beside this run's times; keys are
@@ -301,6 +330,7 @@ EARLIER_MS = {
                     (1792, 256, 512): 0.0182, (1792, 1024, 512): 0.0249},
     "quantize": {(28672, 512): 0.0218, (28672, 2048): 0.0671, (23680, 512): 0.0196,
                  (1792, 256): 0.0286, (1792, 512): 0.0230, (1792, 1024): 0.0172},
+    "ln_modulate": {}, "bias_rope": {}, "gated_residual": {},  # no earlier design
 }
 DEV = torch.device("cuda")
 CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
@@ -777,6 +807,177 @@ def check_w8a8(gen, cell, results, serving):
                     2.0 * m * n * k, lib=lib, shape=(m, k, n), ops_dtype=torch.int8)
 
 
+def block_cases(edges, cell, serving, widths, kernel):
+    """{shape key: launches per cell batch (None: checked, not timed)} of one
+    of the block's elementwise kernels: the edges, the cell's shapes, the
+    serving and mesh shapes and phase 12's."""
+    cases = dict.fromkeys(edges, 0)
+    cases.update(cell[kernel])
+    for key in serving[kernel]:
+        cases.setdefault(key, None)
+    for key in widths[kernel]:
+        cases.setdefault(key, 0)
+    return cases
+
+
+def modulation(gen, b, d, dtype, rows=None):
+    """shift, scale and gate as block takes them: [B, 1, D] slices of one
+    AdaLN projection (strided views), or ``rows`` = 1: one row for all."""
+    m = 0.5 * torch.randn((rows or b, 1, 3 * d), generator=gen, device=DEV)
+    return m.to(dtype).chunk(3, dim=-1)
+
+
+def bits_equal(got, want) -> bool:
+    view = BITS[want.dtype]
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.view(view), want.view(view)))
+
+
+def check_ln_modulate(gen, cell, results, serving, widths):
+    """The LayerNorm with the AdaLN modulation against its plain version,
+    with and without the modulation, at the cell's, the servers' and phase
+    12's shapes and at edges: D below a warp's chunks, no multiple of 8
+    (bf16: the scalar warp), past the register-held rows (D 1032, 4104),
+    batch rows straddling the warps' runs, one row of modulation for all.
+    f32 within ln_modulate.F32_ATOL; bf16 every element the plain version's
+    affine and modulation of the normalized value at its bf16 rounding or
+    one step beside it (ln_modulate.one_step_match; the share bit-equal
+    printed). Timed in bf16 at the cell's shapes; library_ms is
+    F.layer_norm (no modulation: no one call computes it with one)."""
+    edges = [(1, 1, 8, True), (3, 37, 200, True), (2, 7, 36, True), (2, 21, 1032, True),
+             (2, 5, 4104, False), (5, 100, 512, True), (64, 37, 512, False), (1, 448, 512, True)]
+    cases = block_cases(edges, cell, serving, widths, "ln_modulate")
+    for (b, t, d, modulated), n_cell in sorted(cases.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (2 * torch.randn((b, t, d), generator=gen, device=DEV) + 0.3).to(dtype)
+            g = 1.0 + 0.2 * torch.randn(d, generator=gen, device=DEV)
+            bl = 0.2 * torch.randn(d, generator=gen, device=DEV)
+            mods = [(None, None)]
+            if modulated:
+                mods.append(modulation(gen, b, d, dtype)[:2])
+                if (b, t, d) == (3, 37, 200):
+                    mods.append(modulation(gen, b, d, dtype, rows=1)[:2])
+            for shift, scale in mods[modulated:]:
+                got = ln_modulate.ln_modulate(x, g, bl, shift, scale)
+                ref = ln_modulate.ln_modulate_plain(x, g, bl, shift, scale)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                what = (f"ln_modulate B{b} x T{t} D{d} "
+                        f"{'modulated' if shift is not None else 'plain LN'}"
+                        f"{' (one row of modulation)' if shift is not None and shift.shape[0] == 1 else ''}"
+                        f" {dtype}")
+                if dtype == torch.float32:
+                    ok = err <= ln_modulate.F32_ATOL
+                    log(f"  {what}: max abs err {err:.3e} (<= {ln_modulate.F32_ATOL:g}) {ok}")
+                else:
+                    same, matched = ln_modulate.one_step_match(got, x, g, bl, shift, scale)
+                    ok = matched == 1.0
+                    log(f"  {what}: bit-equal share {same:.6f}, within one step of the "
+                        f"normalized value {matched:.6f} (max abs err {err:.3e})")
+                if not ok or not torch.isfinite(got.float()).all():
+                    raise AssertionError("ln_modulate disagrees with its plain version")
+            if dtype == torch.float32 or n_cell is None or not n_cell and b * t < CELL_ROWS // 2:
+                continue
+            shift, scale = mods[-1]
+            es, rows = x.element_size(), b * t
+            lib = (None if modulated else lambda: torch.nn.functional.layer_norm(
+                x, (d,), g.to(dtype), bl.to(dtype)))
+            measure(results, "ln_modulate", f"B{b} x T{t} D{d}{' mod' if modulated else ''}",
+                    dtype, n_cell, err, lambda: ln_modulate.ln_modulate(x, g, bl, shift, scale),
+                    lambda: ln_modulate.ln_modulate_plain(x, g, bl, shift, scale),
+                    2 * es * rows * d + 8 * d + (2 * es * b * d if modulated else 0),
+                    (11 if modulated else 8) * rows * d, lib=lib, shape=(b, t, d, modulated),
+                    ops_dtype=torch.float32)
+
+
+def check_rope(gen, cell, results, serving, widths):
+    """The bias add with the rotary embedding bit-equal to its plain version,
+    with and without the bias, at the cell's, the servers' and phase 12's
+    shapes and at every head width the JAX package runs (Dh 16, 32, 64, 96,
+    128, 256) and those of the scalar path (Dh 2, 12, 36 in bf16), B=1 and
+    T=1, LARoPE-like positions; each case also from a column slice of a
+    fused projection (rows strided). Timed in bf16 at the cell's shapes;
+    no one PyTorch call computes it (library_ms None)."""
+    edges = [(2, 9, 2, dh, bias) for dh in (2, 12, 16, 32, 36, 64, 96, 128, 256)
+             for bias in (False, True)]
+    edges += [(1, 1, 8, 64, True), (1, 448, 8, 64, True), (64, 370, 8, 64, False)]
+    cases = block_cases(edges, cell, serving, widths, "bias_rope")
+    for (b, t, h, dh, with_bias), n_cell in sorted(cases.items()):
+        d = h * dh
+        pos = torch.rand((b, t), generator=gen, device=DEV) * 100.0
+        cos, sin = layers.rope_angles(pos, dh, 10000.0)
+        bias = 0.5 * torch.randn(d, generator=gen, device=DEV) if with_bias else None
+        for dtype in (torch.float32, torch.bfloat16):
+            wide = torch.randn((b, t, 3 * d), generator=gen, device=DEV).to(dtype)
+            y = wide[..., :d].contiguous()
+            for form, inp in (("", y), (", a fused projection's slice", wide[..., d:2 * d])):
+                got = rope.bias_rope(inp, bias, cos, sin, h)
+                ref = rope.bias_rope_plain(inp, bias, cos, sin, h)
+                torch.cuda.synchronize()
+                ok = bits_equal(got, ref) and got.is_contiguous()
+                err = float((got.float() - ref.float()).abs().max())
+                log(f"  bias_rope B{b} x T{t} H{h} Dh{dh}{' + bias' if with_bias else ''}"
+                    f"{form} {dtype}: bit-equal {ok} (max abs err {err:g})")
+                if not ok:
+                    raise AssertionError("bias_rope disagrees with its plain version")
+            if dtype == torch.float32 or n_cell is None or not n_cell and b * t < CELL_ROWS // 2:
+                continue
+            rows, es = b * t, y.element_size()
+            measure(results, "bias_rope", f"B{b} x T{t} H{h} Dh{dh}{' bias' if with_bias else ''}",
+                    dtype, n_cell, 0.0, lambda: rope.bias_rope(y, bias, cos, sin, h),
+                    lambda: rope.bias_rope_plain(y, bias, cos, sin, h),
+                    2 * es * rows * d + 4 * rows * dh + (4 * d if with_bias else 0),
+                    (4 if with_bias else 3) * rows * d, shape=(b, t, h, dh, with_bias),
+                    ops_dtype=torch.float32)
+
+
+def check_gated_residual(gen, cell, results, serving, widths):
+    """The gated residual bit-equal to its plain version, with and without
+    the gate and the bias, at the cell's, the servers' and phase 12's shapes
+    and at edges: D no multiple of 8 (bf16: the scalar pass), D past 4,096,
+    B=1 and T=1, one gate row for all. Timed in bf16 at the cell's shapes;
+    library_ms is torch.addcmul(x, gate, y) (the residual and the gate in
+    one call, no bias), or x + y without a gate."""
+    edges = [(1, 1, 8, True, True), (3, 37, 200, True, True), (2, 7, 36, True, True),
+             (2, 7, 36, False, True), (2, 5, 4104, True, False), (5, 100, 512, True, True),
+             (64, 37, 256, False, True), (1, 448, 512, True, False)]
+    cases = block_cases(edges, cell, serving, widths, "gated_residual")
+    for (b, t, d, gated, with_bias), n_cell in sorted(cases.items()):
+        bias = 0.5 * torch.randn(d, generator=gen, device=DEV) if with_bias else None
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = (torch.randn((b, t, d), generator=gen, device=DEV).to(dtype)
+                    for _ in range(2))
+            gates = [None]
+            if gated:
+                gates = [modulation(gen, b, d, dtype)[2]]
+                if (b, t, d) == (3, 37, 200):
+                    gates.append(modulation(gen, b, d, dtype, rows=1)[2])
+            for gate in gates:
+                got = gated_residual.gated_residual(x, y, bias, gate)
+                ref = gated_residual.gated_residual_plain(x, y, bias, gate)
+                torch.cuda.synchronize()
+                ok = bits_equal(got, ref)
+                err = float((got.float() - ref.float()).abs().max())
+                log(f"  gated_residual B{b} x T{t} D{d}{' gated' if gate is not None else ''}"
+                    f"{' (one gate row)' if gate is not None and gate.shape[0] == 1 else ''}"
+                    f"{' + bias' if with_bias else ''} {dtype}: bit-equal {ok} "
+                    f"(max abs err {err:g})")
+                if not ok:
+                    raise AssertionError("gated_residual disagrees with its plain version")
+            if dtype == torch.float32 or n_cell is None or not n_cell and b * t < CELL_ROWS // 2:
+                continue
+            gate = gates[0]
+            es, rows = x.element_size(), b * t
+            lib = ((lambda: torch.addcmul(x, gate, y)) if gated else (lambda: torch.add(x, y)))
+            measure(results, "gated_residual",
+                    f"B{b} x T{t} D{d}{' gated' if gated else ''}{' bias' if with_bias else ''}",
+                    dtype, n_cell, 0.0, lambda: gated_residual.gated_residual(x, y, bias, gate),
+                    lambda: gated_residual.gated_residual_plain(x, y, bias, gate),
+                    3 * es * rows * d + (4 * d if with_bias else 0) + (es * b * d if gated else 0),
+                    (1 + gated + with_bias) * rows * d, lib=lib, shape=(b, t, d, gated, with_bias),
+                    ops_dtype=torch.float32)
+
+
 # the SASS instructions each library must hold (and, for the int8 library,
 # must not): bf16 wgmma (HGMMA), integer wgmma (IGMMA), TMA loads and stores
 # (UTMALDG, UTMASTG), bulk copies to and from shared memory (UBLKCP), and
@@ -1190,7 +1391,9 @@ def fused_projections_path(params) -> None:
 TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
                "resblock_chain": ("chain_wgmma", "chain_kernel", "conv_pass"),
                "int8_matmul": ("Int32Out",),
-               "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows")}
+               "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows"),
+               "ln_modulate": ("layer_norm_rows",), "bias_rope": ("rope_pairs",),
+               "gated_residual": ("gated_residual_pass",)}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch
@@ -1674,7 +1877,8 @@ def unfused_resblocks_cell(assets, rates, smi: str) -> None:
 # phase 12: the whole path at widths off the default config
 # ---------------------------------------------------------------------------
 
-PATH_KERNELS = ("attention", "adaln_ffn", "resblock_chain")
+PATH_KERNELS = ("attention", "adaln_ffn", "resblock_chain", "ln_modulate", "bias_rope",
+                "gated_residual")
 
 
 def width_configs() -> list:
@@ -1732,21 +1936,27 @@ def expected_widths(cfg) -> dict:
     ve = cfg.vector_estimator
     voc = cfg.vocoder
     chains = {c for c in (voc.dim, *voc.channels) if c <= vocoder_fused.MAX_CHANNELS}
+    dims = {net.dim for net in (cfg.text_encoder, cfg.duration_predictor, ve)}
     return {"attention": heads, "adaln_ffn": {(ve.dim, ve.dim * ve.ffn_mult)},
-            "resblock_chain": chains}
+            "resblock_chain": chains, "ln_modulate": dims, "bias_rope": heads,
+            "gated_residual": dims}
 
 
 def launched_widths(tally) -> dict:
     return {"attention": {k[5] for k in tally["attention"]},
             "adaln_ffn": {k[2:] for k in tally["adaln_ffn"]},
-            "resblock_chain": {k[2] for k in tally["resblock_chain"]}}
+            "resblock_chain": {k[2] for k in tally["resblock_chain"]},
+            "ln_modulate": {k[2] for k in tally["ln_modulate"]},
+            "bias_rope": {k[3] for k in tally["bias_rope"]},
+            "gated_residual": {k[2] for k in tally["gated_residual"]}}
 
 
 class NoPlainOnCuda:
     """Within, a plain version given a CUDA tensor raises: the wrappers must
     send every CUDA tensor to their kernels."""
     PLAIN = ((attention, "attention_plain"), (ffn, "adaln_ffn_plain"),
-             (vocoder_fused, "resblock_chain_plain"))
+             (vocoder_fused, "resblock_chain_plain"), (ln_modulate, "ln_modulate_plain"),
+             (rope, "bias_rope_plain"), (gated_residual, "gated_residual_plain"))
 
     def __enter__(self):
         self.saved = [(m, n, getattr(m, n)) for m, n in self.PLAIN]
@@ -1768,8 +1978,9 @@ def widths_phase(smi: str) -> dict:
     card against the same path on the CPU on injected noise (B=2, 2 steps;
     wav atol WHOLE_PATH_WAV_ATOL, durations rtol WHOLE_PATH_DUR_RTOL), then
     TTS() in bf16 through synthesize_batch (finite audio, RMS). Each card
-    run must launch attention, the AdaLN FFN and the chain at every width
-    its config gives them, and no plain version may see a CUDA tensor.
+    run must launch attention, the AdaLN FFN, the chain and the block's
+    LayerNorm, bias-and-rope and gated-residual kernels at every width its
+    config gives them, and no plain version may see a CUDA tensor.
     Returns the shapes the card runs gave each kernel, each with the set of
     (dilations, conv size) of the configs that gave it (the chain's), which
     phase 5 holds and times."""
@@ -2517,7 +2728,7 @@ def serving(assets, params, smi: str):
         check_progress(tts, style)
     counts = ops.launch_counts()
     log(f"  launches over the bf16 serving run: {counts}")
-    for name in ("attention", "adaln_ffn", "resblock_chain"):
+    for name in ("attention", "adaln_ffn", "resblock_chain", *BLOCK_KERNELS):
         if not counts[name] > 0:
             raise AssertionError(f"{name} was not launched while serving")
     if any(counts[name] for name in ("int8_matmul", *W8A8_KERNELS)):
@@ -2551,7 +2762,7 @@ def serving(assets, params, smi: str):
     log(f"  int8 server: 16 concurrent /tts ({sum(samples8) / sr:.3f}s of audio in "
         f"{wall8:.4f}s) and one stream (first audio after {t_first8:.4f}s); launches "
         f"{counts8}")
-    for name in ("attention", "resblock_chain", *W8A8_KERNELS):
+    for name in ("attention", "resblock_chain", *W8A8_KERNELS, *BLOCK_KERNELS):
         if not counts8[name] > 0:
             raise AssertionError(f"{name} was not launched by the int8 server")
     if counts8["adaln_ffn"] or counts8["int8_matmul"]:
@@ -2709,8 +2920,10 @@ def mesh_tp(params, devices) -> tuple[dict, int]:
     if {k[1] for k in shapes["attention"]} != heads:
         raise AssertionError(f"TP attention heads {set(k[1] for k in shapes['attention'])}, "
                              f"expected {heads}")
-    if counts["adaln_ffn"] or not counts["attention"] or not counts["resblock_chain"]:
-        raise AssertionError("TP: the FFN kernel ran, or attention or the chain did not")
+    if counts["adaln_ffn"] or not all(counts[k] for k in ("attention", "resblock_chain",
+                                                          *BLOCK_KERNELS)):
+        raise AssertionError("TP: the FFN kernel ran, or attention, the chain or a block "
+                             "kernel did not")
     if not err <= TP_F32_WAV_ATOL:
         raise AssertionError("TP f32 differs from the single device")
     del single, tp
@@ -2750,7 +2963,7 @@ def mesh_tp(params, devices) -> tuple[dict, int]:
         f"{rel_l2(w2, w1):.6f}, max abs {np.abs(w2 - w1).max():.3e}")
     log(f"  (b) int32 product shapes under TP int8 (M, K, N): "
         f"{dict(sorted(shapes8['int8_matmul'].items()))}")
-    for name in ("attention", "resblock_chain", "int8_matmul", *W8A8_KERNELS):
+    for name in ("attention", "resblock_chain", "int8_matmul", *W8A8_KERNELS, *BLOCK_KERNELS):
         if not counts8[name] > 0:
             raise AssertionError(f"TP int8: {name} was not launched")
     if counts8["adaln_ffn"]:
@@ -3051,7 +3264,8 @@ def main() -> int:
     log("phase 3: main path, TTS() bf16 at the default 66M config")
     fresh_rate_dir("main-bf16")
     cell, rates, counts = main_path(assets, "bf16", args.profile, args.pin_rate)
-    launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain")}
+    launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain",
+                                                *BLOCK_KERNELS)}
     log("phase 3, second engine: the b64 cell with SynthesisEngine(fused_ffn=False)")
     unfused_ffn_cell(assets, rates, smi)
     log("phase 3, third engine: the b64 cell with SynthesisEngine(fused_resblocks=False)")
@@ -3100,6 +3314,9 @@ def main() -> int:
     check_int8_matmul(gen, cell, results, tp_shapes["int8_matmul"])
     check_quantize(gen, cell, results, served)
     check_w8a8(gen, cell, results, served)
+    check_ln_modulate(gen, cell, results, served, widths)
+    check_rope(gen, cell, results, served, widths)
+    check_gated_residual(gen, cell, results, served, widths)
     picked = cell_summary(results, launches)
 
     log("phase 6: whole path: f32 card vs CPU, W8A8 linears card vs CPU, int8 vs bf16 "

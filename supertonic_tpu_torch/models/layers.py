@@ -18,6 +18,13 @@ Conventions:
     the f32 accumulator to bf16 before the bias add, ``layer_norm``
     normalizes in f32 and applies the affine in bf16, ``apply_rope`` does
     not upcast x.
+  * The transformer block's elementwise passes, which XLA fuses in the JAX
+    package, each run as one kernel (ops/ln_modulate.py, ops/rope.py,
+    ops/gated_residual.py) with those rounding points: ``layer_norm`` with
+    the AdaLN modulation, a Q or K projection's bias add with its rotary
+    embedding, and a sublayer's output bias, gate and residual. Their
+    callers take the bias-less product of a linear (``_product``) and hand
+    the bias to the kernel.
   * W8A8 linears (``QLinear``, from ``models.quantize_params``) keep int8
     weights whatever the compute dtype; ``linear`` routes them through the
     quantize pass (ops/quantize.py) and the int8 product with its
@@ -46,8 +53,11 @@ from torch import nn
 
 from ..ops.attention import fused_attention
 from ..ops.ffn import fused_adaln_ffn
+from ..ops.gated_residual import add_bias, gated_residual
 from ..ops.int8_matmul import int8_matmul
+from ..ops.ln_modulate import ln_modulate
 from ..ops.quantize import quantize_rows
+from ..ops.rope import apply_rope, bias_rope  # noqa: F401 (apply_rope: this module's API)
 from ..ops.w8a8 import w8a8_matmul
 
 Params = dict[str, Any]
@@ -284,13 +294,16 @@ def _weight(p, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def linear(p: Linear | QLinear, x: torch.Tensor) -> torch.Tensor:
+    y, bias = _product(p, x)
+    return y if bias is None else add_bias(y, bias)
+
+
+def _product(p: Linear | QLinear, x: torch.Tensor):
+    """``linear`` without its bias add: (product in x's dtype, the bias
+    left to add), the bias None where the product added it (W8A8)."""
     if isinstance(p, QLinear):
-        return _linear_w8a8(p, x)
-    y = F.linear(x, _weight(p, x.dtype))
-    if x.dtype == torch.bfloat16:
-        # accumulator rounded to bf16 BEFORE the bias add (JAX layers.py:55-62)
-        return y + p.bias.to(torch.bfloat16)
-    return (y + p.bias).to(x.dtype)
+        return _linear_w8a8(p, x), None
+    return F.linear(x, _weight(p, x.dtype)), p.bias
 
 
 def _linear_w8a8(p: QLinear, x: torch.Tensor) -> torch.Tensor:
@@ -351,10 +364,9 @@ def row_linear(p: ShardedLinear, xs: list[torch.Tensor], out_device) -> torch.Te
     for s, t in zip(p.shards, xs):
         part = F.linear(t, _weight(s, dtype)).to(out_device, torch.float32)
         acc = part if acc is None else acc + part
-    bias = lead.bias.to(out_device)
     if dtype == torch.bfloat16:
-        return acc.to(torch.bfloat16) + bias.to(torch.bfloat16)
-    return (acc + bias).to(dtype)
+        acc = acc.to(torch.bfloat16)
+    return add_bias(acc, lead.bias.to(out_device)).to(dtype)
 
 
 def tp_ranks(p) -> int:
@@ -370,16 +382,13 @@ def embedding(p: Embedding, ids: torch.Tensor, dtype=torch.float32) -> torch.Ten
     return p.table.to(dtype)[ids]
 
 
-def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    if x.dtype == torch.bfloat16:
-        # normalize in f32, affine in bf16 (JAX layers.py:111-117)
-        return (y.to(torch.bfloat16) * p.g.to(torch.bfloat16)
-                + p.b.to(torch.bfloat16))
-    return (y * p.g + p.b).to(x.dtype)
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5, *, shift=None,
+               scale=None) -> torch.Tensor:
+    """LayerNorm of x [B, T, D] (normalize in f32, affine in x's dtype),
+    with ``shift``/``scale`` [B, 1, D] the AdaLN modulation ``h * (1 +
+    scale) + shift`` too: one pass of the LayerNorm kernel
+    (ops/ln_modulate.py)."""
+    return ln_modulate(x, p.g, p.b, shift, scale, eps=eps)
 
 
 def conv1d(p: Conv1d, x: torch.Tensor, *, dilation: int = 1) -> torch.Tensor:
@@ -405,17 +414,6 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     )
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: [B, T, H, Dh]; cos/sin: [B, T, Dh//2] (broadcast over heads). The
-    rotation runs in f32 through type promotion; x itself is not upcast."""
-    x1, x2 = x.chunk(2, dim=-1)
-    if cos.dim() == 3:
-        cos = cos[:, :, None, :]
-        sin = sin[:, :, None, :]
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
 
 
 def larope_positions(lengths: torch.Tensor, padded_len: int, scale: float) -> torch.Tensor:
@@ -449,49 +447,63 @@ def attention_core(q, k, v, key_mask=None):
     return fused_attention(q, k, v, key_mask)
 
 
-def _split_fused(y: torch.Tensor, parts: int, n_heads: int):
-    """A fused projection's output split into head-split, contiguous parts
-    (the attention kernel takes contiguous tensors)."""
-    return [_split_heads(t.contiguous(), n_heads) for t in y.chunk(parts, dim=-1)]
+def _heads(y: torch.Tensor, bias, rope, n_heads: int) -> torch.Tensor:
+    """A projection's product ``y`` [B, T, H * Dh] (maybe a column slice of a
+    fused one) with ``bias`` added, head-split, contiguous (the attention
+    kernel takes contiguous tensors) and, with ``rope`` = (cos, sin),
+    rotated: then one pass of the bias-and-rope kernel (ops/rope.py)."""
+    if rope is not None:
+        cos, sin = (t.to(y.device) for t in rope)
+        return bias_rope(y, bias, cos, sin, n_heads)
+    y = y.contiguous() if bias is None else add_bias(y, bias)
+    return _split_heads(y, n_heads)
+
+
+def _close(y: torch.Tensor, bias, residual, gate) -> torch.Tensor:
+    """A sublayer's output: ``y`` + ``bias`` alone, or with ``residual``
+    ``residual + gate * (y + bias)`` in one pass of the gated-residual
+    kernel (ops/gated_residual.py; no gate: the blocks without AdaLN)."""
+    if residual is None:
+        return y if bias is None else add_bias(y, bias)
+    return gated_residual(residual, y, bias, gate)
 
 
 def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
-        k_rope=None, kv_cache=None) -> torch.Tensor:
+        k_rope=None, kv_cache=None, residual=None, gate=None) -> torch.Tensor:
     """Multi-head attention; self-attention when memory is None.
     ``kv_cache``: precomputed (k, v), head-split and rotated. Fused
     projections (``models.fuse_projections``): "qkv" replaces q/k/v in
-    self-attention, "kv" replaces k/v in cross-attention. Sharded over a
-    model group (``ShardedLinear``), each rank runs its own heads through
-    the attention kernel, and O sums the ranks' partials (``row_linear``);
-    ``kv_cache`` is then the per-rank list of ``kv_project``."""
+    self-attention, "kv" replaces k/v in cross-attention. With
+    ``residual``, returns ``residual + gate * attention`` (O's bias, the
+    gate and the residual in one pass). Sharded over a model group
+    (``ShardedLinear``), each rank runs its own heads through the attention
+    kernel, and O sums the ranks' partials (``row_linear``); ``kv_cache``
+    is then the per-rank list of ``kv_project``."""
     if isinstance(p["o"], ShardedLinear):
-        return _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache)
+        return _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache,
+                       residual, gate)
     if memory is None and kv_cache is None and "qkv" in p:
-        q, k, v = _split_fused(linear(p["qkv"], x), 3, n_heads)
-        if k_rope is not None:
-            k = apply_rope(k, *k_rope)
+        q, k, v = linear(p["qkv"], x).chunk(3, dim=-1)
+        q, k, v = (_heads(t, None, rope, n_heads) for t, rope in
+                   ((q, q_rope), (k, k_rope), (v, None)))
     else:
-        q = _split_heads(linear(p["q"], x), n_heads)
+        q = _heads(*_product(p["q"], x), q_rope, n_heads)
         k, v = kv_cache if kv_cache is not None else kv_project(
             p, x if memory is None else memory, n_heads, k_rope)
-    if q_rope is not None:
-        q = apply_rope(q, *q_rope)
-    return linear(p["o"], _merge_heads(attention_core(q, k, v, key_mask)))
+    o = _merge_heads(attention_core(q, k, v, key_mask))
+    return _close(*_product(p["o"], o), residual, gate)
 
 
-def _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache):
+def _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache, residual, gate):
     ranks = len(p["o"].shards)
     kvs = kv_cache if kv_cache is not None else kv_project(
         p, x if memory is None else memory, n_heads, k_rope)
     outs = []
     for q, (k, v) in zip(col_linear(p["q"], x), kvs):
-        dev = q.device
-        q = _split_heads(q, n_heads // ranks)
-        if q_rope is not None:
-            q = apply_rope(q, *(t.to(dev) for t in q_rope))
-        mask = None if key_mask is None else key_mask.to(dev)
+        q = _heads(q, None, q_rope, n_heads // ranks)
+        mask = None if key_mask is None else key_mask.to(q.device)
         outs.append(_merge_heads(attention_core(q, k, v, mask)))
-    return row_linear(p["o"], outs, x.device)
+    return _close(row_linear(p["o"], outs, x.device), None, residual, gate)
 
 
 def kv_project(p, mem, n_heads: int, k_rope=None):
@@ -499,48 +511,41 @@ def kv_project(p, mem, n_heads: int, k_rope=None):
     a model group, a list of each rank's (k, v) for its heads."""
     if "k" in p and isinstance(p["k"], ShardedLinear):
         ranks = len(p["k"].shards)
-        out = []
-        for k, v in zip(col_linear(p["k"], mem), col_linear(p["v"], mem)):
-            k = _split_heads(k, n_heads // ranks)
-            if k_rope is not None:
-                k = apply_rope(k, *(t.to(k.device) for t in k_rope))
-            out.append((k, _split_heads(v, n_heads // ranks)))
-        return out
+        return [(_heads(k, None, k_rope, n_heads // ranks), _split_heads(v, n_heads // ranks))
+                for k, v in zip(col_linear(p["k"], mem), col_linear(p["v"], mem))]
     if "kv" in p:
-        k, v = _split_fused(linear(p["kv"], mem), 2, n_heads)
-    else:
-        k = _split_heads(linear(p["k"], mem), n_heads)
-        v = _split_heads(linear(p["v"], mem), n_heads)
-    if k_rope is not None:
-        k = apply_rope(k, *k_rope)
-    return k, v
+        k, v = linear(p["kv"], mem).chunk(2, dim=-1)
+        return _heads(k, None, k_rope, n_heads), _heads(v, None, None, n_heads)
+    return (_heads(*_product(p["k"], mem), k_rope, n_heads),
+            _split_heads(linear(p["v"], mem), n_heads))
 
 
 # ---------------------------------------------------------------------------
 # FFN + transformer blocks
 # ---------------------------------------------------------------------------
 
-def ffn(p, x: torch.Tensor) -> torch.Tensor:
+def ffn(p, x: torch.Tensor, *, residual=None, gate=None) -> torch.Tensor:
+    """linear, silu, linear; with ``residual``, ``residual + gate * ffn``
+    (the second linear's bias, the gate and the residual in one pass)."""
     if isinstance(p["in"], ShardedLinear):
-        return row_linear(p["out"], [F.silu(u) for u in col_linear(p["in"], x)], x.device)
-    return linear(p["out"], F.silu(linear(p["in"], x)))
-
-
-def _modulate(x, shift, scale):
-    return x * (1.0 + scale) + shift
+        y = row_linear(p["out"], [F.silu(u) for u in col_linear(p["in"], x)], x.device)
+        return _close(y, None, residual, gate)
+    return _close(*_product(p["out"], F.silu(linear(p["in"], x))), residual, gate)
 
 
 def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
           memory=None, memory_mask=None, q_rope_cross=None, k_rope_cross=None,
           cond=None, cross_kv=None, fused_ffn: bool = True) -> torch.Tensor:
     """Pre-LN transformer block: self-attn [+ cross-attn] + FFN, optionally
-    AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. With ``fused_ffn`` the
-    AdaLN FFN sublayer goes through the fused AdaLN-FFN kernel's wrapper
-    (ops/ffn.py) when its linears are plain; without it, and for W8A8
-    linears, it is mod(LN), ``linear``, silu and ``linear``, as in the JAX
-    package's unfused path. Over a model group (``ShardedLinear``) it is
-    the unfused path too: the kernel fuses the bias, gate and residual into
-    its second product's epilogue, which cannot take partial sums."""
+    AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. Each sublayer opens
+    with one pass of the LayerNorm kernel (with the AdaLN shift and scale)
+    and closes with one of the gated-residual kernel. With ``fused_ffn``
+    the AdaLN FFN sublayer goes through the fused AdaLN-FFN kernel's
+    wrapper (ops/ffn.py) when its linears are plain; without it, and for
+    W8A8 linears, it is mod(LN), ``linear``, silu and ``linear``, as in the
+    JAX package's unfused path. Over a model group (``ShardedLinear``) it
+    is the unfused path too: the kernel fuses the bias, gate and residual
+    into its second product's epilogue, which cannot take partial sums."""
     has_cross = "cross" in p
     if cond is not None and "adaln" in p:
         n_sub = 3 if has_cross else 2
@@ -548,34 +553,31 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
     else:
         mods = None
 
-    def mod(i, h):
-        if mods is None:
-            return h, 1.0
-        shift, scale, gate = mods[3 * i], mods[3 * i + 1], mods[3 * i + 2]
-        return _modulate(h, shift, scale), gate
+    def sub(i):
+        """Sublayer i's (shift, scale, gate), None without AdaLN."""
+        return (None,) * 3 if mods is None else mods[3 * i:3 * i + 3]
 
-    i_sub = 0
-    h, gate = mod(i_sub, layer_norm(p["ln1"], x))
-    x = x + gate * mha(p["self"], h, n_heads, key_mask=self_mask,
-                       q_rope=self_rope, k_rope=self_rope)
-    i_sub += 1
+    def ln(name, i):
+        shift, scale, _gate = sub(i)
+        return layer_norm(p[name], x, shift=shift, scale=scale)
+
+    x = mha(p["self"], ln("ln1", 0), n_heads, key_mask=self_mask, q_rope=self_rope,
+            k_rope=self_rope, residual=x, gate=sub(0)[2])
+    i_sub = 1
     if has_cross:
-        h, gate = mod(i_sub, layer_norm(p["ln2"], x))
-        x = x + gate * mha(p["cross"], h, n_heads, memory=memory,
-                           key_mask=memory_mask, q_rope=q_rope_cross,
-                           k_rope=k_rope_cross, kv_cache=cross_kv)
-        i_sub += 1
+        x = mha(p["cross"], ln("ln2", 1), n_heads, memory=memory, key_mask=memory_mask,
+                q_rope=q_rope_cross, k_rope=k_rope_cross, kv_cache=cross_kv, residual=x,
+                gate=sub(1)[2])
+        i_sub = 2
     f = p["ffn"]
     if (fused_ffn and mods is not None and isinstance(f["in"], Linear)
             and isinstance(f["out"], Linear)):
-        shift, scale, gate = (mods[3 * i_sub], mods[3 * i_sub + 1],
-                              mods[3 * i_sub + 2])
-        ln = p["ln3"]
+        shift, scale, gate = sub(i_sub)
+        ln3 = p["ln3"]
         return fused_adaln_ffn(
-            x, ln.g, ln.b, _weight(f["in"], x.dtype), f["in"].bias,
+            x, ln3.g, ln3.b, _weight(f["in"], x.dtype), f["in"].bias,
             _weight(f["out"], x.dtype), f["out"].bias, shift, scale, gate)
-    h, gate = mod(i_sub, layer_norm(p["ln3"], x))
-    return x + gate * ffn(f, h)
+    return ffn(f, ln("ln3", i_sub), residual=x, gate=sub(i_sub)[2])
 
 
 # ---------------------------------------------------------------------------

@@ -92,9 +92,8 @@ def velocity(params, cfg: TTSConfig, latent, text_emb, style_ttl, text_mask,
                     memory_mask=mem_mask, q_rope_cross=q_rope, cond=cond,
                     cross_kv=kv, fused_ffn=fused_ffn)
 
-    h = L.layer_norm(params["ln_out"], x)
     shift, scale = L.linear(params["adaln_out"], cond)[:, None, :].chunk(2, dim=-1)
-    h = h * (1.0 + scale) + shift
+    h = L.layer_norm(params["ln_out"], x, shift=shift, scale=scale)
     v = L.linear(params["out_proj"], h)
     return v.float() * latent_mask[:, :, None]
 

@@ -4,14 +4,21 @@ version: attention (``attention.fused_attention``), the AdaLN FFN
 (``vocoder_fused.resblock_chain``), the int8 product (``int8_matmul.int8_matmul``)
 and the W8A8 linear's two passes: the per-token quantize pass
 (``quantize.quantize_rows``) and the int8 product with its rescale-and-bias
-epilogue (``w8a8.w8a8_matmul``). ``_build.build_all`` compiles them.
+epilogue (``w8a8.w8a8_matmul``); and the transformer block's three
+elementwise fusions: LayerNorm with the AdaLN modulation
+(``ln_modulate.ln_modulate``), a projection's bias add with its rotary
+embedding (``rope.bias_rope``) and the gated residual
+(``gated_residual.gated_residual``). ``_build.build_all`` compiles them.
 
 Launches are counted per kernel (``launch_counts``), replays of captured
 CUDA graphs included, and ``record_launches`` tallies them by shape:
 attention (B, H, Tq, Tk, masked), adaln_ffn (B, T, D, F), resblock_chain
-(B, T, C), int8_matmul and w8a8_matmul (M, K, N), quantize (M, K)."""
+(B, T, C), int8_matmul and w8a8_matmul (M, K, N), quantize (M, K),
+ln_modulate (B, T, D, modulated), bias_rope (B, T, H, Dh, with bias),
+gated_residual (B, T, D, gated, with bias)."""
 
-from . import _count, attention, ffn, int8_matmul, quantize, vocoder_fused, w8a8
+from . import (_count, attention, ffn, gated_residual, int8_matmul, ln_modulate, quantize, rope,
+               vocoder_fused, w8a8)
 from ._count import KERNELS, record_launches
 
 

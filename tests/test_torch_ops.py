@@ -326,6 +326,12 @@ def test_launch_counters_do_not_move_on_cpu():
     ops.reset_launch_counts()
     q, k, v, mask = _qkv()
     attention.fused_attention(_t(q), _t(k), _t(v), _t(mask))
+    x = torch.ones((2, 3, 8))
+    half = torch.ones((2, 3, 2))
+    ops.ln_modulate.ln_modulate(x, torch.ones(8), torch.zeros(8), x[:, :1], x[:, :1])
+    ops.rope.bias_rope(x, torch.zeros(8), half, half, 2)
+    ops.gated_residual.gated_residual(x, x, torch.zeros(8), x[:, :1])
     assert ops.launch_counts() == {"attention": 0, "adaln_ffn": 0,
                                    "resblock_chain": 0, "int8_matmul": 0,
-                                   "w8a8_matmul": 0, "quantize": 0}
+                                   "w8a8_matmul": 0, "quantize": 0, "ln_modulate": 0,
+                                   "bias_rope": 0, "gated_residual": 0}
