@@ -54,7 +54,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                Every phase that counts launches also counts the block's
                three elementwise kernels: the LayerNorm with the AdaLN
                modulation, the bias add with the rotary embedding and the
-               gated residual (exact per-batch counts in PER_BATCH)
+               gated residual, and the conv kernel (the vocoder's convs
+               and the text encoder's prenet with the ops around them;
+               exact per-batch counts in PER_BATCH)
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -88,7 +90,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                gated_residual bit for bit, ln_modulate within
                ln_modulate.F32_ATOL in f32 and, in bf16, its one-step rule:
                ln_modulate.one_step_match), timed in bf16 at the cell's
-               shapes beside F.layer_norm and torch.addcmul
+               shapes beside F.layer_norm and torch.addcmul, the
+               LayerNorm also beside its earlier design (EARLIER_MS); the
+               conv kernel at every shape phases 3 (all three engines),
+               4, 7, 11 and 12 recorded and at edges (f32 within
+               conv1d.F32_RTOL, bf16 by conv1d.bf16_within), timed in bf16
+               at the cell's shapes beside F.conv1d, the bare conv
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -206,8 +213,9 @@ from supertonic_tpu_torch.frontend import UnicodeProcessor, build_default_indexe
 from supertonic_tpu_torch.models import (count_params, fuse_projections, init_all,
                                          quantize_params)
 from supertonic_tpu_torch.models import layers
-from supertonic_tpu_torch.ops import (_build, attention, ffn, gated_residual, int8_matmul,
-                                      ln_modulate, quantize, rope, vocoder_fused, w8a8)
+from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, gated_residual,
+                                      int8_matmul, ln_modulate, quantize, rope, vocoder_fused,
+                                      w8a8)
 from supertonic_tpu_torch.serve.http_server import make_server
 from supertonic_tpu_torch.utils import read_wav
 
@@ -249,9 +257,14 @@ FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
 # networks' ln_out (1 per step in the VE): 32 + 65 (97); the bias and
 # rotation at every self-attention Q and K (TE/DP 20, VE 60) and the VE's
 # cross Q (30) + the cross K of each VE block once a batch (6): 116; the
-# gated residual after each sublayer but the fused FFN: 30 + 60 (90)
-_BLOCK = {"ln_modulate": 97, "bias_rope": 116, "gated_residual": 90}
-_BLOCK_UNFUSED_FFN = {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120}
+# gated residual after each sublayer but the fused FFN: 30 + 60 (90). The
+# conv kernel: the text encoder's two prenet convs and the vocoder's pre
+# conv, six C 512 pre_res convs (a chain past the chain kernel's C 384),
+# two up convs and the head: 12; with fused_resblocks=False also the six
+# convs of each of the two fine chains: 24
+_BLOCK = {"ln_modulate": 97, "bias_rope": 116, "gated_residual": 90, "conv1d": 12}
+_BLOCK_UNFUSED_FFN = {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120,
+                      "conv1d": 12}
 PER_BATCH = {
     "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
              "w8a8_matmul": 0, "quantize": 0, **_BLOCK},
@@ -263,9 +276,10 @@ PER_BATCH = {
                          **_BLOCK_UNFUSED_FFN},
     # SynthesisEngine(fused_resblocks=False): every chain as _resblock's convs
     "bf16 unfused resblocks": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 0,
-                               "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0, **_BLOCK},
+                               "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
+                               **_BLOCK, "conv1d": 24},
 }
-BLOCK_KERNELS = tuple(_BLOCK)
+BLOCK_KERNELS = tuple(_BLOCK)  # and the conv kernel
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
@@ -297,6 +311,10 @@ SOURCES = {
     "bias_rope": ("supertonic_tpu_torch/csrc/rope.cu", "supertonic_tpu/models/layers.py:162"),
     "gated_residual": ("supertonic_tpu_torch/csrc/gated_residual.cu",
                        "supertonic_tpu/models/layers.py:428"),
+    # the XLA fusions of layers.conv1d with the ops its callers put around
+    # it (the vocoder's masks, silu, depth-to-space, residual and tanh; the
+    # text encoder's prenet)
+    "conv1d": ("supertonic_tpu_torch/csrc/conv1d.cu", "supertonic_tpu/models/layers.py:127"),
 }
 # ms per launch (bf16; int8 for the int8 product) of the designs that the
 # kernels on the path replaced, printed beside this run's times; keys are
@@ -330,7 +348,10 @@ EARLIER_MS = {
                     (1792, 256, 512): 0.0182, (1792, 1024, 512): 0.0249},
     "quantize": {(28672, 512): 0.0218, (28672, 2048): 0.0671, (23680, 512): 0.0196,
                  (1792, 256): 0.0286, (1792, 512): 0.0230, (1792, 1024): 0.0172},
-    "ln_modulate": {}, "bias_rope": {}, "gated_residual": {},  # no earlier design
+    # the one-warp-a-row LayerNorm (csrc/earlier/ln_modulate_warp_rows.cu):
+    # its phase 5 times at the cell's shapes, host launches (PERF.md section 6)
+    "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
+    "bias_rope": {}, "gated_residual": {}, "conv1d": {},  # no earlier design
 }
 DEV = torch.device("cuda")
 CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
@@ -978,13 +999,104 @@ def check_gated_residual(gen, cell, results, serving, widths):
                     ops_dtype=torch.float32)
 
 
+def conv_inputs(gen, key, dtype):
+    """x, w (HIO), bias and the options of a conv shape key (B, T, Cin,
+    Cout, k, dilation, options) as ops.record_launches names them: a [T]
+    mask with a run of pad frames, a [B, T] one with rows of other lengths
+    and, at B >= 3, an all-masked row."""
+    b, t, cin, cout, k, d, opts = key
+    parts = set(opts.split("+")) if opts else set()
+    fold = next((int(o[4:]) for o in parts if o.startswith("fold")), 1)
+    x = torch.randn((b, t, cin), generator=gen, device=DEV).to(dtype)
+    w = (torch.randn((k, cin, cout), generator=gen, device=DEV) / (k * cin) ** 0.5).to(dtype)
+    bias = 0.3 * torch.randn(cout, generator=gen, device=DEV)
+    frames = torch.arange(t * fold, device=DEV)
+    mask = None
+    if "mask" in parts:
+        mask = (frames < t * fold - max(1, t * fold // 7)).float()
+    elif "row_mask" in parts:
+        lens = torch.tensor([t * fold - (i * t * fold) // max(b, 2) for i in range(b)],
+                            device=DEV)
+        if b >= 3:
+            lens[-1] = 0
+        mask = (frames[None] < lens[:, None]).float()
+    residual = (torch.randn((b, t, cout), generator=gen, device=DEV).to(dtype)
+                if "residual" in parts else None)
+    kw = dict(dilation=d, silu_in="silu_in" in parts, silu_out="silu_out" in parts,
+              mask=mask, fold=fold, residual=residual, tanh_f32="tanh" in parts)
+    return x, w, bias, kw
+
+
+def check_conv1d(gen, cell, results, serving, widths):
+    """The conv kernel against its plain version at the cell's, the servers',
+    the mesh's, phase 12's and the fused_resblocks=False engine's shapes and
+    at edges: T no multiple of the 128-frame tile, T below the conv's reach
+    k d, a [B, T] mask with an all-masked row, channels no multiple of 64,
+    Cout below a panel, the largest reach (MAX_SPAN), Cin 1024 and Cout
+    3072. f32 within conv1d.F32_RTOL of the output's scale (exact f32 sums
+    in another order); bf16 by conv1d.bf16_within (every element within
+    2^-5 of the conv's rounded output and 2^-7 of the result: one bf16
+    step of the conv's output carried through silu, the residual and tanh;
+    the bit-equal share printed). Timed in bf16 at the cell's shapes; library_ms is F.conv1d on
+    [B, C, T] tensors with its bf16 bias, the bare conv (no silu, mask,
+    residual, depth-to-space or tanh, and cuDNN's bias rounding)."""
+    edges = [(2, 200, 64, 64, 3, 9, "silu_in+row_mask+residual"),
+             (3, 37, 64, 64, 3, 1, "silu_in+row_mask"),
+             (2, 5, 64, 64, 3, 9, "silu_in+mask"), (1, 3, 96, 512, 7, 1, "mask"),
+             (3, 130, 40, 24, 5, 3, ""), (2, 77, 256, 1024, 5, 1, "silu_in+mask+fold8"),
+             (2, 300, 128, 32, 3, 1, "silu_in+tanh"),
+             (3, 33, 256, 256, 5, 1, "silu_out+row_mask+residual"),
+             (1, 100, 512, 512, 7, 9, "silu_in+mask"), (1, 300, 64, 64, 5, 16, "silu_in"),
+             (2, 50, 1024, 1024, 5, 1, "silu_out+row_mask+residual"),
+             (1, 64, 512, 3072, 5, 1, "silu_in+mask+fold8")]
+    cases = block_cases(edges, cell, serving, widths, "conv1d")
+    for key, n_cell in sorted(cases.items()):
+        b, t, cin, cout, k, d, opts = key
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, bias, kw = conv_inputs(gen, key, dtype)
+            got = conv1d.conv1d_fused(x, w, bias, **kw)
+            ref = conv1d.conv1d_fused_plain(x, w, bias, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            what = f"conv1d B{b} x T{t} {cin}->{cout} k{k} d{d} {opts or 'bare'} {dtype}"
+            if dtype == torch.float32:
+                scale = max(1.0, float(ref.abs().max()))
+                ok = err <= conv1d.F32_RTOL * scale
+                log(f"  {what}: max abs err {err:.3e} (<= {conv1d.F32_RTOL:g} x {scale:.3g}) "
+                    f"{ok}")
+            else:
+                same, ok = conv1d.bf16_within(got, x, w, bias, **kw)
+                log(f"  {what}: bit-equal share {same:.6f}, within conv1d.bf16_within {ok} "
+                    f"(max abs err {err:.3e})")
+            if not ok or not torch.isfinite(got).all() or got.shape != ref.shape:
+                raise AssertionError("conv1d disagrees with its plain version")
+            if dtype == torch.float32 or n_cell is None or not n_cell and b * t < CELL_ROWS // 2:
+                continue
+            es = x.element_size()
+            xt = x.transpose(1, 2).contiguous()
+            wt = w.permute(2, 1, 0).contiguous()
+            bt = bias.to(dtype)
+            pad = d * (k - 1) // 2
+            nbytes = (es * (b * t * cin + k * cin * cout) + 4 * cout
+                      + (4 * kw["mask"].numel() if kw["mask"] is not None else 0)
+                      + (es * b * t * cout if kw["residual"] is not None else 0)
+                      + got.element_size() * b * t * cout)
+            measure(results, "conv1d", f"B{b} x T{t} {cin}->{cout} k{k} d{d} {opts or 'bare'}",
+                    dtype, n_cell, err, lambda: conv1d.conv1d_fused(x, w, bias, **kw),
+                    lambda: conv1d.conv1d_fused_plain(x, w, bias, **kw), nbytes,
+                    2.0 * b * t * cin * cout * k,
+                    lib=lambda: torch.nn.functional.conv1d(xt, wt, bt, padding=pad, dilation=d),
+                    shape=key)
+
+
 # the SASS instructions each library must hold (and, for the int8 library,
 # must not): bf16 wgmma (HGMMA), integer wgmma (IGMMA), TMA loads and stores
 # (UTMALDG, UTMASTG), bulk copies to and from shared memory (UBLKCP), and
 # the mma.sync of the replaced int8 design (IMMA)
 SASS_REQUIRED = {"attention": ("HGMMA", "UTMALDG"), "ffn": ("HGMMA", "UTMALDG"),
                  "resblock_chain": ("HGMMA", "UTMALDG"),
-                 "int8_matmul": ("IGMMA", "UTMALDG", "UTMASTG"), "quantize": ("UBLKCP",)}
+                 "int8_matmul": ("IGMMA", "UTMALDG", "UTMASTG"), "quantize": ("UBLKCP",),
+                 "conv1d": ("HGMMA", "UTMALDG"), "ln_modulate": ("UBLKCP",)}
 SASS_FORBIDDEN = {"int8_matmul": ("IMMA",)}
 
 
@@ -1393,7 +1505,8 @@ TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod",
                "int8_matmul": ("Int32Out",),
                "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows"),
                "ln_modulate": ("layer_norm_rows",), "bias_rope": ("rope_pairs",),
-               "gated_residual": ("gated_residual_pass",)}
+               "gated_residual": ("gated_residual_pass",),
+               "conv1d": ("conv_wgmma", "conv_simt")}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch
@@ -1813,13 +1926,15 @@ def unfused_ffn_cell(assets, rates, smi: str) -> None:
 # phase 3, third engine: the vocoder's chains without the chain kernel
 # ---------------------------------------------------------------------------
 
-def unfused_resblocks_cell(assets, rates, smi: str) -> None:
+def unfused_resblocks_cell(assets, rates, smi: str) -> dict:
     """The b64 cell through SynthesisEngine(fused_resblocks=False) (the JAX
     engine's default, TTS_VOC_FUSED unset there): every chain through
     _resblock's torch convs. The launches of one replayed b64/5-step batch
     (no chain), b64/5-step audio-sec/s beside the default's from the same
     process, and, on the same injected noise, the bf16 wav distance to an
-    engine built under TTS_VOC_FUSED=0, which must launch no chain either."""
+    engine built under TTS_VOC_FUSED=0, which must launch no chain either.
+    Returns the shapes one replayed batch gave each kernel (phase 5 holds
+    the conv kernel at the chains' convs)."""
     tts = TTS(assets)
     a = tts.assets
     tts.engine = SynthesisEngine(a.params, tts.cfg, a.processor, fused_resblocks=False)
@@ -1832,6 +1947,7 @@ def unfused_resblocks_cell(assets, rates, smi: str) -> None:
         texts, ["en"] * 64, style.tile(64), total_step=5))
     log(f"  fused_resblocks=False: shapes given to each kernel in one b64/5-step batch: "
         f"{shapes}")
+    one_batch = shapes
     check_exact(one, PER_BATCH["bf16 unfused resblocks"],
                 "one b64/5-step batch with fused_resblocks=False (a replay)")
     for rep in range(2):
@@ -1871,6 +1987,7 @@ def unfused_resblocks_cell(assets, rates, smi: str) -> None:
     log(f"  bf16 b64/5-step, injected noise: fused_resblocks=False against True: durations "
         f"bit-equal, wav relative L2 {rel_l2(wu, wf):.6f}, max abs diff "
         f"{float(np.abs(wu - wf).max()):.3e} (readings; {smi})")
+    return one_batch
 
 
 # ---------------------------------------------------------------------------
@@ -1878,7 +1995,7 @@ def unfused_resblocks_cell(assets, rates, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 PATH_KERNELS = ("attention", "adaln_ffn", "resblock_chain", "ln_modulate", "bias_rope",
-                "gated_residual")
+                "gated_residual", "conv1d")
 
 
 def width_configs() -> list:
@@ -1937,9 +2054,18 @@ def expected_widths(cfg) -> dict:
     voc = cfg.vocoder
     chains = {c for c in (voc.dim, *voc.channels) if c <= vocoder_fused.MAX_CHANNELS}
     dims = {net.dim for net in (cfg.text_encoder, cfg.duration_predictor, ve)}
+    te = cfg.text_encoder
+    convs = {(te.dim, te.dim, te.conv_kernel), (cfg.latent_channels, voc.dim, 7)}
+    convs |= {(c, c, voc.resblock_kernel) for c in (voc.dim, *voc.channels)
+              if c > vocoder_fused.MAX_CHANNELS}
+    cin = voc.dim
+    for f, c in zip(voc.upsample_factors, voc.channels):
+        convs.add((cin, c * f, voc.stage_kernel))
+        cin = c
+    convs.add((cin, cfg.chunk_size // int(np.prod(voc.upsample_factors)), 3))
     return {"attention": heads, "adaln_ffn": {(ve.dim, ve.dim * ve.ffn_mult)},
             "resblock_chain": chains, "ln_modulate": dims, "bias_rope": heads,
-            "gated_residual": dims}
+            "gated_residual": dims, "conv1d": convs}
 
 
 def launched_widths(tally) -> dict:
@@ -1948,7 +2074,8 @@ def launched_widths(tally) -> dict:
             "resblock_chain": {k[2] for k in tally["resblock_chain"]},
             "ln_modulate": {k[2] for k in tally["ln_modulate"]},
             "bias_rope": {k[3] for k in tally["bias_rope"]},
-            "gated_residual": {k[2] for k in tally["gated_residual"]}}
+            "gated_residual": {k[2] for k in tally["gated_residual"]},
+            "conv1d": {k[2:5] for k in tally["conv1d"]}}
 
 
 class NoPlainOnCuda:
@@ -1956,7 +2083,8 @@ class NoPlainOnCuda:
     send every CUDA tensor to their kernels."""
     PLAIN = ((attention, "attention_plain"), (ffn, "adaln_ffn_plain"),
              (vocoder_fused, "resblock_chain_plain"), (ln_modulate, "ln_modulate_plain"),
-             (rope, "bias_rope_plain"), (gated_residual, "gated_residual_plain"))
+             (rope, "bias_rope_plain"), (gated_residual, "gated_residual_plain"),
+             (conv1d, "conv1d_fused_plain"))
 
     def __enter__(self):
         self.saved = [(m, n, getattr(m, n)) for m, n in self.PLAIN]
@@ -3269,7 +3397,7 @@ def main() -> int:
     log("phase 3, second engine: the b64 cell with SynthesisEngine(fused_ffn=False)")
     unfused_ffn_cell(assets, rates, smi)
     log("phase 3, third engine: the b64 cell with SynthesisEngine(fused_resblocks=False)")
-    unfused_resblocks_cell(assets, rates, smi)
+    unfused_shapes = unfused_resblocks_cell(assets, rates, smi)
     log("phase 4: int8 path, TTS(precision=\"int8\") at the default 66M config")
     fresh_rate_dir("main-int8")
     cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, args.pin_rate,
@@ -3297,6 +3425,8 @@ def main() -> int:
     for kernel in ops.KERNELS:  # checked (not timed) in phase 5
         for shape in {**dp_shapes[kernel], **tp_shapes[kernel]}:
             served[kernel].setdefault(shape, 0)
+    for shape in unfused_shapes["conv1d"]:  # checked, and timed at the cell's size
+        served["conv1d"].setdefault(shape, 0)
 
     # phase 12 runs here too, so that phase 5 holds and times each path
     # kernel at the widths it gave them
@@ -3317,6 +3447,7 @@ def main() -> int:
     check_ln_modulate(gen, cell, results, served, widths)
     check_rope(gen, cell, results, served, widths)
     check_gated_residual(gen, cell, results, served, widths)
+    check_conv1d(gen, cell, results, served, widths)
     picked = cell_summary(results, launches)
 
     log("phase 6: whole path: f32 card vs CPU, W8A8 linears card vs CPU, int8 vs bf16 "

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the bf16 attention, resblock-chain and AdaLN FFN kernels, the int8
-product and the quantize pass of the PyTorch port against design variants
-on one CUDA card: the measurements behind the design choices stated in the
-headers of supertonic_tpu_torch/csrc/attention.cu, resblock_chain.cu,
-ffn.cu, int8_matmul.cu and quantize.cu.
+product, the quantize pass, the LayerNorm with the AdaLN modulation and the
+conv kernel of the PyTorch port against design variants on one CUDA card:
+the measurements behind the design choices stated in the headers of
+supertonic_tpu_torch/csrc/attention.cu, resblock_chain.cu, ffn.cu,
+int8_matmul.cu, quantize.cu, ln_modulate.cu and conv1d.cu.
 
     python3 kernel_variants.py                 # every kernel
     python3 kernel_variants.py ffn attention   # some of them (attention_f32:
@@ -55,6 +56,17 @@ host's per-call work:
              division (not bit-equal), and the earlier design's loads and
              max alone, at the cell's shapes, the TP shapes and at M from
              7,168 to 57,344
+  ln_modulate  the one-warp-a-row design it replaced (earlier), with and
+             without the modulation; 2 and 4 row slots a warp; and with
+             --split: loads only (rows staged and summed, no statistics
+             or stores), in this design and in the earlier one; beside
+             F.layer_norm at the plain LayerNorm's shape
+  conv1d     the conv kernel at the b64 cell's shapes: 3 ring stages;
+             128 x 128 and 256 x 128 tiles; the head with 3 staging warps;
+             the design with A in registers (csrc/variants/);
+             with --split: no products, no silu in the staging, no window
+             copies, no epilogue (unchecked)
+             beside F.conv1d (the bare conv, a yardstick)
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -74,8 +86,9 @@ import sys
 import torch
 
 import chip_smoke as cs
-from supertonic_tpu_torch.ops import (_build, attention, ffn, int8_matmul, quantize,
-                                      vocoder_fused, w8a8)
+from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, int8_matmul, ln_modulate,
+                                      quantize, vocoder_fused, w8a8)
+from supertonic_tpu_torch.ops.gated_residual import batch_rows
 
 BF16_SECTION = "// bf16 on the tensor cores"
 FILE = "file"  # a variant that is a whole source file under csrc/ (+ substitutions)
@@ -116,7 +129,30 @@ SPLIT = {"resblock_chain": {
             ("__float2int_rn(__fdiv_rn(v[e], s))", "__float2int_rn(v[e] * s)")],
         "split, earlier: loads and the row max (no division, no xq)": (
             FILE, "earlier/quantize_warp_rows.cu",
-            [("*reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);", "")])}}
+            [("*reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);", "")])},
+    "conv1d": {
+        "split: no products": [
+            ("stk::Wgmma<NP * 64>::template ss<1>(", "if (Tlen < 0) stk::Wgmma<NP * 64>::template ss<1>(")],
+        "split: no silu in the staging": [("      if (silu_in) {\n#pragma unroll 4",
+                                           "      if (silu_in && Tlen < 0) {\n#pragma unroll 4")],
+        "split: no window copies": [("        stk::cp_async16(win_u32 + at(c, el),",
+                                     "        if (Tlen < 0) stk::cp_async16(win_u32 + at(c, el),")],
+        "split: no epilogue": [
+            ("  // take the epilogue tile\n  stk::named_bar_sync(1, CONSUMERS);\n",
+             "  // take the epilogue tile\n  stk::named_bar_sync(1, CONSUMERS);\n"
+             "  if (Tlen > 0) return;\n")]},
+    "ln_modulate": {
+        "split: loads only": [
+            ("    if (lane == 0 && i + STAGES < n_rows) issue(i + STAGES);\n",
+             "    if (lane == 0 && i + STAGES < n_rows) issue(i + STAGES);\n"
+             "    if (D > 0) {\n      if (s == 12345.0f) out[0] = in[0];\n      continue;\n    }\n")],
+        "split, earlier: loads only": (
+            FILE, "earlier/ln_modulate_warp_rows.cu",
+            [("    const float mean = __fdiv_rn(stk::warp_sum(s), (float)D);\n    float q = 0.0f;\n"
+              "#pragma unroll\n",
+              "    if (D > 0) {\n      if (s == 12345.0f) out[0] = xr[0];\n      continue;\n    }\n"
+              "    const float mean = __fdiv_rn(stk::warp_sum(s), (float)D);\n    float q = 0.0f;\n"
+              "#pragma unroll\n")])}}
 UP = "using UpTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
 DOWN = "using DownTile = stk::WgTile<2, 2, 128, 4, 1, true>;"
 UP_FEW = "using UpTileSmall = stk::WgTile<2, 1, 64, 8, 1, true>;"
@@ -208,13 +244,29 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "1 KB of rows a warp (1 row at K 512)": [
             ("constexpr int STAGED = 2048;", "constexpr int STAGED = 1024;")],
         "8 warps a block": [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;")]},
+    "ln_modulate": {
+        "earlier: one warp a row": (FILE, "earlier/ln_modulate_warp_rows.cu", []),
+        "2 row slots a warp": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+        "4 row slots a warp": [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]},
+    "conv1d": {
+        "3 ring stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")],
+        "128 x 128 tiles (m64n128 products)": [
+            ("  return launch_wgmma<4, 1, 3, KT>", "  return launch_wgmma<2, 1, 3, KT>")],
+        "256 x 128 tiles (two M tiles a consumer)": [
+            ("  return launch_wgmma<4, 1, 3, KT>", "  return launch_wgmma<2, 2, 3, KT>")],
+        "the head with 3 staging warps": [
+            ("launch_wgmma<1, 2, 7, KT>", "launch_wgmma<1, 2, 3, KT>")],
+        "A in registers by ldmatrix from swizzled windows, 128 x 128 tiles": (
+            FILE, "variants/conv1d_register_a.cu", [])},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
          "resblock_chain": ("stk_resblock_chain", vocoder_fused._ARGTYPES),
          "ffn": ("stk_adaln_ffn", ffn._ARGTYPES),
          "int8": ("stk_w8a8_matmul", w8a8._ARGTYPES),
-         "quantize": ("stk_quantize_rows", quantize._ARGTYPES)}
+         "quantize": ("stk_quantize_rows", quantize._ARGTYPES),
+         "ln_modulate": ("stk_ln_modulate", ln_modulate._ARGTYPES),
+         "conv1d": ("stk_conv1d", conv1d._ARGTYPES)}
 # further entries of a variant's library, {kernel: {name: argtypes}}
 MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES}}
 # names (in ptxas's mangled names) of the device functions whose registers and
@@ -224,7 +276,8 @@ BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
                   "resblock_chain": ("chain_mma", "chain_wgmma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
                   "int8": ("wgmma_gemm", "mma_gemm"),
-                  "quantize": ("quantize_",)}
+                  "quantize": ("quantize_",), "ln_modulate": ("layer_norm_rows",),
+                  "conv1d": ("conv_wgmma",)}
 SOURCE = {"attention_f32": "attention", "int8": "int8_matmul"}  # kernels timed from another kernel's source
 OUT = _build.BUILD_ROOT / "variants"
 
@@ -383,6 +436,10 @@ def main() -> int:
         variants_int8(fns, gen)
     if "quantize" in kernels:
         variants_quantize(fns, gen)
+    if "ln_modulate" in kernels:
+        variants_ln_modulate(fns, gen)
+    if "conv1d" in kernels:
+        variants_conv1d(fns, gen)
     return 0
 
 
@@ -578,6 +635,100 @@ def variants_chain(fns, gen, dt) -> None:
             if not name.startswith("split:"):
                 cs.compare(f"chain {label} {name}", call(), ref, dt)
         in_turns(label, calls, 3 if b > 1 else 20, graphs=True)
+
+
+def ln_call(fn, x, g, bl, shift, scale):
+    """One LayerNorm through a variant's library, as the wrapper launches it."""
+    b, t, d = x.shape
+    mstride = 0
+    if shift is not None:
+        shift, mstride = batch_rows(shift, b, d, "shift")
+        scale, _ = batch_rows(scale, b, d, "scale")
+    out = torch.empty_like(x)
+    P = _build.ptr
+    _build.check(fn(P(x), P(g), P(bl), P(shift), P(scale), mstride, P(out), b * t, t, d, 1e-5,
+                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "variant")
+    return out
+
+
+def variants_ln_modulate(fns, gen) -> None:
+    cs.log("LayerNorm with the AdaLN modulation, ms per launch (bf16): the b64 cell's VE "
+           "shape modulated and not, its TE/DP plain LayerNorm, a streamed chunk's VE shape")
+    dt = torch.bfloat16
+    for b, t, d, modulated in ((64, 448, 512, True), (64, 448, 512, False),
+                               (64, 320, 256, False), (1, 448, 512, True)):
+        x = (2 * torch.randn((b, t, d), generator=gen, device=cs.DEV) + 0.3).to(dt)
+        g = 1.0 + 0.2 * torch.randn(d, generator=gen, device=cs.DEV)
+        bl = 0.2 * torch.randn(d, generator=gen, device=cs.DEV)
+        shift = scale = None
+        if modulated:
+            shift, scale = cs.modulation(gen, b, d, dt)[:2]
+        ref = ln_modulate.ln_modulate(x, g, bl, shift, scale)
+        calls = {"committed": lambda: ln_modulate.ln_modulate(x, g, bl, shift, scale)}
+        for name in VARIANTS["ln_modulate"]:
+            fn = fns[("ln_modulate", name)]
+            calls[name] = lambda fn=fn: ln_call(fn, x, g, bl, shift, scale)
+        if not modulated:
+            calls["F.layer_norm (yardstick)"] = lambda: torch.nn.functional.layer_norm(
+                x, (d,), g.to(dt), bl.to(dt))
+        label = f"B{b} T{t} D{d}{' modulated' if modulated else ''}"
+        same, matched = ln_modulate.one_step_match(ref, x, g, bl, shift, scale)
+        if matched != 1.0:
+            raise AssertionError(f"ln_modulate {label}: the committed kernel out of tolerance")
+        for name, call in calls.items():
+            if name.startswith("split") or "yardstick" in name:
+                continue
+            if not cs.bits_equal(call(), ref):
+                raise AssertionError(f"ln_modulate {label} {name}: not bit-equal to the "
+                                     f"committed kernel")
+        cs.log(f"  ln_modulate {label}: every variant bit-equal to the committed kernel, "
+               f"{same:.6f} of it bit-equal to the plain version (bound "
+               f"{cs.bound(4 * b * t * d + 8 * d, 0, torch.float32)[0]:.4f} ms)")
+        in_turns(label, calls, 20, graphs=True)
+
+
+def variants_conv1d(fns, gen) -> None:
+    cs.log("conv kernel, ms per launch (bf16) at the b64 cell's shapes")
+    dt = torch.bfloat16
+    for key in ((64, 448, 96, 512, 7, 1, "mask"), (64, 448, 512, 512, 3, 9, "silu_in+mask"),
+                (64, 448, 512, 2048, 5, 1, "silu_in+mask+fold8"),
+                (64, 3584, 256, 1024, 5, 1, "silu_in+mask+fold8"),
+                (64, 28672, 128, 32, 3, 1, "silu_in+tanh"),
+                (64, 320, 256, 256, 5, 1, "silu_out+row_mask+residual")):
+        b, t, cin, cout, k, d, _opts = key
+        x, w, bias, kw = cs.conv_inputs(gen, key, dt)
+        ref = conv1d.conv1d_fused(x, w, bias, **kw)
+        calls = {"committed": lambda: conv1d.conv1d_fused(x, w, bias, **kw)}
+        for name in VARIANTS["conv1d"]:
+            fn = fns[("conv1d", name)]
+            calls[name] = lambda fn=fn: conv_call(fn, x, w, bias, **kw)
+        xt, wt, bt = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(), bias.to(dt)
+        pad = d * (k - 1) // 2
+        calls["F.conv1d, the bare conv (yardstick)"] = lambda: torch.nn.functional.conv1d(
+            xt, wt, bt, padding=pad, dilation=d)
+        label = f"B{b} T{t} {cin}->{cout} k{k} d{d} {_opts}"
+        for name, call in calls.items():
+            if "yardstick" in name or name.startswith("split"):
+                continue
+            if not cs.bits_equal(call(), ref):
+                raise AssertionError(f"conv1d {label} {name}: not bit-equal to the committed "
+                                     f"kernel")
+        cs.log(f"  conv1d {label}: every variant bit-equal to the committed kernel")
+        in_turns(label, calls, 10, graphs=True)
+
+
+def conv_call(fn, x, w, bias, *, dilation, silu_in, silu_out, mask, fold, residual, tanh_f32):
+    """One conv through a variant's library, as the wrapper launches it."""
+    b, t, cin = x.shape
+    k, _, cout = w.shape
+    mstride = 0 if mask is None or mask.dim() == 1 or mask.shape[0] == 1 else mask.shape[1]
+    out = torch.empty((b, t, cout), device=x.device,
+                      dtype=torch.float32 if tanh_f32 else x.dtype)
+    P = _build.ptr
+    _build.check(fn(P(x), P(w), P(bias), P(mask), mstride, P(residual), P(out), b, t, cin, cout,
+                    k, dilation, int(silu_in), int(silu_out), fold, int(tanh_f32),
+                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "variant")
+    return out
 
 
 if __name__ == "__main__":

@@ -23,21 +23,40 @@
 // 58.7 MB at the vector estimator's 28,672 x 512 bf16 rows: 0.0175 ms at
 // 3.35 TB/s.
 //
-// Design: one warp a row, each lane holding CPL 16-byte chunks of the row
-// (chunk lane + 32 i) in registers between the statistics and the write, so
-// x is read once; g and b stay in registers over the warp's run of
-// consecutive rows, and scale and shift are reloaded only where the batch
-// index changes. Rows of any other width or alignment (D past 128 chunks,
-// no multiple of 16 bytes, or a misaligned modulation) take a scalar warp
-// that reads its row three times (the later reads from L1).
+// Design: rows staged through shared memory by bulk copies, several in
+// flight a warp. A block takes a run of consecutive rows inside one batch
+// row (one segment of T rows; without the modulation the rows are one
+// segment), RUN rows (a multiple of 8, ~4 blocks an SM) and 8 warps; warp w
+// takes rows w, w + 8, ... of the run. Each warp has a ring of STAGES
+// row slots: its lane 0 fills them by cp.async.bulk (one copy a row,
+// completing on the slot's mbarrier) and refills a slot with the row
+// STAGES ahead as soon as the lanes hold the current row in registers, so
+// STAGES rows a warp are in flight while it reduces and writes. The block
+// loads g, b and its batch row's 1 + scale and shift once, rounded to the
+// storage type, into shared memory (the earlier design held them in
+// registers, a second pair of register arrays for the modulation, and
+// reloaded scale and shift where a warp's rows crossed a batch row). The
+// per-lane chunks (chunk lane + 32 i), the sum order and every rounding
+// are the earlier design's: the outputs are bit for bit the same. In bf16
+// the affine and the modulation run as packed bf16 products and sums
+// (finish_bf16x8), which round as the f32 operations rounded to bf16 do.
+// Rows of any other width or alignment (D past 128 chunks, no multiple of
+// 16 bytes, x or out misaligned) take a scalar warp that reads its row
+// three times (the later reads from L1).
+// What limited the earlier design (csrc/earlier/ln_modulate_warp_rows.cu,
+// kernel_variants.py ln_modulate): one row in flight a warp, whose load the
+// two reductions waited on, at ~32 warps an SM.
 #include <algorithm>
 #include <type_traits>
 
 #include "elementwise.cuh"
+#include "wgmma.cuh"  // bulk copies and mbarriers
 
 namespace {
 
 constexpr int NT = 256;  // threads a block: 8 warps
+constexpr int WARPS = NT / 32;
+constexpr int STAGES = 3;  // row slots a warp: rows in flight
 
 // the plain version's rounding points after the statistics
 template <typename T, bool MOD>
@@ -53,82 +72,137 @@ __device__ __forceinline__ float finish(float v, float mean, float rstd, float g
   return h;
 }
 
+// finish for 8 bf16 values: the normalized value in f32 rounded to bf16,
+// then the affine and the modulation as packed bf16 products and sums. A
+// product or a sum of two bf16 values is exact in f32 (or, for a sum of
+// values 2^24 apart, rounds to the larger either way), so one bf16
+// rounding of the exact result, which the packed instructions make, is the
+// f32 operation rounded to bf16: the same bits as finish<bf16>, in a
+// quarter of the instructions. p: this chunk's g (and b, 1 + scale, shift
+// D values apart) in shared memory
+template <bool MOD>
+__device__ __forceinline__ void finish_bf16x8(const float (&v)[8], float mean, float rstd,
+                                              const __nv_bfloat16* p, int D,
+                                              __nv_bfloat16* out) {
+  const int npar = MOD ? 4 : 2;
+  uint4 par[4];
+#pragma unroll
+  for (int i = 0; i < npar; ++i) par[i] = *reinterpret_cast<const uint4*>(p + i * D);
+  uint4 o;
+  uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    auto pair = [&](int i) {
+      return reinterpret_cast<const __nv_bfloat162*>(&par[i])[j];
+    };
+    __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(__fsub_rn(v[2 * j], mean), rstd),
+                                             __fmul_rn(__fsub_rn(v[2 * j + 1], mean), rstd));
+    // the _rn forms: a plain mul and add could be contracted into one fma
+    h = __hadd2_rn(__hmul2_rn(h, pair(0)), pair(1));
+    if (MOD) h = __hadd2_rn(__hmul2_rn(h, pair(2)), pair(3));
+    op[j] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(out) = o;
+}
+
+// shared memory of a block: g, b [, 1 + scale, shift] rows of D in T | the
+// warps' ring slots [WARPS][STAGES][D] in T | their mbarriers
+template <typename T, bool MOD>
+constexpr size_t smem_bytes(int D) {
+  return ((MOD ? 4 : 2) + (size_t)WARPS * STAGES) * D * sizeof(T) + 8 * WARPS * STAGES;
+}
+
+// blockIdx.x = segment * runs + run index; rows of a segment: seg_len
 template <typename T, int CPL, bool MOD>
 __global__ void __launch_bounds__(NT)
 layer_norm_rows(const T* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ b, const T* __restrict__ shift,
-                const T* __restrict__ scale, long long mstride, T* __restrict__ out, int rows,
-                int Tlen, int D, int rows_per_warp, float eps) {
+                const T* __restrict__ scale, long long mstride, T* __restrict__ out,
+                int seg_len, int D, int run, int runs, float eps) {
   constexpr int E = stk::kVec<T>;
-  const int lane = threadIdx.x & 31;
-  const int r0 = (blockIdx.x * (NT / 32) + (threadIdx.x >> 5)) * rows_per_warp;
-  const int r1 = min(rows, r0 + rows_per_warp);
-  const int nc = D / E;
-  float gv[CPL][E], bv[CPL][E], sc1[CPL][E], sh[CPL][E];
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* par = reinterpret_cast<T*>(smem);  // g, b, 1 + scale, shift
+  T* ring = par + (MOD ? 4 : 2) * D;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)WARPS * STAGES * D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg = blockIdx.x / runs;
+  const int r0 = seg * seg_len + (blockIdx.x % runs) * run;
+  const int r1 = min(r0 + run, (seg + 1) * seg_len);
+  const int n_rows = r0 + warp < r1 ? (r1 - 1 - r0 - warp) / WARPS + 1 : 0;
+  const uint32_t bytes = (uint32_t)(D * sizeof(T));
+  T* slots = ring + (size_t)warp * STAGES * D;
+  uint64_t* bar = full + warp * STAGES;
+  // lane 0: row i of this warp into slot i % STAGES
+  auto issue = [&](int i) {
+    stk::mbar_arrive_tx(&bar[i % STAGES], bytes);
+    stk::bulk_load(slots + (size_t)(i % STAGES) * D, x + (size_t)(r0 + warp + i * WARPS) * D,
+                   bytes, &bar[i % STAGES]);
+  };
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < nc) {
-      stk::load_n<float, E>(g + c * E, gv[i]);
-      stk::load_n<float, E>(b + c * E, bv[i]);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        gv[i][e] = stk::rnd<T>(gv[i][e]);
-        bv[i][e] = stk::rnd<T>(bv[i][e]);
-      }
+    for (int s = 0; s < STAGES; ++s) stk::mbar_init(&bar[s], 1);
+    stk::mbar_fence_init();
+    for (int i = 0; i < STAGES && i < n_rows; ++i) issue(i);
+  }
+  for (int c = threadIdx.x; c < D; c += NT) {
+    par[c] = stk::from_f<T>(g[c]);
+    par[D + c] = stk::from_f<T>(b[c]);
+    if (MOD) {
+      const long long m = seg * mstride + c;
+      par[2 * D + c] = stk::from_f<T>(__fadd_rn(1.0f, stk::to_f(scale[m])));
+      par[3 * D + c] = shift[m];
     }
   }
-  int cur_b = -1;
-  for (int row = r0; row < r1; ++row) {
-    if (MOD) {
-      const int bi = row / Tlen;
-      if (bi != cur_b) {
-        cur_b = bi;
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          const int c = lane + 32 * i;
-          if (c < nc) {
-            stk::load_n<T, E>(scale + bi * mstride + c * E, sc1[i]);
-            stk::load_n<T, E>(shift + bi * mstride + c * E, sh[i]);
-#pragma unroll
-            for (int e = 0; e < E; ++e) sc1[i][e] = stk::rnd<T>(__fadd_rn(1.0f, sc1[i][e]));
-          }
-        }
-      }
-    }
-    const T* xr = x + (size_t)row * D;
+  __syncthreads();
+  const int nc = D / E;
+  for (int i = 0; i < n_rows; ++i) {
+    const T* in = slots + (size_t)(i % STAGES) * D;
+    stk::mbar_wait(&bar[i % STAGES], (i / STAGES) & 1);
     float v[CPL][E];
     float s = 0.0f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
+    for (int k = 0; k < CPL; ++k) {
+      const int c = lane + 32 * k;
       if (c < nc) {
-        stk::load_n<T, E>(xr + c * E, v[i]);
+        stk::load_n<T, E>(in + c * E, v[k]);
 #pragma unroll
-        for (int e = 0; e < E; ++e) s += v[i][e];
+        for (int e = 0; e < E; ++e) s += v[k][e];
       }
     }
+    // the row is in registers: the slot takes the row STAGES ahead
+    __syncwarp();
+    if (lane == 0 && i + STAGES < n_rows) issue(i + STAGES);
     const float mean = __fdiv_rn(stk::warp_sum(s), (float)D);
     float q = 0.0f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i)
-      if (lane + 32 * i < nc)
+    for (int k = 0; k < CPL; ++k)
+      if (lane + 32 * k < nc)
 #pragma unroll
         for (int e = 0; e < E; ++e) {
-          const float d = __fsub_rn(v[i][e], mean);
+          const float d = __fsub_rn(v[k][e], mean);
           q += d * d;
         }
     const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(stk::warp_sum(q), (float)D), eps));
-    T* orow = out + (size_t)row * D;
+    T* orow = out + (size_t)(r0 + warp + i * WARPS) * D;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
+    for (int k = 0; k < CPL; ++k) {
+      const int c = lane + 32 * k;
       if (c >= nc) continue;
-      float o[E];
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        finish_bf16x8<MOD>(v[k], mean, rstd, par + c * E, D, orow + c * E);
+        continue;
+      }
+      float gv[E], bv[E], sc1[E], sh[E], o[E];
+      stk::load_n<T, E>(par + c * E, gv);
+      stk::load_n<T, E>(par + D + c * E, bv);
+      if (MOD) {
+        stk::load_n<T, E>(par + 2 * D + c * E, sc1);
+        stk::load_n<T, E>(par + 3 * D + c * E, sh);
+      }
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        o[e] = finish<T, MOD>(v[i][e], mean, rstd, gv[i][e], bv[i][e], MOD ? sc1[i][e] : 0.0f,
-                              MOD ? sh[i][e] : 0.0f);
+        o[e] = finish<T, MOD>(v[k][e], mean, rstd, gv[e], bv[e], MOD ? sc1[e] : 0.0f,
+                              MOD ? sh[e] : 0.0f);
       stk::store_n<T, E>(orow + c * E, o);
     }
   }
@@ -166,30 +240,46 @@ layer_norm_rows_any(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+template <typename T, int CPL, bool MOD>
+int launch_rows(const T* x, const float* g, const float* b, const T* shift, const T* scale,
+                long long mstride, T* out, int rows, int seg_len, int D, float eps,
+                cudaStream_t st) {
+  // a run of rows a block, a multiple of the warps, ~4 blocks an SM
+  const int target = stk::sm_count() * 4;
+  int run = (rows + target - 1) / target;
+  run = std::max(WARPS, (run + WARPS - 1) / WARPS * WARPS);
+  const int runs = (seg_len + run - 1) / run;
+  const size_t bytes = smem_bytes<T, MOD>(D);
+  auto kernel = layer_norm_rows<T, CPL, MOD>;
+  static size_t configured[stk::kMaxDevices] = {};
+  if (int err = stk::allow_dynamic_smem(kernel, bytes, configured)) return err;
+  kernel<<<rows / seg_len * runs, NT, bytes, st>>>(x, g, b, shift, scale, mstride, out, seg_len,
+                                                   D, run, runs, eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool MOD>
 int go(const T* x, const float* g, const float* b, const T* shift, const T* scale,
        long long mstride, T* out, int rows, int Tlen, int D, float eps, cudaStream_t st) {
   constexpr int E = stk::kVec<T>;
+  // rows by bulk copies: 16-byte rows, aligned (the modulation is read per
+  // value, at any alignment and batch stride)
+  const bool vec = D % E == 0 && stk::aligned16(x) && stk::aligned16(out);
+  const int nc = D / E;
+  // without the modulation the rows are one segment
+  const int seg = MOD ? Tlen : rows;
+  if (vec && nc <= 32)
+    return launch_rows<T, 1, MOD>(x, g, b, shift, scale, mstride, out, rows, seg, D, eps, st);
+  if (vec && nc <= 64)
+    return launch_rows<T, 2, MOD>(x, g, b, shift, scale, mstride, out, rows, seg, D, eps, st);
+  if (vec && nc <= 128)
+    return launch_rows<T, 4, MOD>(x, g, b, shift, scale, mstride, out, rows, seg, D, eps, st);
   // a run of rows a warp, with about 32 warps a streaming multiprocessor
   const int warps = stk::sm_count() * 32;
   const int rpw = std::max(1, (rows + warps - 1) / warps);
   const int blocks = ((rows + rpw - 1) / rpw + NT / 32 - 1) / (NT / 32);
-  const bool vec = D % E == 0 && stk::aligned16(x) && stk::aligned16(out) && stk::aligned16(g) &&
-                   stk::aligned16(b) &&
-                   (!MOD || (stk::aligned16(shift) && stk::aligned16(scale) && mstride % E == 0));
-  const int nc = D / E;
-  if (vec && nc <= 32)
-    layer_norm_rows<T, 1, MOD><<<blocks, NT, 0, st>>>(x, g, b, shift, scale, mstride, out, rows,
-                                                      Tlen, D, rpw, eps);
-  else if (vec && nc <= 64)
-    layer_norm_rows<T, 2, MOD><<<blocks, NT, 0, st>>>(x, g, b, shift, scale, mstride, out, rows,
-                                                      Tlen, D, rpw, eps);
-  else if (vec && nc <= 128)
-    layer_norm_rows<T, 4, MOD><<<blocks, NT, 0, st>>>(x, g, b, shift, scale, mstride, out, rows,
-                                                      Tlen, D, rpw, eps);
-  else
-    layer_norm_rows_any<T, MOD><<<blocks, NT, 0, st>>>(x, g, b, shift, scale, mstride, out,
-                                                       rows, Tlen, D, rpw, eps);
+  layer_norm_rows_any<T, MOD><<<blocks, NT, 0, st>>>(x, g, b, shift, scale, mstride, out,
+                                                     rows, Tlen, D, rpw, eps);
   return (int)cudaGetLastError();
 }
 

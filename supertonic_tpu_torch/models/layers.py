@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention
+from ..ops.conv1d import conv1d_fused
 from ..ops.ffn import fused_adaln_ffn
 from ..ops.gated_residual import add_bias, gated_residual
 from ..ops.int8_matmul import int8_matmul
@@ -391,14 +392,22 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5, *, shift=None,
     return ln_modulate(x, p.g, p.b, shift, scale, eps=eps)
 
 
-def conv1d(p: Conv1d, x: torch.Tensor, *, dilation: int = 1) -> torch.Tensor:
+def conv_weight(p: Conv1d, dtype) -> torch.Tensor:
+    """The conv's weight in the JAX layout [k, Cin, Cout] (HIO), contiguous,
+    in ``dtype``: one copy."""
+    cout, cin, k = p.weight.shape
+    w = torch.empty((k, cin, cout), dtype=dtype, device=p.weight.device)
+    return w.copy_(p.weight.permute(2, 1, 0))
+
+
+def conv1d(p: Conv1d, x: torch.Tensor, *, dilation: int = 1, **fused) -> torch.Tensor:
     """x: [B, T, C] -> [B, T, C'] with SAME padding
-    (d(k-1)//2, d(k-1) - d(k-1)//2), f32 accumulation and bias."""
-    k = p.weight.shape[-1]
-    total = dilation * (k - 1)
-    h = F.pad(x.transpose(1, 2), (total // 2, total - total // 2))
-    y = F.conv1d(h, _weight(p, x.dtype), p.bias.to(x.dtype), dilation=dilation)
-    return y.transpose(1, 2)
+    (d(k-1)//2, d(k-1) - d(k-1)//2), f32 accumulation and the f32 bias
+    before one rounding (JAX layers.py:145): the conv kernel's wrapper
+    (ops/conv1d.py), which ``fused`` options (silu_in, silu_out, mask,
+    fold, residual, tanh_f32) pass to."""
+    return conv1d_fused(x.contiguous(), conv_weight(p, x.dtype), p.bias, dilation=dilation,
+                        **fused)
 
 
 # ---------------------------------------------------------------------------

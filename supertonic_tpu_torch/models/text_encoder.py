@@ -6,7 +6,6 @@ Returns text_emb [B, L, odim]."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..config import TTSConfig
 from . import layers as L
@@ -35,8 +34,10 @@ def apply(params, cfg: TTSConfig, text_ids, style_ttl, text_mask, *,
     hp = cfg.text_encoder
     m = text_mask.to(dtype)[:, :, None]
     x = L.embedding(params["embed"], text_ids, dtype=dtype) * m
-    x = x + F.silu(L.conv1d(params["prenet1"], x)) * m
-    x = x + F.silu(L.conv1d(params["prenet2"], x)) * m
+    # x + silu(conv(x)) * m, one conv kernel each (JAX text_encoder.py:55-56)
+    rows = text_mask.float()
+    for name in ("prenet1", "prenet2"):
+        x = L.conv1d(params[name], x, silu_out=True, mask=rows, residual=x)
     style = L.linear(params["style_proj"], style_ttl.to(dtype))
     pos = L.larope_positions(text_mask.sum(-1), text_ids.shape[1],
                              cfg.vector_estimator.larope_scale)

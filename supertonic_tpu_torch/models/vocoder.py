@@ -10,8 +10,16 @@ C <= ``vocoder_fused.MAX_CHANNELS`` (384) and a frame mask shared by the
 batch goes through the chain kernel's wrapper (ops/vocoder_fused.py), which
 raises on the card for a chain outside its kernel's domain
 (``vocoder_fused.supports``); the others (the C=512 ``pre_res`` at the
-default config), and every chain without ``fused_resblocks``, stay torch
-convs (``_resblock``).
+default config), and every chain without ``fused_resblocks``, run each conv
+as one launch of the conv kernel (``_resblock``).
+
+Every conv goes through ``layers.conv1d``, the conv kernel's wrapper
+(ops/conv1d.py), with the elementwise ops XLA fuses around it in the JAX
+program: the pre conv's mask, each up conv's silu, depth-to-space (the
+kernel's output read as the finer timeline, a view) and fine mask, the
+head's silu and tanh, each resblock conv's silu, mask and residual. The
+``up_matmul`` lever stays a cuBLAS product, as the JAX package leaves it to
+``jnp.matmul``.
 """
 
 from __future__ import annotations
@@ -39,16 +47,14 @@ def _resblock_init(rng, ch: int, kernel: int, dilations) -> L.Params:
 
 
 def _resblock(p, x: torch.Tensor, dilations, mask=None) -> torch.Tensor:
+    """Each pair as two conv kernel launches: h = mask * conv_a(silu x),
+    then x = x + mask * conv_b(silu h). The mask re-zeroes pad frames after
+    every conv: a conv bias makes padded positions nonzero, and the next
+    conv would bleed them back. ``mask`` [1 or B, T, 1]."""
+    rows = None if mask is None else mask.reshape(mask.shape[0], -1)
     for cp, d in zip(p["convs"], dilations):
-        h = L.conv1d(cp["a"], F.silu(x), dilation=d)
-        if mask is not None:
-            # re-zero pad frames after every conv: a conv bias makes padded
-            # positions nonzero, and the next conv would bleed them back
-            h = h * mask
-        h = L.conv1d(cp["b"], F.silu(h))
-        if mask is not None:
-            h = h * mask
-        x = x + h
+        h = L.conv1d(cp["a"], x, dilation=d, silu_in=True, mask=rows)
+        x = L.conv1d(cp["b"], h, silu_in=True, mask=rows, residual=x)
     return x
 
 
@@ -153,25 +159,34 @@ def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
             return vocoder_fused.fused_resblock(p, x, hp.resblock_dilations, m)
         return _resblock(p, x, hp.resblock_dilations, m)
 
-    m = None
+    # the frame mask [1 or B, T] f32 for the conv kernel (which rounds it to
+    # dtype as JAX's frame_mask.astype(dtype)), and [1 or B, T, 1] in dtype
+    # for the chain
+    rows = m = None
     if frame_mask is not None:
-        m = frame_mask.to(dtype)
-        m = m[None, :, None] if m.dim() == 1 else m[:, :, None]
-    x = L.conv1d(params["pre"], latent.to(dtype))
-    if m is not None:
-        x = x * m
+        rows = frame_mask.float()
+        rows = rows[None] if rows.dim() == 1 else rows
+        m = rows.to(dtype)[:, :, None]
+    x = L.conv1d(params["pre"], latent.to(dtype), mask=rows)
     x = res(params["pre_res"], x, m)
     for sp, factor in zip(params["stages"], hp.upsample_factors):
+        if rows is not None:
+            rows = torch.repeat_interleave(rows, factor, dim=1)
+            m = rows.to(dtype)[:, :, None]
         if up_matmul:
             h = _up_matmul(sp["up"], F.silu(x))
+            b, t, cf = h.shape
+            x = h.reshape(b, t * factor, cf // factor)   # depth-to-space
+            if m is not None:
+                x = x * m
         else:
-            h = L.conv1d(sp["up"], F.silu(x))           # [B, T, cout*factor]
-        b, t, cf = h.shape
-        x = h.reshape(b, t * factor, cf // factor)       # depth-to-space
-        if m is not None:
-            m = torch.repeat_interleave(m, factor, dim=1)
-            x = x * m
+            # silu, the conv, depth-to-space (a view of the kernel's rows)
+            # and the fine mask in one launch
+            h = L.conv1d(sp["up"], x, silu_in=True, mask=rows, fold=factor)
+            b, t, cf = h.shape
+            x = h.view(b, t * factor, cf // factor)
         x = res(sp["res"], x, m)
-    wav = L.conv1d(params["head"], F.silu(x))           # [B, Tf, final_depth]
+    # silu, the subpixel head and tanh in f32 in one launch
+    wav = L.conv1d(params["head"], x, silu_in=True, tanh_f32=True)  # [B, Tf, final_depth]
     b, tf, d = wav.shape
-    return torch.tanh(wav.float().reshape(b, tf * d))
+    return wav.reshape(b, tf * d)
