@@ -95,7 +95,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                conv kernel at every shape phases 3 (all three engines),
                4, 7, 11 and 12 recorded and at edges (f32 within
                conv1d.F32_RTOL, bf16 by conv1d.bf16_within), timed in bf16
-               at the cell's shapes beside F.conv1d, the bare conv
+               at the cell's shapes beside F.conv1d, the bare conv, and
+               the earlier design (EARLIER_MS)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -166,13 +167,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                supertonic_tpu_torch.tools.parity_check --skip-ort exits 0
                and tools.bench_onnx_backend prints both modes
  12. widths — runs after phase 11 (d), before phase 5: the whole path at
-               four configs off the default widths (the tests' tiny dims:
+               five configs off the default widths (the tests' tiny dims:
                Dh 16 and 32, FFN D 64 F 256, chains at C 64, 32, 16; a
                reference tts.json with proj_out.idim 384: TE Dh 96; the VE
                at Dh 128 with the vocoder's chains at 384 and 192; a
                reference tts.json with proj_out.idim 1024, TE Dh 256, and
                the vocoder's chains at conv size 7, pairs reaching 30
-               frames, per-conv launches in f32 at C 256), depth
+               frames, per-conv launches in f32 at C 256; and, with both
+               fused_resblocks settings, the tiny dims with every conv off
+               the earlier conv kernel's domain: 15 latent channels into
+               the pre conv, a head of 15, vocoder channels (36, 20),
+               resblocks of size 11 at dilations (1, 3, 5), even sizes at
+               the up convs and the prenet), depth
                cut, through TTS(<its assets>): f32 on the card against the
                CPU on injected noise (B=2, 2 steps; 1e-5 in the wav) and
                bf16 synthesize_batch (finite, RMS); attention, the FFN,
@@ -351,7 +357,21 @@ EARLIER_MS = {
     # the one-warp-a-row LayerNorm (csrc/earlier/ln_modulate_warp_rows.cu):
     # its phase 5 times at the cell's shapes, host launches (PERF.md section 6)
     "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
-    "bias_rope": {}, "gated_residual": {}, "conv1d": {},  # no earlier design
+    "bias_rope": {}, "gated_residual": {},  # no earlier design
+    # the conv kernel's one-tile-a-block design (csrc/earlier/
+    # conv1d_tile_per_block.cu): its phase 5 times at the cell's shapes,
+    # host launches (PERF.md section 6); at the pre_res pairs it ran
+    # conv a without silu out and conv b with silu in (the earlier call
+    # order of _resblock)
+    "conv1d": {(64, 320, 256, 256, 5, 1, "silu_out+row_mask+residual"): 0.0663,
+               (64, 448, 96, 512, 7, 1, "mask"): 0.0940,
+               (64, 448, 512, 512, 3, 1, "silu_in+silu_out+mask"): 0.1687,
+               (64, 448, 512, 512, 3, 3, "silu_in+silu_out+mask"): 0.1942,
+               (64, 448, 512, 512, 3, 9, "silu_in+silu_out+mask"): 0.1822,
+               (64, 448, 512, 512, 3, 1, "mask+residual"): 0.1793,
+               (64, 448, 512, 2048, 5, 1, "silu_in+mask+fold8"): 0.7084,
+               (64, 3584, 256, 1024, 5, 1, "silu_in+mask+fold8"): 1.5594,
+               (64, 28672, 128, 32, 3, 1, "silu_in+tanh"): 0.8004},
 }
 DEV = torch.device("cuda")
 CELL_ROWS = 64 * 640  # rows of a b64 batch at its T=640 bucket
@@ -359,7 +379,15 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "supertonic_tpu_torch", "build", "smoke")
 
 
+_PHASE = [time.perf_counter()]  # when the last phase began
+
+
 def log(msg: str) -> None:
+    """Print msg; a phase's heading also prints the seconds the last phase took."""
+    if msg.startswith("phase "):
+        now = time.perf_counter()
+        print(f"  (the last phase took {now - _PHASE[0]:.1f}s)", flush=True)
+        _PHASE[0] = now
     print(msg, flush=True)
 
 
@@ -1032,8 +1060,12 @@ def check_conv1d(gen, cell, results, serving, widths):
     the mesh's, phase 12's and the fused_resblocks=False engine's shapes and
     at edges: T no multiple of the 128-frame tile, T below the conv's reach
     k d, a [B, T] mask with an all-masked row, channels no multiple of 64,
-    Cout below a panel, the largest reach (MAX_SPAN), Cin 1024 and Cout
-    3072. f32 within conv1d.F32_RTOL of the output's scale (exact f32 sums
+    Cout below a panel, Cin 1024 and Cout 3072, and the domain the earlier
+    kernel refused: Cin 15 and 30, Cout 15 and 250 (silu in, tanh), k 4
+    (SAME: one frame less on the left), k 11 at d 9 (reach 90 frames: two
+    tap groups), a fold of 4 with 36 columns a fine frame and its mask, and
+    _resblock's call sites (conv a: silu in and out, mask; conv b: mask,
+    residual). f32 within conv1d.F32_RTOL of the output's scale (exact f32 sums
     in another order); bf16 by conv1d.bf16_within (every element within
     2^-5 of the conv's rounded output and 2^-7 of the result: one bf16
     step of the conv's output carried through silu, the residual and tanh;
@@ -1048,7 +1080,16 @@ def check_conv1d(gen, cell, results, serving, widths):
              (3, 33, 256, 256, 5, 1, "silu_out+row_mask+residual"),
              (1, 100, 512, 512, 7, 9, "silu_in+mask"), (1, 300, 64, 64, 5, 16, "silu_in"),
              (2, 50, 1024, 1024, 5, 1, "silu_out+row_mask+residual"),
-             (1, 64, 512, 3072, 5, 1, "silu_in+mask+fold8")]
+             (1, 64, 512, 3072, 5, 1, "silu_in+mask+fold8"),
+             (2, 100, 15, 512, 7, 1, "mask"), (3, 70, 30, 512, 7, 1, "row_mask"),
+             (2, 300, 20, 15, 3, 1, "silu_in+tanh"), (2, 200, 128, 250, 3, 1, "silu_in+tanh"),
+             (3, 41, 32, 32, 4, 1, "silu_out+row_mask+residual"),
+             (2, 90, 64, 144, 4, 1, "silu_in+mask+fold4"),
+             (2, 150, 64, 64, 11, 9, "silu_in+silu_out+mask"),
+             (1, 100, 512, 512, 11, 9, "silu_in+silu_out+mask"),
+             (2, 200, 64, 64, 3, 9, "silu_in+silu_out+row_mask"),
+             (2, 200, 64, 64, 3, 1, "row_mask+residual"),
+             (2, 77, 36, 36, 11, 5, "mask+residual")]
     cases = block_cases(edges, cell, serving, widths, "conv1d")
     for key, n_cell in sorted(cases.items()):
         b, t, cin, cout, k, d, opts = key
@@ -1996,6 +2037,7 @@ def unfused_resblocks_cell(assets, rates, smi: str) -> dict:
 
 PATH_KERNELS = ("attention", "adaln_ffn", "resblock_chain", "ln_modulate", "bias_rope",
                 "gated_residual", "conv1d")
+ODD_WIDTHS = "odd widths: latent 15, head 15, vocoder (36, 20), resblock k 11, even k 4"
 
 
 def width_configs() -> list:
@@ -2005,8 +2047,14 @@ def width_configs() -> list:
     timelines at 384 and 192 channels; a reference-format tts.json with
     proj_out.idim 1024 (the text encoder at Dh 256) and the vocoder's
     chains at conv size 7, whose pairs reach 30 frames (past the fused
-    kernels' 23 in f32: per-conv launches where no fused tile holds them).
-    Depth cut to one block a network (two at the tiny dims)."""
+    kernels' 23 in f32: per-conv launches where no fused tile holds them);
+    ODD_WIDTHS, the tiny dims with every conv off the conv kernel's earlier
+    domain: latent 5 x 3 = 15 channels into the pre conv, a head of 15,
+    vocoder channels (36, 20) (up 1's masked fold 36 channels a fine
+    frame), resblocks of size 11 at dilations (1, 3, 5) (reaching 50
+    frames), even sizes at the up convs (4) and the prenet (4), run with
+    both fused_resblocks settings. Depth cut to one block a network (two at
+    the tiny dims)."""
     import dataclasses
 
     from supertonic_tpu_torch import config as C
@@ -2040,24 +2088,34 @@ def width_configs() -> list:
         {"ttl": {"text_encoder": {"proj_out": {"idim": 1024, "odim": 512}}}}))
     te256 = dataclasses.replace(te256, vocoder=dataclasses.replace(te256.vocoder,
                                                                    resblock_kernel=7))
+    odd = dataclasses.replace(
+        tiny, ae=dataclasses.replace(tiny.ae, base_chunk_size=80),
+        ttl=dataclasses.replace(tiny.ttl, latent_dim=5, chunk_compress_factor=3),
+        dp=dataclasses.replace(tiny.dp, latent_dim=5, chunk_compress_factor=3),
+        text_encoder=dataclasses.replace(tiny.text_encoder, conv_kernel=4),
+        vocoder=dataclasses.replace(tiny.vocoder, channels=(36, 20), resblock_kernel=11,
+                                    resblock_dilations=(1, 3, 5), stage_kernel=4))
     return [("tiny dims", tiny), ("tts.json proj_out.idim 384", te96),
             ("VE Dh 128, vocoder channels (384, 192)", ve128),
-            ("tts.json proj_out.idim 1024, vocoder conv size 7", te256)]
+            ("tts.json proj_out.idim 1024, vocoder conv size 7", te256), (ODD_WIDTHS, odd)]
 
 
-def expected_widths(cfg) -> dict:
+def expected_widths(cfg, fused_resblocks: bool = True) -> dict:
     """The widths each path kernel must be given at ``cfg``: head widths,
-    the VE's (D, F), the chains' channels and dilations."""
+    the VE's (D, F), the chains' channels and dilations, the convs' (Cin,
+    Cout, k); without ``fused_resblocks`` no chain, and every resblock conv
+    on the conv kernel."""
     heads = {net.dim // net.n_heads for net in (cfg.text_encoder, cfg.duration_predictor,
                                                 cfg.vector_estimator)}
     ve = cfg.vector_estimator
     voc = cfg.vocoder
-    chains = {c for c in (voc.dim, *voc.channels) if c <= vocoder_fused.MAX_CHANNELS}
+    chains = {c for c in (voc.dim, *voc.channels)
+              if c <= vocoder_fused.MAX_CHANNELS and fused_resblocks}
     dims = {net.dim for net in (cfg.text_encoder, cfg.duration_predictor, ve)}
     te = cfg.text_encoder
     convs = {(te.dim, te.dim, te.conv_kernel), (cfg.latent_channels, voc.dim, 7)}
     convs |= {(c, c, voc.resblock_kernel) for c in (voc.dim, *voc.channels)
-              if c > vocoder_fused.MAX_CHANNELS}
+              if c not in chains}
     cin = voc.dim
     for f, c in zip(voc.upsample_factors, voc.channels):
         convs.add((cin, c * f, voc.stage_kernel))
@@ -2122,61 +2180,89 @@ def widths_phase(smi: str) -> dict:
         with open(os.path.join(d, "model_config.json"), "w") as f:
             json.dump(dataclasses.asdict(cfg), f)
         save_params(os.path.join(d, "params.npz"), smoke_params(cfg, seed=3))
-        want = expected_widths(cfg)
         noise = np.random.default_rng(5).standard_normal(
             (2, 128, cfg.latent_channels)).astype(np.float32)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            fresh_rate_dir(f"widths-{i}-{dev}")
-            tts = TTS(d, precision="f32", device=dev)
-            style = tts.get_voice_style("M1").tile(2)
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with NoPlainOnCuda(), ops.record_launches() as tally:
-                out[dev] = tts.engine.infer_batch(texts, ["en", "en"], style, total_step=2,
-                                                  noise=noise)
-            wall = time.perf_counter() - t0
-            if dev == "cuda":
-                counts = {k: ops.launch_counts()[k] for k in PATH_KERNELS}
-                got = launched_widths(tally)
-                log(f"  {name}: f32 on the card in {wall:.2f}s, launches {counts}, widths "
-                    f"{got}")
-                if got != want or not all(counts.values()):
-                    raise AssertionError(f"{name}: f32 launched widths {got}, expected {want}")
-                for kernel in PATH_KERNELS:
-                    for shape in tally[kernel]:
-                        widths[kernel].setdefault(shape, set()).add(
-                            (cfg.vocoder.resblock_dilations, cfg.vocoder.resblock_kernel))
-            del tts
-        (wg, dg), (wc, dc) = out["cuda"], out["cpu"]
-        if wg.shape != wc.shape:
-            raise AssertionError(f"{name}: wav shapes differ: {wg.shape} vs {wc.shape}")
-        wav_err = float(np.max(np.abs(wg - wc)))
-        dur_rel = float(np.max(np.abs(dg - dc) / np.abs(dc)))
-        rms = float(np.sqrt(np.mean(np.square(wc))))
-        log(f"  {name}: f32 card vs CPU: max wav diff {wav_err:.3e} (atol "
-            f"{WHOLE_PATH_WAV_ATOL:g}; wav RMS {rms:.4f}), duration rel diff {dur_rel:.3e}")
-        if wav_err > WHOLE_PATH_WAV_ATOL or dur_rel > WHOLE_PATH_DUR_RTOL or rms <= 0.005:
-            raise AssertionError(f"{name}: f32 whole path: card and CPU disagree")
-        fresh_rate_dir(f"widths-{i}-bf16")
-        tts = TTS(d)
-        style = tts.get_voice_style("M1").tile(2)
-        with NoPlainOnCuda(), ops.record_launches() as tally:
-            wavs, durs = tts.synthesize_batch(texts, ["en", "en"], style, total_step=2)
-            torch.cuda.synchronize()
-        got = launched_widths(tally)
-        if got != want:
-            raise AssertionError(f"{name}: bf16 launched widths {got}, expected {want}")
-        for w, dur in zip(wavs, durs):
-            check_audio(w, float(dur), tts.sample_rate, f"{name} bf16")
-        log(f"  {name}: bf16 synthesize_batch B=2: {[f'{float(x):.3f}' for x in durs]} s of "
-            f"audio, finite, RMS > 0.005; widths {got} ({smi})")
+        # ODD_WIDTHS with both fused_resblocks settings, its bf16 run with
+        # the setting that sends every resblock conv to the conv kernel
+        for fused in (True, False) if name == ODD_WIDTHS else (True,):
+            what = name if fused else f"{name}, fused_resblocks=False"
+            widths_one(what, d, i, cfg, fused, texts, noise, widths, smi,
+                       bf16=name != ODD_WIDTHS or not fused)
+    return widths
+
+
+def widths_one(name, d, i, cfg, fused, texts, noise, widths, smi, bf16=True) -> None:
+    """Phase 12 at one config and fused_resblocks setting (TTS_VOC_FUSED
+    around each engine's construction): f32 card against CPU, then (with
+    ``bf16``) bf16; adds the card runs' shapes to ``widths``."""
+    want = expected_widths(cfg, fused)
+    required = [k for k in PATH_KERNELS if fused or k != "resblock_chain"]
+
+    def tts_at(*args, **kw):
+        if not fused:
+            os.environ["TTS_VOC_FUSED"] = "0"
+        try:
+            tts = TTS(*args, **kw)
+        finally:
+            os.environ.pop("TTS_VOC_FUSED", None)
+        if tts.engine.fused_resblocks != fused:
+            raise AssertionError(f"{name}: engine.fused_resblocks is "
+                                 f"{tts.engine.fused_resblocks}")
+        return tts
+
+    def keep(tally):
         for kernel in PATH_KERNELS:
             for shape in tally[kernel]:
                 widths[kernel].setdefault(shape, set()).add(
                     (cfg.vocoder.resblock_dilations, cfg.vocoder.resblock_kernel))
+
+    tag = "" if fused else "-unfused"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fresh_rate_dir(f"widths-{i}{tag}-{dev}")
+        tts = tts_at(d, precision="f32", device=dev)
+        style = tts.get_voice_style("M1").tile(2)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with NoPlainOnCuda(), ops.record_launches() as tally:
+            out[dev] = tts.engine.infer_batch(texts, ["en", "en"], style, total_step=2,
+                                              noise=noise)
+        wall = time.perf_counter() - t0
+        if dev == "cuda":
+            counts = {k: ops.launch_counts()[k] for k in PATH_KERNELS}
+            got = launched_widths(tally)
+            log(f"  {name}: f32 on the card in {wall:.2f}s, launches {counts}, widths {got}")
+            if got != want or not all(counts[k] for k in required):
+                raise AssertionError(f"{name}: f32 launched widths {got}, expected {want}")
+            keep(tally)
         del tts
-    return widths
+    (wg, dg), (wc, dc) = out["cuda"], out["cpu"]
+    if wg.shape != wc.shape:
+        raise AssertionError(f"{name}: wav shapes differ: {wg.shape} vs {wc.shape}")
+    wav_err = float(np.max(np.abs(wg - wc)))
+    dur_rel = float(np.max(np.abs(dg - dc) / np.abs(dc)))
+    rms = float(np.sqrt(np.mean(np.square(wc))))
+    log(f"  {name}: f32 card vs CPU: max wav diff {wav_err:.3e} (atol "
+        f"{WHOLE_PATH_WAV_ATOL:g}; wav RMS {rms:.4f}), duration rel diff {dur_rel:.3e}")
+    if wav_err > WHOLE_PATH_WAV_ATOL or dur_rel > WHOLE_PATH_DUR_RTOL or rms <= 0.005:
+        raise AssertionError(f"{name}: f32 whole path: card and CPU disagree")
+    if not bf16:
+        return
+    fresh_rate_dir(f"widths-{i}{tag}-bf16")
+    tts = tts_at(d)
+    style = tts.get_voice_style("M1").tile(2)
+    with NoPlainOnCuda(), ops.record_launches() as tally:
+        wavs, durs = tts.synthesize_batch(texts, ["en", "en"], style, total_step=2)
+        torch.cuda.synchronize()
+    got = launched_widths(tally)
+    if got != want:
+        raise AssertionError(f"{name}: bf16 launched widths {got}, expected {want}")
+    for w, dur in zip(wavs, durs):
+        check_audio(w, float(dur), tts.sample_rate, f"{name} bf16")
+    log(f"  {name}: bf16 synthesize_batch B=2: {[f'{float(x):.3f}' for x in durs]} s of "
+        f"audio, finite, RMS > 0.005; widths {got} ({smi})")
+    keep(tally)
+    del tts
 
 
 # ---------------------------------------------------------------------------
@@ -3430,7 +3516,7 @@ def main() -> int:
 
     # phase 12 runs here too, so that phase 5 holds and times each path
     # kernel at the widths it gave them
-    log("phase 12: widths: the whole path at four configs off the default widths, f32 "
+    log("phase 12: widths: the whole path at five configs off the default widths, f32 "
         "card vs CPU and bf16")
     widths = widths_phase(smi)
 

@@ -61,12 +61,17 @@ host's per-call work:
              --split: loads only (rows staged and summed, no statistics
              or stores), in this design and in the earlier one; beside
              F.layer_norm at the plain LayerNorm's shape
-  conv1d     the conv kernel at the b64 cell's shapes: 3 ring stages;
-             128 x 128 and 256 x 128 tiles; the head with 3 staging warps;
-             the design with A in registers (csrc/variants/);
-             with --split: no products, no silu in the staging, no window
-             copies, no epilogue (unchecked)
-             beside F.conv1d (the bare conv, a yardstick)
+  conv1d     the conv kernel at the b64 cell's shapes: the one-tile-a-block
+             design it replaced (earlier), and that design with A in
+             registers (csrc/variants/); every tile staging its own
+             windows (a silu for each column tile); 3 ring stages; the
+             epilogue's options read at run time (one instance for every
+             call); the masked convs in turns everywhere, or cooperative
+             everywhere; the pre_res instances cooperative; the prenet's
+             and the head's in turns; the head with 11 staging warps; with --split:
+             no products, no silu in the staging, no epilogue, the epilogue
+             without its residual loads or its stores (unchecked); beside
+             F.conv1d (the bare conv, a yardstick)
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -132,15 +137,22 @@ SPLIT = {"resblock_chain": {
             [("*reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);", "")])},
     "conv1d": {
         "split: no products": [
-            ("stk::Wgmma<NP * 64>::template ss<1>(", "if (Tlen < 0) stk::Wgmma<NP * 64>::template ss<1>(")],
-        "split: no silu in the staging": [("      if (silu_in) {\n#pragma unroll 4",
-                                           "      if (silu_in && Tlen < 0) {\n#pragma unroll 4")],
-        "split: no window copies": [("        stk::cp_async16(win_u32 + at(c, el),",
-                                     "        if (Tlen < 0) stk::cp_async16(win_u32 + at(c, el),")],
+            ("stk::Wgmma<BN>::template ss<1>(", "if (p.Tlen < 0) stk::Wgmma<BN>::template ss<1>(")],
+        "split: no silu in the staging": [("        if (p.silu_in) {\n          const int rows",
+                                           "        if (p.silu_in && p.Tlen < 0) {\n"
+                                           "          const int rows")],
         "split: no epilogue": [
-            ("  // take the epilogue tile\n  stk::named_bar_sync(1, CONSUMERS);\n",
-             "  // take the epilogue tile\n  stk::named_bar_sync(1, CONSUMERS);\n"
-             "  if (Tlen > 0) return;\n")]},
+            ("    // the epilogue from the registers, a row",
+             "    if (p.Tlen > 0) continue;\n    // the epilogue from the registers, a row")],
+        "split: the epilogue without its residual loads": [
+            ("          if (residual && n < p.Cout) {",
+             "          if (residual && n < p.Cout && p.Tlen < 0) {")],
+        "split: the epilogue without its stores": [
+            ("              *reinterpret_cast<uint32_t*>(o) = pair;",
+             "              if (p.Tlen < 0) *reinterpret_cast<uint32_t*>(o) = pair;"),
+            ("              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);",
+             "              if (p.Tlen < 0) *reinterpret_cast<float2*>(o) =\n"
+             "                  make_float2(v0, v1);")]},
     "ln_modulate": {
         "split: loads only": [
             ("    if (lane == 0 && i + STAGES < n_rows) issue(i + STAGES);\n",
@@ -249,15 +261,31 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "2 row slots a warp": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
         "4 row slots a warp": [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]},
     "conv1d": {
+        "earlier: one tile a block, not persistent": (
+            FILE, "earlier/conv1d_tile_per_block.cu", []),
+        "earlier with A in registers by ldmatrix from swizzled windows, 128 x 128 tiles": (
+            FILE, "variants/conv1d_register_a.cu", []),
+        "every tile stages its own windows (silu once a column tile)": [
+            ("  p.L = p.nunits <= p.NWB ? p.NT : 1;", "  p.L = 1;")],
         "3 ring stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")],
-        "128 x 128 tiles (m64n128 products)": [
-            ("  return launch_wgmma<4, 1, 3, KT>", "  return launch_wgmma<2, 1, 3, KT>")],
-        "256 x 128 tiles (two M tiles a consumer)": [
-            ("  return launch_wgmma<4, 1, 3, KT>", "  return launch_wgmma<2, 2, 3, KT>")],
-        "the head with 3 staging warps": [
-            ("launch_wgmma<1, 2, 7, KT>", "launch_wgmma<1, 2, 3, KT>")],
-        "A in registers by ldmatrix from swizzled windows, 128 x 128 tiles": (
-            FILE, "variants/conv1d_register_a.cu", [])},
+        "the epilogue's options read at run time (one instance for every call)": [
+            ("  const bool compiled = Cout % 2 == 0 && (!mask || fold == 1 || (Cout / fold) % bn == 0);",
+             "  const bool compiled = false;")],
+        "the masked convs' consumers in turns wherever (not cooperative where windows stay)": [
+            ("return coop_stays ? STK_CONV(128, 3, E_MASK, true)",
+             "return false ? STK_CONV(128, 3, E_MASK, true)")],
+        "the masked convs' consumers on shared 256-row tiles wherever (cooperative)": [
+            ("return coop_stays ? STK_CONV(128, 3, E_MASK, true)",
+             "return true ? STK_CONV(128, 3, E_MASK, true)")],
+        "the pre_res instances' consumers on shared 256-row tiles (cooperative)": [
+            ("STK_CONV(128, 3, E_SILU | E_MASK, false)", "STK_CONV(128, 3, E_SILU | E_MASK, true)"),
+            ("STK_CONV(128, 3, E_MASK | E_RES, false)", "STK_CONV(128, 3, E_MASK | E_RES, true)")],
+        "the prenet's consumers in turns (not cooperative)": [
+            ("E_SILU | E_MASK | E_RES, true)", "E_SILU | E_MASK | E_RES, false)")],
+        "the head's consumers in turns (not cooperative)": [
+            ("STK_CONV(64, 7, E_TANH, true)", "STK_CONV(64, 7, E_TANH, false)")],
+        "the head with 11 staging warps": [("STK_CONV(64, 7, E_TANH, true)",
+                                            "STK_CONV(64, 11, E_TANH, true)")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
@@ -690,7 +718,9 @@ def variants_ln_modulate(fns, gen) -> None:
 def variants_conv1d(fns, gen) -> None:
     cs.log("conv kernel, ms per launch (bf16) at the b64 cell's shapes")
     dt = torch.bfloat16
-    for key in ((64, 448, 96, 512, 7, 1, "mask"), (64, 448, 512, 512, 3, 9, "silu_in+mask"),
+    for key in ((64, 448, 96, 512, 7, 1, "mask"),
+                (64, 448, 512, 512, 3, 9, "silu_in+silu_out+mask"),
+                (64, 448, 512, 512, 3, 1, "mask+residual"),
                 (64, 448, 512, 2048, 5, 1, "silu_in+mask+fold8"),
                 (64, 3584, 256, 1024, 5, 1, "silu_in+mask+fold8"),
                 (64, 28672, 128, 32, 3, 1, "silu_in+tanh"),

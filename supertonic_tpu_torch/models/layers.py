@@ -52,7 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention
-from ..ops.conv1d import conv1d_fused
+from ..ops.conv1d import conv1d_fused, weight_buffer
 from ..ops.ffn import fused_adaln_ffn
 from ..ops.gated_residual import add_bias, gated_residual
 from ..ops.int8_matmul import int8_matmul
@@ -393,10 +393,11 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5, *, shift=None,
 
 
 def conv_weight(p: Conv1d, dtype) -> torch.Tensor:
-    """The conv's weight in the JAX layout [k, Cin, Cout] (HIO), contiguous,
-    in ``dtype``: one copy."""
+    """The conv's weight in the JAX layout [k, Cin, Cout] (HIO), in
+    ``dtype``, in the conv kernel's rows (``conv1d.weight_buffer``: bf16
+    rows padded to 8 elements where Cout is no multiple of 8): one copy."""
     cout, cin, k = p.weight.shape
-    w = torch.empty((k, cin, cout), dtype=dtype, device=p.weight.device)
+    w = weight_buffer(k, cin, cout, dtype, p.weight.device)
     return w.copy_(p.weight.permute(2, 1, 0))
 
 

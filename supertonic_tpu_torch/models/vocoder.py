@@ -17,7 +17,8 @@ Every conv goes through ``layers.conv1d``, the conv kernel's wrapper
 (ops/conv1d.py), with the elementwise ops XLA fuses around it in the JAX
 program: the pre conv's mask, each up conv's silu, depth-to-space (the
 kernel's output read as the finer timeline, a view) and fine mask, the
-head's silu and tanh, each resblock conv's silu, mask and residual. The
+head's silu and tanh, each resblock pair's silu, mask and residual (the
+silu between the pair's convs in conv a's output). The
 ``up_matmul`` lever stays a cuBLAS product, as the JAX package leaves it to
 ``jnp.matmul``.
 """
@@ -50,11 +51,17 @@ def _resblock(p, x: torch.Tensor, dilations, mask=None) -> torch.Tensor:
     """Each pair as two conv kernel launches: h = mask * conv_a(silu x),
     then x = x + mask * conv_b(silu h). The mask re-zeroes pad frames after
     every conv: a conv bias makes padded positions nonzero, and the next
-    conv would bleed them back. ``mask`` [1 or B, T, 1]."""
+    conv would bleed them back. ``mask`` [1 or B, T, 1].
+
+    h feeds nothing but conv b, so conv a writes silu(h) = mask *
+    silu(conv_a(silu x)) (silu out before the mask), which conv b reads as
+    it is: the mask is 0/1 and silu(0) = 0, so each value is the one conv b
+    would make of h, and silu runs once an element rather than once for
+    each of conv b's column tiles."""
     rows = None if mask is None else mask.reshape(mask.shape[0], -1)
     for cp, d in zip(p["convs"], dilations):
-        h = L.conv1d(cp["a"], x, dilation=d, silu_in=True, mask=rows)
-        x = L.conv1d(cp["b"], h, silu_in=True, mask=rows, residual=x)
+        s = L.conv1d(cp["a"], x, dilation=d, silu_in=True, silu_out=True, mask=rows)
+        x = L.conv1d(cp["b"], s, mask=rows, residual=x)
     return x
 
 

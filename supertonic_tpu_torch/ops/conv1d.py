@@ -31,9 +31,11 @@ noise of a rounding boundary, so the conv's output may move by one bf16
 step, and what follows it by what silu, the residual's rounding and tanh
 make of that step (``bf16_within``).
 
-``supports`` states the kernel's domain; ``conv1d_fused`` is the wrapper:
-plain version for CPU tensors only; CUDA tensors go to the kernel, or it
-raises.
+The kernel takes any Cin, Cout, size, dilation and masked fold in f32 and
+bf16 (``supports`` checks only that the shape is one); its bf16 weights
+come in rows of Cout rounded up to 8 elements (``weight_buffer``).
+``conv1d_fused`` is the wrapper: plain version for CPU tensors only; CUDA
+tensors go to the kernel, or it raises.
 """
 
 from __future__ import annotations
@@ -47,8 +49,6 @@ from . import _build, _count
 from .vocoder_fused import _silu_rounded
 
 F32_RTOL = 1e-5  # the kernel against the plain version in f32, relative
-MAX_SPAN = 64    # the most frames (k - 1) * dilation a conv reaches over
-BF16_SIZES = (3, 5, 7)  # the tensor-core kernel's conv sizes
 
 # x, w, bias, mask, mask batch stride, residual, out, B, T, Cin, Cout, k,
 # dilation, silu_in, silu_out, fold, tanh_f32, dtype code, stream
@@ -58,12 +58,26 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
 
 def supports(cin: int, cout: int, k: int, dilation: int, dtype: torch.dtype) -> bool:
     """Whether the kernel takes a conv of ``cin`` -> ``cout`` channels,
-    size ``k`` and ``dilation`` in ``dtype``: channels in multiples of 8
-    (16-byte rows of bf16), an odd size whose reach (k - 1) * dilation is
-    at most MAX_SPAN frames; in bf16 the sizes of BF16_SIZES."""
-    return (cin >= 8 and cin % 8 == 0 and cout >= 8 and cout % 8 == 0
-            and k >= 1 and k % 2 == 1 and dilation >= 1 and (k - 1) * dilation <= MAX_SPAN
-            and (dtype == torch.float32 or (dtype == torch.bfloat16 and k in BF16_SIZES)))
+    size ``k`` and ``dilation`` in ``dtype``: any of each at least 1, in
+    float32 or bfloat16."""
+    return (min(cin, cout, k, dilation) >= 1
+            and dtype in (torch.float32, torch.bfloat16))
+
+
+def weight_rows(cout: int, dtype: torch.dtype) -> int:
+    """Elements between the kernel's weight rows: Cout, rounded up to 8 in
+    bf16 (a TMA map's rows are multiples of 16 bytes)."""
+    return -(-cout // 8) * 8 if dtype == torch.bfloat16 else cout
+
+
+def weight_buffer(k: int, cin: int, cout: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """An empty [k, Cin, Cout] weight in the kernel's layout: a view of
+    [k, Cin, weight_rows(Cout)] rows where Cout is padded (the pad columns
+    zero), else a contiguous tensor."""
+    rows = weight_rows(cout, dtype)
+    if rows == cout:
+        return torch.empty((k, cin, cout), dtype=dtype, device=device)
+    return torch.zeros((k, cin, rows), dtype=dtype, device=device)[..., :cout]
 
 
 def options(*, silu_in=False, silu_out=False, mask=None, fold=1, residual=None,
@@ -151,18 +165,19 @@ def conv1d_fused(x, w, bias, *, dilation: int = 1, silu_in: bool = False,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not supports(cin, cout, k, dilation, x.dtype):
-        raise ValueError(f"the conv1d kernel takes Cin and Cout in multiples of 8, an odd k "
-                         f"(bf16: {BF16_SIZES}) reaching (k - 1) * dilation <= {MAX_SPAN} "
-                         f"frames, float32 or bfloat16; got Cin {cin}, Cout {cout}, k {k}, "
-                         f"dilation {dilation}, {x.dtype}")
-    if mask is not None and (cout // fold) % 8:
-        raise ValueError(f"a masked fold takes Cout / fold in multiples of 8, got "
-                         f"{cout} / {fold}")
+        raise ValueError(f"the conv1d kernel takes float32 or bfloat16 and sizes >= 1; got "
+                         f"Cin {cin}, Cout {cout}, k {k}, dilation {dilation}, {x.dtype}")
     if w.dtype != x.dtype or (residual is not None and residual.dtype != x.dtype):
         raise TypeError(f"w and residual must be in x's type {x.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError("bias must be float32")
-    for name, p in (("x", x), ("w", w), ("bias", bias), ("residual", residual)):
+    rows = weight_rows(cout, x.dtype)
+    if w.stride() != (cin * rows, rows, 1) and w.is_contiguous():
+        w = weight_buffer(k, cin, cout, x.dtype, w.device).copy_(w)  # bf16 rows padded
+    if w.device != x.device or w.stride() != (cin * rows, rows, 1) or w.data_ptr() % 16:
+        raise ValueError(f"w must be on {x.device}, 16-byte aligned, in rows of {rows} "
+                         f"elements (weight_buffer)")
+    for name, p in (("x", x), ("bias", bias), ("residual", residual)):
         if p is not None and (p.device != x.device or not p.is_contiguous()
                               or p.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {x.device}")
