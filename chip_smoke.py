@@ -54,9 +54,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                Every phase that counts launches also counts the block's
                three elementwise kernels: the LayerNorm with the AdaLN
                modulation, the bias add with the rotary embedding and the
-               gated residual, and the conv kernel (the vocoder's convs
-               and the text encoder's prenet with the ops around them;
-               exact per-batch counts in PER_BATCH)
+               gated residual, the conv kernel (the vocoder's convs
+               and the text encoder's prenet with the ops around them)
+               and the linear kernel (every bf16 layers.linear with its
+               bias, silu or flow-step tail); exact per-batch counts in
+               PER_BATCH
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -96,7 +98,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                4, 7, 11 and 12 recorded and at edges (f32 within
                conv1d.F32_RTOL, bf16 by conv1d.bf16_within), timed in bf16
                at the cell's shapes beside F.conv1d, the bare conv, and
-               the earlier design (EARLIER_MS)
+               the earlier design (EARLIER_MS), its int16 head bit for bit
+               the encoding of its f32 tanh; the W8A8 product's silu form
+               bit for bit F.silu of its output; the linear kernel at
+               every shape phases 3, 4, 7, 11 and 12 recorded and at edges
+               (the bias and silu forms by linear.bf16_within, silu bit for
+               bit F.silu of the kernel's bias form, the tail bit for bit
+               linear.euler_tail of it), timed at the cell's shapes beside
+               F.linear(x, w, b)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -109,7 +118,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                before /tts of the same text completes (medians of three
                turns after a warm one); stream_windows,
                windowed against whole vocoding (f32 held to 1e-5, bf16
-               printed), infer_with_progress and mu-law egress; an int8
+               printed; the int16 windows from the head's epilogue each the
+               encoding of their f32 samples, and bit-equal to the whole
+               vocoding's where the f32 samples are), infer_with_progress
+               and mu-law egress; an int8
                server; every kernel of each path must launch. Prints TTFA,
                p50/p95 latency and served audio-sec/s beside the card. The
                batcher's groups, the streamed chunks' flow and the windows
@@ -135,8 +147,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                infer_batch(noise=...) through their programs bit-equal to
                an eager twin (f32, bf16), with host launch calls under
                torch.profiler and the progress wall beside the eager one;
-               a replayed b64 batch under utils.timing.device_trace naming
-               each hand-written kernel; the native C++ frontend built from
+               two replayed b64 batches under utils.timing.device_trace,
+               the second naming each hand-written kernel as often as the
+               per-batch counts say; the native C++ frontend built from
                the port's sources, equal to the Python frontend, serving
                under TTS_NATIVE_FRONTEND=1; the vocoder's up_matmul against
                the conv path at b64 and TTS_VOC_UP_MATMUL=1 in an engine;
@@ -220,8 +233,8 @@ from supertonic_tpu_torch.models import (count_params, fuse_projections, init_al
                                          quantize_params)
 from supertonic_tpu_torch.models import layers
 from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, gated_residual,
-                                      int8_matmul, ln_modulate, quantize, rope, vocoder_fused,
-                                      w8a8)
+                                      int8_matmul, linear, ln_modulate, quantize, rope,
+                                      vocoder_fused, w8a8)
 from supertonic_tpu_torch.serve.http_server import make_server
 from supertonic_tpu_torch.utils import read_wav
 
@@ -267,23 +280,33 @@ FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
 # conv kernel: the text encoder's two prenet convs and the vocoder's pre
 # conv, six C 512 pre_res convs (a chain past the chain kernel's C 384),
 # two up convs and the head: 12; with fused_resblocks=False also the six
-# convs of each of the two fine chains: 24
+# convs of each of the two fine chains: 24.
+# The linear kernel (every bf16 layers.linear of a plain Linear): the self
+# and cross V of each TE and DP block (20), each VE block's self V and AdaLN
+# a step (60), its cross V once (6), in_proj, time_mlp2 and adaln_out a step
+# (15), the three style and text projections, proj_out and the rate head's
+# second linear (6): 107 bias; each TE and DP block's FFN-in, the rate
+# head's first linear and time_mlp1 a step: 16 silu; out_proj with the
+# Euler update a step: 5 tail; 128 (tests/test_torch_linear.py counts the
+# same forms on the CPU). With fused_ffn=False also each VE block's FFN-in
+# a step (+30 silu): 158. On the int8 path the VE blocks' V and FFN-in are
+# W8A8: 128 - 36 = 92.
 _BLOCK = {"ln_modulate": 97, "bias_rope": 116, "gated_residual": 90, "conv1d": 12}
 _BLOCK_UNFUSED_FFN = {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120,
                       "conv1d": 12}
 PER_BATCH = {
     "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 0, "quantize": 0, **_BLOCK},
+             "w8a8_matmul": 0, "quantize": 0, **_BLOCK, "linear": 128},
     "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 252, "quantize": 252, **_BLOCK_UNFUSED_FFN},
+             "w8a8_matmul": 252, "quantize": 252, **_BLOCK_UNFUSED_FFN, "linear": 92},
     # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
     "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
                          "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
-                         **_BLOCK_UNFUSED_FFN},
+                         **_BLOCK_UNFUSED_FFN, "linear": 158},
     # SynthesisEngine(fused_resblocks=False): every chain as _resblock's convs
     "bf16 unfused resblocks": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 0,
                                "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
-                               **_BLOCK, "conv1d": 24},
+                               **_BLOCK, "conv1d": 24, "linear": 128},
 }
 BLOCK_KERNELS = tuple(_BLOCK)  # and the conv kernel
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
@@ -321,6 +344,9 @@ SOURCES = {
     # it (the vocoder's masks, silu, depth-to-space, residual and tanh; the
     # text encoder's prenet)
     "conv1d": ("supertonic_tpu_torch/csrc/conv1d.cu", "supertonic_tpu/models/layers.py:127"),
+    # the XLA output fusion of layers.linear's bf16 dot: JAX's bias rounding,
+    # the callers' silu and the flow step's Euler update
+    "linear": ("supertonic_tpu_torch/csrc/linear.cu", "supertonic_tpu/models/layers.py:55"),
 }
 # ms per launch (bf16; int8 for the int8 product) of the designs that the
 # kernels on the path replaced, printed beside this run's times; keys are
@@ -357,7 +383,7 @@ EARLIER_MS = {
     # the one-warp-a-row LayerNorm (csrc/earlier/ln_modulate_warp_rows.cu):
     # its phase 5 times at the cell's shapes, host launches (PERF.md section 6)
     "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
-    "bias_rope": {}, "gated_residual": {},  # no earlier design
+    "bias_rope": {}, "gated_residual": {}, "linear": {},  # no earlier design
     # the conv kernel's one-tile-a-block design (csrc/earlier/
     # conv1d_tile_per_block.cu): its phase 5 times at the cell's shapes,
     # host launches (PERF.md section 6); at the pre_res pairs it ran
@@ -809,7 +835,8 @@ def check_quantize(gen, cell, results, serving):
 def check_w8a8(gen, cell, results, serving):
     """The int8 product with its rescale-and-bias epilogue bit-equal to the
     plain version (exact product, f32 rescale, one rounding), bf16 and f32
-    out, at the cell's shapes, the int8 server's and edge shapes; the
+    out, and its silu form bit-equal to F.silu of its own output, at the
+    cell's shapes, the int8 server's and edge shapes; the
     operands come from the
     quantize pass of a random x with a zero row, plus one row and one weight
     row at 127 (the largest sum, 127^2 K, rounds when made float). Timed in
@@ -834,12 +861,16 @@ def check_w8a8(gen, cell, results, serving):
         for dtype in (torch.float32, torch.bfloat16):
             got = w8a8.w8a8_matmul(*args, dtype)
             ref = w8a8.w8a8_matmul_plain(*args, dtype)
+            silu = w8a8.w8a8_matmul(*args, dtype, silu=True)
             torch.cuda.synchronize()
             bits = torch.int32 if dtype == torch.float32 else torch.int16
             err = float((got.float() - ref.float()).abs().max())
             ok = got.dtype == dtype and torch.equal(got.view(bits), ref.view(bits))
-            log(f"  w8a8_matmul M{m} K{k} N{n} {dtype}: bit-equal {ok} (max abs err {err:g})")
-            if not ok:
+            # the silu form: F.silu of the kernel's own output, bit for bit
+            silu_ok = silu.dtype == dtype and bits_equal(silu, torch.nn.functional.silu(got))
+            log(f"  w8a8_matmul M{m} K{k} N{n} {dtype}: bit-equal {ok} (max abs err {err:g}); "
+                f"silu form bit-equal to F.silu of it {silu_ok}")
+            if not ok or not silu_ok:
                 raise AssertionError("w8a8_matmul disagrees with its plain version")
             if dtype == torch.float32 or n_cell is None or not n_cell and m < CELL_ROWS:
                 continue
@@ -877,7 +908,7 @@ def modulation(gen, b, d, dtype, rows=None):
 
 
 def bits_equal(got, want) -> bool:
-    view = BITS[want.dtype]
+    view = BITS.get(want.dtype, want.dtype)
     return (got.dtype == want.dtype and got.shape == want.shape
             and torch.equal(got.view(view), want.view(view)))
 
@@ -1051,7 +1082,8 @@ def conv_inputs(gen, key, dtype):
     residual = (torch.randn((b, t, cout), generator=gen, device=DEV).to(dtype)
                 if "residual" in parts else None)
     kw = dict(dilation=d, silu_in="silu_in" in parts, silu_out="silu_out" in parts,
-              mask=mask, fold=fold, residual=residual, tanh_f32="tanh" in parts)
+              mask=mask, fold=fold, residual=residual, tanh_f32="tanh" in parts,
+              int16="int16" in parts)
     return x, w, bias, kw
 
 
@@ -1065,7 +1097,9 @@ def check_conv1d(gen, cell, results, serving, widths):
     (SAME: one frame less on the left), k 11 at d 9 (reach 90 frames: two
     tap groups), a fold of 4 with 36 columns a fine frame and its mask, and
     _resblock's call sites (conv a: silu in and out, mask; conv b: mask,
-    residual). f32 within conv1d.F32_RTOL of the output's scale (exact f32 sums
+    residual), the head's int16 egress (bit for bit the encoding of the same
+    kernel's f32 tanh, at the path's shapes, Cout 32 and 15). f32 within
+    conv1d.F32_RTOL of the output's scale (exact f32 sums
     in another order); bf16 by conv1d.bf16_within (every element within
     2^-5 of the conv's rounded output and 2^-7 of the result: one bf16
     step of the conv's output carried through silu, the residual and tanh;
@@ -1076,7 +1110,8 @@ def check_conv1d(gen, cell, results, serving, widths):
              (3, 37, 64, 64, 3, 1, "silu_in+row_mask"),
              (2, 5, 64, 64, 3, 9, "silu_in+mask"), (1, 3, 96, 512, 7, 1, "mask"),
              (3, 130, 40, 24, 5, 3, ""), (2, 77, 256, 1024, 5, 1, "silu_in+mask+fold8"),
-             (2, 300, 128, 32, 3, 1, "silu_in+tanh"),
+             (2, 300, 128, 32, 3, 1, "silu_in+tanh"), (2, 300, 128, 32, 3, 1, "silu_in+tanh+int16"),
+             (2, 300, 20, 15, 3, 1, "silu_in+tanh+int16"),
              (3, 33, 256, 256, 5, 1, "silu_out+row_mask+residual"),
              (1, 100, 512, 512, 7, 9, "silu_in+mask"), (1, 300, 64, 64, 5, 16, "silu_in"),
              (2, 50, 1024, 1024, 5, 1, "silu_out+row_mask+residual"),
@@ -1095,6 +1130,18 @@ def check_conv1d(gen, cell, results, serving, widths):
         b, t, cin, cout, k, d, opts = key
         for dtype in (torch.float32, torch.bfloat16):
             x, w, bias, kw = conv_inputs(gen, key, dtype)
+            if kw["int16"]:
+                # the int16 egress: bit for bit the encoding of the same
+                # kernel's f32 tanh, which is held to the plain version below
+                i16 = conv1d.conv1d_fused(x, w, bias, **kw)
+                kw = {**kw, "int16": False}
+                f32_out = conv1d.conv1d_fused(x, w, bias, **kw)
+                exact = i16.dtype == torch.int16 and torch.equal(
+                    i16, conv1d.encode_int16(f32_out))
+                log(f"  conv1d B{b} x T{t} {cin}->{cout} k{k} d{d} {opts} {dtype}: int16 "
+                    f"bit-equal to the encoding of the kernel's f32 tanh {exact}")
+                if not exact:
+                    raise AssertionError("conv1d's int16 egress disagrees with its f32 form")
             got = conv1d.conv1d_fused(x, w, bias, **kw)
             ref = conv1d.conv1d_fused_plain(x, w, bias, **kw)
             torch.cuda.synchronize()
@@ -1113,6 +1160,9 @@ def check_conv1d(gen, cell, results, serving, widths):
                 raise AssertionError("conv1d disagrees with its plain version")
             if dtype == torch.float32 or n_cell is None or not n_cell and b * t < CELL_ROWS // 2:
                 continue
+            if "int16" in opts:  # the path's form: timed with its 2-byte samples
+                kw = {**kw, "int16": True}
+                got = conv1d.conv1d_fused(x, w, bias, **kw)
             es = x.element_size()
             xt = x.transpose(1, 2).contiguous()
             wt = w.permute(2, 1, 0).contiguous()
@@ -1130,6 +1180,114 @@ def check_conv1d(gen, cell, results, serving, widths):
                     shape=key)
 
 
+def linear_inputs(gen, key):
+    """x, w, b and the form's options of a linear shape key (M, K, N, form,
+    the tail's rows a batch row) as ops.record_launches names them; the tail
+    with rows of other lengths (at B >= 3 an all-masked row) and a dt a row."""
+    m, k, n, form, t = key
+    x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device=DEV) / k ** 0.5).to(torch.bfloat16)
+    b = 0.3 * torch.randn(n, generator=gen, device=DEV)
+    if form != "tail":
+        return x, w, b, {"silu": form == "silu"}
+    bsz = m // t
+    lens = torch.tensor([t - (i * t) // max(bsz, 2) for i in range(bsz)], device=DEV)
+    if bsz >= 3:
+        lens[-1] = 0
+    mask = (torch.arange(t, device=DEV)[None] < lens[:, None]).float()
+    x_in = torch.randn((bsz, t, n), generator=gen, device=DEV) * mask[:, :, None]
+    dt = 1.0 / torch.randint(1, 9, (bsz,), generator=gen, device=DEV).float()
+    return x.view(bsz, t, k), w, b, {"tail": (x_in, dt, mask)}
+
+
+def silu_every_bf16() -> None:
+    """The silu form bit for bit F.silu of the bias form at every finite bf16
+    value: x holds each once (a row of 16 a GEMM row), the weights are the
+    identity and the bias zero, so the bias form is x itself (-0 as +0; the
+    share where it is printed)."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=DEV).to(torch.int16)
+    vals = bits.view(torch.bfloat16)
+    vals = vals[torch.isfinite(vals.float())]
+    rows = -(-vals.numel() // 16)
+    x = torch.zeros(rows * 16, dtype=torch.bfloat16, device=DEV)
+    x[:vals.numel()] = vals
+    x = x.view(rows, 16)
+    w = torch.eye(16, dtype=torch.bfloat16, device=DEV)
+    b = torch.zeros(16, device=DEV)
+    own = linear.linear(x, w, b)
+    got = linear.linear(x, w, b, silu=True)
+    want = torch.nn.functional.silu(own)
+    exact = bits_equal(got, want)
+    same = float((own.view(torch.int16) == (x + 0.0).view(torch.int16)).float().mean())
+    n_diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    log(f"  linear silu form at every finite bf16 value ({vals.numel()}; the bias form "
+        f"is x at a share {same:.6f}): bit-equal to F.silu of the bias form {exact} "
+        f"({n_diff} values differ)")
+    if not exact:
+        raise AssertionError("the linear kernel's silu differs from F.silu")
+
+
+def check_linear(gen, cell, results, serving, widths):
+    """The linear kernel against its plain version (cuBLAS's product, then
+    add_bias: JAX's bf16 bias rounding) at the cell's, the servers', the
+    mesh's and phase 12's shapes and at edges: M off the 64-row tile, K 96
+    (half a 64-element stage zero), K off 8 (the SIMT route), N 1, 96 and
+    off 8 (register stores), N 4,608 at M 64, a tail with an all-masked row.
+    First the silu form at every finite bf16 value (silu_every_bf16).
+    The bias form within linear.bf16_within (one bf16 step of the product,
+    which cuBLAS sums in another order, carried through the bias add; the
+    bit-equal share printed); the silu form bit for bit F.silu of the
+    kernel's own bias form, and within bf16_within; the tail form bit for bit
+    linear.euler_tail of the kernel's own bias form. Timed at the cell's
+    shapes; library_ms is F.linear(x, w, bias in bf16): cuBLAS's product with
+    its bias epilogue (in f32 before the one rounding, not JAX's rounding),
+    no silu or tail."""
+    edges = [(37, 96, 96, "bias", 0), (37, 96, 96, "tail", 37), (130, 256, 1, "bias", 0),
+             (64, 512, 4608, "bias", 0), (300, 15, 64, "bias", 0), (300, 64, 15, "silu", 0),
+             (200, 512, 2048, "silu", 0), (3 * 50, 512, 96, "tail", 50),
+             (4 * 33, 15, 15, "tail", 33), (1000, 256, 1024, "silu", 0)]
+    silu_every_bf16()
+    cases = block_cases(edges, cell, serving, widths, "linear")
+    for key, n_cell in sorted(cases.items()):
+        m, k, n, form, t = key
+        x, w, b, kw = linear_inputs(gen, key)
+        got = linear.linear(x, w, b, **kw)
+        own = linear.linear(x, w, b)
+        same, ok = linear.bf16_within(own, x, w, b)
+        err = float((own.float() - linear.linear_plain(x, w, b).float()).abs().max())
+        what = f"linear M{m} K{k} N{n} {form}{f' (T {t})' if t else ''}"
+        if form == "silu":
+            _same, within = linear.bf16_within(got, x, w, b, silu=True)
+            exact = bits_equal(got, torch.nn.functional.silu(own))
+            ok = ok and within and exact
+            log(f"  {what}: bias form bit-equal share {same:.6f} (max abs err {err:.3e}), "
+                f"both forms within linear.bf16_within {ok}, silu form bit-equal to F.silu "
+                f"of the kernel's bias form {exact}")
+        elif form == "tail":
+            exact = bits_equal(got, linear.euler_tail(own, kw["tail"]))
+            ok = ok and exact and got.dtype == torch.float32
+            log(f"  {what}: bias form bit-equal share {same:.6f} within linear.bf16_within "
+                f"(max abs err {err:.3e}), tail bit-equal to the plain tail of the kernel's "
+                f"bias form {exact}")
+        else:
+            log(f"  {what}: bit-equal share {same:.6f}, within linear.bf16_within {ok} "
+                f"(max abs err {err:.3e})")
+        torch.cuda.synchronize()
+        if not ok or not torch.isfinite(got.float()).all():
+            raise AssertionError("linear disagrees with its plain version")
+        if n_cell is None or not n_cell and m < CELL_ROWS // 2:
+            continue
+        bb = b.to(torch.bfloat16)
+        x2 = x.reshape(-1, k)
+        nbytes = 2 * (m * k + n * k) + 4 * n + got.element_size() * m * n
+        if form == "tail":
+            nbytes += 4 * m * n + 4 * m + 4 * (m // t)  # x_in, the mask, dt
+        measure(results, "linear", what[len("linear "):], torch.bfloat16, n_cell, err,
+                lambda: linear.linear(x, w, b, **kw), lambda: linear.linear_plain(x, w, b, **kw),
+                nbytes, 2.0 * m * n * k, lib=lambda: torch.nn.functional.linear(x2, w, bb),
+                shape=key)
+
+
 # the SASS instructions each library must hold (and, for the int8 library,
 # must not): bf16 wgmma (HGMMA), integer wgmma (IGMMA), TMA loads and stores
 # (UTMALDG, UTMASTG), bulk copies to and from shared memory (UBLKCP), and
@@ -1137,7 +1295,8 @@ def check_conv1d(gen, cell, results, serving, widths):
 SASS_REQUIRED = {"attention": ("HGMMA", "UTMALDG"), "ffn": ("HGMMA", "UTMALDG"),
                  "resblock_chain": ("HGMMA", "UTMALDG"),
                  "int8_matmul": ("IGMMA", "UTMALDG", "UTMASTG"), "quantize": ("UBLKCP",),
-                 "conv1d": ("HGMMA", "UTMALDG"), "ln_modulate": ("UBLKCP",)}
+                 "conv1d": ("HGMMA", "UTMALDG"), "ln_modulate": ("UBLKCP",),
+                 "linear": ("HGMMA", "UTMALDG", "UTMASTG")}
 SASS_FORBIDDEN = {"int8_matmul": ("IMMA",)}
 
 
@@ -1162,6 +1321,7 @@ def check_instructions(libs) -> None:
         for half in (False, True)[:1 + (c <= 256)]:
             log(f"  resblock_chain bf16 layout at C={c}: {vocoder_fused.kernel_layout(c, half)}")
     log(f"  int8_matmul tiles (rows, columns, stages): {int8_matmul.kernel_tiles()}")
+    log(f"  linear tiles (rows, columns, stages): {linear.kernel_tiles()}")
     for b, t_len, c in ((64, 28672, 128), (64, 3584, 256), (1, 896, 256), (1, 7168, 128)):
         tile = vocoder_fused._tile(c, 3, (1, 3, 9), torch.bfloat16, b, t_len)
         log(f"  resblock_chain bf16 tile at B{b} x {t_len} frames, C={c}: {tile} output frames "
@@ -1547,7 +1707,7 @@ TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod",
                "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows"),
                "ln_modulate": ("layer_norm_rows",), "bias_rope": ("rope_pairs",),
                "gated_residual": ("gated_residual_pass",),
-               "conv1d": ("conv_wgmma", "conv_simt")}
+               "conv1d": ("conv_wgmma", "conv_simt"), "linear": ("LinearEpi",)}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch
@@ -2142,7 +2302,7 @@ class NoPlainOnCuda:
     PLAIN = ((attention, "attention_plain"), (ffn, "adaln_ffn_plain"),
              (vocoder_fused, "resblock_chain_plain"), (ln_modulate, "ln_modulate_plain"),
              (rope, "bias_rope_plain"), (gated_residual, "gated_residual_plain"),
-             (conv1d, "conv1d_fused_plain"))
+             (conv1d, "conv1d_fused_plain"), (linear, "linear_plain"))
 
     def __enter__(self):
         self.saved = [(m, n, getattr(m, n)) for m, n in self.PLAIN]
@@ -2211,7 +2371,7 @@ def widths_one(name, d, i, cfg, fused, texts, noise, widths, smi, bf16=True) -> 
         return tts
 
     def keep(tally):
-        for kernel in PATH_KERNELS:
+        for kernel in (*PATH_KERNELS, "linear"):
             for shape in tally[kernel]:
                 widths[kernel].setdefault(shape, set()).add(
                     (cfg.vocoder.resblock_dilations, cfg.vocoder.resblock_kernel))
@@ -2257,10 +2417,19 @@ def widths_one(name, d, i, cfg, fused, texts, noise, widths, smi, bf16=True) -> 
     got = launched_widths(tally)
     if got != want:
         raise AssertionError(f"{name}: bf16 launched widths {got}, expected {want}")
+    # the linear kernel (bf16 alone) in each form, in_proj at the latent width
+    # and out_proj's tail at it
+    ve, c_lat = cfg.vector_estimator, cfg.latent_channels
+    forms = {(key[1], key[2], key[3]) for key in tally["linear"]}
+    need = {(c_lat, ve.dim, "bias"), (ve.dim, c_lat, "tail"), (ve.time_embed_dim, ve.dim, "silu")}
+    if not need <= forms:
+        raise AssertionError(f"{name}: bf16 linear launches (K, N, form) {sorted(forms)} lack "
+                             f"{sorted(need - forms)}")
     for w, dur in zip(wavs, durs):
         check_audio(w, float(dur), tts.sample_rate, f"{name} bf16")
     log(f"  {name}: bf16 synthesize_batch B=2: {[f'{float(x):.3f}' for x in durs]} s of "
-        f"audio, finite, RMS > 0.005; widths {got} ({smi})")
+        f"audio, finite, RMS > 0.005; widths {got}; linear (K, N, form) {sorted(forms)} "
+        f"({smi})")
     keep(tally)
     del tts
 
@@ -2447,9 +2616,14 @@ def progress_programs(params, smi: str) -> None:
 
 
 def trace_b64(assets) -> None:
-    """One replayed b64/5-step batch under utils.timing.device_trace: the
+    """Replayed b64/5-step batches under utils.timing.device_trace: the
     Chrome trace exists and names each hand-written kernel of the bf16 path
-    as often as the per-batch counts say."""
+    as often as the per-batch counts say in the second of two batches
+    traced back to back (the tracer lost up to ~24 of the first replayed
+    kernels of its window late in this script; the first batch takes that
+    loss)."""
+    from torch.profiler import record_function
+
     from supertonic_tpu_torch.utils.timing import device_trace
 
     os.environ["TTS_RATE_CACHE_DIR"] = os.path.join(OUT_DIR, "rates", "main-bf16")
@@ -2463,16 +2637,21 @@ def trace_b64(assets) -> None:
     with device_trace(logdir) as prof:
         tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
         torch.cuda.synchronize()
+        with record_function("second batch"):
+            tts.synthesize_batch(texts, ["en"] * 64, style.tile(64), total_step=5)
+            torch.cuda.synchronize()
     if len(tts.engine.programs.stats()) != n_programs:
-        raise AssertionError("the traced batch captured a new program")
+        raise AssertionError("the traced batches captured a new program")
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
+    start = min(e["ts"] for e in events if e.get("name") == "second batch")
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    found = {k: sum(any(n in name for n in TRACE_NAMES[k]) for name in kernels)
+    second = [e["name"] for e in events if e.get("cat") == "kernel" and e["ts"] >= start]
+    found = {k: sum(any(n in name for n in TRACE_NAMES[k]) for name in second)
              for k in PER_BATCH["bf16"]}
-    log(f"  device_trace of a replayed b64/5-step batch: {os.path.basename(prof.trace_path)} "
-        f"({os.path.getsize(prof.trace_path) / 2**20:.1f} MiB, {len(kernels)} kernel events); "
-        f"hand-written kernels named in it: {found}")
+    log(f"  device_trace of two replayed b64/5-step batches: {os.path.basename(prof.trace_path)} "
+        f"({os.path.getsize(prof.trace_path) / 2**20:.1f} MiB, {len(kernels)} kernel events, "
+        f"{len(second)} in the second batch); hand-written kernels named in the second: {found}")
     if found != PER_BATCH["bf16"]:
         raise AssertionError(f"the trace names {found}, expected {PER_BATCH['bf16']}")
     del tts
@@ -2859,6 +3038,30 @@ def window_vs_whole(params, tts, style) -> None:
                    " (printed, no limit: bf16 roundings of a different tiling)"))
             if dtype == torch.float32 and not err <= WINDOW_F32_ATOL:
                 raise AssertionError("f32 windowed vocoding disagrees with whole vocoding")
+            # int16 egress from the head's epilogue: each window's samples the
+            # encoding of its f32 samples, and the whole vocoding's of its own;
+            # where the f32 windows equal the whole, so do the int16 ones
+            full16 = vocoder.apply(mods["vocoder"], cfg, xt, frame_mask=fmask, dtype=dtype,
+                                   egress="int16")
+            pieces16 = []
+            for k0, piece in zip(range(0, t_len, w), pieces):
+                start = max(0, min(k0, t_len - w))
+                wav = progs.vocode_window(mods, cfg, xt_pad, m_pad, start, w, halo,
+                                          precision=prec, egress="int16")
+                pieces16.append(wav[:, (k0 - start) * chunk:(k0 - start + min(w, t_len - k0))
+                                    * chunk])
+                if not torch.equal(pieces16[-1], synthesis.encode_egress(piece, "int16")):
+                    raise AssertionError(f"{dtype} int16 window at {k0}: not the encoding of "
+                                         f"its f32 samples")
+            if not torch.equal(full16, synthesis.encode_egress(full, "int16")):
+                raise AssertionError(f"{dtype} int16 whole vocoding: not the encoding of its "
+                                     f"f32 samples")
+            steps = int((torch.cat(pieces16, 1).int() - full16.int()).abs().max())
+            log(f"  windowed vs whole vocoding in int16 (the head's epilogue), {dtype}: "
+                f"each the encoding of its f32 samples, bit for bit; max difference "
+                f"{steps} steps{' (bit-equal required: the f32 samples are)' if err == 0 else ''}")
+            if err == 0 and steps != 0:
+                raise AssertionError("int16 windowed vocoding differs from whole vocoding")
     del f32
 
 
@@ -2942,7 +3145,7 @@ def serving(assets, params, smi: str):
         check_progress(tts, style)
     counts = ops.launch_counts()
     log(f"  launches over the bf16 serving run: {counts}")
-    for name in ("attention", "adaln_ffn", "resblock_chain", *BLOCK_KERNELS):
+    for name in ("attention", "adaln_ffn", "resblock_chain", *BLOCK_KERNELS, "linear"):
         if not counts[name] > 0:
             raise AssertionError(f"{name} was not launched while serving")
     if any(counts[name] for name in ("int8_matmul", *W8A8_KERNELS)):
@@ -2976,7 +3179,7 @@ def serving(assets, params, smi: str):
     log(f"  int8 server: 16 concurrent /tts ({sum(samples8) / sr:.3f}s of audio in "
         f"{wall8:.4f}s) and one stream (first audio after {t_first8:.4f}s); launches "
         f"{counts8}")
-    for name in ("attention", "resblock_chain", *W8A8_KERNELS, *BLOCK_KERNELS):
+    for name in ("attention", "resblock_chain", *W8A8_KERNELS, *BLOCK_KERNELS, "linear"):
         if not counts8[name] > 0:
             raise AssertionError(f"{name} was not launched by the int8 server")
     if counts8["adaln_ffn"] or counts8["int8_matmul"]:
@@ -3177,7 +3380,8 @@ def mesh_tp(params, devices) -> tuple[dict, int]:
         f"{rel_l2(w2, w1):.6f}, max abs {np.abs(w2 - w1).max():.3e}")
     log(f"  (b) int32 product shapes under TP int8 (M, K, N): "
         f"{dict(sorted(shapes8['int8_matmul'].items()))}")
-    for name in ("attention", "resblock_chain", "int8_matmul", *W8A8_KERNELS, *BLOCK_KERNELS):
+    for name in ("attention", "resblock_chain", "int8_matmul", *W8A8_KERNELS, *BLOCK_KERNELS,
+                 "linear"):
         if not counts8[name] > 0:
             raise AssertionError(f"TP int8: {name} was not launched")
     if counts8["adaln_ffn"]:
@@ -3479,7 +3683,7 @@ def main() -> int:
     fresh_rate_dir("main-bf16")
     cell, rates, counts = main_path(assets, "bf16", args.profile, args.pin_rate)
     launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain",
-                                                *BLOCK_KERNELS)}
+                                                *BLOCK_KERNELS, "linear")}
     log("phase 3, second engine: the b64 cell with SynthesisEngine(fused_ffn=False)")
     unfused_ffn_cell(assets, rates, smi)
     log("phase 3, third engine: the b64 cell with SynthesisEngine(fused_resblocks=False)")
@@ -3534,6 +3738,7 @@ def main() -> int:
     check_rope(gen, cell, results, served, widths)
     check_gated_residual(gen, cell, results, served, widths)
     check_conv1d(gen, cell, results, served, widths)
+    check_linear(gen, cell, results, served, widths)
     picked = cell_summary(results, launches)
 
     log("phase 6: whole path: f32 card vs CPU, W8A8 linears card vs CPU, int8 vs bf16 "

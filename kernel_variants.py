@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the bf16 attention, resblock-chain and AdaLN FFN kernels, the int8
-product, the quantize pass, the LayerNorm with the AdaLN modulation and the
-conv kernel of the PyTorch port against design variants on one CUDA card:
-the measurements behind the design choices stated in the headers of
-supertonic_tpu_torch/csrc/attention.cu, resblock_chain.cu, ffn.cu,
-int8_matmul.cu, quantize.cu, ln_modulate.cu and conv1d.cu.
+product, the quantize pass, the LayerNorm with the AdaLN modulation, the
+conv kernel and the linear kernel of the PyTorch port against design
+variants on one CUDA card: the measurements behind the design choices
+stated in the headers of supertonic_tpu_torch/csrc/attention.cu,
+resblock_chain.cu, ffn.cu, int8_matmul.cu, quantize.cu, ln_modulate.cu,
+conv1d.cu and linear.cu.
 
     python3 kernel_variants.py                 # every kernel
     python3 kernel_variants.py ffn attention   # some of them (attention_f32:
@@ -46,7 +47,9 @@ host's per-call work:
              torch._int_mm (the product alone, a yardstick): the mma.sync
              design it replaced (earlier); 64 x 256 tiles a consumer; 3 ring
              stages; not persistent; stores from the registers (no TMA
-             store); 128 x 256 tiles shared by the two consumers
+             store); 128 x 256 tiles shared by the two consumers; and the
+             silu form at the ffn.in shape, its instance on 128 x 128 tiles
+             of two consumer warpgroups or 64 x 128 of three
   quantize   the one-warp-a-row design it replaced (earlier); persistent
              blocks whose warps walk rings of 1-4 KB stages (the design
              first built for it, csrc/variants/); 4 KB or 1 KB of rows a
@@ -72,6 +75,15 @@ host's per-call work:
              no products, no silu in the staging, no epilogue, the epilogue
              without its residual loads or its stores (unchecked); beside
              F.conv1d (the bare conv, a yardstick)
+  linear     the linear kernel at the b64 cell's shapes (each bias, silu and
+             tail form): bf16 results stored from the registers (no TMA
+             store); the tail in 128 x 128 tiles; silu by the IEEE division
+             itself; the silu form on 128 x 128 tiles of two consumer
+             warpgroups or 64 x 128 of three; bf16 rounding on the integer
+             pipe; beside F.linear(x, w, b)
+             (cuBLAS's product with its bias epilogue, a yardstick) and the
+             route it replaced (cuBLAS's product, then the bias cast and add,
+             silu or the flow step's four elementwise passes)
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -91,8 +103,8 @@ import sys
 import torch
 
 import chip_smoke as cs
-from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, int8_matmul, ln_modulate,
-                                      quantize, vocoder_fused, w8a8)
+from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, int8_matmul, linear,
+                                      ln_modulate, quantize, vocoder_fused, w8a8)
 from supertonic_tpu_torch.ops.gated_residual import batch_rows
 
 BF16_SECTION = "// bf16 on the tensor cores"
@@ -234,6 +246,12 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
     "int8": {
         "earlier: mma.sync, cp.async ring": (FILE, "earlier/int8_matmul_mma_sync.cu", []),
         "bf16 results in 64 x 256 tiles a consumer": [tile(I8_BIG, "2, 1, 256, 4, 1, true")],
+        "the silu instance in 128 x 128 tiles, two consumer warpgroups": [
+            ("using Bf16SiluTile = stk::WgTile<4, 1, 64, 8, 1, true>;",
+             "using Bf16SiluTile = stk::WgTile<2, 2, 128, 4, 1, true>;")],
+        "the silu instance in 64 x 128 tiles, three consumer warpgroups": [
+            ("using Bf16SiluTile = stk::WgTile<4, 1, 64, 8, 1, true>;",
+             "using Bf16SiluTile = stk::WgTile<3, 1, 128, 4, 1, true>;")],
         "3 stages": [tile(I8_BIG, "2, 2, 128, 3, 1, true"),
                      tile(I8_WIDE, "2, 1, 128, 3, 1, true, false, true, 4")],
         "not persistent: one tile a consumer": [
@@ -283,9 +301,36 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "the prenet's consumers in turns (not cooperative)": [
             ("E_SILU | E_MASK | E_RES, true)", "E_SILU | E_MASK | E_RES, false)")],
         "the head's consumers in turns (not cooperative)": [
-            ("STK_CONV(64, 7, E_TANH, true)", "STK_CONV(64, 7, E_TANH, false)")],
-        "the head with 11 staging warps": [("STK_CONV(64, 7, E_TANH, true)",
-                                            "STK_CONV(64, 11, E_TANH, true)")]},
+            ("STK_CONV(64, 7, E_TANH, true)", "STK_CONV(64, 7, E_TANH, false)"),
+            ("STK_CONV(64, 7, E_TANH | E_I16, true)", "STK_CONV(64, 7, E_TANH | E_I16, false)")],
+        "the head with 11 staging warps": [
+            ("STK_CONV(64, 7, E_TANH, true)", "STK_CONV(64, 11, E_TANH, true)"),
+            ("STK_CONV(64, 7, E_TANH | E_I16, true)", "STK_CONV(64, 11, E_TANH | E_I16, true)")]},
+    "linear": {
+        "bf16 results stored from the registers (no TMA store)": [
+            ("using Many = stk::WgTile<2, 2, 128, 4, 1, true>;",
+             "using Many = stk::WgTile<2, 2, 128, 4, 1, true, false, false>;"),
+            ("using Few = stk::WgTile<2, 1, 64, 8, 1, true>;",
+             "using Few = stk::WgTile<2, 1, 64, 8, 1, true, false, false>;")],
+        "the tail in 128 x 128 tiles": [
+            ("using TailTile = stk::WgTile<2, 1, 128, 4, 1, true, false, false, 4, true>;",
+             "using TailTile = stk::WgTile<2, 2, 128, 4, 1, true, false, false, 4, true>;")],
+        "silu by the IEEE division itself (its check and slow-path call)": [
+            ("  return stk::pack_bf16(stk::silu_bf16_torch(y0), stk::silu_bf16_torch(y1));",
+             "  return stk::pack_bf16(y0 / (1.0f + expf(-y0)), y1 / (1.0f + expf(-y1)));")],
+        "the silu form in 128 x 128 tiles, two consumer warpgroups": [
+            ("using ManySilu = stk::WgTile<4, 1, 64, 8, 1, true>;",
+             "using ManySilu = stk::WgTile<2, 2, 128, 4, 1, true>;")],
+        "the silu form in 64 x 128 tiles, three consumer warpgroups": [
+            ("using ManySilu = stk::WgTile<4, 1, 64, 8, 1, true>;",
+             "using ManySilu = stk::WgTile<3, 1, 128, 4, 1, true>;")],
+        "bf16 rounding on the integer pipe (no F2F)": [
+            ("  return stk::rnd<bf16>(__fadd_rn(stk::rnd<bf16>(acc), stk::rnd<bf16>(b)));",
+             "  auto r = [](float v) {\n"
+             "    const uint32_t u = __float_as_uint(v);\n"
+             "    return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);\n"
+             "  };\n"
+             "  return r(__fadd_rn(r(acc), r(b)));")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
@@ -294,7 +339,8 @@ ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "int8": ("stk_w8a8_matmul", w8a8._ARGTYPES),
          "quantize": ("stk_quantize_rows", quantize._ARGTYPES),
          "ln_modulate": ("stk_ln_modulate", ln_modulate._ARGTYPES),
-         "conv1d": ("stk_conv1d", conv1d._ARGTYPES)}
+         "conv1d": ("stk_conv1d", conv1d._ARGTYPES),
+         "linear": ("stk_linear", linear._ARGTYPES)}
 # further entries of a variant's library, {kernel: {name: argtypes}}
 MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES}}
 # names (in ptxas's mangled names) of the device functions whose registers and
@@ -305,7 +351,7 @@ BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
                   "int8": ("wgmma_gemm", "mma_gemm"),
                   "quantize": ("quantize_",), "ln_modulate": ("layer_norm_rows",),
-                  "conv1d": ("conv_wgmma",)}
+                  "conv1d": ("conv_wgmma",), "linear": ("wgmma_gemm", "linear_simt")}
 SOURCE = {"attention_f32": "attention", "int8": "int8_matmul"}  # kernels timed from another kernel's source
 OUT = _build.BUILD_ROOT / "variants"
 
@@ -468,6 +514,8 @@ def main() -> int:
         variants_ln_modulate(fns, gen)
     if "conv1d" in kernels:
         variants_conv1d(fns, gen)
+    if "linear" in kernels:
+        variants_linear(fns, gen)
     return 0
 
 
@@ -477,7 +525,7 @@ CELL_INT8 = ((28672, 512, 512), (28672, 512, 2048), (28672, 2048, 512), (23680, 
 TP_INT8 = ((1792, 256, 512), (1792, 1024, 512))
 
 
-def int8_call(fn, a, w, out_dtype, sx=None, ws=None, bias=None):
+def int8_call(fn, a, w, out_dtype, sx=None, ws=None, bias=None, silu=False):
     """One product through a variant's library: the int32 form, or the
     W8A8 epilogue's."""
     m, k = a.shape
@@ -488,7 +536,7 @@ def int8_call(fn, a, w, out_dtype, sx=None, ws=None, bias=None):
         err = fn(P(a), P(w), P(out), m, n, k, _build.stream_ptr(a))
     else:
         err = fn(P(a), P(w), P(sx), P(ws), P(bias), P(out), m, n, k,
-                 _build.dtype_code(out_dtype), _build.stream_ptr(a))
+                 _build.dtype_code(out_dtype), _build.stream_ptr(a), int(silu))
     _build.check(err, "variant")
     return out
 
@@ -496,9 +544,10 @@ def int8_call(fn, a, w, out_dtype, sx=None, ws=None, bias=None):
 def variants_int8(fns, gen) -> None:
     cs.log("int8 product, ms per launch (W8A8 bf16 results at the cell's shapes; int32 at "
            "the TP shapes and the cell's)")
-    cases = [(shape, torch.bfloat16) for shape in CELL_INT8 + TP_INT8]
-    cases += [(shape, torch.int32) for shape in TP_INT8 + CELL_INT8]
-    for (m, k, n), out_dtype in cases:
+    cases = [(shape, torch.bfloat16, False) for shape in CELL_INT8 + TP_INT8]
+    cases.append(((28672, 512, 2048), torch.bfloat16, True))  # ffn.in: silu in the epilogue
+    cases += [(shape, torch.int32, False) for shape in TP_INT8 + CELL_INT8]
+    for (m, k, n), out_dtype, silu in cases:
         a, w = (torch.randint(-127, 128, shape, generator=gen, device=cs.DEV).to(torch.int8)
                 for shape in ((m, k), (n, k)))
         sx = torch.rand(m, generator=gen, device=cs.DEV) * 0.02
@@ -511,12 +560,15 @@ def variants_int8(fns, gen) -> None:
                 fn = fns[("int8", name, "stk_int8_matmul")]
                 calls[name] = lambda fn=fn: int8_call(fn, a, w, torch.int32)
         else:
-            ref = w8a8.w8a8_matmul_plain(a, sx, w, ws, bias, out_dtype)
-            calls = {"committed": lambda: w8a8.w8a8_matmul(a, sx, w, ws, bias, out_dtype)}
+            ref = w8a8.w8a8_matmul_plain(a, sx, w, ws, bias, out_dtype, silu=silu)
+            calls = {"committed": lambda: w8a8.w8a8_matmul(a, sx, w, ws, bias, out_dtype,
+                                                           silu=silu)}
             for name in VARIANTS["int8"]:
+                if silu and name.startswith("earlier"):  # no silu in the earlier design
+                    continue
                 fn = fns[("int8", name)]
-                calls[name] = lambda fn=fn: int8_call(fn, a, w, out_dtype, sx, ws, bias)
-        label = f"M{m} K{k} N{n} {str(out_dtype).split('.')[-1]}"
+                calls[name] = lambda fn=fn: int8_call(fn, a, w, out_dtype, sx, ws, bias, silu)
+        label = f"M{m} K{k} N{n} {str(out_dtype).split('.')[-1]}{' silu' if silu else ''}"
         for name, call in calls.items():
             got = call()
             torch.cuda.synchronize()
@@ -747,18 +799,80 @@ def variants_conv1d(fns, gen) -> None:
         in_turns(label, calls, 10, graphs=True)
 
 
-def conv_call(fn, x, w, bias, *, dilation, silu_in, silu_out, mask, fold, residual, tanh_f32):
+def conv_call(fn, x, w, bias, *, dilation, silu_in, silu_out, mask, fold, residual, tanh_f32,
+              int16=False):
     """One conv through a variant's library, as the wrapper launches it."""
     b, t, cin = x.shape
     k, _, cout = w.shape
     mstride = 0 if mask is None or mask.dim() == 1 or mask.shape[0] == 1 else mask.shape[1]
     out = torch.empty((b, t, cout), device=x.device,
-                      dtype=torch.float32 if tanh_f32 else x.dtype)
+                      dtype=torch.int16 if int16 else torch.float32 if tanh_f32 else x.dtype)
     P = _build.ptr
     _build.check(fn(P(x), P(w), P(bias), P(mask), mstride, P(residual), P(out), b, t, cin, cout,
                     k, dilation, int(silu_in), int(silu_out), fold, int(tanh_f32),
-                    _build.dtype_code(x.dtype), _build.stream_ptr(x)), "variant")
+                    _build.dtype_code(x.dtype), _build.stream_ptr(x), int(int16)), "variant")
     return out
+
+
+
+# (M, K, N, form, the tail's rows a batch row) of the linear kernel's launches
+# in one b64/5-step bf16 batch (T=448, L=320: chip_smoke.py phase 3 records
+# them), with the launches a batch at each
+CELL_LINEAR = {(64, 256, 1, "bias", 0): 1, (64, 256, 256, "silu", 0): 1,
+               (64, 256, 512, "silu", 0): 5, (64, 512, 512, "bias", 0): 5,
+               (64, 512, 1024, "bias", 0): 5, (64, 512, 4608, "bias", 0): 30,
+               (3200, 128, 256, "bias", 0): 2, (3200, 128, 512, "bias", 0): 1,
+               (3200, 256, 256, "bias", 0): 10, (20480, 256, 256, "bias", 0): 10,
+               (20480, 256, 512, "bias", 0): 1, (20480, 256, 1024, "silu", 0): 10,
+               (20480, 512, 512, "bias", 0): 1, (23680, 512, 512, "bias", 0): 6,
+               (28672, 96, 512, "bias", 0): 5, (28672, 512, 96, "tail", 448): 5,
+               (28672, 512, 512, "bias", 0): 30}
+
+
+def linear_call(fn, x, w, b, silu=False, tail=None):
+    """One linear through a variant's library, as the wrapper launches it."""
+    n, k = w.shape
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    x_in = dt = mask = None
+    if tail is None:
+        y = torch.empty((m, n), device=x.device, dtype=torch.bfloat16)
+        t_rows, mode = 1, int(silu)
+    else:
+        x_in, dt, mask = tail
+        y = torch.empty((m, n), device=x.device, dtype=torch.float32)
+        t_rows, mode = x.shape[1], 2
+    P = _build.ptr
+    _build.check(fn(P(x2), P(w), P(b), P(x_in), P(mask), P(dt), P(y), m, n, k, t_rows, mode,
+                    _build.stream_ptr(x)), "variant")
+    return y.view(*x.shape[:-1], n)
+
+
+def variants_linear(fns, gen) -> None:
+    cs.log("linear kernel, ms per launch (bf16) at the b64 cell's shapes, beside F.linear "
+           "(cuBLAS's product with its bias epilogue) and the route it replaced")
+    for key, n_cell in CELL_LINEAR.items():
+        m, k, n, form, t = key
+        x, w, b, kw = cs.linear_inputs(gen, key)
+        ref = linear.linear(x, w, b, **kw)
+        calls = {"committed": lambda: linear.linear(x, w, b, **kw)}
+        for name in VARIANTS["linear"]:
+            fn = fns[("linear", name)]
+            calls[name] = lambda fn=fn: linear_call(fn, x, w, b, **kw)
+        x2, bb = x.reshape(-1, k), b.to(torch.bfloat16)
+        calls["F.linear(x, w, b), cuBLAS's bias epilogue (yardstick)"] = (
+            lambda: torch.nn.functional.linear(x2, w, bb))
+        calls["the replaced route: cuBLAS's product, then the elementwise passes"] = (
+            lambda: linear.linear_plain(x, w, b, **kw))
+        label = f"M{m} K{k} N{n} {form} ({n_cell} a batch)"
+        for name, call in calls.items():
+            if name == "committed" or "yardstick" in name or "replaced" in name:
+                continue
+            if not cs.bits_equal(call(), ref):
+                raise AssertionError(f"linear {label} {name}: not bit-equal to the committed "
+                                     f"kernel")
+        cs.log(f"  linear {label}: every variant bit-equal to the committed kernel")
+        in_turns(label, calls, 20, graphs=True)
 
 
 if __name__ == "__main__":

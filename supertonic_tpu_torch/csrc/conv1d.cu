@@ -11,7 +11,11 @@
 //   y   = rnd(y * mask[t * fold + n / (Cout / fold)])    (mask, 0/1)
 //   y   = rnd(residual + y)                              (residual)
 //   out = tanh(y) in f32, or y in the storage type       (tanh_f32)
-// where rnd rounds to the storage type (nothing in f32). With fold = f the
+//   out = int16(clamp(tanh(y) * 32767, -32768, 32767))    (int16, with tanh_f32)
+// where rnd rounds to the storage type (nothing in f32). The int16 form is
+// the engine's int16 egress (supertonic_tpu/engine/synthesis.py:228-229,
+// :321-322) of the vocoder head's samples: the product an IEEE multiply
+// (__fmul_rn), the cast truncating toward zero, as torch's .to(int16). With fold = f the
 // output [B, T, Cout] is read as [B, T * f, Cout / f] (the vocoder's
 // depth-to-space: a view of the same bytes), so the mask is the fine one.
 //
@@ -137,9 +141,16 @@ struct Epi {
   const float* mask;   // [T * fold] a batch row at b * mstride, or null
   long long mstride;
   const void* res;     // [B, T, Cout] in the storage type, or null
-  void* out;           // [B, T, Cout]: the storage type, or f32 with tanh
-  int fold, silu_out, tanh_f32;
+  void* out;           // [B, T, Cout]: the storage type, or f32 with tanh, or int16
+  int fold, silu_out, tanh_f32, int16;
 };
+
+// tanh(y) as the int16 egress sample: clamp(t * 32767, -32768, 32767)
+// truncated toward zero
+__device__ __forceinline__ uint16_t egress_i16(float t) {
+  const float v = fminf(fmaxf(__fmul_rn(t, 32767.0f), -32768.0f), 32767.0f);
+  return (uint16_t)(int16_t)__float2int_rz(v);
+}
 
 // the mask value of output column n of frame tg in batch row b
 __device__ __forceinline__ float mask_at(const Epi& e, int b, int tg, int n, int Cout) {
@@ -225,6 +236,13 @@ conv_simt(const float* __restrict__ x, const float* __restrict__ w, Epi e, int T
       if (e.res && i < nn) v[i] = __fadd_rn(static_cast<const float*>(e.res)[off + i], v[i]);
       if (e.tanh_f32) v[i] = tanhf(v[i]);
     }
+    if (e.int16) {
+      uint16_t* o = static_cast<uint16_t*>(e.out) + off;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < nn) o[i] = egress_i16(v[i]);
+      continue;
+    }
     float* o = static_cast<float*>(e.out) + off;
     if (vec) {
       stk::store_n<float, 4>(o, v);
@@ -259,11 +277,12 @@ constexpr int PREGS = 64;                // registers a producer-side thread kee
 // The epilogue's options, compiled into each instance: an instance for each
 // set of options the path gives the kernel at an even Cout and a mask with
 // one fine frame a tile row (E_SILU: silu_out, E_MASK, E_RES: the residual,
-// E_TANH: tanh into f32), and E_ANY for every other call (the options read
+// E_TANH: tanh into f32, E_I16: and on into int16 samples), and E_ANY for
+// every other call (the options read
 // at run time, any Cout, a fine frame a column). Measured: an epilogue
 // compiled for every option at once ran several times slower than one
 // compiled for the options of its call (kernel_variants.py conv1d).
-constexpr int E_SILU = 1, E_MASK = 2, E_RES = 4, E_TANH = 8, E_ANY = 16;
+constexpr int E_SILU = 1, E_MASK = 2, E_RES = 4, E_TANH = 8, E_ANY = 16, E_I16 = 32;
 
 // K-major operand in shared memory without swizzle: 8-row core matrices of
 // 16-byte rows, `sbo` bytes between 8-row groups, `lbo` bytes between the
@@ -464,6 +483,7 @@ conv_wgmma(__grid_constant__ const CUtensorMap tm_w, const Conv p, Epi e) {
   const bool masked = ANY ? e.mask != nullptr : (EPI & E_MASK) != 0;
   const bool residual = ANY ? e.res != nullptr : (EPI & E_RES) != 0;
   const bool tanh_out = ANY ? e.tanh_f32 != 0 : (EPI & E_TANH) != 0;
+  const bool int16_out = ANY ? e.int16 != 0 : (EPI & E_I16) != 0;
   const bool even = ANY ? p.Cout % 2 == 0 : true;
   // consumer warpgroup wg takes the block's tiles i = wg, wg + 2, ... (COOP:
   // every tile, its rows row0..)
@@ -593,7 +613,16 @@ conv_wgmma(__grid_constant__ const CUtensorMap tm_w, const Conv p, Epi e) {
             v0 = stk::rnd<bf16>(__fadd_rn(__uint_as_float(res[j] << 16), v0));
             v1 = stk::rnd<bf16>(__fadd_rn(__uint_as_float(res[j] & 0xffff0000u), v1));
           }
-          if (tanh_out) {
+          if (int16_out) {
+            uint16_t* o = static_cast<uint16_t*>(e.out) + row + n;
+            const uint16_t s0 = egress_i16(tanhf(v0)), s1 = egress_i16(tanhf(v1));
+            if (even) {
+              *reinterpret_cast<uint32_t*>(o) = (uint32_t)s0 | (uint32_t)s1 << 16;
+            } else {
+              o[0] = s0;
+              if (two) o[1] = s1;
+            }
+          } else if (tanh_out) {
             float* o = static_cast<float*>(e.out) + row + n;
             v0 = tanhf(v0);
             v1 = tanhf(v1);
@@ -667,19 +696,21 @@ int launch_wgmma(const bf16* x, const bf16* w, const Epi& e, int B, int Tlen, in
 
 // x [B, T, Cin], w [k, Cin, Cout] (HIO), residual and out [B, T, Cout], all
 // contiguous and 16-byte aligned, in the storage type (dtype 0 = f32, 1 =
-// bf16; out f32 with tanh_f32); bf16 w in rows of Cout rounded up to 8
-// elements; bias [Cout] f32; mask f32 [T * fold], a batch row at b *
-// mstride (0: one row for all), or null; residual or null.
+// bf16; out f32 with tanh_f32, int16 with int16 too); bf16 w in rows of Cout
+// rounded up to 8 elements; bias [Cout] f32; mask f32 [T * fold], a batch row
+// at b * mstride (0: one row for all), or null; residual or null. int16 comes
+// after the stream, so that the earlier design's entry (csrc/earlier/),
+// which lacks it, takes the same call without it.
 extern "C" int stk_conv1d(const void* x, const void* w, const void* bias, const void* mask,
                           long long mstride, const void* res, void* out, int B, int Tlen, int Cin,
                           int Cout, int k, int d, int silu_in, int silu_out, int fold,
-                          int tanh_f32, int dtype, void* stream) {
+                          int tanh_f32, int dtype, void* stream, int int16) {
   if (B < 1 || Tlen < 1 || Cin < 1 || Cout < 1 || k < 1 || d < 1 || fold < 1 || Cout % fold ||
-      mstride < 0)
+      mstride < 0 || (int16 && !tanh_f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Epi e = {static_cast<const float*>(bias), static_cast<const float*>(mask), mstride, res,
-                 out, fold, silu_out, tanh_f32};
+                 out, fold, silu_out, tanh_f32, int16};
   if (dtype == 0) {
     dim3 grid((Tlen + S_BM - 1) / S_BM, (Cout + S_BN - 1) / S_BN, B);
     conv_simt<<<grid, S_THREADS, 0, st>>>(static_cast<const float*>(x),
@@ -694,12 +725,13 @@ extern "C" int stk_conv1d(const void* x, const void* w, const void* bias, const 
   // tiles and 7 staging warps (the window's silu, once a frame there, sets
   // the pace). The epilogue's options compiled in where an instance has
   // them: the b64 path's pre and up convs (mask), pre_res pairs (silu out
-  // and mask; mask and residual), prenet (all three), head (tanh). The
+  // and mask; mask and residual), prenet (all three), head (tanh, and on
+  // into int16 samples). The
   // prenet and the head cooperative; the masked convs (pre, up) so where a
   // time tile's 256-frame windows stay for all its column tiles (up 2, not
   // up 1): measured faster there, slower where they do not
   const int opts = (silu_out ? E_SILU : 0) | (mask ? E_MASK : 0) | (res ? E_RES : 0) |
-                   (tanh_f32 ? E_TANH : 0);
+                   (tanh_f32 ? E_TANH : 0) | (int16 ? E_I16 : 0);
   const int bn = Cout <= 64 ? 64 : 128;
   const bool compiled = Cout % 2 == 0 && (!mask || fold == 1 || (Cout / fold) % bn == 0);
   const int G = group_taps(k, d), units = (k + G - 1) / G * ((Cin + KC - 1) / KC);
@@ -707,9 +739,11 @@ extern "C" int stk_conv1d(const void* x, const void* w, const void* bias, const 
       units <= Layout<128, 3, true>::WINDOWS / (8 * (tile_frames(true) + (G - 1) * d + 1) * 16);
 #define STK_CONV(BN_, SW_, EPI_, COOP_) \
   launch_wgmma<BN_, SW_, EPI_, COOP_>(xb, wb, e, B, Tlen, Cin, Cout, k, d, silu_in, st)
-  if (bn == 64)
-    return compiled && opts == E_TANH ? STK_CONV(64, 7, E_TANH, true)
-                                      : STK_CONV(64, 7, E_ANY, false);
+  if (bn == 64) {
+    if (compiled && opts == E_TANH) return STK_CONV(64, 7, E_TANH, true);
+    if (compiled && opts == (E_TANH | E_I16)) return STK_CONV(64, 7, E_TANH | E_I16, true);
+    return STK_CONV(64, 7, E_ANY, false);
+  }
   if (compiled) {
     switch (opts) {
       case E_MASK:

@@ -1,7 +1,10 @@
 // The int8 product of the W8A8 linears, in two forms of one kernel:
 //   int8_matmul: C[M, N] (int32) = A[M, K] (int8) . W[N, K]^T (int8), exact;
 //   w8a8_matmul: Y[M, N] = (float(A . W^T) * sx[m]) * w_scale[n] + bias[n],
-//                rounded once to Y's type (bf16 or f32).
+//                rounded once to Y's type (bf16 or f32); with silu, then
+//                y / (1 + expf(-y)), F.silu's formula, rounded once more
+//                (the FFN's first linear on the int8 path:
+//                supertonic_tpu/models/layers.py:365).
 //
 // Replaces tools/int8_microbench.py:_pallas_i8_matmul, the Pallas int8 x int8
 // -> int32 kernel (the product that the JAX package's _linear_w8a8 leaves to
@@ -40,7 +43,12 @@
 // own work is the host time (PERF.md section 6). A launch takes the large
 // tile while that gives every consumer warpgroup of the card a tile (896
 // tiles of 128 x 128 at the cell's M 28,672 N 512), else the small one (the
-// TP int8 path's M 1,792). The mma.sync design this replaces is
+// TP int8 path's M 1,792). With silu (the FFN's first linear) the epilogue
+// is longer than the tile's products and runs at one warp a scheduler a
+// consumer: four consumer warpgroups on 64 x 64 tiles take the ffn.in shape
+// (M 28,672 K 512 N 2,048) from 0.215 ms a launch (two on 128 x 128) to
+// 0.175, against 0.079 for the product alone and 0.079 for F.silu's pass
+// (replayed graphs, kernel_variants.py int8). The mma.sync design this replaces is
 // csrc/earlier/int8_matmul_mma_sync.cu (with csrc/mma_gemm.cuh).
 #include <type_traits>
 
@@ -56,6 +64,8 @@ using Op = stk::WgmmaS8;
 using Bf16Tile = stk::WgTile<2, 2, 128, 4, 1, true>;
 using Bf16TileFew = stk::WgTile<2, 1, 64, 8, 1, true>;
 using Bf16TileAnyN = stk::WgTile<2, 1, 64, 8, 1, true, false, false, 2, true>;
+// bf16 results with silu at many tiles: 64 x 64 tiles, four consumer warpgroups
+using Bf16SiluTile = stk::WgTile<4, 1, 64, 8, 1, true>;
 using WideTile = stk::WgTile<2, 1, 128, 4, 1, true, false, true, 4>;
 using WideTileFew = stk::WgTile<2, 1, 64, 8, 1, true, false, true, 4>;
 using WideTileAnyN = stk::WgTile<2, 1, 64, 8, 1, true, false, false, 4, true>;
@@ -71,9 +81,21 @@ struct Int32Out {
   __device__ __forceinline__ Row row(int) const { return {}; }
 };
 
+// silu as F.silu computes it on the card (opmath f32): for bf16 results of a
+// bf16 value, without the IEEE division's slow path (stk::silu_bf16_torch);
+// f32 results (off the int8 path) by the division itself
+template <typename T>
+__device__ __forceinline__ float silu_torch(float x) {
+  if constexpr (sizeof(T) == 2)
+    return stk::silu_bf16_torch(x);
+  else
+    return x / (1.0f + expf(-x));
+}
+
 // w8a8_matmul: Y = (float(sums) * sx[row]) * ws[col] + bias[col], rounded
-// once to T; ANY_N reads the last odd column's scale and bias alone
-template <typename T, bool ANY_N>
+// once to T (SILU: then silu, rounded again); ANY_N reads the last odd
+// column's scale and bias alone
+template <typename T, bool ANY_N, bool SILU = false>
 struct ScaleOut {
   using Out = T;
   const float* sx;
@@ -94,8 +116,12 @@ struct ScaleOut {
         w = make_float2(ws[col], 0.0f);
         b = make_float2(bias[col], 0.0f);
       }
-      const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v0), s), w.x), b.x);
-      const float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v1), s), w.y), b.y);
+      float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v0), s), w.x), b.x);
+      float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v1), s), w.y), b.y);
+      if constexpr (SILU) {
+        y0 = silu_torch<T>(stk::rnd<T>(y0));
+        y1 = silu_torch<T>(stk::rnd<T>(y1));
+      }
       if constexpr (sizeof(T) == 2) {
         return stk::pack_bf16(y0, y1);  // round to nearest even, as torch's .to(bf16)
       } else {
@@ -113,12 +139,12 @@ int go(const void* a, const void* w, void* c, int M, int N, int K, Epi epi, void
       (cudaStream_t)stream);
 }
 
-// the instance for results of T at this shape
-template <typename T, typename Epi, typename EpiAnyN>
+// the instance for results of T (with silu: SILU) at this shape
+template <typename T, bool SILU = false, typename Epi, typename EpiAnyN>
 int launch(const void* a, const void* w, void* c, int M, int N, int K, Epi epi,
            EpiAnyN epi_any_n, void* stream) {
   constexpr bool B16 = sizeof(T) == 2;
-  using Many = std::conditional_t<B16, Bf16Tile, WideTile>;
+  using Many = std::conditional_t<B16, std::conditional_t<SILU, Bf16SiluTile, Bf16Tile>, WideTile>;
   using Few = std::conditional_t<B16, Bf16TileFew, WideTileFew>;
   using AnyN = std::conditional_t<B16, Bf16TileAnyN, WideTileAnyN>;
   if (M < 1 || N < 1 || K < 32 || K % 32) return (int)cudaErrorInvalidValue;
@@ -140,21 +166,22 @@ extern "C" int stk_int8_matmul(const void* a, const void* w, void* c, int M, int
 }
 
 // a [M, K] int8, w [N, K] int8 as above; sx [M], w_scale [N], bias [N]
-// float; y [M, N] in dtype 0 float, 1 bf16. All contiguous and 16-byte
-// aligned.
+// float; y [M, N] in dtype 0 float, 1 bf16; silu 1: F.silu of the result.
+// All contiguous and 16-byte aligned. silu comes after the stream, so that
+// the earlier design's entry (csrc/earlier/), which lacks it, takes the same
+// call without silu.
 extern "C" int stk_w8a8_matmul(const void* a, const void* w, const void* sx,
                                const void* w_scale, const void* bias, void* y, int M,
-                               int N, int K, int dtype, void* stream) {
+                               int N, int K, int dtype, void* stream, int silu) {
   auto f = [](const void* p) { return (const float*)p; };
   using bf16 = __nv_bfloat16;
-  if (dtype == 0)
-    return launch<float>(a, w, y, M, N, K,
-                         ScaleOut<float, false>{f(sx), f(w_scale), f(bias), N},
-                         ScaleOut<float, true>{f(sx), f(w_scale), f(bias), N}, stream);
-  if (dtype == 1)
-    return launch<bf16>(a, w, y, M, N, K,
-                        ScaleOut<bf16, false>{f(sx), f(w_scale), f(bias), N},
-                        ScaleOut<bf16, true>{f(sx), f(w_scale), f(bias), N}, stream);
+#define STK_W8A8(T, SILU)                                                     \
+  launch<T, SILU>(a, w, y, M, N, K,                                           \
+                  ScaleOut<T, false, SILU>{f(sx), f(w_scale), f(bias), N},    \
+                  ScaleOut<T, true, SILU>{f(sx), f(w_scale), f(bias), N}, stream)
+  if (dtype == 0) return silu ? STK_W8A8(float, true) : STK_W8A8(float, false);
+  if (dtype == 1) return silu ? STK_W8A8(bf16, true) : STK_W8A8(bf16, false);
+#undef STK_W8A8
   return (int)cudaErrorInvalidValue;
 }
 

@@ -975,8 +975,8 @@ class SynthesisEngine(LongFormSynthesis):
                     lambda x, fm: voc_fn(self.params, x, fm))
         extra = {} if self.backend is None else {"backend": self.backend}
         synth, prec = self._synth, self.precision
-        cache = synth.cross_cache(self.params, self.cfg, emb, sttl, tmask, precision=prec,
-                                  **extra)
+        cache = synth.cross_cache(self.params, self.cfg, emb, sttl, tmask, lmask,
+                                  precision=prec, **extra)
 
         def step(x, cur):
             return synth.euler_step(self.params, self.cfg, x, emb, sttl, tmask, lmask, cur,

@@ -15,7 +15,10 @@ the first call of a shape (and over the bucket lattice in ``warmup``):
   text      ``jit_text_stage``        batch and text buckets, precision
   acoustic  ``jit_acoustic_stage``    batch, text and latent buckets,
                                       ``total_step``, precision
-  cross     the engine's ``_cross_fn``    batch and text buckets, precision
+  cross     the engine's ``_cross_fn``    batch and text buckets, precision,
+                                          and the latent bucket (the port's
+                                          program also computes the latent's
+                                          LARoPE angles)
   step      the engine's ``_step_fn``     batch, text and latent buckets,
                                           precision
   vocoder   the engine's ``_vocoder_fn``  batch, latent bucket, precision
@@ -121,9 +124,11 @@ def acoustic_key(text_emb, latent_mask, total_step: int, precision: str,
     return _resblocks(key + ("frame_mask",) if frame_mask else key, fused_resblocks)
 
 
-def cross_key(text_emb, precision: str) -> tuple:
+def cross_key(text_emb, precision: str, latent_mask) -> tuple:
+    """The JAX ``_cross_fn``'s shapes and precision, and the latent length:
+    the port's program also computes the latent's LARoPE angles."""
     b, l_pad = text_emb.shape[:2]
-    return ("cross", b, l_pad, precision)
+    return ("cross", b, l_pad, precision, latent_mask.shape[1])
 
 
 def step_key(x, text_emb, precision: str, fused_ffn: bool = True) -> tuple:
@@ -227,7 +232,7 @@ class Programs:
             wav, dur = synthesis.synthesize_padded(
                 params, cfg, ids, mask, sdp, sttl, nz, spd, total_step,
                 precision=precision, fused_ffn=fused_ffn, up_matmul=up_matmul,
-                fused_resblocks=fused_resblocks)
+                fused_resblocks=fused_resblocks, egress=egress)
             return synthesis.encode_egress(wav, egress), dur
 
         key = fused_key(text_ids, total_step, t_pad, precision, egress, fused_ffn, up_matmul,
@@ -328,19 +333,19 @@ class Programs:
 
     # -- the progress path: the cross K/V once, a step per replay, vocoder --
 
-    def cross_cache(self, params, cfg, text_emb, style_ttl, text_mask, *,
+    def cross_cache(self, params, cfg, text_emb, style_ttl, text_mask, latent_mask, *,
                     precision: str = "bf16", backend=None) -> tuple:
         """``synthesis.cross_cache`` through its program. A graph backend
         has no cache to take out of its opaque graph: ()."""
         if backend is not None:
             return ()
 
-        def body(emb, sttl, tmask):
-            return synthesis.cross_cache(params, cfg, emb, sttl, tmask,
+        def body(emb, sttl, tmask, lmask):
+            return synthesis.cross_cache(params, cfg, emb, sttl, tmask, lmask,
                                          precision=precision)
 
-        return self.run(cross_key(text_emb, precision), body,
-                        (text_emb, style_ttl, text_mask))
+        return self.run(cross_key(text_emb, precision, latent_mask), body,
+                        (text_emb, style_ttl, text_mask, latent_mask))
 
     def euler_step(self, params, cfg, x, text_emb, style_ttl, text_mask, latent_mask,
                    current_step, total_step, cache: tuple, *, precision: str = "bf16",

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from ..config import TTSConfig
 from ..models import duration_predictor, text_encoder, vector_estimator, vocoder
+from ..ops.conv1d import encode_int16
 
 
 def dtype_of(precision: str) -> torch.dtype:
@@ -72,8 +73,9 @@ def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
     """The Euler loop: returns the denoised latent [B, T, C] f32. The
     initial latent is noise * latent_mask; each step feeds x_t with
     (current_step, total_step) to the estimator, which applies the update;
-    the step-invariant cross K/V is computed once. ``fused_ffn``: the
-    estimator's AdaLN FFN through the fused kernel (``layers.block``)."""
+    the step-invariant cross K/V and latent LARoPE angles are computed once.
+    ``fused_ffn``: the estimator's AdaLN FFN through the fused kernel
+    (``layers.block``)."""
     dtype = dtype_of(precision)
     b = text_emb.shape[0]
     ve = params["vector_estimator"]
@@ -82,11 +84,13 @@ def flow_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
                      device=x.device)
     cache = vector_estimator.precompute_cross(ve, cfg, text_emb, style_ttl,
                                               text_mask, dtype=dtype)
+    q_rope = vector_estimator.latent_rope(cfg, latent_mask)
     for i in range(total_step):
         cur = torch.full((b,), float(i), dtype=torch.float32, device=x.device)
         x = vector_estimator.step(ve, cfg, x, text_emb, style_ttl, text_mask,
                                   latent_mask, cur, tot, dtype=dtype,
-                                  cross_cache=cache, fused_ffn=fused_ffn)
+                                  cross_cache=cache, fused_ffn=fused_ffn,
+                                  q_rope=q_rope)
     return x
 
 
@@ -94,10 +98,11 @@ def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
                    latent_mask, noise, total_step: int, *,
                    precision: str = "bf16", fused_ffn: bool = True,
                    up_matmul: bool = False, fused_resblocks: bool = True,
-                   frame_mask=None) -> torch.Tensor:
-    """Euler loop + vocoder. Returns wav [B, T*chunk] f32. ``up_matmul``:
-    the vocoder's upsample convs as products, ``fused_resblocks``: its
-    chains through the chain kernel (``vocoder.apply``).
+                   frame_mask=None, egress: str = "f32") -> torch.Tensor:
+    """Euler loop + vocoder. Returns wav [B, T*chunk] f32 (int16 samples with
+    ``egress="int16"``, from the vocoder's head). ``up_matmul``: the
+    vocoder's upsample convs as products, ``fused_resblocks``: its chains
+    through the chain kernel (``vocoder.apply``).
     ``frame_mask`` [T]: the vocoder's frame mask when the batch is one
     shard of a larger one (the whole batch's; by default this batch's)."""
     x = flow_stage(params, cfg, text_emb, style_ttl, text_mask, latent_mask,
@@ -108,7 +113,7 @@ def acoustic_stage(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
         frame_mask = latent_mask.amax(0)
     return vocoder.apply(params["vocoder"], cfg, x, frame_mask=frame_mask,
                          dtype=dtype_of(precision), up_matmul=up_matmul,
-                         fused_resblocks=fused_resblocks)
+                         fused_resblocks=fused_resblocks, egress=egress)
 
 
 def _latent_mask(cfg: TTSConfig, dur, t_pad: int):
@@ -131,17 +136,19 @@ def _noise(cfg: TTSConfig, b: int, t_pad: int, generator, device, out=None):
 def synthesize_padded(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                       style_ttl, noise, speed, total_step: int, *,
                       precision: str = "bf16", fused_ffn: bool = True,
-                      up_matmul: bool = False, fused_resblocks: bool = True):
+                      up_matmul: bool = False, fused_resblocks: bool = True,
+                      egress: str = "f32"):
     """Text stage + acoustic stage at the latent length of ``noise``
     [B, T, C]; the latent mask comes from the predicted duration, clamped
-    into T. Returns (wav [B, T*chunk] f32, duration [B] f32, unclamped)."""
+    into T. Returns (wav [B, T*chunk] f32, or int16 with ``egress="int16"``,
+    duration [B] f32, unclamped)."""
     dur, emb = text_stage(params, cfg, text_ids, text_mask, style_dp, style_ttl,
                           speed, precision=precision)
     latent_mask = _latent_mask(cfg, dur, noise.shape[1])
     wav = acoustic_stage(params, cfg, emb, style_ttl, text_mask, latent_mask,
                          noise, total_step, precision=precision,
                          fused_ffn=fused_ffn, up_matmul=up_matmul,
-                         fused_resblocks=fused_resblocks)
+                         fused_resblocks=fused_resblocks, egress=egress)
     return wav, dur
 
 
@@ -154,12 +161,14 @@ def synthesize_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
     device from ``generator``, then ``synthesize_padded``. Returns (wav
     [B, t_pad*chunk] int16, uint8 mu-law or f32, duration [B] f32 —
     unclamped, so the caller detects an overflow as
-    ceil(dur*sr/chunk) > t_pad)."""
+    ceil(dur*sr/chunk) > t_pad). The int16 samples come from the vocoder's
+    head."""
     noise = _noise(cfg, text_ids.shape[0], t_pad, generator, text_ids.device)
     wav, dur = synthesize_padded(params, cfg, text_ids, text_mask, style_dp,
                                  style_ttl, noise, speed, total_step,
                                  precision=precision, fused_ffn=fused_ffn,
-                                 up_matmul=up_matmul, fused_resblocks=fused_resblocks)
+                                 up_matmul=up_matmul, fused_resblocks=fused_resblocks,
+                                 egress=egress)
     return encode_egress(wav, egress), dur
 
 
@@ -195,16 +204,18 @@ def flow_fused(params, cfg: TTSConfig, text_ids, text_mask, style_dp,
                        fused_ffn=fused_ffn)
 
 
-def cross_cache(params, cfg: TTSConfig, text_emb, style_ttl, text_mask, *,
-                precision: str = "bf16") -> tuple:
-    """The step-invariant cross-attention memory of the progress path,
-    ``vector_estimator.precompute_cross`` flattened: (mem_mask, k_0, v_0,
-    k_1, v_1, ...); over a model group each block's (k, v) per rank, in
-    rank order."""
+def cross_cache(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
+                latent_mask, *, precision: str = "bf16") -> tuple:
+    """What the progress path's steps share: the cross-attention memory of
+    ``vector_estimator.precompute_cross`` and the latent's LARoPE angles
+    (``vector_estimator.latent_rope``), flattened: (mem_mask, q_cos, q_sin,
+    k_0, v_0, k_1, v_1, ...); over a model group each block's (k, v) per
+    rank, in rank order."""
     mem_mask, kvs = vector_estimator.precompute_cross(
         params["vector_estimator"], cfg, text_emb, style_ttl, text_mask,
         dtype=dtype_of(precision))
-    return (mem_mask, *[t for kv in kvs
+    q_cos, q_sin = vector_estimator.latent_rope(cfg, latent_mask)
+    return (mem_mask, q_cos, q_sin, *[t for kv in kvs
                         for pair in (kv if isinstance(kv, list) else [kv])
                         for t in pair])
 
@@ -215,7 +226,7 @@ def euler_step(params, cfg: TTSConfig, x, text_emb, style_ttl, text_mask,
     """One Euler step of the progress path on the flat ``cross_cache``."""
     from ..models.layers import tp_ranks
 
-    mem_mask, flat = cache[0], cache[1:]
+    mem_mask, q_rope, flat = cache[0], cache[1:3], cache[3:]
     kvs = [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
     ranks = tp_ranks(params["vector_estimator"]["blocks"][0]["cross"])
     if ranks > 1:  # each block's per-rank pairs
@@ -223,7 +234,8 @@ def euler_step(params, cfg: TTSConfig, x, text_emb, style_ttl, text_mask,
     return vector_estimator.step(params["vector_estimator"], cfg, x, text_emb,
                                  style_ttl, text_mask, latent_mask, current_step,
                                  total_step, dtype=dtype_of(precision),
-                                 cross_cache=(mem_mask, kvs), fused_ffn=fused_ffn)
+                                 cross_cache=(mem_mask, kvs), fused_ffn=fused_ffn,
+                                 q_rope=q_rope)
 
 
 def vocode(params, cfg: TTSConfig, x, frame_mask, *, precision: str = "bf16",
@@ -249,10 +261,11 @@ def vocode_span(params, cfg: TTSConfig, x_win, m_win, window: int, halo: int,
                 up_matmul: bool = False, fused_resblocks: bool = True) -> torch.Tensor:
     """Vocode one window given as its own tensors, ``x_win`` [B, window +
     2*halo, C] and its frame mask ``m_win``, and return only the interior
-    samples [B, window*chunk]."""
+    samples [B, window*chunk], in the egress form (int16 from the vocoder's
+    head: the encoding is elementwise, so it commutes with the slice)."""
     wav = vocoder.apply(params["vocoder"], cfg, x_win, frame_mask=m_win,
                         dtype=dtype_of(precision), up_matmul=up_matmul,
-                        fused_resblocks=fused_resblocks)
+                        fused_resblocks=fused_resblocks, egress=egress)
     chunk = cfg.chunk_size
     return encode_egress(wav[:, halo * chunk:(halo + window) * chunk], egress)
 
@@ -276,9 +289,11 @@ def vocode_window(params, cfg: TTSConfig, xt_pad, mask_pad, start: int,
 
 def encode_egress(wav: torch.Tensor, egress: str) -> torch.Tensor:
     """The on-device egress form of an f32 waveform: "int16" (clamped
-    x * 32767), "mulaw" (8-bit G.711) or "f32" (unchanged)."""
+    x * 32767), "mulaw" (8-bit G.711) or "f32" (unchanged). int16 samples
+    (the vocoder's head encodes them, ``vocoder.apply(egress="int16")``)
+    pass as they are."""
     if egress == "int16":
-        return torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
+        return wav if wav.dtype == torch.int16 else encode_int16(wav)
     if egress == "mulaw":
         return _mulaw_encode(wav)
     if egress != "f32":

@@ -8,7 +8,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import TTSConfig
 from . import layers as L
@@ -55,7 +54,7 @@ def apply(params, cfg: TTSConfig, text_ids, style_dp, text_mask, *,
     x = L.layer_norm(params["ln_out"], x)
     m = text_mask.to(x.dtype)[:, :, None]
     pooled = (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
-    h = F.silu(L.linear(params["head1"], pooled))
+    h = L.linear(params["head1"], pooled, silu=True)
     logit = L.linear(params["head2"], h)[..., 0].float()
     rate = torch.logaddexp(logit, torch.zeros_like(logit))  # softplus
     return rate * text_len.float()

@@ -25,11 +25,15 @@ Conventions:
     embedding, and a sublayer's output bias, gate and residual. Their
     callers take the bias-less product of a linear (``_product``) and hand
     the bias to the kernel.
+  * A bf16 ``linear`` is one launch of the linear kernel (ops/linear.py):
+    the product with JAX's bias rounding in its epilogue, and there too
+    the caller's silu (``silu=True``) or the flow step's Euler update
+    (``tail=``). f32 linears stay cuBLAS's product plus ``add_bias``.
   * W8A8 linears (``QLinear``, from ``models.quantize_params``) keep int8
     weights whatever the compute dtype; ``linear`` routes them through the
     quantize pass (ops/quantize.py) and the int8 product with its
     rescale-and-bias epilogue (ops/w8a8.py), in the JAX ``_linear_w8a8``'s
-    order.
+    order, silu too in that epilogue.
   * Tensor parallelism (``parallel.mesh``): a sharded linear is a
     ``ShardedLinear`` of per-rank shards; ``mha``, ``kv_project`` and
     ``ffn`` run each rank's heads or hidden columns on its device and sum
@@ -56,6 +60,8 @@ from ..ops.conv1d import conv1d_fused, weight_buffer
 from ..ops.ffn import fused_adaln_ffn
 from ..ops.gated_residual import add_bias, gated_residual
 from ..ops.int8_matmul import int8_matmul
+from ..ops.linear import euler_tail
+from ..ops.linear import linear as linear_fused
 from ..ops.ln_modulate import ln_modulate
 from ..ops.quantize import quantize_rows
 from ..ops.rope import apply_rope, bias_rope  # noqa: F401 (apply_rope: this module's API)
@@ -294,9 +300,23 @@ def _weight(p, dtype) -> torch.Tensor:
 # layers
 # ---------------------------------------------------------------------------
 
-def linear(p: Linear | QLinear, x: torch.Tensor) -> torch.Tensor:
-    y, bias = _product(p, x)
-    return y if bias is None else add_bias(y, bias)
+def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False,
+           tail=None) -> torch.Tensor:
+    """JAX's ``linear`` (the bias in its rounding); with ``silu``,
+    ``jax.nn.silu`` of it; with ``tail`` = (x_in [B, T, N] f32, dt [B],
+    mask [B, T]), the flow step's Euler update on it as the velocity
+    (``ops.linear.euler_tail``), an f32 [B, T, N]. A bf16 ``Linear`` is one
+    launch of the linear kernel, its silu or tail in the epilogue; a W8A8
+    one takes its silu in the int8 product's epilogue."""
+    if isinstance(p, QLinear):
+        y = _linear_w8a8(p, x, silu=silu)
+    elif x.dtype == torch.bfloat16:
+        return linear_fused(x, _weight(p, x.dtype), p.bias, silu=silu, tail=tail)
+    else:
+        y = add_bias(F.linear(x, _weight(p, x.dtype)), p.bias)
+        if silu:
+            y = F.silu(y)
+    return y if tail is None else euler_tail(y, tail)
 
 
 def _product(p: Linear | QLinear, x: torch.Tensor):
@@ -307,13 +327,14 @@ def _product(p: Linear | QLinear, x: torch.Tensor):
     return F.linear(x, _weight(p, x.dtype)), p.bias
 
 
-def _linear_w8a8(p: QLinear, x: torch.Tensor) -> torch.Tensor:
+def _linear_w8a8(p: QLinear, x: torch.Tensor, *, silu: bool = False) -> torch.Tensor:
     """Dynamic-activation int8 linear in the JAX ``_linear_w8a8``'s order,
     as two kernels: per-token symmetric activation quant (round half to
     even, as ``jnp.round``), then int8 x int8 with the rescale and bias in
-    f32 and one rounding to x's dtype in the product's epilogue."""
+    f32 and one rounding to x's dtype in the product's epilogue (and with
+    ``silu``, F.silu there, rounded once more)."""
     xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
-    y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype)
+    y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype, silu=silu)
     return y.reshape(*x.shape[:-1], -1)
 
 
@@ -406,7 +427,7 @@ def conv1d(p: Conv1d, x: torch.Tensor, *, dilation: int = 1, **fused) -> torch.T
     (d(k-1)//2, d(k-1) - d(k-1)//2), f32 accumulation and the f32 bias
     before one rounding (JAX layers.py:145): the conv kernel's wrapper
     (ops/conv1d.py), which ``fused`` options (silu_in, silu_out, mask,
-    fold, residual, tanh_f32) pass to."""
+    fold, residual, tanh_f32, int16) pass to."""
     return conv1d_fused(x.contiguous(), conv_weight(p, x.dtype), p.bias, dilation=dilation,
                         **fused)
 
@@ -540,7 +561,7 @@ def ffn(p, x: torch.Tensor, *, residual=None, gate=None) -> torch.Tensor:
     if isinstance(p["in"], ShardedLinear):
         y = row_linear(p["out"], [F.silu(u) for u in col_linear(p["in"], x)], x.device)
         return _close(y, None, residual, gate)
-    return _close(*_product(p["out"], F.silu(linear(p["in"], x))), residual, gate)
+    return _close(*_product(p["out"], linear(p["in"], x, silu=True)), residual, gate)
 
 
 def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,

@@ -7,15 +7,18 @@ DiT-style blocks with AdaLN-Zero time conditioning, RoPE self-attention
 over latent frames and LARoPE cross-attention into [style tokens ; text]
 memory. Layout [B, T, C].
 
-PyTorch runs eagerly, so the caller hoists the step-invariant cross K/V
-(``precompute_cross``) out of the Euler loop and passes it as
-``cross_cache``; the math is the JAX package's.
+PyTorch runs eagerly, so the caller hoists what is step-invariant out of
+the Euler loop, as XLA's loop-invariant motion does in the JAX package's
+``fori_loop``: the cross K/V (``precompute_cross``, passed as
+``cross_cache``) and the latent's LARoPE angles (``latent_rope``, passed as
+``q_rope``); the math is the JAX package's. The step's tail (the velocity
+mask and the Euler update) runs in ``out_proj``'s epilogue (``layers.linear``
+with ``tail=``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..config import TTSConfig
 from . import layers as L
@@ -70,23 +73,32 @@ def precompute_cross(params, cfg: TTSConfig, text_emb, style_ttl, text_mask,
     return mem_mask, kvs
 
 
+def latent_rope(cfg: TTSConfig, latent_mask):
+    """The latent frames' LARoPE (cos, sin) [B, T, head_dim // 2], from the
+    latent mask [B, T] alone: the same in every flow step."""
+    hp = cfg.vector_estimator
+    q_pos = L.larope_positions(latent_mask.sum(-1), latent_mask.shape[1],
+                               hp.larope_scale)
+    return L.rope_angles(q_pos, hp.dim // hp.n_heads, hp.larope_theta)
+
+
 def velocity(params, cfg: TTSConfig, latent, text_emb, style_ttl, text_mask,
              latent_mask, t, *, dtype=torch.float32, cross_cache=None,
-             fused_ffn: bool = True):
+             fused_ffn: bool = True, q_rope=None, tail=None):
+    """The masked velocity [B, T, C] f32; with ``tail`` = (x_in, dt, mask),
+    the Euler update on it (``layers.linear``), the next latent."""
     hp = cfg.vector_estimator
     x = L.linear(params["in_proj"], latent.to(dtype))
     temb = L.sinusoidal_embedding(t, hp.time_embed_dim).to(dtype)
     cond = L.linear(params["time_mlp2"],
-                    F.silu(L.linear(params["time_mlp1"], temb)))
+                    L.linear(params["time_mlp1"], temb, silu=True))
     if cross_cache is None:
         cross_cache = precompute_cross(params, cfg, text_emb, style_ttl,
                                        text_mask, dtype=dtype)
     mem_mask, kvs = cross_cache
 
-    head_dim = hp.dim // hp.n_heads
-    q_pos = L.larope_positions(latent_mask.sum(-1), latent.shape[1],
-                               hp.larope_scale)
-    q_rope = L.rope_angles(q_pos, head_dim, hp.larope_theta)
+    if q_rope is None:
+        q_rope = latent_rope(cfg, latent_mask)
     for bp, kv in zip(params["blocks"], kvs):
         x = L.block(bp, x, hp.n_heads, self_mask=latent_mask, self_rope=q_rope,
                     memory_mask=mem_mask, q_rope_cross=q_rope, cond=cond,
@@ -94,20 +106,22 @@ def velocity(params, cfg: TTSConfig, latent, text_emb, style_ttl, text_mask,
 
     shift, scale = L.linear(params["adaln_out"], cond)[:, None, :].chunk(2, dim=-1)
     h = L.layer_norm(params["ln_out"], x, shift=shift, scale=scale)
+    if tail is not None:
+        return L.linear(params["out_proj"], h, tail=tail)
     v = L.linear(params["out_proj"], h)
     return v.float() * latent_mask[:, :, None]
 
 
 def step(params, cfg: TTSConfig, noisy_latent, text_emb, style_ttl, text_mask,
          latent_mask, current_step, total_step, *, dtype=torch.float32,
-         cross_cache=None, fused_ffn: bool = True):
-    """One flow step: x_{t+dt} = x_t + dt * v(x_t, t), masked.
-    ``fused_ffn``: the blocks' AdaLN FFN through the fused kernel
-    (``layers.block``)."""
+         cross_cache=None, fused_ffn: bool = True, q_rope=None):
+    """One flow step: x_{t+dt} = x_t + dt * v(x_t, t), masked, the update in
+    ``out_proj``'s epilogue. ``fused_ffn``: the blocks' AdaLN FFN through
+    the fused kernel (``layers.block``); ``q_rope``: ``latent_rope`` of the
+    latent mask, computed once for all steps."""
     t = current_step / total_step
-    dt = (1.0 / total_step)[:, None, None]
-    v = velocity(params, cfg, noisy_latent, text_emb, style_ttl, text_mask,
-                 latent_mask, t, dtype=dtype, cross_cache=cross_cache,
-                 fused_ffn=fused_ffn)
-    x = noisy_latent.float() + dt * v
-    return x * latent_mask[:, :, None]
+    dt = 1.0 / total_step
+    return velocity(params, cfg, noisy_latent, text_emb, style_ttl, text_mask,
+                    latent_mask, t, dtype=dtype, cross_cache=cross_cache,
+                    fused_ffn=fused_ffn, q_rope=q_rope,
+                    tail=(noisy_latent.float(), dt.float(), latent_mask.float()))

@@ -141,10 +141,14 @@ def init(rng, cfg: TTSConfig) -> L.Params:
 
 def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
           dtype=torch.float32, fused_resblocks: bool | None = None,
-          up_matmul: bool = False) -> torch.Tensor:
+          up_matmul: bool = False, egress: str = "f32") -> torch.Tensor:
     """latent [B, T, C] -> wav [B, T * chunk_size] float32. ``frame_mask``
     ([T] or [B, T], 1 = real frame) marks batch-max-valid frames; with it,
     bucket-padded execution equals exact-length execution.
+
+    ``egress="int16"``: the int16 samples of the engine's egress,
+    clamp(wav * 32767, -32768, 32767) truncated, from the head's epilogue
+    (the f32 wav is never written); any other egress takes the f32 wav.
 
     ``up_matmul``: each upsample conv as one K-stacked product ([B, T,
     k*Cin] @ [k*Cin, Cout*f]) instead of a convolution, the JAX package's
@@ -193,7 +197,8 @@ def apply(params, cfg: TTSConfig, latent: torch.Tensor, *, frame_mask=None,
             b, t, cf = h.shape
             x = h.view(b, t * factor, cf // factor)
         x = res(sp["res"], x, m)
-    # silu, the subpixel head and tanh in f32 in one launch
-    wav = L.conv1d(params["head"], x, silu_in=True, tanh_f32=True)  # [B, Tf, final_depth]
+    # silu, the subpixel head and tanh in f32 (and the int16 egress) in one launch
+    wav = L.conv1d(params["head"], x, silu_in=True, tanh_f32=True,
+                   int16=egress == "int16")  # [B, Tf, final_depth]
     b, tf, d = wav.shape
     return wav.reshape(b, tf * d)

@@ -10,7 +10,9 @@ elementwise fusions: LayerNorm with the AdaLN modulation
 embedding (``rope.bias_rope``) and the gated residual
 (``gated_residual.gated_residual``); and a conv1d with the elementwise ops
 around it, the vocoder's and the text encoder's prenet's
-(``conv1d.conv1d_fused``). ``_build.build_all`` compiles them.
+(``conv1d.conv1d_fused``); and the bf16 linear with JAX's bias rounding and
+its callers' silu or flow-step tail in the product's epilogue
+(``linear.linear``). ``_build.build_all`` compiles them.
 
 Launches are counted per kernel (``launch_counts``), replays of captured
 CUDA graphs included, and ``record_launches`` tallies them by shape:
@@ -18,10 +20,11 @@ attention (B, H, Tq, Tk, masked), adaln_ffn (B, T, D, F), resblock_chain
 (B, T, C), int8_matmul and w8a8_matmul (M, K, N), quantize (M, K),
 ln_modulate (B, T, D, modulated), bias_rope (B, T, H, Dh, with bias),
 gated_residual (B, T, D, gated, with bias), conv1d (B, T, Cin, Cout, k,
-dilation, options)."""
+dilation, options), linear (M, K, N, form, the tail's rows a batch row or
+0)."""
 
-from . import (_count, attention, conv1d, ffn, gated_residual, int8_matmul, ln_modulate,
-               quantize, rope, vocoder_fused, w8a8)
+from . import (_count, attention, conv1d, ffn, gated_residual, int8_matmul, linear,
+               ln_modulate, quantize, rope, vocoder_fused, w8a8)
 from ._count import KERNELS, record_launches
 
 

@@ -23,7 +23,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "build"
 KERNELS = ("attention", "ffn", "resblock_chain", "int8_matmul", "quantize", "ln_modulate",
-           "rope", "gated_residual", "conv1d")
+           "rope", "gated_residual", "conv1d", "linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

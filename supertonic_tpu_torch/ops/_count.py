@@ -15,7 +15,7 @@ import contextlib
 import threading
 
 KERNELS = ("attention", "adaln_ffn", "resblock_chain", "int8_matmul", "w8a8_matmul",
-           "quantize", "ln_modulate", "bias_rope", "gated_residual", "conv1d")
+           "quantize", "ln_modulate", "bias_rope", "gated_residual", "conv1d", "linear")
 
 _lock = threading.Lock()
 counts = dict.fromkeys(KERNELS, 0)

@@ -10,7 +10,7 @@ depth-to-space and mask, its head with silu and tanh, each conv of
 and the text encoder's prenet (``supertonic_tpu/models/text_encoder.py:55-56``):
 
     conv1d_fused(x [B, T, Cin], w [k, Cin, Cout] (HIO), bias [Cout] f32, *,
-                 dilation, silu_in, silu_out, mask, fold, residual, tanh_f32)
+                 dilation, silu_in, silu_out, mask, fold, residual, tanh_f32, int16)
 
         s = silu(x) rounded to x's type            (silu_in)
         y = round(conv_{k, dilation}(s) + bias)    f32 sums, SAME zero padding
@@ -18,6 +18,8 @@ and the text encoder's prenet (``supertonic_tpu/models/text_encoder.py:55-56``):
         y = round(y * mask)                        (mask [T * fold] or [B, T * fold])
         y = round(residual + y)                    (residual [B, T, Cout])
         tanh(y) in f32                             (tanh_f32: an f32 result)
+        clamp(tanh(y) * 32767, -32768, 32767)      (int16, with tanh_f32: the
+            truncated to int16                      engine's int16 egress)
 
 ``fold = f`` reads the output [B, T, Cout] as [B, T * f, Cout / f] for the
 mask (the vocoder's depth-to-space, a view of the same memory): column n of
@@ -51,9 +53,9 @@ from .vocoder_fused import _silu_rounded
 F32_RTOL = 1e-5  # the kernel against the plain version in f32, relative
 
 # x, w, bias, mask, mask batch stride, residual, out, B, T, Cin, Cout, k,
-# dilation, silu_in, silu_out, fold, tanh_f32, dtype code, stream
+# dilation, silu_in, silu_out, fold, tanh_f32, dtype code, stream, int16
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 11 + [ctypes.c_void_p, ctypes.c_int])
 
 
 def supports(cin: int, cout: int, k: int, dilation: int, dtype: torch.dtype) -> bool:
@@ -81,7 +83,7 @@ def weight_buffer(k: int, cin: int, cout: int, dtype: torch.dtype, device) -> to
 
 
 def options(*, silu_in=False, silu_out=False, mask=None, fold=1, residual=None,
-            tanh_f32=False, batch=1) -> str:
+            tanh_f32=False, int16=False, batch=1) -> str:
     """The options of one call as the launch tallies name them, e.g.
     "silu_in+mask+residual" ("mask" a [T] mask, "row_mask" a [B, T] one,
     "fold8" the up convs' depth-to-space; "" for none)."""
@@ -90,12 +92,18 @@ def options(*, silu_in=False, silu_out=False, mask=None, fold=1, residual=None,
         parts.append("row_mask" if mask.dim() == 2 and mask.shape[0] == batch > 1 else "mask")
     if fold != 1:
         parts.append(f"fold{fold}")
-    parts += ["residual"] * (residual is not None) + ["tanh"] * tanh_f32
+    parts += ["residual"] * (residual is not None) + ["tanh"] * tanh_f32 + ["int16"] * int16
     return "+".join(parts)
 
 
+def encode_int16(wav):
+    """The int16 egress of f32 samples: clamp(wav * 32767, -32768, 32767),
+    truncated (the engine's ``encode_egress(wav, "int16")``)."""
+    return torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
+
+
 def conv1d_fused_plain(x, w, bias, *, dilation=1, silu_in=False, silu_out=False, mask=None,
-                       fold=1, residual=None, tanh_f32=False):
+                       fold=1, residual=None, tanh_f32=False, int16=False):
     """Plain PyTorch version, with the JAX package's rounding points. Any
     kernel size (an even one pads (k - 1) // 2 frames on the left)."""
     dt = x.dtype
@@ -113,7 +121,9 @@ def conv1d_fused_plain(x, w, bias, *, dilation=1, silu_in=False, silu_out=False,
         y = (y.reshape(b, t * fold, cout // fold) * m).reshape(b, t, cout)
     if residual is not None:
         y = residual + y
-    return torch.tanh(y.float()) if tanh_f32 else y
+    if not tanh_f32:
+        return y
+    return encode_int16(torch.tanh(y.float())) if int16 else torch.tanh(y.float())
 
 
 def bf16_within(got, x, w, bias, **kw) -> tuple[float, bool]:
@@ -127,7 +137,7 @@ def bf16_within(got, x, w, bias, **kw) -> tuple[float, bool]:
     holds sums that cancel to far below their terms."""
     want = conv1d_fused_plain(x, w, bias, **kw).float()
     v = conv1d_fused_plain(x, w, bias, **{**kw, "silu_out": False, "residual": None,
-                                          "tanh_f32": False}).float().abs()
+                                          "tanh_f32": False, "int16": False}).float().abs()
     err = (got.float() - want).abs()
     floor = 2.0 ** -16 * float(v.max())
     ok = bool((err <= 2.0 ** -5 * v + 2.0 ** -7 * want.abs() + floor).all())
@@ -136,10 +146,10 @@ def bf16_within(got, x, w, bias, **kw) -> tuple[float, bool]:
 
 def conv1d_fused(x, w, bias, *, dilation: int = 1, silu_in: bool = False,
                  silu_out: bool = False, mask=None, fold: int = 1, residual=None,
-                 tanh_f32: bool = False):
-    """x [B, T, Cin] -> [B, T, Cout] in x's type (f32 with ``tanh_f32``); see
-    the module docstring. ``mask``: [T * fold], [1, T * fold] or [B, T *
-    fold], any float type (0/1)."""
+                 tanh_f32: bool = False, int16: bool = False):
+    """x [B, T, Cin] -> [B, T, Cout] in x's type (f32 with ``tanh_f32``,
+    int16 with ``int16`` too); see the module docstring. ``mask``: [T *
+    fold], [1, T * fold] or [B, T * fold], any float type (0/1)."""
     if x.dim() != 3 or w.dim() != 3 or w.shape[1] != x.shape[2]:
         raise ValueError(f"x must be [B, T, Cin] and w [k, Cin, Cout], got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
@@ -155,11 +165,13 @@ def conv1d_fused(x, w, bias, *, dilation: int = 1, silu_in: bool = False,
         if mask.dim() != 2 or mask.shape[1] != t * fold or mask.shape[0] not in (1, b):
             raise ValueError(f"mask must be [T * fold] or [B, T * fold] = [{b}, {t * fold}], "
                              f"got {tuple(mask.shape)}")
+    if int16 and not tanh_f32:
+        raise ValueError("int16 egress follows the head's tanh: it takes tanh_f32")
     if residual is not None and tuple(residual.shape) != (b, t, cout):
         raise ValueError(f"residual must be [B, T, Cout] = {(b, t, cout)}, got "
                          f"{tuple(residual.shape)}")
     kw = dict(dilation=dilation, silu_in=silu_in, silu_out=silu_out, mask=mask, fold=fold,
-              residual=residual, tanh_f32=tanh_f32)
+              residual=residual, tanh_f32=tanh_f32, int16=int16)
     if x.device.type == "cpu":
         return conv1d_fused_plain(x, w, bias, **kw)
     if x.device.type != "cuda":
@@ -186,13 +198,14 @@ def conv1d_fused(x, w, bias, *, dilation: int = 1, silu_in: bool = False,
         mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
         mstride = mask.shape[1] if mask.shape[0] > 1 else 0
     out = torch.empty((b, t, cout), device=x.device,
-                      dtype=torch.float32 if tanh_f32 else x.dtype)
+                      dtype=torch.int16 if int16 else torch.float32 if tanh_f32 else x.dtype)
     fn = _build.function("conv1d", "stk_conv1d", _ARGTYPES)
     P = _build.ptr
     with _build.on(x):
         _build.check(fn(P(x), P(w), P(bias), P(mask), mstride, P(residual), P(out), b, t, cin,
                         cout, k, dilation, int(silu_in), int(silu_out), fold, int(tanh_f32),
-                        _build.dtype_code(x.dtype), _build.stream_ptr(x)), "stk_conv1d")
+                        _build.dtype_code(x.dtype), _build.stream_ptr(x), int(int16)),
+                     "stk_conv1d")
     del kw["dilation"]
     _count.launched("conv1d", (b, t, cin, cout, k, dilation, options(**kw, batch=b)))
     return out

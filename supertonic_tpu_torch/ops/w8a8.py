@@ -12,6 +12,8 @@ output, in torch's linear layout (``QLinear.w_q`` is [dout, din]):
     w8a8_matmul(xq [M, K] int8, sx [M] f32, w_q [N, K] int8, w_scale [N] f32,
                 bias [N] f32, dtype) -> (float(xq . w_q^T) * sx) * w_scale + bias
                                         [M, N], rounded once to dtype
+    silu=True: F.silu of that, rounded to dtype once more (the FFN's first
+               linear: ``jax.nn.silu(_linear_w8a8(...))``)
 
 bit for bit the same on the card and on the CPU, and no int32 [M, N] tensor
 is written. The kernel is the int32 form's ``wgmma`` s8 GEMM with this
@@ -27,25 +29,29 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, _count
 from .int8_matmul import K_MULTIPLE, int8_matmul_plain
 
-# a, w, sx, w_scale, bias, y, M, N, K, dtype code, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# a, w, sx, w_scale, bias, y, M, N, K, dtype code, stream, silu
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
 
 
-def w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype):
+def w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
     """Plain PyTorch version: the exact product, then the rescale and bias
-    in f32 in the JAX ``_linear_w8a8``'s order, one rounding to dtype."""
+    in f32 in the JAX ``_linear_w8a8``'s order, one rounding to dtype; then
+    F.silu with ``silu``."""
     acc = int8_matmul_plain(xq, w_q)
     y = acc.float() * sx[:, None] * w_scale
-    return (y + bias).to(dtype)
+    y = (y + bias).to(dtype)
+    return F.silu(y) if silu else y
 
 
-def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype):
+def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
     """xq [M, K] int8, sx [M], w_q [N, K] int8, w_scale [N], bias [N]
-    (float32) -> [M, N] in dtype (float32 or bfloat16)."""
+    (float32) -> [M, N] in dtype (float32 or bfloat16); with ``silu``, F.silu
+    of it."""
     if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[1]:
         raise ValueError(f"xq must be [M, K] and w_q [N, K], got {tuple(xq.shape)} "
                          f"and {tuple(w_q.shape)}")
@@ -61,7 +67,7 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype):
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the output is float32 or bfloat16, got {dtype}")
     if xq.device.type == "cpu":
-        return w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype)
+        return w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, silu=silu)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     if m < 1 or n < 1 or k < K_MULTIPLE or k % K_MULTIPLE:
@@ -77,6 +83,7 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype):
     P = _build.ptr
     with _build.on(xq):
         _build.check(fn(P(xq), P(w_q), P(sx), P(w_scale), P(bias), P(y), m, n, k,
-                        _build.dtype_code(dtype), _build.stream_ptr(xq)), "stk_w8a8_matmul")
+                        _build.dtype_code(dtype), _build.stream_ptr(xq), int(silu)),
+                     "stk_w8a8_matmul")
     _count.launched("w8a8_matmul", (m, k, n))
     return y

@@ -333,7 +333,10 @@ def test_launch_counters_do_not_move_on_cpu():
     ops.gated_residual.gated_residual(x, x, torch.zeros(8), x[:, :1])
     ops.conv1d.conv1d_fused(x, torch.ones((3, 8, 8)), torch.zeros(8), silu_in=True,
                             mask=torch.ones(3), residual=x)
+    ops.linear.linear(x.bfloat16(), torch.ones((8, 8), dtype=torch.bfloat16), torch.zeros(8),
+                      silu=True)
     assert ops.launch_counts() == {"attention": 0, "adaln_ffn": 0,
                                    "resblock_chain": 0, "int8_matmul": 0,
                                    "w8a8_matmul": 0, "quantize": 0, "ln_modulate": 0,
-                                   "bias_rope": 0, "gated_residual": 0, "conv1d": 0}
+                                   "bias_rope": 0, "gated_residual": 0, "conv1d": 0,
+                                   "linear": 0}

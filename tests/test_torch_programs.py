@@ -109,7 +109,8 @@ def test_program_key_holds_the_jax_static_arguments(name, tiny_config):
 
 PROGRESS_KEYS = {  # the JAX engine's progress closure, key function, its arguments
     "cross": ("_cross_fn", programs.CROSS_STATIC, programs.cross_key,
-              dict(text_emb=torch.zeros((1, 64, 16)), precision="bf16")),
+              dict(text_emb=torch.zeros((1, 64, 16)), precision="bf16",
+                   latent_mask=torch.zeros((1, 448)))),
     "step": ("_step_fn", programs.STEP_STATIC, programs.step_key,
              dict(x=torch.zeros((1, 448, 8)), text_emb=torch.zeros((1, 64, 16)),
                   precision="bf16")),
