@@ -104,8 +104,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                every shape phases 3, 4, 7, 11 and 12 recorded and at edges
                (the bias and silu forms by linear.bf16_within, silu bit for
                bit F.silu of the kernel's bias form, the tail bit for bit
-               linear.euler_tail of it), timed at the cell's shapes beside
-               F.linear(x, w, b)
+               linear.euler_tail of it), first the silu form at every
+               finite bf16 value, timed at the cell's and a streamed
+               chunk's shapes beside F.linear(x, w, b) and the replaced design
+               (EARLIER_MS)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -383,7 +385,13 @@ EARLIER_MS = {
     # the one-warp-a-row LayerNorm (csrc/earlier/ln_modulate_warp_rows.cu):
     # its phase 5 times at the cell's shapes, host launches (PERF.md section 6)
     "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
-    "bias_rope": {}, "gated_residual": {}, "linear": {},  # no earlier design
+    "bias_rope": {}, "gated_residual": {},  # no earlier design
+    # the replaced linear kernel (csrc/earlier/linear_pr17.cu): its phase 5 times
+    # at the cell's shapes, host launches (PERF.md section 6)
+    "linear": {(28672, 512, 512, "bias", 0): 0.0443, (64, 512, 4608, "bias", 0): 0.0746,
+               (20480, 256, 1024, "silu", 0): 0.0816, (28672, 512, 96, "tail", 448): 0.0902,
+               (28672, 96, 512, "bias", 0): 0.0414, (23680, 512, 512, "bias", 0): 0.0415,
+               (20480, 256, 256, "bias", 0): 0.0491, (3200, 256, 256, "bias", 0): 0.0776},
     # the conv kernel's one-tile-a-block design (csrc/earlier/
     # conv1d_tile_per_block.cu): its phase 5 times at the cell's shapes,
     # host launches (PERF.md section 6); at the pre_res pairs it ran
@@ -1202,29 +1210,40 @@ def linear_inputs(gen, key):
 
 def silu_every_bf16() -> None:
     """The silu form bit for bit F.silu of the bias form at every finite bf16
-    value: x holds each once (a row of 16 a GEMM row), the weights are the
-    identity and the bias zero, so the bias form is x itself (-0 as +0; the
-    share where it is printed)."""
+    value, through each instance that runs the silu form: x holds every
+    value (repeated) in a layout that takes that instance, the weights are
+    the identity (w[n, k] = 1 where n = k) and the bias zero, so the bias
+    form is x itself (-0 as +0; the share where it is printed). The
+    layouts: 64 x 128 tiles (ManySilu) at K = N = 128 and two tiles an SM;
+    64 x 64 (Few) at M 320, K = N = 1,024, a streamed chunk's FFN-in size;
+    register stores (AnyN) at N 12 off 8; the SIMT kernel at K = N = 15."""
     bits = torch.arange(-32768, 32768, dtype=torch.int32, device=DEV).to(torch.int16)
     vals = bits.view(torch.bfloat16)
     vals = vals[torch.isfinite(vals.float())]
-    rows = -(-vals.numel() // 16)
-    x = torch.zeros(rows * 16, dtype=torch.bfloat16, device=DEV)
-    x[:vals.numel()] = vals
-    x = x.view(rows, 16)
-    w = torch.eye(16, dtype=torch.bfloat16, device=DEV)
-    b = torch.zeros(16, device=DEV)
-    own = linear.linear(x, w, b)
-    got = linear.linear(x, w, b, silu=True)
-    want = torch.nn.functional.silu(own)
-    exact = bits_equal(got, want)
-    same = float((own.view(torch.int16) == (x + 0.0).view(torch.int16)).float().mean())
-    n_diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
-    log(f"  linear silu form at every finite bf16 value ({vals.numel()}; the bias form "
-        f"is x at a share {same:.6f}): bit-equal to F.silu of the bias form {exact} "
-        f"({n_diff} values differ)")
-    if not exact:
-        raise AssertionError("the linear kernel's silu differs from F.silu")
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    layouts = {"bf16_many_silu": (2 * sms * 128, 128, 128), "bf16_few": (320, 1024, 1024),
+               "bf16_fewer_or_any_n": (-(-vals.numel() // 12), 16, 12),
+               "simt": (-(-vals.numel() // 15), 15, 15)}
+    for want_instance, (m, k, n) in layouts.items():
+        instance = linear.kernel_instance(m, k, n, "silu")
+        cols = vals.repeat(-(-m * n // vals.numel()))[:m * n].view(m, n)
+        x = torch.zeros(m, k, dtype=torch.bfloat16, device=DEV)
+        x[:, :n] = cols
+        w = torch.eye(n, k, dtype=torch.bfloat16, device=DEV)
+        b = torch.zeros(n, device=DEV)
+        own = linear.linear(x, w, b)
+        got = linear.linear(x, w, b, silu=True)
+        want = torch.nn.functional.silu(own)
+        exact = bits_equal(got, want)
+        same = float((own.view(torch.int16) == (cols + 0.0).view(torch.int16)).float().mean())
+        n_diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        log(f"  linear silu form at every finite bf16 value ({vals.numel()}, M {m} K {k} N {n}, "
+            f"instance {instance}; the bias form is x at a share {same:.6f}): bit-equal to "
+            f"F.silu of the bias form {exact} ({n_diff} values differ)")
+        if instance != want_instance:
+            raise AssertionError(f"the silu layout for {want_instance} ran {instance}")
+        if not exact:
+            raise AssertionError(f"the linear kernel's silu ({instance}) differs from F.silu")
 
 
 def check_linear(gen, cell, results, serving, widths):
@@ -1239,10 +1258,15 @@ def check_linear(gen, cell, results, serving, widths):
     bit-equal share printed); the silu form bit for bit F.silu of the
     kernel's own bias form, and within bf16_within; the tail form bit for bit
     linear.euler_tail of the kernel's own bias form. Timed at the cell's
-    shapes; library_ms is F.linear(x, w, bias in bf16): cuBLAS's product with
-    its bias epilogue (in f32 before the one rounding, not JAX's rounding),
-    no silu or tail."""
+    shapes and at those a streamed chunk launches (its B = 1 rows); library_ms
+    is F.linear(x, w, bias in bf16): cuBLAS's product with its bias epilogue
+    (in f32 before the one rounding, not JAX's rounding), no silu or tail.
+    The edges also take each instance at ragged rows and columns: 128 x 128
+    tiles (64 x 128 for silu) at M off 128 (M 17,037), the tail's 96-column
+    tiles at N 200 and its register stores at N 30."""
     edges = [(37, 96, 96, "bias", 0), (37, 96, 96, "tail", 37), (130, 256, 1, "bias", 0),
+             (17037, 256, 256, "bias", 0), (17037, 256, 512, "silu", 0),
+             (3 * 50, 256, 200, "tail", 50), (2 * 50, 64, 30, "tail", 50),
              (64, 512, 4608, "bias", 0), (300, 15, 64, "bias", 0), (300, 64, 15, "silu", 0),
              (200, 512, 2048, "silu", 0), (3 * 50, 512, 96, "tail", 50),
              (4 * 33, 15, 15, "tail", 33), (1000, 256, 1024, "silu", 0)]
@@ -1255,7 +1279,9 @@ def check_linear(gen, cell, results, serving, widths):
         own = linear.linear(x, w, b)
         same, ok = linear.bf16_within(own, x, w, b)
         err = float((own.float() - linear.linear_plain(x, w, b).float()).abs().max())
-        what = f"linear M{m} K{k} N{n} {form}{f' (T {t})' if t else ''}"
+        per_chunk = serving["linear"].get(key, 0)  # launches per streamed chunk
+        what = (f"linear M{m} K{k} N{n} {form}{f' (T {t})' if t else ''}"
+                f"{f' ({per_chunk} per streamed chunk)' if per_chunk else ''}")
         if form == "silu":
             _same, within = linear.bf16_within(got, x, w, b, silu=True)
             exact = bits_equal(got, torch.nn.functional.silu(own))
@@ -1275,14 +1301,15 @@ def check_linear(gen, cell, results, serving, widths):
         torch.cuda.synchronize()
         if not ok or not torch.isfinite(got.float()).all():
             raise AssertionError("linear disagrees with its plain version")
-        if n_cell is None or not n_cell and m < CELL_ROWS // 2:
+        # timed: the cell's shapes, a streamed chunk's and the large off-cell ones
+        if not (n_cell or per_chunk or n_cell == 0 and m >= CELL_ROWS // 2):
             continue
         bb = b.to(torch.bfloat16)
         x2 = x.reshape(-1, k)
         nbytes = 2 * (m * k + n * k) + 4 * n + got.element_size() * m * n
         if form == "tail":
             nbytes += 4 * m * n + 4 * m + 4 * (m // t)  # x_in, the mask, dt
-        measure(results, "linear", what[len("linear "):], torch.bfloat16, n_cell, err,
+        measure(results, "linear", what[len("linear "):], torch.bfloat16, n_cell or 0, err,
                 lambda: linear.linear(x, w, b, **kw), lambda: linear.linear_plain(x, w, b, **kw),
                 nbytes, 2.0 * m * n * k, lib=lambda: torch.nn.functional.linear(x2, w, bb),
                 shape=key)
@@ -1707,7 +1734,7 @@ TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod",
                "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows"),
                "ln_modulate": ("layer_norm_rows",), "bias_rope": ("rope_pairs",),
                "gated_residual": ("gated_residual_pass",),
-               "conv1d": ("conv_wgmma", "conv_simt"), "linear": ("LinearEpi",)}
+               "conv1d": ("conv_wgmma", "conv_simt"), "linear": ("linear_wgmma", "linear_simt")}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch

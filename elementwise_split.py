@@ -47,8 +47,8 @@ from collections import Counter, defaultdict
 
 HAND_WRITTEN = ("attn_wgmma", "attn_wide", "chain_kernel", "chain_wgmma", "conv_pass",
                 "conv_simt", "conv_wgmma", "ffn_down_f32", "ffn_up_f32", "gated_residual_pass",
-                "layer_norm_rows", "linear_simt", "ln_mod", "mma_gemm", "quantize_long_rows",
-                "quantize_rows", "rope_pairs", "wgmma_gemm")
+                "layer_norm_rows", "linear_simt", "linear_wgmma", "ln_mod", "mma_gemm",
+                "quantize_long_rows", "quantize_rows", "rope_pairs", "wgmma_gemm")
 LIBRARY = ("gemm", "nvjet", "xmma", "cutlass", "cudnn", "conv", "fprop", "Kernel2")
 NETWORKS = {"text_encoder": ("apply",), "duration_predictor": ("apply",),
             "vector_estimator": ("precompute_cross", "step"), "vocoder": ("apply",)}

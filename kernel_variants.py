@@ -76,14 +76,21 @@ host's per-call work:
              without its residual loads or its stores (unchecked); beside
              F.conv1d (the bare conv, a yardstick)
   linear     the linear kernel at the b64 cell's shapes (each bias, silu and
-             tail form): bf16 results stored from the registers (no TMA
-             store); the tail in 128 x 128 tiles; silu by the IEEE division
-             itself; the silu form on 128 x 128 tiles of two consumer
-             warpgroups or 64 x 128 of three; bf16 rounding on the integer
-             pipe; beside F.linear(x, w, b)
+             tail form): the replaced design (earlier); silu by a fast
+             quotient where a guard finds it exact and the exact sequence in
+             a second pass elsewhere (csrc/variants/); 128 x 128 tiles with
+             4 ring stages, stored from the registers with 6, or 128 x 256
+             tiles shared by both consumers; the silu
+             form on 64 x 64 (four consumer warpgroups), 128 x 128 (two),
+             64 x 128 (three), 128 x 64 (four), 64 x 256 (two) or shared
+             128 x 256 tiles; the bias form on 64 x 128 tiles of four; the
+             tail's x_in read from device memory, or 64 x 128 tail tiles;
+             with --split: no epilogue math, no products, no stores, and
+             loads only (unchecked); beside F.linear(x, w, b)
              (cuBLAS's product with its bias epilogue, a yardstick) and the
              route it replaced (cuBLAS's product, then the bias cast and add,
-             silu or the flow step's four elementwise passes)
+             silu or the flow step's four elementwise passes); first the
+             silu form at every finite bf16 value
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -127,6 +134,28 @@ CHAIN_POLY = [(
 # split where its time goes, and never checked (their outputs are wrong):
 # python3 kernel_variants.py resblock_chain --split
 CHAIN_EPILOGUE = "    const bool last = conv == 2 * P - 1;\n"
+# the linear kernel's splits: the epilogue returns the sums as they are; the
+# products are skipped; the results go to one address (the TMA stores are
+# skipped; the buffer writes and the math stay)
+LIN_MANY = "using Many = Tile<2, 2, 128, 5, 1, false, true, 2>;"
+LIN_MANY_SILU = "using ManySilu = Tile<4, 1, 128, 5, 1, false, true, 2>;"
+LIN_TAIL = "using TailTile = Tile<2, 1, 96, 6, 1, false, true, 4>;"
+LINEAR_NO_MATH = [
+    ("  const uint32_t o = bias_pair(v0, v1, b);\n  if constexpr (MODE == MODE_BIAS) {",
+     "  if (dt != 12345.0f) {\n"
+     "    if constexpr (MODE == MODE_TAIL)\n"
+     "      return make_uint2(__float_as_uint(v0), __float_as_uint(v1));\n"
+     "    else\n"
+     "      return stk::pack_bf16(v0, v1);\n"
+     "  }\n"
+     "  const uint32_t o = bias_pair(v0, v1, b);\n  if constexpr (MODE == MODE_BIAS) {")]
+LINEAR_NO_PRODUCTS = [("stk::Wgmma<BN>::template ss<0>(acc[r],",
+                       "if (p.K < 0) stk::Wgmma<BN>::template ss<0>(acc[r],")]
+LINEAR_NO_STORES = [
+    ("stk::tma_store_2d(&tm_y,", "if (p.K < 0) stk::tma_store_2d(&tm_y,"),
+    ("              stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);",
+     "              if (p.K < 0 || reinterpret_cast<const uint32_t&>(v) == 0x7fc00001u)\n"
+     "                stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);")]
 SPLIT = {"resblock_chain": {
     "split: silu as the identity": [
         ("  return stk::pack_bf16(stk::silu_fast(a), stk::silu_fast(b));",
@@ -165,6 +194,13 @@ SPLIT = {"resblock_chain": {
             ("              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);",
              "              if (p.Tlen < 0) *reinterpret_cast<float2*>(o) =\n"
              "                  make_float2(v0, v1);")]},
+    "linear": {
+        "split: no epilogue math (the sums stored as they are)": LINEAR_NO_MATH,
+        "split: no products": LINEAR_NO_PRODUCTS,
+        "split: no stores (the results' TMA stores, or register stores, skipped)":
+            LINEAR_NO_STORES,
+        "split: loads only (no products, no epilogue math, no stores)": (
+            LINEAR_NO_MATH + LINEAR_NO_PRODUCTS + LINEAR_NO_STORES)},
     "ln_modulate": {
         "split: loads only": [
             ("    if (lane == 0 && i + STAGES < n_rows) issue(i + STAGES);\n",
@@ -307,30 +343,34 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
             ("STK_CONV(64, 7, E_TANH, true)", "STK_CONV(64, 11, E_TANH, true)"),
             ("STK_CONV(64, 7, E_TANH | E_I16, true)", "STK_CONV(64, 11, E_TANH | E_I16, true)")]},
     "linear": {
-        "bf16 results stored from the registers (no TMA store)": [
-            ("using Many = stk::WgTile<2, 2, 128, 4, 1, true>;",
-             "using Many = stk::WgTile<2, 2, 128, 4, 1, true, false, false>;"),
-            ("using Few = stk::WgTile<2, 1, 64, 8, 1, true>;",
-             "using Few = stk::WgTile<2, 1, 64, 8, 1, true, false, false>;")],
-        "the tail in 128 x 128 tiles": [
-            ("using TailTile = stk::WgTile<2, 1, 128, 4, 1, true, false, false, 4, true>;",
-             "using TailTile = stk::WgTile<2, 2, 128, 4, 1, true, false, false, 4, true>;")],
-        "silu by the IEEE division itself (its check and slow-path call)": [
-            ("  return stk::pack_bf16(stk::silu_bf16_torch(y0), stk::silu_bf16_torch(y1));",
-             "  return stk::pack_bf16(y0 / (1.0f + expf(-y0)), y1 / (1.0f + expf(-y1)));")],
+        "earlier: the replaced design, on the FFN's GEMM template": (
+            FILE, "earlier/linear_pr17.cu", []),
+        "silu by a fast quotient, guarded, the refused pairs in a second pass": (
+            FILE, "variants/linear_fast_silu.cu", []),
+        "128 x 128 tiles with 4 ring stages": [
+            (LIN_MANY, "using Many = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
+        "128 x 128 tiles stored from the registers, 6 ring stages": [
+            (LIN_MANY, "using Many = Tile<2, 2, 128, 6, 1, false, false, 2>;")],
+        "the bias form in 128 x 256 tiles shared by both consumers": [
+            (LIN_MANY, "using Many = Tile<2, 1, 256, 3, 1, true, true, 2>;")],
+        "the silu form in 64 x 64 tiles, four consumer warpgroups": [
+            (LIN_MANY_SILU, "using ManySilu = Tile<4, 1, 64, 8, 1, false, true, 2>;")],
         "the silu form in 128 x 128 tiles, two consumer warpgroups": [
-            ("using ManySilu = stk::WgTile<4, 1, 64, 8, 1, true>;",
-             "using ManySilu = stk::WgTile<2, 2, 128, 4, 1, true>;")],
+            (LIN_MANY_SILU, "using ManySilu = Tile<2, 2, 128, 5, 1, false, true, 2>;")],
         "the silu form in 64 x 128 tiles, three consumer warpgroups": [
-            ("using ManySilu = stk::WgTile<4, 1, 64, 8, 1, true>;",
-             "using ManySilu = stk::WgTile<3, 1, 128, 4, 1, true>;")],
-        "bf16 rounding on the integer pipe (no F2F)": [
-            ("  return stk::rnd<bf16>(__fadd_rn(stk::rnd<bf16>(acc), stk::rnd<bf16>(b)));",
-             "  auto r = [](float v) {\n"
-             "    const uint32_t u = __float_as_uint(v);\n"
-             "    return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);\n"
-             "  };\n"
-             "  return r(__fadd_rn(r(acc), r(b)));")]},
+            (LIN_MANY_SILU, "using ManySilu = Tile<3, 1, 128, 6, 1, false, true, 2>;")],
+        "the silu form in 128 x 64 tiles, four consumer warpgroups": [
+            (LIN_MANY_SILU, "using ManySilu = Tile<4, 2, 64, 6, 1, false, true, 2>;")],
+        "the silu form in 64 x 256 tiles, two consumer warpgroups": [
+            (LIN_MANY_SILU, "using ManySilu = Tile<2, 1, 256, 3, 1, false, true, 2>;")],
+        "the silu form in 128 x 256 tiles shared by both consumers": [
+            (LIN_MANY_SILU, "using ManySilu = Tile<2, 1, 256, 3, 1, true, true, 2>;")],
+        "the bias form in 64 x 128 tiles, four consumer warpgroups": [
+            (LIN_MANY, "using Many = Tile<4, 1, 128, 5, 1, false, true, 2>;")],
+        "the tail's x_in read from device memory, results from the registers": [
+            (LIN_TAIL, "using TailTile = Tile<2, 1, 96, 6, 1, false, false, 4>;")],
+        "the tail in 64 x 128 tiles (32 zero columns at N 96)": [
+            (LIN_TAIL, "using TailTile = Tile<2, 1, 128, 4, 1, false, true, 4>;")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
@@ -351,7 +391,7 @@ BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
                   "int8": ("wgmma_gemm", "mma_gemm"),
                   "quantize": ("quantize_",), "ln_modulate": ("layer_norm_rows",),
-                  "conv1d": ("conv_wgmma",), "linear": ("wgmma_gemm", "linear_simt")}
+                  "conv1d": ("conv_wgmma",), "linear": ("linear_wgmma", "linear_simt")}
 SOURCE = {"attention_f32": "attention", "int8": "int8_matmul"}  # kernels timed from another kernel's source
 OUT = _build.BUILD_ROOT / "variants"
 
@@ -851,6 +891,7 @@ def linear_call(fn, x, w, b, silu=False, tail=None):
 def variants_linear(fns, gen) -> None:
     cs.log("linear kernel, ms per launch (bf16) at the b64 cell's shapes, beside F.linear "
            "(cuBLAS's product with its bias epilogue) and the route it replaced")
+    cs.silu_every_bf16()
     for key, n_cell in CELL_LINEAR.items():
         m, k, n, form, t = key
         x, w, b, kw = cs.linear_inputs(gen, key)
@@ -866,12 +907,14 @@ def variants_linear(fns, gen) -> None:
             lambda: linear.linear_plain(x, w, b, **kw))
         label = f"M{m} K{k} N{n} {form} ({n_cell} a batch)"
         for name, call in calls.items():
-            if name == "committed" or "yardstick" in name or "replaced" in name:
+            if (name == "committed" or "yardstick" in name or "replaced" in name
+                    or name.startswith("split")):
                 continue
             if not cs.bits_equal(call(), ref):
                 raise AssertionError(f"linear {label} {name}: not bit-equal to the committed "
                                      f"kernel")
-        cs.log(f"  linear {label}: every variant bit-equal to the committed kernel")
+        cs.log(f"  linear {label}: every variant bit-equal to the committed kernel (the splits "
+               f"unchecked)")
         in_turns(label, calls, 20, graphs=True)
 
 

@@ -41,16 +41,30 @@ from .gated_residual import add_bias
 # x, w, bias, x_in, mask, dt, y, M, N, K, T, mode, stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 MODE_BIAS, MODE_SILU, MODE_TAIL = 0, 1, 2
+# the library's instances, in the order stk_linear_tiles lists them
+_TILE_NAMES = ("bf16_many", "bf16_many_silu", "bf16_few", "bf16_fewer_or_any_n", "tail_f32",
+               "tail_f32_any_n")
 
 
 def kernel_tiles() -> dict:
     """The library's instances (rows, columns, ring stages): bf16 results at
-    many tiles, at few and at an N whose rows no TMA map takes, and the
-    tail's f32 results (builds the library on first use)."""
-    t = (ctypes.c_int * 12)()
+    many tiles (the bias form, the silu form), at few, at fewer or an N whose
+    rows no TMA map takes, and the tail's f32 results (x_in by TMA, or at any
+    N) (builds the library on first use)."""
+    t = (ctypes.c_int * (3 * len(_TILE_NAMES)))()
     _build.function("linear", "stk_linear_tiles", [ctypes.c_void_p])(t)
-    names = ("bf16_many_tiles", "bf16_few_tiles", "bf16_any_n", "tail_f32")
-    return {name: tuple(t[3 * i:3 * i + 3]) for i, name in enumerate(names)}
+    return {name: tuple(t[3 * i:3 * i + 3]) for i, name in enumerate(_TILE_NAMES)}
+
+
+def kernel_instance(m: int, k: int, n: int, form: str) -> str:
+    """The instance a launch of ``form`` ("bias", "silu" or "tail") at M x K
+    x N takes on the current card: a name of ``kernel_tiles()``, or "simt"
+    (K off 8) (builds the library on first use)."""
+    fn = _build.function("linear", "stk_linear_instance", [ctypes.c_int] * 4)
+    got = fn(m, n, k, ("bias", "silu", "tail").index(form))
+    if got < 0:
+        raise ValueError(f"no linear launch at M={m}, K={k}, N={n}, {form}")
+    return (*_TILE_NAMES, "simt")[got]
 
 
 def euler_tail(v, tail):
@@ -130,11 +144,12 @@ def linear(x, w, b, *, silu: bool = False, tail=None):
     args = [x2, w, b]
     if tail is not None:
         args += [t.contiguous() for t in tail]
-    # x and w are read by TMA (16-byte aligned rows); the rest by scalar loads
+    # x, w and x_in are read by TMA (16-byte aligned rows); the rest by
+    # cp.async or scalar loads
     for name, p in zip(("x", "w", "b", "x_in", "dt", "mask"), args):
         if (p.device != x.device or not p.is_contiguous()
-                or (name in ("x", "w") and p.data_ptr() % 16)):
-            raise ValueError(f"{name} must be contiguous and on {x.device} (x and w "
+                or (name in ("x", "w", "x_in") and p.data_ptr() % 16)):
+            raise ValueError(f"{name} must be contiguous and on {x.device} (x, w and x_in "
                              f"16-byte aligned)")
     if tail is None:
         y = torch.empty((*lead, n), device=x.device, dtype=torch.bfloat16)

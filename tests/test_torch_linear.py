@@ -316,3 +316,21 @@ def _default_config():
     from supertonic_tpu_torch.config import TTSConfig
 
     return TTSConfig()
+
+
+def test_instance_names_match_the_kernels_lists():
+    """``kernel_tiles`` and ``kernel_instance`` name the instances in the
+    order csrc/linear.cu lists them: three numbers an instance in
+    ``stk_linear_tiles``, one ``Instance`` enumerator an instance, then the
+    SIMT kernel."""
+    import re
+
+    from supertonic_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "linear.cu").read_text()
+    size = re.search(r"const int v\[(\d+)\] = \{", src)
+    enum = re.search(r"enum Instance \{([^}]*)\};", src)
+    assert size and enum
+    assert int(size.group(1)) == 3 * len(linear._TILE_NAMES)
+    assert [e.strip() for e in enum.group(1).split(",")][-1] == "I_SIMT"
+    assert len(enum.group(1).split(",")) == len(linear._TILE_NAMES) + 1
