@@ -57,8 +57,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                gated residual, the conv kernel (the vocoder's convs
                and the text encoder's prenet with the ops around them)
                and the linear kernel (every bf16 layers.linear with its
-               bias, silu or flow-step tail); exact per-batch counts in
-               PER_BATCH
+               bias, silu or flow-step tail, and every bf16 Q and K
+               projection with its rotary embedding and O or FFN-out with
+               the gated residual: the bias-and-rope and gated-residual
+               kernels launch only on the int8 path, after its W8A8
+               linears); exact per-batch counts in PER_BATCH; the replayed
+               bf16 batch's trace holds no library matrix product
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
                VE block linears through the quantize kernel and the int8
                product with its rescale-and-bias epilogue, no fused FFN
@@ -104,10 +108,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                every shape phases 3, 4, 7, 11 and 12 recorded and at edges
                (the bias and silu forms by linear.bf16_within, silu bit for
                bit F.silu of the kernel's bias form, the tail bit for bit
-               linear.euler_tail of it), first the silu form at every
+               linear.euler_tail of it, the rope and residual forms bit for
+               bit the plain rotation and gated residual of it, at every
+               head width), first the silu form at every
                finite bf16 value, timed at the cell's and a streamed
-               chunk's shapes beside F.linear(x, w, b) and the replaced design
-               (EARLIER_MS)
+               chunk's shapes beside F.linear(x, w, b), the replaced design
+               (EARLIER_MS) and, for the rope and residual forms, the pair
+               each replaces (F.linear, then the bias-and-rope or
+               gated-residual kernel)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
                of one VE block, card vs CPU; int8 against bf16 on the
@@ -198,8 +206,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                CPU on injected noise (B=2, 2 steps; 1e-5 in the wav) and
                bf16 synthesize_batch (finite, RMS); attention, the FFN,
                the chain and the block's three elementwise kernels must
-               launch at every width the config gives them, and no plain
-               version may see a CUDA tensor
+               launch at every width the config gives them (in bf16 the
+               rotation's and the gated residual's: the linear kernel's
+               rope forms at every head width, its residual forms at every
+               model width, and the two elementwise kernels not at all),
+               and no plain version may see a CUDA tensor
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
@@ -276,41 +287,62 @@ FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
 # kernels: the LayerNorm 3 per TE/DP block + 2 per VE block and step (3
 # where the FFN is unfused: fused_ffn=False and the int8 path) + the three
 # networks' ln_out (1 per step in the VE): 32 + 65 (97); the bias and
-# rotation at every self-attention Q and K (TE/DP 20, VE 60) and the VE's
-# cross Q (30) + the cross K of each VE block once a batch (6): 116; the
-# gated residual after each sublayer but the fused FFN: 30 + 60 (90). The
-# conv kernel: the text encoder's two prenet convs and the vocoder's pre
-# conv, six C 512 pre_res convs (a chain past the chain kernel's C 384),
-# two up convs and the head: 12; with fused_resblocks=False also the six
-# convs of each of the two fine chains: 24.
-# The linear kernel (every bf16 layers.linear of a plain Linear): the self
-# and cross V of each TE and DP block (20), each VE block's self V and AdaLN
-# a step (60), its cross V once (6), in_proj, time_mlp2 and adaln_out a step
-# (15), the three style and text projections, proj_out and the rate head's
-# second linear (6): 107 bias; each TE and DP block's FFN-in, the rate
-# head's first linear and time_mlp1 a step: 16 silu; out_proj with the
-# Euler update a step: 5 tail; 128 (tests/test_torch_linear.py counts the
-# same forms on the CPU). With fused_ffn=False also each VE block's FFN-in
-# a step (+30 silu): 158. On the int8 path the VE blocks' V and FFN-in are
-# W8A8: 128 - 36 = 92.
-_BLOCK = {"ln_modulate": 97, "bias_rope": 116, "gated_residual": 90, "conv1d": 12}
-_BLOCK_UNFUSED_FFN = {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120,
-                      "conv1d": 12}
+# rotation and the gated residual only where the linear before them is
+# W8A8 (the int8 path's VE): its self Q and K and cross Q a block and step
+# (90) + its cross K once a batch (6): 96; the residual after each VE
+# sublayer (the FFN is unfused there): 90. The conv kernel: the text
+# encoder's two prenet convs and the vocoder's pre conv, six C 512 pre_res
+# convs (a chain past the chain kernel's C 384), two up convs and the head:
+# 12; with fused_resblocks=False also the six convs of each of the two fine
+# chains: 24.
+# The linear kernel (every bf16 layers.linear of a plain Linear, with the
+# rotation or the gated residual in its epilogue): the self and cross V and
+# the cross Q and K (no rotation) of each TE and DP block (40), each VE
+# block's self V and AdaLN a step (60), its cross V once (6), in_proj,
+# time_mlp2 and adaln_out a step (15), the three style and text
+# projections, proj_out and the rate head's second linear (6): 127 bias;
+# each TE and DP block's FFN-in, the rate head's first linear and time_mlp1
+# a step: 16 silu; out_proj with the Euler update a step: 5 tail; the self
+# Q and K of each TE and DP block (20), each VE block's self Q and K and
+# cross Q a step (90) and its cross K once (6): 116 rope; each TE and DP
+# block's self O, cross O and FFN-out (30) and each VE block's self and
+# cross O a step (60): 90 residual; 354 (tests/test_torch_linear.py counts
+# the same forms on the CPU). With fused_ffn=False also each VE block's
+# FFN-in (+30 silu) and FFN-out (+30 residual) a step: 414. On the int8
+# path the VE blocks' Q, K, V, O and FFN linears are W8A8: 354 - 36 (its
+# self and cross V) - 96 (its rope forms) - 60 (its residual forms) = 162.
+_BLOCK = {"ln_modulate": 97, "bias_rope": 0, "gated_residual": 0, "conv1d": 12}
+_BLOCK_UNFUSED_FFN = {"ln_modulate": 127, "bias_rope": 0, "gated_residual": 0, "conv1d": 12}
 PER_BATCH = {
     "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 0, "quantize": 0, **_BLOCK, "linear": 128},
+             "w8a8_matmul": 0, "quantize": 0, **_BLOCK, "linear": 354},
     "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 252, "quantize": 252, **_BLOCK_UNFUSED_FFN, "linear": 92},
+             "w8a8_matmul": 252, "quantize": 252, **_BLOCK_UNFUSED_FFN, "bias_rope": 96,
+             "gated_residual": 90, "linear": 162},
     # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
     "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
                          "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
-                         **_BLOCK_UNFUSED_FFN, "linear": 158},
+                         **_BLOCK_UNFUSED_FFN, "linear": 414},
     # SynthesisEngine(fused_resblocks=False): every chain as _resblock's convs
     "bf16 unfused resblocks": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 0,
                                "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
-                               **_BLOCK, "conv1d": 24, "linear": 128},
+                               **_BLOCK, "conv1d": 24, "linear": 354},
 }
 BLOCK_KERNELS = tuple(_BLOCK)  # and the conv kernel
+# the block kernels a bf16 path launches (the rotation and the gated
+# residual are the linear kernel's epilogue there, and the int8 path's)
+BF16_BLOCK_KERNELS = ("ln_modulate", "conv1d")
+EPILOGUE_KERNELS = ("bias_rope", "gated_residual")
+# a bf16 b64/5-step batch with fused projections (models.fuse_projections):
+# the self Q and K split from each QKV product and the VE's cross K from its
+# KV product rotate in the bias-and-rope kernel (20 + 60 + 6); the linear
+# kernel takes 354 - 96 launches (QKV one, not three; KV one, not two)
+FUSED_BF16 = {"bias_rope": 86, "linear": 258}
+# and in int8, whose VE's Q, K and O were W8A8 already: the TE's and DP's
+# self Q and K split from their QKV products rotate in the bias-and-rope
+# kernel (+20), the linear kernel takes 162 - 20 (their rope forms) - 10
+# (their cross K, in the KV product)
+FUSED_INT8 = {"bias_rope": 116, "linear": 132}
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
@@ -484,11 +516,13 @@ def bound(nbytes: float, nops: float, ops_dtype) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
-            lib=None, reps=10, shape=None, ops_dtype=None):
+            lib=None, reps=10, shape=None, ops_dtype=None, line=True):
     """Time kernel, plain version and library call; log and keep one row.
     n_cell = launches at this shape per b64/5-step batch (0: not the cell's);
     shape = the cell's shape key, under which the earlier time is looked up;
-    ops_dtype = the type whose peak rate bounds the operations (dtype's)."""
+    ops_dtype = the type whose peak rate bounds the operations (dtype's);
+    line = whether the row may stand for the kernel in the kernels line (its
+    library call computes the row's function)."""
     ms = time_ms(fn, reps)
     plain_ms = time_ms(plain, reps)
     lib_ms = None if lib is None else time_ms(lib, reps)
@@ -509,7 +543,7 @@ def measure(results, kernel, name, dtype, n_cell, err, fn, plain, nbytes, nops,
     results[kernel].append(dict(name=name, dtype=dtype, n_cell=n_cell, max_abs_err=err,
                                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=bnd, bound_by=by, earlier_ms=earlier,
-                                graph_ms=replay, library_graph_ms=lib_replay))
+                                graph_ms=replay, library_graph_ms=lib_replay, line=line))
 
 
 def check_attention(gen, cell, results, serving, widths):
@@ -1190,12 +1224,24 @@ def check_conv1d(gen, cell, results, serving, widths):
 
 def linear_inputs(gen, key):
     """x, w, b and the form's options of a linear shape key (M, K, N, form,
-    the tail's rows a batch row) as ops.record_launches names them; the tail
-    with rows of other lengths (at B >= 3 an all-masked row) and a dt a row."""
+    the tail's or the gate's rows a batch row, or the rope form's Dh) as
+    ops.record_launches names them; the tail with rows of other lengths (at
+    B >= 3 an all-masked row) and a dt a row; the rope form's angles at
+    LARoPE-like positions; the residual form's gate a strided [B, 1, N]
+    slice of an AdaLN-like projection (no gate where the key says 0)."""
     m, k, n, form, t = key
     x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
     w = (torch.randn((n, k), generator=gen, device=DEV) / k ** 0.5).to(torch.bfloat16)
     b = 0.3 * torch.randn(n, generator=gen, device=DEV)
+    if form == "rope":
+        pos = torch.rand((1, m), generator=gen, device=DEV) * 100.0
+        return x.view(1, m, k), w, b, {"rope": layers.rope_angles(pos, t, 10000.0),
+                                       "n_heads": n // t}
+    if form == "residual":
+        bsz, rows = (m // t, t) if t else (1, m)
+        residual = torch.randn((bsz, rows, n), generator=gen, device=DEV).to(torch.bfloat16)
+        gate = modulation(gen, bsz, n, torch.bfloat16)[2] if t else None
+        return x.view(bsz, rows, k), w, b, {"residual": residual, "gate": gate}
     if form != "tail":
         return x, w, b, {"silu": form == "silu"}
     bsz = m // t
@@ -1260,17 +1306,42 @@ def check_linear(gen, cell, results, serving, widths):
     linear.euler_tail of the kernel's own bias form. Timed at the cell's
     shapes and at those a streamed chunk launches (its B = 1 rows); library_ms
     is F.linear(x, w, bias in bf16): cuBLAS's product with its bias epilogue
-    (in f32 before the one rounding, not JAX's rounding), no silu or tail.
+    (in f32 before the one rounding, not JAX's rounding), without the silu,
+    tail, rotation or residual; the kernels line takes a bias form's row.
     The edges also take each instance at ragged rows and columns: 128 x 128
     tiles (64 x 128 for silu) at M off 128 (M 17,037), the tail's 96-column
-    tiles at N 200 and its register stores at N 30."""
+    tiles at N 200 and its register stores at N 30.
+    The rope form (the Q and K projections) bit for bit
+    rope.bias_rope_plain of the kernel's own bias form, at every head width
+    the JAX package runs (Dh 16, 32, 64, 96, 128, 256) and 192, each
+    instance (128 x 128 at Dh 64 and ragged M, 64 x 64 at a streamed
+    chunk's M, 64 x 192, 64 x 256) and on the SIMT kernel (K off 8; Dh 12
+    and 36, whose halves no 8-column group holds: there its own bias form
+    from a zero column more, which puts K off 8); the residual form (O and
+    the FFN's second linear) bit for bit gated_residual.gated_residual_plain
+    of the kernel's own bias form, with a gate of B rows (strided), of one
+    row for all, of rows at an odd element (copied by the wrapper) and
+    without a gate, on 128 x 128, 64 x 64 and register-stored tiles (N off
+    8) and the SIMT kernel. Timed beside the pair each replaces: F.linear,
+    then the bias-and-rope or gated-residual kernel."""
     edges = [(37, 96, 96, "bias", 0), (37, 96, 96, "tail", 37), (130, 256, 1, "bias", 0),
              (17037, 256, 256, "bias", 0), (17037, 256, 512, "silu", 0),
              (3 * 50, 256, 200, "tail", 50), (2 * 50, 64, 30, "tail", 50),
              (64, 512, 4608, "bias", 0), (300, 15, 64, "bias", 0), (300, 64, 15, "silu", 0),
              (200, 512, 2048, "silu", 0), (3 * 50, 512, 96, "tail", 50),
              (4 * 33, 15, 15, "tail", 33), (1000, 256, 1024, "silu", 0)]
+    edges += [(300, 64, 32, "rope", 16), (300, 64, 64, "rope", 32), (17037, 512, 512, "rope", 64),
+              (448, 512, 512, "rope", 64), (50, 256, 256, "rope", 64),
+              (200, 384, 384, "rope", 96), (37, 384, 96, "rope", 96), (150, 512, 384, "rope", 192),
+              (300, 256, 256, "rope", 128), (200, 1024, 1024, "rope", 256),
+              (100, 64, 48, "rope", 12), (100, 72, 72, "rope", 36), (64, 15, 64, "rope", 64),
+              (37, 96, 96, "residual", 37), (3 * 50, 256, 256, "residual", 50),
+              (17037, 512, 512, "residual", 0), (300, 1024, 256, "residual", 0),
+              (2 * 50, 64, 30, "residual", 50), (130, 15, 64, "residual", 0),
+              (4 * 33, 15, 15, "residual", 33), (448, 512, 512, "residual", 448),
+              (2 * 32, 2048, 512, "residual", 32)]
     silu_every_bf16()
+    pairs = {"rope": [], "residual": []}  # (launches, kernel ms, pair ms) from graphs
     cases = block_cases(edges, cell, serving, widths, "linear")
     for key, n_cell in sorted(cases.items()):
         m, k, n, form, t = key
@@ -1295,6 +1366,13 @@ def check_linear(gen, cell, results, serving, widths):
             log(f"  {what}: bias form bit-equal share {same:.6f} within linear.bf16_within "
                 f"(max abs err {err:.3e}), tail bit-equal to the plain tail of the kernel's "
                 f"bias form {exact}")
+        elif form in ("rope", "residual"):
+            exact, instance = epilogue_forms(gen, key, x, w, b, kw, got, own)
+            ok = ok and exact
+            log(f"  {what} ({instance}): bias form bit-equal share {same:.6f} within "
+                f"linear.bf16_within (max abs err {err:.3e}), {form} form bit-equal to the "
+                f"plain {'rotation' if form == 'rope' else 'gated residual'} of the kernel's "
+                f"bias form {exact}")
         else:
             log(f"  {what}: bit-equal share {same:.6f}, within linear.bf16_within {ok} "
                 f"(max abs err {err:.3e})")
@@ -1309,10 +1387,66 @@ def check_linear(gen, cell, results, serving, widths):
         nbytes = 2 * (m * k + n * k) + 4 * n + got.element_size() * m * n
         if form == "tail":
             nbytes += 4 * m * n + 4 * m + 4 * (m // t)  # x_in, the mask, dt
+        if form == "rope":
+            nbytes += 4 * m * t  # cos and sin, [M, Dh / 2] f32 each
+        if form == "residual":
+            nbytes += 2 * m * n + (2 * (m // t) * n if t else 0)  # the residual, the gate
         measure(results, "linear", what[len("linear "):], torch.bfloat16, n_cell or 0, err,
                 lambda: linear.linear(x, w, b, **kw), lambda: linear.linear_plain(x, w, b, **kw),
                 nbytes, 2.0 * m * n * k, lib=lambda: torch.nn.functional.linear(x2, w, bb),
-                shape=key)
+                shape=key, line=form == "bias")
+        if form in pairs:
+            # the pair the form replaces: cuBLAS's product, then the
+            # bias-and-rope or gated-residual kernel
+            def pair():
+                y = torch.nn.functional.linear(x, w)
+                if form == "rope":
+                    return rope.bias_rope(y, b, *kw["rope"], kw["n_heads"])
+                return gated_residual.gated_residual(kw["residual"], y, b, kw["gate"])
+            pair_ms, pair_graph = time_ms(pair), graph_ms(pair)
+            row = results["linear"][-1]
+            after = "bias_rope" if form == "rope" else "gated_residual"
+            log(f"    the pair it replaces (F.linear, then {after}): {pair_ms:.4f} ms [graph "
+                f"{pair_graph:.4f}]; the form {row['ms']:.4f} [graph {row['graph_ms']:.4f}]")
+            if n_cell:
+                pairs[form].append((n_cell, row["graph_ms"], pair_graph, row["bound_ms"]))
+    for form, rows in pairs.items():
+        if rows:
+            log(f"  linear {form} form per b64/5-step batch at the cell's shapes "
+                f"({sum(r[0] for r in rows)} launches), from graphs: "
+                f"{sum(r[0] * r[1] for r in rows):.4f} ms, the pairs it replaces "
+                f"{sum(r[0] * r[2] for r in rows):.4f} ms, bound "
+                f"{sum(r[0] * r[3] for r in rows):.4f} ms")
+
+
+def epilogue_forms(gen, key, x, w, b, kw, got, own) -> tuple[bool, str]:
+    """The rope or residual form ``got`` of a linear shape key bit for bit
+    the plain rotation or gated residual of the kernel's own bias form
+    ``own`` (for a rope form on the SIMT kernel at a K that takes the
+    wgmma kernels, the SIMT kernel's own bias form: a zero column more puts K
+    off 8 and adds nothing to its sums); the residual form also with a gate of
+    one row for all and with gate rows at an odd element. Returns (exact,
+    the instance the form took)."""
+    m, k, n, form, t = key
+    if form == "rope":
+        instance = linear.kernel_instance(m, k, n, "rope", t)
+        if instance == "simt" and k % 8 == 0:
+            pad = torch.nn.functional.pad
+            own = linear.linear(pad(x, (0, 1)), pad(w, (0, 1)), b)
+        want = rope.bias_rope_plain(own, None, *kw["rope"], kw["n_heads"])
+        return bits_equal(got, want), instance
+    instance = linear.kernel_instance(m, k, n, "residual")
+    residual, gate = kw["residual"], kw["gate"]
+    exact = bits_equal(got, gated_residual.gated_residual_plain(residual, own, None, gate))
+    if gate is not None:
+        one = modulation(gen, 1, n, torch.bfloat16, rows=1)[2]
+        odd = torch.randn((gate.shape[0], 1, n + 1), generator=gen,
+                          device=DEV).to(torch.bfloat16)[..., 1:]
+        for g in (one, odd):
+            out = linear.linear(x, w, b, residual=residual, gate=g)
+            exact = exact and bits_equal(
+                out, gated_residual.gated_residual_plain(residual, own, None, g))
+    return exact, instance
 
 
 # the SASS instructions each library must hold (and, for the int8 library,
@@ -1349,6 +1483,16 @@ def check_instructions(libs) -> None:
             log(f"  resblock_chain bf16 layout at C={c}: {vocoder_fused.kernel_layout(c, half)}")
     log(f"  int8_matmul tiles (rows, columns, stages): {int8_matmul.kernel_tiles()}")
     log(f"  linear tiles (rows, columns, stages): {linear.kernel_tiles()}")
+    # the instances the Q, K and O projections' forms take at the b64 cell's
+    # shapes, a streamed chunk's and phase 12's head widths
+    for m, k, n, form, dh in ((28672, 512, 512, "rope", 64), (20480, 256, 256, "rope", 64),
+                              (448, 512, 512, "rope", 64), (1280, 384, 384, "rope", 96),
+                              (1280, 256, 256, "rope", 128), (1280, 1024, 1024, "rope", 256),
+                              (1280, 512, 384, "rope", 192), (1280, 72, 72, "rope", 36),
+                              (28672, 512, 512, "residual", 0), (20480, 1024, 256, "residual", 0),
+                              (448, 512, 512, "residual", 0), (320, 256, 256, "residual", 0)):
+        log(f"  linear {form} form at M {m} K {k} N {n}{f' Dh {dh}' if dh else ''}: "
+            f"{linear.kernel_instance(m, k, n, form, dh)}")
     for b, t_len, c in ((64, 28672, 128), (64, 3584, 256), (1, 896, 256), (1, 7168, 128)):
         tile = vocoder_fused._tile(c, 3, (1, 3, 9), torch.bfloat16, b, t_len)
         log(f"  resblock_chain bf16 tile at B{b} x {t_len} frames, C={c}: {tile} output frames "
@@ -1358,8 +1502,10 @@ def check_instructions(libs) -> None:
 def cell_summary(results, launches) -> dict:
     """Per kernel: the row (in the path's own dtype: bf16, or int8 for the
     int32 product) of the cell's shape that spends the most kernel time per
-    batch, and the per-batch sums over the cell's shapes (for a kernel the
-    path no longer launches, the sums it would take at the path's counts)."""
+    batch among those that may stand in the kernels line (the linear
+    kernel's bias form, whose library call is the same function), and the
+    per-batch sums over the cell's shapes (for a kernel the path no longer
+    launches, the sums it would take at the path's counts)."""
     line = {}
     for kernel, rows in results.items():
         cell = [r for r in rows if r["n_cell"] and r["dtype"] != torch.float32]
@@ -1376,7 +1522,7 @@ def cell_summary(results, launches) -> dict:
             f"[graph {sums['graph_ms']}] (earlier: {sums['earlier_ms']} ms), plain "
             f"{sums['plain_ms']} ms, library {sums['library_ms']} ms "
             f"[graph {sums['library_graph_ms']}], bound {sums['bound_ms']} ms")
-        line[kernel] = max(cell, key=lambda r: r["n_cell"] * r["ms"])
+        line[kernel] = max((r for r in cell if r["line"]), key=lambda r: r["n_cell"] * r["ms"])
     return line
 
 
@@ -1705,7 +1851,9 @@ def fused_projections_path(params) -> None:
             counts = ops.launch_counts()
         per_batch = dict(PER_BATCH[precision])
         if precision == "int8":
-            per_batch.update(dict.fromkeys(W8A8_KERNELS, FUSED_W8A8_LINEARS))
+            per_batch.update(dict.fromkeys(W8A8_KERNELS, FUSED_W8A8_LINEARS), **FUSED_INT8)
+        else:
+            per_batch.update(FUSED_BF16)
         check_launches(counts, per_batch, 1, f"one fused b64/5-step {precision} batch")
         if precision == "int8" and any(counts[k] != FUSED_W8A8_LINEARS for k in W8A8_KERNELS):
             raise AssertionError("fused int8 batch did not take the fused projections")
@@ -1737,9 +1885,21 @@ TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod",
                "conv1d": ("conv_wgmma", "conv_simt"), "linear": ("linear_wgmma", "linear_simt")}
 # host calls that launch device work: kernels and graphs
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
+# a library's matrix products in a device trace (cuBLAS's kernel names:
+# sm90_xmma_gemm_..., nvjet_..., cutlass's), and the port's own GEMM kernels
+# whose names hold "gemm", as whole template names (stk::wgmma_gemm<...>,
+# mma_gemm<...>, or mangled 10wgmma_gemmI...): cuBLAS's xmma_gemm_ is not one
+LIBRARY_PRODUCTS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")
+OWN_GEMMS = re.compile(r"(?<![A-Za-z_])(?:wgmma_gemm|mma_gemm)[<I]")
 MAX_HOST_LAUNCHES = 32  # per replayed b64/5-step batch
 DEVICE_BUSY_MS: dict = {}  # precision -> device busy of its main engine's traced replayed batch
 BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def library_product(name: str) -> bool:
+    """Whether a kernel name of a device trace is a library's matrix product
+    (and not one of the port's own GEMM kernels)."""
+    return any(n in name for n in LIBRARY_PRODUCTS) and not OWN_GEMMS.search(name)
 
 
 def hold_bit_equal(what: str, got, want) -> None:
@@ -1814,6 +1974,7 @@ def trace_replayed_batch(tts, texts, style, per_batch, wall_s: float) -> None:
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     found = {k: sum(e.count for e in dev if any(n in e.key for n in TRACE_NAMES[k]))
              for k in per_batch}
+    library = {e.key[:80]: e.count for e in dev if library_product(e.key)}
     log(f"  replayed b64/5-step batch under torch.profiler: {n_launch} host launch calls "
         f"(limit {MAX_HOST_LAUNCHES}); host calls {dict(sorted(host.items()))}")
     precision = tts.engine.precision
@@ -1829,8 +1990,12 @@ def trace_replayed_batch(tts, texts, style, per_batch, wall_s: float) -> None:
     if n_launch > MAX_HOST_LAUNCHES or n_graphs < 1:
         raise AssertionError(f"one replayed batch: {n_launch} host launch calls, {n_graphs} "
                              f"of them graph launches")
+    # in bf16 every product of the batch is a hand-written kernel
+    log(f"  library matrix products in its device trace: {library or 'none'}")
     if found != per_batch:
         raise AssertionError(f"the replayed batch's trace holds {found}, expected {per_batch}")
+    if precision == "bf16" and library:
+        raise AssertionError(f"the replayed bf16 batch ran library products: {library}")
 
 
 def log_programs(eng, what: str) -> None:
@@ -2353,7 +2518,9 @@ def widths_phase(smi: str) -> dict:
     TTS() in bf16 through synthesize_batch (finite audio, RMS). Each card
     run must launch attention, the AdaLN FFN, the chain and the block's
     LayerNorm, bias-and-rope and gated-residual kernels at every width its
-    config gives them, and no plain version may see a CUDA tensor.
+    config gives them (in bf16 the linear kernel's rope and residual forms
+    take the latter two's widths), and no plain version may see a CUDA
+    tensor.
     Returns the shapes the card runs gave each kernel, each with the set of
     (dilations, conv size) of the configs that gave it (the chain's), which
     phase 5 holds and times."""
@@ -2441,9 +2608,16 @@ def widths_one(name, d, i, cfg, fused, texts, noise, widths, smi, bf16=True) -> 
     with NoPlainOnCuda(), ops.record_launches() as tally:
         wavs, durs = tts.synthesize_batch(texts, ["en", "en"], style, total_step=2)
         torch.cuda.synchronize()
+    # in bf16 the rotation and the gated residual run in the linear kernel's
+    # epilogue: its rope forms at every head width, its residual forms at
+    # every model width
     got = launched_widths(tally)
-    if got != want:
-        raise AssertionError(f"{name}: bf16 launched widths {got}, expected {want}")
+    epi = {"rope": {key[4] for key in tally["linear"] if key[3] == "rope"},
+           "residual": {key[2] for key in tally["linear"] if key[3] == "residual"}}
+    if (got != {**want, **dict.fromkeys(EPILOGUE_KERNELS, set())}
+            or epi != {"rope": want["bias_rope"], "residual": want["gated_residual"]}):
+        raise AssertionError(f"{name}: bf16 launched widths {got}, the linear's rope head "
+                             f"widths and residual widths {epi}, expected {want}")
     # the linear kernel (bf16 alone) in each form, in_proj at the latent width
     # and out_proj's tail at it
     ve, c_lat = cfg.vector_estimator, cfg.latent_channels
@@ -2455,8 +2629,8 @@ def widths_one(name, d, i, cfg, fused, texts, noise, widths, smi, bf16=True) -> 
     for w, dur in zip(wavs, durs):
         check_audio(w, float(dur), tts.sample_rate, f"{name} bf16")
     log(f"  {name}: bf16 synthesize_batch B=2: {[f'{float(x):.3f}' for x in durs]} s of "
-        f"audio, finite, RMS > 0.005; widths {got}; linear (K, N, form) {sorted(forms)} "
-        f"({smi})")
+        f"audio, finite, RMS > 0.005; widths {got}, the linear's epilogues {epi}; linear (K, "
+        f"N, form) {sorted(forms)} ({smi})")
     keep(tally)
     del tts
 
@@ -3172,11 +3346,14 @@ def serving(assets, params, smi: str):
         check_progress(tts, style)
     counts = ops.launch_counts()
     log(f"  launches over the bf16 serving run: {counts}")
-    for name in ("attention", "adaln_ffn", "resblock_chain", *BLOCK_KERNELS, "linear"):
+    for name in ("attention", "adaln_ffn", "resblock_chain", *BF16_BLOCK_KERNELS, "linear"):
         if not counts[name] > 0:
             raise AssertionError(f"{name} was not launched while serving")
     if any(counts[name] for name in ("int8_matmul", *W8A8_KERNELS)):
         raise AssertionError("the bf16 server launched an int8 kernel")
+    if any(counts[name] for name in EPILOGUE_KERNELS):
+        raise AssertionError("the bf16 server launched the bias-and-rope or gated-residual "
+                             "kernel (the linear kernel's epilogue takes them)")
     lat = np.asarray(lat)
     log(f"  serving times ({smi}): TTFA {t_first:.4f}s (median, {len(STREAM_TEXT)}-char "
         f"stream, 5 steps); {N_CONCURRENT} concurrent /tts at 5 steps: client latency p50 "
@@ -3710,7 +3887,7 @@ def main() -> int:
     fresh_rate_dir("main-bf16")
     cell, rates, counts = main_path(assets, "bf16", args.profile, args.pin_rate)
     launches = {name: counts[name] for name in ("attention", "adaln_ffn", "resblock_chain",
-                                                *BLOCK_KERNELS, "linear")}
+                                                *BF16_BLOCK_KERNELS, "linear")}
     log("phase 3, second engine: the b64 cell with SynthesisEngine(fused_ffn=False)")
     unfused_ffn_cell(assets, rates, smi)
     log("phase 3, third engine: the b64 cell with SynthesisEngine(fused_resblocks=False)")
@@ -3719,7 +3896,7 @@ def main() -> int:
     fresh_rate_dir("main-int8")
     cell8, _rates8, counts8 = main_path(assets, "int8", args.profile, args.pin_rate,
                                         bf16_rates=rates)
-    for name in W8A8_KERNELS:
+    for name in (*W8A8_KERNELS, *EPILOGUE_KERNELS):  # kernels of the int8 path alone
         launches[name] = counts8[name]
         cell[name] = cell8[name]
 

@@ -40,6 +40,7 @@ import difflib
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,9 +48,12 @@ from collections import Counter, defaultdict
 
 HAND_WRITTEN = ("attn_wgmma", "attn_wide", "chain_kernel", "chain_wgmma", "conv_pass",
                 "conv_simt", "conv_wgmma", "ffn_down_f32", "ffn_up_f32", "gated_residual_pass",
-                "layer_norm_rows", "linear_simt", "linear_wgmma", "ln_mod", "mma_gemm",
-                "quantize_long_rows", "quantize_rows", "rope_pairs", "wgmma_gemm")
-LIBRARY = ("gemm", "nvjet", "xmma", "cutlass", "cudnn", "conv", "fprop", "Kernel2")
+                "layer_norm_rows", "linear_simt", "linear_wgmma", "ln_mod",
+                "quantize_long_rows", "quantize_rows", "rope_pairs")
+# the port's GEMM kernels, as whole template names (stk::wgmma_gemm<...>,
+# mma_gemm<...>, or mangled 10wgmma_gemmI...): cuBLAS's xmma_gemm_ is not one
+OWN_GEMMS = re.compile(r"(?<![A-Za-z_])(?:wgmma_gemm|mma_gemm)[<I]")
+LIBRARY = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cudnn", "conv", "fprop", "Kernel2")
 NETWORKS = {"text_encoder": ("apply",), "duration_predictor": ("apply",),
             "vector_estimator": ("precompute_cross", "step"), "vocoder": ("apply",)}
 FUNCTIONS = {"layers": ("linear", "layer_norm", "apply_rope", "_modulate", "mha", "_mha_tp",
@@ -60,7 +64,7 @@ FUNCTIONS = {"layers": ("linear", "layer_norm", "apply_rope", "_modulate", "mha"
 
 
 def kind(name: str) -> str:
-    if any(n in name for n in HAND_WRITTEN):
+    if any(n in name for n in HAND_WRITTEN) or OWN_GEMMS.search(name):
         return "hand-written"
     if any(n in name for n in LIBRARY):
         return "library products"

@@ -90,7 +90,20 @@ host's per-call work:
              (cuBLAS's product with its bias epilogue, a yardstick) and the
              route it replaced (cuBLAS's product, then the bias cast and add,
              silu or the flow step's four elementwise passes); first the
-             silu form at every finite bf16 value
+             silu form at every finite bf16 value. Then the Q and K
+             projections' rope form and the O and FFN-out projections'
+             residual form at the cell's and a streamed chunk's shapes,
+             beside the pair each replaced (F.linear, then the bias-and-rope
+             or gated-residual kernel) and the bias form alone: the rope
+             form at Dh 64 in 64 x 256 tiles (four heads a tile), and with
+             its cos and sin staged in shared memory (csrc/variants/) on
+             four tile shapes; the residual form in 64 x 128 tiles of four
+             consumer warpgroups, or stored from the registers (the residual
+             from device memory), and at a streamed chunk's shapes on the
+             bias form's 64 x 32 tiles from the registers;
+             with --split also the rope form without its rotation (the bias
+             forms stored; the cos and sin loads may go with it) or without
+             its cos and sin loads, the residual form without its gate loads
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -110,8 +123,9 @@ import sys
 import torch
 
 import chip_smoke as cs
-from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, int8_matmul, linear,
-                                      ln_modulate, quantize, vocoder_fused, w8a8)
+from supertonic_tpu_torch.ops import (_build, attention, conv1d, ffn, gated_residual,
+                                      int8_matmul, linear, ln_modulate, quantize, rope,
+                                      vocoder_fused, w8a8)
 from supertonic_tpu_torch.ops.gated_residual import batch_rows
 
 BF16_SECTION = "// bf16 on the tensor cores"
@@ -140,6 +154,12 @@ CHAIN_EPILOGUE = "    const bool last = conv == 2 * P - 1;\n"
 LIN_MANY = "using Many = Tile<2, 2, 128, 5, 1, false, true, 2>;"
 LIN_MANY_SILU = "using ManySilu = Tile<4, 1, 128, 5, 1, false, true, 2>;"
 LIN_TAIL = "using TailTile = Tile<2, 1, 96, 6, 1, false, true, 4>;"
+LIN_RESID = ("using ManyResid = Tile<3, 1, 128, 7, 1, false, true, 2>;  // the residual form at "
+             "many tiles")
+LIN_ROPE = ("using RopeMany = Tile<2, 2, 128, 5, 1, false, true, 2>;   // the rope form at Dh 16, "
+            "32, 64, 128")
+ROPE_STAGED_SRC = "variants/linear_rope_staged.cu"
+LIN_GATE_STAGED = "              gsel[r][half] = at / p.T - b0;"
 LINEAR_NO_MATH = [
     ("  const uint32_t o = bias_pair(v0, v1, b);\n  if constexpr (MODE == MODE_BIAS) {",
      "  if (dt != 12345.0f) {\n"
@@ -195,6 +215,27 @@ SPLIT = {"resblock_chain": {
              "              if (p.Tlen < 0) *reinterpret_cast<float2*>(o) =\n"
              "                  make_float2(v0, v1);")]},
     "linear": {
+        "split: the rope form without its rotation (its bias forms stored)": [
+            ("                uint32_t o1, o2;\n                rotate(a, b, cv, sv, o1, o2);",
+             "                uint32_t o1 = a, o2 = b;\n"
+             "                if (p.K < 0) rotate(a, b, cv, sv, o1, o2);")],
+        "split: the rope form without its cos and sin loads": [
+            ("                cv = __ldg(reinterpret_cast<const float2*>(p.cs + ce));",
+             "                cv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>(p.cs + ce))"
+             " : make_float2(0.5f, 0.25f);"),
+            ("                sv = __ldg(reinterpret_cast<const float2*>(p.sn + ce));",
+             "                sv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>(p.sn + ce))"
+             " : make_float2(0.25f, 0.5f);")],
+        "split: the residual form without its residual loads (nor the tail's x_in)": [
+            ("        if (tid == 0) {\n          stk::bulk_wait_read<0>();",
+             "        if (tid == 0 && p.K < 0) {\n          stk::bulk_wait_read<0>();"),
+            ("      if constexpr (IN_TMA) stk::mbar_wait(&xfull[wg], (i / NC) & 1);",
+             "      if constexpr (IN_TMA) if (p.K < 0) stk::mbar_wait(&xfull[wg], (i / NC) & 1);")],
+        "split: the residual form without its gate loads": [
+            ("                if (S::TMA_STORE && p.gate && gsel[r][half] < 2)",
+             "                if (p.K > 0)\n"
+             "                  gv = make_float2(1.0f, 1.0f);\n"
+             "                else if (S::TMA_STORE && p.gate && gsel[r][half] < 2)")],
         "split: no epilogue math (the sums stored as they are)": LINEAR_NO_MATH,
         "split: no products": LINEAR_NO_PRODUCTS,
         "split: no stores (the results' TMA stores, or register stores, skipped)":
@@ -370,7 +411,39 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "the tail's x_in read from device memory, results from the registers": [
             (LIN_TAIL, "using TailTile = Tile<2, 1, 96, 6, 1, false, false, 4>;")],
         "the tail in 64 x 128 tiles (32 zero columns at N 96)": [
-            (LIN_TAIL, "using TailTile = Tile<2, 1, 128, 4, 1, false, true, 4>;")]},
+            (LIN_TAIL, "using TailTile = Tile<2, 1, 128, 4, 1, false, true, 4>;")],
+        "the rope form at Dh 64 in 64 x 256 tiles (four heads a tile)": [
+            (LIN_ROPE, "using RopeMany = Tile<2, 1, 256, 3, 1, false, true, 2>;")],
+        "the rope form in 64 x 128 tiles, four consumer warpgroups": [
+            (LIN_ROPE, "using RopeMany = Tile<4, 1, 128, 5, 1, false, true, 2>;")],
+        "the rope form's cos and sin staged in shared memory, 128 x 128 tiles, 3 ring stages": (
+            FILE, ROPE_STAGED_SRC,
+            [(LIN_ROPE, "using RopeMany = Tile<2, 2, 128, 3, 1, false, true, 2>;")]),
+        "the rope form's cos and sin staged in shared memory, 64 x 256 tiles, 3 ring stages": (
+            FILE, ROPE_STAGED_SRC,
+            [(LIN_ROPE, "using RopeMany = Tile<2, 1, 256, 3, 1, false, true, 2>;")]),
+        "the rope form's cos and sin staged in shared memory, 64 x 128 tiles of four consumer "
+        "warpgroups, 3 ring stages": (
+            FILE, ROPE_STAGED_SRC,
+            [(LIN_ROPE, "using RopeMany = Tile<4, 1, 128, 3, 1, false, true, 2>;")]),
+        "the rope form's cos and sin staged in shared memory, 64 x 128 tiles of three consumer "
+        "warpgroups, 5 ring stages": (
+            FILE, ROPE_STAGED_SRC,
+            [(LIN_ROPE, "using RopeMany = Tile<3, 1, 128, 5, 1, false, true, 2>;")]),
+        "the residual form in 128 x 128 tiles, two consumer warpgroups, 4 ring stages": [
+            (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
+        "the residual form in 64 x 128 tiles, four consumer warpgroups, 6 ring stages": [
+            (LIN_RESID, "using ManyResid = Tile<4, 1, 128, 6, 1, false, true, 2>;")],
+        "the residual form in 64 x 128 tiles, three consumer warpgroups, 6 ring stages": [
+            (LIN_RESID, "using ManyResid = Tile<3, 1, 128, 6, 1, false, true, 2>;")],
+        "the residual form's gate from device memory (no rows staged)": [
+            (LIN_GATE_STAGED, "              gsel[r][half] = 2;")],
+        "the residual form on the bias form's 64 x 32 tiles from the registers where the card "
+        "takes few 64 x 64 ones": [
+            ("  if (mode == MODE_RESID || 2 * tiles_of<Few>(M, N) >= sms) return I_FEW;",
+             "  if (2 * tiles_of<Few>(M, N) >= sms) return I_FEW;")],
+        "the residual form stored from the registers (the residual from device memory)": [
+            (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 6, 1, false, false, 2>;")]},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
@@ -381,8 +454,10 @@ ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "ln_modulate": ("stk_ln_modulate", ln_modulate._ARGTYPES),
          "conv1d": ("stk_conv1d", conv1d._ARGTYPES),
          "linear": ("stk_linear", linear._ARGTYPES)}
-# further entries of a variant's library, {kernel: {name: argtypes}}
-MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES}}
+# further entries of a variant's library, {kernel: {name: argtypes}} (a
+# variant from another file may lack them)
+MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES},
+                "linear": {"stk_linear_epilogue": linear._EPI_ARGTYPES}}
 # names (in ptxas's mangled names) of the device functions whose registers and
 # spills each build prints (the bf16 kernels; attention_f32: the f32 ones)
 BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
@@ -445,6 +520,8 @@ def build_variants(kernels) -> dict:
         fns[(kernel, name)] = fn = getattr(library, entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         for entry, argtypes in MORE_ENTRIES.get(kernel, {}).items():
+            if not hasattr(library, entry):
+                continue
             fns[(kernel, name, entry)] = fn = getattr(library, entry)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fns
@@ -500,10 +577,10 @@ def ffn_split(args) -> None:
                    f"x{e.count} {e.key[:100]}")
 
 
-def in_turns(label: str, calls: dict, reps: int, graphs: bool = False) -> None:
+def in_turns(label: str, calls: dict, reps: int, graphs: bool = False) -> dict:
     """Time each call in the order committed, variants, variants reversed,
     committed; print both readings of each (and, with graphs, both readings
-    from replayed CUDA graphs)."""
+    from replayed CUDA graphs, which it returns by call)."""
     names = list(calls)
     times = {name: [] for name in names}
     for name in names + names[::-1]:
@@ -517,6 +594,7 @@ def in_turns(label: str, calls: dict, reps: int, graphs: bool = False) -> None:
                      if graphs else "")
         cs.log(f"  {label} {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms"
                f"{graph_txt}")
+    return replays
 
 
 def main() -> int:
@@ -556,6 +634,7 @@ def main() -> int:
         variants_conv1d(fns, gen)
     if "linear" in kernels:
         variants_linear(fns, gen)
+        variants_linear_epilogues(fns, gen)
     return 0
 
 
@@ -898,6 +977,8 @@ def variants_linear(fns, gen) -> None:
         ref = linear.linear(x, w, b, **kw)
         calls = {"committed": lambda: linear.linear(x, w, b, **kw)}
         for name in VARIANTS["linear"]:
+            if any(f in name for f in ROPE_OR_RESIDUAL):  # variants_linear_epilogues
+                continue
             fn = fns[("linear", name)]
             calls[name] = lambda fn=fn: linear_call(fn, x, w, b, **kw)
         x2, bb = x.reshape(-1, k), b.to(torch.bfloat16)
@@ -916,6 +997,88 @@ def variants_linear(fns, gen) -> None:
         cs.log(f"  linear {label}: every variant bit-equal to the committed kernel (the splits "
                f"unchecked)")
         in_turns(label, calls, 20, graphs=True)
+
+
+
+# (M, K, N, form, the rope form's Dh or the gate's rows a batch row) of the
+# Q, K and O projections' launches in one b64/5-step bf16 batch (T=448,
+# L=320, fused_ffn=True), with the launches a batch, and the B = 1 shapes of
+# a streamed chunk
+CELL_EPILOGUES = {(28672, 512, 512, "rope", 64): 90, (23680, 512, 512, "rope", 64): 6,
+                  (20480, 256, 256, "rope", 64): 20, (28672, 512, 512, "residual", 448): 60,
+                  (20480, 256, 256, "residual", 0): 20, (20480, 1024, 256, "residual", 0): 10}
+CHUNK_EPILOGUES = ((448, 512, 512, "rope", 64), (370, 512, 512, "rope", 64),
+                   (320, 256, 256, "rope", 64), (448, 512, 512, "residual", 448),
+                   (320, 256, 256, "residual", 0), (320, 1024, 256, "residual", 0))
+ROPE_OR_RESIDUAL = ("rope form", "residual form")
+
+
+def epilogue_call(fn, x, w, b, rope=None, n_heads=0, residual=None, gate=None):
+    """One rope or residual form through a variant's library, as the wrapper
+    launches it."""
+    n, k = w.shape
+    bsz, t = x.shape[:2]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    gstride = 0
+    if gate is not None:
+        gate, gstride = batch_rows(gate, bsz, n, "gate")
+    cos, sin = rope or (None, None)
+    dh = n // n_heads if rope is not None else 0
+    y = torch.empty((m, n), device=x.device, dtype=torch.bfloat16)
+    P = _build.ptr
+    _build.check(fn(P(x2), P(w), P(b), P(cos), P(sin), P(residual), P(gate), gstride, P(y), m,
+                    n, k, t, dh, 3 if rope is not None else 4, _build.stream_ptr(x)), "variant")
+    return y.view(bsz, t, n_heads, dh) if rope is not None else y.view(bsz, t, n)
+
+
+def variants_linear_epilogues(fns, gen) -> None:
+    """The rope and residual forms at the cell's and a streamed chunk's
+    shapes: committed, the variants and splits that change them, the pair
+    each replaced and the bias form alone; per batch, from graphs."""
+    cs.log("linear kernel's rope and residual forms, ms per launch (bf16), beside the pair "
+           "each replaced (F.linear, then the bias-and-rope or gated-residual kernel)")
+    per_batch = {}
+    for key in (*CELL_EPILOGUES, *CHUNK_EPILOGUES):
+        m, k, n, form, t = key
+        n_cell = CELL_EPILOGUES.get(key, 0)
+        x, w, b, kw = cs.linear_inputs(gen, key)
+        ref = linear.linear(x, w, b, **kw)
+        calls = {"committed": lambda: linear.linear(x, w, b, **kw)}
+        for name in VARIANTS["linear"]:
+            fn = fns.get(("linear", name, "stk_linear_epilogue"))
+            mine = (form == "rope" if "rope form" in name else form == "residual"
+                    if "residual form" in name else name.startswith("split"))
+            if fn is not None and mine:
+                calls[name] = lambda fn=fn: epilogue_call(fn, x, w, b, **kw)
+
+        def pair():
+            y = torch.nn.functional.linear(x, w)
+            if form == "rope":
+                return rope.bias_rope(y, b, *kw["rope"], kw["n_heads"])
+            return gated_residual.gated_residual(kw["residual"], y, b, kw["gate"])
+        calls["the pair it replaced (F.linear, then the bias-and-rope or gated-residual "
+              "kernel)"] = pair
+        calls["the bias form alone (yardstick)"] = lambda: linear.linear(x, w, b)
+        label = (f"M{m} K{k} N{n} {form}{f' Dh {t}' if form == 'rope' else ''}"
+                 f"{' gated' if form == 'residual' and t else ''} "
+                 f"({f'{n_cell} a batch' if n_cell else 'a streamed chunk'})")
+        for name, call in calls.items():
+            if name == "committed" or name.startswith("split") or "alone" in name:
+                continue
+            if not cs.bits_equal(call(), ref):
+                raise AssertionError(f"linear {label} {name}: not bit-equal to the committed "
+                                     f"kernel")
+        cs.log(f"  linear {label}: every variant and the pair bit-equal to the committed "
+               f"kernel (the splits unchecked)")
+        replays = in_turns(label, calls, 20, graphs=True)
+        for name, ms in replays.items():
+            if n_cell:
+                per_batch[(form, name)] = per_batch.get((form, name), 0.0) + n_cell * sum(
+                    ms) / len(ms)
+    for (form, name), ms in per_batch.items():
+        cs.log(f"  {form} form per b64/5-step batch at the cell's shapes, from graphs, {name}: "
+               f"{ms:.4f} ms")
 
 
 if __name__ == "__main__":

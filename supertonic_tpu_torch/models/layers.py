@@ -22,13 +22,15 @@ Conventions:
     package, each run as one kernel (ops/ln_modulate.py, ops/rope.py,
     ops/gated_residual.py) with those rounding points: ``layer_norm`` with
     the AdaLN modulation, a Q or K projection's bias add with its rotary
-    embedding, and a sublayer's output bias, gate and residual. Their
-    callers take the bias-less product of a linear (``_product``) and hand
-    the bias to the kernel.
+    embedding, and a sublayer's output bias, gate and residual. For W8A8
+    and f32 linears ``linear`` takes the bias-less product (``_product``)
+    and hands the bias to the kernel.
   * A bf16 ``linear`` is one launch of the linear kernel (ops/linear.py):
     the product with JAX's bias rounding in its epilogue, and there too
-    the caller's silu (``silu=True``) or the flow step's Euler update
-    (``tail=``). f32 linears stay cuBLAS's product plus ``add_bias``.
+    the caller's silu (``silu=True``), the flow step's Euler update
+    (``tail=``), a Q or K projection's rotary embedding (``rope=``) or a
+    sublayer's gated residual (``residual=``, ``gate=``). f32 linears stay
+    cuBLAS's product plus ``add_bias``.
   * W8A8 linears (``QLinear``, from ``models.quantize_params``) keep int8
     weights whatever the compute dtype; ``linear`` routes them through the
     quantize pass (ops/quantize.py) and the int8 product with its
@@ -300,18 +302,31 @@ def _weight(p, dtype) -> torch.Tensor:
 # layers
 # ---------------------------------------------------------------------------
 
-def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False,
-           tail=None) -> torch.Tensor:
+def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=None,
+           rope=None, n_heads: int = 0, residual=None, gate=None) -> torch.Tensor:
     """JAX's ``linear`` (the bias in its rounding); with ``silu``,
     ``jax.nn.silu`` of it; with ``tail`` = (x_in [B, T, N] f32, dt [B],
     mask [B, T]), the flow step's Euler update on it as the velocity
-    (``ops.linear.euler_tail``), an f32 [B, T, N]. A bf16 ``Linear`` is one
-    launch of the linear kernel, its silu or tail in the epilogue; a W8A8
-    one takes its silu in the int8 product's epilogue."""
+    (``ops.linear.euler_tail``), an f32 [B, T, N]; with ``n_heads``, a Q, K
+    or V projection head-split [B, T, H, Dh], rotated with ``rope`` = (cos,
+    sin); with ``residual``, a sublayer's last linear closing it as
+    ``residual + gate * linear`` (no gate: the blocks without AdaLN). A bf16
+    ``Linear`` is one launch of the linear kernel, each of these in its
+    epilogue; a W8A8 one takes its silu in the int8 product's epilogue, and
+    W8A8 and f32 ones the rotation or the gated residual in one pass after
+    the product (``_heads``, ``_close``)."""
+    if rope is not None:
+        rope = tuple(t.to(x.device) for t in rope)
+    if not isinstance(p, QLinear) and x.dtype == torch.bfloat16:
+        y = linear_fused(x, _weight(p, x.dtype), p.bias, silu=silu, tail=tail, rope=rope,
+                         n_heads=n_heads, residual=residual, gate=gate)
+        return _split_heads(y, n_heads) if n_heads and rope is None else y
+    if n_heads:
+        return _heads(*_product(p, x), rope, n_heads)
+    if residual is not None:
+        return _close(*_product(p, x), residual, gate)
     if isinstance(p, QLinear):
         y = _linear_w8a8(p, x, silu=silu)
-    elif x.dtype == torch.bfloat16:
-        return linear_fused(x, _weight(p, x.dtype), p.bias, silu=silu, tail=tail)
     else:
         y = add_bias(F.linear(x, _weight(p, x.dtype)), p.bias)
         if silu:
@@ -506,7 +521,8 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
     projections (``models.fuse_projections``): "qkv" replaces q/k/v in
     self-attention, "kv" replaces k/v in cross-attention. With
     ``residual``, returns ``residual + gate * attention`` (O's bias, the
-    gate and the residual in one pass). Sharded over a model group
+    gate and the residual in one pass: for a bf16 ``Linear`` the linear
+    kernel's epilogue, where its Q and K also rotate). Sharded over a model group
     (``ShardedLinear``), each rank runs its own heads through the attention
     kernel, and O sums the ranks' partials (``row_linear``); ``kv_cache``
     is then the per-rank list of ``kv_project``."""
@@ -518,11 +534,11 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
         q, k, v = (_heads(t, None, rope, n_heads) for t, rope in
                    ((q, q_rope), (k, k_rope), (v, None)))
     else:
-        q = _heads(*_product(p["q"], x), q_rope, n_heads)
+        q = linear(p["q"], x, rope=q_rope, n_heads=n_heads)
         k, v = kv_cache if kv_cache is not None else kv_project(
             p, x if memory is None else memory, n_heads, k_rope)
     o = _merge_heads(attention_core(q, k, v, key_mask))
-    return _close(*_product(p["o"], o), residual, gate)
+    return linear(p["o"], o, residual=residual, gate=gate)
 
 
 def _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache, residual, gate):
@@ -547,8 +563,8 @@ def kv_project(p, mem, n_heads: int, k_rope=None):
     if "kv" in p:
         k, v = linear(p["kv"], mem).chunk(2, dim=-1)
         return _heads(k, None, k_rope, n_heads), _heads(v, None, None, n_heads)
-    return (_heads(*_product(p["k"], mem), k_rope, n_heads),
-            _split_heads(linear(p["v"], mem), n_heads))
+    return (linear(p["k"], mem, rope=k_rope, n_heads=n_heads),
+            linear(p["v"], mem, n_heads=n_heads))
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +577,7 @@ def ffn(p, x: torch.Tensor, *, residual=None, gate=None) -> torch.Tensor:
     if isinstance(p["in"], ShardedLinear):
         y = row_linear(p["out"], [F.silu(u) for u in col_linear(p["in"], x)], x.device)
         return _close(y, None, residual, gate)
-    return _close(*_product(p["out"], linear(p["in"], x, silu=True)), residual, gate)
+    return linear(p["out"], linear(p["in"], x, silu=True), residual=residual, gate=gate)
 
 
 def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
@@ -570,7 +586,8 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
     """Pre-LN transformer block: self-attn [+ cross-attn] + FFN, optionally
     AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. Each sublayer opens
     with one pass of the LayerNorm kernel (with the AdaLN shift and scale)
-    and closes with one of the gated-residual kernel. With ``fused_ffn``
+    and closes with the gated residual: the linear kernel's residual form
+    for a bf16 ``Linear``, else the gated-residual kernel. With ``fused_ffn``
     the AdaLN FFN sublayer goes through the fused AdaLN-FFN kernel's
     wrapper (ops/ffn.py) when its linears are plain; without it, and for
     W8A8 linears, it is mod(LN), ``linear``, silu and ``linear``, as in the

@@ -254,9 +254,9 @@ def test_supports_states_the_domain(module):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("precision,fused_ffn,per_batch", [
-    ("bf16", True, {"ln_modulate": 97, "bias_rope": 116, "gated_residual": 90}),
-    ("bf16", False, {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120}),
-    ("int8", True, {"ln_modulate": 127, "bias_rope": 116, "gated_residual": 120})])
+    ("bf16", True, {"ln_modulate": 97, "bias_rope": 0, "gated_residual": 0}),
+    ("bf16", False, {"ln_modulate": 127, "bias_rope": 0, "gated_residual": 0}),
+    ("int8", True, {"ln_modulate": 127, "bias_rope": 96, "gated_residual": 90})])
 def test_wrapper_calls_per_batch(tiny_config, tmp_path, monkeypatch, precision, fused_ffn,
                                  per_batch):
     """One 5-step batch at the default depths (text encoder 6 blocks,
@@ -264,9 +264,11 @@ def test_wrapper_calls_per_batch(tiny_config, tmp_path, monkeypatch, precision, 
     wrapper as often as chip_smoke.py requires of the card's replayed b64
     batch: LayerNorm 3 a text-side block and 2 a VE block and step with the
     fused FFN (3 without it: the int8 path takes the unfused FFN), + 3
-    ln_out; the rotation at the self-attention Q and K of every block (and
-    step) and the VE's cross Q, + the cross K once a batch; the residual
-    after every sublayer but the fused FFN."""
+    ln_out; the rotation and the residual kernels where the linear is W8A8
+    (the int8 path's VE: the self-attention Q and K and the cross Q of every
+    block and step, + the cross K once a batch; the residual after every
+    sublayer but the fused FFN); a bf16 plain Linear takes them in the
+    linear kernel's epilogue (tests/test_torch_linear.py counts those)."""
     monkeypatch.setenv("TTS_RATE_CACHE_DIR", str(tmp_path))
     cfg = dataclasses.replace(
         tiny_config,

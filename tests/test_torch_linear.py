@@ -269,30 +269,39 @@ def test_hoisted_latent_rope_is_the_per_step_one(params, tiny_config):
 
 def _forms_per_batch(cfg, steps, fused_ffn=True):
     """Plain-Linear ``layers.linear`` calls a batch takes, by form: the
-    self and cross V of each TE and DP block and each VE block's self V and
-    AdaLN a step, the cross V once, in_proj, time_mlp2 and adaln_out a step,
-    the three style and text projections, proj_out and the rate head's
-    second linear; silu: each TE and DP block's FFN-in, the rate head's first
-    linear and time_mlp1 a step (and each VE block's FFN-in without the fused
-    FFN); the tail: out_proj a step."""
+    self and cross V and the cross Q and K (no rotation there) of each TE and
+    DP block and each VE block's self V and AdaLN a step, the cross V once,
+    in_proj, time_mlp2 and adaln_out a step, the three style and text
+    projections, proj_out and the rate head's second linear; silu: each TE
+    and DP block's FFN-in, the rate head's first linear and time_mlp1 a step
+    (and each VE block's FFN-in without the fused FFN); the tail: out_proj a
+    step; rope: the self Q and K of each TE and DP block and each VE block's
+    self Q and K and cross Q a step, its cross K once; residual: each TE and
+    DP block's self O, cross O and FFN-out, each VE block's self and cross O
+    a step (and its FFN-out without the fused FFN)."""
     n_td = cfg.text_encoder.n_layers + cfg.duration_predictor.n_layers
     n_ve = cfg.vector_estimator.n_layers
     silu = n_td + 1 + steps * (1 + (0 if fused_ffn else n_ve))
-    return {"bias": 2 * n_td + n_ve + steps * (2 * n_ve + 3) + 6, "silu": silu, "tail": steps}
+    return {"bias": 4 * n_td + n_ve + steps * (2 * n_ve + 3) + 6, "silu": silu, "tail": steps,
+            "rope": 2 * n_td + steps * 3 * n_ve + n_ve,
+            "residual": 3 * n_td + steps * n_ve * (2 if fused_ffn else 3)}
 
 
 @pytest.mark.parametrize("fused_ffn", [True, False])
 def test_linear_forms_per_batch(params, tiny_config, monkeypatch, fused_ffn):
-    """On CPU tensors, the bf16 ``layers.linear`` calls of one batch reach the
+    """On CPU tensors, the bf16 plain-Linear calls of one batch reach the
     linear wrapper, each in its form: the counts a batch that phase 3 holds
-    the card's launches to (128 bias, silu and tail calls at the default
-    config, 158 without the fused FFN)."""
-    seen = {"bias": 0, "silu": 0, "tail": 0}
+    the card's launches to (354 bias, silu, tail, rope and residual calls at
+    the default config, 414 without the fused FFN)."""
+    seen = dict.fromkeys(linear.FORMS, 0)
     real = tL.linear_fused
 
-    def counting(x, w, b, *, silu=False, tail=None):
-        seen["tail" if tail is not None else "silu" if silu else "bias"] += 1
-        return real(x, w, b, silu=silu, tail=tail)
+    def counting(x, w, b, *, silu=False, tail=None, rope=None, n_heads=0, residual=None,
+                 gate=None):
+        seen["tail" if tail is not None else "rope" if rope is not None
+             else "residual" if residual is not None else "silu" if silu else "bias"] += 1
+        return real(x, w, b, silu=silu, tail=tail, rope=rope, n_heads=n_heads,
+                    residual=residual, gate=gate)
 
     monkeypatch.setattr(tL, "linear_fused", counting)
     cfg = tiny_config
@@ -308,8 +317,8 @@ def test_linear_forms_per_batch(params, tiny_config, monkeypatch, fused_ffn):
                                            fused_ffn=fused_ffn)
     assert wav.dtype == torch.int16
     assert seen == _forms_per_batch(tiny_config, 2, fused_ffn)
-    assert sum(_forms_per_batch(_default_config(), 5).values()) == 128
-    assert sum(_forms_per_batch(_default_config(), 5, fused_ffn=False).values()) == 158
+    assert sum(_forms_per_batch(_default_config(), 5).values()) == 354
+    assert sum(_forms_per_batch(_default_config(), 5, fused_ffn=False).values()) == 414
 
 
 def _default_config():
