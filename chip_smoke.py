@@ -60,12 +60,17 @@ Phases (each prints its own lines; any failure exits non-zero):
                bias, silu or flow-step tail, and every bf16 Q and K
                projection with its rotary embedding and O or FFN-out with
                the gated residual: the bias-and-rope and gated-residual
-               kernels launch only on the int8 path, after its W8A8
-               linears); exact per-batch counts in PER_BATCH; the replayed
-               bf16 batch's trace holds no library matrix product
+               kernels launch on neither b64 path); exact per-batch
+               counts in PER_BATCH; the replayed bf16 batch's trace holds
+               no library matrix product
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
-               VE block linears through the quantize kernel and the int8
-               product with its rescale-and-bias epilogue, no fused FFN
+               VE block linears through the quantize kernel (one pass for
+               self Q, K and V, one for cross K and V) and the int8
+               product with its rescale-and-bias epilogue, there also its
+               silu (FFN-in) and, on the linear kernel's GEMM with its s8
+               operand, its rope form (Q and K) and residual form (O and
+               FFN-out): the W8A8 products by form exactly W8A8_FORMS; no
+               fused FFN
   5. kernels — each kernel against its plain PyTorch version on the card,
                at the cell's shapes recorded in phases 3 and 4, at the
                smaller shapes of a T=256 batch and at the tile edges of
@@ -104,7 +109,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                at the cell's shapes beside F.conv1d, the bare conv, and
                the earlier design (EARLIER_MS), its int16 head bit for bit
                the encoding of its f32 tanh; the W8A8 product's silu form
-               bit for bit F.silu of its output; the linear kernel at
+               bit for bit F.silu of its output, its rope and residual
+               forms bit for bit the product followed by the plain
+               rotation or gated residual at the int8 cell's, a streamed
+               chunk's and phase 12's shapes and at edges (every instance,
+               Dh 12 to 256, K 2,048, gates of B rows, one row, odd
+               offsets, none), timed beside the pair each replaces (the
+               W8A8 product, then the bias-and-rope or gated-residual
+               kernel); the linear kernel at
                every shape phases 3, 4, 7, 11 and 12 recorded and at edges
                (the bias and silu forms by linear.bf16_within, silu bit for
                bit F.silu of the kernel's bias form, the tail bit for bit
@@ -118,7 +130,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                gated-residual kernel)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
-               of one VE block, card vs CPU; int8 against bf16 on the
+               of one VE block (and the rope and residual forms of its self
+               Q and FFN-out), card vs CPU; int8 against bf16 on the
                card; one b64 batch with fused projections against the
                unfused one, in bf16 and int8; injected noise throughout
   7. serving — runs after phase 4, before phase 5: make_server(TTS()) on a
@@ -214,8 +227,12 @@ Phases (each prints its own lines; any failure exits non-zero):
 Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
-the cell's shape that spends the most kernel time per batch; the last line
-is ``{"ok": true, "device": {...}}``.
+the cell's shape that spends the most kernel time per batch (the W8A8
+product's rope and residual forms as entries of their own, "w8a8_matmul rope
+form" and "w8a8_matmul residual form", their launches those of the int8 b64
+batch; the bias-and-rope and gated-residual kernels, off both b64 paths, at
+0 launches with a row at the int8 VE's shapes); the last line is
+``{"ok": true, "device": {...}}``.
 
 f32 checks run with TF32 disabled for matmuls and cuDNN convs, so the plain
 versions on the card are true f32 references.
@@ -287,10 +304,13 @@ FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
 # kernels: the LayerNorm 3 per TE/DP block + 2 per VE block and step (3
 # where the FFN is unfused: fused_ffn=False and the int8 path) + the three
 # networks' ln_out (1 per step in the VE): 32 + 65 (97); the bias and
-# rotation and the gated residual only where the linear before them is
-# W8A8 (the int8 path's VE): its self Q and K and cross Q a block and step
-# (90) + its cross K once a batch (6): 96; the residual after each VE
-# sublayer (the FFN is unfused there): 90. The conv kernel: the text
+# rotation and the gated residual never on the b64 path: a bf16 linear takes
+# them in its epilogue, the linear kernel's or (W8A8, the int8 path's VE)
+# the W8A8 product's: its rope form at the VE's self Q and K and cross Q a
+# block and step (90) + its cross K once a batch (6): 96; its residual form
+# after each VE sublayer (the FFN is unfused there): 90; 252 W8A8 products
+# (96 rope, 90 residual, 30 silu, 36 bias) on 186 quantize passes (self Q, K
+# and V share one, cross K and V another: 252 - 60 - 6). The conv kernel: the text
 # encoder's two prenet convs and the vocoder's pre conv, six C 512 pre_res
 # convs (a chain past the chain kernel's C 384), two up convs and the head:
 # 12; with fused_resblocks=False also the six convs of each of the two fine
@@ -317,8 +337,7 @@ PER_BATCH = {
     "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
              "w8a8_matmul": 0, "quantize": 0, **_BLOCK, "linear": 354},
     "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 252, "quantize": 252, **_BLOCK_UNFUSED_FFN, "bias_rope": 96,
-             "gated_residual": 90, "linear": 162},
+             "w8a8_matmul": 252, "quantize": 186, **_BLOCK_UNFUSED_FFN, "linear": 162},
     # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
     "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
                          "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
@@ -330,19 +349,25 @@ PER_BATCH = {
 }
 BLOCK_KERNELS = tuple(_BLOCK)  # and the conv kernel
 # the block kernels a bf16 path launches (the rotation and the gated
-# residual are the linear kernel's epilogue there, and the int8 path's)
+# residual are the linear kernel's epilogue there, and the int8 path's the
+# W8A8 product's)
 BF16_BLOCK_KERNELS = ("ln_modulate", "conv1d")
 EPILOGUE_KERNELS = ("bias_rope", "gated_residual")
+# the W8A8 product's launches of a b64/5-step int8 batch by form (the bias
+# and silu forms' shape keys are (M, K, N); the rope and residual forms'
+# (M, K, N, form, Dh or the gate's rows a batch row), as the linear kernel's)
+W8A8_FORMS = {"rope": 96, "residual": 90, "bias or silu": 66}
 # a bf16 b64/5-step batch with fused projections (models.fuse_projections):
 # the self Q and K split from each QKV product and the VE's cross K from its
 # KV product rotate in the bias-and-rope kernel (20 + 60 + 6); the linear
 # kernel takes 354 - 96 launches (QKV one, not three; KV one, not two)
 FUSED_BF16 = {"bias_rope": 86, "linear": 258}
-# and in int8, whose VE's Q, K and O were W8A8 already: the TE's and DP's
-# self Q and K split from their QKV products rotate in the bias-and-rope
-# kernel (+20), the linear kernel takes 162 - 20 (their rope forms) - 10
-# (their cross K, in the KV product)
-FUSED_INT8 = {"bias_rope": 116, "linear": 132}
+# and in int8: the self Q and K split from the TE's and DP's and the VE's
+# QKV products and the VE's cross K from its KV product rotate in the
+# bias-and-rope kernel (20 + 60 + 6), the VE's cross Q (no fused slice) in
+# the W8A8 product's rope form; the linear kernel takes 162 - 20 (the TE's
+# and DP's rope forms) - 10 (their cross K, in the KV product)
+FUSED_INT8 = {"bias_rope": 86, "linear": 132}
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
@@ -364,6 +389,12 @@ SOURCES = {
     # the same kernel with the W8A8 linear's rescale-and-bias epilogue
     "w8a8_matmul": ("supertonic_tpu_torch/csrc/int8_matmul.cu",
                     "tools/int8_microbench.py:43"),
+    # the W8A8 product's rope and residual forms: the linear kernel's GEMM
+    # with its s8 operand and the rescale (the int8 Q, K and O output fusion)
+    "w8a8_matmul rope form": ("supertonic_tpu_torch/csrc/linear.cu",
+                              "tools/int8_microbench.py:43"),
+    "w8a8_matmul residual form": ("supertonic_tpu_torch/csrc/linear.cu",
+                                  "tools/int8_microbench.py:43"),
     # the W8A8 linear's quantize prologue (XLA ops in the JAX package)
     "quantize": ("supertonic_tpu_torch/csrc/quantize.cu",
                  "supertonic_tpu/models/layers.py:84"),
@@ -418,6 +449,7 @@ EARLIER_MS = {
     # its phase 5 times at the cell's shapes, host launches (PERF.md section 6)
     "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
     "bias_rope": {}, "gated_residual": {},  # no earlier design
+    "w8a8_matmul rope form": {}, "w8a8_matmul residual form": {},
     # the replaced linear kernel (csrc/earlier/linear_pr17.cu): its phase 5 times
     # at the cell's shapes, host launches (PERF.md section 6)
     "linear": {(28672, 512, 512, "bias", 0): 0.0443, (64, 512, 4608, "bias", 0): 0.0746,
@@ -813,7 +845,8 @@ def check_int8_matmul(gen, cell, results, tp):
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 1536, 2048)}
     cases.update({shape: 0 for shape in ODD_N})
-    cases.update({shape: 0 for shape in cell["w8a8_matmul"]})
+    w8a8_products = {key[:3] for key in cell["w8a8_matmul"]}  # (M, K, N) of every form
+    cases.update(dict.fromkeys(w8a8_products, 0))
     cases.update(tp)
     for (m, k, n), n_cell in sorted(cases.items()):
         a, w = (torch.randint(-127, 128, shape, generator=gen, device=DEV).to(torch.int8)
@@ -826,7 +859,7 @@ def check_int8_matmul(gen, cell, results, tp):
         log(f"  int8_matmul M{m} K{k} N{n}: max_abs_err={err} (exact required)")
         if got.dtype != torch.int32 or err != 0:
             raise AssertionError("int8_matmul disagrees with its plain version")
-        if not n_cell and m < CELL_ROWS and (m, k, n) not in cell["w8a8_matmul"]:
+        if not n_cell and m < CELL_ROWS and (m, k, n) not in w8a8_products:
             continue
         lib = None
         if m <= 16 or k % 8 or n % 8:
@@ -887,9 +920,12 @@ def check_w8a8(gen, cell, results, serving):
     cases = {(m, k, n): 0 for m in (1, 37, CELL_ROWS) for k in (32, 512, 2048)
              for n in (24, 512, 2048)}
     cases.update({shape: 0 for shape in ODD_N})
-    cases.update(cell["w8a8_matmul"])  # (M, K, N): launches per cell batch
+    # (M, K, N): launches per cell batch of the bias and silu forms (the rope
+    # and residual forms' keys are check_w8a8_forms')
+    cases.update({key: n for key, n in cell["w8a8_matmul"].items() if len(key) == 3})
     for key in serving["w8a8_matmul"]:
-        cases.setdefault(key, None)  # checked, not timed
+        if len(key) == 3:
+            cases.setdefault(key, None)  # checked, not timed
     for (m, k, n), n_cell in sorted(cases.items()):
         x = torch.randn((m, k), generator=gen, device=DEV)
         x[0] = 0.0
@@ -927,6 +963,146 @@ def check_w8a8(gen, cell, results, serving):
                     lambda: w8a8.w8a8_matmul_plain(*args, dtype),
                     m * k + n * k + 4 * m + 8 * n + got.element_size() * m * n,
                     2.0 * m * n * k, lib=lib, shape=(m, k, n), ops_dtype=torch.int8)
+
+
+def w8a8_form_inputs(gen, key):
+    """The W8A8 operands (xq and sx from the quantize pass of a random x with
+    a zero row, one row at 127; int8 weights with one row at 127; weight
+    scales and a bias) and the form's options of a rope or residual shape
+    key (M, K, N, form, Dh or the gate's rows a batch row), as
+    linear_inputs makes them for the linear kernel."""
+    m, k, n, form, t = key
+    x = torch.randn((m, k), generator=gen, device=DEV)
+    x[0] = 0.0
+    xq, sx = quantize.quantize_rows_plain(x)
+    xq[-1] = 127
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=DEV).to(torch.int8)
+    w[0] = 127
+    ws = torch.rand(n, generator=gen, device=DEV) * 0.01
+    bias = 0.1 * torch.randn(n, generator=gen, device=DEV)
+    if form == "rope":
+        pos = torch.rand((1, m), generator=gen, device=DEV) * 100.0
+        kw = {"rope": layers.rope_angles(pos, t, 10000.0), "n_heads": n // t}
+    else:
+        bsz, rows = (m // t, t) if t else (1, m)
+        kw = {"residual": torch.randn((bsz, rows, n), generator=gen,
+                                      device=DEV).to(torch.bfloat16),
+              "gate": modulation(gen, bsz, n, torch.bfloat16)[2] if t else None}
+    return (xq, sx, w, ws, bias), kw
+
+
+def w8a8_form_exact(gen, key, args, kw, got, own) -> bool:
+    """The W8A8 rope or residual form ``got`` bit for bit the plain rotation
+    or gated residual of the product's own bias form ``own`` [M, N]; the
+    residual form also with a gate of one row for all and with gate rows at
+    an odd element (copied by the wrapper)."""
+    m, k, n, form, t = key
+    if form == "rope":
+        cos, sin = kw["rope"]
+        return bits_equal(got, rope.bias_rope_plain(own.view(*cos.shape[:2], n), None, cos,
+                                                    sin, kw["n_heads"]))
+    residual, gate = kw["residual"], kw["gate"]
+    y = own.view(residual.shape)
+    exact = bits_equal(got, gated_residual.gated_residual_plain(residual, y, None, gate))
+    if gate is not None:
+        one = modulation(gen, 1, n, torch.bfloat16, rows=1)[2]
+        odd = torch.randn((gate.shape[0], 1, n + 1), generator=gen,
+                          device=DEV).to(torch.bfloat16)[..., 1:]
+        for g in (one, odd):
+            out = w8a8.w8a8_matmul(*args, torch.bfloat16, residual=residual, gate=g)
+            exact = exact and bits_equal(
+                out, gated_residual.gated_residual_plain(residual, y, None, g))
+    return exact
+
+
+def check_w8a8_forms(gen, cell, results, serving, widths):
+    """The W8A8 product's rope and residual forms (the int8 path's Q, K and
+    O) bit for bit the product's own bias form (itself bit for bit the plain
+    version) followed by the plain rotation or gated residual, at the int8
+    cell's, the int8 server's streamed chunk's and phase 12's widths (the
+    linear kernel's rope and residual shapes there, where K takes the int8
+    product: a multiple of 32) and at edges: every instance (128 x 128 at
+    Dh 16, 32, 64 and 128 and at ragged M, 64 x 64 at a streamed chunk's M,
+    64 x 192 at Dh 96 and 192, 64 x 256, the SIMT kernel at Dh 12 and 36;
+    the residual form's 64 x 128 tiles of three consumers, 64 x 64 tiles and
+    register-stored 64 x 32 ones at N off 8, odd N), K 2,048, a gate of B
+    rows (strided), of one row for all, of rows at an odd element, and none.
+    Timed at the cell's and a chunk's shapes beside the pair each replaces
+    (the W8A8 product, then the bias-and-rope or gated-residual kernel),
+    host-launched and from a graph; library_ms None (no one PyTorch call
+    computes a form)."""
+    edges = [(300, 64, 32, "rope", 16), (300, 64, 64, "rope", 32),
+             (17037, 512, 512, "rope", 64), (448, 512, 512, "rope", 64),
+             (50, 256, 256, "rope", 64), (200, 384, 384, "rope", 96), (37, 384, 96, "rope", 96),
+             (150, 512, 384, "rope", 192), (300, 256, 256, "rope", 128),
+             (200, 1024, 1024, "rope", 256), (100, 64, 48, "rope", 12),
+             (100, 96, 72, "rope", 36), (37, 96, 96, "residual", 37),
+             (3 * 50, 256, 256, "residual", 50), (17037, 512, 512, "residual", 0),
+             (300, 1024, 256, "residual", 0), (2 * 50, 64, 30, "residual", 50),
+             (4 * 33, 32, 15, "residual", 33), (448, 512, 512, "residual", 448),
+             (2 * 32, 2048, 512, "residual", 32), (448, 2048, 512, "residual", 448)]
+    cases = dict.fromkeys(edges, 0)
+    cases.update({key: n for key, n in cell["w8a8_matmul"].items() if len(key) == 5})
+    for key in serving["w8a8_matmul"]:
+        if len(key) == 5:
+            cases.setdefault(key, 0)
+    for key in widths["linear"]:
+        if key[3] in ("rope", "residual") and key[1] % 32 == 0:
+            cases.setdefault(key, 0)
+    pairs = {"rope": [], "residual": []}  # (launches, form ms, pair ms, bound) from graphs
+    bf16 = torch.bfloat16
+    for key, n_cell in sorted(cases.items()):
+        m, k, n, form, t = key
+        args, kw = w8a8_form_inputs(gen, key)
+        got = w8a8.w8a8_matmul(*args, bf16, **kw)
+        own = w8a8.w8a8_matmul(*args, bf16)
+        plain = w8a8.w8a8_matmul_plain(*args, bf16)
+        exact = bits_equal(own, plain) and w8a8_form_exact(gen, key, args, kw, got, own)
+        torch.cuda.synchronize()
+        per_chunk = serving["w8a8_matmul"].get(key, 0)
+        instance = w8a8.kernel_instance(m, k, n, form, t if form == "rope" else 0)
+        what = (f"M{m} K{k} N{n} {form}{f' (T {t})' if t else ''}"
+                f"{f' ({per_chunk} per streamed chunk)' if per_chunk else ''}")
+        log(f"  w8a8_matmul {what} ({instance}): bias form bit-equal to the plain version and "
+            f"the {form} form bit-equal to the plain "
+            f"{'rotation' if form == 'rope' else 'gated residual'} of it: {exact}")
+        if not exact or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"the W8A8 {form} form disagrees with its plain version")
+        if not (n_cell or per_chunk or m >= CELL_ROWS // 2):
+            continue
+        nbytes = m * k + n * k + 4 * m + 8 * n + 2 * m * n
+        if form == "rope":
+            nbytes += 4 * m * t  # cos and sin, [M, Dh / 2] f32 each
+        else:
+            nbytes += 2 * m * n + (2 * (m // t) * n if t else 0)  # the residual, the gate
+        name = f"w8a8_matmul {form} form"
+        measure(results, name, what, bf16, n_cell, 0.0,
+                lambda: w8a8.w8a8_matmul(*args, bf16, **kw),
+                lambda: w8a8.w8a8_matmul_plain(*args, bf16, **kw), nbytes, 2.0 * m * n * k,
+                shape=key, ops_dtype=torch.int8)
+
+        def pair():  # the W8A8 product, then the bias-and-rope or gated-residual kernel
+            y = w8a8.w8a8_matmul(*args, bf16)
+            if form == "rope":
+                cos, sin = kw["rope"]
+                return rope.bias_rope(y.view(*cos.shape[:2], n), None, cos, sin, kw["n_heads"])
+            return gated_residual.gated_residual(kw["residual"], y.view(kw["residual"].shape),
+                                                 None, kw["gate"])
+        pair_ms, pair_graph = time_ms(pair), graph_ms(pair)
+        row = results[name][-1]
+        after = "bias_rope" if form == "rope" else "gated_residual"
+        log(f"    the pair it replaces (w8a8_matmul, then {after}): {pair_ms:.4f} ms [graph "
+            f"{pair_graph:.4f}]; the form {row['ms']:.4f} [graph {row['graph_ms']:.4f}], "
+            f"bound {row['bound_ms']:.4f}")
+        if n_cell:
+            pairs[form].append((n_cell, row["graph_ms"], pair_graph, row["bound_ms"]))
+    for form, rows in pairs.items():
+        if rows:
+            log(f"  w8a8_matmul {form} form per b64/5-step int8 batch at the cell's shapes "
+                f"({sum(r[0] for r in rows)} launches), from graphs: "
+                f"{sum(r[0] * r[1] for r in rows):.4f} ms, the pairs it replaces "
+                f"{sum(r[0] * r[2] for r in rows):.4f} ms, bound "
+                f"{sum(r[0] * r[3] for r in rows):.4f} ms")
 
 
 def block_cases(edges, cell, serving, widths, kernel):
@@ -1022,7 +1198,8 @@ def check_rope(gen, cell, results, serving, widths):
     no one PyTorch call computes it (library_ms None)."""
     edges = [(2, 9, 2, dh, bias) for dh in (2, 12, 16, 32, 36, 64, 96, 128, 256)
              for bias in (False, True)]
-    edges += [(1, 1, 8, 64, True), (1, 448, 8, 64, True), (64, 370, 8, 64, False)]
+    edges += [(1, 1, 8, 64, True), (1, 448, 8, 64, True), (64, 370, 8, 64, False),
+              (64, 448, 8, 64, False)]
     cases = block_cases(edges, cell, serving, widths, "bias_rope")
     for (b, t, h, dh, with_bias), n_cell in sorted(cases.items()):
         d = h * dh
@@ -1062,7 +1239,8 @@ def check_gated_residual(gen, cell, results, serving, widths):
     one call, no bias), or x + y without a gate."""
     edges = [(1, 1, 8, True, True), (3, 37, 200, True, True), (2, 7, 36, True, True),
              (2, 7, 36, False, True), (2, 5, 4104, True, False), (5, 100, 512, True, True),
-             (64, 37, 256, False, True), (1, 448, 512, True, False)]
+             (64, 37, 256, False, True), (1, 448, 512, True, False),
+             (64, 448, 512, True, False)]
     cases = block_cases(edges, cell, serving, widths, "gated_residual")
     for (b, t, d, gated, with_bias), n_cell in sorted(cases.items()):
         bias = 0.5 * torch.randn(d, generator=gen, device=DEV) if with_bias else None
@@ -1457,7 +1635,7 @@ SASS_REQUIRED = {"attention": ("HGMMA", "UTMALDG"), "ffn": ("HGMMA", "UTMALDG"),
                  "resblock_chain": ("HGMMA", "UTMALDG"),
                  "int8_matmul": ("IGMMA", "UTMALDG", "UTMASTG"), "quantize": ("UBLKCP",),
                  "conv1d": ("HGMMA", "UTMALDG"), "ln_modulate": ("UBLKCP",),
-                 "linear": ("HGMMA", "UTMALDG", "UTMASTG")}
+                 "linear": ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")}
 SASS_FORBIDDEN = {"int8_matmul": ("IMMA",)}
 
 
@@ -1493,6 +1671,16 @@ def check_instructions(libs) -> None:
                               (448, 512, 512, "residual", 0), (320, 256, 256, "residual", 0)):
         log(f"  linear {form} form at M {m} K {k} N {n}{f' Dh {dh}' if dh else ''}: "
             f"{linear.kernel_instance(m, k, n, form, dh)}")
+    # the W8A8 product's forms at the int8 cell's, a streamed chunk's and
+    # phase 12's VE shapes (the rope form at Dh 16-128 on tiles of its own:
+    # w8a8.kernel_instance's "rope_many")
+    for m, k, n, form, dh in ((28672, 512, 512, "rope", 64), (23680, 512, 512, "rope", 64),
+                              (448, 512, 512, "rope", 64), (1280, 256, 256, "rope", 128),
+                              (1280, 96, 72, "rope", 36), (28672, 512, 512, "residual", 0),
+                              (28672, 2048, 512, "residual", 0), (448, 512, 512, "residual", 0),
+                              (448, 2048, 512, "residual", 0)):
+        log(f"  w8a8_matmul {form} form at M {m} K {k} N {n}{f' Dh {dh}' if dh else ''}: "
+            f"{w8a8.kernel_instance(m, k, n, form, dh)}")
     for b, t_len, c in ((64, 28672, 128), (64, 3584, 256), (1, 896, 256), (1, 7168, 128)):
         tile = vocoder_fused._tile(c, 3, (1, 3, 9), torch.bfloat16, b, t_len)
         log(f"  resblock_chain bf16 tile at B{b} x {t_len} frames, C={c}: {tile} output frames "
@@ -1505,10 +1693,22 @@ def cell_summary(results, launches) -> dict:
     batch among those that may stand in the kernels line (the linear
     kernel's bias form, whose library call is the same function), and the
     per-batch sums over the cell's shapes (for a kernel the path no longer
-    launches, the sums it would take at the path's counts)."""
+    launches, the sums it would take at the path's counts). The bias-and-rope
+    and gated-residual kernels left the b64 path (the linear kernel's and the
+    W8A8 product's epilogues took them; they serve fused projections, f32
+    and sharded linears): their rows are the timed ones at the shapes the
+    int8 VE gave them before, with 0 launches on the path."""
     line = {}
     for kernel, rows in results.items():
         cell = [r for r in rows if r["n_cell"] and r["dtype"] != torch.float32]
+        if not cell and kernel in EPILOGUE_KERNELS and not launches[kernel]:
+            timed = [r for r in rows if r["dtype"] != torch.float32 and r["n_cell"] == 0]
+            if not timed:
+                raise AssertionError(f"{kernel}: no timed shape")
+            line[kernel] = max(timed, key=lambda r: r["ms"])
+            log(f"  {kernel}: off the b64 path (0 launches on it); its kernels line row at "
+                f"{line[kernel]['name']}")
+            continue
         if not cell:
             raise AssertionError(f"{kernel}: no shape recorded on the cell's path")
         sums = {key: (None if any(r[key] is None for r in cell)
@@ -1800,6 +2000,36 @@ def w8a8_linears(params) -> None:
                 f"away (relative L2)")
             if err != 0.0 or not quant > 0.0:
                 raise AssertionError("W8A8 linear: card and CPU disagree, or no quantization")
+    # the rope form (self Q, LARoPE-like angles, heads of 64) and the
+    # residual form (FFN-out, a gate of a row a batch row) card against CPU:
+    # in bf16 the W8A8 product's forms on the card, in f32 the product, then
+    # the bias-and-rope or gated-residual kernel
+    b, t = 8, 512
+    for path in (("self", "q"), ("ffn", "out")):
+        q_tree = q_block[path[0]][path[1]]
+        k, n = q_tree["w_q"].shape
+        x = gen.standard_normal((b, t, k)).astype(np.float32)
+        pos = gen.uniform(0.0, 100.0, (b, t)).astype(np.float32)
+        res = gen.standard_normal((b, t, n)).astype(np.float32)
+        gate = (0.5 * gen.standard_normal((b, 1, n))).astype(np.float32)
+        rope_cs = layers.rope_angles(torch.as_tensor(pos), 64, 10000.0)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = {}
+            for dev in ("cuda", "cpu"):
+                lin = layers.tree_to_modules(q_tree, device=dev)
+                xt = torch.as_tensor(x).to(dev, dtype)
+                if path[1] == "q":  # the angles made once, on the CPU
+                    out = layers.linear(lin, xt, rope=rope_cs, n_heads=n // 64)
+                else:
+                    out = layers.linear(lin, xt, residual=torch.as_tensor(res).to(dev, dtype),
+                                        gate=torch.as_tensor(gate).to(dev, dtype))
+                got[dev] = out.float().cpu()
+            err = float((got["cuda"] - got["cpu"]).abs().max())
+            form = "rope" if path[1] == "q" else "residual"
+            log(f"  W8A8 {'.'.join(path)} {form} form [{b}, {t}, {k}] {dtype}: card vs CPU max "
+                f"abs err {err:g} (bit-equal required)")
+            if err != 0.0:
+                raise AssertionError(f"W8A8 {form} form: card and CPU disagree")
 
 
 def whole_path_int8(params, smi: str) -> None:
@@ -1879,7 +2109,8 @@ def fused_projections_path(params) -> None:
 TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
                "resblock_chain": ("chain_wgmma", "chain_kernel", "conv_pass"),
                "int8_matmul": ("Int32Out",),
-               "w8a8_matmul": ("ScaleOut",), "quantize": ("quantize_rows", "quantize_long_rows"),
+               "w8a8_matmul": ("ScaleOut", "w8a8_wgmma", "w8a8_simt"),
+               "quantize": ("quantize_rows", "quantize_long_rows"),
                "ln_modulate": ("layer_norm_rows",), "bias_rope": ("rope_pairs",),
                "gated_residual": ("gated_residual_pass",),
                "conv1d": ("conv_wgmma", "conv_simt"), "linear": ("linear_wgmma", "linear_simt")}
@@ -3383,11 +3614,14 @@ def serving(assets, params, smi: str):
     log(f"  int8 server: 16 concurrent /tts ({sum(samples8) / sr:.3f}s of audio in "
         f"{wall8:.4f}s) and one stream (first audio after {t_first8:.4f}s); launches "
         f"{counts8}")
-    for name in ("attention", "resblock_chain", *W8A8_KERNELS, *BLOCK_KERNELS, "linear"):
+    for name in ("attention", "resblock_chain", *W8A8_KERNELS, *BF16_BLOCK_KERNELS, "linear"):
         if not counts8[name] > 0:
             raise AssertionError(f"{name} was not launched by the int8 server")
     if counts8["adaln_ffn"] or counts8["int8_matmul"]:
         raise AssertionError("the int8 server launched the fused FFN or the int32 product")
+    if any(counts8[name] for name in EPILOGUE_KERNELS):
+        raise AssertionError("the int8 server launched the bias-and-rope or gated-residual "
+                             "kernel (the W8A8 product's epilogue takes them)")
     log_programs(tts8.engine, "the int8 server's engine")
     del tts8
     served = {kernel: {key: per_chunk[kernel].get(key, 0)
@@ -3899,6 +4133,17 @@ def main() -> int:
     for name in (*W8A8_KERNELS, *EPILOGUE_KERNELS):  # kernels of the int8 path alone
         launches[name] = counts8[name]
         cell[name] = cell8[name]
+    # the W8A8 product's launches in the b64/5-step int8 batch by form
+    by_form = dict.fromkeys(W8A8_FORMS, 0)
+    for key, n in cell8["w8a8_matmul"].items():
+        by_form[key[3] if len(key) == 5 else "bias or silu"] += n
+    log(f"  W8A8 products of the b64/5-step int8 batch by form: {by_form} (exactly "
+        f"{W8A8_FORMS} required)")
+    if by_form != W8A8_FORMS:
+        raise AssertionError("the int8 batch's W8A8 products did not take the rope and "
+                             "residual forms")
+    for form in ("rope", "residual"):
+        launches[f"w8a8_matmul {form} form"] = by_form[form]
 
     # phase 7 runs here, before phase 5, so that phase 5 also holds attention
     # and the chain against their plain versions at the shapes serving gave them
@@ -3938,6 +4183,7 @@ def main() -> int:
     check_int8_matmul(gen, cell, results, tp_shapes["int8_matmul"])
     check_quantize(gen, cell, results, served)
     check_w8a8(gen, cell, results, served)
+    check_w8a8_forms(gen, cell, results, served, widths)
     check_ln_modulate(gen, cell, results, served, widths)
     check_rope(gen, cell, results, served, widths)
     check_gated_residual(gen, cell, results, served, widths)

@@ -49,7 +49,7 @@ from collections import Counter, defaultdict
 HAND_WRITTEN = ("attn_wgmma", "attn_wide", "chain_kernel", "chain_wgmma", "conv_pass",
                 "conv_simt", "conv_wgmma", "ffn_down_f32", "ffn_up_f32", "gated_residual_pass",
                 "layer_norm_rows", "linear_simt", "linear_wgmma", "ln_mod",
-                "quantize_long_rows", "quantize_rows", "rope_pairs")
+                "quantize_long_rows", "quantize_rows", "rope_pairs", "w8a8_simt", "w8a8_wgmma")
 # the port's GEMM kernels, as whole template names (stk::wgmma_gemm<...>,
 # mma_gemm<...>, or mangled 10wgmma_gemmI...): cuBLAS's xmma_gemm_ is not one
 OWN_GEMMS = re.compile(r"(?<![A-Za-z_])(?:wgmma_gemm|mma_gemm)[<I]")

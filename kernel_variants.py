@@ -158,7 +158,23 @@ LIN_RESID = ("using ManyResid = Tile<3, 1, 128, 7, 1, false, true, 2>;  // the r
              "many tiles")
 LIN_ROPE = ("using RopeMany = Tile<2, 2, 128, 5, 1, false, true, 2>;   // the rope form at Dh 16, "
             "32, 64, 128")
+LIN_ROPE8 = "using RopeMany8 = Tile<3, 1, 128, 7, 1, false, true, 2>;"
 ROPE_STAGED_SRC = "variants/linear_rope_staged.cu"
+# the W8A8 forms' weight scales read from device memory (L1/L2) in the
+# epilogue instead of staged in shared memory (which leaves RopeMany8's tiles
+# room for a fifth ring stage); safe where the tiles' columns end at N (the
+# VE's N 512)
+W8A8_WS_GLOBAL = [
+    ("         (Q8 ? (size_t)S::NC * 4 * S::BN : 0);", "         0;"),
+    ("        if constexpr (Q8)\n"
+     "          stk::cp_async4(stk::smem_u32(ws_s + c), p.ws + (n0 + c < p.N ? n0 + c : 0),\n"
+     "                         n0 + c < p.N);\n", ""),
+    ("                  wa = *reinterpret_cast<const float2*>(ws_s + 8 * j + 2 * t);",
+     "                  wa = __ldg(reinterpret_cast<const float2*>(p.ws + n0 + 8 * j + 2 * t));"),
+    ("                  wb = *reinterpret_cast<const float2*>(ws_s + 8 * jp + 2 * t);",
+     "                  wb = __ldg(reinterpret_cast<const float2*>(p.ws + n0 + 8 * jp + 2 * t));"),
+    ("          const float2 wv = Q8 ? *reinterpret_cast<const float2*>(ws_s + c) : bl;",
+     "          const float2 wv = Q8 ? __ldg(reinterpret_cast<const float2*>(p.ws + n0 + c)) : bl;")]
 LIN_GATE_STAGED = "              gsel[r][half] = at / p.T - b0;"
 LINEAR_NO_MATH = [
     ("  const uint32_t o = bias_pair(v0, v1, b);\n  if constexpr (MODE == MODE_BIAS) {",
@@ -220,12 +236,12 @@ SPLIT = {"resblock_chain": {
              "                uint32_t o1 = a, o2 = b;\n"
              "                if (p.K < 0) rotate(a, b, cv, sv, o1, o2);")],
         "split: the rope form without its cos and sin loads": [
-            ("                cv = __ldg(reinterpret_cast<const float2*>(p.cs + ce));",
-             "                cv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>(p.cs + ce))"
-             " : make_float2(0.5f, 0.25f);"),
-            ("                sv = __ldg(reinterpret_cast<const float2*>(p.sn + ce));",
-             "                sv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>(p.sn + ce))"
-             " : make_float2(0.25f, 0.5f);")],
+            ("              const float2 cv = __ldg(reinterpret_cast<const float2*>(p.cs + ce));",
+             "              const float2 cv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>("
+             "p.cs + ce)) : make_float2(0.5f, 0.25f);"),
+            ("              const float2 sv = __ldg(reinterpret_cast<const float2*>(p.sn + ce));",
+             "              const float2 sv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>("
+             "p.sn + ce)) : make_float2(0.25f, 0.5f);")],
         "split: the residual form without its residual loads (nor the tail's x_in)": [
             ("        if (tid == 0) {\n          stk::bulk_wait_read<0>();",
              "        if (tid == 0 && p.K < 0) {\n          stk::bulk_wait_read<0>();"),
@@ -242,6 +258,11 @@ SPLIT = {"resblock_chain": {
             LINEAR_NO_STORES,
         "split: loads only (no products, no epilogue math, no stores)": (
             LINEAR_NO_MATH + LINEAR_NO_PRODUCTS + LINEAR_NO_STORES)},
+    "w8a8_forms": {
+        "split: the rope form without its rotation (its bias forms stored)": None,
+        "split: the residual form without its residual loads (nor the tail's x_in)": None,
+        "split: no products": None,
+        "split: no stores (the results' TMA stores, or register stores, skipped)": None},
     "ln_modulate": {
         "split: loads only": [
             ("    if (lane == 0 && i + STAGES < n_rows) issue(i + STAGES);\n",
@@ -383,6 +404,20 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "the head with 11 staging warps": [
             ("STK_CONV(64, 7, E_TANH, true)", "STK_CONV(64, 11, E_TANH, true)"),
             ("STK_CONV(64, 7, E_TANH | E_I16, true)", "STK_CONV(64, 11, E_TANH | E_I16, true)")]},
+    # the W8A8 product's rope and residual forms (csrc/linear.cu's GEMM with
+    # its s8 operand; the residual tiles are the bf16 residual form's too)
+    "w8a8_forms": {
+        "the rope form on 128 x 128 tiles, two consumers, 4 ring stages (first built)": [
+            (LIN_ROPE8, "using RopeMany8 = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
+        "the rope form on 64 x 128 tiles, two consumers, 6 ring stages": [
+            (LIN_ROPE8, "using RopeMany8 = Tile<2, 1, 128, 6, 1, false, true, 2>;")],
+        "the rope form on 128 x 128 tiles with 5 ring stages, the weight scales from "
+        "device memory": [(LIN_ROPE8, "using RopeMany8 = Tile<2, 2, 128, 5, 1, false, true, 2>;"),
+                          *W8A8_WS_GLOBAL],
+        "the residual form on 128 x 128 tiles, two consumers, 4 ring stages": [
+            (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
+        "the residual form on 64 x 128 tiles, four consumers, 5 ring stages": [
+            (LIN_RESID, "using ManyResid = Tile<4, 1, 128, 5, 1, false, true, 2>;")]},
     "linear": {
         "earlier: the replaced design, on the FFN's GEMM template": (
             FILE, "earlier/linear_pr17.cu", []),
@@ -453,7 +488,8 @@ ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "quantize": ("stk_quantize_rows", quantize._ARGTYPES),
          "ln_modulate": ("stk_ln_modulate", ln_modulate._ARGTYPES),
          "conv1d": ("stk_conv1d", conv1d._ARGTYPES),
-         "linear": ("stk_linear", linear._ARGTYPES)}
+         "linear": ("stk_linear", linear._ARGTYPES),
+         "w8a8_forms": ("stk_w8a8_epilogue", w8a8._EPI_ARGTYPES)}
 # further entries of a variant's library, {kernel: {name: argtypes}} (a
 # variant from another file may lack them)
 MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES},
@@ -466,8 +502,10 @@ BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
                   "int8": ("wgmma_gemm", "mma_gemm"),
                   "quantize": ("quantize_",), "ln_modulate": ("layer_norm_rows",),
-                  "conv1d": ("conv_wgmma",), "linear": ("linear_wgmma", "linear_simt")}
-SOURCE = {"attention_f32": "attention", "int8": "int8_matmul"}  # kernels timed from another kernel's source
+                  "conv1d": ("conv_wgmma",), "linear": ("linear_wgmma", "linear_simt"),
+                  "w8a8_forms": ("w8a8_wgmma", "w8a8_simt")}
+# kernels timed from another kernel's source
+SOURCE = {"attention_f32": "attention", "int8": "int8_matmul", "w8a8_forms": "linear"}
 OUT = _build.BUILD_ROOT / "variants"
 
 
@@ -607,8 +645,12 @@ def main() -> int:
     kernels = [a for a in sys.argv[1:] if a != "--split"] or list(VARIANTS)
     if any(k not in VARIANTS for k in kernels):
         raise SystemExit(f"kernels: {', '.join(VARIANTS)} [--split]")
+    if "int8" in kernels and "w8a8_forms" not in kernels:
+        kernels.append("w8a8_forms")  # the W8A8 product's rope and residual forms
     if "--split" in sys.argv:
         for kernel, extra in SPLIT.items():
+            # None: the linear kernel's split of that name
+            extra = {name: subs or SPLIT["linear"][name] for name, subs in extra.items()}
             VARIANTS[kernel] = {**VARIANTS[kernel], **extra}
     _build.build_all()
     cs.log("build (bf16 kernels of each variant: ptxas registers and spills)")
@@ -626,6 +668,8 @@ def main() -> int:
         variants_ffn(fns, gen, dt)
     if "int8" in kernels:
         variants_int8(fns, gen)
+    if "w8a8_forms" in kernels:
+        variants_w8a8_forms(fns, gen)
     if "quantize" in kernels:
         variants_quantize(fns, gen)
     if "ln_modulate" in kernels:
@@ -1079,6 +1123,90 @@ def variants_linear_epilogues(fns, gen) -> None:
     for (form, name), ms in per_batch.items():
         cs.log(f"  {form} form per b64/5-step batch at the cell's shapes, from graphs, {name}: "
                f"{ms:.4f} ms")
+
+
+# (M, K, N, form, Dh or the gate's rows a batch row) of the W8A8 product's
+# rope and residual forms in one b64/5-step int8 batch (T=448, the VE's Q, K
+# and O and FFN-out), with the launches a batch, and a streamed chunk's
+# (M 448; the cross K at the memory's 370 rows)
+CELL_W8A8_FORMS = {(28672, 512, 512, "rope", 64): 90, (23680, 512, 512, "rope", 64): 6,
+                   (28672, 512, 512, "residual", 448): 60,
+                   (28672, 2048, 512, "residual", 448): 30}
+CHUNK_W8A8_FORMS = ((448, 512, 512, "rope", 64), (370, 512, 512, "rope", 64),
+                    (448, 512, 512, "residual", 448), (448, 2048, 512, "residual", 448))
+
+
+def w8a8_form_call(fn, xq, sx, w, ws, bias, rope=None, n_heads=0, residual=None, gate=None):
+    """One W8A8 rope or residual form through a variant's library, as the
+    wrapper launches it."""
+    m, k = xq.shape
+    n = w.shape[0]
+    bsz, t = (rope[0] if rope is not None else residual).shape[:2]
+    gstride = 0
+    if gate is not None:
+        gate, gstride = batch_rows(gate, bsz, n, "gate")
+    cos, sin = rope or (None, None)
+    dh = n // n_heads if rope is not None else 0
+    y = torch.empty((bsz, t, n), device=xq.device, dtype=torch.bfloat16)
+    P = _build.ptr
+    _build.check(fn(P(xq), P(w), P(sx), P(ws), P(bias), P(cos), P(sin), P(residual), P(gate),
+                    gstride, P(y), m, n, k, t, dh, 3 if rope is not None else 4,
+                    _build.stream_ptr(xq)), "variant")
+    return y.view(bsz, t, n_heads, dh) if rope is not None else y
+
+
+def variants_w8a8_forms(fns, gen) -> None:
+    """The W8A8 product's rope and residual forms at the int8 cell's and a
+    streamed chunk's shapes: committed, the variants (and splits) of their
+    instances, the pair each replaced (the W8A8 product, then the
+    bias-and-rope or gated-residual kernel) and the product alone; per
+    batch, from graphs."""
+    cs.log("W8A8 product's rope and residual forms, ms per launch (bf16), beside the pair "
+           "each replaced (the W8A8 product, then the bias-and-rope or gated-residual kernel)")
+    per_batch = {}
+    bf16 = torch.bfloat16
+    for key in (*CELL_W8A8_FORMS, *CHUNK_W8A8_FORMS):
+        m, k, n, form, t = key
+        n_cell = CELL_W8A8_FORMS.get(key, 0)
+        args, kw = cs.w8a8_form_inputs(gen, key)
+        ref = w8a8.w8a8_matmul(*args, bf16, **kw)
+        calls = {"committed": lambda: w8a8.w8a8_matmul(*args, bf16, **kw)}
+        for name in VARIANTS["w8a8_forms"]:
+            mine = (form == "rope" if "rope form" in name else form == "residual"
+                    if "residual form" in name else name.startswith("split"))
+            if mine:
+                fn = fns[("w8a8_forms", name)]
+                calls[name] = lambda fn=fn: w8a8_form_call(fn, *args, **kw)
+
+        def pair():
+            y = w8a8.w8a8_matmul(*args, bf16)
+            if form == "rope":
+                cos, sin = kw["rope"]
+                return rope.bias_rope(y.view(*cos.shape[:2], n), None, cos, sin, kw["n_heads"])
+            return gated_residual.gated_residual(kw["residual"], y.view(kw["residual"].shape),
+                                                 None, kw["gate"])
+        calls["the pair it replaced (the W8A8 product, then the bias-and-rope or "
+              "gated-residual kernel)"] = pair
+        calls["the W8A8 product alone (its bias form; yardstick)"] = (
+            lambda: w8a8.w8a8_matmul(*args, bf16))
+        label = (f"W8A8 M{m} K{k} N{n} {form}{f' Dh {t}' if form == 'rope' else ''}"
+                 f"{' gated' if form == 'residual' and t else ''} "
+                 f"({f'{n_cell} a batch' if n_cell else 'a streamed chunk'})")
+        for name, call in calls.items():
+            if name == "committed" or name.startswith("split") or "alone" in name:
+                continue
+            if not cs.bits_equal(call(), ref):
+                raise AssertionError(f"{label} {name}: not bit-equal to the committed kernel")
+        cs.log(f"  {label}: every variant and the pair bit-equal to the committed kernel "
+               f"(the splits unchecked)")
+        replays = in_turns(label, calls, 20, graphs=True)
+        for name, ms in replays.items():
+            if n_cell:
+                per_batch[(form, name)] = per_batch.get((form, name), 0.0) + n_cell * sum(
+                    ms) / len(ms)
+    for (form, name), ms in per_batch.items():
+        cs.log(f"  W8A8 {form} form per b64/5-step int8 batch at the cell's shapes, from "
+               f"graphs, {name}: {ms:.4f} ms")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,14 @@
 //                y / (1 + expf(-y)), F.silu's formula, rounded once more
 //                (the FFN's first linear on the int8 path:
 //                supertonic_tpu/models/layers.py:365).
+// The W8A8 product's two other forms, the Q and K projections' rotation
+// and the O and FFN-out's gated residual in the epilogue (bf16 results,
+// the int8 path's VE), need a column's partner c + Dh / 2 in the same
+// thread, which this GEMM's epilogue (a column pair at a time) cannot see:
+// they run csrc/linear.cu's GEMM with its s8 operand and this rescale
+// (stk_w8a8_epilogue there, w8a8_matmul(..., rope=, residual=) in
+// ops/w8a8.py). f32 results and the sharded W8A8 linears keep this kernel,
+// then csrc/rope.cu or csrc/gated_residual.cu.
 //
 // Replaces tools/int8_microbench.py:_pallas_i8_matmul, the Pallas int8 x int8
 // -> int32 kernel (the product that the JAX package's _linear_w8a8 leaves to

@@ -35,7 +35,11 @@ Conventions:
     weights whatever the compute dtype; ``linear`` routes them through the
     quantize pass (ops/quantize.py) and the int8 product with its
     rescale-and-bias epilogue (ops/w8a8.py), in the JAX ``_linear_w8a8``'s
-    order, silu too in that epilogue.
+    order, silu too in that epilogue, and in bf16 a Q or K projection's
+    rotation and a sublayer's gated residual as well (the W8A8 product's
+    rope and residual forms). Linears that share an input (self Q, K and V;
+    cross K and V) take one quantize pass of it (``quantized=``), as XLA
+    computes it once in the JAX program.
   * Tensor parallelism (``parallel.mesh``): a sharded linear is a
     ``ShardedLinear`` of per-rank shards; ``mha``, ``kv_project`` and
     ``ffn`` run each rank's heads or hidden columns on its device and sum
@@ -303,7 +307,8 @@ def _weight(p, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=None,
-           rope=None, n_heads: int = 0, residual=None, gate=None) -> torch.Tensor:
+           rope=None, n_heads: int = 0, residual=None, gate=None,
+           quantized=None) -> torch.Tensor:
     """JAX's ``linear`` (the bias in its rounding); with ``silu``,
     ``jax.nn.silu`` of it; with ``tail`` = (x_in [B, T, N] f32, dt [B],
     mask [B, T]), the flow step's Euler update on it as the velocity
@@ -312,21 +317,28 @@ def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=Non
     sin); with ``residual``, a sublayer's last linear closing it as
     ``residual + gate * linear`` (no gate: the blocks without AdaLN). A bf16
     ``Linear`` is one launch of the linear kernel, each of these in its
-    epilogue; a W8A8 one takes its silu in the int8 product's epilogue, and
-    W8A8 and f32 ones the rotation or the gated residual in one pass after
-    the product (``_heads``, ``_close``)."""
+    epilogue; a W8A8 one is one quantize pass and one launch of the int8
+    product, its silu and, in bf16, the rotation or the gated residual in
+    that product's epilogue; ``quantized`` = (xq, sx), ``x``'s quantize pass
+    already made for another W8A8 linear on it, spares the pass. f32 linears
+    and f32 W8A8 ones take the rotation or the gated residual in one pass
+    after the product (``_heads``, ``_close``)."""
     if rope is not None:
         rope = tuple(t.to(x.device) for t in rope)
     if not isinstance(p, QLinear) and x.dtype == torch.bfloat16:
         y = linear_fused(x, _weight(p, x.dtype), p.bias, silu=silu, tail=tail, rope=rope,
                          n_heads=n_heads, residual=residual, gate=gate)
         return _split_heads(y, n_heads) if n_heads and rope is None else y
+    if isinstance(p, QLinear) and x.dtype == torch.bfloat16 and (
+            rope is not None or residual is not None):
+        return _linear_w8a8(p, x, rope=rope, n_heads=n_heads, residual=residual, gate=gate,
+                            quantized=quantized)
     if n_heads:
-        return _heads(*_product(p, x), rope, n_heads)
+        return _heads(*_product(p, x, quantized), rope, n_heads)
     if residual is not None:
-        return _close(*_product(p, x), residual, gate)
+        return _close(*_product(p, x, quantized), residual, gate)
     if isinstance(p, QLinear):
-        y = _linear_w8a8(p, x, silu=silu)
+        y = _linear_w8a8(p, x, silu=silu, quantized=quantized)
     else:
         y = add_bias(F.linear(x, _weight(p, x.dtype)), p.bias)
         if silu:
@@ -334,23 +346,41 @@ def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=Non
     return y if tail is None else euler_tail(y, tail)
 
 
-def _product(p: Linear | QLinear, x: torch.Tensor):
+def _product(p: Linear | QLinear, x: torch.Tensor, quantized=None):
     """``linear`` without its bias add: (product in x's dtype, the bias
     left to add), the bias None where the product added it (W8A8)."""
     if isinstance(p, QLinear):
-        return _linear_w8a8(p, x), None
+        return _linear_w8a8(p, x, quantized=quantized), None
     return F.linear(x, _weight(p, x.dtype)), p.bias
 
 
-def _linear_w8a8(p: QLinear, x: torch.Tensor, *, silu: bool = False) -> torch.Tensor:
+def _quantize(x: torch.Tensor):
+    """The W8A8 linears' quantize pass of ``x`` [..., K]: (xq [M, K] int8,
+    sx [M] f32)."""
+    return quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+
+
+def _quantized_once(x: torch.Tensor, *ps):
+    """The one quantize pass of ``x`` that the linears ``ps`` sharing it
+    take (``linear(..., quantized=)``), where all of them are W8A8; else
+    None (each linear on its own)."""
+    return _quantize(x) if all(isinstance(p, QLinear) for p in ps) else None
+
+
+def _linear_w8a8(p: QLinear, x: torch.Tensor, *, silu: bool = False, rope=None,
+                 n_heads: int = 0, residual=None, gate=None, quantized=None) -> torch.Tensor:
     """Dynamic-activation int8 linear in the JAX ``_linear_w8a8``'s order,
     as two kernels: per-token symmetric activation quant (round half to
-    even, as ``jnp.round``), then int8 x int8 with the rescale and bias in
-    f32 and one rounding to x's dtype in the product's epilogue (and with
-    ``silu``, F.silu there, rounded once more)."""
-    xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
-    y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype, silu=silu)
-    return y.reshape(*x.shape[:-1], -1)
+    even, as ``jnp.round``; ``quantized``: that pass's (xq, sx), made
+    once for the linears sharing ``x``), then int8 x int8 with the rescale
+    and bias in f32 and one rounding to x's dtype in the product's epilogue
+    (and with ``silu``, F.silu there, rounded once more; with ``rope``, the
+    rotated heads [B, T, H, Dh]; with ``residual``, ``residual + gate *``
+    the product: ops/w8a8.py's forms)."""
+    xq, sx = _quantize(x) if quantized is None else quantized
+    y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype, silu=silu, rope=rope,
+                    n_heads=n_heads, residual=residual, gate=gate)
+    return y if rope is not None or residual is not None else y.reshape(*x.shape[:-1], -1)
 
 
 def _device_of(p: nn.Module) -> torch.device:
@@ -363,7 +393,7 @@ def col_linear(p: ShardedLinear, x: torch.Tensor) -> list[torch.Tensor]:
     gives every rank the same (xq, sx): each rank's slice is then exactly
     those columns of the unsharded product."""
     if isinstance(p.shards[0], QLinear):
-        xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+        xq, sx = _quantize(x)
         outs = []
         for s in p.shards:
             dev = s.w_q.device
@@ -386,7 +416,7 @@ def row_linear(p: ShardedLinear, xs: list[torch.Tensor], out_device) -> torch.Te
     lead_shape = xs[0].shape[:-1]
     if isinstance(lead, QLinear):
         x = torch.cat([t.to(out_device) for t in xs], dim=-1)
-        xq, sx = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+        xq, sx = _quantize(x)
         acc, k0 = None, 0
         for s, t in zip(p.shards, xs):
             k1 = k0 + t.shape[-1]
@@ -522,7 +552,9 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
     self-attention, "kv" replaces k/v in cross-attention. With
     ``residual``, returns ``residual + gate * attention`` (O's bias, the
     gate and the residual in one pass: for a bf16 ``Linear`` the linear
-    kernel's epilogue, where its Q and K also rotate). Sharded over a model group
+    kernel's epilogue, where its Q and K also rotate; for a bf16 W8A8 one
+    the int8 product's). W8A8 self Q, K and V take one quantize pass of
+    ``x``. Sharded over a model group
     (``ShardedLinear``), each rank runs its own heads through the attention
     kernel, and O sums the ranks' partials (``row_linear``); ``kv_cache``
     is then the per-rank list of ``kv_project``."""
@@ -534,9 +566,12 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
         q, k, v = (_heads(t, None, rope, n_heads) for t, rope in
                    ((q, q_rope), (k, k_rope), (v, None)))
     else:
-        q = linear(p["q"], x, rope=q_rope, n_heads=n_heads)
+        shared = None  # self Q, K and V: one quantize pass of x where all are W8A8
+        if memory is None and kv_cache is None:
+            shared = _quantized_once(x, p["q"], p["k"], p["v"])
+        q = linear(p["q"], x, rope=q_rope, n_heads=n_heads, quantized=shared)
         k, v = kv_cache if kv_cache is not None else kv_project(
-            p, x if memory is None else memory, n_heads, k_rope)
+            p, x if memory is None else memory, n_heads, k_rope, quantized=shared)
     o = _merge_heads(attention_core(q, k, v, key_mask))
     return linear(p["o"], o, residual=residual, gate=gate)
 
@@ -553,9 +588,10 @@ def _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache, residual,
     return _close(row_linear(p["o"], outs, x.device), None, residual, gate)
 
 
-def kv_project(p, mem, n_heads: int, k_rope=None):
+def kv_project(p, mem, n_heads: int, k_rope=None, quantized=None):
     """Project memory into head-split (k, v) with optional rotation; over
-    a model group, a list of each rank's (k, v) for its heads."""
+    a model group, a list of each rank's (k, v) for its heads. W8A8 K and V
+    take one quantize pass of ``mem`` (``quantized``: one made already)."""
     if "k" in p and isinstance(p["k"], ShardedLinear):
         ranks = len(p["k"].shards)
         return [(_heads(k, None, k_rope, n_heads // ranks), _split_heads(v, n_heads // ranks))
@@ -563,8 +599,10 @@ def kv_project(p, mem, n_heads: int, k_rope=None):
     if "kv" in p:
         k, v = linear(p["kv"], mem).chunk(2, dim=-1)
         return _heads(k, None, k_rope, n_heads), _heads(v, None, None, n_heads)
-    return (linear(p["k"], mem, rope=k_rope, n_heads=n_heads),
-            linear(p["v"], mem, n_heads=n_heads))
+    if quantized is None:
+        quantized = _quantized_once(mem, p["k"], p["v"])
+    return (linear(p["k"], mem, rope=k_rope, n_heads=n_heads, quantized=quantized),
+            linear(p["v"], mem, n_heads=n_heads, quantized=quantized))
 
 
 # ---------------------------------------------------------------------------

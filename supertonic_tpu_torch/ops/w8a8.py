@@ -14,11 +14,28 @@ output, in torch's linear layout (``QLinear.w_q`` is [dout, din]):
                                         [M, N], rounded once to dtype
     silu=True: F.silu of that, rounded to dtype once more (the FFN's first
                linear: ``jax.nn.silu(_linear_w8a8(...))``)
+    rope=(cos, sin [B, T, Dh / 2] f32), n_heads=H, M = B T:
+        the rotated heads [B, T, H, Dh] of that (bf16): a Q or K projection,
+        ``apply_rope(_split_heads(_linear_w8a8(p, x)), cos, sin)``
+        (supertonic_tpu/models/layers.py:292-294, :317-323, :346-349):
+        ``rope.bias_rope_plain(y, None, cos, sin, H)`` of the product y
+    residual=r [B, T, N], gate=g [B, 1, N] or None, M = B T:
+        r + g * that [B, T, N] (bf16): a sublayer's O or FFN-out,
+        ``x + gate * _linear_w8a8(p, h)`` (layers.py:428, :433, :454):
+        ``gated_residual.gated_residual_plain(r, y, None, g)``
 
 bit for bit the same on the card and on the CPU, and no int32 [M, N] tensor
-is written. The kernel is the int32 form's ``wgmma`` s8 GEMM with this
-epilogue in place of the int32 store; what bounds it on the H100 and what
-its design does about it is in the header of ``csrc/int8_matmul.cu``.
+is written. The bias and silu forms are the int32 form's ``wgmma`` s8 GEMM
+(``csrc/int8_matmul.cu``) with this epilogue in place of the int32 store;
+what bounds it on the H100 and what its design does about it is in that
+file's header. The rope and residual forms run the linear kernel's GEMM
+(``csrc/linear.cu``, C entry ``stk_w8a8_epilogue``) with its s8 operand and
+this rescale in place of JAX's bf16 bias rounding: the rotation or the gated
+residual in the epilogue, in registers, as the bf16 linear's forms (``ops/
+linear.py``) do it. Those two forms take bf16 results alone: an f32 W8A8
+linear (a test route; the engine's int8 path runs bf16 activations) and a
+sharded one (``layers.col_linear`` / ``row_linear``) keep the product, then
+``rope.bias_rope`` or ``gated_residual.gated_residual``.
 
 ``w8a8_matmul`` is the wrapper: plain version for CPU tensors only; CUDA
 tensors go to the kernel, or it raises.
@@ -32,26 +49,71 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, _count
+from .gated_residual import batch_rows, gated_residual_plain
 from .int8_matmul import K_MULTIPLE, int8_matmul_plain
+from .linear import FORMS, _check_forms
+from .linear import kernel_instance as linear_instance
+from .rope import bias_rope_plain
 
 # a, w, sx, w_scale, bias, y, M, N, K, dtype code, stream, silu
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+# stk_w8a8_epilogue (csrc/linear.cu): xq, w_q, sx, w_scale, bias, cos, sin,
+# residual, gate, gate batch stride, y, M, N, K, T, Dh, mode, stream
+_EPI_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p]
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
+def kernel_instance(m: int, k: int, n: int, form: str, dh: int = 0) -> str:
+    """The instance the rope or residual form (``form``; "rope" with heads
+    of ``dh``) takes at M x K x N on the current card: the linear kernel's
+    choice for the same form (``linear.kernel_instance``; the W8A8 forms
+    share its rule), where its "bf16_many" is the W8A8 rope form's own 64 x
+    128 tiles of three consumers, "rope_many" (builds the library on first
+    use)."""
+    if form not in ("rope", "residual"):
+        raise ValueError(f"the W8A8 product's forms here are rope and residual, got {form}")
+    name = linear_instance(m, k, n, form, dh)
+    return "rope_many" if name == "bf16_many" else name
+
+
+def w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=None,
+                      n_heads: int = 0, residual=None, gate=None):
     """Plain PyTorch version: the exact product, then the rescale and bias
     in f32 in the JAX ``_linear_w8a8``'s order, one rounding to dtype; then
-    F.silu with ``silu``."""
+    F.silu with ``silu``, ``bias_rope_plain`` with ``rope``, or
+    ``gated_residual_plain`` with ``residual``."""
     acc = int8_matmul_plain(xq, w_q)
     y = acc.float() * sx[:, None] * w_scale
     y = (y + bias).to(dtype)
+    if rope is not None:
+        return bias_rope_plain(y.view(*rope[0].shape[:2], -1), None, *rope, n_heads)
+    if residual is not None:
+        return gated_residual_plain(residual, y.view(residual.shape), None, gate)
     return F.silu(y) if silu else y
 
 
-def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
+def _batch_shape(m, rope, residual):
+    """(B, T) of the rope or residual form's operands, which must hold M
+    rows; None without those forms."""
+    if rope is None and residual is None:
+        return None
+    ref = rope[0] if rope is not None else residual
+    if ref.dim() != 3 or ref.shape[0] * ref.shape[1] != m:
+        raise ValueError(f"the rope and residual forms take [B, T, ...] operands of B T = M "
+                         f"= {m} rows, got {tuple(ref.shape)}")
+    return tuple(ref.shape[:2])
+
+
+def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=None,
+                n_heads: int = 0, residual=None, gate=None):
     """xq [M, K] int8, sx [M], w_q [N, K] int8, w_scale [N], bias [N]
     (float32) -> [M, N] in dtype (float32 or bfloat16); with ``silu``, F.silu
-    of it."""
+    of it; with ``rope`` = (cos, sin [B, T, Dh / 2] f32) and ``n_heads``
+    (M = B T), the rotated heads [B, T, H, Dh]; with ``residual`` [B, T, N]
+    (and ``gate`` [B, 1, N] or [1, 1, N]), residual + gate * product [B, T,
+    N]. One form at a time. On the card the rope and residual forms take
+    bfloat16 alone (an f32 or sharded W8A8 linear runs the product, then
+    ``rope.bias_rope`` or ``gated_residual.gated_residual``)."""
     if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[1]:
         raise ValueError(f"xq must be [M, K] and w_q [N, K], got {tuple(xq.shape)} "
                          f"and {tuple(w_q.shape)}")
@@ -66,8 +128,15 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
         raise TypeError("sx, w_scale and bias must be float32")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the output is float32 or bfloat16, got {dtype}")
+    bt = _batch_shape(m, rope, residual)
+    gstride = 0
+    if bt is not None or gate is not None:
+        lead = (1, m) if bt is None else bt
+        gate, gstride = _check_forms(xq.view(*lead, k), n, silu, None, rope, n_heads, residual,
+                                     gate)
     if xq.device.type == "cpu":
-        return w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, silu=silu)
+        return w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, silu=silu, rope=rope,
+                                 n_heads=n_heads, residual=residual, gate=gate)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     if m < 1 or n < 1 or k < K_MULTIPLE or k % K_MULTIPLE:
@@ -78,6 +147,9 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
         if not t.is_contiguous() or t.device != xq.device or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and "
                              f"on {xq.device}")
+    if bt is not None:
+        return _epilogue_form(xq, sx, w_q, w_scale, bias, dtype, bt, rope, n_heads, residual,
+                              gate, gstride)
     y = torch.empty((m, n), device=xq.device, dtype=dtype)
     fn = _build.function("int8_matmul", "stk_w8a8_matmul", _ARGTYPES)
     P = _build.ptr
@@ -87,3 +159,46 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False):
                      "stk_w8a8_matmul")
     _count.launched("w8a8_matmul", (m, k, n))
     return y
+
+
+def _epilogue_form(xq, sx, w_q, w_scale, bias, dtype, bt, rope, n_heads, residual, gate, gstride):
+    """The rope or residual form on the card (operands checked by
+    ``w8a8_matmul``): one launch of ``stk_w8a8_epilogue``."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the W8A8 rope and residual forms take bfloat16 results, got {dtype} "
+                        f"(an f32 W8A8 linear runs the product, then the rotation or the "
+                        f"gated residual)")
+    if any(t.dtype != torch.float32 for t in rope or ()):
+        raise TypeError("cos and sin must be float32")
+    if any(t is not None and t.dtype != torch.bfloat16 for t in (residual, gate)):
+        raise TypeError("the residual and the gate must be bfloat16")
+    m, k = xq.shape
+    n = w_q.shape[0]
+    cos, sin = (t.contiguous() for t in rope) if rope is not None else (None, None)
+    # cos, sin and the residual are read 8 or 16 bytes at a time (the
+    # residual by TMA); the gate by 4-byte pairs
+    for name, t in (("cos", cos), ("sin", sin), ("residual", residual)):
+        if t is not None and (t.device != xq.device or not t.is_contiguous()
+                              or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {xq.device}")
+    if gate is not None:
+        if gate.device != xq.device:
+            raise ValueError(f"gate must be on {xq.device}")
+        if n % 2 == 0 and (gate.data_ptr() % 4 or gstride % 2):
+            gate, gstride = batch_rows(gate.clone(memory_format=torch.contiguous_format),
+                                       bt[0], n, "gate")
+    form = "rope" if rope is not None else "residual"
+    dh = n // n_heads if form == "rope" else 0
+    y = torch.empty((*bt, n), device=xq.device, dtype=torch.bfloat16)
+    fn = _build.function("linear", "stk_w8a8_epilogue", _EPI_ARGTYPES)
+    P = _build.ptr
+    with _build.on(xq):
+        _build.check(fn(P(xq), P(w_q), P(sx), P(w_scale), P(bias), P(cos), P(sin), P(residual),
+                        P(gate), gstride, P(y), m, n, k, bt[1], dh, FORMS.index(form),
+                        _build.stream_ptr(xq)), "stk_w8a8_epilogue")
+    # the key as the linear kernel's: the rope form's holds Dh, the residual
+    # form's the gate's rows a batch row (0 without a gate)
+    _count.launched("w8a8_matmul", (m, k, n, form, dh if form == "rope" else
+                                    bt[1] if gate is not None else 0))
+    return y.view(*bt, n_heads, dh) if form == "rope" else y
+

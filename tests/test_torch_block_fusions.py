@@ -256,7 +256,8 @@ def test_supports_states_the_domain(module):
 @pytest.mark.parametrize("precision,fused_ffn,per_batch", [
     ("bf16", True, {"ln_modulate": 97, "bias_rope": 0, "gated_residual": 0}),
     ("bf16", False, {"ln_modulate": 127, "bias_rope": 0, "gated_residual": 0}),
-    ("int8", True, {"ln_modulate": 127, "bias_rope": 96, "gated_residual": 90})])
+    ("int8", True, {"ln_modulate": 127, "bias_rope": 0, "gated_residual": 0,
+                    "quantize_rows": 186})])
 def test_wrapper_calls_per_batch(tiny_config, tmp_path, monkeypatch, precision, fused_ffn,
                                  per_batch):
     """One 5-step batch at the default depths (text encoder 6 blocks,
@@ -264,11 +265,12 @@ def test_wrapper_calls_per_batch(tiny_config, tmp_path, monkeypatch, precision, 
     wrapper as often as chip_smoke.py requires of the card's replayed b64
     batch: LayerNorm 3 a text-side block and 2 a VE block and step with the
     fused FFN (3 without it: the int8 path takes the unfused FFN), + 3
-    ln_out; the rotation and the residual kernels where the linear is W8A8
-    (the int8 path's VE: the self-attention Q and K and the cross Q of every
-    block and step, + the cross K once a batch; the residual after every
-    sublayer but the fused FFN); a bf16 plain Linear takes them in the
-    linear kernel's epilogue (tests/test_torch_linear.py counts those)."""
+    ln_out; no rotation or residual kernel: a bf16 plain Linear takes them
+    in the linear kernel's epilogue (tests/test_torch_linear.py counts
+    those), a bf16 W8A8 one (the int8 path's VE) in the W8A8 product's; and
+    on the int8 path one quantize pass a W8A8 linear, self Q, K and V
+    sharing one and cross K and V another: 6 a VE block and step + 1 a
+    block for the cross K and V."""
     monkeypatch.setenv("TTS_RATE_CACHE_DIR", str(tmp_path))
     cfg = dataclasses.replace(
         tiny_config,

@@ -443,8 +443,9 @@ def test_engine_fused_projections_equal_unfused(tiny_config, style_arrays, preci
 def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
     """TTS(precision="int8") answers a request; the quantized VE blocks do
     not reach the fused AdaLN-FFN, and every W8A8 linear goes through the
-    quantize wrapper and the W8A8 product's wrapper: 8 per block and step,
-    2 per block for the cross K/V."""
+    W8A8 product's wrapper: 8 per block and step, 2 per block for the cross
+    K/V; the quantize wrapper runs once for the linears that share an input
+    (self Q, K and V; cross K and V): 6 per block and step, 1 per block."""
     calls = {"adaln_ffn": 0, "quantize": 0, "w8a8_matmul": 0}
 
     def counted(name, real):
@@ -464,7 +465,8 @@ def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
     assert abs(wav.shape[1] - int(tiny_config.sample_rate * float(dur[0]))) <= 1
     n_layers = tiny_config.vector_estimator.n_layers
     n_linears = n_layers * (8 * 2 + 2)
-    assert calls == {"adaln_ffn": 0, "quantize": n_linears, "w8a8_matmul": n_linears}
+    assert calls == {"adaln_ffn": 0, "quantize": n_layers * (6 * 2 + 1),
+                     "w8a8_matmul": n_linears}
 
 
 def test_int8_entry_points_default_to_cuda(tiny_config):

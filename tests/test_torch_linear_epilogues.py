@@ -2,9 +2,10 @@
 ``rope=`` or ``residual=``): the Q, K and O projections' XLA output fusion,
 on the CPU. Their plain versions against the JAX package's ``linear`` with
 ``apply_rope`` and with the gated residual ``x + gate * linear(...)``; the
-layers' routing (a bf16 plain ``Linear`` takes the forms, one call each;
-W8A8, f32 and sharded linears keep the bias-and-rope and gated-residual
-kernels) bit for bit the earlier two-call route over whole blocks; and what
+layers' routing (a bf16 plain ``Linear`` takes the forms, one call each; f32
+and sharded linears keep the bias-and-rope and gated-residual kernels; W8A8
+blocks are tests/test_torch_w8a8_epilogues.py's) bit for bit the earlier
+two-call route over whole blocks; and what
 the wrapper refuses. chip_smoke.py holds the CUDA kernel against these
 plain versions on the card.
 
@@ -22,7 +23,6 @@ import torch
 
 from supertonic_tpu.models import layers as jL
 from supertonic_tpu_torch.models import layers as L
-from supertonic_tpu_torch.models import quantize_params
 from supertonic_tpu_torch.ops import linear
 from supertonic_tpu_torch.parallel import make_mesh
 from supertonic_tpu_torch.parallel.mesh import shard_params
@@ -238,24 +238,17 @@ def test_bf16_block_routing_is_the_earlier_route(case, heads, monkeypatch):
     assert got.dtype == BF16 and torch.equal(got, want)
 
 
-def _w8a8_block(p):
-    """The block's attention and FFN linears W8A8, as the int8 path's VE."""
-    q = quantize_params({"vector_estimator": {"blocks": [p]}})["vector_estimator"]["blocks"][0]
-    return L.tree_to_modules(q, device="cpu", dtype=BF16)
-
-
-@pytest.mark.parametrize("route", ["W8A8 bf16", "f32", "sharded bf16"])
+@pytest.mark.parametrize("route", ["f32", "sharded bf16"])
 def test_other_linears_keep_the_elementwise_kernels(route, monkeypatch):
-    """W8A8 (the int8 path's VE), f32 and sharded (tensor-parallel) blocks
-    keep the product and the bias-and-rope and gated-residual kernels: the
-    linear wrapper takes no rope or residual form there, and the block is
-    the earlier route's bit for bit."""
+    """f32 and sharded (tensor-parallel) blocks keep the product and the
+    bias-and-rope and gated-residual kernels: the linear wrapper takes no
+    rope or residual form there, and the block is the earlier route's bit
+    for bit. (A bf16 W8A8 block takes the W8A8 product's forms:
+    tests/test_torch_w8a8_epilogues.py.)"""
     dim, heads = 64, 2
     tree = _block_params(7, dim, cross=True, adaln=True)
     dtype = torch.float32 if route == "f32" else BF16
-    if route == "W8A8 bf16":
-        p = _w8a8_block(tree)
-    elif route == "sharded bf16":
+    if route == "sharded bf16":
         mesh = make_mesh(devices=["cpu", "cpu"], model_parallel=2)
         p = shard_params({"blocks": [tree]}, mesh, dtype=BF16)[0]["blocks"][0]
         assert isinstance(p["self"]["o"], L.ShardedLinear)
