@@ -64,13 +64,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                counts in PER_BATCH; the replayed bf16 batch's trace holds
                no library matrix product
   4. int8    — the same through TTS(precision="int8"), the W8A8 path: the
-               VE block linears through the quantize kernel (one pass for
-               self Q, K and V, one for cross K and V) and the int8
-               product with its rescale-and-bias epilogue, there also its
-               silu (FFN-in) and, on the linear kernel's GEMM with its s8
-               operand, its rope form (Q and K) and residual form (O and
-               FFN-out): the W8A8 products by form exactly W8A8_FORMS; no
-               fused FFN
+               VE block linears through the int8 product with its
+               rescale-and-bias epilogue and, on the linear kernel's GEMM
+               with its s8 operand, its rope form (Q and K), residual form
+               (O and FFN-out) and silu-quantize form (the FFN-in, writing
+               the FFN-out's xq and sx): the W8A8 products by form exactly
+               W8A8_FORMS; their inputs quantized by the LayerNorm kernel's
+               quantizing form (ln1 for self Q, K and V, ln2 for cross Q,
+               ln3 for the FFN-in: LN_QUANTIZE_FORM launches), by the
+               silu-quantize form, or by the quantize kernel (self and
+               cross O, one pass for cross K and V); no fused FFN
   5. kernels — each kernel against its plain PyTorch version on the card,
                at the cell's shapes recorded in phases 3 and 4, at the
                smaller shapes of a T=256 batch and at the tile edges of
@@ -116,7 +119,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                Dh 12 to 256, K 2,048, gates of B rows, one row, odd
                offsets, none), timed beside the pair each replaces (the
                W8A8 product, then the bias-and-rope or gated-residual
-               kernel); the linear kernel at
+               kernel); the LayerNorm's quantizing form and the W8A8
+               silu-quantize form bit for bit the pair each replaces (the
+               LayerNorm or the silu form, then the quantize kernel) at the
+               int8 cell's, a streamed chunk's and phase 12's VE widths
+               and at edges (one row, rows off the tiles, one row of
+               modulation for all, no modulation, clusters of 1 to 8
+               blocks), timed beside those pairs; the linear kernel at
                every shape phases 3, 4, 7, 11 and 12 recorded and at edges
                (the bias and silu forms by linear.bf16_within, silu bit for
                bit F.silu of the kernel's bias form, the tail bit for bit
@@ -130,8 +139,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                gated-residual kernel)
   6. whole   — one batch through the whole path in f32 on the card
                (kernels) and on the CPU (plain versions); the W8A8 linears
-               of one VE block (and the rope and residual forms of its self
-               Q and FFN-out), card vs CPU; int8 against bf16 on the
+               of one VE block (and the rope, residual and silu-quantize
+               forms of its self Q, FFN-out and FFN-in), card vs CPU; int8
+               against bf16 on the
                card; one b64 batch with fused projections against the
                unfused one, in bf16 and int8; injected noise throughout
   7. serving — runs after phase 4, before phase 5: make_server(TTS()) on a
@@ -228,9 +238,11 @@ Each TTS() reads and writes its learned speaking rate under a fresh folder
 of supertonic_tpu_torch/build/smoke/rates, so no earlier run steers the
 latent buckets. The line before the last is a JSON object of per-kernel numbers, taken at
 the cell's shape that spends the most kernel time per batch (the W8A8
-product's rope and residual forms as entries of their own, "w8a8_matmul rope
-form" and "w8a8_matmul residual form", their launches those of the int8 b64
-batch; the bias-and-rope and gated-residual kernels, off both b64 paths, at
+product's rope, residual and silu-quantize forms and the LayerNorm's
+quantizing form as entries of their own, "w8a8_matmul rope form",
+"w8a8_matmul residual form", "w8a8_matmul silu-quantize form" and
+"ln_modulate quantize form", their launches those of the int8 b64 batch;
+the bias-and-rope and gated-residual kernels, off both b64 paths, at
 0 launches with a row at the int8 VE's shapes); the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -309,8 +321,12 @@ FUSED_WAV_REL_L2_MAX = 0.03   # fused vs unfused projections, b64, on the card
 # the W8A8 product's: its rope form at the VE's self Q and K and cross Q a
 # block and step (90) + its cross K once a batch (6): 96; its residual form
 # after each VE sublayer (the FFN is unfused there): 90; 252 W8A8 products
-# (96 rope, 90 residual, 30 silu, 36 bias) on 186 quantize passes (self Q, K
-# and V share one, cross K and V another: 252 - 60 - 6). The conv kernel: the text
+# (96 rope, 90 residual, 30 silu-quantize, 36 bias) on 66 quantize passes:
+# self Q, K and V share one, cross K and V another (252 - 60 - 6 = 186), of
+# which the VE's ln1, ln2 and ln3 (90, their outputs read by W8A8 linears
+# alone) are the LayerNorm kernel's quantizing form, counted as ln_modulate
+# (so 127 LayerNorm launches still, 90 of them quantizing), and the FFN-out's
+# input (30) the FFN-in's silu-quantize form. The conv kernel: the text
 # encoder's two prenet convs and the vocoder's pre conv, six C 512 pre_res
 # convs (a chain past the chain kernel's C 384), two up convs and the head:
 # 12; with fused_resblocks=False also the six convs of each of the two fine
@@ -337,7 +353,7 @@ PER_BATCH = {
     "bf16": {"attention": 80, "adaln_ffn": 30, "resblock_chain": 2, "int8_matmul": 0,
              "w8a8_matmul": 0, "quantize": 0, **_BLOCK, "linear": 354},
     "int8": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2, "int8_matmul": 0,
-             "w8a8_matmul": 252, "quantize": 186, **_BLOCK_UNFUSED_FFN, "linear": 162},
+             "w8a8_matmul": 252, "quantize": 66, **_BLOCK_UNFUSED_FFN, "linear": 162},
     # SynthesisEngine(fused_ffn=False): the AdaLN FFN as linear, silu, linear
     "bf16 unfused FFN": {"attention": 80, "adaln_ffn": 0, "resblock_chain": 2,
                          "int8_matmul": 0, "w8a8_matmul": 0, "quantize": 0,
@@ -356,22 +372,27 @@ EPILOGUE_KERNELS = ("bias_rope", "gated_residual")
 # the W8A8 product's launches of a b64/5-step int8 batch by form (the bias
 # and silu forms' shape keys are (M, K, N); the rope and residual forms'
 # (M, K, N, form, Dh or the gate's rows a batch row), as the linear kernel's)
-W8A8_FORMS = {"rope": 96, "residual": 90, "bias or silu": 66}
+W8A8_FORMS = {"rope": 96, "residual": 90, "silu_quantize": 30, "bias or silu": 36}
+# the LayerNorm kernel's quantizing form in a b64/5-step int8 batch (its shape
+# keys (B, T, D, modulated, "quantize")): the VE's ln1, ln2 and ln3
+LN_QUANTIZE_FORM = 90
 # a bf16 b64/5-step batch with fused projections (models.fuse_projections):
 # the self Q and K split from each QKV product and the VE's cross K from its
 # KV product rotate in the bias-and-rope kernel (20 + 60 + 6); the linear
 # kernel takes 354 - 96 launches (QKV one, not three; KV one, not two)
 FUSED_BF16 = {"bias_rope": 86, "linear": 258}
-# and in int8: the self Q and K split from the TE's and DP's and the VE's
-# QKV products and the VE's cross K from its KV product rotate in the
-# bias-and-rope kernel (20 + 60 + 6), the VE's cross Q (no fused slice) in
-# the W8A8 product's rope form; the linear kernel takes 162 - 20 (the TE's
-# and DP's rope forms) - 10 (their cross K, in the KV product)
-FUSED_INT8 = {"bias_rope": 86, "linear": 132}
 W8A8_KERNELS = ("w8a8_matmul", "quantize")
 # with fused projections: qkv, o, cross q, o, ffn in, out per VE block and
 # step, the cross kv once per block
 FUSED_W8A8_LINEARS = 6 * (6 * 5 + 1)
+# and in int8: the self Q and K split from the TE's and DP's and the VE's
+# QKV products and the VE's cross K from its KV product rotate in the
+# bias-and-rope kernel (20 + 60 + 6), the VE's cross Q (no fused slice) in
+# the W8A8 product's rope form; the linear kernel takes 162 - 20 (the TE's
+# and DP's rope forms) - 10 (their cross K, in the KV product); the W8A8
+# products FUSED_W8A8_LINEARS on the unfused batch's 66 quantize passes (the
+# QKV product reads ln1's quantizing form, as the Q, K and V did)
+FUSED_INT8 = {"bias_rope": 86, "linear": 132, "w8a8_matmul": FUSED_W8A8_LINEARS, "quantize": 66}
 # int8 products at an N whose rows no TMA store takes (odd, and 4 bytes of
 # bf16): the instances that store from the registers, element by element
 ODD_N = ((1, 32, 37), (37, 512, 37), (37, 2048, 7), (130, 512, 2))
@@ -395,6 +416,10 @@ SOURCES = {
                               "tools/int8_microbench.py:43"),
     "w8a8_matmul residual form": ("supertonic_tpu_torch/csrc/linear.cu",
                                   "tools/int8_microbench.py:43"),
+    # the FFN-in's silu form writing the FFN-out's quantize pass (xq, sx):
+    # the same GEMM, W resident, a cluster a row block
+    "w8a8_matmul silu-quantize form": ("supertonic_tpu_torch/csrc/linear.cu",
+                                       "tools/int8_microbench.py:43"),
     # the W8A8 linear's quantize prologue (XLA ops in the JAX package)
     "quantize": ("supertonic_tpu_torch/csrc/quantize.cu",
                  "supertonic_tpu/models/layers.py:84"),
@@ -402,6 +427,9 @@ SOURCES = {
     # bias add with apply_rope, and the gated residual
     "ln_modulate": ("supertonic_tpu_torch/csrc/ln_modulate.cu",
                     "supertonic_tpu/models/layers.py:106"),
+    # its quantizing form: _modulate with the first half of _linear_w8a8
+    "ln_modulate quantize form": ("supertonic_tpu_torch/csrc/ln_modulate.cu",
+                                  "supertonic_tpu/models/layers.py:84"),
     "bias_rope": ("supertonic_tpu_torch/csrc/rope.cu", "supertonic_tpu/models/layers.py:162"),
     "gated_residual": ("supertonic_tpu_torch/csrc/gated_residual.cu",
                        "supertonic_tpu/models/layers.py:428"),
@@ -450,6 +478,7 @@ EARLIER_MS = {
     "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
     "bias_rope": {}, "gated_residual": {},  # no earlier design
     "w8a8_matmul rope form": {}, "w8a8_matmul residual form": {},
+    "w8a8_matmul silu-quantize form": {}, "ln_modulate quantize form": {},  # new forms
     # the replaced linear kernel (csrc/earlier/linear_pr17.cu): its phase 5 times
     # at the cell's shapes, host launches (PERF.md section 6)
     "linear": {(28672, 512, 512, "bias", 0): 0.0443, (64, 512, 4608, "bias", 0): 0.0746,
@@ -1042,9 +1071,10 @@ def check_w8a8_forms(gen, cell, results, serving, widths):
              (4 * 33, 32, 15, "residual", 33), (448, 512, 512, "residual", 448),
              (2 * 32, 2048, 512, "residual", 32), (448, 2048, 512, "residual", 448)]
     cases = dict.fromkeys(edges, 0)
-    cases.update({key: n for key, n in cell["w8a8_matmul"].items() if len(key) == 5})
+    cases.update({key: n for key, n in cell["w8a8_matmul"].items()
+                  if len(key) == 5 and key[3] in ("rope", "residual")})
     for key in serving["w8a8_matmul"]:
-        if len(key) == 5:
+        if len(key) == 5 and key[3] in ("rope", "residual"):
             cases.setdefault(key, 0)
     for key in widths["linear"]:
         if key[3] in ("rope", "residual") and key[1] % 32 == 0:
@@ -1105,6 +1135,151 @@ def check_w8a8_forms(gen, cell, results, serving, widths):
                 f"{sum(r[0] * r[3] for r in rows):.4f} ms")
 
 
+def check_quantizing_forms(gen, cell, results, serving):
+    """The int8 path's quantize pass inside its producers, each bit for bit
+    the two-kernel pair it replaces on the card and held against its plain
+    version on the same card tensors: the LayerNorm kernel's quantizing form
+    (ln_modulate's rows, then quantize_rows; against the plain version
+    through the rows' one-step rule: (xq, sx) bit for bit quantize_rows_plain
+    of the kernel's rows, those rows within one step of the plain LayerNorm's
+    (ln_modulate.one_step_match), and (xq, sx) the plain version's wherever
+    the rows are) and the W8A8 product's silu-quantize form (its silu form,
+    then quantize_rows; a thread-block cluster a row block; bit for bit its
+    plain version), at the int8 cell's shapes, the int8
+    server's streamed chunk's, phase 12's VE widths (D 384 and 192, the FFN
+    in at N 1,536 and 768, K 384 and 192) and at edges: one row, rows off the
+    tiles and the LayerNorm's runs, a batch stride of 0 (one row of
+    modulation for all), no modulation, D 8 and 1,024 (the form's widths), a
+    cluster of one block (N 256), K 32, a zero row and a row at 127. Timed at
+    the cell's and a chunk's shapes beside the pair and the bound,
+    host-launched and from graphs; max_abs_err that of the dequantized
+    values xq * sx against the plain version's; library_ms None (no one
+    PyTorch call computes either form)."""
+    bf16 = torch.bfloat16
+    pairs = {}  # form: [(launches, form ms, pair ms, bound ms)] from graphs
+
+    def dequantized_err(q, sc, pq, ps) -> float:
+        return float((q.float() * sc[:, None] - pq.float() * ps[:, None]).abs().max())
+
+    def time_beside_pair(name, what, n_cell, err, fn, plain, pair, nbytes, nops, shape,
+                         ops_dtype):
+        measure(results, name, what, bf16, n_cell, err, fn, plain, nbytes, nops, shape=shape,
+                ops_dtype=ops_dtype)
+        row = results[name][-1]
+        pair_ms, pair_graph = time_ms(pair), graph_ms(pair)
+        log(f"    the pair it replaces: {pair_ms:.4f} ms [graph {pair_graph:.4f}]; the form "
+            f"{row['ms']:.4f} [graph {row['graph_ms']:.4f}], bound {row['bound_ms']:.4f}")
+        if n_cell:
+            pairs.setdefault(name, []).append((n_cell, row["graph_ms"], pair_graph,
+                                               row["bound_ms"]))
+
+    ln_edges = [(1, 1, 8, True), (2, 3, 8, False), (3, 37, 200, True), (2, 21, 1024, True),
+                (64, 37, 512, False), (5, 100, 512, True), (4, 448, 384, True),
+                (4, 448, 192, True), (1, 448, 512, True)]
+    cases = dict.fromkeys(ln_edges, 0)
+    cases.update({key[:4]: n for key, n in cell["ln_modulate quantize form"].items()})
+    for key in serving["ln_modulate"]:
+        if len(key) == 5:
+            cases.setdefault(key[:4], 0)
+    for (b, t, d, modulated), n_cell in sorted(cases.items()):
+        x = (2 * torch.randn((b, t, d), generator=gen, device=DEV) + 0.3).to(bf16)
+        x[0, 0] = 0.0  # a constant row: the LayerNorm's bias (D 8: zero, the 1e-12 clamp)
+        g = 1.0 + 0.2 * torch.randn(d, generator=gen, device=DEV)
+        bl = torch.zeros(d, device=DEV) if d == 8 else 0.2 * torch.randn(d, generator=gen,
+                                                                          device=DEV)
+        mods = [modulation(gen, b, d, bf16)[:2]] if modulated else [(None, None)]
+        if (b, t, d) == (3, 37, 200):
+            mods.append(modulation(gen, b, d, bf16, rows=1)[:2])
+        for shift, scale in mods:
+            xq, sx = ln_modulate.ln_modulate_quantize(x, g, bl, shift, scale)
+            got = ln_modulate.ln_modulate(x, g, bl, shift, scale)
+            rows = got.reshape(-1, d)
+            rq, rs = quantize.quantize_rows(rows)
+            qq, qs = quantize.quantize_rows_plain(rows)
+            pq, ps = ln_modulate.ln_modulate_quantize_plain(x, g, bl, shift, scale)
+            prows = ln_modulate.ln_modulate_plain(x, g, bl, shift, scale).reshape(-1, d)
+            torch.cuda.synchronize()
+            ok = bits_equal(xq, rq) and bits_equal(sx, rs)
+            matched = ln_modulate.one_step_match(got, x, g, bl, shift, scale)[1]
+            same = (rows.view(torch.int16) == prows.view(torch.int16)).all(-1)
+            plain_ok = (bits_equal(xq, qq) and bits_equal(sx, qs) and matched == 1.0
+                        and bits_equal(xq[same], pq[same]) and bits_equal(sx[same], ps[same]))
+            err = dequantized_err(xq, sx, pq, ps)
+            one = shift is not None and shift.shape[0] == 1
+            log(f"  ln_modulate quantize form B{b} x T{t} D{d} "
+                f"{'modulated' if modulated else 'plain LN'}"
+                f"{' (one row of modulation)' if one else ''}: (xq, sx) bit-equal to "
+                f"ln_modulate then quantize_rows: {ok}; against the plain version: "
+                f"quantize_rows_plain of its rows, those within one step ({matched:.6f}), "
+                f"(xq, sx) the plain version's on the {int(same.sum())} of {b * t} rows "
+                f"bit-equal to its: {plain_ok} (dequantized max abs err {err:.3e})")
+            if not ok:
+                raise AssertionError("the quantizing LayerNorm disagrees with its pair")
+            if not plain_ok:
+                raise AssertionError("the quantizing LayerNorm disagrees with its plain version")
+        if not (n_cell or (b, t) == (1, 448)):
+            continue
+        shift, scale = mods[-1]
+        rows = b * t
+        time_beside_pair(
+            "ln_modulate quantize form", f"B{b} x T{t} D{d}{' mod' if modulated else ''}",
+            n_cell, err, lambda: ln_modulate.ln_modulate_quantize(x, g, bl, shift, scale),
+            lambda: ln_modulate.ln_modulate_quantize_plain(x, g, bl, shift, scale),
+            lambda: quantize.quantize_rows(
+                ln_modulate.ln_modulate(x, g, bl, shift, scale).reshape(-1, d)),
+            3 * rows * d + 4 * rows + 8 * d + (4 * b * d if modulated else 0),
+            (14 if modulated else 11) * rows * d, (b, t, d, modulated, "quantize"),
+            torch.float32)
+
+    sq_edges = [(1, 512, 2048), (37, 32, 512), (300, 64, 256), (17037, 384, 1536),
+                (1000, 192, 768), (448, 512, 2048)]
+    cases = dict.fromkeys(sq_edges, 0)
+    cases.update({key[:3]: n for key, n in cell["w8a8_matmul"].items()
+                  if len(key) == 5 and key[3] == "silu_quantize"})
+    for key in serving["w8a8_matmul"]:
+        if len(key) == 5 and key[3] == "silu_quantize":
+            cases.setdefault(key[:3], 0)
+    for (m, k, n), n_cell in sorted(cases.items()):
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        x[0] = 0.0
+        xq, sx = quantize.quantize_rows_plain(x)
+        xq[-1] = 127
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=DEV).to(torch.int8)
+        w[0] = 127
+        ws = torch.rand(n, generator=gen, device=DEV) * 0.01
+        bias = 0.1 * torch.randn(n, generator=gen, device=DEV)
+        args = (xq, sx, w, ws, bias, bf16)
+        hq, hs = w8a8.w8a8_matmul(*args, silu=True, quantize=True)
+        rq, rs = quantize.quantize_rows(w8a8.w8a8_matmul(*args, silu=True))
+        pq, ps = w8a8.w8a8_matmul_plain(*args, silu=True, quantize=True)
+        torch.cuda.synchronize()
+        ok = bits_equal(hq, rq) and bits_equal(hs, rs)
+        plain_ok = bits_equal(hq, pq) and bits_equal(hs, ps)
+        err = dequantized_err(hq, hs, pq, ps)
+        log(f"  w8a8_matmul silu-quantize form M{m} K{k} N{n} (a cluster of {n // w8a8.SQ_BN} "
+            f"blocks): (hq, hs) bit-equal to the silu form then quantize_rows: {ok}; "
+            f"to the plain version: {plain_ok} (dequantized max abs err {err:.3e})")
+        if not ok:
+            raise AssertionError("the W8A8 silu-quantize form disagrees with its pair")
+        if not plain_ok:
+            raise AssertionError("the W8A8 silu-quantize form disagrees with its plain version")
+        if not (n_cell or m == 448):
+            continue
+        time_beside_pair(
+            "w8a8_matmul silu-quantize form", f"M{m} K{k} N{n}", n_cell, err,
+            lambda: w8a8.w8a8_matmul(*args, silu=True, quantize=True),
+            lambda: w8a8.w8a8_matmul_plain(*args, silu=True, quantize=True),
+            lambda: quantize.quantize_rows(w8a8.w8a8_matmul(*args, silu=True)),
+            m * k + n * k + 8 * m + 8 * n + m * n, 2.0 * m * n * k, (m, k, n, "silu_quantize", 0),
+            torch.int8)
+    for name, rows in pairs.items():
+        log(f"  {name} per b64/5-step int8 batch at the cell's shapes "
+            f"({sum(r[0] for r in rows)} launches), from graphs: "
+            f"{sum(r[0] * r[1] for r in rows):.4f} ms, the pairs it replaces "
+            f"{sum(r[0] * r[2] for r in rows):.4f} ms, bound "
+            f"{sum(r[0] * r[3] for r in rows):.4f} ms")
+
+
 def block_cases(edges, cell, serving, widths, kernel):
     """{shape key: launches per cell batch (None: checked, not timed)} of one
     of the block's elementwise kernels: the edges, the cell's shapes, the
@@ -1144,7 +1319,9 @@ def check_ln_modulate(gen, cell, results, serving, widths):
     F.layer_norm (no modulation: no one call computes it with one)."""
     edges = [(1, 1, 8, True), (3, 37, 200, True), (2, 7, 36, True), (2, 21, 1032, True),
              (2, 5, 4104, False), (5, 100, 512, True), (64, 37, 512, False), (1, 448, 512, True)]
-    cases = block_cases(edges, cell, serving, widths, "ln_modulate")
+    cases = {key: n for key, n in block_cases(edges, cell, serving, widths,
+                                              "ln_modulate").items()
+             if len(key) == 4}  # (B, T, D, modulated, "quantize"): check_quantizing_forms
     for (b, t, d, modulated), n_cell in sorted(cases.items()):
         for dtype in (torch.float32, torch.bfloat16):
             x = (2 * torch.randn((b, t, d), generator=gen, device=DEV) + 0.3).to(dtype)
@@ -2030,6 +2207,20 @@ def w8a8_linears(params) -> None:
                 f"abs err {err:g} (bit-equal required)")
             if err != 0.0:
                 raise AssertionError(f"W8A8 {form} form: card and CPU disagree")
+    # the FFN-in's silu-quantize form (bf16): the FFN-out's (xq, sx), card vs CPU
+    q_tree = q_block["ffn"]["in"]
+    x = gen.standard_normal((4096, q_tree["w_q"].shape[0])).astype(np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        lin = layers.tree_to_modules(q_tree, device=dev)
+        h = layers.linear(lin, torch.as_tensor(x).to(dev, torch.bfloat16), silu=True,
+                          quantize=True)
+        got[dev] = (h.xq.cpu(), h.sx.cpu())
+    ok = all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    log(f"  W8A8 ffn.in silu-quantize form [4096, {x.shape[1]}] bf16: (xq, sx) card vs CPU "
+        f"bit-equal {ok}")
+    if not ok:
+        raise AssertionError("W8A8 silu-quantize form: card and CPU disagree")
 
 
 def whole_path_int8(params, smi: str) -> None:
@@ -2080,12 +2271,9 @@ def fused_projections_path(params) -> None:
                                              noise=noise)
             counts = ops.launch_counts()
         per_batch = dict(PER_BATCH[precision])
-        if precision == "int8":
-            per_batch.update(dict.fromkeys(W8A8_KERNELS, FUSED_W8A8_LINEARS), **FUSED_INT8)
-        else:
-            per_batch.update(FUSED_BF16)
+        per_batch.update(FUSED_INT8 if precision == "int8" else FUSED_BF16)
         check_launches(counts, per_batch, 1, f"one fused b64/5-step {precision} batch")
-        if precision == "int8" and any(counts[k] != FUSED_W8A8_LINEARS for k in W8A8_KERNELS):
+        if precision == "int8" and counts["w8a8_matmul"] != FUSED_W8A8_LINEARS:
             raise AssertionError("fused int8 batch did not take the fused projections")
         (w, d), (wf, df) = out["unfused"], out["fused"]
         if wf.shape != w.shape or not np.isfinite(wf).all():
@@ -4133,6 +4321,15 @@ def main() -> int:
     for name in (*W8A8_KERNELS, *EPILOGUE_KERNELS):  # kernels of the int8 path alone
         launches[name] = counts8[name]
         cell[name] = cell8[name]
+    # the LayerNorm kernel's quantizing form: the VE's ln1, ln2 and ln3 in the int8 batch
+    cell["ln_modulate quantize form"] = {key: n for key, n in cell8["ln_modulate"].items()
+                                         if len(key) == 5}
+    launches["ln_modulate quantize form"] = sum(cell["ln_modulate quantize form"].values())
+    log(f"  the LayerNorm's quantizing form in the b64/5-step int8 batch: "
+        f"{launches['ln_modulate quantize form']} launches of its "
+        f"{sum(cell8['ln_modulate'].values())} ({LN_QUANTIZE_FORM} required)")
+    if launches["ln_modulate quantize form"] != LN_QUANTIZE_FORM:
+        raise AssertionError("the int8 batch's LayerNorms did not take the quantizing form")
     # the W8A8 product's launches in the b64/5-step int8 batch by form
     by_form = dict.fromkeys(W8A8_FORMS, 0)
     for key, n in cell8["w8a8_matmul"].items():
@@ -4140,10 +4337,11 @@ def main() -> int:
     log(f"  W8A8 products of the b64/5-step int8 batch by form: {by_form} (exactly "
         f"{W8A8_FORMS} required)")
     if by_form != W8A8_FORMS:
-        raise AssertionError("the int8 batch's W8A8 products did not take the rope and "
-                             "residual forms")
+        raise AssertionError("the int8 batch's W8A8 products did not take the rope, residual "
+                             "and silu-quantize forms")
     for form in ("rope", "residual"):
         launches[f"w8a8_matmul {form} form"] = by_form[form]
+    launches["w8a8_matmul silu-quantize form"] = by_form["silu_quantize"]
 
     # phase 7 runs here, before phase 5, so that phase 5 also holds attention
     # and the chain against their plain versions at the shapes serving gave them
@@ -4185,6 +4383,7 @@ def main() -> int:
     check_w8a8(gen, cell, results, served)
     check_w8a8_forms(gen, cell, results, served, widths)
     check_ln_modulate(gen, cell, results, served, widths)
+    check_quantizing_forms(gen, cell, results, served)
     check_rope(gen, cell, results, served, widths)
     check_gated_residual(gen, cell, results, served, widths)
     check_conv1d(gen, cell, results, served, widths)

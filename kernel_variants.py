@@ -64,6 +64,15 @@ host's per-call work:
              --split: loads only (rows staged and summed, no statistics
              or stores), in this design and in the earlier one; beside
              F.layer_norm at the plain LayerNorm's shape
+  ln_quantize  the LayerNorm's quantizing form (the int8 path's ln1, ln2,
+             ln3) at the int8 cell's and a streamed chunk's shapes, with
+             each quotient by __fdiv_rn (no row reciprocal), beside the pair
+             it replaced (the LayerNorm, then the quantize pass)
+  silu_quantize  the W8A8 FFN-in's silu-quantize form at the int8 cell's and
+             a streamed chunk's shapes: each quotient by __fdiv_rn; 64 x
+             128 tiles in clusters of 16 blocks (the non-portable size,
+             csrc/variants/) with four, three or two consumers; beside the pair it replaced (the
+             W8A8 silu form, then the quantize pass) and the silu form alone
   conv1d     the conv kernel at the b64 cell's shapes: the one-tile-a-block
              design it replaced (earlier), and that design with A in
              registers (csrc/variants/); every tile staging its own
@@ -130,6 +139,9 @@ from supertonic_tpu_torch.ops.gated_residual import batch_rows
 
 BF16_SECTION = "// bf16 on the tensor cores"
 FILE = "file"  # a variant that is a whole source file under csrc/ (+ substitutions)
+# the quantize pass's per-value arithmetic, which quantize.cu includes (a
+# split substitutes it in place of the include)
+QUANTIZE8 = (_build.CSRC_DIR / "quantize8.cuh").read_text()
 CLUSTER_SRC = "variants/resblock_chain_cluster.cu"
 CHAIN_ACC = [("stk::silu_fast(", "stk::silu_f(")]
 # half the exponentials of the chain's silu on the FMA pipe: 2^y = 2^n 2^f,
@@ -152,6 +164,9 @@ CHAIN_EPILOGUE = "    const bool last = conv == 2 * P - 1;\n"
 # products are skipped; the results go to one address (the TMA stores are
 # skipped; the buffer writes and the math stay)
 LIN_MANY = "using Many = Tile<2, 2, 128, 5, 1, false, true, 2>;"
+# the silu-quantize form in clusters of 16 (the non-portable size) on 64 x 128 tiles
+SILUQ_C16_SRC = "variants/linear_siluq_c16.cu"
+LIN_SILUQ_C16 = "using SiluQ = Tile<4, 1, 128, 8, 1, false, true, 1, 4>;"
 LIN_MANY_SILU = "using ManySilu = Tile<4, 1, 128, 5, 1, false, true, 2>;"
 LIN_TAIL = "using TailTile = Tile<2, 1, 96, 6, 1, false, true, 4>;"
 LIN_RESID = ("using ManyResid = Tile<3, 1, 128, 7, 1, false, true, 2>;  // the residual form at "
@@ -208,7 +223,8 @@ SPLIT = {"resblock_chain": {
         "split: loads and the row max (no division, no xq)": [
             ("  if (sub == 0) *sx_row = sc;\n", "  if (sub == 0) *sx_row = sc;\n  if (K >= 0) return;\n")],
         "split: a product with 1 / sx for the division (not bit-equal)": [
-            ("__float2int_rn(__fdiv_rn(v[e], s))", "__float2int_rn(v[e] * s)")],
+            ('#include "quantize8.cuh"\n', QUANTIZE8.replace("__float2int_rn(__fdiv_rn(v, s))",
+                                                             "__float2int_rn(v * s)"))],
         "split, earlier: loads and the row max (no division, no xq)": (
             FILE, "earlier/quantize_warp_rows.cu",
             [("*reinterpret_cast<uint2*>(qr + c * 8) = quantize8(v, s);", "")])},
@@ -372,6 +388,21 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "1 KB of rows a warp (1 row at K 512)": [
             ("constexpr int STAGED = 2048;", "constexpr int STAGED = 1024;")],
         "8 warps a block": [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;")]},
+    "ln_quantize": {
+        "each quotient by __fdiv_rn (no row reciprocal)": [
+            ("stk::quantize8(f, sc, rc)", "stk::quantize8(f, sc)")]},
+    "silu_quantize": {
+        "each quotient by __fdiv_rn (no row reciprocal)": [
+            ("stk::quantize1(f.x, sc[half], rc[half])", "stk::quantize1(f.x, sc[half])"),
+            ("stk::quantize1(f.y, sc[half], rc[half])", "stk::quantize1(f.y, sc[half])")],
+        "64 x 128 tiles, clusters of 16 blocks, four consumers, 8 ring stages": (
+            FILE, SILUQ_C16_SRC, []),
+        "64 x 128 tiles, clusters of 16 blocks, three consumers, 8 ring stages": (
+            FILE, SILUQ_C16_SRC, [(LIN_SILUQ_C16,
+                                   "using SiluQ = Tile<3, 1, 128, 8, 1, false, true, 1, 4>;")]),
+        "64 x 128 tiles, clusters of 16 blocks, two consumers, 8 ring stages": (
+            FILE, SILUQ_C16_SRC, [(LIN_SILUQ_C16,
+                                   "using SiluQ = Tile<2, 1, 128, 8, 1, false, true, 1, 4>;")])},
     "ln_modulate": {
         "earlier: one warp a row": (FILE, "earlier/ln_modulate_warp_rows.cu", []),
         "2 row slots a warp": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
@@ -487,6 +518,8 @@ ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "int8": ("stk_w8a8_matmul", w8a8._ARGTYPES),
          "quantize": ("stk_quantize_rows", quantize._ARGTYPES),
          "ln_modulate": ("stk_ln_modulate", ln_modulate._ARGTYPES),
+         "ln_quantize": ("stk_ln_modulate_quantize", ln_modulate._Q_ARGTYPES),
+         "silu_quantize": ("stk_w8a8_silu_quantize", w8a8._SQ_ARGTYPES),
          "conv1d": ("stk_conv1d", conv1d._ARGTYPES),
          "linear": ("stk_linear", linear._ARGTYPES),
          "w8a8_forms": ("stk_w8a8_epilogue", w8a8._EPI_ARGTYPES)}
@@ -502,10 +535,12 @@ BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
                   "int8": ("wgmma_gemm", "mma_gemm"),
                   "quantize": ("quantize_",), "ln_modulate": ("layer_norm_rows",),
+                  "ln_quantize": ("layer_norm_rows",), "silu_quantize": ("w8a8_wgmmaILi5E",),
                   "conv1d": ("conv_wgmma",), "linear": ("linear_wgmma", "linear_simt"),
                   "w8a8_forms": ("w8a8_wgmma", "w8a8_simt")}
 # kernels timed from another kernel's source
-SOURCE = {"attention_f32": "attention", "int8": "int8_matmul", "w8a8_forms": "linear"}
+SOURCE = {"attention_f32": "attention", "int8": "int8_matmul", "w8a8_forms": "linear",
+          "ln_quantize": "ln_modulate", "silu_quantize": "linear"}
 OUT = _build.BUILD_ROOT / "variants"
 
 
@@ -674,6 +709,10 @@ def main() -> int:
         variants_quantize(fns, gen)
     if "ln_modulate" in kernels:
         variants_ln_modulate(fns, gen)
+    if "ln_quantize" in kernels:
+        variants_ln_quantize(fns, gen)
+    if "silu_quantize" in kernels:
+        variants_silu_quantize(fns, gen)
     if "conv1d" in kernels:
         variants_conv1d(fns, gen)
     if "linear" in kernels:
@@ -1207,6 +1246,92 @@ def variants_w8a8_forms(fns, gen) -> None:
     for (form, name), ms in per_batch.items():
         cs.log(f"  W8A8 {form} form per b64/5-step int8 batch at the cell's shapes, from "
                f"graphs, {name}: {ms:.4f} ms")
+
+
+def variants_ln_quantize(fns, gen) -> None:
+    """The LayerNorm's quantizing form at the int8 cell's VE shape and a
+    streamed chunk's: committed and variants bit for bit the pair it
+    replaced (the LayerNorm, then the quantize pass), timed in turns."""
+    cs.log("the LayerNorm's quantizing form, ms per launch (bf16 in, int8 out)")
+    dt = torch.bfloat16
+    for b, t, d in ((64, 448, 512), (1, 448, 512)):
+        x = (2 * torch.randn((b, t, d), generator=gen, device=cs.DEV) + 0.3).to(dt)
+        g = 1.0 + 0.2 * torch.randn(d, generator=gen, device=cs.DEV)
+        bl = 0.2 * torch.randn(d, generator=gen, device=cs.DEV)
+        shift, scale = cs.modulation(gen, b, d, dt)[:2]
+
+        def pair():
+            return quantize.quantize_rows(
+                ln_modulate.ln_modulate(x, g, bl, shift, scale).reshape(-1, d))
+        ref = pair()
+        calls = {"committed": lambda: ln_modulate.ln_modulate_quantize(x, g, bl, shift, scale)}
+        for name in VARIANTS["ln_quantize"]:
+            calls[name] = lambda fn=fns[("ln_quantize", name)]: ln_quantize_call(
+                fn, x, g, bl, shift, scale)
+        for name, call in calls.items():
+            got = call()
+            if not (torch.equal(got[0], ref[0]) and cs.bits_equal(got[1], ref[1])):
+                raise AssertionError(f"ln_quantize {name}: not bit-equal to the pair")
+        calls["the pair it replaced (the LayerNorm, then the quantize pass)"] = pair
+        calls["the LayerNorm alone (bf16 rows; yardstick)"] = (
+            lambda: ln_modulate.ln_modulate(x, g, bl, shift, scale))
+        label = f"B{b} T{t} D{d} modulated"
+        cs.log(f"  ln_quantize {label}: committed and variants bit-equal to the pair (bound "
+               f"{cs.bound(3 * b * t * d + 4 * b * t + 8 * d, 0, torch.float32)[0]:.4f} ms)")
+        in_turns(label, calls, 20, graphs=True)
+
+
+def ln_quantize_call(fn, x, g, bl, shift, scale):
+    b, t, d = x.shape
+    shift, mstride = batch_rows(shift, b, d, "shift")
+    scale, _ = batch_rows(scale, b, d, "scale")
+    xq = torch.empty((b * t, d), device=x.device, dtype=torch.int8)
+    sx = torch.empty((b * t,), device=x.device, dtype=torch.float32)
+    P = _build.ptr
+    _build.check(fn(P(x), P(g), P(bl), P(shift), P(scale), mstride, P(xq), P(sx), b * t, t, d,
+                    1e-5, _build.stream_ptr(x)), "variant")
+    return xq, sx
+
+
+def silu_quantize_call(fn, xq, sx, w, ws, bias):
+    m, k = xq.shape
+    n = w.shape[0]
+    hq = torch.empty((m, n), device=xq.device, dtype=torch.int8)
+    hs = torch.empty((m,), device=xq.device, dtype=torch.float32)
+    P = _build.ptr
+    _build.check(fn(P(xq), P(w), P(sx), P(ws), P(bias), P(hq), P(hs), m, n, k,
+                    _build.stream_ptr(xq)), "variant")
+    return hq, hs
+
+
+def variants_silu_quantize(fns, gen) -> None:
+    """The W8A8 FFN-in's silu-quantize form at the int8 cell's shape and a
+    streamed chunk's: committed and variants bit for bit the pair it
+    replaced (the W8A8 silu form, then the quantize pass), timed in turns
+    beside it and the silu form alone."""
+    cs.log("the W8A8 silu-quantize form, ms per launch (int8 in and out)")
+    bf16 = torch.bfloat16
+    for m, k, n in ((28672, 512, 2048), (448, 512, 2048)):
+        args, _kw = cs.w8a8_form_inputs(gen, (m, k, n, "residual", 0))
+
+        def pair():
+            return quantize.quantize_rows(w8a8.w8a8_matmul(*args, bf16, silu=True))
+        ref = pair()
+        calls = {"committed": lambda: w8a8.w8a8_matmul(*args, bf16, silu=True, quantize=True)}
+        for name in VARIANTS["silu_quantize"]:
+            calls[name] = lambda fn=fns[("silu_quantize", name)]: silu_quantize_call(fn, *args)
+        for name, call in calls.items():
+            got = call()
+            if not (torch.equal(got[0], ref[0]) and cs.bits_equal(got[1], ref[1])):
+                raise AssertionError(f"silu_quantize {name}: not bit-equal to the pair")
+        calls["the pair it replaced (the W8A8 silu form, then the quantize pass)"] = pair
+        calls["the W8A8 silu form alone (yardstick)"] = (
+            lambda: w8a8.w8a8_matmul(*args, bf16, silu=True))
+        label = f"W8A8 M{m} K{k} N{n}"
+        bnd = cs.bound(m * k + n * k + 8 * m + 8 * n + m * n, 2.0 * m * n * k, torch.int8)[0]
+        cs.log(f"  silu_quantize {label}: committed and variants bit-equal to the pair (bound "
+               f"{bnd:.4f} ms)")
+        in_turns(label, calls, 20, graphs=True)
 
 
 if __name__ == "__main__":

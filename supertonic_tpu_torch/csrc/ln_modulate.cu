@@ -23,6 +23,23 @@
 // 58.7 MB at the vector estimator's 28,672 x 512 bf16 rows: 0.0175 ms at
 // 3.35 TB/s.
 //
+// The quantizing form (stk_ln_modulate_quantize, bf16): where every
+// consumer of the output is a W8A8 linear (the int8 path's ln1, ln2 and ln3),
+// the rows leave as that linear's quantize pass would make them from the
+// bf16 output, (xq [rows, D] int8, sx [rows] f32), and the bf16 rows are
+// never stored: the lanes hold a row's bf16 outputs in registers, its amax
+// is a warp reduction, then quantize8.cuh's arithmetic (the row's scale by
+// an IEEE division, each value's quotient by the division's own fast
+// sequence from the row's reciprocal, correctly rounded, rounding half to
+// even): bit for bit this kernel followed by csrc/quantize.cu, the fusion
+// XLA makes of _modulate with the first half of _linear_w8a8
+// (supertonic_tpu/models/layers.py:77-91). Bound: rows * D * 3 + 4 rows
+// bytes, 44.0 MB at 28,672 x 512: 0.0131 ms, against the two kernels' 0.0175
+// + 0.0132. Measured (ms from graphs, kernel_variants.py ln_quantize, NVIDIA
+// H100 80GB HBM3, 700 W, at 28,672 x 512): 0.0247-0.0251 (the pair
+// 0.0392-0.0393, the bf16 form alone 0.0239); with __fdiv_rn for every
+// value 0.0280-0.0284.
+//
 // Design: rows staged through shared memory by bulk copies, several in
 // flight a warp. A block takes a run of consecutive rows inside one batch
 // row (one segment of T rows; without the modulation the rows are one
@@ -50,6 +67,7 @@
 #include <type_traits>
 
 #include "elementwise.cuh"
+#include "quantize8.cuh"
 #include "wgmma.cuh"  // bulk copies and mbarriers
 
 namespace {
@@ -81,9 +99,8 @@ __device__ __forceinline__ float finish(float v, float mean, float rstd, float g
 // quarter of the instructions. p: this chunk's g (and b, 1 + scale, shift
 // D values apart) in shared memory
 template <bool MOD>
-__device__ __forceinline__ void finish_bf16x8(const float (&v)[8], float mean, float rstd,
-                                              const __nv_bfloat16* p, int D,
-                                              __nv_bfloat16* out) {
+__device__ __forceinline__ uint4 finish_bf16x8(const float (&v)[8], float mean, float rstd,
+                                               const __nv_bfloat16* p, int D) {
   const int npar = MOD ? 4 : 2;
   uint4 par[4];
 #pragma unroll
@@ -102,7 +119,33 @@ __device__ __forceinline__ void finish_bf16x8(const float (&v)[8], float mean, f
     if (MOD) h = __hadd2_rn(__hmul2_rn(h, pair(2)), pair(3));
     op[j] = *reinterpret_cast<uint32_t*>(&h);
   }
-  *reinterpret_cast<uint4*>(out) = o;
+  return o;
+}
+
+// 8 bf16 in 16 bytes as float (bf16 -> f32 is the 16 bits shifted up)
+__device__ __forceinline__ void unpack8(uint4 h, float f[8]) {
+  const uint32_t w[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f[2 * e] = __uint_as_float(w[e] << 16);
+    f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+
+// the quantizing form's part of a row in a lane: the largest |value| of its
+// chunks h (8 bf16 each; chunk k is the row's chunk lane + 32 k, below nc)
+template <int CPL>
+__device__ __forceinline__ float chunks_amax(const uint4 (&h)[CPL], int lane, int nc) {
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    if (lane + 32 * k >= nc) continue;
+    float f[8];
+    unpack8(h[k], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  }
+  return amax;
 }
 
 // shared memory of a block: g, b [, 1 + scale, shift] rows of D in T | the
@@ -112,14 +155,17 @@ constexpr size_t smem_bytes(int D) {
   return ((MOD ? 4 : 2) + (size_t)WARPS * STAGES) * D * sizeof(T) + 8 * WARPS * STAGES;
 }
 
-// blockIdx.x = segment * runs + run index; rows of a segment: seg_len
-template <typename T, int CPL, bool MOD>
+// blockIdx.x = segment * runs + run index; rows of a segment: seg_len. Q
+// (bf16): the row's (xq, sx) in place of out
+template <typename T, int CPL, bool MOD, bool Q>
 __global__ void __launch_bounds__(NT)
 layer_norm_rows(const T* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ b, const T* __restrict__ shift,
                 const T* __restrict__ scale, long long mstride, T* __restrict__ out,
-                int seg_len, int D, int run, int runs, float eps) {
+                int8_t* __restrict__ xq, float* __restrict__ sx, int seg_len, int D, int run,
+                int runs, float eps) {
   constexpr int E = stk::kVec<T>;
+  static_assert(!Q || std::is_same<T, __nv_bfloat16>::value, "the quantizing form is bf16's");
   extern __shared__ __align__(128) unsigned char smem[];
   T* par = reinterpret_cast<T*>(smem);  // g, b, 1 + scale, shift
   T* ring = par + (MOD ? 4 : 2) * D;
@@ -183,13 +229,36 @@ layer_norm_rows(const T* __restrict__ x, const float* __restrict__ g,
           q += d * d;
         }
     const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(stk::warp_sum(q), (float)D), eps));
-    T* orow = out + (size_t)(r0 + warp + i * WARPS) * D;
+    const size_t row = r0 + warp + i * WARPS;
+    if constexpr (Q) {
+      // the row's bf16 outputs held in registers, its amax over the warp,
+      // then csrc/quantize.cu's arithmetic on them
+      uint4 h[CPL];
+#pragma unroll
+      for (int k = 0; k < CPL; ++k)
+        if (lane + 32 * k < nc)
+          h[k] = finish_bf16x8<MOD>(v[k], mean, rstd, par + (lane + 32 * k) * E, D);
+      const float sc = stk::quant_scale(stk::warp_max(chunks_amax<CPL>(h, lane, nc)));
+      const float rc = stk::quant_recip(sc);
+      if (lane == 0) sx[row] = sc;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const int c = lane + 32 * k;
+        if (c >= nc) continue;
+        float f[8];
+        unpack8(h[k], f);
+        *reinterpret_cast<uint2*>(xq + row * D + c * E) = stk::quantize8(f, sc, rc);
+      }
+      continue;
+    }
+    T* orow = out + row * D;
 #pragma unroll
     for (int k = 0; k < CPL; ++k) {
       const int c = lane + 32 * k;
       if (c >= nc) continue;
       if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        finish_bf16x8<MOD>(v[k], mean, rstd, par + c * E, D, orow + c * E);
+        *reinterpret_cast<uint4*>(orow + c * E) =
+            finish_bf16x8<MOD>(v[k], mean, rstd, par + c * E, D);
         continue;
       }
       float gv[E], bv[E], sc1[E], sh[E], o[E];
@@ -240,40 +309,47 @@ layer_norm_rows_any(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-template <typename T, int CPL, bool MOD>
+template <typename T, int CPL, bool MOD, bool Q>
 int launch_rows(const T* x, const float* g, const float* b, const T* shift, const T* scale,
-                long long mstride, T* out, int rows, int seg_len, int D, float eps,
-                cudaStream_t st) {
+                long long mstride, T* out, int8_t* xq, float* sx, int rows, int seg_len, int D,
+                float eps, cudaStream_t st) {
   // a run of rows a block, a multiple of the warps, ~4 blocks an SM
   const int target = stk::sm_count() * 4;
   int run = (rows + target - 1) / target;
   run = std::max(WARPS, (run + WARPS - 1) / WARPS * WARPS);
   const int runs = (seg_len + run - 1) / run;
   const size_t bytes = smem_bytes<T, MOD>(D);
-  auto kernel = layer_norm_rows<T, CPL, MOD>;
+  auto kernel = layer_norm_rows<T, CPL, MOD, Q>;
   static size_t configured[stk::kMaxDevices] = {};
   if (int err = stk::allow_dynamic_smem(kernel, bytes, configured)) return err;
-  kernel<<<rows / seg_len * runs, NT, bytes, st>>>(x, g, b, shift, scale, mstride, out, seg_len,
-                                                   D, run, runs, eps);
+  kernel<<<rows / seg_len * runs, NT, bytes, st>>>(x, g, b, shift, scale, mstride, out, xq, sx,
+                                                   seg_len, D, run, runs, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MOD>
+// Q: the quantizing form (xq, sx in place of out), the bulk-copied rows alone
+template <typename T, bool MOD, bool Q = false>
 int go(const T* x, const float* g, const float* b, const T* shift, const T* scale,
-       long long mstride, T* out, int rows, int Tlen, int D, float eps, cudaStream_t st) {
+       long long mstride, T* out, int rows, int Tlen, int D, float eps, cudaStream_t st,
+       int8_t* xq = nullptr, float* sx = nullptr) {
   constexpr int E = stk::kVec<T>;
   // rows by bulk copies: 16-byte rows, aligned (the modulation is read per
   // value, at any alignment and batch stride)
-  const bool vec = D % E == 0 && stk::aligned16(x) && stk::aligned16(out);
+  const bool vec =
+      D % E == 0 && stk::aligned16(x) && (Q ? stk::aligned16(xq) : stk::aligned16(out));
   const int nc = D / E;
   // without the modulation the rows are one segment
   const int seg = MOD ? Tlen : rows;
   if (vec && nc <= 32)
-    return launch_rows<T, 1, MOD>(x, g, b, shift, scale, mstride, out, rows, seg, D, eps, st);
+    return launch_rows<T, 1, MOD, Q>(x, g, b, shift, scale, mstride, out, xq, sx, rows, seg, D,
+                                     eps, st);
   if (vec && nc <= 64)
-    return launch_rows<T, 2, MOD>(x, g, b, shift, scale, mstride, out, rows, seg, D, eps, st);
+    return launch_rows<T, 2, MOD, Q>(x, g, b, shift, scale, mstride, out, xq, sx, rows, seg, D,
+                                     eps, st);
   if (vec && nc <= 128)
-    return launch_rows<T, 4, MOD>(x, g, b, shift, scale, mstride, out, rows, seg, D, eps, st);
+    return launch_rows<T, 4, MOD, Q>(x, g, b, shift, scale, mstride, out, xq, sx, rows, seg, D,
+                                     eps, st);
+  if constexpr (Q) return (int)cudaErrorInvalidValue;
   // a run of rows a warp, with about 32 warps a streaming multiprocessor
   const int warps = stk::sm_count() * 32;
   const int rpw = std::max(1, (rows + warps - 1) / warps);
@@ -310,4 +386,23 @@ extern "C" int stk_ln_modulate(const void* x, const void* g, const void* b, cons
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, g, b, shift, scale, mstride, out, rows, Tlen, D, eps, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The quantizing form: x [rows, D] bf16 (D a multiple of 8 up to 1,024, x
+// and xq 16-byte aligned) -> xq [rows, D] int8 and sx [rows] f32 of the bf16
+// rows stk_ln_modulate would write; the rest as there.
+extern "C" int stk_ln_modulate_quantize(const void* x, const void* g, const void* b,
+                                        const void* shift, const void* scale, long long mstride,
+                                        void* xq, void* sx, int rows, int Tlen, int D, float eps,
+                                        void* stream) {
+  if (rows < 1 || Tlen < 1 || D < 1 || rows % Tlen || (!shift) != (!scale) || mstride < 0)
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  auto args = [&](auto mod) {
+    return go<bf16, decltype(mod)::value, true>(
+        static_cast<const bf16*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+        static_cast<const bf16*>(shift), static_cast<const bf16*>(scale), mstride, nullptr, rows,
+        Tlen, D, eps, (cudaStream_t)stream, static_cast<int8_t*>(xq), static_cast<float*>(sx));
+  };
+  return shift ? args(std::true_type{}) : args(std::false_type{});
 }

@@ -40,6 +40,7 @@
 // max and once to quantize.
 #include <algorithm>
 
+#include "quantize8.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -97,29 +98,6 @@ __device__ __forceinline__ float chunk_amax(const T* p, int n8, int first, int s
   return amax;
 }
 
-// four ints in [-127, 127] as the bytes q0 (lowest) .. q3 of a word: two
-// cvt.pack.sat, each packing two values beside the lower half of its last
-// operand shifted up by 16
-__device__ __forceinline__ uint32_t pack4(int q0, int q1, int q2, int q3) {
-  uint32_t hi, d;
-  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, 0;\n" : "=r"(hi) : "r"(q3), "r"(q2));
-  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(q1), "r"(q0), "r"(hi));
-  return d;
-}
-
-// round_half_even(v / s) as int8: __float2int_rn rounds half to even as
-// rintf does, in the conversion itself
-__device__ __forceinline__ uint2 quantize8(const float v[8], float s) {
-  int q[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) q[e] = __float2int_rn(__fdiv_rn(v[e], s));
-  return make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
-}
-
-__device__ __forceinline__ float row_scale(float amax) {
-  return __fdiv_rn(fmaxf(stk::warp_max(amax), 1e-12f), 127.0f);
-}
-
 // One row of K values at `in` (shared memory) by the L lanes of a group
 // (sub: this lane's place in it, the group L consecutive lanes): the max
 // over the group by shuffles, sx, and xq. The lane's values are held in
@@ -150,7 +128,7 @@ __device__ __forceinline__ void quantize_row_held(const T* in, int8_t* out, floa
     }
   }
   for (int o = L / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float sc = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  const float sc = stk::quant_scale(amax);
   if (!valid) return;
   if (sub == 0) *sx_row = sc;
 #pragma unroll
@@ -162,7 +140,7 @@ __device__ __forceinline__ void quantize_row_held(const T* in, int8_t* out, floa
       for (int p = 0; p < 2; ++p) {
         float v[8];
         to_float<T>(&raw[h][p * U<T>], v);
-        q[p] = quantize8(v, sc);
+        q[p] = stk::quantize8(v, sc);
       }
       *reinterpret_cast<uint4*>(out + 16 * s) = make_uint4(q[0].x, q[0].y, q[1].x, q[1].y);
     }
@@ -203,13 +181,13 @@ quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restric
   float amax = 0.0f;
   if (valid) amax = chunk_amax(in, K / 8, sub, L, amax);
   for (int o = L / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float sc = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  const float sc = stk::quant_scale(amax);
   if (!valid) return;
   if (sub == 0) sx[row] = sc;
   for (int c = sub; c < K / 8; c += L) {
     float v[8];
     load8(in + 8 * c, v);
-    *reinterpret_cast<uint2*>(xq + (size_t)row * K + 8 * c) = quantize8(v, sc);
+    *reinterpret_cast<uint2*>(xq + (size_t)row * K + 8 * c) = stk::quantize8(v, sc);
   }
 }
 
@@ -273,14 +251,14 @@ quantize_long_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __re
           for (int c = lane; c < n8; c += 32) {
             float v[8];
             load8(in + 8 * c, v);
-            *reinterpret_cast<uint2*>(xq + (size_t)row * K + e0 + 8 * c) = quantize8(v, s);
+            *reinterpret_cast<uint2*>(xq + (size_t)row * K + e0 + 8 * c) = stk::quantize8(v, s);
           }
         }
         __syncwarp();
         if (lane == 0) issue(j + NS);
       }
       if (pass == 0) {
-        s = row_scale(amax);
+        s = stk::quant_scale(stk::warp_max(amax));
         if (lane == 0) sx[row] = s;
       }
     }

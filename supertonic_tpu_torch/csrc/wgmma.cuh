@@ -134,6 +134,47 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---------------------------------------------------------------------------
+// device: thread block clusters (distributed shared memory)
+// ---------------------------------------------------------------------------
+
+// every non-exited thread of the cluster's blocks: this thread's shared-memory
+// writes (and barrier inits) before, the others' after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address in block `rank` of the cluster of what sits at this block's
+// shared address `addr`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// v into the cluster's shared address `addr`, completing 4 bytes on the
+// mbarrier at the cluster's shared address `bar` (in the same block)
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+// mbar_wait for a phase completed by other blocks of the cluster (st_async):
+// their writes visible to this thread after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 36)) __trap();
+  } while (!done);
+}
+
 // box at coordinates (c0 innermost, ...) of `map` into shared `dst`,
 // completing its bytes on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

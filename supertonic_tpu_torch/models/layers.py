@@ -38,8 +38,11 @@ Conventions:
     order, silu too in that epilogue, and in bf16 a Q or K projection's
     rotation and a sublayer's gated residual as well (the W8A8 product's
     rope and residual forms). Linears that share an input (self Q, K and V;
-    cross K and V) take one quantize pass of it (``quantized=``), as XLA
-    computes it once in the JAX program.
+    cross K and V) take one quantize pass of it (a ``Quantized`` x), as XLA
+    computes it once in the JAX program; where every consumer of a block's
+    LayerNorm output is a bf16 W8A8 linear, the LayerNorm kernel writes that
+    pass's (xq, sx) itself (``layer_norm(..., quantize=True)``, a
+    ``Quantized`` in place of the bf16 rows).
   * Tensor parallelism (``parallel.mesh``): a sharded linear is a
     ``ShardedLinear`` of per-rank shards; ``mha``, ``kv_project`` and
     ``ffn`` run each rank's heads or hidden columns on its device and sum
@@ -54,7 +57,7 @@ that ``models.init_all`` draws the same numbers in the same order.
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -68,10 +71,10 @@ from ..ops.gated_residual import add_bias, gated_residual
 from ..ops.int8_matmul import int8_matmul
 from ..ops.linear import euler_tail
 from ..ops.linear import linear as linear_fused
-from ..ops.ln_modulate import ln_modulate
+from ..ops.ln_modulate import ln_modulate, ln_modulate_quantize, supports_quantize
 from ..ops.quantize import quantize_rows
 from ..ops.rope import apply_rope, bias_rope  # noqa: F401 (apply_rope: this module's API)
-from ..ops.w8a8 import w8a8_matmul
+from ..ops.w8a8 import supports_silu_quantize, w8a8_matmul
 
 Params = dict[str, Any]
 
@@ -302,13 +305,29 @@ def _weight(p, dtype) -> torch.Tensor:
     return w if w.dtype == dtype else w.to(dtype)
 
 
+class Quantized(NamedTuple):
+    """An activation that only W8A8 linears read, made by its producer as
+    their quantize pass would make it: xq [M, K] int8 and sx [M] f32 of the
+    rows of an x of ``shape`` in ``dtype`` that was never stored. It stands
+    for x where ``linear``, ``mha`` and ``kv_project`` need x's shape, dtype
+    and device alone."""
+
+    xq: torch.Tensor
+    sx: torch.Tensor
+    shape: torch.Size
+    dtype: torch.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.xq.device
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
 
 def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=None,
-           rope=None, n_heads: int = 0, residual=None, gate=None,
-           quantized=None) -> torch.Tensor:
+           rope=None, n_heads: int = 0, residual=None, gate=None, quantize: bool = False):
     """JAX's ``linear`` (the bias in its rounding); with ``silu``,
     ``jax.nn.silu`` of it; with ``tail`` = (x_in [B, T, N] f32, dt [B],
     mask [B, T]), the flow step's Euler update on it as the velocity
@@ -319,10 +338,19 @@ def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=Non
     ``Linear`` is one launch of the linear kernel, each of these in its
     epilogue; a W8A8 one is one quantize pass and one launch of the int8
     product, its silu and, in bf16, the rotation or the gated residual in
-    that product's epilogue; ``quantized`` = (xq, sx), ``x``'s quantize pass
-    already made for another W8A8 linear on it, spares the pass. f32 linears
-    and f32 W8A8 ones take the rotation or the gated residual in one pass
-    after the product (``_heads``, ``_close``)."""
+    that product's epilogue; an ``x`` that is a ``Quantized`` (W8A8 linears
+    only: its pass made already, by its producer or for another W8A8 linear
+    on it) spares the pass. With ``silu`` and
+    ``quantize`` (a bf16 W8A8 linear whose output only W8A8 linears read: the
+    FFN-in) a ``Quantized`` of the silu form's output, from the W8A8
+    product's silu-quantize form. f32 linears and f32 W8A8 ones take the
+    rotation or the gated residual in one pass after the product
+    (``_heads``, ``_close``)."""
+    if quantize:
+        xq, sx = _quantize(x)
+        hq, hs = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype, silu=True,
+                             quantize=True)
+        return Quantized(hq, hs, torch.Size((*x.shape[:-1], p.w_q.shape[0])), x.dtype)
     if rope is not None:
         rope = tuple(t.to(x.device) for t in rope)
     if not isinstance(p, QLinear) and x.dtype == torch.bfloat16:
@@ -331,14 +359,13 @@ def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=Non
         return _split_heads(y, n_heads) if n_heads and rope is None else y
     if isinstance(p, QLinear) and x.dtype == torch.bfloat16 and (
             rope is not None or residual is not None):
-        return _linear_w8a8(p, x, rope=rope, n_heads=n_heads, residual=residual, gate=gate,
-                            quantized=quantized)
+        return _linear_w8a8(p, x, rope=rope, n_heads=n_heads, residual=residual, gate=gate)
     if n_heads:
-        return _heads(*_product(p, x, quantized), rope, n_heads)
+        return _heads(*_product(p, x), rope, n_heads)
     if residual is not None:
-        return _close(*_product(p, x, quantized), residual, gate)
+        return _close(*_product(p, x), residual, gate)
     if isinstance(p, QLinear):
-        y = _linear_w8a8(p, x, silu=silu, quantized=quantized)
+        y = _linear_w8a8(p, x, silu=silu)
     else:
         y = add_bias(F.linear(x, _weight(p, x.dtype)), p.bias)
         if silu:
@@ -346,38 +373,42 @@ def linear(p: Linear | QLinear, x: torch.Tensor, *, silu: bool = False, tail=Non
     return y if tail is None else euler_tail(y, tail)
 
 
-def _product(p: Linear | QLinear, x: torch.Tensor, quantized=None):
+def _product(p: Linear | QLinear, x: torch.Tensor):
     """``linear`` without its bias add: (product in x's dtype, the bias
     left to add), the bias None where the product added it (W8A8)."""
     if isinstance(p, QLinear):
-        return _linear_w8a8(p, x, quantized=quantized), None
+        return _linear_w8a8(p, x), None
     return F.linear(x, _weight(p, x.dtype)), p.bias
 
 
-def _quantize(x: torch.Tensor):
+def _quantize(x):
     """The W8A8 linears' quantize pass of ``x`` [..., K]: (xq [M, K] int8,
-    sx [M] f32)."""
+    sx [M] f32); a ``Quantized`` x is its own."""
+    if isinstance(x, Quantized):
+        return x.xq, x.sx
     return quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
 
 
-def _quantized_once(x: torch.Tensor, *ps):
-    """The one quantize pass of ``x`` that the linears ``ps`` sharing it
-    take (``linear(..., quantized=)``), where all of them are W8A8; else
-    None (each linear on its own)."""
-    return _quantize(x) if all(isinstance(p, QLinear) for p in ps) else None
+def _quantized_once(x, *ps):
+    """``x`` as the linears ``ps`` sharing it take it: a ``Quantized`` of
+    its one quantize pass where all of them are W8A8, else ``x`` itself
+    (each linear its own pass)."""
+    if isinstance(x, Quantized) or not all(isinstance(p, QLinear) for p in ps):
+        return x
+    return Quantized(*_quantize(x), x.shape, x.dtype)
 
 
 def _linear_w8a8(p: QLinear, x: torch.Tensor, *, silu: bool = False, rope=None,
-                 n_heads: int = 0, residual=None, gate=None, quantized=None) -> torch.Tensor:
+                 n_heads: int = 0, residual=None, gate=None) -> torch.Tensor:
     """Dynamic-activation int8 linear in the JAX ``_linear_w8a8``'s order,
     as two kernels: per-token symmetric activation quant (round half to
-    even, as ``jnp.round``; ``quantized``: that pass's (xq, sx), made
-    once for the linears sharing ``x``), then int8 x int8 with the rescale
+    even, as ``jnp.round``; a ``Quantized`` x is that pass made already),
+    then int8 x int8 with the rescale
     and bias in f32 and one rounding to x's dtype in the product's epilogue
     (and with ``silu``, F.silu there, rounded once more; with ``rope``, the
     rotated heads [B, T, H, Dh]; with ``residual``, ``residual + gate *``
     the product: ops/w8a8.py's forms)."""
-    xq, sx = _quantize(x) if quantized is None else quantized
+    xq, sx = _quantize(x)
     y = w8a8_matmul(xq, sx, p.w_q, p.w_scale, p.bias, x.dtype, silu=silu, rope=rope,
                     n_heads=n_heads, residual=residual, gate=gate)
     return y if rope is not None or residual is not None else y.reshape(*x.shape[:-1], -1)
@@ -450,12 +481,25 @@ def embedding(p: Embedding, ids: torch.Tensor, dtype=torch.float32) -> torch.Ten
 
 
 def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5, *, shift=None,
-               scale=None) -> torch.Tensor:
+               scale=None, quantize: bool = False):
     """LayerNorm of x [B, T, D] (normalize in f32, affine in x's dtype),
     with ``shift``/``scale`` [B, 1, D] the AdaLN modulation ``h * (1 +
     scale) + shift`` too: one pass of the LayerNorm kernel
-    (ops/ln_modulate.py)."""
+    (ops/ln_modulate.py). With ``quantize`` (bf16, for W8A8 consumers
+    alone) a ``Quantized`` of that output from the kernel's quantizing form:
+    the bf16 rows are never stored."""
+    if quantize:
+        xq, sx = ln_modulate_quantize(x, p.g, p.b, shift, scale, eps=eps)
+        return Quantized(xq, sx, x.shape, x.dtype)
     return ln_modulate(x, p.g, p.b, shift, scale, eps=eps)
+
+
+def _quantized_input(x: torch.Tensor, *ps) -> bool:
+    """Whether a LayerNorm output ``x`` whose consumers are the linears
+    ``ps`` is better made quantized: every one a W8A8 linear, in bf16, at a
+    width the quantizing LayerNorm takes."""
+    return (all(isinstance(p, QLinear) for p in ps)
+            and supports_quantize(x.shape[-1], x.dtype))
 
 
 def conv_weight(p: Conv1d, dtype) -> torch.Tensor:
@@ -566,12 +610,11 @@ def mha(p, x, n_heads: int, memory=None, *, key_mask=None, q_rope=None,
         q, k, v = (_heads(t, None, rope, n_heads) for t, rope in
                    ((q, q_rope), (k, k_rope), (v, None)))
     else:
-        shared = None  # self Q, K and V: one quantize pass of x where all are W8A8
-        if memory is None and kv_cache is None:
-            shared = _quantized_once(x, p["q"], p["k"], p["v"])
-        q = linear(p["q"], x, rope=q_rope, n_heads=n_heads, quantized=shared)
+        if memory is None and kv_cache is None:  # self Q, K and V: one quantize pass
+            x = _quantized_once(x, p["q"], p["k"], p["v"])
+        q = linear(p["q"], x, rope=q_rope, n_heads=n_heads)
         k, v = kv_cache if kv_cache is not None else kv_project(
-            p, x if memory is None else memory, n_heads, k_rope, quantized=shared)
+            p, x if memory is None else memory, n_heads, k_rope)
     o = _merge_heads(attention_core(q, k, v, key_mask))
     return linear(p["o"], o, residual=residual, gate=gate)
 
@@ -588,10 +631,11 @@ def _mha_tp(p, x, n_heads, memory, key_mask, q_rope, k_rope, kv_cache, residual,
     return _close(row_linear(p["o"], outs, x.device), None, residual, gate)
 
 
-def kv_project(p, mem, n_heads: int, k_rope=None, quantized=None):
+def kv_project(p, mem, n_heads: int, k_rope=None):
     """Project memory into head-split (k, v) with optional rotation; over
     a model group, a list of each rank's (k, v) for its heads. W8A8 K and V
-    take one quantize pass of ``mem`` (``quantized``: one made already)."""
+    take one quantize pass of ``mem`` (none where ``mem`` is a
+    ``Quantized``)."""
     if "k" in p and isinstance(p["k"], ShardedLinear):
         ranks = len(p["k"].shards)
         return [(_heads(k, None, k_rope, n_heads // ranks), _split_heads(v, n_heads // ranks))
@@ -599,23 +643,30 @@ def kv_project(p, mem, n_heads: int, k_rope=None, quantized=None):
     if "kv" in p:
         k, v = linear(p["kv"], mem).chunk(2, dim=-1)
         return _heads(k, None, k_rope, n_heads), _heads(v, None, None, n_heads)
-    if quantized is None:
-        quantized = _quantized_once(mem, p["k"], p["v"])
-    return (linear(p["k"], mem, rope=k_rope, n_heads=n_heads, quantized=quantized),
-            linear(p["v"], mem, n_heads=n_heads, quantized=quantized))
+    mem = _quantized_once(mem, p["k"], p["v"])
+    return (linear(p["k"], mem, rope=k_rope, n_heads=n_heads),
+            linear(p["v"], mem, n_heads=n_heads))
 
 
 # ---------------------------------------------------------------------------
 # FFN + transformer blocks
 # ---------------------------------------------------------------------------
 
-def ffn(p, x: torch.Tensor, *, residual=None, gate=None) -> torch.Tensor:
+def ffn(p, x, *, residual=None, gate=None) -> torch.Tensor:
     """linear, silu, linear; with ``residual``, ``residual + gate * ffn``
-    (the second linear's bias, the gate and the residual in one pass)."""
+    (the second linear's bias, the gate and the residual in one pass). In
+    bf16 with W8A8 linears the first one's silu form quantizes its rows for
+    the second (``linear(..., quantize=True)``), where that form takes the
+    shape."""
     if isinstance(p["in"], ShardedLinear):
         y = row_linear(p["out"], [F.silu(u) for u in col_linear(p["in"], x)], x.device)
         return _close(y, None, residual, gate)
-    return linear(p["out"], linear(p["in"], x, silu=True), residual=residual, gate=gate)
+    fin = p["in"]
+    quantize = (isinstance(fin, QLinear) and isinstance(p["out"], QLinear)
+                and x.dtype == torch.bfloat16
+                and supports_silu_quantize(fin.w_q.shape[0], fin.w_q.shape[1]))
+    h = linear(fin, x, silu=True, quantize=quantize)
+    return linear(p["out"], h, residual=residual, gate=gate)
 
 
 def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
@@ -623,13 +674,15 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
           cond=None, cross_kv=None, fused_ffn: bool = True) -> torch.Tensor:
     """Pre-LN transformer block: self-attn [+ cross-attn] + FFN, optionally
     AdaLN-Zero conditioned on ``cond`` [B, cond_dim]. Each sublayer opens
-    with one pass of the LayerNorm kernel (with the AdaLN shift and scale)
-    and closes with the gated residual: the linear kernel's residual form
-    for a bf16 ``Linear``, else the gated-residual kernel. With ``fused_ffn``
-    the AdaLN FFN sublayer goes through the fused AdaLN-FFN kernel's
-    wrapper (ops/ffn.py) when its linears are plain; without it, and for
-    W8A8 linears, it is mod(LN), ``linear``, silu and ``linear``, as in the
-    JAX package's unfused path. Over a model group (``ShardedLinear``) it
+    with one pass of the LayerNorm kernel (with the AdaLN shift and scale;
+    its quantizing form where every consumer of its output is a bf16 W8A8
+    linear: self Q, K and V, cross Q, the FFN-in) and closes with the gated
+    residual: the linear kernel's residual form for a bf16 ``Linear``, the
+    W8A8 product's for a bf16 W8A8 one, else the gated-residual kernel.
+    With ``fused_ffn`` the AdaLN FFN sublayer goes through the fused
+    AdaLN-FFN kernel's wrapper (ops/ffn.py) when its linears are plain;
+    without it, and for W8A8 linears, it is mod(LN), ``linear``, silu and
+    ``linear``, as in the JAX package's unfused path. Over a model group (``ShardedLinear``) it
     is the unfused path too: the kernel fuses the bias, gate and residual
     into its second product's epilogue, which cannot take partial sums."""
     has_cross = "cross" in p
@@ -643,17 +696,20 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
         """Sublayer i's (shift, scale, gate), None without AdaLN."""
         return (None,) * 3 if mods is None else mods[3 * i:3 * i + 3]
 
-    def ln(name, i):
+    def ln(name, i, *consumers):
         shift, scale, _gate = sub(i)
-        return layer_norm(p[name], x, shift=shift, scale=scale)
+        return layer_norm(p[name], x, shift=shift, scale=scale,
+                          quantize=_quantized_input(x, *consumers))
 
-    x = mha(p["self"], ln("ln1", 0), n_heads, key_mask=self_mask, q_rope=self_rope,
-            k_rope=self_rope, residual=x, gate=sub(0)[2])
+    a = p["self"]
+    x = mha(a, ln("ln1", 0, *([a["qkv"]] if "qkv" in a else [a["q"], a["k"], a["v"]])),
+            n_heads, key_mask=self_mask, q_rope=self_rope, k_rope=self_rope, residual=x,
+            gate=sub(0)[2])
     i_sub = 1
     if has_cross:
-        x = mha(p["cross"], ln("ln2", 1), n_heads, memory=memory, key_mask=memory_mask,
-                q_rope=q_rope_cross, k_rope=k_rope_cross, kv_cache=cross_kv, residual=x,
-                gate=sub(1)[2])
+        x = mha(p["cross"], ln("ln2", 1, p["cross"]["q"]), n_heads, memory=memory,
+                key_mask=memory_mask, q_rope=q_rope_cross, k_rope=k_rope_cross,
+                kv_cache=cross_kv, residual=x, gate=sub(1)[2])
         i_sub = 2
     f = p["ffn"]
     if (fused_ffn and mods is not None and isinstance(f["in"], Linear)
@@ -663,7 +719,7 @@ def block(p, x: torch.Tensor, n_heads: int, *, self_mask=None, self_rope=None,
         return fused_adaln_ffn(
             x, ln3.g, ln3.b, _weight(f["in"], x.dtype), f["in"].bias,
             _weight(f["out"], x.dtype), f["out"].bias, shift, scale, gate)
-    return ffn(f, ln("ln3", i_sub), residual=x, gate=sub(i_sub)[2])
+    return ffn(f, ln("ln3", i_sub, f["in"]), residual=x, gate=sub(i_sub)[2])
 
 
 # ---------------------------------------------------------------------------

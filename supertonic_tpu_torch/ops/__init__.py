@@ -6,7 +6,10 @@ and the W8A8 linear's two passes: the per-token quantize pass
 (``quantize.quantize_rows``) and the int8 product with its rescale-and-bias
 epilogue (``w8a8.w8a8_matmul``); and the transformer block's three
 elementwise fusions: LayerNorm with the AdaLN modulation
-(``ln_modulate.ln_modulate``), a projection's bias add with its rotary
+(``ln_modulate.ln_modulate``; for W8A8 consumers alone it writes their
+quantize pass instead, ``ln_modulate.ln_modulate_quantize``, as the W8A8
+FFN-in's silu form does for the FFN-out: ``w8a8.w8a8_matmul(...,
+silu=True, quantize=True)``), a projection's bias add with its rotary
 embedding (``rope.bias_rope``) and the gated residual
 (``gated_residual.gated_residual``); and a conv1d with the elementwise ops
 around it, the vocoder's and the text encoder's prenet's
@@ -17,8 +20,10 @@ its callers' silu or flow-step tail in the product's epilogue
 Launches are counted per kernel (``launch_counts``), replays of captured
 CUDA graphs included, and ``record_launches`` tallies them by shape:
 attention (B, H, Tq, Tk, masked), adaln_ffn (B, T, D, F), resblock_chain
-(B, T, C), int8_matmul and w8a8_matmul (M, K, N), quantize (M, K),
-ln_modulate (B, T, D, modulated), bias_rope (B, T, H, Dh, with bias),
+(B, T, C), int8_matmul and w8a8_matmul (M, K, N; the W8A8 rope,
+residual and silu-quantize forms (M, K, N, form, Dh or the gate's rows a
+batch row or 0)), quantize (M, K), ln_modulate (B, T, D, modulated; its
+quantizing form with "quantize" after), bias_rope (B, T, H, Dh, with bias),
 gated_residual (B, T, D, gated, with bias), conv1d (B, T, Cin, Cout, k,
 dilation, options), linear (M, K, N, form, the tail's rows a batch row or
 0)."""

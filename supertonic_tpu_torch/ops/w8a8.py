@@ -14,6 +14,10 @@ output, in torch's linear layout (``QLinear.w_q`` is [dout, din]):
                                         [M, N], rounded once to dtype
     silu=True: F.silu of that, rounded to dtype once more (the FFN's first
                linear: ``jax.nn.silu(_linear_w8a8(...))``)
+    silu=True, quantize=True (bf16): that output's rows as the FFN-out's
+               quantize pass makes them, (hq [M, N] int8, hs [M] f32),
+               ``quantize_rows_plain`` of the silu form: the bf16 [M, N]
+               activation is never stored
     rope=(cos, sin [B, T, Dh / 2] f32), n_heads=H, M = B T:
         the rotated heads [B, T, H, Dh] of that (bf16): a Q or K projection,
         ``apply_rope(_split_heads(_linear_w8a8(p, x)), cos, sin)``
@@ -32,8 +36,12 @@ file's header. The rope and residual forms run the linear kernel's GEMM
 (``csrc/linear.cu``, C entry ``stk_w8a8_epilogue``) with its s8 operand and
 this rescale in place of JAX's bf16 bias rounding: the rotation or the gated
 residual in the epilogue, in registers, as the bf16 linear's forms (``ops/
-linear.py``) do it. Those two forms take bf16 results alone: an f32 W8A8
-linear (a test route; the engine's int8 path runs bf16 activations) and a
+linear.py``) do it. The silu-quantize form runs that GEMM too, W's columns
+resident, the blocks of a row block's column tiles one thread-block
+cluster that exchanges the rows' partial maxima through distributed shared
+memory (``stk_w8a8_silu_quantize``). Those forms take bf16 results alone:
+an f32 W8A8 linear (a test route; the engine's int8 path runs bf16
+activations) and a
 sharded one (``layers.col_linear`` / ``row_linear``) keep the product, then
 ``rope.bias_rope`` or ``gated_residual.gated_residual``.
 
@@ -53,6 +61,7 @@ from .gated_residual import batch_rows, gated_residual_plain
 from .int8_matmul import K_MULTIPLE, int8_matmul_plain
 from .linear import FORMS, _check_forms
 from .linear import kernel_instance as linear_instance
+from .quantize import quantize_rows_plain
 from .rope import bias_rope_plain
 
 # a, w, sx, w_scale, bias, y, M, N, K, dtype code, stream, silu
@@ -61,6 +70,20 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctype
 # residual, gate, gate batch stride, y, M, N, K, T, Dh, mode, stream
 _EPI_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p]
                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# stk_w8a8_silu_quantize (csrc/linear.cu): xq, w_q, sx, w_scale, bias, hq,
+# hs, M, N, K, stream
+_SQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+SQ_BN = 256        # the silu-quantize form's columns a block of its cluster
+SQ_MAX_BLOCKS = 8  # blocks a cluster: N up to 2,048
+SQ_MAX_K = 512     # W's columns resident in a block's shared memory
+
+
+def supports_silu_quantize(n: int, k: int) -> bool:
+    """Whether the silu-quantize form takes N outputs of K inputs: N a
+    multiple of ``SQ_BN`` up to ``SQ_MAX_BLOCKS`` of them, K a multiple of 32
+    up to ``SQ_MAX_K``."""
+    return (SQ_BN <= n <= SQ_BN * SQ_MAX_BLOCKS and n % SQ_BN == 0
+            and K_MULTIPLE <= k <= SQ_MAX_K and k % K_MULTIPLE == 0)
 
 
 def kernel_instance(m: int, k: int, n: int, form: str, dh: int = 0) -> str:
@@ -77,11 +100,15 @@ def kernel_instance(m: int, k: int, n: int, form: str, dh: int = 0) -> str:
 
 
 def w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=None,
-                      n_heads: int = 0, residual=None, gate=None):
+                      n_heads: int = 0, residual=None, gate=None, quantize: bool = False):
     """Plain PyTorch version: the exact product, then the rescale and bias
     in f32 in the JAX ``_linear_w8a8``'s order, one rounding to dtype; then
-    F.silu with ``silu``, ``bias_rope_plain`` with ``rope``, or
+    F.silu with ``silu`` (and ``quantize_rows_plain`` of it with
+    ``quantize``), ``bias_rope_plain`` with ``rope``, or
     ``gated_residual_plain`` with ``residual``."""
+    if quantize:
+        return quantize_rows_plain(w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype,
+                                                     silu=True))
     acc = int8_matmul_plain(xq, w_q)
     y = acc.float() * sx[:, None] * w_scale
     y = (y + bias).to(dtype)
@@ -105,15 +132,18 @@ def _batch_shape(m, rope, residual):
 
 
 def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=None,
-                n_heads: int = 0, residual=None, gate=None):
+                n_heads: int = 0, residual=None, gate=None, quantize: bool = False):
     """xq [M, K] int8, sx [M], w_q [N, K] int8, w_scale [N], bias [N]
     (float32) -> [M, N] in dtype (float32 or bfloat16); with ``silu``, F.silu
     of it; with ``rope`` = (cos, sin [B, T, Dh / 2] f32) and ``n_heads``
     (M = B T), the rotated heads [B, T, H, Dh]; with ``residual`` [B, T, N]
     (and ``gate`` [B, 1, N] or [1, 1, N]), residual + gate * product [B, T,
-    N]. One form at a time. On the card the rope and residual forms take
-    bfloat16 alone (an f32 or sharded W8A8 linear runs the product, then
-    ``rope.bias_rope`` or ``gated_residual.gated_residual``)."""
+    N]; with ``silu`` and ``quantize``, the silu form's rows quantized,
+    (hq [M, N] int8, hs [M] f32). One form at a time. On the card the rope,
+    residual and silu-quantize forms take bfloat16 alone (an f32 or sharded
+    W8A8 linear runs the product, then ``rope.bias_rope`` or
+    ``gated_residual.gated_residual``), the last at the shapes
+    ``supports_silu_quantize`` takes."""
     if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[1]:
         raise ValueError(f"xq must be [M, K] and w_q [N, K], got {tuple(xq.shape)} "
                          f"and {tuple(w_q.shape)}")
@@ -128,6 +158,8 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=N
         raise TypeError("sx, w_scale and bias must be float32")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the output is float32 or bfloat16, got {dtype}")
+    if quantize and not silu:
+        raise ValueError("the quantizing form is the silu form's")
     bt = _batch_shape(m, rope, residual)
     gstride = 0
     if bt is not None or gate is not None:
@@ -136,7 +168,8 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=N
                                      gate)
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, sx, w_q, w_scale, bias, dtype, silu=silu, rope=rope,
-                                 n_heads=n_heads, residual=residual, gate=gate)
+                                 n_heads=n_heads, residual=residual, gate=gate,
+                                 quantize=quantize)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     if m < 1 or n < 1 or k < K_MULTIPLE or k % K_MULTIPLE:
@@ -150,6 +183,8 @@ def w8a8_matmul(xq, sx, w_q, w_scale, bias, dtype, *, silu: bool = False, rope=N
     if bt is not None:
         return _epilogue_form(xq, sx, w_q, w_scale, bias, dtype, bt, rope, n_heads, residual,
                               gate, gstride)
+    if quantize:
+        return _silu_quantize(xq, sx, w_q, w_scale, bias, dtype)
     y = torch.empty((m, n), device=xq.device, dtype=dtype)
     fn = _build.function("int8_matmul", "stk_w8a8_matmul", _ARGTYPES)
     P = _build.ptr
@@ -202,3 +237,24 @@ def _epilogue_form(xq, sx, w_q, w_scale, bias, dtype, bt, rope, n_heads, residua
                                     bt[1] if gate is not None else 0))
     return y.view(*bt, n_heads, dh) if form == "rope" else y
 
+
+def _silu_quantize(xq, sx, w_q, w_scale, bias, dtype):
+    """The silu-quantize form on the card (operands checked by
+    ``w8a8_matmul``): one launch of ``stk_w8a8_silu_quantize``."""
+    m, k = xq.shape
+    n = w_q.shape[0]
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the W8A8 silu-quantize form quantizes bfloat16 rows, got {dtype}")
+    if not supports_silu_quantize(n, k):
+        raise ValueError(f"the W8A8 silu-quantize form takes N a multiple of {SQ_BN} up to "
+                         f"{SQ_BN * SQ_MAX_BLOCKS} and K a multiple of {K_MULTIPLE} up to "
+                         f"{SQ_MAX_K}, got N={n}, K={k}")
+    hq = torch.empty((m, n), device=xq.device, dtype=torch.int8)
+    hs = torch.empty((m,), device=xq.device, dtype=torch.float32)
+    fn = _build.function("linear", "stk_w8a8_silu_quantize", _SQ_ARGTYPES)
+    P = _build.ptr
+    with _build.on(xq):
+        _build.check(fn(P(xq), P(w_q), P(sx), P(w_scale), P(bias), P(hq), P(hs), m, n, k,
+                        _build.stream_ptr(xq)), "stk_w8a8_silu_quantize")
+    _count.launched("w8a8_matmul", (m, k, n, "silu_quantize", 0))
+    return hq, hs

@@ -256,8 +256,8 @@ def test_supports_states_the_domain(module):
 @pytest.mark.parametrize("precision,fused_ffn,per_batch", [
     ("bf16", True, {"ln_modulate": 97, "bias_rope": 0, "gated_residual": 0}),
     ("bf16", False, {"ln_modulate": 127, "bias_rope": 0, "gated_residual": 0}),
-    ("int8", True, {"ln_modulate": 127, "bias_rope": 0, "gated_residual": 0,
-                    "quantize_rows": 186})])
+    ("int8", True, {"ln_modulate": 37, "ln_modulate_quantize": 90, "bias_rope": 0,
+                    "gated_residual": 0, "quantize_rows": 66})])
 def test_wrapper_calls_per_batch(tiny_config, tmp_path, monkeypatch, precision, fused_ffn,
                                  per_batch):
     """One 5-step batch at the default depths (text encoder 6 blocks,
@@ -268,8 +268,10 @@ def test_wrapper_calls_per_batch(tiny_config, tmp_path, monkeypatch, precision, 
     ln_out; no rotation or residual kernel: a bf16 plain Linear takes them
     in the linear kernel's epilogue (tests/test_torch_linear.py counts
     those), a bf16 W8A8 one (the int8 path's VE) in the W8A8 product's; and
-    on the int8 path one quantize pass a W8A8 linear, self Q, K and V
-    sharing one and cross K and V another: 6 a VE block and step + 1 a
+    on the int8 path the VE's ln1, ln2 and ln3 in the quantizing form (their
+    outputs feed W8A8 linears alone: 3 a block and step), the FFN-out's
+    input from the FFN-in's silu-quantize form, and one quantize pass for
+    each other W8A8 input: self O and cross O a VE block and step + 1 a
     block for the cross K and V."""
     monkeypatch.setenv("TTS_RATE_CACHE_DIR", str(tmp_path))
     cfg = dataclasses.replace(

@@ -445,8 +445,11 @@ def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
     not reach the fused AdaLN-FFN, and every W8A8 linear goes through the
     W8A8 product's wrapper: 8 per block and step, 2 per block for the cross
     K/V; the quantize wrapper runs once for the linears that share an input
-    (self Q, K and V; cross K and V): 6 per block and step, 1 per block."""
-    calls = {"adaln_ffn": 0, "quantize": 0, "w8a8_matmul": 0}
+    (cross K and V: 1 per block) and once for each self and cross O (2 per
+    block and step): the LayerNorms before self Q, K and V, cross Q and the
+    FFN-in write their (xq, sx) themselves (3 per block and step), and the
+    FFN-in's silu form quantizes the FFN-out's input."""
+    calls = {"adaln_ffn": 0, "quantize": 0, "ln_modulate_quantize": 0, "w8a8_matmul": 0}
 
     def counted(name, real):
         def f(*args, **kw):
@@ -456,6 +459,8 @@ def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
 
     monkeypatch.setattr(tL, "fused_adaln_ffn", counted("adaln_ffn", tL.fused_adaln_ffn))
     monkeypatch.setattr(tL, "quantize_rows", counted("quantize", tL.quantize_rows))
+    monkeypatch.setattr(tL, "ln_modulate_quantize",
+                        counted("ln_modulate_quantize", tL.ln_modulate_quantize))
     monkeypatch.setattr(tL, "w8a8_matmul", counted("w8a8_matmul", tL.w8a8_matmul))
     tts = TTS(device="cpu", cfg=tiny_config, precision="int8")
     assert tts.engine.precision == "int8" and tts.engine.dtype == torch.bfloat16
@@ -465,8 +470,8 @@ def test_tts_int8_on_cpu_skips_the_fused_ffn(tiny_config, monkeypatch):
     assert abs(wav.shape[1] - int(tiny_config.sample_rate * float(dur[0]))) <= 1
     n_layers = tiny_config.vector_estimator.n_layers
     n_linears = n_layers * (8 * 2 + 2)
-    assert calls == {"adaln_ffn": 0, "quantize": n_layers * (6 * 2 + 1),
-                     "w8a8_matmul": n_linears}
+    assert calls == {"adaln_ffn": 0, "quantize": n_layers * (2 * 2 + 1),
+                     "ln_modulate_quantize": n_layers * 3 * 2, "w8a8_matmul": n_linears}
 
 
 def test_int8_entry_points_default_to_cuda(tiny_config):

@@ -170,7 +170,7 @@ def _earlier_route(monkeypatch):
     each O and FFN-out the gated-residual kernel."""
     real = L.linear
 
-    def earlier(p, x, *, rope=None, n_heads=0, residual=None, gate=None, quantized=None, **kw):
+    def earlier(p, x, *, rope=None, n_heads=0, residual=None, gate=None, **kw):
         if rope is not None:
             return L._heads(*L._product(p, x), rope, n_heads)
         if residual is not None:
@@ -178,16 +178,18 @@ def _earlier_route(monkeypatch):
         y = real(p, x, **kw)
         return L._split_heads(y, n_heads) if n_heads else y
     monkeypatch.setattr(L, "linear", earlier)
+    monkeypatch.setattr(L, "_quantized_once", lambda x, *ps: x)
 
 
 def _counted(monkeypatch):
-    """Counts of the quantize, bias-and-rope and gated-residual wrappers'
-    calls and of the W8A8 product's calls by form, over what runs after this
-    call."""
-    seen = dict.fromkeys(("quantize", "bias_rope", "gated_residual", "bias", "silu", "rope",
-                          "residual"), 0)
+    """Counts of the quantize, quantizing LayerNorm, bias-and-rope and
+    gated-residual wrappers' calls and of the W8A8 product's calls by form,
+    over what runs after this call."""
+    seen = dict.fromkeys(("quantize", "ln_modulate_quantize", "bias_rope", "gated_residual",
+                          "bias", "silu", "rope", "residual"), 0)
     for name, key in (("quantize_rows", "quantize"), ("bias_rope", "bias_rope"),
-                      ("gated_residual", "gated_residual")):
+                      ("gated_residual", "gated_residual"),
+                      ("ln_modulate_quantize", "ln_modulate_quantize")):
         def counted(*args, _fn=getattr(L, name), _key=key, **kw):
             seen[_key] += 1
             return _fn(*args, **kw)
@@ -220,7 +222,9 @@ def test_w8a8_block_routing_is_the_earlier_route(case, heads, monkeypatch):
     called; in f32 the product keeps those two kernels after it. Either way
     one quantize pass serves self Q, K and V and one cross K and V: a
     quantize call a W8A8 linear less two for self-attention and one for
-    cross-attention."""
+    cross-attention; in bf16 the LayerNorms whose outputs only W8A8 linears
+    read (ln1, ln2, ln3) make those linears' (xq, sx) themselves, a quantize
+    call fewer each."""
     cross, adaln, dtype = BLOCKS[case]
     dim = 64
     p = _w8a8_block(_block_params(len(case) + heads, dim, cross=cross, adaln=adaln), dtype)
@@ -230,7 +234,9 @@ def test_w8a8_block_routing_is_the_earlier_route(case, heads, monkeypatch):
         got = L.block(p, x, heads, fused_ffn=False, **kw)
     n_rope, n_residual = 2 + 2 * cross, 2 + cross  # Q and K; O (and cross O) and FFN-out
     linears = 4 + 4 * cross + 2  # Q, K, V, O (self and cross), FFN in and out
-    assert seen["quantize"] == linears - 2 - cross
+    quantizing_lns = 2 + cross if dtype == BF16 else 0  # ln1, ln3 (and ln2)
+    assert seen["quantize"] == linears - 2 - cross - quantizing_lns
+    assert seen["ln_modulate_quantize"] == quantizing_lns
     assert seen["rope"] + seen["residual"] + seen["silu"] + seen["bias"] == linears
     assert seen["silu"] == 1
     if dtype == BF16:
