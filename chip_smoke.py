@@ -124,8 +124,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                LayerNorm or the silu form, then the quantize kernel) at the
                int8 cell's, a streamed chunk's and phase 12's VE widths
                and at edges (one row, rows off the tiles, one row of
-               modulation for all, no modulation, clusters of 1 to 8
-               blocks), timed beside those pairs; the linear kernel at
+               modulation for all, no modulation, clusters of 1 to 16
+               blocks), timed beside those pairs, and first the
+               silu-quantize form and the W8A8 silu form at every finite
+               bf16 value (their silu tables); the linear kernel at
                every shape phases 3, 4, 7, 11 and 12 recorded and at edges
                (the bias and silu forms by linear.bf16_within, silu bit for
                bit F.silu of the kernel's bias form, the tail bit for bit
@@ -1150,13 +1152,16 @@ def check_quantizing_forms(gen, cell, results, serving):
     in at N 1,536 and 768, K 384 and 192) and at edges: one row, rows off the
     tiles and the LayerNorm's runs, a batch stride of 0 (one row of
     modulation for all), no modulation, D 8 and 1,024 (the form's widths), a
-    cluster of one block (N 256), K 32, a zero row and a row at 127. Timed at
+    cluster of one block (N 128) and of 2 and 3, K 32, a zero row and a row at
+    127 (its values reach past the silu table). Timed at
     the cell's and a chunk's shapes beside the pair and the bound,
     host-launched and from graphs; max_abs_err that of the dequantized
     values xq * sx against the plain version's; library_ms None (no one
-    PyTorch call computes either form)."""
+    PyTorch call computes either form). First the silu-quantize form at
+    every finite bf16 value (siluq_every_bf16)."""
     bf16 = torch.bfloat16
     pairs = {}  # form: [(launches, form ms, pair ms, bound ms)] from graphs
+    siluq_every_bf16()
 
     def dequantized_err(q, sc, pq, ps) -> float:
         return float((q.float() * sc[:, None] - pq.float() * ps[:, None]).abs().max())
@@ -1231,8 +1236,8 @@ def check_quantizing_forms(gen, cell, results, serving):
             (14 if modulated else 11) * rows * d, (b, t, d, modulated, "quantize"),
             torch.float32)
 
-    sq_edges = [(1, 512, 2048), (37, 32, 512), (300, 64, 256), (17037, 384, 1536),
-                (1000, 192, 768), (448, 512, 2048)]
+    sq_edges = [(1, 512, 2048), (37, 32, 512), (300, 64, 256), (300, 64, 128), (100, 96, 384),
+                (17037, 384, 1536), (1000, 192, 768), (448, 512, 2048)]
     cases = dict.fromkeys(sq_edges, 0)
     cases.update({key[:3]: n for key, n in cell["w8a8_matmul"].items()
                   if len(key) == 5 and key[3] == "silu_quantize"})
@@ -1617,7 +1622,10 @@ def silu_every_bf16() -> None:
     form is x itself (-0 as +0; the share where it is printed). The
     layouts: 64 x 128 tiles (ManySilu) at K = N = 128 and two tiles an SM;
     64 x 64 (Few) at M 320, K = N = 1,024, a streamed chunk's FFN-in size;
-    register stores (AnyN) at N 12 off 8; the SIMT kernel at K = N = 15."""
+    register stores (AnyN) at N 12 off 8; the SIMT kernel at K = N = 15.
+    ManySilu takes silu from the block's table (csrc/silu_table.cuh); Few
+    and AnyN (one consumer a block) and the SIMT kernel the exact sequence;
+    the W8A8 forms' tables are siluq_every_bf16's."""
     bits = torch.arange(-32768, 32768, dtype=torch.int32, device=DEV).to(torch.int16)
     vals = bits.view(torch.bfloat16)
     vals = vals[torch.isfinite(vals.float())]
@@ -1645,6 +1653,62 @@ def silu_every_bf16() -> None:
             raise AssertionError(f"the silu layout for {want_instance} ran {instance}")
         if not exact:
             raise AssertionError(f"the linear kernel's silu ({instance}) differs from F.silu")
+
+
+def siluq_every_bf16() -> None:
+    """The W8A8 silu-quantize form (its silu from the block's table) at every
+    finite bf16 value: one row a value, X[:, 0] = 1 and W's columns a single
+    1 at k = 0 (K 32, the rest 0), the weight scales 1 and the bias 0, so a
+    row's rescaled bias form is rnd(sx[row]) and sx holds each of the 65,280
+    finite bf16 values (-0 as +0), across N 2,048 (a cluster of 16 blocks).
+    Its outputs, xq = +-127 (or 0) and sx = max(|silu(v)|, 1e-12) / 127,
+    distinct for every distinct |silu(v)| above the clamp, with xq's sign
+    give the table's bits: (xq, sx) must be bit for bit the plain version's
+    (F.silu on the card, then quantize_rows_plain) on the same card
+    tensors. Then the W8A8 silu form (csrc/int8_matmul.cu, its silu from the
+    table too) on the same operands, bit for bit F.silu of its own bias form
+    through each of its instances: 64 x 64 tiles of four consumers at N
+    2,048, of two (few tiles) at N 64 over two launches of half the values,
+    and register stores at N 3. It raises otherwise."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=DEV).to(torch.int16)
+    vals = bits.view(torch.bfloat16)
+    vals = vals[torch.isfinite(vals.float())]
+
+    def operands(rows, n, k=32):
+        xq = torch.zeros((rows.numel(), k), dtype=torch.int8, device=DEV)
+        xq[:, 0] = 1
+        w = torch.zeros((n, k), dtype=torch.int8, device=DEV)
+        w[:, 0] = 1
+        return (xq, rows.float(), w, torch.ones(n, device=DEV), torch.zeros(n, device=DEV),
+                torch.bfloat16)
+
+    m, n = vals.numel(), 2048
+    args = operands(vals, n)
+    hq, hs = w8a8.w8a8_matmul(*args, silu=True, quantize=True)
+    pq, ps = w8a8.w8a8_matmul_plain(*args, silu=True, quantize=True)
+    torch.cuda.synchronize()
+    exact = bits_equal(hq, pq) and bits_equal(hs, ps)
+    n_diff = int((hs.view(torch.int32) != ps.view(torch.int32)).sum()
+                 + (hq != pq).any(-1).sum())
+    log(f"  w8a8_matmul silu-quantize form at every finite bf16 value ({m} rows, K 32 N {n}; "
+        f"{int(torch.unique(hs).numel())} distinct sx): (xq, sx) bit-equal to the plain version "
+        f"{exact} ({n_diff} rows differ)")
+    if not exact:
+        raise AssertionError("the W8A8 silu-quantize form's silu differs from F.silu")
+    del hq, hs, pq, ps
+    for label, n, parts in (("64 x 64, four consumers", 2048, 1), ("64 x 64, few tiles", 64, 2),
+                            ("register stores", 3, 1)):
+        n_diff = 0
+        for rows in vals.chunk(parts):
+            args = operands(rows, n)
+            got = w8a8.w8a8_matmul(*args, silu=True)
+            want = torch.nn.functional.silu(w8a8.w8a8_matmul(*args))
+            n_diff += int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        log(f"  w8a8_matmul silu form at every finite bf16 value ({label}: N {n}, "
+            f"{parts} launch{'es' if parts > 1 else ''}): bit-equal to F.silu of its bias form "
+            f"{n_diff == 0} ({n_diff} values differ)")
+        if n_diff:
+            raise AssertionError(f"the W8A8 silu form's silu ({label}) differs from F.silu")
 
 
 def check_linear(gen, cell, results, serving, widths):

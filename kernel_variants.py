@@ -45,7 +45,8 @@ host's per-call work:
   int8       the W8A8 product (bf16 results) at the b64 cell's shapes and the
              int32 form at the TP int8 path's and the cell's, beside
              torch._int_mm (the product alone, a yardstick): the mma.sync
-             design it replaced (earlier); 64 x 256 tiles a consumer; 3 ring
+             design it replaced (earlier); the silu form by the exact
+             sequence a value (no silu table); 64 x 256 tiles a consumer; 3 ring
              stages; not persistent; stores from the registers (no TMA
              store); 128 x 256 tiles shared by the two consumers; and the
              silu form at the ffn.in shape, its instance on 128 x 128 tiles
@@ -69,10 +70,24 @@ host's per-call work:
              each quotient by __fdiv_rn (no row reciprocal), beside the pair
              it replaced (the LayerNorm, then the quantize pass)
   silu_quantize  the W8A8 FFN-in's silu-quantize form at the int8 cell's and
-             a streamed chunk's shapes: each quotient by __fdiv_rn; 64 x
-             128 tiles in clusters of 16 blocks (the non-portable size,
-             csrc/variants/) with four, three or two consumers; beside the pair it replaced (the
-             W8A8 silu form, then the quantize pass) and the silu form alone
+             a streamed chunk's shapes, first at every finite bf16 value
+             (chip_smoke.siluq_every_bf16): the design it replaced
+             (earlier: 64 x 256 tiles in clusters of 8, two consumers, the
+             exact silu sequence a value); the exact sequence on the
+             committed tiles (no silu table); each quotient by __fdiv_rn;
+             four or two consumers; 64 x 256 tiles in clusters of 8 with
+             the table, or with the exact sequence; beside the pair it
+             replaced (the W8A8 silu form, then the quantize pass) and the
+             silu form alone, with the edge rows and without them (every
+             value on the table's fast path), and on the int8 network's own
+             FFN-in operands (chip_smoke.py's weights, one b64/5-step
+             batch); with --split: silu as the identity, no quantize (the
+             bf16 values' high bytes stored), no cluster exchange (each
+             row's amax over its own tile), no stores, the table's lookups
+             without bank conflicts, and the first four on the replaced
+             design (unchecked); then the bf16 linear's silu
+             form (the table where its tiles hold it) beside the builds
+             whose silu is the exact sequence
   conv1d     the conv kernel at the b64 cell's shapes: the one-tile-a-block
              design it replaced (earlier), and that design with A in
              registers (csrc/variants/); every tile staging its own
@@ -142,6 +157,8 @@ FILE = "file"  # a variant that is a whole source file under csrc/ (+ substituti
 # the quantize pass's per-value arithmetic, which quantize.cu includes (a
 # split substitutes it in place of the include)
 QUANTIZE8 = (_build.CSRC_DIR / "quantize8.cuh").read_text()
+# the silu table's header, which linear.cu includes (a split substitutes it)
+SILU_TABLE = (_build.CSRC_DIR / "silu_table.cuh").read_text()
 CLUSTER_SRC = "variants/resblock_chain_cluster.cu"
 CHAIN_ACC = [("stk::silu_fast(", "stk::silu_f(")]
 # half the exponentials of the chain's silu on the FMA pipe: 2^y = 2^n 2^f,
@@ -164,9 +181,9 @@ CHAIN_EPILOGUE = "    const bool last = conv == 2 * P - 1;\n"
 # products are skipped; the results go to one address (the TMA stores are
 # skipped; the buffer writes and the math stay)
 LIN_MANY = "using Many = Tile<2, 2, 128, 5, 1, false, true, 2>;"
-# the silu-quantize form in clusters of 16 (the non-portable size) on 64 x 128 tiles
-SILUQ_C16_SRC = "variants/linear_siluq_c16.cu"
-LIN_SILUQ_C16 = "using SiluQ = Tile<4, 1, 128, 8, 1, false, true, 1, 4>;"
+LIN_SILUQ = "using SiluQ = Tile<3, 1, 128, 8, 1, false, true, 1, 4>;"
+# silu by the exact sequence a value instead of the block's table
+SILU_EXACT = [("constexpr bool SILU_BY_TABLE = true;", "constexpr bool SILU_BY_TABLE = false;")]
 LIN_MANY_SILU = "using ManySilu = Tile<4, 1, 128, 5, 1, false, true, 2>;"
 LIN_TAIL = "using TailTile = Tile<2, 1, 96, 6, 1, false, true, 4>;"
 LIN_RESID = ("using ManyResid = Tile<3, 1, 128, 7, 1, false, true, 2>;  // the residual form at "
@@ -180,7 +197,7 @@ ROPE_STAGED_SRC = "variants/linear_rope_staged.cu"
 # room for a fifth ring stage); safe where the tiles' columns end at N (the
 # VE's N 512)
 W8A8_WS_GLOBAL = [
-    ("         (Q8 ? (size_t)S::NC * 4 * S::BN : 0);", "         0;"),
+    ("         (Q8 ? (size_t)S::NC * 4 * S::BN : 0) +", "         0 +"),
     ("        if constexpr (Q8)\n"
      "          stk::cp_async4(stk::smem_u32(ws_s + c), p.ws + (n0 + c < p.N ? n0 + c : 0),\n"
      "                         n0 + c < p.N);\n", ""),
@@ -207,6 +224,68 @@ LINEAR_NO_STORES = [
     ("              stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);",
      "              if (p.K < 0 || reinterpret_cast<const uint32_t&>(v) == 0x7fc00001u)\n"
      "                stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);")]
+def replaced(text: str, old: str, new: str) -> str:
+    """text with old replaced by new; raises where old is not in it."""
+    if old not in text:
+        raise RuntimeError(f"'{old}' not in the text")
+    return text.replace(old, new)
+
+
+# the silu-quantize form's splits (unchecked): silu as the identity (the
+# rescaled bias form kept); no quantize (each bf16 value's high byte stored);
+# no cluster exchange (each row's amax over the tile's own columns); no
+# stores (the int8 tiles' TMA stores skipped)
+SILUQ_SPLIT = {
+    "split: silu as the identity (the table's lookups skipped)": [
+        ("h[j][half] = stk::silu_bf16x2_table(silu_tab, h[j][half]);", ";")],
+    "split: no quantize (the bf16 values' high bytes stored)": [
+        ("const uint32_t q0 = (uint32_t)stk::quantize1(f.x, sc[half], rc[half]) & 0xffu;",
+         "const uint32_t q0 = (h[j][half] >> 8) & 0xffu;"),
+        ("const uint32_t q1 = (uint32_t)stk::quantize1(f.y, sc[half], rc[half]) & 0xffu;",
+         "const uint32_t q1 = h[j][half] >> 24;")],
+    "split: no cluster exchange (each row's amax over the tile's own columns)": [
+        ("          for (int peer = t; peer < n_tiles; peer += 4)\n"
+         "            stk::st_async_f32(",
+         "          for (int peer = t; peer < n_tiles && p.K < 0; peer += 4)\n"
+         "            stk::st_async_f32("),
+        ("        stk::mbar_wait_cluster(&xbar[slot], (round >> 1) & 1);\n"
+         "        if (tid == 0) stk::mbar_arrive_tx(&xbar[slot], n_tiles * S::ROWS * 4);\n", ""),
+        ("          float amax = 0.0f;  // the row's four threads read every fourth block's\n"
+         "          for (int peer = t; peer < n_tiles; peer += 4)\n"
+         "            amax = fmaxf(amax, xch[(slot * SQ_BLOCKS + peer) * S::ROWS + rr]);\n"
+         "          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));\n"
+         "          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));\n",
+         "          const float amax = am[half];\n")],
+    "split: no stores (the int8 tiles' TMA stores skipped)": [
+        ("stk::tma_store_2d(&tm_y,", "if (p.K < 0) stk::tma_store_2d(&tm_y,")],
+    "split, earlier: silu as the identity": (FILE, "earlier/linear_siluq_exact.cu", [
+        ("h[j][half] = epi_pair<MODE_SILU>(", "h[j][half] = epi_pair<MODE_BIAS>(")]),
+    "split, earlier: no quantize (the bf16 values' high bytes stored)": (
+        FILE, "earlier/linear_siluq_exact.cu", [
+            ("const uint32_t q0 = (uint32_t)stk::quantize1(f.x, sc[half], rc[half]) & 0xffu;",
+             "const uint32_t q0 = (h[j][half] >> 8) & 0xffu;"),
+            ("const uint32_t q1 = (uint32_t)stk::quantize1(f.y, sc[half], rc[half]) & 0xffu;",
+             "const uint32_t q1 = h[j][half] >> 24;")]),
+    "split, earlier: no cluster exchange (each row's amax over the tile's own columns)": (
+        FILE, "earlier/linear_siluq_exact.cu", [
+            ("            for (int peer = 0; peer < n_tiles; ++peer)\n"
+             "              stk::st_async_f32(",
+             "            for (int peer = 0; peer < n_tiles && p.K < 0; ++peer)\n"
+             "              stk::st_async_f32("),
+            ("        stk::mbar_wait_cluster(&xbar[slot], (round >> 1) & 1);\n"
+             "        if (tid == 0) stk::mbar_arrive_tx(&xbar[slot], n_tiles * S::ROWS * 4);\n", ""),
+            ("          float amax = 0.0f;\n"
+             "          for (int peer = 0; peer < n_tiles; ++peer)\n"
+             "            amax = fmaxf(amax, xch[(slot * SQ_BLOCKS + peer) * S::ROWS + rr]);\n",
+             "          const float amax = am[half];\n")]),
+    "split, earlier: no stores (the int8 tiles' TMA stores skipped)": (
+        FILE, "earlier/linear_siluq_exact.cu",
+        [("stk::tma_store_2d(&tm_y,", "if (p.K < 0) stk::tma_store_2d(&tm_y,")]),
+    "split: the table's lookups without bank conflicts (each lane its own words)": [
+        ('#include "silu_table.cuh"\n', replaced(
+            SILU_TABLE, "  const uint32_t wlo = tab[c2 & 0xffffu], whi = tab[c2 >> 16];",
+            "  const uint32_t wlo = tab[(threadIdx.x & 31) + 0 * c2], whi = tab[(threadIdx.x & 31) + 32];"
+        ))]}
 SPLIT = {"resblock_chain": {
     "split: silu as the identity": [
         ("  return stk::pack_bf16(stk::silu_fast(a), stk::silu_fast(b));",
@@ -274,6 +353,7 @@ SPLIT = {"resblock_chain": {
             LINEAR_NO_STORES,
         "split: loads only (no products, no epilogue math, no stores)": (
             LINEAR_NO_MATH + LINEAR_NO_PRODUCTS + LINEAR_NO_STORES)},
+    "silu_quantize": SILUQ_SPLIT,
     "w8a8_forms": {
         "split: the rope form without its rotation (its bias forms stored)": None,
         "split: the residual form without its residual loads (nor the tail's x_in)": None,
@@ -359,6 +439,7 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "few rows: GEMM2 in 64 x 64 tiles": [tile(DOWN_FEW, "2, 1, 64, 8, 1, true")]},
     "int8": {
         "earlier: mma.sync, cp.async ring": (FILE, "earlier/int8_matmul_mma_sync.cu", []),
+        "the silu form by the exact sequence a value (no silu table)": SILU_EXACT,
         "bf16 results in 64 x 256 tiles a consumer": [tile(I8_BIG, "2, 1, 256, 4, 1, true")],
         "the silu instance in 128 x 128 tiles, two consumer warpgroups": [
             ("using Bf16SiluTile = stk::WgTile<4, 1, 64, 8, 1, true>;",
@@ -392,17 +473,22 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "each quotient by __fdiv_rn (no row reciprocal)": [
             ("stk::quantize8(f, sc, rc)", "stk::quantize8(f, sc)")]},
     "silu_quantize": {
+        "earlier: the replaced design (64 x 256 tiles, clusters of 8, two consumers, the "
+        "exact sequence a value)": (FILE, "earlier/linear_siluq_exact.cu", []),
+        "the exact sequence a value (no silu table)": SILU_EXACT,
         "each quotient by __fdiv_rn (no row reciprocal)": [
             ("stk::quantize1(f.x, sc[half], rc[half])", "stk::quantize1(f.x, sc[half])"),
             ("stk::quantize1(f.y, sc[half], rc[half])", "stk::quantize1(f.y, sc[half])")],
-        "64 x 128 tiles, clusters of 16 blocks, four consumers, 8 ring stages": (
-            FILE, SILUQ_C16_SRC, []),
-        "64 x 128 tiles, clusters of 16 blocks, three consumers, 8 ring stages": (
-            FILE, SILUQ_C16_SRC, [(LIN_SILUQ_C16,
-                                   "using SiluQ = Tile<3, 1, 128, 8, 1, false, true, 1, 4>;")]),
-        "64 x 128 tiles, clusters of 16 blocks, two consumers, 8 ring stages": (
-            FILE, SILUQ_C16_SRC, [(LIN_SILUQ_C16,
-                                   "using SiluQ = Tile<2, 1, 128, 8, 1, false, true, 1, 4>;")])},
+        "four consumers (96 registers a thread)": [
+            (LIN_SILUQ, "using SiluQ = Tile<4, 1, 128, 8, 1, false, true, 1, 4>;")],
+        "two consumers": [(LIN_SILUQ, "using SiluQ = Tile<2, 1, 128, 8, 1, false, true, 1, 4>;")],
+        "64 x 256 tiles in clusters of 8 blocks (the portable size), two consumers, 5 ring "
+        "stages": [("constexpr int SQ_BLOCKS = 16;", "constexpr int SQ_BLOCKS = 8;"),
+                   (LIN_SILUQ, "using SiluQ = Tile<2, 1, 256, 5, 1, false, true, 1, 4>;")],
+        "64 x 256 tiles in clusters of 8 blocks, two consumers, the exact sequence a value": [
+            ("constexpr int SQ_BLOCKS = 16;", "constexpr int SQ_BLOCKS = 8;"),
+            (LIN_SILUQ, "using SiluQ = Tile<2, 1, 256, 5, 1, false, true, 1, 4>;"),
+            *SILU_EXACT]},
     "ln_modulate": {
         "earlier: one warp a row": (FILE, "earlier/ln_modulate_warp_rows.cu", []),
         "2 row slots a warp": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
@@ -526,7 +612,8 @@ ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
 # further entries of a variant's library, {kernel: {name: argtypes}} (a
 # variant from another file may lack them)
 MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES},
-                "linear": {"stk_linear_epilogue": linear._EPI_ARGTYPES}}
+                "linear": {"stk_linear_epilogue": linear._EPI_ARGTYPES},
+                "silu_quantize": {"stk_linear": linear._ARGTYPES}}
 # names (in ptxas's mangled names) of the device functions whose registers and
 # spills each build prints (the bf16 kernels; attention_f32: the f32 ones)
 BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
@@ -1293,6 +1380,40 @@ def ln_quantize_call(fn, x, g, bl, shift, scale):
     return xq, sx
 
 
+def real_ffn_in_operands() -> tuple:
+    """The operands (xq, sx, w_q, w_scale, bias) of the first silu-quantize
+    launch (block 0's FFN-in) of the int8 engine at the default config with
+    chip_smoke.py's weights (random, from a seed) in one b64/5-step batch of
+    the protocol texts, at the bucket its first batch takes: the network's
+    own activations, whose values a random product does not give (many in a
+    few exponents; with the weights' zero biases, exact zeros)."""
+    import os
+
+    from supertonic_tpu_torch import TTS
+    from supertonic_tpu_torch.assets import save_params
+    from supertonic_tpu_torch.config import TTSConfig
+
+    assets = os.path.join(cs.OUT_DIR, "variants_assets")
+    os.makedirs(assets, exist_ok=True)
+    save_params(os.path.join(assets, "params.npz"), cs.smoke_params(TTSConfig()))
+    cs.fresh_rate_dir("variants")
+    seen = []
+    launch = w8a8._silu_quantize
+
+    def first(xq, sx, w_q, w_scale, bias, dtype):
+        if not seen:
+            seen.append(tuple(t.clone() for t in (xq, sx, w_q, w_scale, bias)))
+        return launch(xq, sx, w_q, w_scale, bias, dtype)
+    w8a8._silu_quantize = first
+    try:
+        tts = TTS(assets, precision="int8")
+        tts.synthesize_batch([cs.TEXTS[i % 3] for i in range(64)], ["en"] * 64,
+                             tts.get_voice_style("M1").tile(64), total_step=5)
+    finally:
+        w8a8._silu_quantize = launch
+    return seen[0]
+
+
 def silu_quantize_call(fn, xq, sx, w, ws, bias):
     m, k = xq.shape
     n = w.shape[0]
@@ -1310,6 +1431,8 @@ def variants_silu_quantize(fns, gen) -> None:
     replaced (the W8A8 silu form, then the quantize pass), timed in turns
     beside it and the silu form alone."""
     cs.log("the W8A8 silu-quantize form, ms per launch (int8 in and out)")
+    cs.siluq_every_bf16()
+    earlier = next(name for name in VARIANTS["silu_quantize"] if name.startswith("earlier"))
     bf16 = torch.bfloat16
     for m, k, n in ((28672, 512, 2048), (448, 512, 2048)):
         args, _kw = cs.w8a8_form_inputs(gen, (m, k, n, "residual", 0))
@@ -1321,6 +1444,8 @@ def variants_silu_quantize(fns, gen) -> None:
         for name in VARIANTS["silu_quantize"]:
             calls[name] = lambda fn=fns[("silu_quantize", name)]: silu_quantize_call(fn, *args)
         for name, call in calls.items():
+            if name.startswith("split"):
+                continue
             got = call()
             if not (torch.equal(got[0], ref[0]) and cs.bits_equal(got[1], ref[1])):
                 raise AssertionError(f"silu_quantize {name}: not bit-equal to the pair")
@@ -1330,7 +1455,59 @@ def variants_silu_quantize(fns, gen) -> None:
         label = f"W8A8 M{m} K{k} N{n}"
         bnd = cs.bound(m * k + n * k + 8 * m + 8 * n + m * n, 2.0 * m * n * k, torch.int8)[0]
         cs.log(f"  silu_quantize {label}: committed and variants bit-equal to the pair (bound "
-               f"{bnd:.4f} ms)")
+               f"{bnd:.4f} ms; the splits unchecked)")
+        in_turns(label, calls, 20, graphs=True)
+        # the same without the edge rows (a zero row, a row at 127 whose values
+        # reach past the table): every value on the table's fast path
+        xr = quantize.quantize_rows_plain(torch.randn((m, k), generator=gen, device=cs.DEV))
+        fast = (*xr, *args[2:])
+        calls = {"committed": lambda: w8a8.w8a8_matmul(*fast, bf16, silu=True, quantize=True),
+                 "earlier": lambda: silu_quantize_call(fns[("silu_quantize", earlier)], *fast),
+                 "the pair": lambda: quantize.quantize_rows(
+                     w8a8.w8a8_matmul(*fast, bf16, silu=True))}
+        in_turns(f"{label}, random rows alone", calls, 20, graphs=True)
+    # the network's own FFN-in operands
+    args = real_ffn_in_operands()
+    m, k = args[0].shape
+    o = w8a8.w8a8_matmul_plain(*args, bf16).float().abs()
+    cs.log(f"  the int8 network's FFN-in (block 0, M {m} K {k} N {args[2].shape[0]}): "
+           f"{int((o == 0).sum())} zeros, {int(((o > 0) & (o < 2.0 ** -10)).sum())} values "
+           f"below 2^-10, {int((o >= 256).sum())} from 256, max {float(o.max()):g}")
+    ref = w8a8.w8a8_matmul(*args, bf16, silu=True, quantize=True)
+    calls = {"committed": lambda: w8a8.w8a8_matmul(*args, bf16, silu=True, quantize=True),
+             "earlier": lambda: silu_quantize_call(fns[("silu_quantize", earlier)], *args),
+             "the pair": lambda: quantize.quantize_rows(w8a8.w8a8_matmul(*args, bf16, silu=True))}
+    for name in VARIANTS["silu_quantize"]:
+        if name.startswith("split") or name.startswith("the exact"):
+            calls[name] = lambda fn=fns[("silu_quantize", name)]: silu_quantize_call(fn, *args)
+    for name, call in calls.items():
+        got = call()
+        if not name.startswith("split") and not (
+                torch.equal(got[0], ref[0]) and cs.bits_equal(got[1], ref[1])):
+            raise AssertionError(f"silu_quantize on the network's operands, {name}: not "
+                                 f"bit-equal to the committed kernel")
+    in_turns(f"W8A8 M{m} K{k} N{args[2].shape[0]}, the network's own operands", calls, 20,
+             graphs=True)
+    # the bf16 linear's silu form (csrc/linear.cu's MODE_SILU, the silu table
+    # where its tile holds it) beside the builds of the same source whose
+    # silu is the exact sequence a value
+    exact = [name for name in VARIANTS["silu_quantize"]
+             if name.startswith("earlier") or name.startswith("the exact sequence")]
+    cs.log("the bf16 linear's silu form, ms per launch, the table beside the exact sequence")
+    for key in ((20480, 256, 1024, "silu", 0), (64, 256, 512, "silu", 0),
+                (320, 256, 1024, "silu", 0)):
+        x, w, b, kw = cs.linear_inputs(gen, key)
+        ref = linear.linear(x, w, b, **kw)
+        calls = {"committed": lambda: linear.linear(x, w, b, **kw)}
+        for name in exact:
+            calls[name] = lambda fn=fns[("silu_quantize", name, "stk_linear")]: linear_call(
+                fn, x, w, b, **kw)
+        for name, call in calls.items():
+            if not cs.bits_equal(call(), ref):
+                raise AssertionError(f"linear silu form {key} {name}: not bit-equal")
+        label = (f"linear silu form M{key[0]} K{key[1]} N{key[2]} "
+                 f"({linear.kernel_instance(*key[:3], 'silu')})")
+        cs.log(f"  {label}: bit-equal to the exact sequence's builds")
         in_turns(label, calls, 20, graphs=True)
 
 

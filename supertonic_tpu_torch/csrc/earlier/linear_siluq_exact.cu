@@ -1,20 +1,8 @@
-// A variant of csrc/linear.cu (kernel_variants.py silu_quantize times it
-// beside the committed kernel): the same kernel, but the W8A8 silu-quantize
-// form runs on 64 x 128 tiles, so a row block's N / 128 blocks form a
-// cluster of up to 16, past the portable 8: the launch allows the
-// non-portable cluster sizes, and each block's exchange slots hold 16
-// blocks' partials. kernel_variants.py builds it with four consumers (this
-// file), three and two.
-//
-// Times, ms from replayed graphs at the FFN-in (M 28,672, K 512, N 2,048),
-// kernel_variants.py silu_quantize, NVIDIA H100 80GB HBM3, 700 W: four
-// consumers 0.2252-0.2298 (96 registers, spills), three 0.2524-0.2558, two
-// 0.2669-0.2675, against the committed 64 x 256 tiles in clusters of 8 at
-// 0.1833-0.1903. At a streamed chunk's M 448 they take 0.0103-0.0111
-// against the committed 0.0145-0.0147 (the pair 0.0165-0.0166): seven row
-// blocks fill 56 SMs in clusters of 8, 112 in clusters of 16. Not taken:
-// the int8 cell's M sets the choice.
-//
+// The replaced design of the W8A8 silu-quantize form (csrc/linear.cu,
+// MODE_SILUQ: 64 x 256 tiles of two consumers in clusters of 8 blocks, silu
+// by the exact sequence a value; the rest of the kernel as it was then), kept
+// for comparison: kernel_variants.py silu_quantize builds it as the
+// "earlier" row, and its splits as the "split, earlier" rows.
 // The bf16 linear with the output fusion XLA makes of the JAX package's
 // layers.linear (supertonic_tpu/models/layers.py:55-62) and of what its
 // callers do with the result:
@@ -92,7 +80,7 @@
 // 0.2376-0.2377, the silu form alone 0.1724: the exact silu, not the
 // products or the exchange, sets the pace (two consumer warpgroups, 168
 // registers). Each quotient by __fdiv_rn: 0.2499-0.2561. 64 x 128 tiles in
-// clusters of 16 (the non-portable size): this variant.
+// clusters of 16 (the non-portable size): the design that replaced this one.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16), per launch at the b64
 // cell's shapes (T = 448), bytes everywhere: the VE's self V (M 28,672, K
@@ -217,9 +205,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr int MODE_BIAS = 0, MODE_SILU = 1, MODE_TAIL = 2, MODE_ROPE = 3, MODE_RESID = 4,
               MODE_SILUQ = 5;
-// the silu-quantize form's rows: a cluster of N / BN blocks, up to 16 (past
-// 8, the non-portable sizes), so N up to 16 BN
-constexpr int SQ_BLOCKS = 16;
+// the silu-quantize form's rows: a cluster of N / BN blocks, at most the
+// portable 8, so N up to 8 BN
+constexpr int SQ_BLOCKS = 8;
 
 // ---------------------------------------------------------------------------
 // the epilogue of a column pair, shared by both kernels
@@ -959,10 +947,10 @@ using Rope256 = Tile<2, 1, 256, 3, 1, false, true, 2>;   // 64 x 256: the rope f
 // turns (RopeMany's 128 x 128 tiles leave the weight scales' slices room for
 // 4 ring stages only)
 using RopeMany8 = Tile<3, 1, 128, 7, 1, false, true, 2>;
-// the W8A8 silu-quantize form: 64 x 128 int8 tiles, four consumers in turns,
-// W resident (K up to 512), X through 8 ring stages, a cluster of N / 128
+// the W8A8 silu-quantize form: 64 x 256 int8 tiles, two consumers in turns,
+// W resident (K up to 512), X through 6 ring stages, a cluster of N / 256
 // blocks
-using SiluQ = Tile<4, 1, 128, 8, 1, false, true, 1, 4>;
+using SiluQ = Tile<2, 1, 256, 6, 1, false, true, 1, 4>;
 
 template <typename S>
 long long tiles_of(int M, int N) {
@@ -1035,10 +1023,6 @@ int launch_tiles(const void* x, const void* w, const Args& p, cudaStream_t st) {
     if (dev < 0 || dev >= stk::kMaxDevices) return (int)cudaErrorInvalidDevice;
     static int fits[stk::kMaxDevices][SQ_BLOCKS + 1] = {};
     if (!fits[dev][n_tiles]) {
-      if (n_tiles > 8)  // a non-portable cluster size
-        if (int err = (int)cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
-          return err;
       cfg.gridDim = dim3(n_tiles);
       if (int err = (int)cudaOccupancyMaxActiveClusters(&fits[dev][n_tiles], kernel, &cfg))
         return err;

@@ -56,10 +56,14 @@
 // consumer: four consumer warpgroups on 64 x 64 tiles take the ffn.in shape
 // (M 28,672 K 512 N 2,048) from 0.215 ms a launch (two on 128 x 128) to
 // 0.175, against 0.079 for the product alone and 0.079 for F.silu's pass
-// (replayed graphs, kernel_variants.py int8). The mma.sync design this replaces is
+// (replayed graphs, kernel_variants.py int8). Silu from the block's table
+// (silu_table.cuh; the GEMM keeps an epilogue's table, Epi::TABLE_BYTES):
+// 0.144-0.147 against the exact sequence's 0.175-0.177 (the same, NVIDIA
+// H100 80GB HBM3, 700 W). The mma.sync design this replaces is
 // csrc/earlier/int8_matmul_mma_sync.cu (with csrc/mma_gemm.cuh).
 #include <type_traits>
 
+#include "silu_table.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -89,6 +93,10 @@ struct Int32Out {
   __device__ __forceinline__ Row row(int) const { return {}; }
 };
 
+// bf16 results with silu take it from the block's table (silu_table.cuh),
+// else by the exact sequence a value
+constexpr bool SILU_BY_TABLE = true;
+
 // silu as F.silu computes it on the card (opmath f32): for bf16 results of a
 // bf16 value, without the IEEE division's slow path (stk::silu_bf16_torch);
 // f32 results (off the int8 path) by the division itself
@@ -101,11 +109,13 @@ __device__ __forceinline__ float silu_torch(float x) {
 }
 
 // w8a8_matmul: Y = (float(sums) * sx[row]) * ws[col] + bias[col], rounded
-// once to T (SILU: then silu, rounded again); ANY_N reads the last odd
-// column's scale and bias alone
+// once to T (SILU: then silu, rounded again; in bf16 from the block's silu
+// table, TAB); ANY_N reads the last odd column's scale and bias alone
 template <typename T, bool ANY_N, bool SILU = false>
 struct ScaleOut {
   using Out = T;
+  static constexpr bool TAB = SILU && SILU_BY_TABLE && sizeof(T) == 2;
+  static constexpr size_t TABLE_BYTES = TAB ? stk::SILU_TAB_BYTES : 0;
   const float* sx;
   const float* ws;
   const float* bias;
@@ -115,6 +125,7 @@ struct ScaleOut {
     const float* ws;
     const float* bias;
     int N;
+    const uint32_t* tab;
     __device__ __forceinline__ stk::Pair<sizeof(T)> operator()(int col, int v0, int v1) const {
       float2 w, b;
       if (!ANY_N || col + 1 < N) {  // col is even: 8-byte aligned
@@ -126,7 +137,9 @@ struct ScaleOut {
       }
       float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v0), s), w.x), b.x);
       float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v1), s), w.y), b.y);
-      if constexpr (SILU) {
+      if constexpr (TAB) {
+        return stk::silu_bf16x2(tab, stk::pack_bf16(y0, y1));
+      } else if constexpr (SILU) {
         y0 = silu_torch<T>(stk::rnd<T>(y0));
         y1 = silu_torch<T>(stk::rnd<T>(y1));
       }
@@ -137,7 +150,13 @@ struct ScaleOut {
       }
     }
   };
-  __device__ __forceinline__ Row row(int r) const { return {sx[r], ws, bias, N}; }
+  __device__ __forceinline__ Row row(int r) const { return {sx[r], ws, bias, N, nullptr}; }
+  __device__ __forceinline__ Row row(int r, const uint8_t* table) const {
+    return {sx[r], ws, bias, N, reinterpret_cast<const uint32_t*>(table)};
+  }
+  static __device__ __forceinline__ void fill(uint8_t* table, int tid, int threads) {
+    stk::silu_table_fill(reinterpret_cast<uint32_t*>(table), tid, threads);
+  }
 };
 
 template <typename S, typename Epi>

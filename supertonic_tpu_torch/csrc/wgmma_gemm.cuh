@@ -66,6 +66,24 @@ template <typename Epi> struct EpiOut<Epi, std::void_t<typename Epi::Out>> {
   using type = typename Epi::Out;
 };
 
+// shared memory an epilogue keeps for the block (Epi::TABLE_BYTES, filled by
+// Epi::fill at the block's start and handed to Epi::row), else none
+template <typename Epi, typename = void> struct EpiTable {
+  static constexpr size_t bytes = 0;
+};
+template <typename Epi> struct EpiTable<Epi, std::void_t<decltype(Epi::TABLE_BYTES)>> {
+  static constexpr size_t bytes = Epi::TABLE_BYTES;
+};
+
+// the epilogue's functor for row r (with the block's table where it keeps one)
+template <typename Epi>
+__device__ __forceinline__ auto epi_row(const Epi& epi, int r, const uint8_t* table) {
+  if constexpr (EpiTable<Epi>::bytes > 0)
+    return epi.row(r, table);
+  else
+    return epi.row(r);
+}
+
 template <typename T> struct TmaType;
 template <> struct TmaType<__nv_bfloat16> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -144,6 +162,7 @@ wgmma_gemm(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUt
   uint64_t* full = reinterpret_cast<uint64_t*>(out_buf + NC * S::OUT);
   uint64_t* empty = full + NS;
   uint64_t* turn = empty + NS;
+  uint8_t* table = reinterpret_cast<uint8_t*>(turn + NC);  // the epilogue's, if it keeps one
   auto stage_a = [&](int s) { return ring + s * (S::STAGE_A + S::STAGE_W); };
   auto stage_w = [&](int s) { return ring + s * (S::STAGE_A + S::STAGE_W) + S::STAGE_A; };
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
@@ -159,6 +178,7 @@ wgmma_gemm(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUt
     for (int c = 0; c < NC; ++c) mbar_init(&turn[c], 1);
     mbar_fence_init();
   }
+  if constexpr (EpiTable<Epi>::bytes > 0) Epi::fill(table, threadIdx.x, S::THREADS);
   __syncthreads();
 
   // the block's tiles are blockIdx.x + i gridDim.x, i = 0, 1, ...; consumer
@@ -231,7 +251,7 @@ wgmma_gemm(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUt
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int rr = 64 * r + 16 * warp + g + 8 * half, row = m0 + row0 + rr;
-            const auto at = epi.row(row < M ? row : M - 1);  // rows past M are not stored
+            const auto at = epi_row(epi, row < M ? row : M - 1, table);  // rows past M: not stored
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j) {
               const int col = n0 + 8 * j + 2 * t;
@@ -269,7 +289,7 @@ wgmma_gemm(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUt
           for (int half = 0; half < 2; ++half) {
             const int row = m0 + row0 + 64 * r + 16 * warp + g + 8 * half;
             if (row >= M) continue;
-            const auto at = epi.row(row);
+            const auto at = epi_row(epi, row, table);
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j) {
               const int col = n0 + 8 * j + 2 * t;
@@ -340,13 +360,15 @@ int launch_wgmma_gemm(const typename Op::In* A, const typename Op::In* W,
     if (int err = encode_rows<Out>(&tc, C, M, N, 64 * S::MI, TmaType<Out>::value))
       return err;
   auto kernel = wgmma_gemm<Op, S, Epi>;
+  constexpr size_t smem = S::SMEM + EpiTable<Epi>::bytes;
+  static_assert(smem * S::BPS <= 232448, "the blocks' shared memory with the epilogue's table");
   static size_t smem_set[kMaxDevices] = {};  // one per instantiation
-  if (int err = allow_dynamic_smem(kernel, S::SMEM, smem_set)) return err;
+  if (int err = allow_dynamic_smem(kernel, smem, smem_set)) return err;
   static int regs_at_entry = 0;
   if (int err = check_reg_split(kernel, 128, S::NC * 128, consumer_regs(S::NC, S::BPS),
                                 regs_at_entry))
     return err;
-  kernel<<<blocks, S::THREADS, S::SMEM, st>>>(ta, tw, tc, C, M, N, K, (N + S::BN - 1) / S::BN,
+  kernel<<<blocks, S::THREADS, smem, st>>>(ta, tw, tc, C, M, N, K, (N + S::BN - 1) / S::BN,
                                                (int)tiles, epi);
   return (int)cudaGetLastError();
 }

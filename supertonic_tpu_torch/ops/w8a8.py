@@ -73,8 +73,8 @@ _EPI_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p]
 # stk_w8a8_silu_quantize (csrc/linear.cu): xq, w_q, sx, w_scale, bias, hq,
 # hs, M, N, K, stream
 _SQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-SQ_BN = 256        # the silu-quantize form's columns a block of its cluster
-SQ_MAX_BLOCKS = 8  # blocks a cluster: N up to 2,048
+SQ_BN = 128         # the silu-quantize form's columns a block of its cluster
+SQ_MAX_BLOCKS = 16  # blocks a cluster: N up to 2,048
 SQ_MAX_K = 512     # W's columns resident in a block's shared memory
 
 

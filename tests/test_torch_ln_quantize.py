@@ -182,8 +182,9 @@ def test_w8a8_silu_quantize_refuses_bad_operands():
     sx, ws, b = torch.ones(4), torch.ones(256), torch.zeros(256)
     with pytest.raises(ValueError):
         w8a8.w8a8_matmul(xq, sx, w, ws, b, BF16, quantize=True)
-    assert w8a8.supports_silu_quantize(2048, 512) and w8a8.supports_silu_quantize(768, 192)
-    for n, k in ((2304, 512), (384, 512), (2048, 544), (2048, 48), (128, 64)):
+    for n, k in ((2048, 512), (768, 192), (384, 512), (128, 64)):
+        assert w8a8.supports_silu_quantize(n, k)
+    for n, k in ((2176, 512), (320, 512), (2048, 544), (2048, 48), (64, 64)):
         assert not w8a8.supports_silu_quantize(n, k)
 
 

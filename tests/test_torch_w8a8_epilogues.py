@@ -224,7 +224,9 @@ def test_w8a8_block_routing_is_the_earlier_route(case, heads, monkeypatch):
     quantize call a W8A8 linear less two for self-attention and one for
     cross-attention; in bf16 the LayerNorms whose outputs only W8A8 linears
     read (ln1, ln2, ln3) make those linears' (xq, sx) themselves, a quantize
-    call fewer each."""
+    call fewer each, and the FFN-in's silu-quantize form makes the FFN-out's
+    where it takes the FFN's width (``w8a8.supports_silu_quantize``), one
+    fewer again."""
     cross, adaln, dtype = BLOCKS[case]
     dim = 64
     p = _w8a8_block(_block_params(len(case) + heads, dim, cross=cross, adaln=adaln), dtype)
@@ -235,7 +237,9 @@ def test_w8a8_block_routing_is_the_earlier_route(case, heads, monkeypatch):
     n_rope, n_residual = 2 + 2 * cross, 2 + cross  # Q and K; O (and cross O) and FFN-out
     linears = 4 + 4 * cross + 2  # Q, K, V, O (self and cross), FFN in and out
     quantizing_lns = 2 + cross if dtype == BF16 else 0  # ln1, ln3 (and ln2)
-    assert seen["quantize"] == linears - 2 - cross - quantizing_lns
+    fin = p["ffn"]["in"].w_q.shape
+    silu_quantize = int(dtype == BF16 and w8a8.supports_silu_quantize(*fin))
+    assert seen["quantize"] == linears - 2 - cross - quantizing_lns - silu_quantize
     assert seen["ln_modulate_quantize"] == quantizing_lns
     assert seen["rope"] + seen["residual"] + seen["silu"] + seen["bias"] == linears
     assert seen["silu"] == 1
