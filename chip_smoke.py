@@ -479,14 +479,24 @@ EARLIER_MS = {
     # its phase 5 times at the cell's shapes, host launches (PERF.md section 6)
     "ln_modulate": {(64, 448, 512, True): 0.0540, (64, 320, 256, False): 0.0300},
     "bias_rope": {}, "gated_residual": {},  # no earlier design
-    "w8a8_matmul rope form": {}, "w8a8_matmul residual form": {},
+    # the W8A8 rope form's replaced design (its angles from device memory in
+    # the epilogue, csrc/earlier/linear_rope_l2.cu) at the int8 cell's
+    # shapes: kernel_variants.py w8a8_forms' "earlier" rows, host launches,
+    # mean of the two readings (PERF.md section 6)
+    "w8a8_matmul rope form": {(28672, 512, 512, "rope", 64): 0.0376,
+                              (23680, 512, 512, "rope", 64): 0.0370},
+    "w8a8_matmul residual form": {},
     "w8a8_matmul silu-quantize form": {}, "ln_modulate quantize form": {},  # new forms
     # the replaced linear kernel (csrc/earlier/linear_pr17.cu): its phase 5 times
-    # at the cell's shapes, host launches (PERF.md section 6)
+    # at the cell's shapes, host launches (PERF.md section 6); the rope form's
+    # replaced design (csrc/earlier/linear_rope_l2.cu): kernel_variants.py
+    # linear's "earlier" rows, host launches, mean of the two readings
     "linear": {(28672, 512, 512, "bias", 0): 0.0443, (64, 512, 4608, "bias", 0): 0.0746,
                (20480, 256, 1024, "silu", 0): 0.0816, (28672, 512, 96, "tail", 448): 0.0902,
                (28672, 96, 512, "bias", 0): 0.0414, (23680, 512, 512, "bias", 0): 0.0415,
-               (20480, 256, 256, "bias", 0): 0.0491, (3200, 256, 256, "bias", 0): 0.0776},
+               (20480, 256, 256, "bias", 0): 0.0491, (3200, 256, 256, "bias", 0): 0.0776,
+               (28672, 512, 512, "rope", 64): 0.0462, (23680, 512, 512, "rope", 64): 0.0395,
+               (20480, 256, 256, "rope", 64): 0.0349},
     # the conv kernel's one-tile-a-block design (csrc/earlier/
     # conv1d_tile_per_block.cu): its phase 5 times at the cell's shapes,
     # host launches (PERF.md section 6); at the pre_res pairs it ran

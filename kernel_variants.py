@@ -119,15 +119,32 @@ host's per-call work:
              residual form at the cell's and a streamed chunk's shapes,
              beside the pair each replaced (F.linear, then the bias-and-rope
              or gated-residual kernel) and the bias form alone: the rope
-             form at Dh 64 in 64 x 256 tiles (four heads a tile), and with
-             its cos and sin staged in shared memory (csrc/variants/) on
-             four tile shapes; the residual form in 64 x 128 tiles of four
-             consumer warpgroups, or stored from the registers (the residual
-             from device memory), and at a streamed chunk's shapes on the
-             bias form's 64 x 32 tiles from the registers;
-             with --split also the rope form without its rotation (the bias
-             forms stored; the cos and sin loads may go with it) or without
-             its cos and sin loads, the residual form without its gate loads
+             form's replaced design (earlier: cos and sin from device memory
+             in the epilogue), that design on 64 x 128 tiles of three
+             consumers, the committed design (the angles by TMA into the
+             output buffer) on 64 x 128 tiles of three, on 64 x 256 tiles
+             (four heads a tile), on 64 x 128 tiles of four, and at a
+             streamed chunk's M on 64 x 128 tiles of one consumer (not
+             Few's 64 x 64, whose buffer cannot hold the angles), and with
+             its cos and sin staged in
+             shared memory (csrc/variants/) on four tile shapes; the residual
+             form in 64 x 128 tiles of four consumer warpgroups, or stored
+             from the registers (the residual from device memory), and at a
+             streamed chunk's shapes on the bias form's 64 x 32 tiles from
+             the registers; with --split also the rope form without its
+             rotation (the bias forms stored; the cos and sin loads may go
+             with it) or without its cos and sin loads, the residual form
+             without its gate loads
+  w8a8_forms the W8A8 product's rope and residual forms (also run with
+             int8) at the int8 cell's and a streamed chunk's shapes beside
+             the pair each replaced and the product alone: the rope form's
+             replaced design (earlier), the committed design (the angles by
+             TMA) on the replaced design's 64 x 128 tiles of three
+             consumers, on 64 x 128 tiles of two, on 128 x 128 tiles with 5
+             ring stages and the weight scales from device memory, and at a
+             streamed chunk's M on 64 x 128 tiles of one; the residual form
+             on 128 x 128 tiles of two or 64 x 128 of four; with --split
+             the linear kernel's splits of the two forms
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -190,7 +207,40 @@ LIN_RESID = ("using ManyResid = Tile<3, 1, 128, 7, 1, false, true, 2>;  // the r
              "many tiles")
 LIN_ROPE = ("using RopeMany = Tile<2, 2, 128, 5, 1, false, true, 2>;   // the rope form at Dh 16, "
             "32, 64, 128")
-LIN_ROPE8 = "using RopeMany8 = Tile<3, 1, 128, 7, 1, false, true, 2>;"
+LIN_ROPE8 = "using RopeMany8 = Tile<2, 2, 128, 4, 1, false, true, 2>;"
+# the rope form without its angles: neither the TMA loads into the output
+# buffer nor the reads from it (nor, where a tile takes them from device
+# memory, those loads); constants in their place
+ROPE_NO_ANGLES = [
+    ("            stk::mbar_arrive_tx(&xfull[wg], 2 * S::ROWS * 128);\n"
+     "            stk::tma_load_2d(buf, &tm_xin, &xfull[wg], 0, m0);\n"
+     "            stk::tma_load_2d(buf + S::ROWS * 128, &tm_sn, &xfull[wg], 0, m0);\n",
+     "            stk::mbar_arrive_tx(&xfull[wg], p.K < 0 ? 2 * S::ROWS * 128 : 0);\n"
+     "            if (p.K < 0) stk::tma_load_2d(buf, &tm_xin, &xfull[wg], 0, m0);\n"
+     "            if (p.K < 0)\n"
+     "              stk::tma_load_2d(buf + S::ROWS * 128, &tm_sn, &xfull[wg], 0, m0);\n"),
+    ("                cvs[q] = *reinterpret_cast<const float2*>(at);\n"
+     "                svs[q] = *reinterpret_cast<const float2*>(at + S::ROWS * 128);\n",
+     "                cvs[q] = p.K < 0 ? *reinterpret_cast<const float2*>(at)"
+     " : make_float2(0.5f, 0.25f);\n"
+     "                svs[q] = p.K < 0 ? *reinterpret_cast<const float2*>(at + S::ROWS * 128)"
+     " : make_float2(0.25f, 0.5f);\n"),
+    ("                const float2 cv = __ldg(reinterpret_cast<const float2*>(p.cs + ce));\n"
+     "                const float2 sv = __ldg(reinterpret_cast<const float2*>(p.sn + ce));\n",
+     "                const float2 cv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>(p.cs + ce))"
+     " : make_float2(0.5f, 0.25f);\n"
+     "                const float2 sv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>(p.sn + ce))"
+     " : make_float2(0.25f, 0.5f);\n")]
+# the rope form's replaced design: each angle pair from device memory (L2)
+# in the epilogue, after the products
+ROPE_EARLIER = "earlier/linear_rope_l2.cu"
+# the rope form where Many's tiles would not fill the card (a streamed
+# chunk's M) on 64 x 128 tiles of one consumer, whose output buffer holds
+# the angles (brought by TMA), instead of Few's 64 x 64 (angles from L2)
+ROPE_FEW_WIDE = [("    if (in == I_FEW) return launch_tiles<MODE, Few, 64, Q8>(x, w, p, st);",
+                  "    if (in == I_FEW)\n"
+                  "      return launch_tiles<MODE, Tile<1, 1, 128, 6, 1, false, true, 2>, 64, Q8>("
+                  "x, w, p, st);")]
 ROPE_STAGED_SRC = "variants/linear_rope_staged.cu"
 # the W8A8 forms' weight scales read from device memory (L1/L2) in the
 # epilogue instead of staged in shared memory (which leaves RopeMany8's tiles
@@ -201,10 +251,14 @@ W8A8_WS_GLOBAL = [
     ("        if constexpr (Q8)\n"
      "          stk::cp_async4(stk::smem_u32(ws_s + c), p.ws + (n0 + c < p.N ? n0 + c : 0),\n"
      "                         n0 + c < p.N);\n", ""),
-    ("                  wa = *reinterpret_cast<const float2*>(ws_s + 8 * j + 2 * t);",
-     "                  wa = __ldg(reinterpret_cast<const float2*>(p.ws + n0 + 8 * j + 2 * t));"),
-    ("                  wb = *reinterpret_cast<const float2*>(ws_s + 8 * jp + 2 * t);",
-     "                  wb = __ldg(reinterpret_cast<const float2*>(p.ws + n0 + 8 * jp + 2 * t));"),
+    ("                    wa = *reinterpret_cast<const float2*>(ws_s + 8 * j + 2 * t);",
+     "                    wa = __ldg(reinterpret_cast<const float2*>(p.ws + n0 + 8 * j + 2 * t));"),
+    ("                    wb = *reinterpret_cast<const float2*>(ws_s + 8 * jp + 2 * t);",
+     "                    wb = __ldg(reinterpret_cast<const float2*>(p.ws + n0 + 8 * jp + 2 * t));"),
+    ("            const float2 wv = Q8 ? *reinterpret_cast<const float2*>(ws_s + 8 * j + 2 * t)"
+     " : bl;",
+     "            const float2 wv = Q8 ? __ldg(reinterpret_cast<const float2*>("
+     "p.ws + n0 + 8 * j + 2 * t)) : bl;"),
     ("          const float2 wv = Q8 ? *reinterpret_cast<const float2*>(ws_s + c) : bl;",
      "          const float2 wv = Q8 ? __ldg(reinterpret_cast<const float2*>(p.ws + n0 + c)) : bl;")]
 LIN_GATE_STAGED = "              gsel[r][half] = at / p.T - b0;"
@@ -327,16 +381,15 @@ SPLIT = {"resblock_chain": {
              "                  make_float2(v0, v1);")]},
     "linear": {
         "split: the rope form without its rotation (its bias forms stored)": [
-            ("                uint32_t o1, o2;\n                rotate(a, b, cv, sv, o1, o2);",
-             "                uint32_t o1 = a, o2 = b;\n"
-             "                if (p.K < 0) rotate(a, b, cv, sv, o1, o2);")],
-        "split: the rope form without its cos and sin loads": [
-            ("              const float2 cv = __ldg(reinterpret_cast<const float2*>(p.cs + ce));",
-             "              const float2 cv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>("
-             "p.cs + ce)) : make_float2(0.5f, 0.25f);"),
-            ("              const float2 sv = __ldg(reinterpret_cast<const float2*>(p.sn + ce));",
-             "              const float2 sv = p.K < 0 ? __ldg(reinterpret_cast<const float2*>("
-             "p.sn + ce)) : make_float2(0.25f, 0.5f);")],
+            ("                  uint32_t o1, o2;\n"
+             "                  rotate(bf[r][half][j], bf[r][half][jp], cvs[q], svs[q], o1, o2);",
+             "                  uint32_t o1 = bf[r][half][j], o2 = bf[r][half][jp];\n"
+             "                  if (p.K < 0)\n"
+             "                    rotate(bf[r][half][j], bf[r][half][jp], cvs[q], svs[q], o1, o2);"),
+            ("                  uint32_t o1, o2;\n                  rotate(a, b, cv, sv, o1, o2);",
+             "                  uint32_t o1 = a, o2 = b;\n"
+             "                  if (p.K < 0) rotate(a, b, cv, sv, o1, o2);")],
+        "split: the rope form without its cos and sin loads": ROPE_NO_ANGLES,
         "split: the residual form without its residual loads (nor the tail's x_in)": [
             ("        if (tid == 0) {\n          stk::bulk_wait_read<0>();",
              "        if (tid == 0 && p.K < 0) {\n          stk::bulk_wait_read<0>();"),
@@ -356,6 +409,7 @@ SPLIT = {"resblock_chain": {
     "silu_quantize": SILUQ_SPLIT,
     "w8a8_forms": {
         "split: the rope form without its rotation (its bias forms stored)": None,
+        "split: the rope form without its cos and sin loads": None,
         "split: the residual form without its residual loads (nor the tail's x_in)": None,
         "split: no products": None,
         "split: no stores (the results' TMA stores, or register stores, skipped)": None},
@@ -524,8 +578,13 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
     # the W8A8 product's rope and residual forms (csrc/linear.cu's GEMM with
     # its s8 operand; the residual tiles are the bf16 residual form's too)
     "w8a8_forms": {
-        "the rope form on 128 x 128 tiles, two consumers, 4 ring stages (first built)": [
-            (LIN_ROPE8, "using RopeMany8 = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
+        "earlier: the rope form's cos and sin from device memory in the epilogue (the replaced "
+        "design)": (FILE, ROPE_EARLIER, []),
+        "the rope form at a streamed chunk's M on 64 x 128 tiles of one consumer, the angles "
+        "by TMA": ROPE_FEW_WIDE,
+        "the rope form on 64 x 128 tiles, three consumers, 7 ring stages (the replaced design's "
+        "tiles), the angles by TMA": [
+            (LIN_ROPE8, "using RopeMany8 = Tile<3, 1, 128, 7, 1, false, true, 2>;")],
         "the rope form on 64 x 128 tiles, two consumers, 6 ring stages": [
             (LIN_ROPE8, "using RopeMany8 = Tile<2, 1, 128, 6, 1, false, true, 2>;")],
         "the rope form on 128 x 128 tiles with 5 ring stages, the weight scales from "
@@ -564,6 +623,16 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
             (LIN_TAIL, "using TailTile = Tile<2, 1, 96, 6, 1, false, false, 4>;")],
         "the tail in 64 x 128 tiles (32 zero columns at N 96)": [
             (LIN_TAIL, "using TailTile = Tile<2, 1, 128, 4, 1, false, true, 4>;")],
+        "earlier: the rope form's cos and sin from device memory in the epilogue (the replaced "
+        "design)": (FILE, ROPE_EARLIER, []),
+        "the rope form at a streamed chunk's M on 64 x 128 tiles of one consumer, the angles "
+        "by TMA": ROPE_FEW_WIDE,
+        "the replaced rope form (the angles from device memory) on 64 x 128 tiles of three "
+        "consumer warpgroups, 7 ring stages": (
+            FILE, ROPE_EARLIER,
+            [(LIN_ROPE, "using RopeMany = Tile<3, 1, 128, 7, 1, false, true, 2>;")]),
+        "the rope form on 64 x 128 tiles of three consumer warpgroups, 7 ring stages, the "
+        "angles by TMA": [(LIN_ROPE, "using RopeMany = Tile<3, 1, 128, 7, 1, false, true, 2>;")],
         "the rope form at Dh 64 in 64 x 256 tiles (four heads a tile)": [
             (LIN_ROPE, "using RopeMany = Tile<2, 1, 256, 3, 1, false, true, 2>;")],
         "the rope form in 64 x 128 tiles, four consumer warpgroups": [
@@ -631,30 +700,42 @@ SOURCE = {"attention_f32": "attention", "int8": "int8_matmul", "w8a8_forms": "li
 OUT = _build.BUILD_ROOT / "variants"
 
 
+def variants_of(kernel: str, split: bool = False) -> dict:
+    """VARIANTS[kernel], with ``split`` also its SPLIT entries (None: the
+    linear kernel's split of that name)."""
+    extra = SPLIT.get(kernel, {}) if split else {}
+    return {**VARIANTS[kernel],
+            **{name: subs or SPLIT["linear"][name] for name, subs in extra.items()}}
+
+
+def variant_source(kernel: str, subs) -> str:
+    """The source a variant of kernel builds from: the kernel's source with
+    subs applied to its bf16 section (the whole source where it has none),
+    or (FILE, path, subs) a file under csrc/ with subs applied; raises where
+    a substitution's text is not there."""
+    if subs and subs[0] == FILE:
+        _, where, subs = subs
+        src, prefix = (_build.CSRC_DIR / where).read_text(), ""
+    else:
+        source = (_build.CSRC_DIR / f"{SOURCE.get(kernel, kernel)}.cu").read_text()
+        head, src = (source.split(BF16_SECTION) if BF16_SECTION in source
+                     else ("", source))
+        where, prefix = "the bf16 section", head + BF16_SECTION if head else ""
+    for old, new in subs:
+        if old not in src:
+            raise RuntimeError(f"{kernel}: '{old}' not in {where}")
+        src = src.replace(old, new)
+    return prefix + src
+
+
 def build_variants(kernels) -> dict:
     """{(kernel, variant): C entry of the variant's library}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for kernel in kernels:
-        variants = VARIANTS[kernel]
-        source = (_build.CSRC_DIR / f"{SOURCE.get(kernel, kernel)}.cu").read_text()
-        # substitutions act on the bf16 section of a source that has one, else
-        # on the whole source
-        head, bf16 = (source.split(BF16_SECTION) if BF16_SECTION in source
-                      else ("", source))
         # the committed source too, for its ptxas report beside the variants'
-        for i, (name, subs) in enumerate([("committed", [])] + list(variants.items())):
-            if subs and subs[0] == FILE:
-                _, where, subs = subs
-                src, prefix = (_build.CSRC_DIR / where).read_text(), ""
-            else:
-                src, where = bf16, "the bf16 section"
-                prefix = head + BF16_SECTION if head else ""
-            for old, new in subs:
-                if old not in src:
-                    raise RuntimeError(f"{kernel}: '{old}' not in {where}")
-                src = src.replace(old, new)
-            text = prefix + src
+        for i, (name, subs) in enumerate([("committed", [])] + list(VARIANTS[kernel].items())):
+            text = variant_source(kernel, subs)
             path = OUT / f"{kernel}_v{i}.cu"
             path.write_text(text)
             lib = path.with_suffix(".so")
@@ -770,10 +851,8 @@ def main() -> int:
     if "int8" in kernels and "w8a8_forms" not in kernels:
         kernels.append("w8a8_forms")  # the W8A8 product's rope and residual forms
     if "--split" in sys.argv:
-        for kernel, extra in SPLIT.items():
-            # None: the linear kernel's split of that name
-            extra = {name: subs or SPLIT["linear"][name] for name, subs in extra.items()}
-            VARIANTS[kernel] = {**VARIANTS[kernel], **extra}
+        for kernel in SPLIT:
+            VARIANTS[kernel] = variants_of(kernel, split=True)
     _build.build_all()
     cs.log("build (bf16 kernels of each variant: ptxas registers and spills)")
     fns = build_variants(kernels)

@@ -90,9 +90,9 @@ def kernel_instance(m: int, k: int, n: int, form: str, dh: int = 0) -> str:
     """The instance the rope or residual form (``form``; "rope" with heads
     of ``dh``) takes at M x K x N on the current card: the linear kernel's
     choice for the same form (``linear.kernel_instance``; the W8A8 forms
-    share its rule), where its "bf16_many" is the W8A8 rope form's own 64 x
-    128 tiles of three consumers, "rope_many" (builds the library on first
-    use)."""
+    share its rule), where its "bf16_many" is the W8A8 rope form's own 128
+    x 128 tiles of two consumers with 4 ring stages, "rope_many" (builds the
+    library on first use)."""
     if form not in ("rope", "residual"):
         raise ValueError(f"the W8A8 product's forms here are rope and residual, got {form}")
     name = linear_instance(m, k, n, form, dh)
