@@ -244,6 +244,10 @@ product's rope, residual and silu-quantize forms and the LayerNorm's
 quantizing form as entries of their own, "w8a8_matmul rope form",
 "w8a8_matmul residual form", "w8a8_matmul silu-quantize form" and
 "ln_modulate quantize form", their launches those of the int8 b64 batch;
+the linear kernel's residual form as "linear residual form", its launches
+those of the bf16 batch; that entry and the W8A8 rope and residual
+forms' also carry "earlier_ms", the replaced design's time (null where it
+has none), and "pair_ms", the pair each replaces, from a graph;
 the bias-and-rope and gated-residual kernels, off both b64 paths, at
 0 launches with a row at the int8 VE's shapes); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -442,6 +446,10 @@ SOURCES = {
     # the XLA output fusion of layers.linear's bf16 dot: JAX's bias rounding,
     # the callers' silu and the flow step's Euler update
     "linear": ("supertonic_tpu_torch/csrc/linear.cu", "supertonic_tpu/models/layers.py:55"),
+    # its residual form as an entry of its own (the bf16 O and FFN-out with
+    # x + gate * linear(...)), its rows copies of the linear rows at its shapes
+    "linear residual form": ("supertonic_tpu_torch/csrc/linear.cu",
+                             "supertonic_tpu/models/layers.py:428"),
 }
 # ms per launch (bf16; int8 for the int8 product) of the designs that the
 # kernels on the path replaced, printed beside this run's times; keys are
@@ -485,7 +493,13 @@ EARLIER_MS = {
     # mean of the two readings (PERF.md section 6)
     "w8a8_matmul rope form": {(28672, 512, 512, "rope", 64): 0.0376,
                               (23680, 512, 512, "rope", 64): 0.0370},
-    "w8a8_matmul residual form": {},
+    # the W8A8 residual form's replaced design (its gated residual by f32
+    # operations a value, csrc/earlier/linear_resid_f32_epilogue.cu):
+    # kernel_variants.py w8a8_forms' "earlier" rows, host launches, mean of
+    # the two readings (PERF.md section 6)
+    "w8a8_matmul residual form": {(28672, 512, 512, "residual", 448): 0.0449,
+                                  (28672, 2048, 512, "residual", 448): 0.0768},
+    "linear residual form": {},  # its rows are the linear kernel's, with theirs
     "w8a8_matmul silu-quantize form": {}, "ln_modulate quantize form": {},  # new forms
     # the replaced linear kernel (csrc/earlier/linear_pr17.cu): its phase 5 times
     # at the cell's shapes, host launches (PERF.md section 6); the rope form's
@@ -496,7 +510,13 @@ EARLIER_MS = {
                (28672, 96, 512, "bias", 0): 0.0414, (23680, 512, 512, "bias", 0): 0.0415,
                (20480, 256, 256, "bias", 0): 0.0491, (3200, 256, 256, "bias", 0): 0.0776,
                (28672, 512, 512, "rope", 64): 0.0462, (23680, 512, 512, "rope", 64): 0.0395,
-               (20480, 256, 256, "rope", 64): 0.0349},
+               (20480, 256, 256, "rope", 64): 0.0349,
+               # the residual form's replaced design (its gated residual and
+               # bias add by f32 operations a value): kernel_variants.py
+               # linear's "earlier" rows, host launches, mean of the readings
+               (28672, 512, 512, "residual", 448): 0.0521,
+               (20480, 256, 256, "residual", 0): 0.0478,
+               (20480, 1024, 256, "residual", 0): 0.0421},
     # the conv kernel's one-tile-a-block design (csrc/earlier/
     # conv1d_tile_per_block.cu): its phase 5 times at the cell's shapes,
     # host launches (PERF.md section 6); at the pre_res pairs it ran
@@ -1066,7 +1086,9 @@ def check_w8a8_forms(gen, cell, results, serving, widths):
     Dh 16, 32, 64 and 128 and at ragged M, 64 x 64 at a streamed chunk's M,
     64 x 192 at Dh 96 and 192, 64 x 256, the SIMT kernel at Dh 12 and 36;
     the residual form's 64 x 128 tiles of three consumers, 64 x 64 tiles and
-    register-stored 64 x 32 ones at N off 8, odd N), K 2,048, a gate of B
+    register-stored 64 x 32 ones at N off 8, odd N; the 64 x 128 tiles also
+    at M off the tile, N off 128 and gate rows of three batch rows in a
+    tile), K 2,048, a gate of B
     rows (strided), of one row for all, of rows at an odd element, and none.
     Timed at the cell's and a chunk's shapes beside the pair each replaces
     (the W8A8 product, then the bias-and-rope or gated-residual kernel),
@@ -1081,7 +1103,12 @@ def check_w8a8_forms(gen, cell, results, serving, widths):
              (3 * 50, 256, 256, "residual", 50), (17037, 512, 512, "residual", 0),
              (300, 1024, 256, "residual", 0), (2 * 50, 64, 30, "residual", 50),
              (4 * 33, 32, 15, "residual", 33), (448, 512, 512, "residual", 448),
-             (2 * 32, 2048, 512, "residual", 32), (448, 2048, 512, "residual", 448)]
+             (2 * 32, 2048, 512, "residual", 32), (448, 2048, 512, "residual", 448),
+             # the many-tile residual instances at their edges, as check_linear
+             (17037, 256, 256, "residual", 0), (17037, 512, 200, "residual", 0),
+             (17050, 512, 512, "residual", 50), (17037, 2048, 512, "residual", 0),
+             (17037, 2048, 200, "residual", 0), (17050, 2048, 512, "residual", 50),
+             (17037, 1024, 256, "residual", 0)]
     cases = dict.fromkeys(edges, 0)
     cases.update({key: n for key, n in cell["w8a8_matmul"].items()
                   if len(key) == 5 and key[3] in ("rope", "residual")})
@@ -1132,6 +1159,7 @@ def check_w8a8_forms(gen, cell, results, serving, widths):
                                                  None, kw["gate"])
         pair_ms, pair_graph = time_ms(pair), graph_ms(pair)
         row = results[name][-1]
+        row["pair_ms"] = pair_graph
         after = "bias_rope" if form == "rope" else "gated_residual"
         log(f"    the pair it replaces (w8a8_matmul, then {after}): {pair_ms:.4f} ms [graph "
             f"{pair_graph:.4f}]; the form {row['ms']:.4f} [graph {row['graph_ms']:.4f}], "
@@ -1769,6 +1797,12 @@ def check_linear(gen, cell, results, serving, widths):
               (2 * 50, 64, 30, "residual", 50), (130, 15, 64, "residual", 0),
               (4 * 33, 15, 15, "residual", 33), (448, 512, 512, "residual", 448),
               (2 * 32, 2048, 512, "residual", 32)]
+    # the residual form's many-tile instance at M off the 64-row tile, N off
+    # 128, K 256 and 1,024, and gate rows of three or more batch rows in a
+    # tile (T 50: the third read from device memory)
+    edges += [(17037, 256, 256, "residual", 0), (17037, 512, 200, "residual", 0),
+              (17050, 512, 512, "residual", 50), (17037, 1024, 256, "residual", 0),
+              (17037, 1024, 200, "residual", 0), (17050, 1024, 256, "residual", 50)]
     silu_every_bf16()
     pairs = {"rope": [], "residual": []}  # (launches, kernel ms, pair ms) from graphs
     cases = block_cases(edges, cell, serving, widths, "linear")
@@ -1839,6 +1873,9 @@ def check_linear(gen, cell, results, serving, widths):
                 f"{pair_graph:.4f}]; the form {row['ms']:.4f} [graph {row['graph_ms']:.4f}]")
             if n_cell:
                 pairs[form].append((n_cell, row["graph_ms"], pair_graph, row["bound_ms"]))
+            if form == "residual":  # the residual form's entry: no one PyTorch call computes it
+                results["linear residual form"].append(dict(
+                    row, line=True, library_ms=None, library_graph_ms=None, pair_ms=pair_graph))
     for form, rows in pairs.items():
         if rows:
             log(f"  linear {form} form per b64/5-step batch at the cell's shapes "
@@ -4415,6 +4452,10 @@ def main() -> int:
                              "and silu-quantize forms")
     for form in ("rope", "residual"):
         launches[f"w8a8_matmul {form} form"] = by_form[form]
+    # the bf16 linear kernel's residual form: its launches in the bf16 batch
+    cell["linear residual form"] = {key: n for key, n in cell["linear"].items()
+                                    if key[3] == "residual"}
+    launches["linear residual form"] = sum(cell["linear residual form"].values())
     launches["w8a8_matmul silu-quantize form"] = by_form["silu_quantize"]
 
     # phase 7 runs here, before phase 5, so that phase 5 also holds attention
@@ -4494,6 +4535,8 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "pair_ms" in r:  # a form beside the replaced design and the pair it replaces
+            line[-1].update(earlier_ms=r["earlier_ms"], pair_ms=r["pair_ms"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,9 @@ launches runs them at other clocks). Kinds: the hand-written kernels
 the rest (PyTorch's elementwise, reduction and copy kernels). The default
 config with random weights made from a seed (the zero-init heads of the
 vector estimator perturbed, as chip_smoke.py's ``smoke_params``). Needs a
-CUDA card. Prints the card's name and power limit, a table, and as its
-last line one JSON object
+CUDA card. Prints the card's name and power limit, the replayed batch's
+largest kernels by name (template arguments included, so each instance of
+a kernel on its own line), a table, and as its last line one JSON object
 {kind: {network: {function: [ms, launches]}}}.
 """
 
@@ -54,6 +55,7 @@ HAND_WRITTEN = ("attn_wgmma", "attn_wide", "chain_kernel", "chain_wgmma", "conv_
 # mma_gemm<...>, or mangled 10wgmma_gemmI...): cuBLAS's xmma_gemm_ is not one
 OWN_GEMMS = re.compile(r"(?<![A-Za-z_])(?:wgmma_gemm|mma_gemm)[<I]")
 LIBRARY = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cudnn", "conv", "fprop", "Kernel2")
+KERNEL_LINES = 16  # the replayed batch's largest kernels printed by name
 NETWORKS = {"text_encoder": ("apply",), "duration_predictor": ("apply",),
             "vector_estimator": ("precompute_cross", "step"), "vocoder": ("apply",)}
 FUNCTIONS = {"layers": ("linear", "layer_norm", "apply_rope", "_modulate", "mha", "_mha_tp",
@@ -149,6 +151,15 @@ def main() -> int:
     with profile(activities=acts) as prof:
         run(eng.programs)
     replayed = device_events(prof)
+    # the replayed batch's largest kernels by name, each instance of a
+    # template kernel on its own line
+    by_name: Counter = Counter()
+    count: Counter = Counter()
+    for e in replayed:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        count[e.name] += 1
+    for name, ms in by_name.most_common(KERNEL_LINES):
+        print(f"  kernel {ms:9.3f} ms x{count[name]:<4d} {name[:150]}")
 
     for mod_name, names in NETWORKS.items():
         mod = getattr(models, mod_name)

@@ -12,6 +12,8 @@ conv1d.cu and linear.cu.
                                                # the f32 attention)
     python3 kernel_variants.py resblock_chain quantize --split  # and the
                                                # time splits (SPLIT)
+    python3 kernel_variants.py linear w8a8_forms --split --residual
+                                               # the residual forms alone
 
 Each variant is the kernel's own source with design constants changed by
 text substitution in its bf16 section, or a whole source file: for
@@ -131,10 +133,22 @@ host's per-call work:
              form in 64 x 128 tiles of four consumer warpgroups, or stored
              from the registers (the residual from device memory), and at a
              streamed chunk's shapes on the bias form's 64 x 32 tiles from
-             the registers; with --split also the rope form without its
+             the registers; the residual form's replaced design (earlier:
+             its gated residual and bias add by f32 operations a value);
+             the residual form's gated residual or bf16 bias add by f32
+             operations, on 128 x 128 tiles of two consumers or 64 x 128 of
+             four, and the alternatives of csrc/variants/
+             linear_resid_next_tile.cu (the next tile's residual loaded
+             behind the epilogue; W resident, or shared by a 2-block
+             cluster); with --split also the rope form without its
              rotation (the bias forms stored; the cos and sin loads may go
              with it) or without its cos and sin loads, the residual form
-             without its gate loads
+             without its residual loads, its gate loads, W's loads after a
+             block's first tile or X's (the products run on the stages the
+             first tile left), and as the product alone (its bias form: no
+             residual or gate loads) on its own tiles and on 128 x 128
+             tiles of two consumers; with --residual the residual forms
+             alone (their shapes, variants and splits)
   w8a8_forms the W8A8 product's rope and residual forms (also run with
              int8) at the int8 cell's and a streamed chunk's shapes beside
              the pair each replaced and the product alone: the rope form's
@@ -142,9 +156,12 @@ host's per-call work:
              TMA) on the replaced design's 64 x 128 tiles of three
              consumers, on 64 x 128 tiles of two, on 128 x 128 tiles with 5
              ring stages and the weight scales from device memory, and at a
-             streamed chunk's M on 64 x 128 tiles of one; the residual form
-             on 128 x 128 tiles of two or 64 x 128 of four; with --split
-             the linear kernel's splits of the two forms
+             streamed chunk's M on 64 x 128 tiles of one; the residual form's
+             replaced design (earlier), and it on 128 x 128 tiles of two or
+             64 x 128 of four; with --split the linear kernel's splits of
+             the two forms (the residual form's: without its residual, gate,
+             W or X loads, without its epilogue math, products or stores,
+             and the product alone on its tiles and on 128 x 128 tiles)
   ffn        the mma.sync design it replaced (earlier); silu by
              __fdividef, or with its reciprocal by Newton's method; one
              tile a consumer
@@ -205,6 +222,38 @@ LIN_MANY_SILU = "using ManySilu = Tile<4, 1, 128, 5, 1, false, true, 2>;"
 LIN_TAIL = "using TailTile = Tile<2, 1, 96, 6, 1, false, true, 4>;"
 LIN_RESID = ("using ManyResid = Tile<3, 1, 128, 7, 1, false, true, 2>;  // the residual form at "
              "many tiles")
+# the residual form on 128 x 128 tiles of two consumers, 4 ring stages
+RESID_ON_MANY = (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")
+# variants of the committed residual form: the gated residual, and the bf16
+# bias add, by f32 operations a value (epi_pair's, not packed bf16); 64 x
+# 128 tiles of four consumers; the design alternatives of
+# csrc/variants/linear_resid_next_tile.cu (the next tile's residual loaded
+# behind the epilogue; W resident where K <= 512 and a 2-block cluster along
+# M sharing each W stage beyond, routed by a substitution in its pick)
+RESID_NEXT_SRC = "variants/linear_resid_next_tile.cu"
+RESID_F32 = [("  return bits2(__hadd2_rn(bf2(x), __hmul2_rn(bf2(g), bf2(o))));",
+              "  const float2 ov = unpack(o), xv = unpack(x), gv = unpack(g);\n"
+              "  const float2 go = bf16_pair(__fmul_rn(gv.x, ov.x), __fmul_rn(gv.y, ov.y));\n"
+              "  return stk::pack_bf16(__fadd_rn(xv.x, go.x), __fadd_rn(xv.y, go.y));")]
+RESID_BIAS_F32 = [("  return bits2(__hadd2_rn(bf2(stk::pack_bf16(v0, v1)), bf2(bw)));",
+                   "  return bias_pair(v0, v1, b);")]
+RESID_SHARED_W = [(
+    "    return mode == MODE_SILU ? I_MANY_SILU : mode == MODE_RESID ? I_RESID_MANY : I_MANY;",
+    "    return mode == MODE_SILU ? I_MANY_SILU\n"
+    "           : mode != MODE_RESID ? I_MANY\n"
+    "           : K <= RESID_W_K && (N + ResidW::BN - 1) / ResidW::BN <= sms ? I_RESID_W\n"
+    "                                                                   : I_RESID_PAIR;")]
+RESID_VARIANTS = {
+    "the residual form's gated residual by f32 operations a value (not packed bf16)": RESID_F32,
+    "the residual form's bf16 bias add by f32 operations a value (not packed bf16)":
+        RESID_BIAS_F32,
+    "the residual form on 128 x 128 tiles, two consumers, 4 ring stages": [RESID_ON_MANY],
+    "the residual form on 64 x 128 tiles, four consumers, 5 ring stages": [
+        (LIN_RESID, "using ManyResid = Tile<4, 1, 128, 5, 1, false, true, 2>;")],
+    "the residual form's next tile's residual, bias and gate loaded behind its epilogue (a "
+    "residual buffer of its own, 5 ring stages)": (FILE, RESID_NEXT_SRC, []),
+    "the residual form with W resident at K up to 512, else a 2-block cluster along M sharing "
+    "each W stage": (FILE, RESID_NEXT_SRC, RESID_SHARED_W)}
 LIN_ROPE = ("using RopeMany = Tile<2, 2, 128, 5, 1, false, true, 2>;   // the rope form at Dh 16, "
             "32, 64, 128")
 LIN_ROPE8 = "using RopeMany8 = Tile<2, 2, 128, 4, 1, false, true, 2>;"
@@ -241,6 +290,9 @@ ROPE_FEW_WIDE = [("    if (in == I_FEW) return launch_tiles<MODE, Few, 64, Q8>(x
                   "    if (in == I_FEW)\n"
                   "      return launch_tiles<MODE, Tile<1, 1, 128, 6, 1, false, true, 2>, 64, Q8>("
                   "x, w, p, st);")]
+# the residual form's replaced design: its gated residual and bf16 bias add
+# by f32 operations a value, on 64 x 128 tiles of three consumers everywhere
+RESID_EARLIER = "earlier/linear_resid_f32_epilogue.cu"
 ROPE_STAGED_SRC = "variants/linear_rope_staged.cu"
 # the W8A8 forms' weight scales read from device memory (L1/L2) in the
 # epilogue instead of staged in shared memory (which leaves RopeMany8's tiles
@@ -273,6 +325,41 @@ LINEAR_NO_MATH = [
      "  const uint32_t o = bias_pair(v0, v1, b);\n  if constexpr (MODE == MODE_BIAS) {")]
 LINEAR_NO_PRODUCTS = [("stk::Wgmma<BN>::template ss<0>(acc[r],",
                        "if (p.K < 0) stk::Wgmma<BN>::template ss<0>(acc[r],")]
+# the residual form's splits of its operands' traffic (unchecked): the
+# products of a block's later tiles run on the W (or X) its ring stages hold
+# from its first tile, so those tiles load no W (or X) through L2; the
+# product alone on the residual form's tiles (its bias form there: neither
+# residual nor gate loads), and on 128 x 128 tiles of two consumers
+RESID_LOADS = (
+    "          stk::mbar_arrive_tx(&full[s], S::STEP);\n"
+    "          stk::tma_load_2d(stage_a(s), &tm_x, &full[s], kt * KE, m0);\n"
+    "          if constexpr (S::WRS == 0) stk::tma_load_2d(stage_w(s), &tm_w, &full[s], kt * KE, "
+    "n0);\n")
+RESID_NO_W = [(RESID_LOADS,
+               "          const bool wl = i == 0 || MODE != MODE_RESID || p.K < 0;\n"
+               "          stk::mbar_arrive_tx(&full[s], wl ? S::STEP : S::STAGE_A);\n"
+               "          stk::tma_load_2d(stage_a(s), &tm_x, &full[s], kt * KE, m0);\n"
+               "          if constexpr (S::WRS == 0)\n"
+               "            if (wl) stk::tma_load_2d(stage_w(s), &tm_w, &full[s], kt * KE, n0);\n")]
+RESID_NO_X = [(RESID_LOADS,
+               "          const bool xl = i == 0 || MODE != MODE_RESID || p.K < 0;\n"
+               "          stk::mbar_arrive_tx(&full[s], xl ? S::STEP : S::STEP - S::STAGE_A);\n"
+               "          if (xl) stk::tma_load_2d(stage_a(s), &tm_x, &full[s], kt * KE, m0);\n"
+               "          if constexpr (S::WRS == 0) stk::tma_load_2d(stage_w(s), &tm_w, &full[s], "
+               "kt * KE, n0);\n")]
+RESID_NO_RES_LOADS = [
+    ("        if (tid == 0) {\n          stk::bulk_wait_read<0>();",
+     "        if (tid == 0 && p.K < 0) {\n          stk::bulk_wait_read<0>();"),
+    ("      if constexpr (IN_TMA) stk::mbar_wait(&xfull[wg], (i / NC) & 1);",
+     "      if constexpr (IN_TMA) if (p.K < 0) stk::mbar_wait(&xfull[wg], (i / NC) & 1);")]
+RESID_NO_GATE = [("                if (p.gate) {\n", "                if (p.gate && p.K < 0) {\n")]
+# the residual form's epilogue stores the bias form, its gate rows unstaged
+RESID_GATED = "                *at = gated_pair(resid_bias(v0, v1, bq, bw), *at, gw);\n"
+RESID_BIAS_ONLY = [
+    (RESID_GATED, "                *at = resid_bias(v0, v1, bq, bw);\n"),
+    ("        if (p.gate)\n          for (int c = tid; c < BN; c += 128) {",
+     "        if (p.gate && p.K < 0)\n          for (int c = tid; c < BN; c += 128) {")]
+RESID_PRODUCT_ALONE = RESID_NO_RES_LOADS + RESID_NO_GATE + RESID_BIAS_ONLY
 LINEAR_NO_STORES = [
     ("stk::tma_store_2d(&tm_y,", "if (p.K < 0) stk::tma_store_2d(&tm_y,"),
     ("              stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);",
@@ -390,16 +477,15 @@ SPLIT = {"resblock_chain": {
              "                  uint32_t o1 = a, o2 = b;\n"
              "                  if (p.K < 0) rotate(a, b, cv, sv, o1, o2);")],
         "split: the rope form without its cos and sin loads": ROPE_NO_ANGLES,
-        "split: the residual form without its residual loads (nor the tail's x_in)": [
-            ("        if (tid == 0) {\n          stk::bulk_wait_read<0>();",
-             "        if (tid == 0 && p.K < 0) {\n          stk::bulk_wait_read<0>();"),
-            ("      if constexpr (IN_TMA) stk::mbar_wait(&xfull[wg], (i / NC) & 1);",
-             "      if constexpr (IN_TMA) if (p.K < 0) stk::mbar_wait(&xfull[wg], (i / NC) & 1);")],
-        "split: the residual form without its gate loads": [
-            ("                if (S::TMA_STORE && p.gate && gsel[r][half] < 2)",
-             "                if (p.K > 0)\n"
-             "                  gv = make_float2(1.0f, 1.0f);\n"
-             "                else if (S::TMA_STORE && p.gate && gsel[r][half] < 2)")],
+        "split: the residual form without its residual loads (nor the tail's x_in)":
+            RESID_NO_RES_LOADS,
+        "split: the residual form without its gate loads": RESID_NO_GATE,
+        "split: the residual form without W's loads after a block's first tile": RESID_NO_W,
+        "split: the residual form without X's loads after a block's first tile": RESID_NO_X,
+        "split: the residual form as the product alone on its tiles (its bias form; no "
+        "residual or gate loads)": RESID_PRODUCT_ALONE,
+        "split: the residual form as the product alone on 128 x 128 tiles of two consumers, "
+        "4 ring stages": [*RESID_PRODUCT_ALONE, RESID_ON_MANY],
         "split: no epilogue math (the sums stored as they are)": LINEAR_NO_MATH,
         "split: no products": LINEAR_NO_PRODUCTS,
         "split: no stores (the results' TMA stores, or register stores, skipped)":
@@ -411,6 +497,14 @@ SPLIT = {"resblock_chain": {
         "split: the rope form without its rotation (its bias forms stored)": None,
         "split: the rope form without its cos and sin loads": None,
         "split: the residual form without its residual loads (nor the tail's x_in)": None,
+        "split: the residual form without its gate loads": None,
+        "split: the residual form without W's loads after a block's first tile": None,
+        "split: the residual form without X's loads after a block's first tile": None,
+        "split: the residual form as the product alone on its tiles (its bias form; no "
+        "residual or gate loads)": None,
+        "split: the residual form as the product alone on 128 x 128 tiles of two consumers, "
+        "4 ring stages": None,
+        "split: no epilogue math (the sums stored as they are)": None,
         "split: no products": None,
         "split: no stores (the results' TMA stores, or register stores, skipped)": None},
     "ln_modulate": {
@@ -580,6 +674,8 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
     "w8a8_forms": {
         "earlier: the rope form's cos and sin from device memory in the epilogue (the replaced "
         "design)": (FILE, ROPE_EARLIER, []),
+        "earlier: the residual form's replaced design (f32 epilogue arithmetic, 64 x 128 tiles "
+        "of three consumers everywhere)": (FILE, RESID_EARLIER, []),
         "the rope form at a streamed chunk's M on 64 x 128 tiles of one consumer, the angles "
         "by TMA": ROPE_FEW_WIDE,
         "the rope form on 64 x 128 tiles, three consumers, 7 ring stages (the replaced design's "
@@ -590,10 +686,13 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "the rope form on 128 x 128 tiles with 5 ring stages, the weight scales from "
         "device memory": [(LIN_ROPE8, "using RopeMany8 = Tile<2, 2, 128, 5, 1, false, true, 2>;"),
                           *W8A8_WS_GLOBAL],
-        "the residual form on 128 x 128 tiles, two consumers, 4 ring stages": [
-            (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
-        "the residual form on 64 x 128 tiles, four consumers, 5 ring stages": [
-            (LIN_RESID, "using ManyResid = Tile<4, 1, 128, 5, 1, false, true, 2>;")]},
+        "the replaced residual form on 128 x 128 tiles, two consumers, 4 ring stages": (
+            FILE, RESID_EARLIER,
+            [(LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")]),
+        "the replaced residual form on 64 x 128 tiles, four consumers, 5 ring stages": (
+            FILE, RESID_EARLIER,
+            [(LIN_RESID, "using ManyResid = Tile<4, 1, 128, 5, 1, false, true, 2>;")]),
+        **RESID_VARIANTS},
     "linear": {
         "earlier: the replaced design, on the FFN's GEMM template": (
             FILE, "earlier/linear_pr17.cu", []),
@@ -625,6 +724,8 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
             (LIN_TAIL, "using TailTile = Tile<2, 1, 128, 4, 1, false, true, 4>;")],
         "earlier: the rope form's cos and sin from device memory in the epilogue (the replaced "
         "design)": (FILE, ROPE_EARLIER, []),
+        "earlier: the residual form's replaced design (f32 epilogue arithmetic, 64 x 128 tiles "
+        "of three consumers everywhere)": (FILE, RESID_EARLIER, []),
         "the rope form at a streamed chunk's M on 64 x 128 tiles of one consumer, the angles "
         "by TMA": ROPE_FEW_WIDE,
         "the replaced rope form (the angles from device memory) on 64 x 128 tiles of three "
@@ -651,20 +752,25 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
         "warpgroups, 5 ring stages": (
             FILE, ROPE_STAGED_SRC,
             [(LIN_ROPE, "using RopeMany = Tile<3, 1, 128, 5, 1, false, true, 2>;")]),
-        "the residual form in 128 x 128 tiles, two consumer warpgroups, 4 ring stages": [
-            (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")],
-        "the residual form in 64 x 128 tiles, four consumer warpgroups, 6 ring stages": [
-            (LIN_RESID, "using ManyResid = Tile<4, 1, 128, 6, 1, false, true, 2>;")],
-        "the residual form in 64 x 128 tiles, three consumer warpgroups, 6 ring stages": [
-            (LIN_RESID, "using ManyResid = Tile<3, 1, 128, 6, 1, false, true, 2>;")],
+        "the replaced residual form in 128 x 128 tiles, two consumer warpgroups, 4 ring stages": (
+            FILE, RESID_EARLIER,
+            [(LIN_RESID, "using ManyResid = Tile<2, 2, 128, 4, 1, false, true, 2>;")]),
+        "the replaced residual form in 64 x 128 tiles, four consumer warpgroups, 6 ring stages": (
+            FILE, RESID_EARLIER,
+            [(LIN_RESID, "using ManyResid = Tile<4, 1, 128, 6, 1, false, true, 2>;")]),
+        "the replaced residual form in 64 x 128 tiles, three consumer warpgroups, 6 ring stages": (
+            FILE, RESID_EARLIER,
+            [(LIN_RESID, "using ManyResid = Tile<3, 1, 128, 6, 1, false, true, 2>;")]),
         "the residual form's gate from device memory (no rows staged)": [
             (LIN_GATE_STAGED, "              gsel[r][half] = 2;")],
         "the residual form on the bias form's 64 x 32 tiles from the registers where the card "
         "takes few 64 x 64 ones": [
             ("  if (mode == MODE_RESID || 2 * tiles_of<Few>(M, N) >= sms) return I_FEW;",
              "  if (2 * tiles_of<Few>(M, N) >= sms) return I_FEW;")],
-        "the residual form stored from the registers (the residual from device memory)": [
-            (LIN_RESID, "using ManyResid = Tile<2, 2, 128, 6, 1, false, false, 2>;")]},
+        "the replaced residual form stored from the registers (the residual from device memory)": (
+            FILE, RESID_EARLIER,
+            [(LIN_RESID, "using ManyResid = Tile<2, 2, 128, 6, 1, false, false, 2>;")]),
+        **RESID_VARIANTS},
 }
 ENTRY = {"attention": ("stk_attention", attention._ARGTYPES),
          "attention_f32": ("stk_attention", attention._ARGTYPES),
@@ -845,14 +951,20 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     cs.log(smi.stdout.strip() or torch.cuda.get_device_name(0))
-    kernels = [a for a in sys.argv[1:] if a != "--split"] or list(VARIANTS)
+    kernels = [a for a in sys.argv[1:] if not a.startswith("--")] or list(VARIANTS)
+    form = "residual" if "--residual" in sys.argv else None  # one epilogue form alone
     if any(k not in VARIANTS for k in kernels):
-        raise SystemExit(f"kernels: {', '.join(VARIANTS)} [--split]")
+        raise SystemExit(f"kernels: {', '.join(VARIANTS)} [--split] [--residual]")
     if "int8" in kernels and "w8a8_forms" not in kernels:
         kernels.append("w8a8_forms")  # the W8A8 product's rope and residual forms
     if "--split" in sys.argv:
         for kernel in SPLIT:
             VARIANTS[kernel] = variants_of(kernel, split=True)
+    if form:  # the residual forms alone, with their variants and splits
+        for kernel in ("linear", "w8a8_forms"):
+            VARIANTS[kernel] = {name: subs for name, subs in VARIANTS[kernel].items()
+                                if "residual form" in name
+                                or name.startswith("split") and "rope form" not in name}
     _build.build_all()
     cs.log("build (bf16 kernels of each variant: ptxas registers and spills)")
     fns = build_variants(kernels)
@@ -870,7 +982,7 @@ def main() -> int:
     if "int8" in kernels:
         variants_int8(fns, gen)
     if "w8a8_forms" in kernels:
-        variants_w8a8_forms(fns, gen)
+        variants_w8a8_forms(fns, gen, form)
     if "quantize" in kernels:
         variants_quantize(fns, gen)
     if "ln_modulate" in kernels:
@@ -882,8 +994,9 @@ def main() -> int:
     if "conv1d" in kernels:
         variants_conv1d(fns, gen)
     if "linear" in kernels:
-        variants_linear(fns, gen)
-        variants_linear_epilogues(fns, gen)
+        if form is None:
+            variants_linear(fns, gen)
+        variants_linear_epilogues(fns, gen, form)
     return 0
 
 
@@ -1281,15 +1394,18 @@ def epilogue_call(fn, x, w, b, rope=None, n_heads=0, residual=None, gate=None):
     return y.view(bsz, t, n_heads, dh) if rope is not None else y.view(bsz, t, n)
 
 
-def variants_linear_epilogues(fns, gen) -> None:
-    """The rope and residual forms at the cell's and a streamed chunk's
-    shapes: committed, the variants and splits that change them, the pair
-    each replaced and the bias form alone; per batch, from graphs."""
+def variants_linear_epilogues(fns, gen, only=None) -> None:
+    """The rope and residual forms (or the form ``only``) at the cell's and
+    a streamed chunk's shapes: committed, the variants and splits that
+    change them, the pair each replaced and the bias form alone; per batch,
+    from graphs."""
     cs.log("linear kernel's rope and residual forms, ms per launch (bf16), beside the pair "
            "each replaced (F.linear, then the bias-and-rope or gated-residual kernel)")
     per_batch = {}
     for key in (*CELL_EPILOGUES, *CHUNK_EPILOGUES):
         m, k, n, form, t = key
+        if only not in (None, form):
+            continue
         n_cell = CELL_EPILOGUES.get(key, 0)
         x, w, b, kw = cs.linear_inputs(gen, key)
         ref = linear.linear(x, w, b, **kw)
@@ -1360,18 +1476,20 @@ def w8a8_form_call(fn, xq, sx, w, ws, bias, rope=None, n_heads=0, residual=None,
     return y.view(bsz, t, n_heads, dh) if rope is not None else y
 
 
-def variants_w8a8_forms(fns, gen) -> None:
-    """The W8A8 product's rope and residual forms at the int8 cell's and a
-    streamed chunk's shapes: committed, the variants (and splits) of their
-    instances, the pair each replaced (the W8A8 product, then the
-    bias-and-rope or gated-residual kernel) and the product alone; per
-    batch, from graphs."""
+def variants_w8a8_forms(fns, gen, only=None) -> None:
+    """The W8A8 product's rope and residual forms (or the form ``only``) at
+    the int8 cell's and a streamed chunk's shapes: committed, the variants
+    (and splits) of their instances, the pair each replaced (the W8A8
+    product, then the bias-and-rope or gated-residual kernel) and the
+    product alone; per batch, from graphs."""
     cs.log("W8A8 product's rope and residual forms, ms per launch (bf16), beside the pair "
            "each replaced (the W8A8 product, then the bias-and-rope or gated-residual kernel)")
     per_batch = {}
     bf16 = torch.bfloat16
     for key in (*CELL_W8A8_FORMS, *CHUNK_W8A8_FORMS):
         m, k, n, form, t = key
+        if only not in (None, form):
+            continue
         n_cell = CELL_W8A8_FORMS.get(key, 0)
         args, kw = cs.w8a8_form_inputs(gen, key)
         ref = w8a8.w8a8_matmul(*args, bf16, **kw)
