@@ -88,7 +88,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                (the batcher's groups at B <= 32, streaming and progress at
                B=1, the chain on the vocoder windows, the int8 server's
                quantize and W8A8 shapes), timed where a streamed chunk
-               launches them; at the other widths (every bf16 attention
+               launches them; at the attention's whole-row form's edges
+               (Tk at ROW_KEYS - 1, ROW_KEYS and one past it, a consumer
+               warpgroup's keys all padding or all masked, fully masked
+               rows across and within its split); at the other widths
+               (every bf16 attention
                instance, Dh 12 to 256, and Dh 320 past them, in both types,
                timed at Dh 192 and 256; the FFN's K and N tails; every chain
                instance and padded channel counts; chains of conv size 5,
@@ -453,11 +457,14 @@ SOURCES = {
 }
 # ms per launch (bf16; int8 for the int8 product) of the designs that the
 # kernels on the path replaced, printed beside this run's times; keys are
-# the shapes ops.record_launches tallies. Attention and the AdaLN FFN: the
-# mma.sync designs they replaced (supertonic_tpu_torch/csrc/earlier/)
-# at the b64 cell's shapes (L=320, T=448) and a streamed chunk's B=1
-# shapes, kernel_variants.py's "earlier" rows (CUDA events, as time_ms) on
-# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The chain: the
+# the shapes ops.record_launches tallies. Attention: the two-pass design that
+# the whole-row form replaced at bf16 Dh 64
+# (supertonic_tpu_torch/csrc/earlier/attention_two_pass.cu), this script's
+# host-launched times at the b64 cell's shapes (L=320, T=448) and a streamed
+# chunk's B=1 shapes before the replacement. The AdaLN FFN: the mma.sync
+# design it replaced (supertonic_tpu_torch/csrc/earlier/) at the same
+# shapes, kernel_variants.py's "earlier" rows (CUDA events, as time_ms). Both
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The chain: the
 # mma.sync design it replaced, at the b64 cell's two shapes (T=448) and the
 # two vocoder windows of a streamed chunk, kernel_variants.py's "earlier"
 # rows on the same card (PERF.md section 6). The int8 products and the
@@ -468,10 +475,10 @@ SOURCES = {
 # same card (PERF.md section 6): W8A8 bf16 results at the b64 cell's
 # shapes (T=448) and the TP shapes; int32 at the TP shapes and the cell's.
 EARLIER_MS = {
-    "attention": {(64, 8, 448, 448, True, 64): 0.2016, (64, 8, 448, 370, True, 64): 0.1758,
-                  (64, 4, 320, 320, True, 64): 0.0579, (64, 4, 320, 50, False, 64): 0.0185,
-                  (1, 8, 448, 448, True, 64): 0.0158, (1, 8, 448, 370, True, 64): 0.0179,
-                  (1, 4, 320, 320, True, 64): 0.0154, (1, 4, 320, 50, False, 64): 0.0200},
+    "attention": {(64, 8, 448, 448, True, 64): 0.1661, (64, 8, 448, 370, True, 64): 0.1532,
+                  (64, 4, 320, 320, True, 64): 0.0571, (64, 4, 320, 50, False, 64): 0.0331,
+                  (1, 8, 448, 448, True, 64): 0.0525, (1, 8, 448, 370, True, 64): 0.0426,
+                  (1, 4, 320, 320, True, 64): 0.0293, (1, 4, 320, 50, False, 64): 0.0614},
     "adaln_ffn": {(64, 448, 512, 2048): 0.4592, (1, 448, 512, 2048): 0.0567},
     "resblock_chain": {(64, 28672, 128): 6.886, (64, 3584, 256): 4.176,
                        (1, 896, 256): 0.2158, (1, 7168, 128): 0.1077},
@@ -663,6 +670,25 @@ def check_attention(gen, cell, results, serving, widths):
         ("edge Tq1 Tk1", 2, 2, 1, 1, None, None, 64),
         ("edge Tq1 Tk1 masked", 2, 2, 1, 1, "tail", None, 64),
         ("edge B1 H1", 1, 1, 640, 640, "tail", None, 64),
+        # the whole-row form's edges (bf16 Dh 64; each consumer warpgroup 32
+        # ceil(Tk / 64) keys): its cap on Tk and one past it (the two-pass
+        # kernel), a warpgroup's key range all padding (Tk 32: the second's
+        # keys 32 .. 63) or all masked (row 0's keys past the first range, or
+        # below it), a fully masked row crossing the warpgroups' split, or
+        # within the first's range
+        *((f"edge rows Tk{tk}", 3, 2, 129, tk, mk, None, 64)
+          for tk in (attention.ROW_KEYS - 1, attention.ROW_KEYS, attention.ROW_KEYS + 1)
+          for mk in ("tail", None)),
+        ("edge rows Tk32: the second warpgroup's keys all padding", 3, 2, 129, 32, None, None,
+         64),
+        ("edge rows Tk448: the second warpgroup's keys all masked", 3, 2, 129, 448,
+         "second_masked", None, 64),
+        ("edge rows Tk448: the first warpgroup's keys all masked", 3, 2, 129, 448,
+         "first_masked", None, 64),
+        ("edge rows fully masked row crossing the split, Tk300", 2, 2, 129, 300,
+         "one_row_empty", None, 64),
+        ("edge rows fully masked row, Tk30: its keys in one warpgroup's range", 2, 2, 129, 30,
+         "one_row_empty", None, 64),
     ]
     # the other head widths: every bf16 instance (16 .. 128 in steps of 16;
     # two 64-column panels above 64) and a width the bf16 wrapper pads (12,
@@ -703,6 +729,13 @@ def check_attention(gen, cell, results, serving, widths):
                 mask = (torch.arange(tk, device=DEV)[None] < lens[:, None]).float()
                 if mk == "one_row_empty":
                     mask[0] = 0.0
+                # row 0's keys valid in one consumer warpgroup's range of the
+                # whole-row form alone (the first: keys 0 .. 32 ceil(Tk / 64) - 1)
+                split = 32 * -(-tk // 64)
+                if mk == "second_masked":
+                    mask[0] = (torch.arange(tk, device=DEV) < split).float()
+                if mk == "first_masked":
+                    mask[0] = (torch.arange(tk, device=DEV) >= split).float()
             got = attention.fused_attention(q, k, v, mask)
             ref = attention.attention_plain(q, k, v, mask)
             err = compare(f"attention {name} B{b} {dtype}", got, ref, dtype)
@@ -2405,7 +2438,8 @@ def fused_projections_path(params) -> None:
 # the hand-written kernels' names in a device trace, one per wrapper launch
 # (bf16 and f32 designs; the FFN's LayerNorm pass, the W8A8 product's
 # rescale-and-bias epilogue, the int32 product's epilogue)
-TRACE_NAMES = {"attention": ("attn_wgmma", "attn_wide"), "adaln_ffn": ("ln_mod", "ffn_up_f32"),
+TRACE_NAMES = {"attention": ("attn_rows", "attn_wgmma", "attn_wide"),
+               "adaln_ffn": ("ln_mod", "ffn_up_f32"),
                "resblock_chain": ("chain_wgmma", "chain_kernel", "conv_pass"),
                "int8_matmul": ("Int32Out",),
                "w8a8_matmul": ("ScaleOut", "w8a8_wgmma", "w8a8_simt"),

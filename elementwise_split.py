@@ -47,8 +47,9 @@ import sys
 import tempfile
 from collections import Counter, defaultdict
 
-HAND_WRITTEN = ("attn_wgmma", "attn_wide", "chain_kernel", "chain_wgmma", "conv_pass",
-                "conv_simt", "conv_wgmma", "ffn_down_f32", "ffn_up_f32", "gated_residual_pass",
+HAND_WRITTEN = ("attn_rows", "attn_wgmma", "attn_wide", "chain_kernel", "chain_wgmma",
+                "conv_pass", "conv_simt", "conv_wgmma", "ffn_down_f32", "ffn_up_f32",
+                "gated_residual_pass",
                 "layer_norm_rows", "linear_simt", "linear_wgmma", "ln_mod",
                 "quantize_long_rows", "quantize_rows", "rope_pairs", "w8a8_simt", "w8a8_wgmma")
 # the port's GEMM kernels, as whole template names (stk::wgmma_gemm<...>,

@@ -31,9 +31,22 @@ shapes and the TP int8 batch's). Each is timed twice: launched from the host (CU
 around the calls, as chip_smoke.py times them) and replayed from a CUDA
 graph of the same calls, as the engine runs them, which leaves out the
 host's per-call work:
-  attention  the mma.sync design it replaced (earlier); three blocks an SM,
-             with 64- or 32-key stages; two consumer warpgroups and one
-             block an SM; 3 ring stages
+  attention  the whole-row form (bf16 Dh 64, Tk up to ROW_KEYS) at the b64
+             cell's and a streamed chunk's shapes: the two-pass design it
+             replaced (earlier) and the mma.sync design before that
+             (earlier); from csrc/variants/, the form as first built (key
+             tiles of 64, S a product group a tile, Tk padded to 128), with
+             S in product groups of 64 keys (also with K and V waited for
+             chunk by chunk), and with the next tile's S products beside a
+             tile's output; a third or a quarter of the exponentials by a
+             polynomial on the FMA pipe; one query tile a block (K and V
+             loaded for each); with --split the form
+             without its S products, its exponentials, its P.V products,
+             the exchange of the partial O's or its stores, and the two-pass
+             design without pass 1's products and exponentials, without
+             pass 1 (nor its K loads), without pass 2's S products, the
+             exponentials, P.V or the stores (unchecked); beside SDPA
+             (a yardstick)
   attention_f32  the f32 kernel with instances at Dh 32-128 that the
              SIMT kernel of any width replaced (earlier), at Dh 64 and 128
   chain      the mma.sync design it replaced (earlier); clusters of 2 and
@@ -427,6 +440,111 @@ SILUQ_SPLIT = {
             SILU_TABLE, "  const uint32_t wlo = tab[c2 & 0xffffu], whi = tab[c2 >> 16];",
             "  const uint32_t wlo = tab[(threadIdx.x & 31) + 0 * c2], whi = tab[(threadIdx.x & 31) + 32];"
         ))]}
+# the whole-row form with the exponentials of the column groups jj where
+# `which` holds by exp2 on the FMA pipe: 2^x = 2^n 2^f, n = rint(x), 2^f by
+# its degree-5 Taylor polynomial on |f| <= 1/2 (a few ulp of f32), 0 below
+# -126 (as ex2.approx.ftz flushes)
+def rows_poly(which: str) -> list:
+    return [
+        ("constexpr float LOG2E = 1.4426950408889634f;",
+         "constexpr float LOG2E = 1.4426950408889634f;\n"
+         "__device__ __forceinline__ float exp2_poly(float x) {\n"
+         "  const float y = fmaxf(x, -126.0f);\n"
+         "  const float r = y + 12582912.0f, f = y - (r - 12582912.0f);\n"
+         "  float p = fmaf(1.3333558e-3f, f, 9.6181291e-3f);\n"
+         "  p = fmaf(fmaf(fmaf(fmaf(p, f, 5.5504109e-2f), f, 2.4022651e-1f), f, 6.9314718e-1f), f,"
+         " 1.0f);\n"
+         "  const float e = __int_as_float(__float_as_int(p) + ((__float_as_int(r) - 0x4B400000)"
+         " << 23));\n"
+         "  return x < -126.0f ? 0.0f : e;\n"
+         "}"),
+        ("        x = stk::exp2_ftz(x - m[e >> 1]);",
+         f"        x = {which} ? exp2_poly(x - m[e >> 1]) : stk::exp2_ftz(x - m[e >> 1]);")]
+
+
+# the whole-row form (attn_rows) with one part taken out at a time
+# (unchecked): the S products (S zero: the logits are the bias), the exponentials
+# (ex2 as the identity), the P.V products, the exchange of the partial O's
+# (each warpgroup stores its own half of the columns of its own partial), the
+# output's stores
+ROWS_SPLIT = {
+    "split: no S products": [
+        ("      stk::Wgmma<KW>::template ss<0>(s, stk::desc_sw128(q_addr + 32 * kk),\n"
+         "                                     stk::desc_sw128(k_addr + 32 * kk), kk);\n",
+         "      s[kk] = 0.0f;\n"),
+        ("    stk::wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < DH / 16; ++kk)\n",
+         "#pragma unroll\n    for (int e = 0; e < KW / 2; ++e) s[e] = 0.0f;\n"
+         "    stk::wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < DH / 16; ++kk)\n")],
+    "split: no exponentials": [
+        ("        x = stk::exp2_ftz(x - m[e >> 1]);", "        x = x - m[e >> 1];")],
+    "split: no P.V products": [
+        ("        stk::Wgmma<DH>::template rs<1>(o, pa[kk], stk::desc_sw128(v_addr + kk * 16 * DH "
+         "* 2),\n                                       kk > 0);\n",
+         "        o[kk] += __uint_as_float(pa[kk][0]);\n")],
+    "split: no exchange of the partial O's": [
+        ("    stk::named_bar_sync(ROW_BAR, 256);\n    const float4* own",
+         "    const float4* own"),
+        ("      const float4 x = own[32 * jj], y = theirs[32 * jj];",
+         "      const float4 x = own[32 * jj], y = make_float4(0, 0, 0, 0);")],
+    "split: no stores": [
+        ("      if (qi < Tq)\n        *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + ch * 8) =",
+         "      if (qi < Tq && scale_log2 == 12345.0f)\n"
+         "        *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + ch * 8) =")],
+}
+# the two-pass attention design (csrc/earlier/attention_two_pass.cu) with
+# one part taken out at a time (unchecked): pass 1's products and
+# exponentials (its K loads kept, the statistics constants); pass 1 whole
+# (the ring walks pass 2 alone); pass 2's S products (P from the stale S
+# registers); every exponential (ex2 as the identity); the P.V products; the
+# output's stores
+TWO_PASS = "earlier/attention_two_pass.cu"
+ROWS_TILES64 = "variants/attention_rows_tiles64.cu"
+ROWS_CHUNKS = "variants/attention_rows_chunks.cu"
+# that design's S products, one product group a chunk of 64 keys
+ROWS_S_PRODUCTS = ("    static_for<NCH>([&](auto chunk) {\n      constexpr int j = decltype(chunk)::value;\n"
+              "      const uint32_t kj")
+TWO_PASS_STATS = ("    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};",
+                  "    float m[2] = {0.0f, 0.0f}, l[2] = {1.0f, 1.0f};")
+TWO_PASS_SPLIT = {
+    "split, two-pass: no pass-1 products or exponentials (its K loads kept)": (
+        FILE, TWO_PASS, [
+            TWO_PASS_STATS,
+            ("      issue_s(tile);\n      finish_s(tile);\n      release(tile);\n#pragma unroll\n"
+             "      for (int r = 0; r < 2; ++r) {\n",
+             "      stk::mbar_wait(&sm.full[tile % NS], (tile / NS) & 1);\n      release(tile);\n"
+             "#pragma unroll\n      for (int r = 0; r < 0; ++r) {\n")]),
+    "split, two-pass: no pass 1 (nor its K loads)": (FILE, TWO_PASS, [
+        TWO_PASS_STATS,
+        ("for (int step = 0; step < 2 * n_tiles; ++step) {",
+         "for (int step = 0; step < n_tiles; ++step) {"),
+        ("      const bool with_v = step >= n_tiles;\n"
+         "      const int k0 = (with_v ? step - n_tiles : step) * BKT;",
+         "      const bool with_v = true;\n      const int k0 = step * BKT;"),
+        ("const int k0 = (step >= n_tiles ? step - n_tiles : step) * BKT;",
+         "const int k0 = step * BKT;"),
+        ("if (step + 1 < 2 * n_tiles) load_bias(step + 1);",
+         "if (step + 1 < n_tiles) load_bias(step + 1);"),
+        ("    for (int tile = 0; tile < n_tiles; ++tile) {\n      issue_s(tile);",
+         "    for (int tile = 0; tile < 0; ++tile) {\n      issue_s(tile);"),
+        ("      const int step = n_tiles + tile;", "      const int step = tile;")]),
+    "split, two-pass: no pass-2 S products": (FILE, TWO_PASS, [
+        ("      issue_s(step);\n      finish_s(step);\n      fence_p(pa);",
+         "      stk::mbar_wait(&sm.full[step % NS], (step / NS) & 1);\n      finish_s(step);\n"
+         "      fence_p(pa);")]),
+    "split, two-pass: no exponentials": (FILE, TWO_PASS, [
+        ("constexpr float LOG2E = 1.4426950408889634f;",
+         "constexpr float LOG2E = 1.4426950408889634f;\n"
+         "__device__ __forceinline__ float no_exp2(float x) { return x; }"),
+        ("stk::exp2_ftz(", "no_exp2(")]),
+    "split, two-pass: no P.V products": (FILE, TWO_PASS, [
+        ("          stk::Wgmma<DH>::template rs<1>(\n"
+         "              o[p], pa[kk], stk::desc_sw128(v_addr + p * BKT * DH * 2 + kk * 16 * DH * 2),\n"
+         "              tile > 0 || kk > 0);\n",
+         "          o[p][kk] += __uint_as_float(pa[kk][0]);\n")]),
+    "split, two-pass: no stores": (FILE, TWO_PASS, [
+        ("        if (qi < Tq && (DK % DH == 0 || DH * p + ch * 8 < DK))",
+         "        if (qi < Tq && scale_log2 == 12345.0f && (DK % DH == 0 || DH * p + ch * 8 < DK))")]),
+}
 SPLIT = {"resblock_chain": {
     "split: silu as the identity": [
         ("  return stk::pack_bf16(stk::silu_fast(a), stk::silu_fast(b));",
@@ -493,6 +611,7 @@ SPLIT = {"resblock_chain": {
         "split: loads only (no products, no epilogue math, no stores)": (
             LINEAR_NO_MATH + LINEAR_NO_PRODUCTS + LINEAR_NO_STORES)},
     "silu_quantize": SILUQ_SPLIT,
+    "attention": {**ROWS_SPLIT, **TWO_PASS_SPLIT},
     "w8a8_forms": {
         "split: the rope form without its rotation (its bias forms stored)": None,
         "split: the rope form without its cos and sin loads": None,
@@ -536,16 +655,29 @@ def tile(line: str, args: str) -> tuple[str, str]:
 
 VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE, path, [...])}
     "attention": {
-        "earlier: mma.sync, cp.async ring": (FILE, "earlier/attention_mma_sync.cu", []),
-        "3 blocks an SM, 32-key stages": [
-            ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 3;"),
-            ("constexpr int STAGE_KEYS = 64;", "constexpr int STAGE_KEYS = 32;")],
-        "3 blocks an SM": [
-            ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 3;")],
-        "two consumer warpgroups, 1 block an SM": [
-            ("constexpr int CONSUMERS = 1;", "constexpr int CONSUMERS = 2;"),
-            ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 1;")],
-        "3 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")]},
+        "earlier: the two-pass design": (FILE, TWO_PASS, []),
+        "first build: key tiles of 64, S a product a tile, Tk padded to 128": (
+            FILE, ROWS_TILES64, []),
+        "the next tile's S products while a tile's output is finished": (
+            FILE, "variants/attention_rows_s_overlap.cu", []),
+        "S a product group a chunk of 64 keys (a chunk's max while the next run)": (
+            FILE, ROWS_CHUNKS, []),
+        "a third of the exponentials by a polynomial on the FMA pipe": rows_poly("jj % 3 == 2"),
+        "a quarter of the exponentials by a polynomial on the FMA pipe": rows_poly("jj % 4 == 3"),
+        "S by chunks, K and V waited for chunk by chunk at every tile": (FILE, ROWS_CHUNKS, [
+            (ROWS_S_PRODUCTS, ROWS_S_PRODUCTS.replace(
+                "      const uint32_t kj",
+                "      stk::mbar_wait(&sm.k_full[box(j, 0)], 0);\n"
+                "      stk::mbar_wait(&sm.k_full[box(j, (j < NCH - 1 ? 64 : LAST) - 1)], 0);\n"
+                "      const uint32_t kj")),
+            ("      stk::wgmma_fence();\n#pragma unroll\n      for (int kk = 4 * j; kk < k_end; ++kk)\n",
+             "      stk::mbar_wait(&sm.v_full[box(j, 0)], 0);\n"
+             "      stk::mbar_wait(&sm.v_full[box(j, (j < NCH - 1 ? 64 : LAST) - 1)], 0);\n"
+             "      stk::wgmma_fence();\n#pragma unroll\n      for (int kk = 4 * j; kk < k_end; ++kk)\n")]),
+        "one query tile a block (K and V loaded for each)": [
+            ("  int G = per_block < 1 ? 1 : per_block > nq ? nq : (int)per_block;",
+             "  int G = 1;")],
+        "earlier: mma.sync, cp.async ring": (FILE, "earlier/attention_mma_sync.cu", [])},
     "attention_f32": {
         "earlier: instances at Dh 32-128": (FILE, "earlier/attention_f32_simt.cu", [])},
     "resblock_chain": {
@@ -791,7 +923,7 @@ MORE_ENTRIES = {"int8": {"stk_int8_matmul": int8_matmul._ARGTYPES},
                 "silu_quantize": {"stk_linear": linear._ARGTYPES}}
 # names (in ptxas's mangled names) of the device functions whose registers and
 # spills each build prints (the bf16 kernels; attention_f32: the f32 ones)
-BF16_FUNCTIONS = {"attention": ("attn_wgmma", "attn_mma"),
+BF16_FUNCTIONS = {"attention": ("attn_rows", "attn_wgmma", "attn_mma"),
                   "attention_f32": ("attn_wide", "attn_kernel"),
                   "resblock_chain": ("chain_mma", "chain_wgmma"),
                   "ffn": ("wgmma_gemm", "mma_gemm", "ln_mod"),
@@ -1153,7 +1285,7 @@ def variants_attention(fns, gen, dt) -> None:
             qt, kt, vt, attn_mask=bias)
         label = f"B{b} H{h} Tq{tq} Tk{tk}"
         for name, call in calls.items():
-            if "SDPA" not in name:
+            if "SDPA" not in name and not name.startswith("split"):
                 cs.compare(f"attention {label} {name}", call(), ref, dt)
         in_turns(label, calls, 20, graphs=True)
 

@@ -1,0 +1,371 @@
+// Not on the path: the whole-row form with S in product groups of 64
+// keys (a chunk's scale, bias and max while the next chunks' products run).
+// Only the whole-row form, at bf16 Dh 64, of csrc/attention.cu as it stood
+// when this design was measured: kernel_variants.py builds and times it
+// beside the committed kernel (the package builds csrc/*.cu only).
+#include <type_traits>
+
+#include "wgmma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr int DH = 64;  // columns of a panel: one 128-byte swizzled row
+constexpr float LOG2E = 1.4426950408889634f;
+
+// pins P's A fragments at this point (wgmma reads them asynchronously)
+template <int KK>
+__device__ __forceinline__ void fence_p(uint32_t (&p)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[kk][e])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// the whole-row form (bf16, Dh 64, Tk <= ROW_KEYS): see the header
+// ---------------------------------------------------------------------------
+constexpr int ROW_KW = 256;                  // keys a consumer warpgroup, at most
+constexpr int ROW_KEYS = 2 * ROW_KW;         // the form's cap on Tk: 512
+constexpr int ROW_THREADS = 3 * 128;         // two consumer warpgroups and the producer's
+constexpr int ROW_BAR = 1;                   // the consumers' named barrier (256 threads)
+// KW: keys a consumer warpgroup, 32 ceil(Tk / 64): the row's keys in TMA
+// boxes of 64 rows, as many as Tk takes, none wholly past Tk; and the
+// blocks an SM holds
+template <int KW> __host__ __device__ constexpr int row_boxes() { return KW / 32; }
+template <int KW> __host__ __device__ constexpr int row_blocks() { return KW <= 64 ? 2 : 1; }
+
+// the block's shared memory: Q in two buffers, the row's K and V (rows 0 ..
+// 2 KW - 1, consumer c's keys from row c KW), the key bias, the consumers'
+// row statistics, their partial O's and the output's staging
+template <int KW>
+struct RowSmem {
+  bf16 q[2][64 * DH];
+  bf16 k[row_boxes<KW>()][64 * DH];
+  bf16 v[row_boxes<KW>()][64 * DH];
+  bf16 o[64 * DH];           // the output tile, swizzled: each warpgroup its 32 columns
+  float4 xch[2][4][8][32];   // each consumer thread's partial O (32 floats)
+  float bias[2 * KW];        // the key bias in log2 units, -inf past Tk
+  float red_max[2][64], red_sum[2][64];  // each consumer's row max and row sum
+  uint64_t k_full[row_boxes<KW>()], v_full[row_boxes<KW>()], q_full[2], q_empty[2];
+};
+
+// f(std::integral_constant<int, J>) for J = 0 .. N - 1: each J a constant
+// expression (a wgmma wait count)
+template <int N, int J = 0, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (J < N) {
+    f(std::integral_constant<int, J>{});
+    static_for<N, J + 1>(f);
+  }
+}
+
+// G: query tiles of 64 a block, all of one (batch, head)
+template <int KW, int BPS>
+__global__ void __launch_bounds__(ROW_THREADS, BPS)
+attn_rows(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
+          __grid_constant__ const CUtensorMap tm_v, const float* __restrict__ mask,
+          bf16* __restrict__ out, int Tq, int Tk, int H, float scale_log2, int G) {
+  constexpr int NB = row_boxes<KW>();
+  using Smem = RowSmem<KW>;
+  extern __shared__ __align__(1024) unsigned char raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(raw + ((1024 - (stk::smem_u32(raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, h = blockIdx.y, qt0 = blockIdx.x * G;
+  const int n_q = min(G, (Tq + 63) / 64 - qt0);  // this block's query tiles
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int t = 0; t < NB; ++t) {
+      stk::mbar_init(&sm.k_full[t], 32);  // the producer warp's lanes (the bias)
+      stk::mbar_init(&sm.v_full[t], 1);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      stk::mbar_init(&sm.q_full[i], 1);
+      stk::mbar_init(&sm.q_empty[i], 8);  // each consumer warp
+    }
+    stk::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer warpgroup: its first warp loads Q tile 0, every box of K and
+    // then of V once, then the block's other Q tiles as the consumers free a
+    // buffer; its lanes write the key bias of each box of K before arriving
+    stk::regs_dealloc<stk::kProducerRegs>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      stk::mbar_arrive_tx(&sm.q_full[0], 64 * DH * 2);
+      stk::tma_load_4d(sm.q[0], &tm_q, &sm.q_full[0], 0, h, 64 * qt0, b);
+      // the two consumers' boxes in turns (0, (NB + 1) / 2, 1, ...): each
+      // consumer's first keys land first
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int t = i & 1 ? (NB + 1) / 2 + i / 2 : i / 2;
+        stk::mbar_expect_tx(&sm.k_full[t], 64 * DH * 2);
+        stk::tma_load_4d(sm.k[t], &tm_k, &sm.k_full[t], 0, h, 64 * t, b);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int t = i & 1 ? (NB + 1) / 2 + i / 2 : i / 2;
+        stk::mbar_arrive_tx(&sm.v_full[t], 64 * DH * 2);
+        stk::tma_load_4d(sm.v[t], &tm_v, &sm.v_full[t], 0, h, 64 * t, b);
+      }
+    }
+    const float* mb = mask ? mask + (size_t)b * Tk : nullptr;
+#pragma unroll
+    for (int t = 0; t < NB; ++t) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kj = 64 * t + lane + 32 * i;
+        sm.bias[kj] = kj >= Tk ? -INFINITY : (mb ? (1.0f - mb[kj]) * (-1e9f * LOG2E) : 0.0f);
+      }
+      stk::mbar_arrive(&sm.k_full[t]);
+    }
+    if (lane == 0)
+      for (int i = 1; i < n_q; ++i) {
+        const int qb = i & 1;
+        stk::mbar_wait(&sm.q_empty[qb], ((i >> 1) & 1) ^ 1);
+        stk::mbar_arrive_tx(&sm.q_full[qb], 64 * DH * 2);
+        stk::tma_load_4d(sm.q[qb], &tm_q, &sm.q_full[qb], 0, h, 64 * (qt0 + i), b);
+      }
+    return;
+  }
+
+  // consumer warpgroup c = wg: keys c KW .. c KW + KW - 1 of every query
+  // tile of the block; thread rows 16 warp + g and + 8 in the wgmma
+  // accumulator layout (csrc/wgmma.cuh)
+  stk::regs_alloc<stk::consumer_regs(2, BPS)>();
+  const int c = wg, g = lane >> 2, t4 = lane & 3;
+  const int row0 = 16 * warp + g;
+  // S in chunks of 64 keys (the last of 32 where KW is an odd number of
+  // 32s), each its own product group: a chunk's scale, bias and max run
+  // while the next chunks' products are in flight. Key 64 j + 8 jj + 2 t4
+  // (+ 1) of chunk j sits in s[j][4 jj] (+ 1), the same for a 32-key chunk.
+  constexpr int NCH = (KW + 63) / 64, LAST = KW - 64 * (NCH - 1);
+  // the box of key `key` of chunk j
+  auto box = [&](int j, int key) { return (c * KW + 64 * j + key) / 64; };
+  const uint32_t k_addr = stk::smem_u32(sm.k) + c * KW * DH * 2;
+  const uint32_t v_addr = stk::smem_u32(sm.v) + c * KW * DH * 2;
+  const float* bias = sm.bias + c * KW;
+  float s[NCH][32], o[32];
+  uint32_t pa[KW / 16][4];
+  const size_t rs = (size_t)H * DH;
+  bf16* ob = out + (size_t)b * Tq * rs + (size_t)h * DH;
+
+  // K stays resident for every query tile of the block: its boxes are
+  // waited for once (V's before the first P.V)
+  for (int t = box(0, 0); t <= box(NCH - 1, LAST - 1); ++t) stk::mbar_wait(&sm.k_full[t], 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int qb = i & 1;
+    // S = Q.K^T over this warpgroup's keys. The waits (loops each thread
+    // leaves on its own) come before the fence: a wait between the fence and
+    // the products makes the compiler serialise them.
+    stk::mbar_wait(&sm.q_full[qb], (i >> 1) & 1);
+    const uint32_t q_addr = stk::smem_u32(sm.q[qb]);
+    stk::wgmma_fence();
+    static_for<NCH>([&](auto chunk) {
+      constexpr int j = decltype(chunk)::value;
+      const uint32_t kj = k_addr + j * 64 * DH * 2;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t qd = stk::desc_sw128(q_addr + 32 * kk), kd = stk::desc_sw128(kj + 32 * kk);
+        if constexpr (j < NCH - 1 || LAST == 64)
+          stk::Wgmma<64>::template ss<0>(s[j], qd, kd, kk);
+        else
+          stk::Wgmma<32>::template ss<0>(*reinterpret_cast<float(*)[16]>(s[j]), qd, kd, kk);
+      }
+      stk::wgmma_commit();
+    });
+    // each chunk as its products complete: scale and bias in log2 units, the
+    // row max over this thread's keys (two chains a row)
+    float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+    static_for<NCH>([&](auto chunk) {
+      constexpr int j = decltype(chunk)::value;
+      stk::wgmma_wait<NCH - 1 - j>();
+      stk::fence_regs(s[j]);
+#pragma unroll
+      for (int jj = 0; jj < (j < NCH - 1 ? 8 : LAST / 8); ++jj) {
+        const float2 bj = *reinterpret_cast<const float2*>(bias + 64 * j + 8 * jj + 2 * t4);
+        float* x = s[j] + 4 * jj;
+        x[0] = fmaf(x[0], scale_log2, bj.x);
+        x[1] = fmaf(x[1], scale_log2, bj.y);
+        x[2] = fmaf(x[2], scale_log2, bj.x);
+        x[3] = fmaf(x[3], scale_log2, bj.y);
+        mx[0][jj & 1] = fmaxf(mx[0][jj & 1], fmaxf(x[0], x[1]));
+        mx[1][jj & 1] = fmaxf(mx[1][jj & 1], fmaxf(x[2], x[3]));
+      }
+    });
+    // every product that read this Q tile has completed: free its buffer
+    __syncwarp();
+    if (lane == 0) stk::mbar_arrive(&sm.q_empty[qb]);
+    // the row max over the quad's four threads, then the other warpgroup's
+    // through shared memory. It is finite: key 0 is below Tk, its bias finite.
+    float m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(mx[r][0], mx[r][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      if (t4 == 0) sm.red_max[c][row0 + 8 * r] = x;
+      m[r] = x;
+    }
+    stk::named_bar_sync(ROW_BAR, 256);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], sm.red_max[c ^ 1][row0 + 8 * r]);
+    // one exponential a logit, kept in place; the row sums in short chains
+    float part[2][4] = {};
+#pragma unroll
+    for (int jj = 0; jj < KW / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[jj / 8][4 * (jj % 8) + e];
+        x = stk::exp2_ftz(x - m[e >> 1]);
+        part[e >> 1][(jj & 1) * 2 + (e & 1)] += x;
+      }
+    float inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (t4 == 0) sm.red_sum[c][row0 + 8 * r] = l;
+    }
+    stk::named_bar_sync(ROW_BAR, 256);
+    // both warpgroups add the two sums in one order: the same 1 / sum
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      inv_l[r] = 1.0f / (sm.red_sum[0][row0 + 8 * r] + sm.red_sum[1][row0 + 8 * r]);
+    // p = exp2(s - max) / sum rounded to bf16, repacked from the S
+    // accumulators into wgmma's A fragments (key step kk = column groups 2kk
+    // and 2kk + 1), O += P.V with V the MN-major B operand; a chunk's P.V
+    // products run while the next chunk's P is packed
+    if (i == 0)
+      for (int t = box(0, 0); t <= box(NCH - 1, LAST - 1); ++t) stk::mbar_wait(&sm.v_full[t], 0);
+    static_for<NCH>([&](auto chunk) {
+      constexpr int j = decltype(chunk)::value;
+      constexpr int k_end = j < NCH - 1 ? 4 * j + 4 : KW / 16;  // its k16 steps end
+#pragma unroll
+      for (int kk = 4 * j; kk < k_end; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float* x = s[j] + 4 * (2 * (kk % 4) + hh);
+          pa[kk][2 * hh] = stk::pack_bf16(x[0] * inv_l[0], x[1] * inv_l[0]);
+          pa[kk][2 * hh + 1] = stk::pack_bf16(x[2] * inv_l[1], x[3] * inv_l[1]);
+        }
+      stk::wgmma_fence();
+#pragma unroll
+      for (int kk = 4 * j; kk < k_end; ++kk)
+        stk::Wgmma<DH>::template rs<1>(o, pa[kk], stk::desc_sw128(v_addr + kk * 16 * DH * 2),
+                                       kk > 0);
+      stk::wgmma_commit();
+    });
+    stk::wgmma_wait<0>();
+    stk::fence_regs(o);
+    fence_p(pa);
+
+    // the two partial O's summed in f32: warpgroup c finishes columns 32 c ..
+    // 32 c + 31 of every row. Each thread writes its partial to shared
+    // memory and reads back its own and the other warpgroup's same thread's
+    // values of its half (every warp of a warpgroup on one path, no register
+    // chosen by the warpgroup's index: either makes the compiler serialise
+    // the products), rounds the sums to bf16 through the staging tile, and
+    // each warp stores the half rows of its 16 in 16-byte stores.
+    float4* mine = sm.xch[c][warp][0] + lane;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      mine[32 * jj] = make_float4(o[4 * jj], o[4 * jj + 1], o[4 * jj + 2], o[4 * jj + 3]);
+    stk::named_bar_sync(ROW_BAR, 256);
+    const float4* own = sm.xch[c][warp][4 * c] + lane;
+    const float4* theirs = sm.xch[c ^ 1][warp][4 * c] + lane;
+    const int r0 = 16 * warp;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float4 x = own[32 * jj], y = theirs[32 * jj];
+      *reinterpret_cast<uint32_t*>(sm.o + stk::swz<DH>(r0 + g, 4 * c + jj) + 2 * t4) =
+          stk::pack_bf16(x.x + y.x, x.y + y.y);
+      *reinterpret_cast<uint32_t*>(sm.o + stk::swz<DH>(r0 + g + 8, 4 * c + jj) + 2 * t4) =
+          stk::pack_bf16(x.z + y.z, x.w + y.w);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int cc = lane + 32 * it, r = r0 + (cc >> 2), ch = 4 * c + (cc & 3);
+      const int qi = 64 * (qt0 + i) + r;
+      if (qi < Tq)
+        *reinterpret_cast<uint4*>(ob + (size_t)qi * rs + ch * 8) =
+            *reinterpret_cast<const uint4*>(sm.o + stk::swz<DH>(r, ch));
+    }
+  }
+}
+
+// one TMA map over [B, T, H, Dh] as (Dh, H, T, B), box (64, 1, rows, 1):
+// a box never crosses a batch row, and rows past T and columns past Dh read
+// as zeros
+int encode_bthd(CUtensorMap* map, const void* base, int B, int T, int H, int rows, int dh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)H * dh * 2,
+                                 (cuuint64_t)T * H * dh * 2};
+  const cuuint32_t box[4] = {DH, 1, (cuuint32_t)rows, 1};
+  return stk::encode_tma(map, base, 4, dims, strides, box);
+}
+
+// the whole-row form: KW keys a consumer warpgroup; G query tiles a block,
+// as many as leave about two blocks for every block slot of the card and no
+// fewer than one, spread evenly over the (batch, head)'s blocks
+template <int KW>
+int launch_rows(const bf16* q, const bf16* k, const bf16* v, const float* mask, bf16* out,
+                int B, int Tq, int Tk, int H, float scale_log2, cudaStream_t st) {
+  constexpr int BPS = row_blocks<KW>();
+  CUtensorMap tq, tk, tv;
+  if (int err = encode_bthd(&tq, q, B, Tq, H, 64, DH)) return err;
+  if (int err = encode_bthd(&tk, k, B, Tk, H, 64, DH)) return err;
+  if (int err = encode_bthd(&tv, v, B, Tk, H, 64, DH)) return err;
+  constexpr size_t smem = sizeof(RowSmem<KW>) + 1024;
+  static_assert(smem * BPS <= 232448, "the blocks' shared memory");
+  auto kernel = attn_rows<KW, BPS>;
+  static size_t configured[stk::kMaxDevices] = {};
+  if (int err = stk::allow_dynamic_smem(kernel, smem, configured)) return err;
+  static int regs_at_entry = 0;
+  if (int err = stk::check_reg_split(kernel, 128, 256, stk::consumer_regs(2, BPS),
+                                     regs_at_entry))
+    return err;
+  int sms = 0;
+  if (int err = stk::sm_count(sms)) return err;
+  const int nq = (Tq + 63) / 64;
+  const long long per_block = (long long)nq * H * B / (2LL * sms * BPS);
+  int G = per_block < 1 ? 1 : per_block > nq ? nq : (int)per_block;
+  G = (nq + (nq + G - 1) / G - 1) / ((nq + G - 1) / G);  // nq over that many blocks, evenly
+  dim3 grid((nq + G - 1) / G, H, B);
+  kernel<<<grid, ROW_THREADS, smem, st>>>(tq, tk, tv, mask, out, Tq, Tk, H, scale_log2, G);
+  return (int)cudaGetLastError();
+}
+
+// bf16 at D = 64 only (the shapes kernel_variants.py times); other shapes are
+// refused
+int launch(const void* q, const void* k, const void* v, const float* mask, void* out,
+           int B, int Tq, int Tk, int H, int D, int dtype, float scale, cudaStream_t st) {
+  if (D != DH || dtype != 1 || Tk < 1) return (int)cudaErrorInvalidValue;
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
+  const float sl = scale * LOG2E;
+  switch (32 * ((Tk + 63) / 64)) {  // keys a consumer warpgroup
+    case 32: return launch_rows<32>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 64: return launch_rows<64>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 96: return launch_rows<96>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 128: return launch_rows<128>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 160: return launch_rows<160>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 192: return launch_rows<192>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 224: return launch_rows<224>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    case 256: return launch_rows<256>(qb, kb, vb, mask, (bf16*)out, B, Tq, Tk, H, sl, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int stk_attention(const void* q, const void* k, const void* v,
+                             const void* mask, void* out, int B, int Tq, int Tk,
+                             int H, int D, int dtype, void* stream, float scale) {
+  return launch(q, k, v, (const float*)mask, out, B, Tq, Tk, H, D, dtype, scale,
+                (cudaStream_t)stream);
+}

@@ -10,9 +10,14 @@ JAX package's XLA ``attention_core``, which stores bf16 logits; the port
 follows the kernel.
 
 What bounds the kernel on the H100 and what its design does about it is in
-the header of ``csrc/attention.cu``. Unlike the Pallas kernel there is no
-panel cap: keys stream through shared memory, so every Tq and Tk the path
-produces runs in the kernel. ``supports`` states the kernel's domain: any
+the header of ``csrc/attention.cu``. The C launcher picks one of two bf16
+forms from the shape alone (``kernel_form`` mirrors it): at Dh 64 and Tk up
+to ``ROW_KEYS`` the whole-row form, which holds a 64-query tile's whole row
+of logits, as the Pallas kernel holds its panel, so each logit takes one
+q.k product and one exponential; at other widths and longer rows the
+two-pass kernel, whose keys stream through shared memory twice. So unlike
+the Pallas kernel there is no panel cap: every Tq and Tk the path produces
+runs in a kernel. ``supports`` states the kernel's domain: any
 head width Dh and any Tk >= 1, as the Pallas kernel takes (in f32, and
 above Dh ``MAX_PANEL_DH`` in bf16, a SIMT kernel with a grid axis over
 slices of the output columns takes any Dh as it is). The bf16 tensor-core
@@ -37,6 +42,8 @@ from . import _build, _count
 NEG_INF = -1e9
 HEAD_STEP = 16  # the bf16 tensor-core kernel's head widths: multiples of 16
 MAX_PANEL_DH = 256  # up to four 64-column panels
+ROW_DH = 64  # the whole-row form's head width
+ROW_KEYS = 512  # the whole-row form's cap on Tk (ROW_KEYS in csrc/attention.cu)
 
 # q, k, v, key_mask, out, B, Tq, Tk, H, Dh, dtype code, stream, scale
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -53,11 +60,25 @@ def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
 
 
+def kernel_form(dtype, head_dim: int, keys: int) -> str:
+    """The kernel a launch takes on the card, as ``launch`` in
+    csrc/attention.cu picks it from the shape alone: "rows" (the whole-row
+    form: bf16 heads padded to ``ROW_DH`` and Tk up to ``ROW_KEYS``),
+    "two_pass" (the other bf16 heads up to ``MAX_PANEL_DH``) or "wide" (f32,
+    and wider bf16 heads)."""
+    if dtype != torch.bfloat16 or head_dim > MAX_PANEL_DH:
+        return "wide"
+    width = -(-head_dim // HEAD_STEP) * HEAD_STEP
+    return "rows" if width == ROW_DH and keys <= ROW_KEYS else "two_pass"
+
+
 def kernel_tiles() -> dict:
-    """The bf16 kernel's tile choice (builds the library on first use)."""
-    tiles = (ctypes.c_int * 4)()
+    """The bf16 kernels' tile choices (builds the library on first use): the
+    two-pass kernel's and the whole-row form's, with its cap on Tk."""
+    tiles = (ctypes.c_int * 8)()
     _build.function("attention", "stk_attention_tiles", [ctypes.c_void_p])(tiles)
-    return dict(zip(("queries_per_block", "keys_per_stage", "stages", "blocks_per_sm"),
+    return dict(zip(("queries_per_block", "keys_per_stage", "stages", "blocks_per_sm",
+                     "row_queries", "row_keys_per_tile", "row_consumers", "row_keys"),
                     tiles))
 
 
