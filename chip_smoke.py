@@ -465,9 +465,11 @@ SOURCES = {
 # design it replaced (supertonic_tpu_torch/csrc/earlier/) at the same
 # shapes, kernel_variants.py's "earlier" rows (CUDA events, as time_ms). Both
 # on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6). The chain: the
-# mma.sync design it replaced, at the b64 cell's two shapes (T=448) and the
-# two vocoder windows of a streamed chunk, kernel_variants.py's "earlier"
-# rows on the same card (PERF.md section 6). The int8 products and the
+# design it replaced (two m64n64k16 products a k-step, the epilogue in f32:
+# kernel_variants.py's substitutions on csrc/resblock_chain.cu), at the b64
+# cell's two shapes (T=448) and the two vocoder windows of a streamed chunk,
+# kernel_variants.py's "earlier" rows (host launches, mean of the two
+# readings) on the same card (PERF.md section 6). The int8 products and the
 # quantize pass: the mma.sync product and the one-warp-a-row pass they
 # replaced (csrc/earlier/), kernel_variants.py's "earlier" rows, host
 # launches (through a lighter call than the wrappers: at the TP shapes
@@ -480,8 +482,8 @@ EARLIER_MS = {
                   (1, 8, 448, 448, True, 64): 0.0525, (1, 8, 448, 370, True, 64): 0.0426,
                   (1, 4, 320, 320, True, 64): 0.0293, (1, 4, 320, 50, False, 64): 0.0614},
     "adaln_ffn": {(64, 448, 512, 2048): 0.4592, (1, 448, 512, 2048): 0.0567},
-    "resblock_chain": {(64, 28672, 128): 6.886, (64, 3584, 256): 4.176,
-                       (1, 896, 256): 0.2158, (1, 7168, 128): 0.1077},
+    "resblock_chain": {(64, 28672, 128): 4.970, (64, 3584, 256): 2.576,
+                       (1, 896, 256): 0.0567, (1, 7168, 128): 0.0402},
     "int8_matmul": {(1792, 256, 512): 0.0211, (1792, 1024, 512): 0.0157,
                     (28672, 512, 512): 0.0505, (28672, 512, 2048): 0.1581,
                     (28672, 2048, 512): 0.1176, (23680, 512, 512): 0.0447},

@@ -14,6 +14,7 @@ conv1d.cu and linear.cu.
                                                # time splits (SPLIT)
     python3 kernel_variants.py linear w8a8_forms --split --residual
                                                # the residual forms alone
+    python3 kernel_variants.py linear --bias   # the bias form's instances
 
 Each variant is the kernel's own source with design constants changed by
 text substitution in its bf16 section, or a whole source file: for
@@ -49,14 +50,21 @@ host's per-call work:
              (a yardstick)
   attention_f32  the f32 kernel with instances at Dh 32-128 that the
              SIMT kernel of any width replaced (earlier), at Dh 64 and 128
-  chain      the mma.sync design it replaced (earlier); clusters of 2 and
-             of 4 blocks on neighbouring tiles with each weight stage
-             multicast by TMA into all of them; the accurate silu
-             (expf and IEEE division); half of silu's exponentials by a
-             polynomial on the FMA pipe; the largest tile at every shape
+  chain      the designs it replaced (earlier: two m64n64k16 products a
+             k-step and the epilogue in f32; the mma.sync design); the
+             epilogue in f32; two m64n64k16 products a k-step; the replaced
+             design with the committed epilogue; clusters of 2 and of 4
+             blocks on neighbouring tiles with each weight stage multicast
+             by TMA into all of them (on the replaced design); the accurate
+             silu (expf and IEEE division); half of silu's exponentials by
+             a polynomial on the FMA pipe; the largest tile at every shape
              (no smaller tiles for a grid that does not fill the card); two
              consumer warpgroups at every C; no stages of 64 input
-             channels; the conv size at run time only
+             channels; the conv size at run time only; with --split, on the
+             committed kernel and on the replaced design: silu as the
+             identity, no epilogue, no products, no conv-boundary barrier,
+             no weight stages (none loaded nor waited for), the products
+             alone, the window's load and store alone (unchecked)
   int8       the W8A8 product (bf16 results) at the b64 cell's shapes and the
              int32 form at the TP int8 path's and the cell's, beside
              torch._int_mm (the product alone, a yardstick): the mma.sync
@@ -123,6 +131,10 @@ host's per-call work:
              form on 64 x 64 (four consumer warpgroups), 128 x 128 (two),
              64 x 128 (three), 128 x 64 (four), 64 x 256 (two) or shared
              128 x 256 tiles; the bias form on 64 x 128 tiles of four; the
+             bias form on each instance's tiles at every shape, and on
+             other tiles where it takes 128 x 128 ones (with --bias alone:
+             the bias form's shapes of the b64 cell and of a streamed chunk,
+             beside F.linear); the
              tail's x_in read from device memory, or 64 x 128 tail tiles;
              with --split: no epilogue math, no products, no stores, and
              loads only (unchecked); beside F.linear(x, w, b)
@@ -378,6 +390,37 @@ LINEAR_NO_STORES = [
     ("              stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);",
      "              if (p.K < 0 || reinterpret_cast<const uint32_t&>(v) == 0x7fc00001u)\n"
      "                stk::store_pair_any(reinterpret_cast<Out*>(p.y), e, col, p.N, v);")]
+# the bias form's instances: each variant takes one of them at every shape
+# (pick() in linear.cu) where N is a multiple of 8
+LIN_PICK_BIAS = "  if (N % 8) return I_ANY_N;  // rows no TMA map takes\n"
+BIAS_INSTANCES = (("128 x 128 tiles of two consumers (Many)", "I_MANY"),
+                  ("64 x 128 tiles of four consumers (ManySilu)", "I_MANY_SILU"),
+                  ("64 x 64 tiles, two blocks an SM (Few)", "I_FEW"),
+                  ("64 x 32 tiles from the registers (AnyN)", "I_ANY_N"),
+                  ("64 x 128 tiles of three consumers, 7 ring stages (ManyResid)",
+                   "I_RESID_MANY"))
+
+
+# the launch of the bias form on the silu or residual form's tiles (pick()
+# gives it neither)
+LIN_BIAS_DISPATCH = (
+    "    if (in == I_MANY || in == I_MANY_SILU || in == I_RESID_MANY)\n",
+    "    if constexpr (MODE == MODE_BIAS) {\n"
+    "      if (in == I_MANY_SILU) return launch_tiles<MODE, ManySilu, 0, Q8>(x, w, p, st);\n"
+    "      if (in == I_RESID_MANY) return launch_tiles<MODE, ManyResid, 0, Q8>(x, w, p, st);\n"
+    "    }\n"
+    "    if (in == I_MANY || in == I_MANY_SILU || in == I_RESID_MANY)\n")
+# other tiles for the bias form's many-tile instance (Tile's arguments)
+BIAS_MANY_TILES = (("128 x 64 tiles of two consumers in turns", "2, 2, 64, 6, 1, false, true, 2"),
+                   ("64 x 256 tiles of two consumers in turns", "2, 1, 256, 3, 1, false, true, 2"),
+                   ("64 x 128 tiles of two consumers in turns", "2, 1, 128, 6, 1, false, true, 2"),
+                   ("64 x 128 tiles of three consumers in turns", "3, 1, 128, 6, 1, false, true, 2"),
+                   ("64 x 128 tiles of one consumer, two blocks an SM",
+                    "1, 1, 128, 3, 2, false, true, 2"),
+                   ("64 x 64 tiles of three consumers in turns", "3, 1, 64, 8, 1, false, true, 2"))
+LIN_FEW = "using Few = Tile<1, 1, 64, 6, 2, false, true, 2>;"
+
+
 def replaced(text: str, old: str, new: str) -> str:
     """text with old replaced by new; raises where old is not in it."""
     if old not in text:
@@ -545,15 +588,173 @@ TWO_PASS_SPLIT = {
         ("        if (qi < Tq && (DK % DH == 0 || DH * p + ch * 8 < DK))",
          "        if (qi < Tq && scale_log2 == 12345.0f && (DK % DH == 0 || DH * p + ch * 8 < DK))")]),
 }
+# The replaced chain design (two m64n64k16 products a k-step, the epilogue
+# in f32) and the splits of it and of the committed one: without the
+# epilogues (the barrier kept), without the conv-boundary barrier, without
+# the weight stages (none loaded nor waited for), the products alone, the
+# window's load and store alone, and without the epilogues with two
+# consumers at every C (the replaced design)
+CHAIN_NO_EPILOGUE = (CHAIN_EPILOGUE, CHAIN_EPILOGUE + "    if (Tlen >= 0) {\n"
+                     "      stk::named_bar_sync(1, L::NC * 128);\n      continue;\n    }\n")
+CHAIN_BARRIER = ("    // the next conv reads rows the other consumer wrote\n"
+                 "    stk::named_bar_sync(1, L::NC * 128);\n")
+CHAIN_NO_W = [("      for (int s = 0; s < steps; ++s) {",
+               "      for (int s = 0; s < (Tlen < 0 ? steps : 0); ++s) {"),
+              ("      stk::mbar_wait(&full[st], (step / NS) & 1);",
+               "      if (Tlen < 0) stk::mbar_wait(&full[st], (step / NS) & 1);")]
+CHAIN_EARLIER_SPLIT = {
+    "split, earlier: no epilogue": [CHAIN_NO_EPILOGUE],
+    "split, earlier: no conv-boundary barrier": [
+        (CHAIN_BARRIER, "    if (Tlen < 0) stk::named_bar_sync(1, L::NC * 128);\n")],
+    "split, earlier: no weight loads or waits (the products on whatever the ring holds)":
+        CHAIN_NO_W,
+    "split, earlier: the products alone (no epilogue, no weight loads or waits)": [
+        CHAIN_NO_EPILOGUE, *CHAIN_NO_W],
+    "split, earlier: no epilogue, two consumer warpgroups at every C": [
+        CHAIN_NO_EPILOGUE,
+        ("constexpr int WIDE_CONSUMERS = 4;", "constexpr int WIDE_CONSUMERS = 2;")],
+    "split, earlier: the window's load and store alone": [
+        ("  for (int conv = 0; conv < 2 * P; ++conv) {",
+         "  for (int conv = 0; conv < (Tlen < 0 ? 2 * P : 0); ++conv) {"), CHAIN_NO_W[0]]}
+# the committed chain's epilogue in f32 (the replaced design's arithmetic:
+# three scalar roundings a value, the mask and residual in f32)
+CHAIN_PACKED_HS = ("              const float2 vf = __bfloat1622float2(v);\n"
+                   "              *reinterpret_cast<uint32_t*>(Hs + at) = silu_pair(vf.x, vf.y);\n")
+CHAIN_PACKED_X = (
+    "              __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(X + at);\n"
+    "              const __nv_bfloat162 xn = __hadd2_rn(*xp, v);\n"
+    "              *xp = xn;\n"
+    "              if (!last) {  // the last conv's silu(x) has no reader\n"
+    "                const float2 xf = __bfloat1622float2(xn);\n"
+    "                *reinterpret_cast<uint32_t*>(S + at) = silu_pair(xf.x, xf.y);\n"
+    "              }\n")
+CHAIN_F32_HS = "              *reinterpret_cast<uint32_t*>(Hs + at) = silu_pair(v0, v1);\n"
+CHAIN_F32_X = (
+    "              uint32_t* xp = reinterpret_cast<uint32_t*>(X + at);\n"
+    "              const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));\n"
+    "              const float x0 = stk::rnd<bf16>(xf.x + v0), x1 = stk::rnd<bf16>(xf.y + v1);\n"
+    "              *xp = stk::pack_bf16(x0, x1);\n"
+    "              if (!last)  // the last conv's silu(x) has no reader\n"
+    "                *reinterpret_cast<uint32_t*>(S + at) = silu_pair(x0, x1);\n")
+CHAIN_F32_EPILOGUE = [
+    ("            const __nv_bfloat162 v = __hmul2_rn(\n"
+     "                __floats2bfloat162_rn(acc[i][e] + bv.x, acc[i][e + 1] + bv.y), mrow[i][h]);\n",
+     "            const float mf = __bfloat162float(mrow[i][h].x);\n"
+     "            const float v0 = stk::rnd<bf16>(acc[i][e] + bv.x) * mf;\n"
+     "            const float v1 = stk::rnd<bf16>(acc[i][e + 1] + bv.y) * mf;\n"),
+    (CHAIN_PACKED_HS, CHAIN_F32_HS), (CHAIN_PACKED_X, CHAIN_F32_X)]
+# the design this PR replaced, on today's source: two m64n64k16 products a
+# k-step and the epilogue in f32
+CHAIN_TWO_PRODUCTS = [("          if constexpr (NPC == 2) {  // both panels in one product",
+                       "          if constexpr (NPC == -2) {  // both panels in one product")]
+CHAIN_EARLIER = CHAIN_TWO_PRODUCTS + CHAIN_F32_EPILOGUE
+# the committed chain without its producer warpgroup: the first thread loads
+# the ring under a predicate, every thread running the same instructions
+CHAIN_SELF_ISSUE = [
+    ("  static constexpr int THREADS = (NC + 1) * 128;",
+     "  static constexpr int THREADS = NC * 128;  // no producer warpgroup"),
+    ("  if (wg == L::NC) {\n"
+     "    // producer: one thread streams stage s = rows [r KC, r KC + KC) of conv\n"
+     "    // s / NK's tap-major [k*C, C] weights (convs a, b, a, b, ...), r = s % NK\n"
+     "    stk::regs_dealloc<PRODUCER_REGS>();\n"
+     "    if (threadIdx.x % 128 == 0) {\n"
+     "      for (int s = 0; s < steps; ++s) {\n"
+     "        const int st = s % NS, conv = s / NK;\n"
+     "        stk::mbar_wait(&empty[st], ((s / NS) & 1) ^ 1);\n"
+     "        stk::mbar_arrive_tx(&full[st], L::NP * L::PANEL);\n"
+     "        const CUtensorMap* map = (conv & 1) ? &tm_wb : &tm_wa;\n"
+     "        const int row = (conv >> 1) * k * C + (s % NK) * KC;\n"
+     "#pragma unroll\n"
+     "        for (int p = 0; p < L::NP; ++p)\n"
+     "          stk::tma_load_2d(ring + st * L::STAGE + p * L::PANEL, map, &full[st], 64 * p, row);\n"
+     "      }\n"
+     "    }\n"
+     "    return;\n"
+     "  }\n"
+     "\n"
+     "  stk::regs_alloc<stk::consumer_regs(L::NC, 1, PRODUCER_REGS)>();\n",
+     "  // stage s = rows [r KC, r KC + KC) of conv s / NK's tap-major [k*C, C]\n"
+     "  // weights (convs a, b, a, b, ...), r = s % NK, into slot s % NS: issued by\n"
+     "  // thread 0 under a predicate, every thread running the same instructions\n"
+     "  // (a branch around them would serialise the products, C7518)\n"
+     "  const bool issuer = threadIdx.x == 0;\n"
+     "  auto issue = [&](int s) {\n"
+     "    const int st = s % NS, conv = s / NK;\n"
+     "    arrive_tx_if(issuer, &full[st], L::NP * L::PANEL);\n"
+     "    const CUtensorMap* map = (conv & 1) ? &tm_wb : &tm_wa;\n"
+     "    const int row = (conv >> 1) * k * C + (s % NK) * KC;\n"
+     "#pragma unroll\n"
+     "    for (int p = 0; p < L::NP; ++p)\n"
+     "      tma_load_2d_if(issuer, ring + st * L::STAGE + p * L::PANEL, map, &full[st], 64 * p, row);\n"
+     "  };\n"
+     "  int issued = NS < steps ? NS : steps;  // stages issued\n"
+     "  for (int s = 0; s < issued; ++s) issue(s);\n"),
+    ("  auto release = [&](int s) {\n"
+     "    __syncwarp();\n"
+     "    if (lane == 0) stk::mbar_arrive(&empty[s % NS]);\n"
+     "  };",
+     "  // the warp's products of stage s are complete: it releases the slot, and\n"
+     "  // slots every warp has released take the stages NS on\n"
+     "  auto release = [&](int s) {\n"
+     "    __syncwarp();\n"
+     "    arrive_if(lane == 0, &empty[s % NS]);\n"
+     "    for (; issued < steps && issued < s + 1 + NS; ++issued) {\n"
+     "      stk::mbar_wait(&empty[issued % NS], ((issued / NS) - 1) & 1);\n"
+     "      issue(issued);\n"
+     "    }\n"
+     "  };"),
+    ("  static int regs_at_entry = 0;\n"
+     "  if (int err = stk::check_reg_split(kernel, 128, L::NC * 128,\n"
+     "                                     stk::consumer_regs(L::NC, 1, PRODUCER_REGS), regs_at_entry,\n"
+     "                                     PRODUCER_REGS))\n"
+     "    return err;\n",
+     ""),
+    ("// silu of two values, rounded to bf16 and packed: the fast exponential and",
+     "// one arrival, one expecting bytes of TMA traffic, and a 2-d TMA load, each\n"
+     "// only where on holds: predicated instructions, no branch\n"
+     "__device__ __forceinline__ void arrive_if(bool on, uint64_t* bar) {\n"
+     '  asm volatile("{\\n.reg .pred p;\\nsetp.ne.u32 p, %1, 0;\\n"\n'
+     '               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\\n}\\n" ::"r"(stk::smem_u32(bar)),\n'
+     '               "r"((uint32_t)on)\n'
+     '               : "memory");\n'
+     "}\n"
+     "__device__ __forceinline__ void arrive_tx_if(bool on, uint64_t* bar, uint32_t bytes) {\n"
+     '  asm volatile("{\\n.reg .pred p;\\nsetp.ne.u32 p, %2, 0;\\n"\n'
+     '               "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n}\\n" ::"r"(\n'
+     "                   stk::smem_u32(bar)),\n"
+     '               "r"(bytes), "r"((uint32_t)on)\n'
+     '               : "memory");\n'
+     "}\n"
+     "__device__ __forceinline__ void tma_load_2d_if(bool on, void* dst, const CUtensorMap* map,\n"
+     "                                               uint64_t* bar, int c0, int c1) {\n"
+     '  asm volatile("{\\n.reg .pred p;\\nsetp.ne.u32 p, %5, 0;\\n"\n'
+     '               "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "\n'
+     '               "[%0], [%1, {%3, %4}], [%2];\\n}\\n" ::"r"(stk::smem_u32(dst)),\n'
+     '               "l"(reinterpret_cast<uint64_t>(map)), "r"(stk::smem_u32(bar)), "r"(c0), "r"(c1),\n'
+     '               "r"((uint32_t)on)\n'
+     '               : "memory");\n'
+     "}\n"
+     "\n"
+     "// silu of two values, rounded to bf16 and packed: the fast exponential and"),
+]
+CHAIN_NO_PRODUCTS = [
+    ("stk::Wgmma<64>::template rs<1>(", "if (Tlen < 0) stk::Wgmma<64>::template rs<1>("),
+    ("stk::Wgmma<128>::template rs<1>(", "if (Tlen < 0) stk::Wgmma<128>::template rs<1>(")]
 SPLIT = {"resblock_chain": {
     "split: silu as the identity": [
         ("  return stk::pack_bf16(stk::silu_fast(a), stk::silu_fast(b));",
          "  return stk::pack_bf16(a, b);")],
-    "split: no epilogue": [
-        (CHAIN_EPILOGUE, CHAIN_EPILOGUE + "    if (Tlen >= 0) {\n"
-         "      stk::named_bar_sync(1, L::NC * 128);\n      continue;\n    }\n")],
-    "split: no products": [
-        ("stk::Wgmma<64>::template rs<1>(", "if (Tlen < 0) stk::Wgmma<64>::template rs<1>(")]},
+    "split: no epilogue": [CHAIN_NO_EPILOGUE],
+    "split: no products": CHAIN_NO_PRODUCTS,
+    "split: no conv-boundary barrier": [
+        (CHAIN_BARRIER, "    if (Tlen < 0) stk::named_bar_sync(1, L::NC * 128);\n")],
+    "split: no weight loads or waits (the products on whatever the ring holds)": CHAIN_NO_W,
+    "split: the products alone (no epilogue, no weight loads or waits)": [
+        CHAIN_NO_EPILOGUE, *CHAIN_NO_W],
+    "split: the window's load and store alone": [
+        ("  for (int conv = 0; conv < 2 * P; ++conv) {",
+         "  for (int conv = 0; conv < (Tlen < 0 ? 2 * P : 0); ++conv) {"), CHAIN_NO_W[0]],
+    **{name: CHAIN_EARLIER + subs for name, subs in CHAIN_EARLIER_SPLIT.items()}},
     "quantize": {
         "split: loads only": [
             ("  stk::mbar_wait(&full[warp], 0);\n", "  stk::mbar_wait(&full[warp], 0);\n"
@@ -681,11 +882,17 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
     "attention_f32": {
         "earlier: instances at Dh 32-128": (FILE, "earlier/attention_f32_simt.cu", [])},
     "resblock_chain": {
+        "earlier: two m64n64k16 products a k-step, the epilogue in f32": CHAIN_EARLIER,
         "earlier: mma.sync, cp.async ring": (FILE, "earlier/resblock_chain_mma_sync.cu", []),
+        "the epilogue in f32 (three roundings a value, the mask and residual in f32)":
+            CHAIN_F32_EPILOGUE,
+        "two m64n64k16 products a k-step (no m64n128k16)": CHAIN_TWO_PRODUCTS,
+        "no producer warpgroup (the first thread loads the ring under a predicate)":
+            CHAIN_SELF_ISSUE,
         "accurate silu": CHAIN_ACC,
         "half the exponentials by a polynomial on the FMA pipe": CHAIN_POLY,
-        "clusters of 2, weight stages multicast": (FILE, CLUSTER_SRC, []),
-        "clusters of 4, weight stages multicast": (
+        "clusters of 2, weight stages multicast (on the replaced design)": (FILE, CLUSTER_SRC, []),
+        "clusters of 4, weight stages multicast (on the replaced design)": (
             FILE, CLUSTER_SRC, [("constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 4;")]),
         "two consumer warpgroups at every C": [
             ("constexpr int WIDE_CONSUMERS = 4;", "constexpr int WIDE_CONSUMERS = 2;")],
@@ -826,6 +1033,13 @@ VARIANTS = {  # kernel: {variant: [(committed text, variant text), ...] or (FILE
             [(LIN_RESID, "using ManyResid = Tile<4, 1, 128, 5, 1, false, true, 2>;")]),
         **RESID_VARIANTS},
     "linear": {
+        **{f"the bias form on {tiles} at every shape": [
+            (LIN_PICK_BIAS, LIN_PICK_BIAS + f"  if (mode == MODE_BIAS) return {instance};\n"),
+            LIN_BIAS_DISPATCH] for tiles, instance in BIAS_INSTANCES},
+        **{f"the bias form on {tiles} where it takes 128 x 128 tiles": [
+            (LIN_MANY, f"using Many = Tile<{args}>;")] for tiles, args in BIAS_MANY_TILES},
+        "the bias form's 64 x 64 tiles with 8 ring stages, one block an SM": [
+            (LIN_FEW, "using Few = Tile<1, 1, 64, 8, 1, false, true, 2>;")],
         "earlier: the replaced design, on the FFN's GEMM template": (
             FILE, "earlier/linear_pr17.cu", []),
         "silu by a fast quotient, guarded, the refused pairs in a second pass": (
@@ -1084,15 +1298,19 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     cs.log(smi.stdout.strip() or torch.cuda.get_device_name(0))
     kernels = [a for a in sys.argv[1:] if not a.startswith("--")] or list(VARIANTS)
-    form = "residual" if "--residual" in sys.argv else None  # one epilogue form alone
+    form = ("residual" if "--residual" in sys.argv  # one form alone
+            else "bias" if "--bias" in sys.argv else None)
     if any(k not in VARIANTS for k in kernels):
-        raise SystemExit(f"kernels: {', '.join(VARIANTS)} [--split] [--residual]")
+        raise SystemExit(f"kernels: {', '.join(VARIANTS)} [--split] [--residual | --bias]")
     if "int8" in kernels and "w8a8_forms" not in kernels:
         kernels.append("w8a8_forms")  # the W8A8 product's rope and residual forms
     if "--split" in sys.argv:
         for kernel in SPLIT:
             VARIANTS[kernel] = variants_of(kernel, split=True)
-    if form:  # the residual forms alone, with their variants and splits
+    if form == "bias":  # the bias form's instances alone
+        VARIANTS["linear"] = {name: subs for name, subs in VARIANTS["linear"].items()
+                              if "bias form" in name or "128 x 128 tiles with" in name}
+    elif form:  # the residual forms alone, with their variants and splits
         for kernel in ("linear", "w8a8_forms"):
             VARIANTS[kernel] = {name: subs for name, subs in VARIANTS[kernel].items()
                                 if "residual form" in name
@@ -1126,9 +1344,10 @@ def main() -> int:
     if "conv1d" in kernels:
         variants_conv1d(fns, gen)
     if "linear" in kernels:
-        if form is None:
-            variants_linear(fns, gen)
-        variants_linear_epilogues(fns, gen, form)
+        if form in (None, "bias"):
+            variants_linear(fns, gen, bias_only=form == "bias")
+        if form != "bias":
+            variants_linear_epilogues(fns, gen, form)
     return 0
 
 
@@ -1325,7 +1544,7 @@ def variants_chain(fns, gen, dt) -> None:
             calls[name] = lambda fn=fn: chain_call(fn, *args)
         label = f"C={c} B{b} x {t_len} frames"
         for name, call in calls.items():
-            if not name.startswith("split:"):
+            if not name.startswith("split"):
                 cs.compare(f"chain {label} {name}", call(), ref, dt)
         in_turns(label, calls, 3 if b > 1 else 20, graphs=True)
 
@@ -1442,6 +1661,13 @@ CELL_LINEAR = {(64, 256, 1, "bias", 0): 1, (64, 256, 256, "silu", 0): 1,
                (28672, 512, 512, "bias", 0): 30}
 
 
+# (M, K, N, form, 0) of the bias form's launches in a streamed chunk (B = 1,
+# T=448, L=320, Tk 370), with the launches a chunk
+CHUNK_BIAS = {(1, 512, 4608, "bias", 0): 30, (448, 512, 512, "bias", 0): 30,
+              (370, 512, 512, "bias", 0): 6, (320, 256, 256, "bias", 0): 10,
+              (50, 256, 256, "bias", 0): 10, (448, 96, 512, "bias", 0): 5}
+
+
 def linear_call(fn, x, w, b, silu=False, tail=None):
     """One linear through a variant's library, as the wrapper launches it."""
     n, k = w.shape
@@ -1461,11 +1687,17 @@ def linear_call(fn, x, w, b, silu=False, tail=None):
     return y.view(*x.shape[:-1], n)
 
 
-def variants_linear(fns, gen) -> None:
+def variants_linear(fns, gen, bias_only=False) -> None:
+    """The bias, silu and tail forms at the b64 cell's shapes; with
+    ``bias_only`` the bias form alone, at the cell's and a streamed chunk's
+    shapes, on each of its instances."""
     cs.log("linear kernel, ms per launch (bf16) at the b64 cell's shapes, beside F.linear "
            "(cuBLAS's product with its bias epilogue) and the route it replaced")
-    cs.silu_every_bf16()
-    for key, n_cell in CELL_LINEAR.items():
+    if not bias_only:
+        cs.silu_every_bf16()
+    shapes = ({key: n for key, n in {**CELL_LINEAR, **CHUNK_BIAS}.items() if key[3] == "bias"}
+              if bias_only else CELL_LINEAR)
+    for key, n_cell in shapes.items():
         m, k, n, form, t = key
         x, w, b, kw = cs.linear_inputs(gen, key)
         ref = linear.linear(x, w, b, **kw)
@@ -1480,7 +1712,7 @@ def variants_linear(fns, gen) -> None:
             lambda: torch.nn.functional.linear(x2, w, bb))
         calls["the replaced route: cuBLAS's product, then the elementwise passes"] = (
             lambda: linear.linear_plain(x, w, b, **kw))
-        label = f"M{m} K{k} N{n} {form} ({n_cell} a batch)"
+        label = f"M{m} K{k} N{n} {form} ({n_cell} a {'chunk' if key in CHUNK_BIAS else 'batch'})"
         for name, call in calls.items():
             if (name == "committed" or "yardstick" in name or "replaced" in name
                     or name.startswith("split")):

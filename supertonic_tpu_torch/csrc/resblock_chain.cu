@@ -32,8 +32,9 @@
 // implicit GEMM [W frames, kC] x [kC, C] (any odd conv size k; 3 on the
 // path, with instances of its own): a consumer owns 64-frame M tiles of
 // the window (or, where a block holds fewer M tiles than consumers, a
-// share of the output panels), and runs wgmma.m64n64k16 a 64-column panel
-// of output channels, A from registers, B from shared memory. A, the activation at
+// share of the output panels), and runs wgmma.m64n128k16 over its two
+// 64-column panels of output channels (m64n64k16 a panel where it holds one
+// or three), A from registers, B from shared memory. A, the activation at
 // the tap's shifted row, comes by ldmatrix.x4 from the XOR-swizzled
 // activation buffer (stk::swz: 16-byte chunk c of row r at c ^ (r % 8), so
 // the eight rows of an ldmatrix at any row offset hit eight distinct bank
@@ -51,8 +52,11 @@
 // stream: the one barrier left is a named barrier among the consumers at
 // each conv boundary, where the next conv reads rows the other consumer
 // wrote. The epilogue works on the accumulator registers: bias, round,
-// mask, silu and bf16-pair stores into the swizzled buffers; each
-// thread's frame mask stays in registers. silu takes the fast exponential
+// mask, silu and bf16-pair stores into the swizzled buffers, a pair's
+// rounding one conversion and its mask product and residual add bf16x2
+// operations, exact as the f32 ones are (the products by 0 or 1 are; the
+// f32 sum of two bf16 values rounds as their bf16 sum); each thread's frame
+// mask stays in registers as a bf16 pair. silu takes the fast exponential
 // and division (__expf, __fdividef, a few f32 ulp before the bf16
 // rounding). The window's rows past its ends are not padded: the reads
 // there land in the ring or the neighbouring buffer and feed only inexact
@@ -66,21 +70,35 @@
 // issues them under a branch (C7520). At a grid too small to fill the card
 // (a B=1 vocoder window) chain_tiling takes the instance at half the
 // frames (C <= 256), which gives more blocks for the same frames at a
-// higher halo cost. The mma.sync design this replaces
-// (csrc/earlier/resblock_chain_mma_sync.cu) is kernel_variants.py's
-// "earlier" variant. A chain whose halo this kernel's W cannot hold has no
-// fused bf16 kernel: the caller splits it into groups of pairs that fit,
-// and runs a pair that fits no W per conv (conv_pass, below).
-// What limits it (kernel_variants.py --split): the epilogue, bound by
-// instruction issue more than by the SFU, does not overlap the products,
-// since every consumer reaches the conv-boundary barrier together; at
-// C 128 it is ~40% of the kernel's time. The four-consumer instances at
-// W * C = 32768 hold 112 registers a consumer, and ptxas serialises their
-// products (C7512). Measured slower (kernel_variants.py): clusters of 2
-// and 4 blocks with each weight stage multicast
-// (csrc/variants/resblock_chain_cluster.cu), two consumers everywhere, half
-// of silu's exponentials on an FMA-pipe polynomial, the accurate silu,
-// stages of at most 32 input channels.
+// higher halo cost. The designs this replaces (two m64n64k16 products a
+// k-step and the epilogue in f32: substitutions on this source; the
+// mma.sync design before it, csrc/earlier/resblock_chain_mma_sync.cu) are
+// kernel_variants.py's "earlier" variants. A chain whose halo this
+// kernel's W cannot hold has no fused bf16 kernel: the caller splits it
+// into groups of pairs that fit, and runs a pair that fits no W per conv
+// (conv_pass, below).
+// What limits it (kernel_variants.py resblock_chain --split, ms a launch
+// from graphs at C 128 x 28,672 frames, B 64, NVIDIA H100 80GB HBM3, 700 W;
+// the kernel 4.42): the epilogue, bound by instruction issue more than by
+// the SFU, does not overlap the products, since every consumer reaches the
+// conv-boundary barrier together (without the epilogue 2.56; silu as the
+// identity 3.31); the products alone 2.44-2.47, 2.2x their bound: ptxas
+// compiles the four-consumer instances within the launch bounds' 96
+// registers a thread (setmaxnreg gives the consumers 112 only at run
+// time) and serialises their products (C7512). Measured slower
+// (kernel_variants.py): clusters of 2 and 4 blocks with each weight stage
+// multicast (csrc/variants/resblock_chain_cluster.cu), two consumers
+// everywhere, half of silu's exponentials on an FMA-pipe polynomial, the
+// accurate silu, stages of at most 32 input channels; consumer groups splitting
+// the output channels, each its own ring, with readiness barriers a group so
+// that one group's epilogue runs beside the other's products (every group
+// then reads all of A: 5.27-6.09 against 4.92 for the replaced design).
+// Without a producer warpgroup (its first thread loading the ring under a
+// predicate, every thread running the same instructions: 128 registers a
+// thread and no C7512; kernel_variants.py's substitution) C 128 ran 3.97
+// against 4.40-4.48 and C 256 2.86-2.88 against 2.30-2.31: a choice by
+// instance is open (a branch around the loads instead serialised the
+// products, C7518).
 //
 // f32 (chain_kernel): SIMT, exact to f32 rounding, each thread 16 frames x 4
 // channels, W the largest multiple of 16 whose buffers fit SMEM_BUDGET.
@@ -474,18 +492,19 @@ chain_wgmma(__grid_constant__ const CUtensorMap tm_wa, __grid_constant__ const C
     stk::fence_proxy_async();
   }
   // this thread's rows: 64 m + 16 warp + g (+ 8) of M tile m = cm + CM i;
-  // their frame mask, 0 outside [0, T)
-  float mrow[MT][2];
+  // their frame mask, 0 outside [0, T), as a bf16 pair
+  __nv_bfloat162 mrow[MT][2];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int tg = t0 + (cm + L::CM * i) * 64 + 16 * warp + g + 8 * h;
-      mrow[i][h] = (tg >= 0 && tg < Tlen) ? (fmask ? fmask[tg] : 1.0f) : 0.0f;
+      mrow[i][h] = __float2bfloat162_rn((tg >= 0 && tg < Tlen) ? (fmask ? fmask[tg] : 1.0f)
+                                                                : 0.0f);
     }
   stk::named_bar_sync(1, L::NC * 128);
 
-  float acc[MT][NPC][32];
+  float acc[MT][32 * NPC];
   uint32_t a0[MT][KS][4], a1[MT][KS][4];  // A fragments, two banks
   auto release = [&](int s) {
     __syncwarp();
@@ -517,12 +536,21 @@ chain_wgmma(__grid_constant__ const CUtensorMap tm_wa, __grid_constant__ const C
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i) {
+          if constexpr (NPC == 2) {  // both panels in one product
+            stk::Wgmma<128>::template rs<1>(
+                acc[i], a[i][kk],
+                stk::desc_sw128_mn(base + cn * NPC * L::PANEL + kk * 2048, L::PANEL),
+                r > 0 || kk > 0);
+          } else {
 #pragma unroll
-          for (int j = 0; j < NPC; ++j)
-            stk::Wgmma<64>::template rs<1>(
-                acc[i][j], a[i][kk],
-                stk::desc_sw128(base + (cn * NPC + j) * L::PANEL + kk * 2048), r > 0 || kk > 0);
+            for (int j = 0; j < NPC; ++j)
+              stk::Wgmma<64>::template rs<1>(
+                  *reinterpret_cast<float(*)[32]>(&acc[i][32 * j]), a[i][kk],
+                  stk::desc_sw128(base + (cn * NPC + j) * L::PANEL + kk * 2048),
+                  r > 0 || kk > 0);
+          }
+        }
       stk::wgmma_commit();
       stk::wgmma_wait<1>();
       if (r > 0) release(step - 1);
@@ -535,13 +563,14 @@ chain_wgmma(__grid_constant__ const CUtensorMap tm_wa, __grid_constant__ const C
     stk::wgmma_wait<0>();
     release(step - 1);
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NPC; ++j) stk::fence_regs(acc[i][j]);
+    for (int i = 0; i < MT; ++i) stk::fence_regs(acc[i]);
 
     // conv a: h = mask * round(acc + ba), store silu(h); conv b: x =
     // round(x + mask * round(acc + bb)), store x and silu(x). Rows g, g + 8
     // of the warp's 16, channels 2t, 2t + 1 of each n8 group, two a store.
+    // A pair's rounding is one conversion, its mask product and residual
+    // add bf16x2 operations: exact as the f32 ones are (the products by 0
+    // or 1 are; the f32 sum of two bf16 values rounds as their bf16 sum)
     const float* bias = (is_b ? bb : ba) + (conv >> 1) * C;
     const bool last = conv == 2 * P - 1;
 #pragma unroll
@@ -558,19 +587,21 @@ chain_wgmma(__grid_constant__ const CUtensorMap tm_wa, __grid_constant__ const C
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int f = m * 64 + 16 * warp + g + 8 * h;
-            const float mf = mrow[i][h];
-            const float v0 = stk::rnd<bf16>(acc[i][j][4 * jj + 2 * h] + bv.x) * mf;
-            const float v1 = stk::rnd<bf16>(acc[i][j][4 * jj + 2 * h + 1] + bv.y) * mf;
+            const int e = 32 * j + 4 * jj + 2 * h;
+            const __nv_bfloat162 v = __hmul2_rn(
+                __floats2bfloat162_rn(acc[i][e] + bv.x, acc[i][e + 1] + bv.y), mrow[i][h]);
             const int at = stk::swz<C>(f, c >> 3) + (c & 7);
             if (!is_b) {
-              *reinterpret_cast<uint32_t*>(Hs + at) = silu_pair(v0, v1);
+              const float2 vf = __bfloat1622float2(v);
+              *reinterpret_cast<uint32_t*>(Hs + at) = silu_pair(vf.x, vf.y);
             } else {
-              uint32_t* xp = reinterpret_cast<uint32_t*>(X + at);
-              const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xp));
-              const float x0 = stk::rnd<bf16>(xf.x + v0), x1 = stk::rnd<bf16>(xf.y + v1);
-              *xp = stk::pack_bf16(x0, x1);
-              if (!last)  // the last conv's silu(x) has no reader
-                *reinterpret_cast<uint32_t*>(S + at) = silu_pair(x0, x1);
+              __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(X + at);
+              const __nv_bfloat162 xn = __hadd2_rn(*xp, v);
+              *xp = xn;
+              if (!last) {  // the last conv's silu(x) has no reader
+                const float2 xf = __bfloat1622float2(xn);
+                *reinterpret_cast<uint32_t*>(S + at) = silu_pair(xf.x, xf.y);
+              }
             }
           }
         }

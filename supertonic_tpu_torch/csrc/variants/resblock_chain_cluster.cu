@@ -33,11 +33,7 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
-// every thread of every block of the cluster: arrive (release), then wait
-// (acquire); threads may reach it apart
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
+// (cluster_sync: wgmma.cuh's)
 // one arrival on the mbarrier at `bar`'s offset in block `rank` of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
   asm volatile(
